@@ -1,0 +1,504 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (deepspeed_tpu_torch) on one NVIDIA GPU.
+
+    python chip_smoke.py            # every phase; exit 0 only if all pass
+
+Phases, one JSON line each:
+  device   the card (nvidia-smi name + power limit); fails without CUDA;
+  build    nvcc builds every kernel source in ops/csrc/, all in parallel;
+  kernels  each kernel against its plain PyTorch version on the card at the
+           serving path's shapes (gpt2-125m: H=12, hd=64, bf16) and at
+           hd 128 / G=4 / ragged T, with medians of CUDA-event timings of
+           the kernel, its plain version and, where one PyTorch call
+           computes the same function, that call (library_ms);
+  generate init_inference -> generate() on gpt2-125m at full width and
+           depth (random weights from a numpy seed), bf16: launch counts,
+           prefill and first-decode logits held against the port's fp32
+           CPU run of the same weights and tokens, tokens/s;
+  serve    ServingEngine on the same model: 16 ragged requests through 8
+           slots over the paged pool; completion, one paged-decode launch
+           per layer per decode step, drained
+           pool, the served tokens' agreement with generate() on the same
+           prompts, requests/s and tokens/s;
+  profile  (opt-in, after generate and serve) torch.profiler over the same
+           generate() call and serving run: kernel time on the card by
+           class and the card's idle share of the unprofiled wall time.
+A comma-separated phase list as the one argument runs those phases only
+(the device phase always runs), e.g. `build,generate,serve,profile`.
+Then the card's name and power limit, the `kernels` summary line, and as
+the last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
+and prints no result line. It imports no JAX and nothing of deepspeed_tpu.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, dense bf16
+# tensor-core rate.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+# kernel vs plain version, bf16 on the card. Flash narrows P to bf16 before
+# the P @ V product (as the TPU kernel does); decode keeps P in fp32.
+TOL = {"flash_attention": 2e-2, "decode_attention": 1e-2,
+       "paged_decode_attention": 1e-2}
+# gpt2-125m logits, bf16 on the card vs fp32 on the CPU (logit std ~0.5)
+LOGIT_TOL = 6e-2
+# share of served tokens equal to generate()'s on the same prompts (bf16)
+SERVE_AGREE_MIN = 0.9
+
+REPLACES = {
+    "flash_attention": "deepspeed_tpu/ops/pallas/flash_attention.py:143",
+    "decode_attention": "deepspeed_tpu/ops/pallas/decode_attention.py:156",
+    "paged_decode_attention":
+        "deepspeed_tpu/ops/pallas/decode_attention.py:234",
+}
+SOURCES = {
+    "flash_attention": "deepspeed_tpu_torch/ops/csrc/flash_fwd.cu",
+    "decode_attention": "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+    "paged_decode_attention":
+        "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+}
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def median_ms(fn, reps=15, inner=5, warmup=3):
+    """Median over `reps` CUDA-event-timed runs of `inner` calls each."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ----------------------------------------------------------------------
+# phases
+# ----------------------------------------------------------------------
+
+
+def phase_device():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    info = {"phase": "device", "nvidia_smi": smi,
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+            "torch": torch.__version__, "cuda": torch.version.cuda}
+    emit(info)
+    return info
+
+
+def phase_build():
+    from deepspeed_tpu_torch.ops import op_builder
+    t0 = time.perf_counter()
+    libs = op_builder.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": {k: str(v.name) for k, v in libs.items()}})
+
+
+def _flash_case(rng, B, T, H, Hkv, D, causal):
+    import torch
+    # q/k/v as [B, T, H, D] views of one fused projection, as the model
+    # hands them to the kernel
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B, T, (H + 2 * Hkv) * D)).astype(np.float32)).to("cuda",
+                                                         torch.bfloat16)
+    q, k, v = qkv.split([H * D, Hkv * D, Hkv * D], dim=-1)
+    return (q.reshape(B, T, H, D), k.reshape(B, T, Hkv, D),
+            v.reshape(B, T, Hkv, D), causal)
+
+
+def _decode_case(rng, B, H, Hkv, hd, M, pos):
+    import torch
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+    return (randn(B, H, hd), randn(B, Hkv, M, hd), randn(B, Hkv, M, hd),
+            torch.tensor(pos, dtype=torch.int32, device="cuda"))
+
+
+def _paged_case(rng, B, H, Hkv, hd, bs, nb, pos):
+    import torch
+    N = B * nb + 1
+    perm = rng.permutation(np.arange(1, N)).astype(np.int32)
+    tables = perm[:B * nb].reshape(B, nb)
+    live = [p > 0 for p in pos]
+    tables[~np.asarray(live)] = 0          # inactive rows: trash block only
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+    return (randn(B, H, hd), randn(N, Hkv, bs, hd), randn(N, Hkv, bs, hd),
+            torch.tensor(tables, device="cuda"),
+            torch.tensor(pos, dtype=torch.int32, device="cuda"))
+
+
+def phase_kernels():
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(0)
+    results, checks = {}, []
+
+    def check(name, shape, out, ref):
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = bool(np.isfinite(err) and err <= TOL[name])
+        checks.append({"kernel": name, "shape": shape, "max_abs_err": err,
+                       "tol": TOL[name], "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} {shape}: max abs err {err} > "
+                                 f"{TOL[name]}")
+        return err
+
+    # --- flash forward: main path = generate()'s prefill, 4 prompts padded
+    # to 600, gpt2-125m heads; then hd 128 / GQA 4 / ragged T, both masks
+    for shape, main in ((dict(B=4, T=600, H=12, Hkv=12, D=64, causal=True),
+                         True),
+                        (dict(B=2, T=333, H=16, Hkv=4, D=128, causal=True),
+                         False),
+                        (dict(B=2, T=200, H=8, Hkv=2, D=128, causal=False),
+                         False)):
+        q, k, v, causal = _flash_case(rng, **shape)
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
+                                               layout="BTHD")
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, causal,
+                                                    layout="BTHD")
+        torch.cuda.synchronize()
+        err = check("flash_attention", shape, out, ref)
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not lse_err <= 1e-2:
+            raise AssertionError(f"flash lse err {lse_err}")
+        if not main:
+            continue
+        B, T, H, D = q.shape
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        pairs = B * H * T * (T + 1) / 2
+        nbytes = 4 * B * T * H * D * 2 + B * H * T * 4
+        b_ms, b_by = bound(nbytes, 4 * D * pairs)
+        results["flash_attention"] = dict(
+            max_abs_err=err,
+            ms=median_ms(lambda: fa.flash_attention(q, k, v)),
+            plain_ms=median_ms(lambda: fa.flash_attention_reference(
+                q, k, v)), bound_ms=b_ms, bound_by=b_by,
+            library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True)))
+
+    # --- contiguous decode: main path = generate()'s decode over the
+    # 1024-row cache (600 + 32 rounded to 512-blocks), mid-generation
+    lens = [100, 250, 431, 600]
+    for shape, main in (
+            (dict(B=4, H=12, Hkv=12, hd=64, M=1024,
+                  pos=[n + 16 for n in lens]), True),
+            (dict(B=8, H=32, Hkv=8, hd=128, M=2000,
+                  pos=[0, 1, 63, 64, 700, 1999, 1500, 5]), False)):
+        q, kc, vc, pos = _decode_case(rng, **shape)
+        out = da.decode_attention(q, kc, vc, pos)
+        ref = da.decode_attention_reference(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        err = check("decode_attention", {k_: v_ for k_, v_ in shape.items()
+                                         if k_ != "pos"}, out, ref)
+        if not main:
+            continue
+        B, H, hd = q.shape
+        Hkv = kc.shape[1]
+        live = sum(p + 1 for p in shape["pos"])
+        nbytes = 2 * live * Hkv * hd * 2 + 2 * B * H * hd * 2
+        b_ms, b_by = bound(nbytes, 4 * live * H * hd)
+        mask = (torch.arange(kc.shape[2], device="cuda")[None, :]
+                <= pos[:, None].long())[:, None, None, :]
+        results["decode_attention"] = dict(
+            max_abs_err=err,
+            ms=median_ms(lambda: da.decode_attention(q, kc, vc, pos)),
+            plain_ms=median_ms(lambda: da.decode_attention_reference(
+                q, kc, vc, pos)), bound_ms=b_ms, bound_by=b_by,
+            library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask)))
+
+    # --- paged decode: main path = ServingEngine's decode over 8 slots,
+    # 512-row blocks, table width 2; then 16-row blocks, hd 128, GQA 4
+    for shape, main in (
+            (dict(B=8, H=12, Hkv=12, hd=64, bs=512, nb=2,
+                  pos=[150, 0, 400, 640, 1000, 0, 260, 520]), True),
+            (dict(B=6, H=16, Hkv=4, hd=128, bs=16, nb=40,
+                  pos=[0, 15, 16, 333, 639, 100]), False)):
+        q, kp, vp, tables, pos = _paged_case(rng, **shape)
+        out = da.paged_decode_attention(q, kp, vp, tables, pos)
+        ref = da.paged_decode_attention_reference(q, kp, vp, tables, pos)
+        torch.cuda.synchronize()
+        err = check("paged_decode_attention",
+                    {k_: v_ for k_, v_ in shape.items() if k_ != "pos"},
+                    out, ref)
+        if not main:
+            continue
+        B, H, hd = q.shape
+        Hkv = kp.shape[1]
+        live = sum(p + 1 for p in shape["pos"])
+        nbytes = 2 * live * Hkv * hd * 2 + 2 * B * H * hd * 2 \
+            + tables.numel() * 4
+        b_ms, b_by = bound(nbytes, 4 * live * H * hd)
+        results["paged_decode_attention"] = dict(
+            max_abs_err=err,
+            ms=median_ms(lambda: da.paged_decode_attention(
+                q, kp, vp, tables, pos)),
+            plain_ms=median_ms(lambda: da.paged_decode_attention_reference(
+                q, kp, vp, tables, pos)), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None)
+    emit({"phase": "kernels", "checks": checks, "main_path": results})
+    return results
+
+
+def _ragged_prompts(rng, lens, vocab):
+    return [rng.integers(0, vocab, (n,)).astype(np.int32) for n in lens]
+
+
+def phase_generate(state):
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.gpt import (GPT2_CONFIGS,
+                                                make_gpt_decode_model)
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    cfg = GPT2_CONFIGS["gpt2-125m"]
+    t0 = time.perf_counter()
+    spec = make_gpt_decode_model(cfg, name="gpt2-125m", seed=0)
+    engine = init_inference(spec, config={
+        "dtype": "bfloat16", "kv_cache_dtype": "bfloat16", "greedy": True})
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    lens = [100, 250, 431, 600]
+    prompts = _ragged_prompts(rng, lens, cfg.vocab_size)
+    new = 32
+    engine.generate(prompts, max_new_tokens=2, stop_on_eos=False)  # warm-up
+
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=new, stop_on_eos=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    L = cfg.n_layer
+    if counts.get("flash_attention") != L:
+        raise AssertionError(f"flash launches {counts} != {L} per prefill")
+    if counts.get("decode_attention") != L * (new - 1):
+        raise AssertionError(f"decode launches {counts} != {L} x "
+                             f"{new - 1} steps")
+    if out.shape != (4, new) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"generate output {out.shape} out of range")
+
+    # logits: bf16 on the card vs the port's fp32 CPU run, same weights and
+    # tokens (the CPU side decodes the token the card chose)
+    import dataclasses
+    cpu_spec = make_gpt_decode_model(
+        dataclasses.replace(cfg, dtype=torch.float32), name="gpt2-125m",
+        params=spec.params)
+    cpu = init_inference(cpu_spec, config={
+        "dtype": "float32", "kv_cache_dtype": "float32"}, device="cpu")
+    padded, plens = engine._pad_ragged(prompts)
+    errs = {}
+    with torch.inference_mode():
+        logits, cache = engine.forward(padded)
+        rows = torch.arange(4, device="cuda")
+        last = logits[rows, torch.as_tensor(plens, device="cuda").long() - 1]
+        tok = last.argmax(-1).to(torch.int32)
+        pos = torch.as_tensor(plens, device="cuda").long()
+        dec, _ = spec.decode_fn(engine.params, tok, pos, cache)
+        c_logits, c_cache = cpu.forward(padded)
+        c_last = c_logits[torch.arange(4), torch.as_tensor(plens).long() - 1]
+        c_dec, _ = cpu_spec.decode_fn(cpu.params, tok.cpu(), pos.cpu(),
+                                      c_cache)
+    for name, a, b in (("prefill", last, c_last), ("decode", dec, c_dec)):
+        a = a.float().cpu()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name} logits not finite")
+        errs[name] = (a - b).abs().max().item()
+        if errs[name] > LOGIT_TOL:
+            raise AssertionError(f"{name} logits err {errs[name]} > "
+                                 f"{LOGIT_TOL}")
+    emit({"phase": "generate", "model": "gpt2-125m", "dtype": "bfloat16",
+          "batch": 4, "prompt_lens": lens, "max_new_tokens": new,
+          "setup_s": setup_s, "seconds": dt, "tokens_per_s": 4 * new / dt,
+          "launches": counts, "logit_max_abs_err": errs,
+          "logit_tol": LOGIT_TOL,
+          "logit_ref_std": float(c_last.float().std())})
+    state.update(engine=engine, prompts=prompts, generate_s=dt, n_layer=L)
+    return counts
+
+
+def phase_serve(state):
+    import torch
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    engine = state["engine"]
+    serving = engine.serving(max_slots=8, max_context=1024)
+    rng = np.random.default_rng(2)
+    lens = rng.integers(100, 601, 16).tolist()
+    prompts = _ragged_prompts(rng, lens, 50304)
+    new = 32
+    serving.run([Request(uid="warm", tokens=prompts[0], max_new_tokens=2,
+                         stop_on_eos=False)])
+    reqs = [Request(uid=i, tokens=p, max_new_tokens=new, stop_on_eos=False)
+            for i, p in enumerate(prompts)]
+    engine_layers = state["n_layer"]
+    steps0 = serving.stats()["decode_steps"]
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = serving.run(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    if sorted(res) != list(range(16)) or any(
+            len(r.tokens) != new or r.finish_reason != "length"
+            for r in res.values()):
+        raise AssertionError("not every request completed with its budget")
+    # every layer of every decode step of this run through the kernel (a
+    # decode call runs `window` model steps)
+    steps = (serving.stats()["decode_steps"] - steps0) * serving.window
+    if steps <= 0 or counts.get("paged_decode_attention") != \
+            engine_layers * steps:
+        raise AssertionError(f"paged-decode launches {counts} != "
+                             f"{engine_layers} x {steps} decode steps")
+    if serving.allocator.num_free != serving.allocator.capacity:
+        raise AssertionError("blocks leaked after draining")
+    # the served tokens against generate() on the same prompts: in bf16 a
+    # near-tied argmax may flip between the paged and contiguous paths, so
+    # the check is a floor on the share of equal tokens, not identity
+    ref = engine.generate(prompts, max_new_tokens=new, stop_on_eos=False)
+    agree = float(np.mean([res[i].tokens == ref[i] for i in range(16)]))
+    if not agree >= SERVE_AGREE_MIN:
+        raise AssertionError(f"served tokens agree with generate() on "
+                             f"{agree:.3f} < {SERVE_AGREE_MIN}")
+    state.update(serve_prompts=prompts, serve_s=dt)
+    emit({"phase": "serve", "requests": 16, "slots": 8, "max_context": 1024,
+          "prompt_lens": lens, "max_new_tokens": new, "seconds": dt,
+          "requests_per_s": 16 / dt, "tokens_per_s": 16 * new / dt,
+          "launches": counts, "token_agreement_with_generate": agree,
+          "stats": serving.stats()})
+    return counts
+
+
+def _device_breakdown(prof, wall_s):
+    """Kernel time on the card by class, from a torch.profiler run, against
+    the unprofiled wall time of the same work."""
+    classes = {"attention (ours)": 0.0, "matmul": 0.0, "other": 0.0}
+    top = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us <= 0 or ev.device_type.name != "CUDA":
+            continue
+        name = ev.key
+        if "decode_attn_kernel" in name or "flash_fwd_kernel" in name:
+            cls = "attention (ours)"
+        elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass",
+                                              "nvjet")):
+            cls = "matmul"
+        else:
+            cls = "other"
+        classes[cls] += us / 1e3
+        top.append((us / 1e3, ev.count, name[:80]))
+    busy = sum(classes.values())
+    top.sort(reverse=True)
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / (wall_s * 1e3),
+            "by_class_ms": classes,
+            "top_kernels": [{"ms": t, "calls": c, "name": n}
+                            for t, c, n in top[:8]]}
+
+
+def phase_profile(state):
+    """torch.profiler over one generate() call and one serving run at the
+    generate/serve phases' shapes (opt-in: `python chip_smoke.py
+    build,generate,serve,profile`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    engine = state["engine"]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        engine.generate(state["prompts"], max_new_tokens=32,
+                        stop_on_eos=False)
+        torch.cuda.synchronize()
+    gen = _device_breakdown(prof, state["generate_s"])
+    serving = engine.serving(max_slots=8, max_context=1024)
+    with profile(activities=acts) as prof:
+        serving.run([Request(uid=i, tokens=p, max_new_tokens=32,
+                             stop_on_eos=False)
+                     for i, p in enumerate(state["serve_prompts"])])
+        torch.cuda.synchronize()
+    emit({"phase": "profile", "generate": gen,
+          "serve": _device_breakdown(prof, state["serve_s"])})
+
+
+def main():
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    try:
+        import deepspeed_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here: {e}",
+              file=sys.stderr)
+        return 2
+    phases = sys.argv[1].split(",") if len(sys.argv) > 1 else \
+        ["build", "kernels", "generate", "serve"]
+    dev = phase_device()
+    state, launches, kern = {}, {}, {}
+    if "build" in phases:
+        phase_build()
+    if "kernels" in phases:
+        kern = phase_kernels()
+    if "generate" in phases:
+        launches.update(phase_generate(state))
+    if "serve" in phases:
+        launches["paged_decode_attention"] = \
+            phase_serve(state)["paged_decode_attention"]
+    if "profile" in phases:
+        phase_profile(state)
+    print(dev["nvidia_smi"], flush=True)
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES[name],
+         "replaces": REPLACES[name], "launches": launches.get(name, 0),
+         **kern[name]} for name in kern]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
+                                 "count": dev["count"]}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

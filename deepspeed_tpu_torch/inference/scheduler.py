@@ -1,0 +1,383 @@
+"""Continuous-batching serving scheduler over the paged KV-cache pool
+(counterpart of `deepspeed_tpu/inference/scheduler.py`, its core).
+
+The engine owns `max_slots` fixed sequence slots and ONE paged KV pool
+(`inference/kv_cache.py`), and drives every request through two step
+shapes:
+
+  * a prefill step — one [1, chunk] slice of a prompt, written through the
+    slot's block table; `prefill_chunks_per_step` bounds how long an
+    arriving prompt can stall the running batch;
+  * a decode step — one token for ALL slots at once: inactive slots ride
+    along pointed at the trash block (pos 0), so slot liveness never
+    changes the step's shape. A decode WINDOW (`decode_steps_per_sync`)
+    runs several tokens per host sync in a Python loop.
+
+Scheduling happens between the steps, on the host: admit queued requests
+into free slots (all-or-nothing block allocation, FIFO — a too-big request
+waits instead of half-occupying the pool), retire a sequence the step it
+emits EOS and free its blocks the same step.
+
+Prefix caching, speculative decoding, disaggregated handoff, auditing,
+degradation, telemetry and tracing are later slices of the port.
+"""
+
+import collections
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.inference.kv_cache import (BlockAllocator,
+                                                    TRASH_BLOCK,
+                                                    blocks_needed,
+                                                    max_written_pos)
+from deepspeed_tpu_torch.utils.logging import log_dist
+
+
+class InadmissibleRequestError(ValueError):
+    """The request can NEVER be admitted by this engine — prompt plus budget
+    exceed `max_context`, or it needs more KV blocks than the whole pool
+    holds. Raised at submit() so an impossible request fails fast instead of
+    wedging the FIFO head forever."""
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request. `eos_token_id=None` falls back to the engine
+    / model default; `stop_on_eos=False` disables early stop."""
+    uid: Any
+    tokens: Sequence[int]
+    max_new_tokens: int = 32
+    eos_token_id: Optional[int] = None
+    stop_on_eos: bool = True
+
+
+@dataclasses.dataclass
+class CompletedRequest:
+    uid: Any
+    prompt_len: int
+    tokens: np.ndarray        # generated tokens; the EOS (if emitted) is kept
+    finish_reason: str        # "eos" | "length" | "cancelled"
+
+
+_FREE, _PREFILL, _DECODE = 0, 1, 2
+
+
+class _Slot:
+    __slots__ = ("idx", "state", "uid", "prompt", "prompt_len", "padded_len",
+                 "max_new", "eos", "blocks", "cursor", "pos", "emitted")
+
+    def __init__(self, idx):
+        self.idx = idx
+        self.reset()
+
+    def reset(self):
+        self.state = _FREE
+        self.uid = self.prompt = None
+        self.prompt_len = self.padded_len = self.max_new = 0
+        self.eos = None
+        self.blocks = []
+        self.cursor = self.pos = 0
+        self.emitted = []
+
+
+class ServingEngine:
+    """Continuous-batching server on top of an `InferenceEngine` whose model
+    spec carries the paged contract.
+
+    Usage::
+
+        serving = engine.serving(max_slots=8, max_context=2048)
+        results = serving.run([Request(uid=0, tokens=prompt)])
+    """
+
+    def __init__(self, engine, **overrides):
+        spec = engine.model_spec
+        missing = [n for n in ("prefill_paged_fn", "decode_paged_fn",
+                               "init_paged_pool")
+                   if getattr(spec, n, None) is None]
+        if missing:
+            raise ValueError(
+                f"model spec '{spec.name}' has no paged serving contract "
+                f"(missing {missing}); build it with make_gpt_decode_model or "
+                f"serve through generate()")
+        self.engine = engine
+        self.config = engine.config
+        # the ServingConfig's __post_init__ validates (and converts dict
+        # overrides of) the nested blocks — unported features raise here
+        scfg = dataclasses.replace(engine.config.serving, **overrides)
+        self.serving_config = scfg
+
+        bs = int(self.config.kv_block_size or 0)
+        if bs <= 0:
+            raise ValueError("serving needs kv_block_size > 0 (the paged "
+                             "pool's physical block unit)")
+        self.block_size = bs
+        self.max_context = int(scfg.max_context or self.config.max_out_tokens)
+        if spec.max_positions is not None \
+                and self.max_context > spec.max_positions:
+            raise ValueError(
+                f"max_context {self.max_context} exceeds the model's learned "
+                f"position table ({spec.max_positions})")
+        self.nb = -(-self.max_context // bs)       # block-table width
+        self.max_slots = int(scfg.max_slots)
+        self.chunk = int(scfg.prefill_chunk or bs)
+        self.prefill_budget = max(1, int(scfg.prefill_chunks_per_step))
+        self.window = max(1, int(scfg.decode_steps_per_sync))
+        num_blocks = int(scfg.num_kv_blocks or (self.max_slots * self.nb + 1))
+
+        self.pool = spec.init_paged_pool(num_blocks, bs, engine.dtype,
+                                         engine.device)
+        self.allocator = BlockAllocator(num_blocks)
+        self.tables = np.full((self.max_slots, self.nb), TRASH_BLOCK, np.int32)
+        self.slots = [_Slot(i) for i in range(self.max_slots)]
+        self.queue = collections.deque()
+        self._generator = None if self.config.greedy \
+            else engine.make_generator(0)
+
+        self.steps = 0
+        self.decode_steps = 0
+        self.prefill_chunks = 0
+        self.tokens_generated = 0
+        self.peak_active = 0
+        self.cancelled = 0
+
+        pool_mb = sum(t.numel() * t.element_size()
+                      for t in self.pool.values()) / 2**20
+        log_dist(f"serving engine: {spec.name} slots={self.max_slots} "
+                 f"blocks={num_blocks}x{bs} ({pool_mb:.0f} MB pool) "
+                 f"table_width={self.nb} prefill_chunk={self.chunk}",
+                 ranks=[0])
+
+    # ------------------------------------------------------------------
+    # the two step shapes
+    # ------------------------------------------------------------------
+
+    def _tensor(self, a, dtype=torch.int32):
+        return torch.as_tensor(a, dtype=dtype, device=self.engine.device)
+
+    def _prefill_step(self, chunk, start, last, table):
+        """One [1, chunk] prompt slice; returns the token sampled from the
+        logits at `last` (meaningful on the prompt's final chunk only)."""
+        logits, self.pool = self.engine.model_spec.prefill_paged_fn(
+            self.engine.params, self._tensor(chunk, torch.long),
+            self._tensor([start], torch.long), self._tensor([last], torch.long),
+            self.pool, self._tensor(table))
+        return self.engine._sample(logits, self._generator)
+
+    def _decode_step(self, tok, pos, tables, window):
+        """`window` tokens for every slot: returns [S, window] successors of
+        `tok`, writing each input token's k/v along the way."""
+        spec, params = self.engine.model_spec, self.engine.params
+        tok = self._tensor(tok)
+        pos = self._tensor(pos, torch.long)
+        tables = self._tensor(tables)
+        out = []
+        for _ in range(window):
+            logits, self.pool = spec.decode_paged_fn(params, tok, pos,
+                                                     self.pool, tables)
+            tok = self.engine._sample(logits, self._generator)
+            out.append(tok)
+            pos = pos + 1
+        return torch.stack(out, dim=1).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # request lifecycle
+    # ------------------------------------------------------------------
+
+    def check_admissible(self, prompt_len: int, max_new: int,
+                         uid: Any = "?") -> int:
+        """Raise `InadmissibleRequestError` when the request can NEVER fit
+        this engine (max_context, whole-pool block budget), else return the
+        blocks it will occupy."""
+        prompt_len, max_new = int(prompt_len), int(max_new)
+        padded = -(-prompt_len // self.chunk) * self.chunk
+        if prompt_len < 1:
+            raise InadmissibleRequestError(f"request {uid}: empty prompt")
+        if max_new < 1:
+            raise InadmissibleRequestError(
+                f"request {uid}: max_new_tokens < 1")
+        if max_written_pos(prompt_len, padded, max_new,
+                           self.window) >= self.max_context:
+            raise InadmissibleRequestError(
+                f"request {uid}: prompt {prompt_len} + max_new {max_new} "
+                f"(window {self.window}) exceeds max_context "
+                f"{self.max_context} (raise serving.max_context)")
+        need = blocks_needed(prompt_len, padded, max_new, self.block_size,
+                             window=self.window)
+        if need > self.allocator.capacity:
+            raise InadmissibleRequestError(
+                f"request {uid}: needs {need} KV blocks, pool has "
+                f"{self.allocator.capacity} (raise serving.num_kv_blocks)")
+        return need
+
+    def submit(self, request: Request):
+        """Queue a request. Raises `InadmissibleRequestError` if it can
+        never be admitted; one that merely doesn't fit *right now* waits
+        in the queue (admission backpressure)."""
+        prompt = np.asarray(request.tokens, np.int32).reshape(-1)
+        prompt_len = int(prompt.shape[0])
+        need = self.check_admissible(prompt_len, request.max_new_tokens,
+                                     uid=request.uid)
+        padded = -(-prompt_len // self.chunk) * self.chunk
+        self.queue.append((request, prompt, prompt_len, padded, need))
+
+    def _resolve_eos(self, req: Request):
+        if not req.stop_on_eos:
+            return None
+        eos = req.eos_token_id
+        if eos is None:
+            eos = self.config.eos_token_id
+        if eos is None:
+            eos = self.engine.model_spec.eos_token_id
+        return eos
+
+    def _admit(self):
+        free = [s for s in self.slots if s.state == _FREE]
+        while self.queue and free:
+            req, prompt, prompt_len, padded, need = self.queue[0]
+            blocks = self.allocator.alloc(need)
+            if blocks is None:
+                # pool exhausted: FIFO backpressure — the head waits for
+                # retirements (no reordering: small requests must not
+                # starve a big one)
+                break
+            self.queue.popleft()
+            slot = free.pop()
+            slot.state = _PREFILL
+            slot.uid = req.uid
+            slot.prompt = prompt
+            slot.prompt_len = prompt_len
+            slot.padded_len = padded
+            slot.max_new = int(req.max_new_tokens)
+            slot.eos = self._resolve_eos(req)
+            slot.blocks = blocks
+            slot.cursor = 0
+            slot.pos = prompt_len
+            slot.emitted = []
+            self.tables[slot.idx, :] = TRASH_BLOCK
+            self.tables[slot.idx, :len(blocks)] = blocks
+
+    def _retire(self, slot: _Slot, reason: str) -> CompletedRequest:
+        # blocks return to the pool the step the sequence finishes
+        self.allocator.free(slot.blocks[::-1])
+        self.tables[slot.idx, :] = TRASH_BLOCK
+        done = CompletedRequest(uid=slot.uid, prompt_len=slot.prompt_len,
+                                tokens=np.asarray(slot.emitted, np.int32),
+                                finish_reason=reason)
+        slot.reset()
+        return done
+
+    def _emit(self, slot: _Slot, tok: int, finished: List[CompletedRequest]):
+        slot.emitted.append(int(tok))
+        self.tokens_generated += 1
+        if slot.eos is not None and int(tok) == slot.eos:
+            finished.append(self._retire(slot, "eos"))
+        elif len(slot.emitted) >= slot.max_new:
+            finished.append(self._retire(slot, "length"))
+
+    def cancel(self, uid) -> Optional[CompletedRequest]:
+        """Withdraw a request wherever it lives: a queued one never touches
+        a slot, an active one retires now (blocks freed the same call).
+        Returns its CompletedRequest (reason "cancelled", tokens so far),
+        or None for an unknown uid."""
+        for i, rec in enumerate(self.queue):
+            if rec[0].uid == uid:
+                del self.queue[i]
+                self.cancelled += 1
+                return CompletedRequest(uid=uid, prompt_len=rec[2],
+                                        tokens=np.zeros((0,), np.int32),
+                                        finish_reason="cancelled")
+        for slot in self.slots:
+            if slot.state != _FREE and slot.uid == uid:
+                self.cancelled += 1
+                return self._retire(slot, "cancelled")
+        return None
+
+    # ------------------------------------------------------------------
+    # the engine step: admit -> prefill chunk(s) -> decode all slots
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def step(self) -> List[CompletedRequest]:
+        """One scheduler iteration. Returns the requests that finished."""
+        finished: List[CompletedRequest] = []
+        self.steps += 1
+        self._admit()
+
+        # chunked prefill, bounded per step so arriving prompts cannot stall
+        # the running batch for more than prefill_budget chunk-times
+        budget = self.prefill_budget
+        for slot in self.slots:
+            while slot.state == _PREFILL and budget > 0:
+                start = slot.cursor
+                chunk = np.zeros((1, self.chunk), np.int32)
+                seg = slot.prompt[start:start + self.chunk]
+                chunk[0, :len(seg)] = seg
+                final = start + self.chunk >= slot.padded_len
+                last = (slot.prompt_len - 1 - start) if final \
+                    else self.chunk - 1
+                tok = self._prefill_step(chunk, start, last,
+                                         self.tables[slot.idx][None])
+                slot.cursor = start + self.chunk
+                budget -= 1
+                self.prefill_chunks += 1
+                if final:
+                    slot.state = _DECODE
+                    self._emit(slot, int(tok[0]), finished)
+
+        # decode: ONE call shape for every slot; non-decoding slots ride
+        # along against the trash block. A slot finishing mid-window
+        # discards the window's tail (written to its own blocks, which
+        # blocks_needed sized for).
+        dec = [s for s in self.slots if s.state == _DECODE]
+        if dec:
+            self.peak_active = max(self.peak_active, len(dec))
+            tok = np.zeros((self.max_slots,), np.int32)
+            pos = np.zeros((self.max_slots,), np.int32)
+            tables = np.full_like(self.tables, TRASH_BLOCK)
+            for s in dec:
+                tok[s.idx] = s.emitted[-1]
+                pos[s.idx] = s.pos
+                tables[s.idx] = self.tables[s.idx]
+            nxt = self._decode_step(tok, pos, tables, self.window)
+            self.decode_steps += 1
+            for s in dec:
+                s.pos += self.window
+                for t in nxt[s.idx]:
+                    self._emit(s, int(t), finished)
+                    if s.state == _FREE:            # retired mid-window
+                        break
+        return finished
+
+    @property
+    def num_active(self):
+        return sum(1 for s in self.slots if s.state != _FREE)
+
+    def run(self, requests: Sequence[Request]) -> Dict[Any, CompletedRequest]:
+        """Submit a batch of requests and drain the engine."""
+        for r in requests:
+            self.submit(r)
+        out: Dict[Any, CompletedRequest] = {}
+        while self.queue or self.num_active:
+            before = (self.prefill_chunks, self.decode_steps, len(self.queue))
+            for done in self.step():
+                out[done.uid] = done
+            if (self.prefill_chunks, self.decode_steps,
+                    len(self.queue)) == before:
+                raise RuntimeError(
+                    f"serving scheduler made no progress: queue="
+                    f"{len(self.queue)} active={self.num_active} "
+                    f"free_blocks={self.allocator.num_free}")
+        return out
+
+    def stats(self) -> Dict[str, Any]:
+        return {"steps": self.steps, "decode_steps": self.decode_steps,
+                "prefill_chunks": self.prefill_chunks,
+                "tokens_generated": self.tokens_generated,
+                "peak_active": self.peak_active,
+                "cancelled": self.cancelled,
+                "queued": len(self.queue), "active": self.num_active,
+                "free_blocks": self.allocator.num_free}

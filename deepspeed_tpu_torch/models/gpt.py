@@ -1,0 +1,529 @@
+"""GPT family — the serving path (counterpart of `deepspeed_tpu/models/gpt.py`).
+
+Pre-LN GPT-2 (learned positions, LayerNorm, GELU, MHA) with the cheap
+LLaMA-style flags (rotary embeddings, RMSNorm, SwiGLU, grouped-query
+attention). Alibi, sliding windows, per-layer attention types and the
+NeoX/GPT-J parallel residual raise `NotImplementedError` until a later
+slice ports them.
+
+Parameters keep the JAX package's tree: stacked `[L, ...]` block leaves
+under the same names and shapes, so `params_from_jax` moves one
+initialisation across leaf by leaf. A Python loop over layers takes the
+place of `lax.scan`. KV caches and pools are updated IN PLACE (the JAX
+functions return new ones); every function still returns the cache/pool it
+was given, so the call shapes match the reference.
+"""
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from deepspeed_tpu_torch.ops import attention_dispatch as attn_dispatch
+from deepspeed_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_reference, paged_decode_attention)
+from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     flash_attention_reference)
+
+_DTYPES = {"float32": torch.float32, "float": torch.float32,
+           "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def as_dtype(dtype):
+    """torch dtype from a torch dtype or its name ("bfloat16", ...)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = str(dtype).replace("torch.", "")
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported dtype {dtype!r}")
+    return _DTYPES[name]
+
+
+def dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    n_layer: int = 12
+    n_head: int = 12
+    n_kv_head: Optional[int] = None  # grouped-query attention; None = n_head
+    d_model: int = 768
+    d_ff: Optional[int] = None       # default 4*d_model (8/3 for swiglu)
+    max_seq_len: int = 1024
+    use_rotary: bool = False         # False: learned positions (GPT-2)
+    rotary_pct: float = 1.0
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    use_swiglu: bool = False
+    use_rmsnorm: bool = False
+    activation: str = "gelu"         # "gelu" (tanh approx), "relu",
+                                     # "quick_gelu"
+    use_alibi: bool = False          # not ported
+    use_emb_ln: bool = False         # BLOOM LayerNorm after the embedding
+    parallel_residual: bool = False  # not ported
+    sliding_window: Optional[int] = None      # not ported
+    attn_layer_types: Optional[tuple] = None  # not ported
+    scale_attn: bool = True          # False: unscaled scores (GPT-Neo)
+    tie_embeddings: bool = True
+    use_flash_attention: Optional[bool] = None  # None: the attention
+                                     # kernels run on CUDA, plain versions on
+                                     # the CPU; True routes the CPU through
+                                     # the wrappers; False forbids the kernels
+                                     # (CUDA then raises; ops/attention_dispatch)
+    dtype: torch.dtype = torch.bfloat16  # activation dtype
+
+    def __post_init__(self):
+        if self.d_ff is None:
+            self.d_ff = int(8 * self.d_model / 3) if self.use_swiglu \
+                else 4 * self.d_model
+        if self.n_kv_head is None:
+            self.n_kv_head = self.n_head
+        self.dtype = as_dtype(self.dtype)
+        if self.d_model % self.n_head or self.n_head % self.n_kv_head:
+            raise ValueError(f"d_model {self.d_model} / n_head {self.n_head} "
+                             f"/ n_kv_head {self.n_kv_head} do not tile")
+        unported = [name for name, on in (
+            ("use_alibi", self.use_alibi),
+            ("sliding_window", bool(self.sliding_window)),
+            ("attn_layer_types", self.attn_layer_types is not None),
+            ("parallel_residual", self.parallel_residual)) if on]
+        if unported:
+            raise NotImplementedError(
+                f"GPTConfig flags {unported} are not ported to "
+                f"deepspeed_tpu_torch yet (the JAX package serves them)")
+
+    @property
+    def head_dim(self):
+        return self.d_model // self.n_head
+
+    @property
+    def qkv_dim(self):
+        return (self.n_head + 2 * self.n_kv_head) * self.head_dim
+
+
+GPT2_CONFIGS = {
+    "gpt2-tiny": GPTConfig(n_layer=2, n_head=4, d_model=128, max_seq_len=256,
+                           vocab_size=1024),
+    "gpt2-125m": GPTConfig(n_layer=12, n_head=12, d_model=768,
+                           max_seq_len=1024),
+    "gpt2-350m": GPTConfig(n_layer=24, n_head=8, d_model=1024,
+                           max_seq_len=1024),
+    "gpt2-760m": GPTConfig(n_layer=24, n_head=12, d_model=1536,
+                           max_seq_len=1024),
+    "gpt2-1.3b": GPTConfig(n_layer=24, n_head=16, d_model=2048,
+                           max_seq_len=1024),
+    "gpt2-2.7b": GPTConfig(n_layer=32, n_head=20, d_model=2560,
+                           max_seq_len=1024),
+    "gpt2-6.7b": GPTConfig(n_layer=32, n_head=32, d_model=4096,
+                           max_seq_len=1024),
+}
+
+
+# ----------------------------------------------------------------------
+# init + weights from the JAX package
+# ----------------------------------------------------------------------
+
+
+def init_gpt_params(cfg: GPTConfig, seed: int = 0, dtype=torch.float32):
+    """Stacked-block parameter tree, drawn from numpy in the same order as
+    the JAX package's `init_gpt_params` — one seed gives both packages the
+    same weights. Block leaves have leading dim n_layer."""
+    rng = np.random.default_rng(seed)
+    D, F_, L = cfg.d_model, cfg.d_ff, cfg.n_layer
+    dtype = as_dtype(dtype)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+    def norm(*shape, scale=0.02):
+        return t(rng.normal(0.0, scale, shape))
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype)
+
+    proj_scale = 0.02 / math.sqrt(2 * L)
+    block = {
+        "ln1_scale": ones(L, D),
+        "ln2_scale": ones(L, D),
+        "attn_qkv_w": norm(L, D, cfg.qkv_dim),
+        "attn_qkv_b": zeros(L, cfg.qkv_dim),
+        "attn_out_w": norm(L, D, D, scale=proj_scale),
+        "attn_out_b": zeros(L, D),
+        "mlp_out_b": zeros(L, D),
+    }
+    if not cfg.use_rmsnorm:
+        block["ln1_bias"] = zeros(L, D)
+        block["ln2_bias"] = zeros(L, D)
+    if cfg.use_swiglu:
+        block["mlp_gate_w"] = norm(L, D, F_)
+        block["mlp_up_w"] = norm(L, D, F_)
+    else:
+        block["mlp_up_w"] = norm(L, D, F_)
+        block["mlp_up_b"] = zeros(L, F_)
+    block["mlp_down_w"] = norm(L, F_, D, scale=proj_scale)
+
+    params = {"wte": norm(cfg.vocab_size, D), "blocks": block,
+              "lnf_scale": ones(D)}
+    if not cfg.use_rmsnorm:
+        params["lnf_bias"] = zeros(D)
+    if not cfg.use_rotary:
+        params["wpe"] = norm(cfg.max_seq_len, D, scale=0.01)
+    if cfg.use_emb_ln:
+        params["emb_ln_scale"] = ones(D)
+        params["emb_ln_bias"] = zeros(D)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = norm(cfg.vocab_size, D)
+    return params
+
+
+def params_from_jax(tree):
+    """A JAX `init_gpt_params` / `make_gpt_decode_model(...).params` tree,
+    already converted to numpy (`jax.tree_util.tree_map(np.asarray, ...)`),
+    as the port's parameter tree: same names, shapes and dtypes, leaf by
+    leaf. bfloat16 leaves (ml_dtypes) move bit for bit."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+# ----------------------------------------------------------------------
+# forward pieces
+# ----------------------------------------------------------------------
+
+
+def _norm(x, scale, bias, use_rms, eps=1e-5):
+    xf = x.float()
+    if use_rms:
+        xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        return (xf * scale.float()).to(x.dtype)
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    xf = (xf - mean) * torch.rsqrt(var + eps)
+    return (xf * scale.float() + bias.float()).to(x.dtype)
+
+
+def _act(x, cfg):
+    if cfg.activation == "relu":
+        return F.relu(x)
+    if cfg.activation == "quick_gelu":  # CLIP: x * sigmoid(1.702x)
+        return x * torch.sigmoid(1.702 * x)
+    return F.gelu(x, approximate="tanh")
+
+
+def _rope(x, positions, rotary_dims, theta=10000.0):
+    """Rotary position embedding over the first `rotary_dims` of the head
+    dim (interleaved pairs, GPT-J style). x: [B, T, H, hd]; positions:
+    [B, T]."""
+    rd = rotary_dims
+    freqs = 1.0 / (theta ** (torch.arange(0, rd, 2, dtype=torch.float32,
+                                          device=x.device) / rd))
+    angles = positions[..., None].float() * freqs            # [B, T, rd/2]
+    cos = angles.cos()[:, :, None, :]
+    sin = angles.sin()[:, :, None, :]
+    x_rot, x_pass = x[..., :rd], x[..., rd:]
+    x1, x2 = x_rot[..., ::2], x_rot[..., 1::2]
+    rotated = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                          dim=-1).reshape(x_rot.shape)
+    if rd < x.shape[-1]:
+        rotated = torch.cat([rotated, x_pass.float()], dim=-1)
+    return rotated.to(x.dtype)
+
+
+def _rotary_dims(cfg):
+    return int(cfg.rotary_pct * cfg.head_dim) // 2 * 2
+
+
+def _embed(params, tokens, positions, cfg: GPTConfig):
+    """Token embedding + learned position embedding + BLOOM emb LayerNorm."""
+    x = params["wte"][tokens].to(cfg.dtype)
+    if not cfg.use_rotary:
+        x = x + params["wpe"][positions].to(cfg.dtype)
+    if cfg.use_emb_ln:
+        x = _norm(x, params["emb_ln_scale"], params["emb_ln_bias"],
+                  use_rms=False, eps=cfg.norm_eps)
+    return x
+
+
+def _mlp(h, p, cfg):
+    if cfg.use_swiglu:
+        up = F.silu(h @ p["mlp_gate_w"]) * (h @ p["mlp_up_w"])
+    else:
+        up = _act(h @ p["mlp_up_w"] + p["mlp_up_b"], cfg)
+    return up @ p["mlp_down_w"] + p["mlp_out_b"]
+
+
+def _residual_mlp(x, attn_out, p, cfg: GPTConfig):
+    x = x + attn_out
+    h2 = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg.use_rmsnorm,
+               cfg.norm_eps)
+    return x + _mlp(h2, p, cfg)
+
+
+def _head_logits(params, x, cfg: GPTConfig):
+    """LM-head matmul (+ GPT-J's tied bias). x: [B, T, D] -> [B, T, V]."""
+    table = params["wte"] if cfg.tie_embeddings else params["lm_head"]
+    return F.linear(x, table.to(x.dtype), params.get("lm_head_bias"))
+
+
+def _lm_head(params, x, cfg: GPTConfig):
+    x = _norm(x, params["lnf_scale"], params.get("lnf_bias"), cfg.use_rmsnorm,
+              cfg.norm_eps)
+    return _head_logits(params, x, cfg)
+
+
+def _sm_scale(cfg):
+    """Kernel sm_scale: None = 1/sqrt(hd); GPT-Neo's unscaled scores = 1."""
+    return None if cfg.scale_attn else 1.0
+
+
+def _site(cfg, phase, q, C, M):
+    return attn_dispatch.AttnSite(
+        phase=phase, q_len=C, kv_len=M, head_dim=cfg.head_dim,
+        kv_dtype=dtype_name(q.dtype), on_cuda=q.is_cuda,
+        force_flash=cfg.use_flash_attention)
+
+
+def _attention(q, k, v, cfg):
+    """q: [B, T, H, hd]; k, v: [B, S, Hkv, hd] -> [B, T, H, hd], causal.
+
+    Program selection goes through the dispatch layer: the flash kernel, or
+    on CPU operands its plain version (fp32 softmax; GQA)."""
+    T, S = q.shape[1], k.shape[1]
+    if attn_dispatch.select(_site(cfg, "train", q, T, S)) == "flash":
+        return flash_attention(q, k, v, causal=True, sm_scale=_sm_scale(cfg))
+    return flash_attention_reference(q, k, v, causal=True,
+                                     sm_scale=_sm_scale(cfg))[0]
+
+
+def _decode_qkv(x, p, positions, cfg: GPTConfig):
+    """Shared attention preamble (prefill, decode, paged): ln1 -> fused qkv -> split/reshape -> rope at absolute positions.
+    x: [B, C, D]; positions: [B, C]. Returns q [B,C,H,hd], k/v [B,C,Hkv,hd]
+    (views of the fused projection where no rope applies)."""
+    B, C, _ = x.shape
+    H, Hkv, hd = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    h = _norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg.use_rmsnorm,
+              cfg.norm_eps)
+    qkv = h @ p["attn_qkv_w"] + p["attn_qkv_b"]
+    q, k, v = qkv.split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
+    q = q.reshape(B, C, H, hd)
+    k = k.reshape(B, C, Hkv, hd)
+    v = v.reshape(B, C, Hkv, hd)
+    if cfg.use_rotary:
+        rd = _rotary_dims(cfg)
+        q = _rope(q, positions, rd, cfg.rope_theta)
+        k = _rope(k, positions, rd, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_half(x, p, cfg: GPTConfig, positions):
+    """Attention half-block over a whole sequence: ln1 -> qkv -> rope ->
+    causal attention -> out-proj. Returns (attn_out, k, v) so the prefill
+    can write k/v into the KV cache."""
+    B, T, D = x.shape
+    q, k, v = _decode_qkv(x, p, positions, cfg)
+    attn = _attention(q, k, v, cfg)
+    attn_out = attn.reshape(B, T, D) @ p["attn_out_w"] + p["attn_out_b"]
+    return attn_out, k, v
+
+
+def _layer(params, i):
+    return {k: v[i] for k, v in params["blocks"].items()}
+
+
+# ----------------------------------------------------------------------
+# contiguous KV cache — generate()
+# ----------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: GPTConfig, batch_size, max_len, dtype=torch.bfloat16,
+                  device="cpu"):
+    """[L, B, Hkv, max_len, hd] stacked head-major cache: the decode kernel
+    reads one head's K/V rows contiguously."""
+    shape = (cfg.n_layer, batch_size, cfg.n_kv_head, max_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=as_dtype(dtype), device=device),
+            "v": torch.zeros(shape, dtype=as_dtype(dtype), device=device),
+            "length": torch.zeros(batch_size, dtype=torch.int32,
+                                  device=device)}
+
+
+def _decode_attn_half(x, p, cache_k, cache_v, pos, cfg: GPTConfig):
+    """Single-token attention half: writes k/v at `pos` into the head-major
+    cache (in place) and attends over 0..pos. x: [B, 1, D]; cache_[kv]:
+    [B, Hkv, M, hd]; pos: [B]. Returns (attn_out, cache_k, cache_v)."""
+    B, _, D = x.shape
+    M = cache_k.shape[2]
+    q, k, v = _decode_qkv(x, p, pos[:, None], cfg)
+    rows = torch.arange(B, device=x.device)
+    cache_k[rows, :, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, :, pos] = v[:, 0].to(cache_v.dtype)
+    attend = decode_attention \
+        if attn_dispatch.select(_site(cfg, "decode", q, 1, M)) \
+        == "decode_kernel" else decode_attention_reference
+    attn = attend(q[:, 0].contiguous(), cache_k, cache_v, pos,
+                  sm_scale=_sm_scale(cfg)).reshape(B, 1, D)
+    attn_out = attn @ p["attn_out_w"] + p["attn_out_b"]
+    return attn_out, cache_k, cache_v
+
+
+def _block_decode(x, p, cache_k, cache_v, pos, cfg: GPTConfig):
+    attn_out, cache_k, cache_v = _decode_attn_half(x, p, cache_k, cache_v,
+                                                   pos, cfg)
+    return _residual_mlp(x, attn_out, p, cfg), cache_k, cache_v
+
+
+# ----------------------------------------------------------------------
+# paged pool — the continuous-batching serving engine
+# ----------------------------------------------------------------------
+
+
+def init_paged_kv_pool(cfg: GPTConfig, num_blocks, block_size,
+                       dtype=torch.bfloat16, device="cpu"):
+    """[L, num_blocks, Hkv, block, hd] physical-block pool, allocated once at
+    serving-engine init. Block 0 is the trash block (inference/kv_cache.py).
+    Only the floating-point pool is ported (the int8 pool is not)."""
+    dtype = as_dtype(dtype)
+    shape = (cfg.n_layer, num_blocks, cfg.n_kv_head, block_size,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _paged_attend(q, k_ctx, v_ctx, q_pos, cfg: GPTConfig):
+    """Attend q over table-gathered KV with ABSOLUTE positions.
+
+    q: [B, C, H, hd]; k_ctx/v_ctx: [B, Hkv, S, hd] in logical order (k index
+    == absolute position); q_pos: [B, C]. Returns [B, C, H*hd]; fp32
+    softmax."""
+    B, C, H, hd = q.shape
+    Hkv, S = k_ctx.shape[1], k_ctx.shape[2]
+    scale = 1.0 / math.sqrt(hd) if cfg.scale_attn else 1.0
+    k_pos = torch.arange(S, device=q.device)
+    valid = k_pos[None, None, :] <= q_pos[:, :, None]          # [B, C, S]
+    qg = q.reshape(B, C, Hkv, H // Hkv, hd)
+    logits = torch.einsum("bckgd,bksd->bkgcs", qg, k_ctx).float() * scale
+    logits = logits.masked_fill(~valid[:, None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgcs,bksd->bckgd", probs, v_ctx)
+    return out.reshape(B, C, H * hd)
+
+
+def _paged_attn_half(x, p, pool_l, positions, block_tables, cfg: GPTConfig):
+    """Attention half-block against one layer's paged pool.
+
+    x: [B, C, D]; pool_l: {"k", "v"} [N, Hkv, block, hd]; positions: [B, C]
+    absolute; block_tables: [B, nb] int32. Writes the C new tokens' k/v
+    into each row's blocks in place (position -> table -> physical block),
+    then attends over the row's table: the paged kernel for single-token
+    steps, the gather path for prefill chunks."""
+    from deepspeed_tpu_torch.inference.kv_cache import gather_block_kv
+    B, C, D = x.shape
+    bs = pool_l["k"].shape[2]
+    nb = block_tables.shape[1]
+    q, k, v = _decode_qkv(x, p, positions, cfg)
+    # rows of inactive slots (all-trash tables, pos 0) collide in the trash
+    # block; the write order there is unspecified and irrelevant
+    blk = torch.gather(block_tables.long(), 1, (positions // bs).long())   # [B, C]
+    off = positions % bs
+    pool_l["k"][blk, :, off] = k.to(pool_l["k"].dtype)
+    pool_l["v"][blk, :, off] = v.to(pool_l["v"].dtype)
+    phase = "paged_decode" if C == 1 else "prefill_chunk"
+    if attn_dispatch.select(_site(cfg, phase, q, C, nb * bs)) \
+            == "paged_kernel":
+        attn = paged_decode_attention(
+            q[:, 0].contiguous(), pool_l["k"], pool_l["v"], block_tables,
+            positions[:, 0], sm_scale=_sm_scale(cfg)).reshape(B, 1, D)
+    else:
+        k_ctx, v_ctx = gather_block_kv(pool_l["k"], pool_l["v"],
+                                       block_tables)
+        attn = _paged_attend(q, k_ctx, v_ctx, positions, cfg)
+    attn_out = attn @ p["attn_out_w"] + p["attn_out_b"]
+    return attn_out, pool_l
+
+
+def _block_paged(x, p, pool_l, positions, block_tables, cfg: GPTConfig):
+    attn_out, pool_l = _paged_attn_half(x, p, pool_l, positions,
+                                        block_tables, cfg)
+    return _residual_mlp(x, attn_out, p, cfg), pool_l
+
+
+# ----------------------------------------------------------------------
+# the decode model
+# ----------------------------------------------------------------------
+
+
+def make_gpt_decode_model(cfg: GPTConfig = None, name="gpt2-125m",
+                          params=None, seed=0):
+    """DecodeModelSpec for the inference engine: prefill + per-token decode
+    over the contiguous cache, and the paged-pool serving contract."""
+    from deepspeed_tpu_torch.inference.engine import DecodeModelSpec
+    cfg = cfg or GPT2_CONFIGS[name]
+    if params is None:
+        params = init_gpt_params(cfg, seed=seed)
+
+    def prefill_fn(params, tokens, cache, pad_mask=None):
+        B, T = tokens.shape
+        positions = torch.arange(T, device=tokens.device).expand(B, T)
+        x = _embed(params, tokens, positions, cfg)
+        for i in range(cfg.n_layer):
+            p = _layer(params, i)
+            attn_out, k, v = _attn_half(x, p, cfg, positions)
+            cache["k"][i, :, :, :T] = k.transpose(1, 2)
+            cache["v"][i, :, :, :T] = v.transpose(1, 2)
+            x = _residual_mlp(x, attn_out, p, cfg)
+        cache["length"].fill_(T)
+        return _lm_head(params, x, cfg), cache
+
+    def decode_fn(params, token, pos, cache):
+        x = _embed(params, token[:, None], pos[:, None], cfg)
+        for i in range(cfg.n_layer):
+            x, _, _ = _block_decode(x, _layer(params, i), cache["k"][i],
+                                    cache["v"][i], pos, cfg)
+        cache["length"] += 1
+        return _lm_head(params, x, cfg)[:, 0], cache
+
+    def init_cache(batch_size, max_len, dtype=torch.bfloat16, device="cpu"):
+        return init_kv_cache(cfg, batch_size, max_len, dtype, device)
+
+    def _walk_paged(params, x, pool, block_tables, positions):
+        for i in range(cfg.n_layer):
+            pool_l = {"k": pool["k"][i], "v": pool["v"][i]}
+            x, _ = _block_paged(x, _layer(params, i), pool_l, positions,
+                                block_tables, cfg)
+        return x
+
+    def prefill_paged_fn(params, tokens, start_pos, last_idx, pool,
+                         block_tables):
+        B, C = tokens.shape
+        positions = start_pos[:, None] + torch.arange(
+            C, device=tokens.device)[None]
+        x = _embed(params, tokens, positions, cfg)
+        x = _walk_paged(params, x, pool, block_tables, positions)
+        last = x[torch.arange(B, device=x.device), last_idx][:, None]
+        return _lm_head(params, last, cfg)[:, 0], pool
+
+    def decode_paged_fn(params, token, pos, pool, block_tables):
+        x = _embed(params, token[:, None], pos[:, None], cfg)
+        x = _walk_paged(params, x, pool, block_tables, pos[:, None])
+        return _lm_head(params, x, cfg)[:, 0], pool
+
+    def init_paged_pool(num_blocks, block_size, dtype=torch.bfloat16,
+                        device="cpu"):
+        return init_paged_kv_pool(cfg, num_blocks, block_size, dtype, device)
+
+    return DecodeModelSpec(
+        prefill_fn=prefill_fn, decode_fn=decode_fn, init_cache=init_cache,
+        params=params, name=name, prefill_paged_fn=prefill_paged_fn,
+        decode_paged_fn=decode_paged_fn, init_paged_pool=init_paged_pool,
+        dtype=cfg.dtype,
+        max_positions=None if cfg.use_rotary else cfg.max_seq_len)

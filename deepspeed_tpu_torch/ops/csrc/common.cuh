@@ -1,0 +1,51 @@
+// Shared device helpers for the deepspeed_tpu_torch kernels: element
+// conversions for the three dtypes the wrappers pass (code 0 = float32,
+// 1 = bfloat16, 2 = float16) and warp reductions.
+#pragma once
+
+#include <math.h>
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
+namespace dstt {
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half(x);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// 16-byte load of VEC = 16 / sizeof(T) consecutive elements, widened to fp32.
+// The caller guarantees 16-byte alignment (the wrappers check base pointers
+// and strides).
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* f) {
+  constexpr int VEC = 16 / sizeof(T);
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) f[j] = to_f(e[j]);
+}
+
+}  // namespace dstt

@@ -1,0 +1,211 @@
+"""Guards of the PyTorch port: what it may import and call, where it runs,
+what it refuses, and how it builds its kernels."""
+
+import ast
+import stat
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu_torch.inference.config import TpuInferenceConfig
+from deepspeed_tpu_torch.inference.engine import init_inference
+from deepspeed_tpu_torch.models.gpt import GPTConfig, make_gpt_decode_model
+from deepspeed_tpu_torch.ops import attention_dispatch as ad
+from deepspeed_tpu_torch.ops import decode_attention as tda
+from deepspeed_tpu_torch.ops import flash_attention as tfa
+from deepspeed_tpu_torch.ops import op_builder
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "deepspeed_tpu_torch").rglob("*.py"))
+TINY = GPTConfig(n_layer=2, n_head=4, d_model=64, max_seq_len=64,
+                 vocab_size=128, dtype="float32")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_never_imports_jax_or_the_jax_package(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "deepspeed_tpu")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_never_names_library_attention_or_compile():
+    """No SDPA, cuDNN attention or torch.compile anywhere in the package:
+    the three attention kernels are the hand-written ones (chip_smoke.py
+    times SDPA beside them as a yardstick only)."""
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text())
+        names = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+        names |= {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+        for banned in ("scaled_dot_product_attention", "compile",
+                       "cudnn"):
+            assert banned not in names, f"{path.name} names {banned}"
+
+
+def test_entry_points_refuse_to_run_on_the_cpu_quietly():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a GPU: the default device is valid")
+    spec = make_gpt_decode_model(TINY, name="tiny")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_inference(spec, config={"dtype": "float32",
+                                     "kv_cache_dtype": "float32"})
+    engine = init_inference(spec, config={"dtype": "float32",
+                                          "kv_cache_dtype": "float32"},
+                            device="cpu")
+    assert engine.device.type == "cpu"
+
+
+def test_cuda_wrappers_take_the_plain_version_for_cpu_tensors():
+    """Handed CPU tensors, each kernel wrapper runs its plain version and
+    leaves the launch counter at 0 — nothing is built or launched."""
+    rng = np.random.default_rng(12)
+    normal = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32))
+    op_builder.LAUNCHES.clear()
+    q, kc = normal(2, 4, 64), normal(2, 4, 32, 64)
+    pos = torch.tensor([3, 31], dtype=torch.int32)
+    assert torch.equal(tda.decode_attention(q, kc, kc, pos),
+                       tda.decode_attention_reference(q, kc, kc, pos))
+    tables = torch.tensor([[1], [2]], dtype=torch.int32)
+    pool = normal(3, 4, 32, 64)
+    assert torch.equal(
+        tda.paged_decode_attention(q, pool, pool, tables, pos),
+        tda.paged_decode_attention_reference(q, pool, pool, tables, pos))
+    x = normal(1, 40, 4, 64)
+    assert torch.equal(tfa.flash_attention(x, x, x),
+                       tfa.flash_attention_reference(x, x, x)[0])
+    assert sum(op_builder.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("override", [
+    {"quant": {"enabled": True}},
+    {"serving": {"quantization": {"kv_cache_dtype": "int8"}}},
+    {"serving": {"quantization": {"weights": "int4"}}},
+    {"serving": {"spec_decode": {"drafter": "ngram"}}},
+    {"serving": {"enable_prefix_caching": True}},
+    {"serving": {"degradation": {"enabled": True}}},
+    {"serving": {"audit_interval": 4}},
+    {"telemetry": {"enabled": True}},
+    {"tensor_parallel": {"tp_size": 2}},
+    {"mp_size": 2},
+    {"zero": {"offload_param": {"device": "cpu"}}},
+], ids=lambda o: str(o))
+def test_unported_features_refuse_at_config_time(override):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TpuInferenceConfig.from_dict(override)
+
+
+def test_serving_overrides_are_validated_too():
+    engine = init_inference(make_gpt_decode_model(TINY, name="tiny"),
+                            config={"dtype": "float32",
+                                    "kv_cache_dtype": "float32",
+                                    "kv_block_size": 16,
+                                    "max_out_tokens": 64}, device="cpu")
+    with pytest.raises(NotImplementedError, match="speculative"):
+        engine.serving(spec_decode={"drafter": "ngram"})
+    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
+        init_inference(make_gpt_decode_model(TINY, name="tiny"),
+                       config={"dtype": "float32"}, device="cpu")
+
+
+def test_dispatch_engages_kernels_where_their_contract_holds():
+    site = lambda **kw: ad.AttnSite(**{**dict(phase="train", q_len=600,
+                                              kv_len=600, head_dim=64,
+                                              kv_dtype="bfloat16",
+                                              on_cuda=True), **kw})
+    assert ad.select(site()) == "flash"
+    assert ad.select(site(q_len=37, kv_len=37)) == "flash"     # any T
+    assert ad.select(site(head_dim=128, kv_dtype="float16")) == "flash"
+    assert ad.select(site(on_cuda=False)) == "dense"
+    assert ad.select(site(on_cuda=False, force_flash=False)) == "dense"
+    assert ad.select(site(on_cuda=False, force_flash=True)) == "flash"
+    assert ad.select(site(on_cuda=False, has_window=True,
+                          force_flash=True)) == "dense"
+    assert ad.select(site(phase="decode", q_len=1, kv_dtype="float32")) \
+        == "decode_kernel"
+    assert ad.select(site(phase="decode", q_len=1, on_cuda=False)) \
+        == "decode_dense"
+    assert ad.select(site(phase="paged_decode", q_len=1)) == "paged_kernel"
+    assert ad.select(site(phase="paged_decode", q_len=1, on_cuda=False)) \
+        == "paged_gather"
+    # chunked prefill is a gather + dense attend on every device, as in the
+    # JAX package
+    assert ad.select(site(phase="prefill_chunk", q_len=16)) == "paged_gather"
+    assert ad.select(site(phase="prefill_chunk", q_len=16, on_cuda=False)) \
+        == "paged_gather"
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kv_dtype="float32"),                        # flash takes bf16/fp16
+    dict(head_dim=32),                               # gpt2-tiny's width
+    dict(head_dim=96),
+    dict(force_flash=False),
+    dict(has_window=True),
+    dict(q_len=37),                                  # not square
+    dict(phase="decode", q_len=1, head_dim=32),
+    dict(phase="decode", q_len=1, has_bias=True),
+    dict(phase="decode", q_len=1, force_flash=False),
+    dict(phase="paged_decode", q_len=1, kv_dtype="float64"),
+    dict(phase="paged_decode", q_len=1, head_dim=32),
+    dict(phase="paged_decode", q_len=1, force_flash=False),
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_dispatch_runs_no_plain_attention_on_cuda(kw):
+    """A CUDA site the kernel does not take raises; it never falls to the
+    plain attention programs on the card."""
+    site = ad.AttnSite(**{**dict(phase="train", q_len=600, kv_len=600,
+                                 head_dim=64, kv_dtype="bfloat16",
+                                 on_cuda=True), **kw})
+    with pytest.raises(NotImplementedError, match="no plain attention"):
+        ad.select(site)
+
+
+def _fake_nvcc(tmp_path, body):
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text("#!/bin/sh\n" + body)
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    return tmp_path / "cuda"
+
+
+def test_kernel_builder_rebuilds_on_source_change_and_raises_on_failure(
+        tmp_path, monkeypatch):
+    """One nvcc per source into the build dir, named by the source hash: an
+    unchanged source reuses its library, an edited one rebuilds, a failed
+    compile raises with the compiler's output."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// a\n")
+    (csrc / "b.cu").write_text("// b\n")
+    monkeypatch.setattr(op_builder, "CSRC", csrc)
+    monkeypatch.setattr(op_builder, "BUILD_DIR", build)
+    # the fake compiler writes its input's text to the -o path
+    home = _fake_nvcc(tmp_path, 'while [ "$1" != "-o" ]; do shift; done\n'
+                                'cat "$3" > "$2"\n')
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    libs = op_builder.build_all()
+    assert sorted(libs) == ["a", "b"]
+    assert libs["a"].read_text() == "// a\n" and libs["a"].parent == build
+    assert op_builder.build_all(["a"])["a"] == libs["a"]
+    (csrc / "a.cu").write_text("// a, edited\n")
+    rebuilt = op_builder.build_all(["a"])["a"]
+    assert rebuilt != libs["a"] and rebuilt.read_text() == "// a, edited\n"
+    failing = _fake_nvcc(tmp_path / "bad", "echo 'error: no' ; exit 3\n")
+    monkeypatch.setenv("CUDA_HOME", str(failing))
+    (csrc / "b.cu").write_text("// b, edited\n")
+    with pytest.raises(RuntimeError, match="error: no"):
+        op_builder.build_all(["b"])
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "nowhere"))
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    with pytest.raises(RuntimeError, match="no nvcc"):
+        op_builder.build_all(["b"])
