@@ -7,8 +7,11 @@ Phases, one JSON line each:
   device   the card (nvidia-smi name + power limit); fails without CUDA;
   build    nvcc builds every kernel source in ops/csrc/, all in parallel;
   kernels  each kernel against its plain PyTorch version on the card at the
-           serving path's shapes (gpt2-125m: H=12, hd=64, bf16) and at
-           hd 128 / G=4 / ragged T, with medians of CUDA-event timings of
+           shapes its paths give it (generate/serve: gpt2-125m, H=12,
+           hd=64, bf16; train: gpt2-760m, B 12, T 512, H 12, hd 128,
+           causal) and at hd 128 / G=4 / ragged T; the backward kernels
+           also at hd 64, GQA 4 with ragged T and an lse cotangent,
+           non-causal, and in fp16; with medians of CUDA-event timings of
            the kernel, its plain version and, where one PyTorch call
            computes the same function, that call (library_ms);
   generate init_inference -> generate() on gpt2-125m at full width and
@@ -20,13 +23,28 @@ Phases, one JSON line each:
            per layer per decode step, drained
            pool, the served tokens' agreement with generate() on the same
            prompts, requests/s and tokens/s;
-  profile  (opt-in, after generate and serve) torch.profiler over the same
-           generate() call and serving run: kernel time on the card by
-           class and the card's idle share of the unprofiled wall time.
+  train    initialize() -> train_batch() on gpt2-760m at full width and
+           depth (24 layers, d_model 1536, 12 heads of 128, random weights
+           from a numpy seed): AdamW, bf16 without master weights, clipping
+           1.0, ZeRO 1, micro-batch 12, seq 512, gas 2, remat
+           nothing_saveable. One warm-up step, then 3 timed steps on one
+           batch: finite falling loss, no overflow, exact launch counts
+           (flash forward 2 x 24 x gas per step — forward and remat
+           recompute — and 24 x gas per backward kernel), seconds per step,
+           tokens/s and MFU; then the first step's loss and every
+           parameter's gradient at 2 layers, bf16 on the card against the
+           port's fp32 CPU run of the same weights and batch;
+  profile  (opt-in, after the phases it reads) torch.profiler over the same
+           generate() call, serving run and one train_batch: kernel time on
+           the card by class and the card's idle share of the unprofiled
+           wall time.
 A comma-separated phase list as the one argument runs those phases only
-(the device phase always runs), e.g. `build,generate,serve,profile`.
-Then the card's name and power limit, the `kernels` summary line, and as
-the last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
+(the device phase always runs), e.g. `build,train,profile`. Then the
+card's name and power limit, the `kernels` summary line (one row per
+kernel and path that runs it — the flash forward has a generate row and a
+train row — with `launches` counted from 0 just before that path's run
+and read just after, and times at that path's shape), and as the last
+line `{"ok": true, "device": {...}}`. Any failure exits non-zero
 and prints no result line. It imports no JAX and nothing of deepspeed_tpu.
 """
 
@@ -47,19 +65,54 @@ BF16_FLOPS = 989e12
 # the P @ V product (as the TPU kernel does); decode keeps P in fp32.
 TOL = {"flash_attention": 2e-2, "decode_attention": 1e-2,
        "paged_decode_attention": 1e-2}
+# backward kernels vs the fp32 plain backward on the same bf16 inputs and
+# saved (out, lse), as max abs error over the reference's largest |entry|:
+# the kernels narrow p and ds to bf16 (relative 2^-9 each) before the
+# products and round the gradient to bf16 once; sums are fp32
+BWD_REL_TOL = 2e-2
 # gpt2-125m logits, bf16 on the card vs fp32 on the CPU (logit std ~0.5)
 LOGIT_TOL = 6e-2
 # share of served tokens equal to generate()'s on the same prompts (bf16)
 SERVE_AGREE_MIN = 0.9
+# training parity, 2 layers of gpt2-760m: bf16 on the card against fp32 on
+# the CPU from the same bf16-rounded weights. The card rounds activations
+# and matmul inputs to bf16 (relative 2^-9 each) and sums in fp32; at
+# init the loss is ~ln(50304) = 10.8 and each logit moves by ~1e-3, so the
+# mean loss by far less than LOSS_TOL. Each gradient leaf passes through
+# the head, two blocks and the attention kernels' bf16 p and ds: its
+# relative error ||card - cpu|| / ||cpu|| stays within GRAD_REL_TOL.
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_REL_TOL = 5e-2
+
+# the training main path: the bench headline lane's config
+# (bench.py:220-228) on gpt2-760m at full width and depth, at gas 2
+TRAIN_MODEL, TRAIN_MBS, TRAIN_SEQ, TRAIN_GAS, TRAIN_STEPS = \
+    "gpt2-760m", 12, 512, 2, 3
+TRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": TRAIN_MBS,
+    "gradient_accumulation_steps": TRAIN_GAS,
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4,
+                                              "weight_decay": 0.1}},
+    "bf16": {"enabled": True, "master_weights": False},
+    "gradient_clipping": 1.0,
+    "zero_optimization": {"stage": 1},
+    "steps_per_print": 10**9,
+}
 
 REPLACES = {
     "flash_attention": "deepspeed_tpu/ops/pallas/flash_attention.py:143",
+    "flash_attention_bwd_dq":
+        "deepspeed_tpu/ops/pallas/flash_attention.py:297",
+    "flash_attention_bwd_dkv":
+        "deepspeed_tpu/ops/pallas/flash_attention.py:323",
     "decode_attention": "deepspeed_tpu/ops/pallas/decode_attention.py:156",
     "paged_decode_attention":
         "deepspeed_tpu/ops/pallas/decode_attention.py:234",
 }
 SOURCES = {
     "flash_attention": "deepspeed_tpu_torch/ops/csrc/flash_fwd.cu",
+    "flash_attention_bwd_dq": "deepspeed_tpu_torch/ops/csrc/flash_bwd.cu",
+    "flash_attention_bwd_dkv": "deepspeed_tpu_torch/ops/csrc/flash_bwd.cu",
     "decode_attention": "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
     "paged_decode_attention":
         "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
@@ -122,13 +175,13 @@ def phase_build():
           "libraries": {k: str(v.name) for k, v in libs.items()}})
 
 
-def _flash_case(rng, B, T, H, Hkv, D, causal):
+def _flash_case(rng, B, T, H, Hkv, D, causal, dtype="bfloat16"):
     import torch
     # q/k/v as [B, T, H, D] views of one fused projection, as the model
     # hands them to the kernel
     qkv = torch.from_numpy(rng.standard_normal(
-        (B, T, (H + 2 * Hkv) * D)).astype(np.float32)).to("cuda",
-                                                         torch.bfloat16)
+        (B, T, (H + 2 * Hkv) * D)).astype(np.float32)).to(
+            "cuda", getattr(torch, dtype))
     q, k, v = qkv.split([H * D, Hkv * D, Hkv * D], dim=-1)
     return (q.reshape(B, T, H, D), k.reshape(B, T, Hkv, D),
             v.reshape(B, T, Hkv, D), causal)
@@ -178,14 +231,17 @@ def phase_kernels():
                                  f"{TOL[name]}")
         return err
 
-    # --- flash forward: main path = generate()'s prefill, 4 prompts padded
-    # to 600, gpt2-125m heads; then hd 128 / GQA 4 / ragged T, both masks
-    for shape, main in ((dict(B=4, T=600, H=12, Hkv=12, D=64, causal=True),
-                         True),
+    # --- flash forward: its two paths' shapes — generate()'s prefill (4
+    # prompts padded to 600, gpt2-125m heads) and the train step
+    # (gpt2-760m) — then hd 128 / GQA 4 / ragged T, both masks
+    for shape, path in ((dict(B=4, T=600, H=12, Hkv=12, D=64, causal=True),
+                         "generate"),
+                        (dict(B=12, T=512, H=12, Hkv=12, D=128, causal=True),
+                         "train"),
                         (dict(B=2, T=333, H=16, Hkv=4, D=128, causal=True),
-                         False),
+                         None),
                         (dict(B=2, T=200, H=8, Hkv=2, D=128, causal=False),
-                         False)):
+                         None)):
         q, k, v, causal = _flash_case(rng, **shape)
         out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
                                                layout="BTHD")
@@ -196,14 +252,14 @@ def phase_kernels():
         lse_err = (lse - ref_lse).abs().max().item()
         if not lse_err <= 1e-2:
             raise AssertionError(f"flash lse err {lse_err}")
-        if not main:
+        if path is None:
             continue
         B, T, H, D = q.shape
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         pairs = B * H * T * (T + 1) / 2
         nbytes = 4 * B * T * H * D * 2 + B * H * T * 4
         b_ms, b_by = bound(nbytes, 4 * D * pairs)
-        results["flash_attention"] = dict(
+        results["flash_attention", path] = dict(
             max_abs_err=err,
             ms=median_ms(lambda: fa.flash_attention(q, k, v)),
             plain_ms=median_ms(lambda: fa.flash_attention_reference(
@@ -234,7 +290,7 @@ def phase_kernels():
         b_ms, b_by = bound(nbytes, 4 * live * H * hd)
         mask = (torch.arange(kc.shape[2], device="cuda")[None, :]
                 <= pos[:, None].long())[:, None, None, :]
-        results["decode_attention"] = dict(
+        results["decode_attention", "generate"] = dict(
             max_abs_err=err,
             ms=median_ms(lambda: da.decode_attention(q, kc, vc, pos)),
             plain_ms=median_ms(lambda: da.decode_attention_reference(
@@ -264,14 +320,110 @@ def phase_kernels():
         nbytes = 2 * live * Hkv * hd * 2 + 2 * B * H * hd * 2 \
             + tables.numel() * 4
         b_ms, b_by = bound(nbytes, 4 * live * H * hd)
-        results["paged_decode_attention"] = dict(
+        results["paged_decode_attention", "serve"] = dict(
             max_abs_err=err,
             ms=median_ms(lambda: da.paged_decode_attention(
                 q, kp, vp, tables, pos)),
             plain_ms=median_ms(lambda: da.paged_decode_attention_reference(
                 q, kp, vp, tables, pos)), bound_ms=b_ms, bound_by=b_by,
             library_ms=None)
-    emit({"phase": "kernels", "checks": checks, "main_path": results})
+    results.update(_backward_kernels(rng, checks))
+    emit({"phase": "kernels", "checks": checks,
+          "main_path": {f"{name}/{path}": row
+                        for (name, path), row in results.items()}})
+    return results
+
+
+def _backward_kernels(rng, checks):
+    """The dq and dk/dv kernels through the autograd path (q/k/v strided
+    views of one fused projection, as the model hands them over) against
+    the plain backward on the same inputs and saved (out, lse): at the
+    training main path's shape (gpt2-760m: H 12, hd 128, B 12, T 512,
+    causal), at hd 64, at GQA 4 with a ragged T and an lse cotangent,
+    non-causal, and at GQA 4 with a ragged T in fp16. The forward of each
+    case is held against its plain version too. Then each kernel alone
+    timed at the main shape."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    results = {}
+    for shape, main, with_dlse in (
+            (dict(B=12, T=512, H=12, Hkv=12, D=128, causal=True), True,
+             False),
+            (dict(B=4, T=600, H=12, Hkv=12, D=64, causal=True), False, False),
+            (dict(B=2, T=333, H=16, Hkv=4, D=128, causal=True), False, True),
+            (dict(B=2, T=200, H=8, Hkv=2, D=64, causal=False), False, False),
+            (dict(B=2, T=333, H=16, Hkv=4, D=128, causal=True,
+                  dtype="float16"), False, False)):
+        q, k, v, causal = _flash_case(rng, **shape)
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        do = torch.randn_like(out)
+        dlse = torch.randn_like(lse) if with_dlse else None
+        grads = torch.autograd.grad(
+            (out, lse) if with_dlse else (out,), (q, k, v),
+            (do, dlse) if with_dlse else (do,))
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        ref_out, ref_lse = fa.flash_attention_reference(qd, kd, vd, causal)
+        ref = fa.flash_attention_bwd_reference(
+            qd, kd, vd, out.detach(), lse.detach(), do, dlse, causal)
+        torch.cuda.synchronize()
+        fwd_err = (out.detach().float() - ref_out.float()).abs().max().item()
+        lse_err = (lse.detach() - ref_lse).abs().max().item()
+        if not (fwd_err <= TOL["flash_attention"] and lse_err <= 1e-2):
+            raise AssertionError(f"flash forward {shape}: out err {fwd_err}"
+                                 f", lse err {lse_err}")
+        errs = {}
+        for name, idx in (("flash_attention_bwd_dq", (0,)),
+                          ("flash_attention_bwd_dkv", (1, 2))):
+            err = max((grads[i].float() - ref[i].float()).abs().max().item()
+                      for i in idx)
+            scale = max(ref[i].float().abs().max().item() for i in idx)
+            ok = bool(np.isfinite(err) and err <= BWD_REL_TOL * scale)
+            checks.append({"kernel": name, "shape": shape,
+                           "lse_cotangent": with_dlse,
+                           "forward_max_abs_err": fwd_err,
+                           "max_abs_err": err,
+                           "ref_max_abs": scale,
+                           "tol": BWD_REL_TOL * scale, "ok": ok})
+            if not ok:
+                raise AssertionError(f"{name} {shape}: max abs err {err} > "
+                                     f"{BWD_REL_TOL} x {scale}")
+            errs[name] = err
+        if not main:
+            continue
+        B, T, H, D = q.shape
+        qh, kh, vh, doh = (x.detach().transpose(1, 2) for x in (q, k, v, do))
+        oh = out.detach().transpose(1, 2)
+        lse_d = lse.detach()
+        delta = (doh.float() * oh.float()).sum(-1).contiguous()
+        sm = 1.0 / D ** 0.5
+        pairs = B * H * T * (T + 1) / 2
+        plain_ms = median_ms(lambda: fa.flash_attention_bwd_reference(
+            q.detach(), k.detach(), v.detach(), out.detach(), lse_d, do,
+            None, True), reps=5, inner=1)
+        # the yardstick: SDPA's own backward over one SDPA forward
+        sq, sk, sv = (x.contiguous().requires_grad_(True)
+                      for x in (qh, kh, vh))
+        sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+        sdo = doh.contiguous()
+        library_ms = median_ms(lambda: torch.autograd.grad(
+            sout, (sq, sk, sv), sdo, retain_graph=True))
+        tile = B * T * H * D * 2          # one bf16 [B, T, H, D] tensor
+        rows = B * H * T * 4              # one fp32 [B, H, T] row vector
+        for name, need, flops, nbytes in (
+                ("flash_attention_bwd_dq", (True, False), 6 * D * pairs,
+                 5 * tile + 2 * rows),         # q k v do -> dq; lse delta
+                ("flash_attention_bwd_dkv", (False, True), 8 * D * pairs,
+                 6 * tile + 2 * rows)):        # q k v do -> dk dv
+            b_ms, b_by = bound(nbytes, flops)
+            results[name, "train"] = dict(
+                max_abs_err=errs[name],
+                ms=median_ms(lambda: fa._launch_bwd(
+                    qh, kh, vh, doh, lse_d, delta, sm, True, *need)),
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
     return results
 
 
@@ -405,10 +557,119 @@ def phase_serve(state):
     return counts
 
 
+def phase_train(state):
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt import GPT2_CONFIGS, make_gpt_model
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.utils.tree import tree_num_params
+    cfg = GPT2_CONFIGS[TRAIN_MODEL]       # remat nothing_saveable: default
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=make_gpt_model(cfg, name=TRAIN_MODEL,
+                                                 seed=0),
+                            config=TRAIN_CONFIG)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_MBS * TRAIN_GAS, TRAIN_SEQ + 1))).cuda()}
+    losses = [float(engine.train_batch(batch))]             # warm-up
+
+    LAUNCHES.clear()
+    step_s, overflow = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(engine.train_batch(batch))  # the read waits for the step
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        overflow.append(bool(engine._last_metrics["overflow"]))
+    counts = dict(LAUNCHES)
+    L = cfg.n_layer
+    want = {"flash_attention": 2 * L * TRAIN_GAS * TRAIN_STEPS,
+            "flash_attention_bwd_dq": L * TRAIN_GAS * TRAIN_STEPS,
+            "flash_attention_bwd_dkv": L * TRAIN_GAS * TRAIN_STEPS}
+    if counts != want:
+        raise AssertionError(f"train launches {counts} != {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses not finite and falling: {losses}")
+    if any(overflow):
+        raise AssertionError(f"overflow in a timed step: {overflow}")
+    n_params = tree_num_params(engine.state.params)
+    sec = statistics.median(step_s)
+    tokens_per_s = TRAIN_MBS * TRAIN_GAS * TRAIN_SEQ / sec
+    parity = _train_parity(cfg)
+    emit({"phase": "train", "model": TRAIN_MODEL, "n_layer": L,
+          "n_params": n_params, "config": TRAIN_CONFIG, "seq": TRAIN_SEQ,
+          "remat": cfg.remat_policy if cfg.remat else None,
+          "setup_s": setup_s, "losses": losses, "step_s": step_s,
+          "seconds_per_step": sec, "tokens_per_s": tokens_per_s,
+          "mfu": 6 * n_params * tokens_per_s / BF16_FLOPS,
+          "mfu_basis": "6 x params x tokens/s over 989e12 flop/s, the H100 "
+                       "SXM dense bf16 peak from NVIDIA's data sheet",
+          "launches": counts, "parity": parity})
+    state.update(train_engine=engine, train_batch=batch, train_s=sec)
+    return counts
+
+
+def _train_parity(cfg):
+    """The first step's loss and every parameter's gradient at 2 layers of
+    the training model, B 2, T 512: the engine on the card in bf16 against
+    the engine on the CPU in fp32, from the same (bf16-rounded) weights and
+    batch."""
+    import dataclasses
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt import init_gpt_params, make_gpt_model
+    from deepspeed_tpu_torch.utils.tree import tree_cast, tree_leaves
+    small = dataclasses.replace(cfg, n_layer=2)
+    params = tree_cast(tree_cast(init_gpt_params(small, seed=1),
+                                 torch.bfloat16), torch.float32)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                             (2, TRAIN_SEQ + 1))
+    config = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": 2,
+              "gradient_accumulation_steps": 1}
+    name = f"{TRAIN_MODEL}-2-layers"
+    card, *_ = initialize(model=make_gpt_model(small, name=name,
+                                               params=params), config=config)
+    cpu, *_ = initialize(
+        model=make_gpt_model(dataclasses.replace(small, dtype=torch.float32),
+                             name=name, params=params),
+        config={**config, "bf16": {"enabled": False}}, device="cpu")
+    batch = {"tokens": torch.from_numpy(toks)}
+    g_card, l_card = card._grads(card.state.params, batch)
+    g_cpu, l_cpu = cpu._grads(cpu.state.params, batch)
+    loss_err = abs(float(l_card) - float(l_cpu))
+    rel = {}
+    names = _leaf_names(g_cpu)
+    for name, a, b in zip(names, tree_leaves(g_card), tree_leaves(g_cpu)):
+        a = a.float().cpu()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"gradient {name} not finite on the card")
+        rel[name] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    worst = max(rel, key=rel.get)
+    if not loss_err <= TRAIN_LOSS_TOL or rel[worst] > TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"train parity: loss err {loss_err} (tol "
+                             f"{TRAIN_LOSS_TOL}), worst gradient {worst} "
+                             f"{rel[worst]} (tol {TRAIN_GRAD_REL_TOL})")
+    return {"n_layer": 2, "batch": 2, "seq": TRAIN_SEQ,
+            "loss_card": float(l_card), "loss_cpu": float(l_cpu),
+            "loss_abs_err": loss_err, "loss_tol": TRAIN_LOSS_TOL,
+            "grad_rel_err": rel, "grad_rel_tol": TRAIN_GRAD_REL_TOL}
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf paths in `tree_leaves` order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
 def _device_breakdown(prof, wall_s):
     """Kernel time on the card by class, from a torch.profiler run, against
     the unprofiled wall time of the same work."""
-    classes = {"attention (ours)": 0.0, "matmul": 0.0, "other": 0.0}
+    classes = {"attention (ours)": 0.0, "matmul": 0.0,
+               "optimizer (foreach)": 0.0, "other": 0.0}
     top = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
@@ -417,11 +678,14 @@ def _device_breakdown(prof, wall_s):
         if us <= 0 or ev.device_type.name != "CUDA":
             continue
         name = ev.key
-        if "decode_attn_kernel" in name or "flash_fwd_kernel" in name:
+        if any(k in name for k in ("decode_attn_kernel", "flash_fwd_kernel",
+                                   "flash_bwd_")):
             cls = "attention (ours)"
         elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass",
                                               "nvjet")):
             cls = "matmul"
+        elif "multi_tensor_apply" in name:
+            cls = "optimizer (foreach)"
         else:
             cls = "other"
         classes[cls] += us / 1e3
@@ -437,26 +701,34 @@ def _device_breakdown(prof, wall_s):
 
 def phase_profile(state):
     """torch.profiler over one generate() call and one serving run at the
-    generate/serve phases' shapes (opt-in: `python chip_smoke.py
-    build,generate,serve,profile`)."""
+    generate/serve phases' shapes, and over one train_batch at the train
+    phase's, for the phases that ran (opt-in: `python chip_smoke.py
+    build,generate,serve,train,profile`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch.inference.scheduler import Request
-    engine = state["engine"]
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        engine.generate(state["prompts"], max_new_tokens=32,
-                        stop_on_eos=False)
-        torch.cuda.synchronize()
-    gen = _device_breakdown(prof, state["generate_s"])
-    serving = engine.serving(max_slots=8, max_context=1024)
-    with profile(activities=acts) as prof:
-        serving.run([Request(uid=i, tokens=p, max_new_tokens=32,
-                             stop_on_eos=False)
-                     for i, p in enumerate(state["serve_prompts"])])
-        torch.cuda.synchronize()
-    emit({"phase": "profile", "generate": gen,
-          "serve": _device_breakdown(prof, state["serve_s"])})
+    out = {"phase": "profile"}
+    if "engine" in state:
+        engine = state["engine"]
+        with profile(activities=acts) as prof:
+            engine.generate(state["prompts"], max_new_tokens=32,
+                            stop_on_eos=False)
+            torch.cuda.synchronize()
+        out["generate"] = _device_breakdown(prof, state["generate_s"])
+    if "serve_prompts" in state:
+        serving = state["engine"].serving(max_slots=8, max_context=1024)
+        with profile(activities=acts) as prof:
+            serving.run([Request(uid=i, tokens=p, max_new_tokens=32,
+                                 stop_on_eos=False)
+                         for i, p in enumerate(state["serve_prompts"])])
+            torch.cuda.synchronize()
+        out["serve"] = _device_breakdown(prof, state["serve_s"])
+    if "train_engine" in state:
+        with profile(activities=acts) as prof:
+            float(state["train_engine"].train_batch(state["train_batch"]))
+        out["train"] = _device_breakdown(prof, state["train_s"])
+    emit(out)
 
 
 def main():
@@ -476,25 +748,25 @@ def main():
               file=sys.stderr)
         return 2
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else \
-        ["build", "kernels", "generate", "serve"]
+        ["build", "kernels", "generate", "serve", "train"]
     dev = phase_device()
     state, launches, kern = {}, {}, {}
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
         kern = phase_kernels()
-    if "generate" in phases:
-        launches.update(phase_generate(state))
-    if "serve" in phases:
-        launches["paged_decode_attention"] = \
-            phase_serve(state)["paged_decode_attention"]
+    for path, run in (("generate", phase_generate), ("serve", phase_serve),
+                      ("train", phase_train)):
+        if path in phases:
+            launches[path] = run(state)      # counts of this path's run
     if "profile" in phases:
         phase_profile(state)
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches.get(name, 0),
-         **kern[name]} for name in kern]})
+        {"name": name, "path": path, "route": "cuda",
+         "source": SOURCES[name], "replaces": REPLACES[name],
+         "launches": launches.get(path, {}).get(name, 0), **row}
+        for (name, path), row in kern.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})
     return 0

@@ -12,12 +12,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 from deepspeed_tpu_torch.config.core import ConfigModel
-
-
-def _not_ported(what):
-    raise NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet (the JAX package "
-        f"deepspeed_tpu serves it)")
+from deepspeed_tpu_torch.config.core import not_ported as _not_ported
 
 
 def _as_block(value, cls):

@@ -1,10 +1,14 @@
-"""GPT family — the serving path (counterpart of `deepspeed_tpu/models/gpt.py`).
+"""GPT family — training and serving (counterpart of
+`deepspeed_tpu/models/gpt.py`).
 
 Pre-LN GPT-2 (learned positions, LayerNorm, GELU, MHA) with the cheap
 LLaMA-style flags (rotary embeddings, RMSNorm, SwiGLU, grouped-query
 attention). Alibi, sliding windows, per-layer attention types and the
 NeoX/GPT-J parallel residual raise `NotImplementedError` until a later
-slice ports them.
+slice ports them; so do dropout, chunked cross entropy and the selective
+remat policies. Training: `gpt_hidden` / `gpt_forward` / `gpt_loss`, and
+`make_gpt_model` for the engine; remat wraps each block in
+`torch.utils.checkpoint`, the port of `jax.checkpoint(nothing_saveable)`.
 
 Parameters keep the JAX package's tree: stacked `[L, ...]` block leaves
 under the same names and shapes, so `params_from_jax` moves one
@@ -16,11 +20,13 @@ was given, so the call shapes match the reference.
 
 import dataclasses
 import math
+from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.ops import attention_dispatch as attn_dispatch
 from deepspeed_tpu_torch.ops.decode_attention import (
@@ -33,10 +39,16 @@ _DTYPES = {"float32": torch.float32, "float": torch.float32,
 
 
 def as_dtype(dtype):
-    """torch dtype from a torch dtype or its name ("bfloat16", ...)."""
+    """torch dtype from a torch dtype, its name ("bfloat16", ...) or a
+    numpy dtype."""
     if isinstance(dtype, torch.dtype):
         return dtype
     name = str(dtype).replace("torch.", "")
+    if name not in _DTYPES:
+        try:
+            name = np.dtype(dtype).name
+        except TypeError:
+            pass
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {dtype!r}")
     return _DTYPES[name]
@@ -70,6 +82,13 @@ class GPTConfig:
     attn_layer_types: Optional[tuple] = None  # not ported
     scale_attn: bool = True          # False: unscaled scores (GPT-Neo)
     tie_embeddings: bool = True
+    remat: bool = True               # torch.utils.checkpoint each block
+    remat_policy: str = "nothing_saveable"  # the only policy ported
+    dropout: float = 0.0             # > 0 not ported
+    loss_chunks: int = 0             # > 0 (chunked-vocab CE) not ported
+    softmax_dtype: torch.dtype = torch.float32  # the plain path's softmax
+                                     # dtype (fp32 only); the flash kernels
+                                     # keep fp32 statistics whatever it says
     use_flash_attention: Optional[bool] = None  # None: the attention
                                      # kernels run on CUDA, plain versions on
                                      # the CPU; True routes the CPU through
@@ -84,6 +103,7 @@ class GPTConfig:
         if self.n_kv_head is None:
             self.n_kv_head = self.n_head
         self.dtype = as_dtype(self.dtype)
+        self.softmax_dtype = as_dtype(self.softmax_dtype)
         if self.d_model % self.n_head or self.n_head % self.n_kv_head:
             raise ValueError(f"d_model {self.d_model} / n_head {self.n_head} "
                              f"/ n_kv_head {self.n_kv_head} do not tile")
@@ -91,7 +111,12 @@ class GPTConfig:
             ("use_alibi", self.use_alibi),
             ("sliding_window", bool(self.sliding_window)),
             ("attn_layer_types", self.attn_layer_types is not None),
-            ("parallel_residual", self.parallel_residual)) if on]
+            ("parallel_residual", self.parallel_residual),
+            ("dropout", self.dropout > 0),
+            ("loss_chunks", self.loss_chunks > 0),
+            (f"remat_policy={self.remat_policy!r}",
+             self.remat and self.remat_policy != "nothing_saveable"),
+        ) if on]
         if unported:
             raise NotImplementedError(
                 f"GPTConfig flags {unported} are not ported to "
@@ -302,6 +327,10 @@ def _attention(q, k, v, cfg):
     T, S = q.shape[1], k.shape[1]
     if attn_dispatch.select(_site(cfg, "train", q, T, S)) == "flash":
         return flash_attention(q, k, v, causal=True, sm_scale=_sm_scale(cfg))
+    if cfg.softmax_dtype != torch.float32:
+        raise NotImplementedError(
+            f"softmax_dtype {cfg.softmax_dtype} on the plain attention path "
+            f"is not ported to deepspeed_tpu_torch yet (fp32 only)")
     return flash_attention_reference(q, k, v, causal=True,
                                      sm_scale=_sm_scale(cfg))[0]
 
@@ -339,6 +368,106 @@ def _attn_half(x, p, cfg: GPTConfig, positions):
 
 def _layer(params, i):
     return {k: v[i] for k, v in params["blocks"].items()}
+
+
+# ----------------------------------------------------------------------
+# training forward and loss
+# ----------------------------------------------------------------------
+
+
+def resolve_remat_policy(name):
+    """remat_policy string -> the wrapper a block runs under with remat on.
+    "nothing_saveable" (the JAX default: keep only the block's input and
+    recompute the rest in the backward) is non-reentrant
+    `torch.utils.checkpoint`. The selective policies ("save_matmuls",
+    "dots_saveable", ...) are not ported."""
+    if name == "nothing_saveable":
+        return partial(checkpoint, use_reentrant=False)
+    raise NotImplementedError(f"remat_policy {name!r} is not ported to "
+                              f"deepspeed_tpu_torch yet (nothing_saveable "
+                              f"only)")
+
+
+def _block(x, p, cfg: GPTConfig, positions):
+    """One transformer block. x: [B, T, D]."""
+    attn_out, _, _ = _attn_half(x, p, cfg, positions)
+    return _residual_mlp(x, attn_out, p, cfg)
+
+
+def gpt_hidden(params, tokens, cfg: GPTConfig, positions=None, pld=None,
+               ltd=None):
+    """tokens: [B, T] int -> final-norm'd hidden states [B, T, D].
+
+    With `cfg.remat` each block runs under its `resolve_remat_policy`
+    wrapper: only its input is kept and the backward recomputes the block,
+    so the attention kernel's forward runs twice per block. Progressive
+    layer drop (`pld`) and random-LTD (`ltd`) are not ported."""
+    if pld is not None or ltd is not None:
+        raise NotImplementedError(
+            "progressive layer drop / random-LTD directives are not ported "
+            "to deepspeed_tpu_torch yet")
+    B, T = tokens.shape
+    if positions is None:
+        positions = torch.arange(T, device=tokens.device).expand(B, T)
+    x = _embed(params, tokens, positions, cfg)
+    # unbind, not v[i]: its backward stacks the L per-layer gradients once,
+    # where L selects would each write a zero-filled [L, ...] gradient
+    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    remat = resolve_remat_policy(cfg.remat_policy) \
+        if cfg.remat and torch.is_grad_enabled() else None
+    for i in range(cfg.n_layer):
+        p = {k: v[i] for k, v in layers.items()}
+        x = remat(_block, x, p, cfg, positions) if remat \
+            else _block(x, p, cfg, positions)
+    return _norm(x, params["lnf_scale"], params.get("lnf_bias"),
+                 cfg.use_rmsnorm, cfg.norm_eps)
+
+
+def gpt_forward(params, tokens, cfg: GPTConfig, positions=None):
+    """tokens: [B, T] int -> logits [B, T, vocab]."""
+    return _head_logits(params, gpt_hidden(params, tokens, cfg, positions),
+                        cfg)
+
+
+def gpt_loss(params, batch, rng=None, cfg: GPTConfig = None):
+    """Causal-LM cross entropy, mean over the labels >= 0. batch:
+    {"tokens": [B, T+1]} (inputs and labels are its shifts) or
+    {"input_ids": [B, T], "labels": [B, T]}; a label < 0 is ignored.
+
+    The log-sum-exp runs in fp32 over logits kept in the compute dtype: the
+    max is taken (and not differentiated) in that dtype, the shifted logits
+    are widened, and only [B, T] tensors are fp32 besides the exp."""
+    tokens = batch.get("tokens", batch.get("input_ids"))
+    labels = batch.get("labels")
+    if labels is None:
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    else:
+        inputs = tokens
+    if cfg.loss_chunks:
+        raise NotImplementedError("loss_chunks (chunked-vocab CE) is not "
+                                  "ported to deepspeed_tpu_torch yet")
+    logits = _head_logits(params, gpt_hidden(params, inputs, cfg), cfg)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    sumexp = torch.exp((logits - m).float()).sum(dim=-1)
+    logz = m[..., 0].float() + torch.log(sumexp)
+    safe_labels = labels.clamp_min(0).long()   # ignore-index must not wrap
+    gold = logits.gather(-1, safe_labels[..., None])[..., 0].float()
+    mask = (labels >= 0).float()
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)
+
+
+def make_gpt_model(cfg: GPTConfig = None, name="gpt2-125m", seed=0,
+                   params=None):
+    """ModelSpec for the training engine: the loss, the params (drawn from
+    numpy `seed` unless given) and the forward for evaluation."""
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec
+    cfg = cfg or GPT2_CONFIGS[name]
+    return ModelSpec(
+        loss_fn=partial(gpt_loss, cfg=cfg),
+        params=init_gpt_params(cfg, seed=seed) if params is None else params,
+        apply_fn=partial(gpt_forward, cfg=cfg),
+        arch_cfg=cfg, name=name)
 
 
 # ----------------------------------------------------------------------

@@ -5,7 +5,9 @@ A call site builds an `AttnSite` (the dispatch key) and `select()` walks the
 program registry, highest priority first, to name the program that runs.
 The phases this port carries:
 
-  * `train` (also the contiguous prefill): `flash` | `dense`;
+  * `train` (also the contiguous prefill): `flash` | `dense`. Operands
+    may require grad: `flash` differentiates through the backward kernels
+    (`ops/flash_attention.py`), `dense` through autograd on CPU tensors;
   * `decode` (one token over the contiguous cache): `decode_kernel` |
     `decode_dense`;
   * `paged_decode` / `prefill_chunk` (the serving pool): `paged_kernel` |

@@ -209,3 +209,92 @@ def test_kernel_builder_rebuilds_on_source_change_and_raises_on_failure(
     monkeypatch.setenv("PATH", str(tmp_path / "empty"))
     with pytest.raises(RuntimeError, match="no nvcc"):
         op_builder.build_all(["b"])
+
+
+def test_initialize_refuses_to_train_on_the_cpu_quietly():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a GPU: the default device is valid")
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt import make_gpt_model
+    config = {"train_micro_batch_size_per_gpu": 2,
+              "optimizer": {"type": "AdamW"}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize(model=make_gpt_model(TINY, name="tiny"), config=config)
+    engine, *_ = initialize(model=make_gpt_model(TINY, name="tiny"),
+                            config=config, device="cpu")
+    assert engine.device.type == "cpu"
+    assert engine.state.params["wte"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("override", [
+    {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
+    {"zero_optimization": {"offload_optimizer": {"device": "nvme"}}},
+    {"zero_optimization": {"stage": 2, "zero_quantized_gradients": True}},
+    {"pipeline": {"stages": 2}},
+    {"moe": {"enabled": True}},
+    {"optimizer": {"type": "OneBitAdam"}},
+    {"optimizer": {"type": "ZeroOneAdam"}},
+    {"optimizer": {"type": "OneBitLamb"}},
+    {"telemetry": {"enabled": True}},
+    {"checkpoint": {"async_save": True}},
+    {"fault_tolerance": {"enabled": True}},
+    {"curriculum_learning": {"enabled": True}},
+    {"data_efficiency": {"enabled": True}},
+    {"compression_training": {"weight_quantization": {}}},
+    {"progressive_layer_drop": {"enabled": True}},
+    {"mesh": {"data": 2}},
+    {"mesh": {"tensor": 2}},
+    {"activation_checkpointing": {"cpu_checkpointing": True}},
+], ids=lambda o: str(o))
+def test_unported_train_features_refuse_at_config_time(override):
+    from deepspeed_tpu_torch.config.core import TpuTrainConfig
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TpuTrainConfig.load({"train_micro_batch_size_per_gpu": 2, **override})
+
+
+@pytest.mark.parametrize("flags", [dict(dropout=0.1), dict(loss_chunks=4),
+                                   dict(remat_policy="save_matmuls"),
+                                   dict(remat_policy="dots_saveable")],
+                         ids=lambda f: str(f))
+def test_unported_model_training_flags_refuse_when_built(flags):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        GPTConfig(n_layer=2, n_head=4, d_model=64, **flags)
+
+
+def test_plain_attention_refuses_a_narrow_softmax_and_layer_drop():
+    import dataclasses
+    from deepspeed_tpu_torch.models import gpt
+    cfg = dataclasses.replace(TINY, softmax_dtype="bfloat16")
+    tokens = torch.zeros((1, 9), dtype=torch.int64)
+    params = gpt.init_gpt_params(TINY, seed=0)
+    with pytest.raises(NotImplementedError, match="softmax_dtype"):
+        gpt.gpt_loss(params, {"tokens": tokens}, cfg=cfg)
+    with pytest.raises(NotImplementedError, match="layer drop"):
+        gpt.gpt_hidden(params, tokens, TINY, pld={"theta": 0.5})
+
+
+@pytest.mark.parametrize("dtype,head_dim,want", [
+    ("bfloat16", 64, "flash"), ("bfloat16", 128, "flash"),
+    ("float16", 128, "flash"), ("float32", 128, None), ("bfloat16", 32, None),
+], ids=lambda x: str(x))
+def test_train_dispatch_on_cuda_takes_the_kernels_or_raises(dtype, head_dim,
+                                                            want):
+    """The training forward's site (square, causal; its operands require
+    grad, which the flash program differentiates through the backward
+    kernels): bf16/fp16 at hd 64/128 selects flash; fp32 or hd 32 raises —
+    never the plain attention on the card."""
+    site = ad.AttnSite(phase="train", q_len=512, kv_len=512,
+                       head_dim=head_dim, kv_dtype=dtype, on_cuda=True)
+    if want is None:
+        with pytest.raises(NotImplementedError, match="no plain attention"):
+            ad.select(site)
+    else:
+        assert ad.select(site) == want
+
+
+def test_the_import_scan_covers_the_training_modules():
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("runtime/engine.py", "runtime/precision.py",
+                   "runtime/lr_schedules.py", "runtime/dataloader.py",
+                   "ops/optim.py", "utils/timer.py", "config/core.py"):
+        assert f"deepspeed_tpu_torch/{module}" in names
