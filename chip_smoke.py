@@ -11,9 +11,15 @@ Phases, one JSON line each:
            hd=64, bf16; train: gpt2-760m, B 12, T 512, H 12, hd 128,
            causal) and at hd 128 / G=4 / ragged T; the backward kernels
            also at hd 64, GQA 4 with ragged T and an lse cotangent,
-           non-causal, and in fp16; with medians of CUDA-event timings of
-           the kernel, its plain version and, where one PyTorch call
-           computes the same function, that call (library_ms);
+           non-causal, and in fp16; the int8 paged decode at the serve
+           shape with groups 64 and 32, on a shuffled table with an
+           all-trash row and at hd 128 / GQA 4 (one bf16 step of each
+           element, and 1e-2); quantize and
+           dequantize (int8, int4) bit-exact at the K/V pool-write shape
+           and the largest weights (wte, mlp_up_w); with medians of
+           CUDA-event timings of the kernel, its plain version and, where
+           one PyTorch call computes the same function, that call
+           (library_ms);
   generate init_inference -> generate() on gpt2-125m at full width and
            depth (random weights from a numpy seed), bf16: launch counts,
            prefill and first-decode logits held against the port's fp32
@@ -23,6 +29,24 @@ Phases, one JSON line each:
            per layer per decode step, drained
            pool, the served tokens' agreement with generate() on the same
            prompts, requests/s and tokens/s;
+  quant    quantized serving on the same model, four paths, each with
+           exact launch counts of its own: (a) the engine.serving build
+           with int8 weights (one quantize_int8 per quantized leaf), then
+           the int8 KV pool and int8 weights over the serve phase's 16
+           requests — completion, drained pool, one int8 paged decode per
+           layer per decode step, two quantize_int8 per layer per model
+           step for the K/V writes, the WOQ dequantize_int8 count derived
+           from the quantized tree; the served tokens' agreement with the
+           same engine's generate(), quantized weights byte-equal to the
+           port's CPU quantization of the same bf16-rounded weights,
+           prefill and first-decode logits (the decode over each pool)
+           against that CPU engine; (b) init_inference(quant int4) (one
+           quantize_int4 per quantized leaf), then generate() on the
+           generate phase's prompts — flash per prefill, decode per decode
+           step, WOQ dequantize_int4 per model step, payload equality and
+           prefill / first-decode logits against the CPU run; weight and
+           pool bytes, peak device memory of the build and of the timed
+           run apart, requests/s and tokens/s;
   train    initialize() -> train_batch() on gpt2-760m at full width and
            depth (24 layers, d_model 1536, 12 heads of 128, random weights
            from a numpy seed): AdamW, bf16 without master weights, clipping
@@ -35,15 +59,18 @@ Phases, one JSON line each:
            parameter's gradient at 2 layers, bf16 on the card against the
            port's fp32 CPU run of the same weights and batch;
   profile  (opt-in, after the phases it reads) torch.profiler over the same
-           generate() call, serving run and one train_batch: kernel time on
-           the card by class and the card's idle share of the unprofiled
-           wall time.
+           generate() call, serving runs (bf16 and quantized) and one
+           train_batch: kernel time on the card by class and the card's
+           idle share of the unprofiled wall time.
 A comma-separated phase list as the one argument runs those phases only
-(the device phase always runs), e.g. `build,train,profile`. Then the
+(the device phase always runs), e.g. `build,train,profile` or
+`build,kernels,quant`. Then the
 card's name and power limit, the `kernels` summary line (one row per
-kernel and path that runs it — the flash forward has a generate row and a
-train row — with `launches` counted from 0 just before that path's run
-and read just after, and times at that path's shape), and as the last
+kernel and path that runs it — the flash forward has generate,
+quant_generate and train rows; quantize_int8 a quant_serve row, the K/V
+writes, and a quant_serve_build row, the weights — with `launches`
+counted from 0 just before that path's run and read just after, and
+times at that path's shape), and as the last
 line `{"ok": true, "device": {...}}`. Any failure exits non-zero
 and prints no result line. It imports no JAX and nothing of deepspeed_tpu.
 """
@@ -57,14 +84,24 @@ import time
 import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, dense bf16
-# tensor-core rate.
+# tensor-core rate, fp32 rate outside the tensor cores (the decode and quant
+# kernels do their arithmetic there).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 # kernel vs plain version, bf16 on the card. Flash narrows P to bf16 before
 # the P @ V product (as the TPU kernel does); decode keeps P in fp32.
+# Quantize and dequantize are bit-exact.
 TOL = {"flash_attention": 2e-2, "decode_attention": 1e-2,
-       "paged_decode_attention": 1e-2}
+       "paged_decode_attention": 1e-2, "paged_decode_attention_quant": 1e-2}
+# The int8 paged decode dequantizes K/V exactly as its plain version does
+# (int8 x fp32 scale, narrowed to bf16) and both sum in fp32, so the two
+# fp32 results differ only by summation order before the one rounding of the
+# output to bf16. That rounding can land them one bf16 step apart, at most
+# 2^-7 of the element; QUANT_DECODE_ATOL covers the fp32 order noise. Each
+# element must stay within that, besides TOL's 1e-2 on the largest error.
+QUANT_DECODE_REL, QUANT_DECODE_ATOL = 2.0 ** -7, 1e-5
 # backward kernels vs the fp32 plain backward on the same bf16 inputs and
 # saved (out, lse), as max abs error over the reference's largest |entry|:
 # the kernels narrow p and ds to bf16 (relative 2^-9 each) before the
@@ -83,6 +120,18 @@ SERVE_AGREE_MIN = 0.9
 # relative error ||card - cpu|| / ||cpu|| stays within GRAD_REL_TOL.
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 5e-2
+# quant phase (a): share of tokens served over the int8 pool (int8 weights)
+# equal to generate()'s on the same engine, which keeps K/V in bf16. Int8
+# K/V moves each element by up to half a step (1/254 of its vector's
+# |max|), about twice bf16's relative rounding, so near-tied argmaxes flip
+# more often than in the serve phase (floor 0.9 there), and a flip changes
+# the rest of that request.
+QUANT_SERVE_AGREE_MIN = 0.8
+# logits of the quantized engines, bf16 on the card vs fp32 on the CPU from
+# the same bf16-rounded weights (quantized to the same bytes): LOGIT_TOL's
+# bf16 error, plus int8 K/V that may round a bf16 and an fp32 value one
+# step apart, plus (int4) the weights' bf16 narrowing after dequantization
+QUANT_LOGIT_TOL = 1e-1
 
 # the training main path: the bench headline lane's config
 # (bench.py:220-228) on gpt2-760m at full width and depth, at gas 2
@@ -100,6 +149,12 @@ TRAIN_CONFIG = {
 }
 
 REPLACES = {
+    "paged_decode_attention_quant":
+        "deepspeed_tpu/ops/pallas/decode_attention.py:339",
+    "quantize_int8": "deepspeed_tpu/ops/pallas/quant.py:64",
+    "quantize_int4": "deepspeed_tpu/ops/pallas/quant.py:128",
+    "dequantize_int4": "deepspeed_tpu/ops/pallas/quant.py:156",
+    "dequantize_int8": "deepspeed_tpu/ops/pallas/quant.py:179",
     "flash_attention": "deepspeed_tpu/ops/pallas/flash_attention.py:143",
     "flash_attention_bwd_dq":
         "deepspeed_tpu/ops/pallas/flash_attention.py:297",
@@ -116,6 +171,12 @@ SOURCES = {
     "decode_attention": "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
     "paged_decode_attention":
         "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+    "paged_decode_attention_quant":
+        "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+    "quantize_int8": "deepspeed_tpu_torch/ops/csrc/quant.cu",
+    "quantize_int4": "deepspeed_tpu_torch/ops/csrc/quant.cu",
+    "dequantize_int4": "deepspeed_tpu_torch/ops/csrc/quant.cu",
+    "dequantize_int8": "deepspeed_tpu_torch/ops/csrc/quant.cu",
 }
 
 
@@ -142,8 +203,8 @@ def median_ms(fn, reps=15, inner=5, warmup=3):
     return statistics.median(times)
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(nbytes, flops, peak=BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -287,7 +348,7 @@ def phase_kernels():
         Hkv = kc.shape[1]
         live = sum(p + 1 for p in shape["pos"])
         nbytes = 2 * live * Hkv * hd * 2 + 2 * B * H * hd * 2
-        b_ms, b_by = bound(nbytes, 4 * live * H * hd)
+        b_ms, b_by = bound(nbytes, 4 * live * H * hd, FP32_FLOPS)
         mask = (torch.arange(kc.shape[2], device="cuda")[None, :]
                 <= pos[:, None].long())[:, None, None, :]
         results["decode_attention", "generate"] = dict(
@@ -319,7 +380,7 @@ def phase_kernels():
         live = sum(p + 1 for p in shape["pos"])
         nbytes = 2 * live * Hkv * hd * 2 + 2 * B * H * hd * 2 \
             + tables.numel() * 4
-        b_ms, b_by = bound(nbytes, 4 * live * H * hd)
+        b_ms, b_by = bound(nbytes, 4 * live * H * hd, FP32_FLOPS)
         results["paged_decode_attention", "serve"] = dict(
             max_abs_err=err,
             ms=median_ms(lambda: da.paged_decode_attention(
@@ -327,7 +388,11 @@ def phase_kernels():
             plain_ms=median_ms(lambda: da.paged_decode_attention_reference(
                 q, kp, vp, tables, pos)), bound_ms=b_ms, bound_by=b_by,
             library_ms=None)
+    # the int4 generate() path runs the same prefill and decode shapes
+    for name in ("flash_attention", "decode_attention"):
+        results[name, "quant_generate"] = results[name, "generate"]
     results.update(_backward_kernels(rng, checks))
+    results.update(_quant_kernels(rng, checks))
     emit({"phase": "kernels", "checks": checks,
           "main_path": {f"{name}/{path}": row
                         for (name, path), row in results.items()}})
@@ -427,6 +492,143 @@ def _backward_kernels(rng, checks):
     return results
 
 
+def _quant_pool_case(rng, B, H, Hkv, hd, bs, nb, g, pos, tables=None):
+    """An int8 pool (quantized with the plain version from fp32 normals),
+    bf16 q, shuffled block tables (inactive rows: trash block only)."""
+    import torch
+    from deepspeed_tpu_torch.ops import quant
+    N = B * nb + 1 if tables is None else int(np.max(tables)) + 1
+    if tables is None:
+        tables = rng.permutation(np.arange(1, N)).astype(np.int32)[
+            :B * nb].reshape(B, nb)
+        tables[np.asarray(pos) == 0] = 0
+    pool = {}
+    for name in ("k", "v"):
+        x = torch.from_numpy(rng.standard_normal((N, Hkv, bs, hd)).astype(
+            np.float32)).cuda()
+        pool[name], pool[name + "_scale"] = quant.quantize_reference(x, g)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    return (q, pool, torch.tensor(np.asarray(tables, np.int32), device="cuda"),
+            torch.tensor(pos, dtype=torch.int32, device="cuda"))
+
+
+def _quant_kernels(rng, checks):
+    """The int8 paged decode and the four quantize / dequantize kernels
+    against their plain versions on the card, then timed: the paged decode
+    at the quantized serve path's shape (8 slots, bs 512, hd 64, g 64),
+    quantize_int8 at its per-step shape (the K/V pool write, 8 slots x 12
+    heads of 64), dequantize_int8 and the int4 pair at wte [50304, 768]
+    (the LM head's table, dequantized every model step) — each with every
+    shape's times under `by_shape`."""
+    import torch
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import quant
+    results = {}
+    for shape, main in (
+            (dict(B=8, H=12, Hkv=12, hd=64, bs=512, nb=2, g=64,
+                  pos=[150, 0, 400, 640, 1000, 0, 260, 520]), True),
+            (dict(B=8, H=12, Hkv=12, hd=64, bs=512, nb=2, g=32,
+                  pos=[150, 0, 400, 640, 1000, 0, 260, 520]), False),
+            (dict(B=4, H=8, Hkv=4, hd=64, bs=128, nb=3, g=32,
+                  pos=[5, 200, 383, 0],
+                  tables=[[7, 2, 10], [1, 9, 4], [3, 5, 8], [0, 0, 0]]),
+             False),
+            (dict(B=6, H=16, Hkv=4, hd=128, bs=16, nb=40, g=32,
+                  pos=[0, 15, 16, 333, 639, 100]), False)):
+        q, pool, tables, pos = _quant_pool_case(rng, **shape)
+        args = (q, pool["k"], pool["v"], pool["k_scale"], pool["v_scale"],
+                tables, pos)
+        out = da.paged_decode_attention_quant(*args)
+        plain = da.paged_decode_attention_quant_reference
+        ref = plain(q, pool, tables, pos)
+        torch.cuda.synchronize()
+        name = "paged_decode_attention_quant"
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        steps = (diff / (QUANT_DECODE_REL * ref.float().abs()
+                         + QUANT_DECODE_ATOL)).max().item()
+        ok = bool(np.isfinite(err) and err <= TOL[name] and steps <= 1.0)
+        label = {k: v for k, v in shape.items() if k not in ("pos", "tables")}
+        checks.append({"kernel": name, "shape": label, "max_abs_err": err,
+                       "tol": TOL[name], "max_err_over_bf16_step": steps,
+                       "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} {label}: max abs err {err}, "
+                                 f"{steps} of a bf16 step")
+        if not main:
+            continue
+        B, H, hd = q.shape
+        Hkv, ng = pool["k"].shape[1], pool["k_scale"].shape[-1]
+        live = sum(p + 1 for p in shape["pos"])
+        nbytes = 2 * live * Hkv * (hd + 4 * ng) + 2 * B * H * hd * 2 \
+            + tables.numel() * 4
+        b_ms, b_by = bound(nbytes, 4 * live * H * hd, FP32_FLOPS)
+        results[name, "quant_serve"] = dict(
+            shape=label, max_abs_err=err,
+            ms=median_ms(lambda: da.paged_decode_attention_quant(*args)),
+            plain_ms=median_ms(lambda: plain(q, pool, tables, pos)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # quantize / dequantize: bit-exact, payload and scales
+    timed = {}
+    for (rows, D), g, dtype, label in (
+            ((96, 64), 64, torch.bfloat16, "kv_write"),
+            ((96, 64), 32, torch.float16, None),
+            ((50304, 768), 64, torch.bfloat16, "wte"),
+            ((768, 3072), 64, torch.bfloat16, "mlp_up_w"),
+            ((40, 14), 7, torch.float32, None)):    # a byte spans two groups
+        x = torch.from_numpy(rng.standard_normal((rows, D)).astype(
+            np.float32)).to("cuda", dtype)
+        for bits in (8, 4):
+            qk, sk = (quant.quantize_int8 if bits == 8
+                      else quant.quantize_int4)(x, g)
+            qr, sr = quant.quantize_reference(x, g, bits)
+            dk = (quant.dequantize_int8 if bits == 8
+                  else quant.dequantize_int4)(qr, sr, dtype, g)
+            dr = quant.dequantize_reference(qr, sr, dtype, g, bits)
+            torch.cuda.synchronize()
+            exact = bool(torch.equal(qk, qr) and torch.equal(sk, sr)
+                         and torch.equal(dk, dr))
+            checks.append({"kernel": f"quantize/dequantize_int{bits}",
+                           "shape": [rows, D], "group": g,
+                           "dtype": str(dtype), "bit_exact": exact,
+                           "ok": exact})
+            if not exact:
+                raise AssertionError(f"int{bits} [{rows}, {D}] g {g}: "
+                                     f"kernel != plain version")
+            if label is None:
+                continue
+            payload = rows * D * bits // 8
+            nbytes = rows * D * x.element_size() + payload + rows * D // g * 4
+            b_ms, b_by = bound(nbytes, 4 * rows * D, FP32_FLOPS)
+            for name, fn, plain in (
+                    (f"quantize_int{bits}",
+                     lambda: (quant.quantize_int8 if bits == 8
+                              else quant.quantize_int4)(x, g),
+                     lambda: quant.quantize_reference(x, g, bits)),
+                    (f"dequantize_int{bits}",
+                     lambda: (quant.dequantize_int8 if bits == 8
+                              else quant.dequantize_int4)(qr, sr, dtype, g),
+                     lambda: quant.dequantize_reference(qr, sr, dtype, g,
+                                                        bits))):
+                timed.setdefault(name, {})[label] = dict(
+                    shape=[rows, D], group=g, max_abs_err=0.0,
+                    ms=median_ms(fn), plain_ms=median_ms(plain),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # quantize_int8 runs on two paths: the K/V pool write of every model
+    # step, and the int8 weights' quantization when the serving engine is
+    # built; quantize_int4 only at the int4 engine's build
+    for name, path, label in (("quantize_int8", "quant_serve", "kv_write"),
+                              ("quantize_int8", "quant_serve_build", "wte"),
+                              ("dequantize_int8", "quant_serve", "wte"),
+                              ("quantize_int4", "quant_generate_build", "wte"),
+                              ("dequantize_int4", "quant_generate", "wte")):
+        results[name, path] = dict(timed[name][label],
+                                   by_shape=timed[name])
+    return results
+
+
 def _ragged_prompts(rng, lens, vocab):
     return [rng.integers(0, vocab, (n,)).astype(np.int32) for n in lens]
 
@@ -500,7 +702,8 @@ def phase_generate(state):
           "launches": counts, "logit_max_abs_err": errs,
           "logit_tol": LOGIT_TOL,
           "logit_ref_std": float(c_last.float().std())})
-    state.update(engine=engine, prompts=prompts, generate_s=dt, n_layer=L)
+    state.update(spec=spec, engine=engine, prompts=prompts, generate_s=dt,
+                 n_layer=L)
     return counts
 
 
@@ -554,6 +757,297 @@ def phase_serve(state):
           "requests_per_s": 16 / dt, "tokens_per_s": 16 * new / dt,
           "launches": counts, "token_agreement_with_generate": agree,
           "stats": serving.stats()})
+    return counts
+
+
+def _quantized_leaves(tree, prefix=""):
+    """{path: QuantizedTensor} of a weight-only quantized tree."""
+    from deepspeed_tpu_torch.inference.quantization import QuantizedTensor
+    if isinstance(tree, dict):
+        return {n: t for k in sorted(tree)
+                for n, t in _quantized_leaves(tree[k], f"{prefix}{k}/").items()}
+    return {prefix.rstrip("/"): tree} if isinstance(tree, QuantizedTensor) \
+        else {}
+
+
+def _same_quantized_bytes(card, cpu):
+    """Every quantized leaf of the card engine's tree equal, payload and
+    scales, to the CPU engine's quantization of the same weights."""
+    a, b = _quantized_leaves(card), _quantized_leaves(cpu)
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"quantized leaf sets differ: {sorted(a)} vs "
+                             f"{sorted(b)}")
+    bad = [n for n in a if not (torch_equal(a[n].q, b[n].q)
+                                and torch_equal(a[n].scale, b[n].scale))]
+    if bad:
+        raise AssertionError(f"card quantization differs from the CPU's: "
+                             f"{bad}")
+    return len(a)
+
+
+def torch_equal(x, y):
+    import torch
+    return bool(torch.equal(x.cpu(), y.cpu()))
+
+
+def _dequant_per_step(params, n_layer):
+    """dequantize launches of one model step over a quantized tree: each
+    quantized block leaf once per layer, wte / wpe rows in the embedding,
+    the LM-head table (wte when tied, else lm_head) once."""
+    leaves = _quantized_leaves(params)
+    block = sum(n.startswith("blocks/") for n in leaves)
+    embed = sum(n in leaves for n in ("wte", "wpe"))
+    head = int(("lm_head" if "lm_head" in params else "wte") in leaves)
+    return n_layer * block + embed + head
+
+
+def _cpu_twin(cfg, spec, config):
+    """The port on the CPU in fp32 from the card engine's bf16-rounded
+    weights, with the same config."""
+    import dataclasses
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.gpt import make_gpt_decode_model
+    from deepspeed_tpu_torch.utils.tree import tree_cast
+    params = tree_cast(tree_cast(spec.params, torch.bfloat16), torch.float32)
+    cpu_spec = make_gpt_decode_model(
+        dataclasses.replace(cfg, dtype=torch.float32), name=spec.name,
+        params=params)
+    return init_inference(cpu_spec, config={
+        **config, "dtype": "float32", "kv_cache_dtype": "float32"},
+        device="cpu")
+
+
+def _paged_logits(serving, prompt, token=None):
+    """The serving engine's prefill over blocks 1..nb of its (drained)
+    pool, chunk by chunk as its scheduler runs it, then one decode step
+    over that pool: (logits at the prompt's last token, the decode step's
+    logits, the token decoded). The step decodes `token`, or the prefill's
+    argmax when it is None."""
+    import torch
+    spec, dev = serving.engine.model_spec, serving.engine.device
+    table = torch.arange(1, serving.nb + 1, dtype=torch.int32,
+                         device=dev)[None]
+    n = len(prompt)
+    with torch.inference_mode():
+        for start in range(0, n, serving.chunk):
+            chunk = np.zeros((1, serving.chunk), np.int64)
+            seg = prompt[start:start + serving.chunk]
+            chunk[0, :len(seg)] = seg
+            final = start + serving.chunk >= n
+            last = n - 1 - start if final else serving.chunk - 1
+            logits, serving.pool = spec.prefill_paged_fn(
+                serving.engine.params, torch.as_tensor(chunk, device=dev),
+                torch.tensor([start], device=dev),
+                torch.tensor([last], device=dev), serving.pool, table)
+        if token is None:
+            token = int(logits[0].argmax())
+        dec, serving.pool = spec.decode_paged_fn(
+            serving.engine.params,
+            torch.tensor([token], dtype=torch.int32, device=dev),
+            torch.tensor([n], device=dev), serving.pool, table)
+    return logits[0].float().cpu(), dec[0].float().cpu(), token
+
+
+def phase_quant(state):
+    """Quantized serving on gpt2-125m at full width and depth, bf16: (a)
+    the int8 KV pool with int8 weights through ServingEngine, (b) int4
+    weights through generate(). Four paths, each with its launches counted
+    from 0 just before it and read just after: each engine's build (where
+    the weights are quantized) and each timed run."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    from deepspeed_tpu_torch.models.gpt import (GPT2_CONFIGS,
+                                                make_gpt_decode_model)
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    cfg = GPT2_CONFIGS["gpt2-125m"]
+    L = cfg.n_layer
+    spec = state.get("spec") or make_gpt_decode_model(cfg, name="gpt2-125m",
+                                                      seed=0)
+    base = {"dtype": "bfloat16", "kv_cache_dtype": "bfloat16",
+            "greedy": True}
+    quantization = {"kv_cache_dtype": "int8", "weights": "int8"}
+    out = {"phase": "quant", "model": "gpt2-125m", "dtype": "bfloat16"}
+    counts = {}
+
+    def expect(path, want):
+        if counts[path] != want:
+            raise AssertionError(f"{path} launches {counts[path]} != {want}")
+
+    # --- (a) int8 KV pool + int8 weights through the serving engine
+    rng = np.random.default_rng(2)          # the serve phase's trace
+    lens = rng.integers(100, 601, 16).tolist()
+    prompts = _ragged_prompts(rng, lens, cfg.vocab_size)
+    new = 32
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    engine = init_inference(spec, config=base)
+    serving = engine.serving(max_slots=8, max_context=1024,
+                             quantization=quantization)
+    torch.cuda.synchronize()
+    counts["quant_serve_build"] = dict(LAUNCHES)
+    peak_build = torch.cuda.max_memory_allocated()
+    n_q = serving.weight_quant_stats["quantized"]
+    expect("quant_serve_build", {"quantize_int8": n_q})
+    serving.run([Request(uid="warm", tokens=prompts[0], max_new_tokens=2,
+                         stop_on_eos=False)])
+    reqs = [Request(uid=i, tokens=p, max_new_tokens=new, stop_on_eos=False)
+            for i, p in enumerate(prompts)]
+    st0 = serving.stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = serving.run(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts["quant_serve"] = dict(LAUNCHES)
+    peak_run = torch.cuda.max_memory_allocated()
+    if sorted(res) != list(range(16)) or any(
+            len(r.tokens) != new or r.finish_reason != "length"
+            for r in res.values()):
+        raise AssertionError("quant serve: not every request completed")
+    if serving.allocator.num_free != serving.allocator.capacity:
+        raise AssertionError("quant serve: blocks leaked after draining")
+    # this run's model steps: prefill chunks, and decode calls of `window`
+    # model steps each
+    st = serving.stats()
+    prefills = st["prefill_chunks"] - st0["prefill_chunks"]
+    decodes = (st["decode_steps"] - st0["decode_steps"]) * serving.window
+    per_step = _dequant_per_step(engine.params, L)
+    want = {"paged_decode_attention_quant": L * decodes,
+            "quantize_int8": 2 * L * (prefills + decodes),
+            "dequantize_int8": per_step * (prefills + decodes)
+            + 2 * L * prefills}
+    if prefills <= 0 or decodes <= 0:
+        raise AssertionError(f"quant serve ran {prefills} prefill chunks "
+                             f"and {decodes} decode steps")
+    expect("quant_serve", want)
+    ref = engine.generate(prompts, max_new_tokens=new, stop_on_eos=False)
+    agree = float(np.mean([res[i].tokens == ref[i] for i in range(16)]))
+    if not agree >= QUANT_SERVE_AGREE_MIN:
+        raise AssertionError(f"quant serve tokens agree with generate() on "
+                             f"{agree:.3f} < {QUANT_SERVE_AGREE_MIN}")
+    # the CPU twin: same bf16-rounded weights, quantized to the same bytes;
+    # prefill logits of one single-chunk and one two-chunk prompt, then the
+    # first decode step over each engine's int8 pool (the card's through
+    # the int8 paged-decode kernel) on the token the card chose
+    cpu = _cpu_twin(cfg, spec, base)
+    cpu_serving = cpu.serving(max_slots=1, max_context=1024,
+                              quantization=quantization)
+    n_same = _same_quantized_bytes(engine.params, cpu.params)
+    errs, ref_std = {"prefill": [], "decode": []}, []
+    for prompt in _ragged_prompts(np.random.default_rng(5), [300, 600],
+                                  cfg.vocab_size):
+        a_pre, a_dec, tok = _paged_logits(serving, prompt)
+        b_pre, b_dec, _ = _paged_logits(cpu_serving, prompt, tok)
+        for name, a, b in (("prefill", a_pre, b_pre),
+                           ("decode", a_dec, b_dec)):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"quant serve {name} logits not finite")
+            errs[name].append((a - b).abs().max().item())
+        ref_std.append(b_pre.std().item())
+    if max(max(e) for e in errs.values()) > QUANT_LOGIT_TOL:
+        raise AssertionError(f"quant serve logits err {errs} > "
+                             f"{QUANT_LOGIT_TOL}")
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in serving.pool.values())
+    bf16_pool_bytes = 2 * serving.pool["k"].numel() * 2
+    out["serve"] = {
+        "quantization": quantization, "requests": 16, "slots": 8,
+        "max_context": 1024, "prompt_lens": lens, "max_new_tokens": new,
+        "seconds": dt, "requests_per_s": 16 / dt,
+        "tokens_per_s": 16 * new / dt, "launches": counts["quant_serve"],
+        "launches_expected": want,
+        "launch_basis": {"prefill_chunks": prefills,
+                         "decode_model_steps": decodes,
+                         "dequantize_per_model_step": per_step},
+        "build_launches": counts["quant_serve_build"],
+        "token_agreement_with_generate": agree,
+        "agree_min": QUANT_SERVE_AGREE_MIN,
+        "quant_stats": serving.weight_quant_stats,
+        "quantized_leaves_equal_to_cpu": n_same,
+        "logit_max_abs_err": errs, "logit_tol": QUANT_LOGIT_TOL,
+        "logit_ref_std": ref_std,
+        "pool_bytes_int8": pool_bytes,
+        "pool_bytes_bf16_same_blocks": bf16_pool_bytes,
+        "pool_ratio": bf16_pool_bytes / pool_bytes,
+        "allocated_before_bytes": mem0, "peak_build_bytes": peak_build,
+        "peak_run_bytes": peak_run, "stats": st}
+    state.update(quant_serving=serving, quant_prompts=prompts, quant_s=dt)
+    del cpu, cpu_serving
+
+    # --- (b) int4 weights through generate()
+    qconf = {**base, "quant": {"enabled": True, "bits": 4, "group_size": 64}}
+    lens4 = [100, 250, 431, 600]              # the generate phase's prompts
+    prompts4 = _ragged_prompts(np.random.default_rng(1), lens4,
+                               cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    LAUNCHES.clear()
+    eng4 = init_inference(spec, config=qconf)
+    torch.cuda.synchronize()
+    counts["quant_generate_build"] = dict(LAUNCHES)
+    peak4_build = torch.cuda.max_memory_allocated()
+    n_q4 = eng4.quant_stats["quantized"]
+    expect("quant_generate_build", {"quantize_int4": n_q4})
+    eng4.generate(prompts4, max_new_tokens=2, stop_on_eos=False)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out4 = eng4.generate(prompts4, max_new_tokens=new, stop_on_eos=False)
+    torch.cuda.synchronize()
+    dt4 = time.perf_counter() - t0
+    counts["quant_generate"] = dict(LAUNCHES)
+    peak4_run = torch.cuda.max_memory_allocated()
+    # one prefill and new - 1 decode steps, each a model step
+    want4 = {"flash_attention": L, "decode_attention": L * (new - 1),
+             "dequantize_int4": _dequant_per_step(eng4.params, L) * new}
+    expect("quant_generate", want4)
+    if out4.shape != (4, new) or out4.min() < 0 \
+            or out4.max() >= cfg.vocab_size:
+        raise AssertionError(f"int4 generate output {out4.shape} out of "
+                             f"range")
+    cpu4 = _cpu_twin(cfg, spec, qconf)
+    n_same4 = _same_quantized_bytes(eng4.params, cpu4.params)
+    padded, plens = eng4._pad_ragged(prompts4)
+    errs4 = {}
+    with torch.inference_mode():
+        logits, cache = eng4.forward(padded)
+        last = logits[torch.arange(4, device="cuda"),
+                      torch.as_tensor(plens, device="cuda").long() - 1]
+        tok = last.argmax(-1).to(torch.int32)
+        pos = torch.as_tensor(plens, device="cuda").long()
+        dec, _ = eng4.model_spec.decode_fn(eng4.params, tok, pos, cache)
+        c_logits, c_cache = cpu4.forward(padded)
+        c_last = c_logits[torch.arange(4), torch.as_tensor(plens).long() - 1]
+        c_dec, _ = cpu4.model_spec.decode_fn(cpu4.params, tok.cpu(),
+                                             pos.cpu(), c_cache)
+    for name, a, b in (("prefill", last, c_last), ("decode", dec, c_dec)):
+        a = a.float().cpu()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"int4 {name} logits not finite")
+        errs4[name] = (a - b).abs().max().item()
+    if max(errs4.values()) > QUANT_LOGIT_TOL:
+        raise AssertionError(f"int4 generate logits err {errs4} > "
+                             f"{QUANT_LOGIT_TOL}")
+    out["generate_int4"] = {
+        "batch": 4, "prompt_lens": lens4, "max_new_tokens": new,
+        "seconds": dt4, "tokens_per_s": 4 * new / dt4,
+        "launches": counts["quant_generate"], "launches_expected": want4,
+        "build_launches": counts["quant_generate_build"],
+        "quant_stats": eng4.quant_stats,
+        "quantized_leaves_equal_to_cpu": n_same4,
+        "logit_max_abs_err": errs4, "logit_tol": QUANT_LOGIT_TOL,
+        "logit_ref_std": float(c_last.float().std()),
+        "allocated_before_bytes": mem0, "peak_build_bytes": peak4_build,
+        "peak_run_bytes": peak4_run}
+    emit(out)
     return counts
 
 
@@ -668,7 +1162,7 @@ def _leaf_names(tree, prefix=""):
 def _device_breakdown(prof, wall_s):
     """Kernel time on the card by class, from a torch.profiler run, against
     the unprofiled wall time of the same work."""
-    classes = {"attention (ours)": 0.0, "matmul": 0.0,
+    classes = {"attention (ours)": 0.0, "quant (ours)": 0.0, "matmul": 0.0,
                "optimizer (foreach)": 0.0, "other": 0.0}
     top = []
     for ev in prof.key_averages():
@@ -681,6 +1175,8 @@ def _device_breakdown(prof, wall_s):
         if any(k in name for k in ("decode_attn_kernel", "flash_fwd_kernel",
                                    "flash_bwd_")):
             cls = "attention (ours)"
+        elif "quantize_kernel" in name:
+            cls = "quant (ours)"
         elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass",
                                               "nvjet")):
             cls = "matmul"
@@ -701,9 +1197,10 @@ def _device_breakdown(prof, wall_s):
 
 def phase_profile(state):
     """torch.profiler over one generate() call and one serving run at the
-    generate/serve phases' shapes, and over one train_batch at the train
-    phase's, for the phases that ran (opt-in: `python chip_smoke.py
-    build,generate,serve,train,profile`)."""
+    generate/serve phases' shapes, one quantized serving run at the quant
+    phase's, and one train_batch at the train phase's, for the phases
+    that ran (opt-in: `python chip_smoke.py
+    build,generate,serve,quant,train,profile`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch.inference.scheduler import Request
@@ -724,6 +1221,14 @@ def phase_profile(state):
                          for i, p in enumerate(state["serve_prompts"])])
             torch.cuda.synchronize()
         out["serve"] = _device_breakdown(prof, state["serve_s"])
+    if "quant_serving" in state:
+        with profile(activities=acts) as prof:
+            state["quant_serving"].run(
+                [Request(uid=i, tokens=p, max_new_tokens=32,
+                         stop_on_eos=False)
+                 for i, p in enumerate(state["quant_prompts"])])
+            torch.cuda.synchronize()
+        out["quant_serve"] = _device_breakdown(prof, state["quant_s"])
     if "train_engine" in state:
         with profile(activities=acts) as prof:
             float(state["train_engine"].train_batch(state["train_batch"]))
@@ -748,17 +1253,19 @@ def main():
               file=sys.stderr)
         return 2
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else \
-        ["build", "kernels", "generate", "serve", "train"]
+        ["build", "kernels", "generate", "serve", "quant", "train"]
     dev = phase_device()
     state, launches, kern = {}, {}, {}
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
         kern = phase_kernels()
-    for path, run in (("generate", phase_generate), ("serve", phase_serve),
-                      ("train", phase_train)):
-        if path in phases:
-            launches[path] = run(state)      # counts of this path's run
+    for phase, run in (("generate", phase_generate), ("serve", phase_serve),
+                       ("quant", phase_quant), ("train", phase_train)):
+        if phase in phases:
+            counts = run(state)        # counts of each path's run; the
+            # quant phase runs four paths and returns {path: counts}
+            launches.update(counts if phase == "quant" else {phase: counts})
     if "profile" in phases:
         phase_profile(state)
     print(dev["nvidia_smi"], flush=True)

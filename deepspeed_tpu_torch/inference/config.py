@@ -21,13 +21,10 @@ def _as_block(value, cls):
 
 @dataclass
 class QuantConfig(ConfigModel):
+    """Weight-only quantization at engine build (`enable_weight_quant`)."""
     enabled: bool = False
     bits: int = 8
     group_size: int = 64
-
-    def __post_init__(self):
-        if self.enabled:
-            _not_ported("quant.enabled (weight-only quantization)")
 
 
 @dataclass
@@ -55,15 +52,12 @@ class SpecDecodeConfig(ConfigModel):
 
 @dataclass
 class ServingQuantizationConfig(ConfigModel):
-    kv_cache_dtype: str = ""      # "" = inherit the engine's kv_cache_dtype
-    kv_group_size: int = 0
+    """Quantized serving (validated by the serving engine when it builds)."""
+    kv_cache_dtype: str = ""      # "" = inherit the engine's kv_cache_dtype;
+                                  # "int8" = the quantized paged pool
+    kv_group_size: int = 0        # int8 pool scale group; 0 = head_dim
     weights: str = "off"          # "off" | "int8" | "int4"
     weight_group_size: int = 64
-
-    def __post_init__(self):
-        if self.kv_cache_dtype or str(self.weights or "off") != "off":
-            _not_ported("serving.quantization (int8 KV pool / weight-only "
-                        "quantization)")
 
 
 @dataclass
@@ -118,7 +112,8 @@ class TpuInferenceConfig(ConfigModel):
     top_p: float = 1.0
     greedy: bool = True
     eos_token_id: Optional[int] = None
-    # kv cache: the port keeps K/V in the engine dtype (see InferenceEngine)
+    # kv cache: the port keeps K/V in the engine dtype, or "int8" for the
+    # serving pool (see InferenceEngine)
     kv_cache_dtype: str = "bfloat16"
     # contiguous caches round up to whole kv_block_size blocks, and the
     # paged pool's physical block is this size. 512 is the JAX package's

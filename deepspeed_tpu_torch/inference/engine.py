@@ -10,6 +10,11 @@ plus, for the continuous-batching server, the paged contract
 
 The engine runs on `cuda` unless the caller passes `device="cpu"`; with no
 GPU and no `device="cpu"` it raises — it never drops to the CPU quietly.
+
+Weight-only quantization (`config.quant`, or the serving engine's
+`quantization.weights`) replaces the resident params with a quantized tree
+(`enable_weight_quant`); the model functions dequantize it on use, so
+generate() and the serving engine both run on the quantized weights.
 """
 
 import dataclasses
@@ -22,7 +27,7 @@ import torch
 from deepspeed_tpu_torch.inference.config import TpuInferenceConfig
 from deepspeed_tpu_torch.models.gpt import as_dtype
 from deepspeed_tpu_torch.utils.logging import log_dist
-from deepspeed_tpu_torch.utils.tree import tree_cast, tree_map
+from deepspeed_tpu_torch.utils.tree import tree_map
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,7 +88,10 @@ class DecodeModelSpec:
     #                    pool, block_tables[B,nb]) -> (logits[B,V], pool)
     #   decode_paged_fn(params, token[B], pos[B], pool, block_tables[B,nb])
     #       -> (logits[B,V], pool)
-    #   init_paged_pool(num_blocks, block_size, dtype, device) -> pool
+    #   init_paged_pool(num_blocks, block_size, dtype, kv_group_size=0,
+    #                   device=...) -> pool; dtype int8 selects the
+    #       quantized pool (k/v int8 plus k_scale/v_scale f32
+    #       [L, N, Hkv, block, hd // g], g = kv_group_size or head_dim)
     prefill_paged_fn: Optional[Callable] = None
     decode_paged_fn: Optional[Callable] = None
     init_paged_pool: Optional[Callable] = None
@@ -98,17 +106,29 @@ class InferenceEngine:
         self.config = config
         self.device = resolve_device(device)
         self.dtype = as_dtype(config.dtype)
-        kv_dtype = as_dtype(config.kv_cache_dtype)
-        if kv_dtype != self.dtype:
+        # "int8" selects the quantized paged pool for every serving engine
+        # built from this one (generate()'s contiguous cache refuses it)
+        if str(config.kv_cache_dtype) != "int8" \
+                and as_dtype(config.kv_cache_dtype) != self.dtype:
             raise NotImplementedError(
                 f"kv_cache_dtype {config.kv_cache_dtype} != dtype "
-                f"{config.dtype}: the port keeps K/V in the compute dtype")
+                f"{config.dtype}: the port keeps K/V in the compute dtype "
+                f"(or int8 in the serving pool)")
         if model.dtype is not None and as_dtype(model.dtype) != self.dtype:
             raise ValueError(
                 f"model '{model.name}' computes in {model.dtype} but the "
                 f"engine dtype is {config.dtype}: make them match")
-        self.params = tree_cast(
-            tree_map(lambda t: t.to(self.device), model.params), self.dtype)
+        # leaf by leaf, cast as it moves: the card never holds the fp32
+        # tree beside its cast copy
+        self.params = tree_map(
+            lambda t: t.to(self.device, self.dtype)
+            if isinstance(t, torch.Tensor) and t.is_floating_point()
+            else t.to(self.device), model.params)
+        self.quant_stats = None
+        self._weight_quant = None         # (bits, group_size) once quantized
+        if config.quant.enabled:
+            self.enable_weight_quant(bits=config.quant.bits,
+                                     group_size=config.quant.group_size)
         # engine-owned KV cache: forward()/generate() reuse it when
         # (B, max_len) matches the previous call. ONE entry only, so peak
         # memory never holds two caches. The cache is updated in place;
@@ -117,8 +137,32 @@ class InferenceEngine:
         # step writes pos before attending over 0..pos).
         self._cache_entry = None          # ((B, max_len), cache)
         self._cache_hits = 0
+        quant = f"int{self._weight_quant[0]}" if self._weight_quant else "off"
         log_dist(f"inference engine: {model.name} dtype={self.dtype} "
-                 f"device={self.device}", ranks=[0])
+                 f"device={self.device} quant={quant}", ranks=[0])
+
+    def enable_weight_quant(self, bits=8, group_size=64):
+        """Weight-only quantization of the resident params: every large
+        float matrix leaf becomes int8 (or int4 packed two a byte) with
+        per-group scales, and the dense tree is dropped. Called at build
+        for `config.quant.enabled` and by the serving engine for
+        `quantization.weights`: a no-op for matching settings, a ValueError
+        for conflicting ones (quantizing quantized leaves again would
+        compound the error). Returns the quantization stats."""
+        if self._weight_quant is not None:
+            if self._weight_quant == (int(bits), int(group_size)):
+                return self.quant_stats
+            raise ValueError(
+                f"params already quantized as int{self._weight_quant[0]} "
+                f"(group {self._weight_quant[1]}) — cannot re-quantize as "
+                f"int{bits} (group {group_size}); pick one of config.quant "
+                f"and serving.quantization.weights, or make them agree")
+        from deepspeed_tpu_torch.inference.quantization import \
+            quantize_param_tree
+        self.params, self.quant_stats = quantize_param_tree(
+            self.params, bits=int(bits), group_size=int(group_size))
+        self._weight_quant = (int(bits), int(group_size))
+        return self.quant_stats
 
     def _cache_len(self, min_len):
         """Round the contiguous cache up to whole kv_block_size blocks."""
@@ -126,6 +170,12 @@ class InferenceEngine:
         return -(-min_len // bs) * bs if bs else min_len
 
     def _get_cache(self, batch, max_len):
+        if str(self.config.kv_cache_dtype) == "int8":
+            raise ValueError(
+                "kv_cache_dtype='int8' is a paged-pool serving feature "
+                "(engine.serving()): the contiguous generate() cache has no "
+                "scale storage — serve through the continuous-batching "
+                "scheduler, or keep kv_cache_dtype float for generate()")
         key = (int(batch), int(max_len))
         if self._cache_entry is not None and self._cache_entry[0] == key:
             self._cache_hits += 1

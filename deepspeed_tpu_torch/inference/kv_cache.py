@@ -123,3 +123,16 @@ def gather_block_kv(pool_k_l, pool_v_l, block_tables):
     v = pool_v_l[idx].transpose(1, 2).reshape(B, Hkv, nb * bm, hd)
     return k, v
 
+
+def gather_block_kv_dequant(pool_l, block_tables, dtype):
+    """The dequantizing gather over one layer of the INT8 pool — the
+    chunked-prefill path's read (and single-token decode's on the CPU).
+    pool_l: {"k", "v"} int8 [N, Hkv, block, hd] and {"k_scale", "v_scale"}
+    f32 [N, Hkv, block, hd // g]. Gathers payload and scales through the
+    table like `gather_block_kv`, then `dequantize_kv` (int8 x scale in
+    fp32, narrowed to `dtype` last: the `dequantize_int8` kernel on CUDA)."""
+    from deepspeed_tpu_torch.inference.quantization import dequantize_kv
+    k, v = gather_block_kv(pool_l["k"], pool_l["v"], block_tables)
+    ks, vs = gather_block_kv(pool_l["k_scale"], pool_l["v_scale"],
+                             block_tables)
+    return dequantize_kv(k, ks, dtype), dequantize_kv(v, vs, dtype)

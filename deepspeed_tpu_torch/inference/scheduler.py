@@ -18,6 +18,11 @@ into free slots (all-or-nothing block allocation, FIFO — a too-big request
 waits instead of half-occupying the pool), retire a sequence the step it
 emits EOS and free its blocks the same step.
 
+Quantized serving (`quantization={...}`): weight-only int8/int4 applies to
+the engine's resident params (`InferenceEngine.enable_weight_quant`), and
+`kv_cache_dtype="int8"` builds the int8 pool, whose K/V quantize at cache
+write and dequantize inside the paged decode kernel.
+
 Prefix caching, speculative decoding, disaggregated handoff, auditing,
 degradation, telemetry and tracing are later slices of the port.
 """
@@ -33,6 +38,7 @@ from deepspeed_tpu_torch.inference.kv_cache import (BlockAllocator,
                                                     TRASH_BLOCK,
                                                     blocks_needed,
                                                     max_written_pos)
+from deepspeed_tpu_torch.models.gpt import as_dtype
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 
@@ -110,6 +116,43 @@ class ServingEngine:
         scfg = dataclasses.replace(engine.config.serving, **overrides)
         self.serving_config = scfg
 
+        # quantized serving. Weight-only quantization runs first: it
+        # replaces the engine's resident params, which every step reads
+        qcfg = scfg.quantization
+        weights = str(qcfg.weights or "off")
+        if weights not in ("off", "int8", "int4"):
+            raise ValueError(
+                f"unknown serving.quantization.weights {weights!r} "
+                f"(expected 'off', 'int8' or 'int4')")
+        self.weight_quant = weights
+        self.weight_quant_stats = None
+        if weights != "off":
+            self.weight_quant_stats = engine.enable_weight_quant(
+                bits=8 if weights == "int8" else 4,
+                group_size=int(qcfg.weight_group_size))
+        # the pool's dtype: the quantization block wins, else the engine's
+        # kv_cache_dtype. int8 is the one integer layout (payload + scales,
+        # quantized writes): any other integer dtype would truncate float
+        # K/V through the fp write's cast, so it is refused
+        kvd = str(qcfg.kv_cache_dtype or "") or str(engine.config.kv_cache_dtype)
+        kvd = type(engine.config)._LEGACY_DTYPES.get(kvd, kvd)
+        if kvd != "int8":
+            try:
+                kv_dtype = as_dtype(kvd)
+            except ValueError:
+                raise ValueError(
+                    f"unsupported KV-cache dtype {kvd!r}: expected a float "
+                    f"dtype or 'int8' (the quantized paged pool — "
+                    f"serving.quantization.kv_cache_dtype)") from None
+            if kv_dtype != engine.dtype:
+                raise NotImplementedError(
+                    f"KV-cache dtype {kvd} != the engine dtype "
+                    f"{engine.dtype}: the port keeps K/V in the compute "
+                    f"dtype (or int8)")
+        self.kv_cache_dtype = kvd
+        self.kv_quant = kvd == "int8"
+        self.kv_group_size = int(qcfg.kv_group_size or 0)
+
         bs = int(self.config.kv_block_size or 0)
         if bs <= 0:
             raise ValueError("serving needs kv_block_size > 0 (the paged "
@@ -128,8 +171,32 @@ class ServingEngine:
         self.window = max(1, int(scfg.decode_steps_per_sync))
         num_blocks = int(scfg.num_kv_blocks or (self.max_slots * self.nb + 1))
 
-        self.pool = spec.init_paged_pool(num_blocks, bs, engine.dtype,
-                                         engine.device)
+        if self.kv_quant:
+            # the quantized-pool contract: the 4-argument form, and a pool
+            # that carries k_scale / v_scale
+            try:
+                pool = spec.init_paged_pool(num_blocks, bs, torch.int8,
+                                            self.kv_group_size,
+                                            device=engine.device)
+            except TypeError as e:
+                raise ValueError(
+                    f"model spec '{spec.name}' init_paged_pool does not "
+                    f"accept the quantized form (num_blocks, block_size, "
+                    f"dtype, kv_group_size, device=...) — it does not "
+                    f"implement the quantized-pool contract "
+                    f"(init_paged_kv_pool in models/gpt.py is the "
+                    f"reference): {e}") from e
+            if not (isinstance(pool, dict) and "k_scale" in pool
+                    and "v_scale" in pool):
+                raise ValueError(
+                    f"model spec '{spec.name}' init_paged_pool returned no "
+                    f"k_scale/v_scale leaves for dtype int8 — it does not "
+                    f"implement the quantized-pool contract "
+                    f"(init_paged_kv_pool in models/gpt.py is the reference)")
+        else:
+            pool = spec.init_paged_pool(num_blocks, bs, engine.dtype,
+                                        device=engine.device)
+        self.pool = pool
         self.allocator = BlockAllocator(num_blocks)
         self.tables = np.full((self.max_slots, self.nb), TRASH_BLOCK, np.int32)
         self.slots = [_Slot(i) for i in range(self.max_slots)]
@@ -147,7 +214,8 @@ class ServingEngine:
         pool_mb = sum(t.numel() * t.element_size()
                       for t in self.pool.values()) / 2**20
         log_dist(f"serving engine: {spec.name} slots={self.max_slots} "
-                 f"blocks={num_blocks}x{bs} ({pool_mb:.0f} MB pool) "
+                 f"blocks={num_blocks}x{bs} ({pool_mb:.0f} MB pool, "
+                 f"kv={self.kv_cache_dtype}, weights={self.weight_quant}) "
                  f"table_width={self.nb} prefill_chunk={self.chunk}",
                  ranks=[0])
 
@@ -374,10 +442,21 @@ class ServingEngine:
         return out
 
     def stats(self) -> Dict[str, Any]:
-        return {"steps": self.steps, "decode_steps": self.decode_steps,
-                "prefill_chunks": self.prefill_chunks,
-                "tokens_generated": self.tokens_generated,
-                "peak_active": self.peak_active,
-                "cancelled": self.cancelled,
-                "queued": len(self.queue), "active": self.num_active,
-                "free_blocks": self.allocator.num_free}
+        out = {"steps": self.steps, "decode_steps": self.decode_steps,
+               "prefill_chunks": self.prefill_chunks,
+               "tokens_generated": self.tokens_generated,
+               "peak_active": self.peak_active,
+               "cancelled": self.cancelled,
+               "queued": len(self.queue), "active": self.num_active,
+               "free_blocks": self.allocator.num_free}
+        if self.kv_quant or self.weight_quant != "off":
+            q = {"kv_cache_dtype": self.kv_cache_dtype,
+                 "weights": self.weight_quant}
+            if self.kv_quant:
+                g = self.pool["k_scale"].shape[-1]
+                q["kv_group_size"] = int(self.pool["k"].shape[-1] // g)
+            if self.weight_quant_stats is not None:
+                # bytes before / after (payload + scales) over the whole tree
+                q["weight_quant"] = dict(self.weight_quant_stats)
+            out["quantization"] = q
+        return out

@@ -16,6 +16,13 @@ initialisation across leaf by leaf. A Python loop over layers takes the
 place of `lax.scan`. KV caches and pools are updated IN PLACE (the JAX
 functions return new ones); every function still returns the cache/pool it
 was given, so the call shapes match the reference.
+
+Serving takes weight-only quantized trees (`inference/quantization.py`):
+a `QuantizedTensor` leaf dequantizes where it is used — one layer's leaves
+in `_layer`, the gathered rows in `_embed`, the table in `_head_logits` —
+so the dense tree never exists whole. The paged pool may be int8
+(`init_paged_kv_pool(dtype=torch.int8)`): K/V quantize as they are written
+and dequantize as they are read.
 """
 
 import dataclasses
@@ -28,9 +35,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from deepspeed_tpu_torch.inference.quantization import (QuantizedTensor,
+                                                        dense, quantize_kv)
 from deepspeed_tpu_torch.ops import attention_dispatch as attn_dispatch
 from deepspeed_tpu_torch.ops.decode_attention import (
-    decode_attention, decode_attention_reference, paged_decode_attention)
+    decode_attention, decode_attention_reference, paged_decode_attention,
+    paged_decode_attention_quant)
 from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_attention_reference)
 
@@ -213,9 +223,18 @@ def params_from_jax(tree):
     """A JAX `init_gpt_params` / `make_gpt_decode_model(...).params` tree,
     already converted to numpy (`jax.tree_util.tree_map(np.asarray, ...)`),
     as the port's parameter tree: same names, shapes and dtypes, leaf by
-    leaf. bfloat16 leaves (ml_dtypes) move bit for bit."""
+    leaf. bfloat16 leaves (ml_dtypes) move bit for bit. A weight-only
+    quantized leaf (the JAX `QuantizedTensor`: numpy `q` / `scale` plus
+    bits, group_size, shape and dtype) becomes the port's QuantizedTensor
+    with the same payload and scale bytes."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v) for k, v in tree.items()}
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        return QuantizedTensor(
+            q=params_from_jax(tree.q), scale=params_from_jax(tree.scale),
+            bits=int(tree.bits), group_size=int(tree.group_size),
+            shape=tuple(int(n) for n in tree.shape),
+            dtype=as_dtype(tree.dtype))
     a = np.asarray(tree)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -270,10 +289,11 @@ def _rotary_dims(cfg):
 
 
 def _embed(params, tokens, positions, cfg: GPTConfig):
-    """Token embedding + learned position embedding + BLOOM emb LayerNorm."""
-    x = params["wte"][tokens].to(cfg.dtype)
+    """Token embedding + learned position embedding + BLOOM emb LayerNorm.
+    A quantized table dequantizes only the gathered rows."""
+    x = dense(params["wte"][tokens]).to(cfg.dtype)
     if not cfg.use_rotary:
-        x = x + params["wpe"][positions].to(cfg.dtype)
+        x = x + dense(params["wpe"][positions]).to(cfg.dtype)
     if cfg.use_emb_ln:
         x = _norm(x, params["emb_ln_scale"], params["emb_ln_bias"],
                   use_rms=False, eps=cfg.norm_eps)
@@ -298,7 +318,7 @@ def _residual_mlp(x, attn_out, p, cfg: GPTConfig):
 def _head_logits(params, x, cfg: GPTConfig):
     """LM-head matmul (+ GPT-J's tied bias). x: [B, T, D] -> [B, T, V]."""
     table = params["wte"] if cfg.tie_embeddings else params["lm_head"]
-    return F.linear(x, table.to(x.dtype), params.get("lm_head_bias"))
+    return F.linear(x, dense(table).to(x.dtype), params.get("lm_head_bias"))
 
 
 def _lm_head(params, x, cfg: GPTConfig):
@@ -312,10 +332,10 @@ def _sm_scale(cfg):
     return None if cfg.scale_attn else 1.0
 
 
-def _site(cfg, phase, q, C, M):
+def _site(cfg, phase, q, C, M, kv_dtype=None):
     return attn_dispatch.AttnSite(
         phase=phase, q_len=C, kv_len=M, head_dim=cfg.head_dim,
-        kv_dtype=dtype_name(q.dtype), on_cuda=q.is_cuda,
+        kv_dtype=kv_dtype or dtype_name(q.dtype), on_cuda=q.is_cuda,
         force_flash=cfg.use_flash_attention)
 
 
@@ -367,7 +387,9 @@ def _attn_half(x, p, cfg: GPTConfig, positions):
 
 
 def _layer(params, i):
-    return {k: v[i] for k, v in params["blocks"].items()}
+    """Layer i's block leaves, dense: quantized leaves dequantize here, one
+    layer at a time."""
+    return {k: dense(v[i]) for k, v in params["blocks"].items()}
 
 
 # ----------------------------------------------------------------------
@@ -517,15 +539,34 @@ def _block_decode(x, p, cache_k, cache_v, pos, cfg: GPTConfig):
 
 
 def init_paged_kv_pool(cfg: GPTConfig, num_blocks, block_size,
-                       dtype=torch.bfloat16, device="cpu"):
+                       dtype=torch.bfloat16, kv_group_size=0, device="cpu"):
     """[L, num_blocks, Hkv, block, hd] physical-block pool, allocated once at
     serving-engine init. Block 0 is the trash block (inference/kv_cache.py).
-    Only the floating-point pool is ported (the int8 pool is not)."""
-    dtype = as_dtype(dtype)
+
+    `dtype=torch.int8` selects the QUANTIZED pool: the k/v payload is
+    symmetric per-group int8 and the pool grows `k_scale` / `v_scale` f32
+    leaves [L, N, Hkv, block, hd // g] (g = `kv_group_size`, 0 = head_dim).
+    Scales share the block axis with the payload. Zero init is safe: a
+    trash-block read dequantizes to exact zeros."""
+    int8 = dtype in (torch.int8, "int8")
+    dtype = torch.int8 if int8 else as_dtype(dtype)
     shape = (cfg.n_layer, num_blocks, cfg.n_kv_head, block_size,
              cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+    pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if int8:
+        g = int(kv_group_size) or cfg.head_dim
+        if g < 1 or cfg.head_dim % g:
+            raise ValueError(
+                f"init_paged_kv_pool: kv_group_size {g} does not tile "
+                f"head_dim {cfg.head_dim} (one scale per {g}-element group "
+                f"of each K/V vector)")
+        sshape = shape[:-1] + (cfg.head_dim // g,)
+        pool["k_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                      device=device)
+        pool["v_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                      device=device)
+    return pool
 
 
 def _paged_attend(q, k_ctx, v_ctx, q_pos, cfg: GPTConfig):
@@ -550,32 +591,60 @@ def _paged_attend(q, k_ctx, v_ctx, q_pos, cfg: GPTConfig):
 def _paged_attn_half(x, p, pool_l, positions, block_tables, cfg: GPTConfig):
     """Attention half-block against one layer's paged pool.
 
-    x: [B, C, D]; pool_l: {"k", "v"} [N, Hkv, block, hd]; positions: [B, C]
-    absolute; block_tables: [B, nb] int32. Writes the C new tokens' k/v
-    into each row's blocks in place (position -> table -> physical block),
-    then attends over the row's table: the paged kernel for single-token
-    steps, the gather path for prefill chunks."""
-    from deepspeed_tpu_torch.inference.kv_cache import gather_block_kv
+    x: [B, C, D]; pool_l: {"k", "v"} [N, Hkv, block, hd] (plus
+    {"k_scale", "v_scale"} [N, Hkv, block, hd // g] for the int8 pool);
+    positions: [B, C] absolute; block_tables: [B, nb] int32. Writes the C
+    new tokens' k/v into each row's blocks in place (position -> table ->
+    physical block; quantized first on the int8 pool), then attends over
+    the row's table through the program the dispatch names: the paged
+    kernels for single-token steps, the (dequantizing) gather for prefill
+    chunks. A program without a branch here raises."""
+    from deepspeed_tpu_torch.inference.kv_cache import (
+        gather_block_kv, gather_block_kv_dequant)
     B, C, D = x.shape
     bs = pool_l["k"].shape[2]
     nb = block_tables.shape[1]
+    quantized = "k_scale" in pool_l
     q, k, v = _decode_qkv(x, p, positions, cfg)
     # rows of inactive slots (all-trash tables, pos 0) collide in the trash
-    # block; the write order there is unspecified and irrelevant
+    # block; the write order there is unspecified and irrelevant. A real
+    # row's (block, offset) is unique in the step, so its payload and its
+    # scales come from the same token.
     blk = torch.gather(block_tables.long(), 1, (positions // bs).long())   # [B, C]
     off = positions % bs
-    pool_l["k"][blk, :, off] = k.to(pool_l["k"].dtype)
-    pool_l["v"][blk, :, off] = v.to(pool_l["v"].dtype)
+    if quantized:
+        g = cfg.head_dim // pool_l["k_scale"].shape[-1]
+        for name, t in (("k", k), ("v", v)):
+            qt, st = quantize_kv(t, g)
+            pool_l[name][blk, :, off] = qt
+            pool_l[f"{name}_scale"][blk, :, off] = st
+    else:
+        pool_l["k"][blk, :, off] = k.to(pool_l["k"].dtype)
+        pool_l["v"][blk, :, off] = v.to(pool_l["v"].dtype)
     phase = "paged_decode" if C == 1 else "prefill_chunk"
-    if attn_dispatch.select(_site(cfg, phase, q, C, nb * bs)) \
-            == "paged_kernel":
+    program = attn_dispatch.select(_site(
+        cfg, phase, q, C, nb * bs, kv_dtype="int8" if quantized else None))
+    if program == "paged_kernel_quant":
+        attn = paged_decode_attention_quant(
+            q[:, 0].contiguous(), pool_l["k"], pool_l["v"],
+            pool_l["k_scale"], pool_l["v_scale"], block_tables,
+            positions[:, 0], sm_scale=_sm_scale(cfg)).reshape(B, 1, D)
+    elif program == "paged_kernel":
         attn = paged_decode_attention(
             q[:, 0].contiguous(), pool_l["k"], pool_l["v"], block_tables,
             positions[:, 0], sm_scale=_sm_scale(cfg)).reshape(B, 1, D)
-    else:
-        k_ctx, v_ctx = gather_block_kv(pool_l["k"], pool_l["v"],
-                                       block_tables)
+    elif program == "paged_gather_quant":
+        k_ctx, v_ctx = gather_block_kv_dequant(pool_l, block_tables, q.dtype)
         attn = _paged_attend(q, k_ctx, v_ctx, positions, cfg)
+    elif program == "paged_gather":
+        k_ctx, v_ctx = gather_block_kv(pool_l["k"], pool_l["v"], block_tables)
+        attn = _paged_attend(q, k_ctx, v_ctx, positions, cfg)
+    else:
+        # by-name dispatch: an unknown program taking the fp gather would
+        # read the int8 payload as K/V
+        raise NotImplementedError(
+            f"attention program {program!r} selected for the paged site "
+            f"has no handler in models/gpt.py")
     attn_out = attn @ p["attn_out_w"] + p["attn_out_b"]
     return attn_out, pool_l
 
@@ -626,7 +695,7 @@ def make_gpt_decode_model(cfg: GPTConfig = None, name="gpt2-125m",
 
     def _walk_paged(params, x, pool, block_tables, positions):
         for i in range(cfg.n_layer):
-            pool_l = {"k": pool["k"][i], "v": pool["v"][i]}
+            pool_l = {name: leaf[i] for name, leaf in pool.items()}
             x, _ = _block_paged(x, _layer(params, i), pool_l, positions,
                                 block_tables, cfg)
         return x
@@ -647,8 +716,9 @@ def make_gpt_decode_model(cfg: GPTConfig = None, name="gpt2-125m",
         return _lm_head(params, x, cfg)[:, 0], pool
 
     def init_paged_pool(num_blocks, block_size, dtype=torch.bfloat16,
-                        device="cpu"):
-        return init_paged_kv_pool(cfg, num_blocks, block_size, dtype, device)
+                        kv_group_size=0, device="cpu"):
+        return init_paged_kv_pool(cfg, num_blocks, block_size, dtype,
+                                  kv_group_size, device)
 
     return DecodeModelSpec(
         prefill_fn=prefill_fn, decode_fn=decode_fn, init_cache=init_cache,

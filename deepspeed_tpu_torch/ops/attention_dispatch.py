@@ -11,7 +11,8 @@ The phases this port carries:
   * `decode` (one token over the contiguous cache): `decode_kernel` |
     `decode_dense`;
   * `paged_decode` / `prefill_chunk` (the serving pool): `paged_kernel` |
-    `paged_gather`.
+    `paged_gather`, and over the int8 pool (`kv_dtype="int8"`)
+    `paged_kernel_quant` | `paged_gather_quant`.
 
 The predicates are the JAX package's — no alibi, no window, and
 `use_flash_attention=False` forbids a kernel — minus its TPU crossovers
@@ -23,7 +24,8 @@ One route per device. On CUDA operands the kernel program runs, and a site
 the kernel does not take (dtype, head width, a forbidding flag) raises
 `NotImplementedError`: the port runs no plain attention on the card. The
 one exception is `prefill_chunk`, whose gather + dense attend is plain
-torch in the JAX package too. On CPU operands the plain programs run the
+torch in the JAX package too (over the int8 pool its dequantization is the
+`dequantize_int8` kernel). On CPU operands the plain programs run the
 kernels' plain versions; `use_flash_attention=True` routes through the
 kernel wrappers instead, which on the CPU run those same plain versions.
 """
@@ -35,6 +37,7 @@ from typing import Callable, Dict, Optional
 FLASH_DTYPES = ("bfloat16", "float16")
 DECODE_DTYPES = ("float32", "bfloat16", "float16")
 KERNEL_HEAD_DIMS = (64, 128)
+QUANT_KV_DTYPES = ("int8",)       # the int8 pool's payload (csrc/decode_attention.cu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +51,8 @@ class AttnSite:
     head_dim: int = 64
     has_bias: bool = False        # additive bias (alibi) present
     has_window: bool = False      # sliding-window mask
-    kv_dtype: str = "bfloat16"    # attention operand dtype
+    kv_dtype: str = "bfloat16"    # K/V dtype: the operands', or "int8"
+                                  # for the quantized pool
     on_cuda: bool = False         # operands live on a CUDA device
     force_flash: Optional[bool] = None  # GPTConfig.use_flash_attention
 
@@ -150,14 +154,35 @@ register_program(AttentionProgram(
 register_program(AttentionProgram(
     name="decode_dense", phases=("decode",), priority=0, matches=_plain))
 
+def _gather_wanted(site: AttnSite) -> bool:
+    return site.phase == "prefill_chunk" or _plain(site)
+
+
+# int8 pool, C == 1, no alibi/window: tiles dequantize in-kernel
+register_program(AttentionProgram(
+    name="paged_kernel_quant", phases=("paged_decode",), priority=60,
+    matches=lambda s: (s.kv_dtype in QUANT_KV_DTYPES and s.q_len == 1
+                       and kernel_wanted(s)),
+    kernel_dtypes=QUANT_KV_DTYPES))
+
 # C == 1, no alibi/window
 register_program(AttentionProgram(
     name="paged_kernel", phases=("paged_decode",), priority=50,
-    matches=lambda s: s.q_len == 1 and kernel_wanted(s),
+    matches=lambda s: (s.kv_dtype not in QUANT_KV_DTYPES and s.q_len == 1
+                       and kernel_wanted(s)),
     kernel_dtypes=DECODE_DTYPES))
+
+# int8 pool: the dequantizing gather + dense attend, where `paged_gather`
+# would run
+register_program(AttentionProgram(
+    name="paged_gather_quant", phases=("paged_decode", "prefill_chunk"),
+    priority=10,
+    matches=lambda s: s.kv_dtype in QUANT_KV_DTYPES and _gather_wanted(s)))
 
 # table gather + dense attend: chunked prefill on every device (plain XLA
 # in the JAX package too), single-token decode on CPU operands
 register_program(AttentionProgram(
     name="paged_gather", phases=("paged_decode", "prefill_chunk"),
-    priority=0, matches=lambda s: s.phase == "prefill_chunk" or _plain(s)))
+    priority=0,
+    matches=lambda s: (s.kv_dtype not in QUANT_KV_DTYPES
+                       and _gather_wanted(s))))

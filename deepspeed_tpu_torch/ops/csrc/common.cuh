@@ -1,9 +1,10 @@
 // Shared device helpers for the deepspeed_tpu_torch kernels: element
 // conversions for the three dtypes the wrappers pass (code 0 = float32,
-// 1 = bfloat16, 2 = float16) and warp reductions.
+// 1 = bfloat16, 2 = float16) and for int8 payloads, and warp reductions.
 #pragma once
 
 #include <math.h>
+#include <stdint.h>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -14,6 +15,7 @@ namespace dstt {
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }

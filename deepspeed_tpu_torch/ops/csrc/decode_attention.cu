@@ -5,9 +5,18 @@
 //     k/v [B, Hkv, M, hd];
 //   * paged_decode_attention (:194, kernel _paged_decode_kernel :180) — a
 //     paged pool k/v [N, Hkv, block, hd] addressed through block tables
-//     [B, nb].
-// One source, two addressing modes (KvAddr below) sharing one online-softmax
-// body, as the Pallas kernels share _online_softmax_tile (:42).
+//     [B, nb];
+//   * paged_decode_attention_quant (:304, kernel _paged_decode_quant_kernel
+//     :260) — the same over the int8 pool: int8 k/v plus f32 scales
+//     [N, Hkv, block, hd/g], one per group of g elements of a K/V vector.
+// One source, two addressing modes (KvAddr below) and two K/V element types
+// sharing one online-softmax body, as the Pallas kernels share
+// _online_softmax_tile (:42). The int8 mode dequantizes each K/V tile while
+// staging it into shared memory, in the order of dequantize_kv
+// (inference/quantization.py): int8 -> fp32 x the group's scale (loaded as a
+// scalar) -> narrowed to q's dtype -> back to fp32. fp K/V never exists in
+// device memory, and a step reads the live prefix's int8 bytes plus its
+// scales: at g = hd about 0.53 of the bf16 pool's bytes.
 //
 // What bounds it on the H100: memory. A step reads each row's live K/V
 // prefix once, 2 * (pos+1) * Hkv * hd elements, and does about one multiply-
@@ -25,6 +34,8 @@
 // Known limit: the grid is B * Hkv blocks — 96 at gpt2-125m decode with 8
 // slots, fewer than the 132 SMs. Splitting each row's prefix across blocks
 // (split-K with a second combine pass) is the later fix.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -47,15 +58,18 @@ struct KvAddr {
   }
 };
 
-template <typename T, int HD>
+// T: q / out dtype. KV: the K/V element type — T, or int8_t with per-group
+// f32 scales ksc / vsc ([..., HD / ng] rows beside the payload rows).
+template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(kThreads)
-decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ out,
+decode_attn_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                   const KV* __restrict__ v, const float* __restrict__ ksc,
+                   const float* __restrict__ vsc, int ng, T* __restrict__ out,
                    const int* __restrict__ pos, KvAddr addr, int G,
                    int capacity, float scale) {
   constexpr int TILE = 4096 / HD;      // 64 positions at hd 64, 32 at hd 128
   constexpr int LD = HD + 1;           // padded rows: conflict-free walks
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 16 / sizeof(KV);
   constexpr int VPR = HD / VEC;        // 16-byte vectors per row
   extern __shared__ float smem[];
   float* ks = smem;                    // [TILE][LD]
@@ -88,9 +102,18 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / VPR, c = (i % VPR) * VEC;
       float kf[VEC], vf[VEC];
       if (r < n) {
-        const long long off = addr.row(b, h, t0 + r, HD) + c;
-        load16(k + off, kf);
-        load16(v + off, vf);
+        const long long row = addr.row(b, h, t0 + r, HD);
+        load16(k + row + c, kf);
+        load16(v + row + c, vf);
+        if constexpr (std::is_same<KV, int8_t>::value) {
+          const long long srow = row / HD * ng;
+          const int gs = HD / ng;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            kf[j] = to_f(from_f<T>(kf[j] * ksc[srow + (c + j) / gs]));
+            vf[j] = to_f(from_f<T>(vf[j] * vsc[srow + (c + j) / gs]));
+          }
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < VEC; ++j) kf[j] = vf[j] = 0.f;
@@ -155,30 +178,37 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out,
-           const int* pos, KvAddr addr, int B, int G, int capacity,
-           float scale, cudaStream_t stream) {
+// The K/V operands of one launch: payload pointers, and for the int8 pool
+// the scale pointers and the number of scale groups per K/V vector.
+struct KvData {
+  const void *k, *v;
+  const float *ksc, *vsc;
+  int ng;
+};
+
+template <typename T, typename KV, int HD>
+int launch(const void* q, KvData kv, void* out, const int* pos, KvAddr addr,
+           int B, int G, int capacity, float scale, cudaStream_t stream) {
   constexpr int TILE = 4096 / HD;
   const size_t smem =
       sizeof(float) * (2 * TILE * (HD + 1) + 2 * G * HD + G * TILE + 3 * G);
-  cudaFuncSetAttribute(decode_attn_kernel<T, HD>,
+  cudaFuncSetAttribute(decode_attn_kernel<T, KV, HD>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  decode_attn_kernel<T, HD><<<dim3(addr.Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), pos, addr, G, capacity,
-      scale);
+  decode_attn_kernel<T, KV, HD><<<dim3(addr.Hkv, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kv.k),
+      static_cast<const KV*>(kv.v), kv.ksc, kv.vsc, kv.ng,
+      static_cast<T*>(out), pos, addr, G, capacity, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v, void* out,
-              const int* pos, KvAddr addr, int B, int G, int capacity,
-              float scale, cudaStream_t stream) {
+template <typename T, typename KV>
+int launch_hd(int hd, const void* q, KvData kv, void* out, const int* pos,
+              KvAddr addr, int B, int G, int capacity, float scale,
+              cudaStream_t stream) {
   if (hd == 64)
-    return launch<T, 64>(q, k, v, out, pos, addr, B, G, capacity, scale, stream);
+    return launch<T, KV, 64>(q, kv, out, pos, addr, B, G, capacity, scale, stream);
   if (hd == 128)
-    return launch<T, 128>(q, k, v, out, pos, addr, B, G, capacity, scale, stream);
+    return launch<T, KV, 128>(q, kv, out, pos, addr, B, G, capacity, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -194,13 +224,35 @@ extern "C" int dstt_decode_attention(const void* q, const void* k,
                                      int hd, int m_or_bs, int nb, float scale,
                                      int dtype, void* stream) {
   KvAddr addr{table, nb, m_or_bs, Hkv, m_or_bs};
+  KvData kv{k, v, nullptr, nullptr, 0};
   const int capacity = table == nullptr ? m_or_bs : nb * m_or_bs;
   const int G = H / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_hd<float>(hd, q, k, v, out, pos, addr, B, G, capacity, scale, s);
-    case 1: return launch_hd<__nv_bfloat16>(hd, q, k, v, out, pos, addr, B, G, capacity, scale, s);
-    case 2: return launch_hd<__half>(hd, q, k, v, out, pos, addr, B, G, capacity, scale, s);
+    case 0: return launch_hd<float, float>(hd, q, kv, out, pos, addr, B, G, capacity, scale, s);
+    case 1: return launch_hd<__nv_bfloat16, __nv_bfloat16>(hd, q, kv, out, pos, addr, B, G, capacity, scale, s);
+    case 2: return launch_hd<__half, __half>(hd, q, kv, out, pos, addr, B, G, capacity, scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 pool: k/v int8 [N, Hkv, bs, hd], k_scale/v_scale f32
+// [N, Hkv, bs, ng] with hd % ng == 0; q, out, pos, table and dtype as above
+// (dtype is q's). Returns cudaGetLastError().
+extern "C" int dstt_paged_decode_attention_quant(
+    const void* q, const void* k, const void* v, const float* k_scale,
+    const float* v_scale, void* out, const int* pos, const int* table, int B,
+    int H, int Hkv, int hd, int bs, int nb, int ng, float scale, int dtype,
+    void* stream) {
+  if (ng < 1 || hd % ng) return (int)cudaErrorInvalidValue;
+  KvAddr addr{table, nb, bs, Hkv, bs};
+  KvData kv{k, v, k_scale, v_scale, ng};
+  const int G = H / Hkv;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_hd<float, int8_t>(hd, q, kv, out, pos, addr, B, G, nb * bs, scale, s);
+    case 1: return launch_hd<__nv_bfloat16, int8_t>(hd, q, kv, out, pos, addr, B, G, nb * bs, scale, s);
+    case 2: return launch_hd<__half, int8_t>(hd, q, kv, out, pos, addr, B, G, nb * bs, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -16,6 +16,7 @@ from deepspeed_tpu_torch.ops import attention_dispatch as ad
 from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops import quant as tqo
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "deepspeed_tpu_torch").rglob("*.py"))
@@ -85,13 +86,24 @@ def test_cuda_wrappers_take_the_plain_version_for_cpu_tensors():
     x = normal(1, 40, 4, 64)
     assert torch.equal(tfa.flash_attention(x, x, x),
                        tfa.flash_attention_reference(x, x, x)[0])
+    for bits, quantize, dequantize in (
+            (8, tqo.quantize_int8, tqo.dequantize_int8),
+            (4, tqo.quantize_int4, tqo.dequantize_int4)):
+        q8, s8 = quantize(pool, 32)
+        ref_q, ref_s = tqo.quantize_reference(pool, 32, bits)
+        assert torch.equal(q8, ref_q) and torch.equal(s8, ref_s)
+        assert torch.equal(dequantize(q8, s8, torch.float32, 32),
+                           tqo.dequantize_reference(q8, s8, torch.float32, 32,
+                                                    bits))
+    kq, ks = tqo.quantize_int8(pool, 64)
+    int8_pool = {"k": kq, "v": kq, "k_scale": ks, "v_scale": ks}
+    assert torch.equal(
+        tda.paged_decode_attention_quant(q, kq, kq, ks, ks, tables, pos),
+        tda.paged_decode_attention_quant_reference(q, int8_pool, tables, pos))
     assert sum(op_builder.LAUNCHES.values()) == 0
 
 
 @pytest.mark.parametrize("override", [
-    {"quant": {"enabled": True}},
-    {"serving": {"quantization": {"kv_cache_dtype": "int8"}}},
-    {"serving": {"quantization": {"weights": "int4"}}},
     {"serving": {"spec_decode": {"drafter": "ngram"}}},
     {"serving": {"enable_prefix_caching": True}},
     {"serving": {"degradation": {"enabled": True}}},
@@ -104,6 +116,19 @@ def test_cuda_wrappers_take_the_plain_version_for_cpu_tensors():
 def test_unported_features_refuse_at_config_time(override):
     with pytest.raises(NotImplementedError, match="not ported"):
         TpuInferenceConfig.from_dict(override)
+
+
+@pytest.mark.parametrize("override", [
+    {"quant": {"enabled": True}},
+    {"serving": {"quantization": {"kv_cache_dtype": "int8"}}},
+    {"serving": {"quantization": {"weights": "int4"}}},
+], ids=lambda o: str(o))
+def test_quantized_serving_configs_build(override):
+    """Weight-only quantization and the int8 KV pool are ported: the dicts
+    that refused before build a config now."""
+    cfg = TpuInferenceConfig.from_dict(override)
+    assert cfg.quant.enabled or cfg.serving.quantization.kv_cache_dtype \
+        or cfg.serving.quantization.weights == "int4"
 
 
 def test_serving_overrides_are_validated_too():
@@ -139,6 +164,18 @@ def test_dispatch_engages_kernels_where_their_contract_holds():
     assert ad.select(site(phase="paged_decode", q_len=1)) == "paged_kernel"
     assert ad.select(site(phase="paged_decode", q_len=1, on_cuda=False)) \
         == "paged_gather"
+    # the int8 pool: its kernel on CUDA, its dequantizing gather elsewhere
+    int8 = dict(q_len=1, kv_dtype="int8")
+    assert ad.select(site(phase="paged_decode", **int8)) \
+        == "paged_kernel_quant"
+    assert ad.select(site(phase="paged_decode", head_dim=128, **int8)) \
+        == "paged_kernel_quant"
+    assert ad.select(site(phase="paged_decode", on_cuda=False, **int8)) \
+        == "paged_gather_quant"
+    assert ad.select(site(phase="paged_decode", on_cuda=False,
+                          force_flash=True, **int8)) == "paged_kernel_quant"
+    assert ad.select(site(phase="prefill_chunk", q_len=16,
+                          kv_dtype="int8")) == "paged_gather_quant"
     # chunked prefill is a gather + dense attend on every device, as in the
     # JAX package
     assert ad.select(site(phase="prefill_chunk", q_len=16)) == "paged_gather"
@@ -159,6 +196,9 @@ def test_dispatch_engages_kernels_where_their_contract_holds():
     dict(phase="paged_decode", q_len=1, kv_dtype="float64"),
     dict(phase="paged_decode", q_len=1, head_dim=32),
     dict(phase="paged_decode", q_len=1, force_flash=False),
+    dict(phase="paged_decode", q_len=1, kv_dtype="int8", head_dim=32),
+    dict(phase="paged_decode", q_len=1, kv_dtype="int8", force_flash=False),
+    dict(phase="paged_decode", q_len=1, kv_dtype="int8", has_window=True),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_dispatch_runs_no_plain_attention_on_cuda(kw):
     """A CUDA site the kernel does not take raises; it never falls to the
@@ -297,4 +337,11 @@ def test_the_import_scan_covers_the_training_modules():
     for module in ("runtime/engine.py", "runtime/precision.py",
                    "runtime/lr_schedules.py", "runtime/dataloader.py",
                    "ops/optim.py", "utils/timer.py", "config/core.py"):
+        assert f"deepspeed_tpu_torch/{module}" in names
+
+
+def test_the_import_scan_covers_the_quantization_modules():
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("ops/quant.py", "inference/quantization.py",
+                   "ops/decode_attention.py", "inference/kv_cache.py"):
         assert f"deepspeed_tpu_torch/{module}" in names
