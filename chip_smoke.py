@@ -19,7 +19,12 @@ Phases, one JSON line each:
            and the largest weights (wte, mlp_up_w); with medians of
            CUDA-event timings of the kernel, its plain version and, where
            one PyTorch call computes the same function, that call
-           (library_ms);
+           (library_ms); token_sort bit-exact at the dropless path's shape
+           (N 4096, E 8), E 64 and 128, N 65 536, an odd N, all ids equal,
+           ids out of range and negative, int64 ids; fused_layer_norm /
+           fused_rms_norm within one output-dtype step at [4096, 768] bf16
+           with and without a residual, [4096, 4096] fp16, [37, 1000] fp32;
+  norms    the public norm ops at [4096, 768] bf16: one launch each;
   generate init_inference -> generate() on gpt2-125m at full width and
            depth (random weights from a numpy seed), bf16: launch counts,
            prefill and first-decode logits held against the port's fp32
@@ -58,13 +63,33 @@ Phases, one JSON line each:
            tokens/s and MFU; then the first step's loss and every
            parameter's gradient at 2 layers, bf16 on the card against the
            port's fp32 CPU run of the same weights and batch;
+  moe      moe-gpt-125m-e8 (docs/parallelism.md:76: 12 layers, d_model
+           768, 8 experts in every second block, capacity factor 1.25)
+           at full width and depth, bf16, random weights from a numpy seed,
+           four paths: (a) initialize() -> train_batch() (the bench MoE
+           lane's engine config, micro-batch 8, seq 512, gas 2; 1 warm-up
+           + 3 timed steps): finite falling loss, the moe/* metrics, exact
+           flash launches (12 x gas per step each, no remat), tokens/s,
+           MFU on the active parameters, the dense twin's step; then the
+           2-layer loss and gradients against the CPU twin on the tokens
+           routed alike; (b) generate() on the generate phase's prompts:
+           exact launches, prefill / first-decode logits against the CPU
+           twin on the rows routed alike in every MoE layer; (c) the
+           serving engine on the serve trace: completion, drained pool,
+           exact paged-decode launches, agreement with (b)'s generate();
+           (d) the dropless moe.layer.MoE on x [8, 512, 768]: one
+           token_sort launch, counts and unique slots, the per-token
+           argmax oracle, finite gradients. Each MoE layer's top-1 routes
+           on the card and the CPU twin are recorded by wrapping the
+           port's routing functions from here, and their per-layer share
+           alike is held to a floor;
   profile  (opt-in, after the phases it reads) torch.profiler over the same
-           generate() call, serving runs (bf16 and quantized) and one
-           train_batch: kernel time on the card by class and the card's
-           idle share of the unprofiled wall time.
+           generate() call, serving runs (bf16, quantized, MoE) and one
+           train_batch (gpt2-760m, MoE): kernel time on the card by class
+           and the card's idle share of the unprofiled wall time.
 A comma-separated phase list as the one argument runs those phases only
-(the device phase always runs), e.g. `build,train,profile` or
-`build,kernels,quant`. Then the
+(the device phase always runs), e.g. `build,train,profile`,
+`build,kernels,quant` or `build,kernels,moe`. Then the
 card's name and power limit, the `kernels` summary line (one row per
 kernel and path that runs it — the flash forward has generate,
 quant_generate and train rows; quantize_int8 a quant_serve row, the K/V
@@ -75,6 +100,7 @@ line `{"ok": true, "device": {...}}`. Any failure exits non-zero
 and prints no result line. It imports no JAX and nothing of deepspeed_tpu.
 """
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -148,6 +174,38 @@ TRAIN_CONFIG = {
     "steps_per_print": 10**9,
 }
 
+# the MoE phase: moe-gpt-125m-e8, the MoE config of docs/parallelism.md:76
+# (GPTConfig's defaults: 12 heads of 64, d_ff 3072, vocab 50304), trained
+# with the bench MoE lane's engine config (bench.py:1753-1758) at
+# micro-batch 8, seq 512, gas 2
+MOE_MODEL = "moe-gpt-125m-e8"
+MOE_CFG = dict(n_layer=12, d_model=768, num_experts=8, moe_freq=2,
+               capacity_factor=1.25)
+MOE_MBS, MOE_SEQ, MOE_GAS, MOE_STEPS = 8, 512, 2, 3
+MOE_TRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": MOE_MBS,
+    "gradient_accumulation_steps": MOE_GAS,
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+    "bf16": {"enabled": True},
+    "zero_optimization": {"stage": 1},
+    "steps_per_print": 10**9,
+}
+# share of tokens whose top-1 expert is the same on the card (bf16) and in
+# the CPU twin (fp32), per MoE layer. Gate logits have std 0.554 (gate_w
+# std 0.02 over d_model 768 of a LayerNorm'd input); the top-two gap of 8
+# such logits is below d with probability ~2.5·d. The card computes the
+# gate product in bf16 and rounds each logit to bf16 (steps of 2^-8..2^-7
+# at the top logits, where a tie takes the lower index) on a residual
+# stream that carries bf16 error: ~1 % of tokens per layer route
+# otherwise. The floor is five times that.
+ROUTE_AGREE_MIN = 0.95
+# the dropless layer (bf16 expert FFN: products rounded to bf16 after fp32
+# sums, GELU on bf16, the gate weight in bf16) against the per-token argmax
+# oracle computed in fp32 from the same bf16 inputs and the same routes:
+# each element within 2^-6 of the oracle's largest |entry|, about four bf16
+# roundings of the largest output
+DROPLESS_REL_TOL = 2.0 ** -6
+
 REPLACES = {
     "paged_decode_attention_quant":
         "deepspeed_tpu/ops/pallas/decode_attention.py:339",
@@ -163,6 +221,9 @@ REPLACES = {
     "decode_attention": "deepspeed_tpu/ops/pallas/decode_attention.py:156",
     "paged_decode_attention":
         "deepspeed_tpu/ops/pallas/decode_attention.py:234",
+    "fused_layer_norm": "deepspeed_tpu/ops/pallas/norms.py:54",
+    "fused_rms_norm": "deepspeed_tpu/ops/pallas/norms.py:79",
+    "token_sort": "deepspeed_tpu/ops/pallas/token_sort.py:66",
 }
 SOURCES = {
     "flash_attention": "deepspeed_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -177,6 +238,9 @@ SOURCES = {
     "quantize_int4": "deepspeed_tpu_torch/ops/csrc/quant.cu",
     "dequantize_int4": "deepspeed_tpu_torch/ops/csrc/quant.cu",
     "dequantize_int8": "deepspeed_tpu_torch/ops/csrc/quant.cu",
+    "fused_layer_norm": "deepspeed_tpu_torch/ops/csrc/norms.cu",
+    "fused_rms_norm": "deepspeed_tpu_torch/ops/csrc/norms.cu",
+    "token_sort": "deepspeed_tpu_torch/ops/csrc/token_sort.cu",
 }
 
 
@@ -299,6 +363,8 @@ def phase_kernels():
                          "generate"),
                         (dict(B=12, T=512, H=12, Hkv=12, D=128, causal=True),
                          "train"),
+                        (dict(B=8, T=512, H=12, Hkv=12, D=64, causal=True),
+                         "moe_train"),
                         (dict(B=2, T=333, H=16, Hkv=4, D=128, causal=True),
                          None),
                         (dict(B=2, T=200, H=8, Hkv=2, D=128, causal=False),
@@ -388,11 +454,17 @@ def phase_kernels():
             plain_ms=median_ms(lambda: da.paged_decode_attention_reference(
                 q, kp, vp, tables, pos)), bound_ms=b_ms, bound_by=b_by,
             library_ms=None)
-    # the int4 generate() path runs the same prefill and decode shapes
+    # the int4 generate() path and MoE-GPT's generate() run the same
+    # prefill and decode shapes, MoE-GPT's serving the serve phase's
     for name in ("flash_attention", "decode_attention"):
-        results[name, "quant_generate"] = results[name, "generate"]
+        for path in ("quant_generate", "moe_generate"):
+            results[name, path] = results[name, "generate"]
+    results["paged_decode_attention", "moe_serve"] = \
+        results["paged_decode_attention", "serve"]
     results.update(_backward_kernels(rng, checks))
     results.update(_quant_kernels(rng, checks))
+    results.update(_token_sort_kernel(rng, checks))
+    results.update(_norm_kernels(rng, checks))
     emit({"phase": "kernels", "checks": checks,
           "main_path": {f"{name}/{path}": row
                         for (name, path), row in results.items()}})
@@ -403,23 +475,26 @@ def _backward_kernels(rng, checks):
     """The dq and dk/dv kernels through the autograd path (q/k/v strided
     views of one fused projection, as the model hands them over) against
     the plain backward on the same inputs and saved (out, lse): at the
-    training main path's shape (gpt2-760m: H 12, hd 128, B 12, T 512,
-    causal), at hd 64, at GQA 4 with a ragged T and an lse cotangent,
-    non-causal, and at GQA 4 with a ragged T in fp16. The forward of each
-    case is held against its plain version too. Then each kernel alone
-    timed at the main shape."""
+    two training paths' shapes (gpt2-760m: H 12, hd 128, B 12, T 512;
+    moe-gpt-125m-e8: H 12, hd 64, B 8, T 512; causal), at hd 64 / T 600,
+    at GQA 4 with a ragged T and an lse cotangent, non-causal, and at GQA 4
+    with a ragged T in fp16. The forward of each case is held against its
+    plain version too. Then each kernel alone timed at each path's
+    shape."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import flash_attention as fa
     results = {}
-    for shape, main, with_dlse in (
-            (dict(B=12, T=512, H=12, Hkv=12, D=128, causal=True), True,
+    for shape, path, with_dlse in (
+            (dict(B=12, T=512, H=12, Hkv=12, D=128, causal=True), "train",
              False),
-            (dict(B=4, T=600, H=12, Hkv=12, D=64, causal=True), False, False),
-            (dict(B=2, T=333, H=16, Hkv=4, D=128, causal=True), False, True),
-            (dict(B=2, T=200, H=8, Hkv=2, D=64, causal=False), False, False),
+            (dict(B=8, T=512, H=12, Hkv=12, D=64, causal=True), "moe_train",
+             False),
+            (dict(B=4, T=600, H=12, Hkv=12, D=64, causal=True), None, False),
+            (dict(B=2, T=333, H=16, Hkv=4, D=128, causal=True), None, True),
+            (dict(B=2, T=200, H=8, Hkv=2, D=64, causal=False), None, False),
             (dict(B=2, T=333, H=16, Hkv=4, D=128, causal=True,
-                  dtype="float16"), False, False)):
+                  dtype="float16"), None, False)):
         q, k, v, causal = _flash_case(rng, **shape)
         for t in (q, k, v):
             t.requires_grad_(True)
@@ -456,7 +531,7 @@ def _backward_kernels(rng, checks):
                 raise AssertionError(f"{name} {shape}: max abs err {err} > "
                                      f"{BWD_REL_TOL} x {scale}")
             errs[name] = err
-        if not main:
+        if path is None:
             continue
         B, T, H, D = q.shape
         qh, kh, vh, doh = (x.detach().transpose(1, 2) for x in (q, k, v, do))
@@ -483,7 +558,7 @@ def _backward_kernels(rng, checks):
                 ("flash_attention_bwd_dkv", (False, True), 8 * D * pairs,
                  6 * tile + 2 * rows)):        # q k v do -> dk dv
             b_ms, b_by = bound(nbytes, flops)
-            results[name, "train"] = dict(
+            results[name, path] = dict(
                 max_abs_err=errs[name],
                 ms=median_ms(lambda: fa._launch_bwd(
                     qh, kh, vh, doh, lse_d, delta, sm, True, *need)),
@@ -627,6 +702,159 @@ def _quant_kernels(rng, checks):
         results[name, path] = dict(timed[name][label],
                                    by_shape=timed[name])
     return results
+
+
+def _token_sort_kernel(rng, checks):
+    """token_sort against its plain version, bit for bit: at the dropless
+    path's shape (N 4096 = 8 x 512 tokens, E 8), at E 64 and 128, at
+    N 65 536, at an odd N, with every id equal, with ids out of range and
+    negative, and from int64 ids; then timed at the path's shape."""
+    import torch
+    from deepspeed_tpu_torch.ops import token_sort as ts
+    results = {}
+    cases = (("path", rng.integers(0, 8, 4096), 8),
+             ("e64", rng.integers(0, 64, 4096), 64),
+             ("e128", rng.integers(0, 128, 4096), 128),
+             ("n65536", rng.integers(0, 8, 65536), 8),
+             ("odd_n", rng.integers(0, 8, 4097), 8),
+             ("all_equal", np.full(4096, 5), 8),
+             ("out_of_range", rng.integers(-5, 13, 4096), 8),
+             ("int64", rng.integers(0, 8, 3001), 8))
+    for label, ids, E in cases:
+        dtype = torch.int64 if label == "int64" else torch.int32
+        idx = torch.from_numpy(np.asarray(ids)).to("cuda", dtype)
+        pos, counts = ts.token_sort(idx, E)
+        ref_pos, ref_counts = ts.token_sort_reference(idx, E)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(pos, ref_pos)
+                     and torch.equal(counts, ref_counts))
+        checks.append({"kernel": "token_sort", "case": label,
+                       "n": int(idx.numel()), "experts": E,
+                       "dtype": str(dtype), "bit_exact": exact, "ok": exact})
+        if not exact:
+            raise AssertionError(f"token_sort {label}: kernel != plain "
+                                 f"version")
+        if label != "path":
+            continue
+        n = idx.numel()
+        # ids in, ranks out, counts out; one compare per token and expert
+        b_ms, b_by = bound(4 * n + 4 * n + 4 * E, n * E, FP32_FLOPS)
+        results["token_sort", "moe_dropless"] = dict(
+            shape={"n": n, "experts": E}, max_abs_err=0.0,
+            ms=median_ms(lambda: ts.token_sort(idx, E)),
+            plain_ms=median_ms(lambda: ts.token_sort_reference(idx, E)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return results
+
+
+NORM_MAIN = (4096, 768)        # the norms path's shape: [8 x 512, d_model]
+
+
+def _norm_kernels(rng, checks):
+    """fused_layer_norm / fused_rms_norm against their plain versions:
+    [4096, 768] bf16 with and without a residual, [4096, 4096] fp16 and a
+    ragged [37, 1000] fp32. Tolerance: one step of the output dtype at the
+    output's largest |entry| (eps x max|ref|): the statistics are fp32 in
+    both versions and only their summation order differs, so the two fp32
+    results lie a fraction of an fp32 step apart before the one rounding
+    to the output dtype, which can put them one step apart. Then each op
+    timed at [4096, 768] bf16 without a residual, with F.layer_norm /
+    F.rms_norm as the library call."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import norms
+    results = {}
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+    for (rows, D), dtype, residual in ((NORM_MAIN, torch.bfloat16, False),
+                                       (NORM_MAIN, torch.bfloat16, True),
+                                       ((4096, 4096), torch.float16, True),
+                                       ((37, 1000), torch.float32, True)):
+        x = randn(rows, D).to(dtype)
+        res = randn(rows, D).to(dtype) if residual else None
+        scale, bias = 1 + 0.1 * randn(D), 0.1 * randn(D)
+        for name, fn, plain, args in (
+                ("fused_layer_norm", norms.fused_layer_norm,
+                 norms.layer_norm_reference, (x, scale, bias)),
+                ("fused_rms_norm", norms.fused_rms_norm,
+                 norms.rms_norm_reference, (x, scale))):
+            out = fn(*args, residual=res)
+            ref = plain(*args, residual=res)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = torch.finfo(dtype).eps * ref.float().abs().max().item()
+            ok = bool(np.isfinite(err) and err <= tol and out.dtype == dtype)
+            checks.append({"kernel": name, "shape": [rows, D],
+                           "dtype": str(dtype), "residual": residual,
+                           "max_abs_err": err, "tol": tol, "ok": ok})
+            if not ok:
+                raise AssertionError(f"{name} [{rows}, {D}] {dtype}: max abs "
+                                     f"err {err} > {tol}")
+            if (rows, D) != NORM_MAIN or residual:
+                continue
+            # x in, out out (scale, bias f32); ~8 fp32 operations an element
+            nbytes = 2 * rows * D * x.element_size() + 2 * D * 4
+            b_ms, b_by = bound(nbytes, 8 * rows * D, FP32_FLOPS)
+            s16, b16 = scale.to(dtype), bias.to(dtype)
+            if name == "fused_layer_norm":
+                lib = lambda: F.layer_norm(x, (D,), s16, b16, 1e-5)
+            else:
+                lib = (lambda: F.rms_norm(x, (D,), s16, 1e-5)) \
+                    if hasattr(F, "rms_norm") else None
+            results[name, "norms"] = dict(
+                shape=[rows, D], max_abs_err=err,
+                ms=median_ms(lambda: fn(*args)),
+                plain_ms=median_ms(lambda: plain(*args)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=median_ms(lib) if lib else None)
+    return results
+
+
+def phase_norms(state):
+    """The public norm ops as a user calls them, at [4096, 768] bf16
+    (LayerNorm after a residual add, RMSNorm without): one launch each,
+    finite outputs of x's shape and dtype within one bf16 step of the plain
+    versions."""
+    import torch
+    from deepspeed_tpu_torch.ops import norms
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    rng = np.random.default_rng(6)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+    x, res = randn(*NORM_MAIN), randn(*NORM_MAIN)
+    scale, bias = randn(NORM_MAIN[1]), randn(NORM_MAIN[1])
+    LAUNCHES.clear()
+    ln = norms.fused_layer_norm(x, scale, bias, 1e-5, residual=res)
+    rms = norms.fused_rms_norm(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    _expect("norms", counts, {"fused_layer_norm": 1, "fused_rms_norm": 1})
+    errs = {}
+    for name, out, ref in (
+            ("fused_layer_norm", ln,
+             norms.layer_norm_reference(x, scale, bias, 1e-5, res)),
+            ("fused_rms_norm", rms, norms.rms_norm_reference(x, scale, 1e-5))):
+        if out.shape != x.shape or out.dtype != x.dtype \
+                or not torch.isfinite(out).all():
+            raise AssertionError(f"{name}: output {out.shape} {out.dtype} "
+                                 f"not finite or misshapen")
+        errs[name] = (out.float() - ref.float()).abs().max().item()
+        tol = torch.finfo(x.dtype).eps * ref.float().abs().max().item()
+        if errs[name] > tol:
+            raise AssertionError(f"{name}: err {errs[name]} > {tol}")
+    emit({"phase": "norms", "shape": list(NORM_MAIN), "dtype": "bfloat16",
+          "launches": counts, "max_abs_err": errs})
+    return counts
+
+
+def _expect(path, counts, want):
+    """A path's launch counts, exactly."""
+    if counts != want:
+        raise AssertionError(f"{path} launches {counts} != {want}")
 
 
 def _ragged_prompts(rng, lens, vocab):
@@ -1130,8 +1358,8 @@ def _train_parity(cfg):
                              name=name, params=params),
         config={**config, "bf16": {"enabled": False}}, device="cpu")
     batch = {"tokens": torch.from_numpy(toks)}
-    g_card, l_card = card._grads(card.state.params, batch)
-    g_cpu, l_cpu = cpu._grads(cpu.state.params, batch)
+    g_card, l_card, _ = card._grads(card.state.params, batch)
+    g_cpu, l_cpu, _ = cpu._grads(cpu.state.params, batch)
     loss_err = abs(float(l_card) - float(l_cpu))
     rel = {}
     names = _leaf_names(g_cpu)
@@ -1159,10 +1387,463 @@ def _leaf_names(tree, prefix=""):
     return [prefix.rstrip("/")]
 
 
+class RouteRecorder:
+    """Records each MoE layer's top-1 choice while a `with` block runs, by
+    wrapping the port's routing functions from this script
+    (`models/moe_gpt.py`'s `top1_gating` and `_nodrop_gates`): every call
+    appends its tokens' expert ids (-1 where the capacity dropped the
+    token). The wrappers return what the originals return."""
+
+    def __enter__(self):
+        import torch
+        from deepspeed_tpu_torch.models import moe_gpt
+        self.calls = []
+        self._saved = (moe_gpt.top1_gating, moe_gpt._nodrop_gates)
+        top1, nodrop = self._saved
+
+        def top1_gating(*args, **kwargs):
+            out = top1(*args, **kwargs)
+            kept = out[1].any(dim=-1)                          # [N, E]
+            self.calls.append(torch.where(
+                kept.any(dim=-1), kept.int().argmax(dim=-1), -1).cpu())
+            return out
+
+        def nodrop_gates(xf, gate_w):
+            probs, top = nodrop(xf, gate_w)
+            self.calls.append(top.cpu())
+            return probs, top
+
+        moe_gpt.top1_gating, moe_gpt._nodrop_gates = top1_gating, nodrop_gates
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.models import moe_gpt
+        moe_gpt.top1_gating, moe_gpt._nodrop_gates = self._saved
+
+
+def _routes_alike(card, cpu):
+    """Per routing call, [N] bool: the card's route equals the CPU twin's."""
+    if len(card) != len(cpu) or any(a.shape != b.shape
+                                    for a, b in zip(card, cpu)):
+        raise AssertionError(f"routing calls differ: {len(card)} vs "
+                             f"{len(cpu)}")
+    return [a.long() == b.long() for a, b in zip(card, cpu)]
+
+
+def _check_route_share(what, shares):
+    if min(shares) < ROUTE_AGREE_MIN:
+        raise AssertionError(f"{what}: routes alike {shares} below "
+                             f"{ROUTE_AGREE_MIN}")
+
+
+def _moe_cfg(**over):
+    from deepspeed_tpu_torch.models.moe_gpt import MoEGPTConfig
+    return MoEGPTConfig(**{**MOE_CFG, **over})
+
+
+def _bf16_rounded(params):
+    import torch
+    from deepspeed_tpu_torch.utils.tree import tree_cast
+    return tree_cast(tree_cast(params, torch.bfloat16), torch.float32)
+
+
+def phase_moe(state):
+    """MoE-GPT (moe-gpt-125m-e8) at full width and depth, bf16, random
+    weights from a numpy seed: (a) training, (b) generate(), (c) the
+    serving engine, then (d) the dropless MoE layer. Each path's launches
+    are counted from 0 just before it and read just after."""
+    counts = {}
+    out = {"phase": "moe", "model": MOE_MODEL, "config": MOE_CFG,
+           "route_agree_min": ROUTE_AGREE_MIN}
+    out["train"] = _moe_train(state, counts)
+    out["generate"] = _moe_generate(state, counts)
+    out["serve"] = _moe_serve(state, counts)
+    out["dropless"] = _moe_dropless(counts)
+    emit(out)
+    return counts
+
+
+def _moe_train(state, counts):
+    """initialize(make_moe_gpt_model) -> train_batch: one warm-up step, then
+    MOE_STEPS timed steps on one batch; then the 2-layer parity run."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.moe_gpt import make_moe_gpt_model
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.utils.tree import tree_num_params
+    cfg = _moe_cfg()
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=make_moe_gpt_model(cfg, name=MOE_MODEL,
+                                                     seed=0),
+                            config=MOE_TRAIN_CONFIG)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MOE_MBS * MOE_GAS, MOE_SEQ + 1))).cuda()}
+    def moe_metrics():
+        return {k: float(v) for k, v in engine._last_metrics.items()
+                if k.startswith("moe/")}
+    losses = [float(engine.train_batch(batch))]             # warm-up
+    metrics = [moe_metrics()]
+    LAUNCHES.clear()
+    step_s = []
+    for _ in range(MOE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(engine.train_batch(batch))  # the read waits for the step
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        metrics.append(moe_metrics())
+    counts["moe_train"] = dict(LAUNCHES)
+    n = cfg.n_layer * MOE_GAS * MOE_STEPS    # no remat: one forward a layer
+    _expect("moe_train", counts["moe_train"],
+            {"flash_attention": n, "flash_attention_bwd_dq": n,
+             "flash_attention_bwd_dkv": n})
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"moe train losses not finite and falling: "
+                             f"{losses}")
+    keys = ("moe/aux_loss", "moe/overflow_tokens", "moe/dropped_frac")
+    for m in metrics:
+        if sorted(m) != sorted(keys) or not all(np.isfinite(list(m.values()))) \
+                or not 0 <= m["moe/dropped_frac"] <= 1 \
+                or not m["moe/aux_loss"] > 0:
+            raise AssertionError(f"moe train metrics {m}")
+    n_params = tree_num_params(engine.state.params)
+    # top-1 routing activates one expert FFN per token: the active
+    # parameters are the dense gpt2-125m's (bench.py's MoE lane counts its
+    # dense twin)
+    n_active = n_params - tree_num_params(engine.state.params["moe"])
+    sec = statistics.median(step_s)
+    tokens_per_s = MOE_MBS * MOE_GAS * MOE_SEQ / sec
+    state.update(moe_train_engine=engine, moe_train_batch=batch,
+                 moe_train_s=sec)
+    dense_sec = _dense_twin_step_s(cfg, batch)
+    return {"n_layer": cfg.n_layer, "n_params": n_params,
+            "n_active_params": n_active, "config": MOE_TRAIN_CONFIG,
+            "seq": MOE_SEQ, "setup_s": setup_s, "losses": losses,
+            "metrics": metrics, "step_s": step_s, "seconds_per_step": sec,
+            "tokens_per_s": tokens_per_s,
+            "mfu_active": 6 * n_active * tokens_per_s / BF16_FLOPS,
+            "mfu_basis": "6 x active params x tokens/s over 989e12 flop/s",
+            "dense_twin_seconds_per_step": dense_sec,
+            "step_vs_dense_twin": sec / dense_sec,
+            "launches": counts["moe_train"],
+            "parity": _moe_train_parity(cfg)}
+
+
+def _dense_twin_step_s(cfg, batch):
+    """Median seconds per step of the dense gpt2-125m (the same GPTConfig,
+    no remat, as the MoE forward runs none) under the same engine config
+    and batch: bench.py's MoE lane's iso-FLOPs baseline."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt import GPTConfig, make_gpt_model
+    dense_cfg = GPTConfig(**{**{f.name: getattr(cfg, f.name)
+                                for f in dataclasses.fields(GPTConfig)},
+                             "remat": False})
+    engine, *_ = initialize(model=make_gpt_model(dense_cfg, name="gpt2-125m",
+                                                 seed=0),
+                            config=MOE_TRAIN_CONFIG)
+    float(engine.train_batch(batch))                        # warm-up
+    times = []
+    for _ in range(MOE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(engine.train_batch(batch))
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _moe_train_parity(cfg):
+    """The first step's loss and every gradient at 2 layers (layer 1 is
+    MoE), B 2, T 512: the engine on the card in bf16 against the engine on
+    the CPU in fp32 from the same bf16-rounded weights. A first pass
+    records each token's route on both sides; the tokens routed otherwise
+    get the label -100, and the loss and gradients of a second pass are
+    held to the train phase's tolerances over the rest."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.moe_gpt import (init_moe_gpt_params,
+                                                    make_moe_gpt_model)
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    small = dataclasses.replace(cfg, n_layer=2)
+    params = _bf16_rounded(init_moe_gpt_params(small, seed=1))
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                             (2, MOE_SEQ + 1))
+    config = {**MOE_TRAIN_CONFIG, "train_micro_batch_size_per_gpu": 2,
+              "gradient_accumulation_steps": 1}
+    name = f"{MOE_MODEL}-2-layers"
+    card, *_ = initialize(model=make_moe_gpt_model(small, name=name,
+                                                   params=params),
+                          config=config)
+    cpu, *_ = initialize(
+        model=make_moe_gpt_model(dataclasses.replace(small,
+                                                     dtype=torch.float32),
+                                 name=name, params=params),
+        config={**config, "bf16": {"enabled": False}}, device="cpu")
+    routes = {}
+    for key, eng in (("card", card), ("cpu", cpu)):
+        with RouteRecorder() as rec:
+            eng._grads(eng.state.params, {"tokens": torch.from_numpy(toks)})
+        routes[key] = rec.calls
+    same = torch.stack(_routes_alike(routes["card"], routes["cpu"]))
+    shares = same.float().mean(dim=1).tolist()
+    _check_route_share("moe train parity", shares)
+    agree = same.all(dim=0).reshape(2, MOE_SEQ).numpy()
+    labels = toks[:, 1:].copy()
+    labels[~agree] = -100
+    batch = {"input_ids": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(labels)}
+    res = {}
+    for key, eng in (("card", card), ("cpu", cpu)):
+        with RouteRecorder() as rec:
+            res[key] = eng._grads(eng.state.params, batch)
+        if not all(bool(a.all()) for a in _routes_alike(rec.calls,
+                                                        routes[key])):
+            raise AssertionError(f"moe train parity: {key} routes changed "
+                                 f"between two passes")
+    (g_card, l_card, _), (g_cpu, l_cpu, _) = res["card"], res["cpu"]
+    loss_err = abs(float(l_card) - float(l_cpu))
+    rel = {}
+    for leaf, a, b in zip(_leaf_names(g_cpu), tree_leaves(g_card),
+                          tree_leaves(g_cpu)):
+        a = a.float().cpu()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"moe gradient {leaf} not finite on the "
+                                 f"card")
+        rel[leaf] = 0.0 if b.norm() == 0 and a.norm() == 0 else \
+            ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    worst = max(rel, key=rel.get)
+    if not loss_err <= TRAIN_LOSS_TOL or rel[worst] > TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"moe train parity: loss err {loss_err} (tol "
+                             f"{TRAIN_LOSS_TOL}), worst gradient {worst} "
+                             f"{rel[worst]} (tol {TRAIN_GRAD_REL_TOL})")
+    return {"n_layer": 2, "batch": 2, "seq": MOE_SEQ,
+            "routes_alike_per_layer": shares,
+            "rows_routed_otherwise": int((~agree).sum()),
+            "loss_card": float(l_card), "loss_cpu": float(l_cpu),
+            "loss_abs_err": loss_err, "loss_tol": TRAIN_LOSS_TOL,
+            "grad_rel_err": rel, "grad_rel_tol": TRAIN_GRAD_REL_TOL}
+
+
+def _moe_generate(state, counts):
+    """init_inference(make_moe_gpt_decode_model) -> generate() on the
+    generate phase's prompts; then prefill and first-decode logits against
+    the CPU twin on the rows whose routes agree in every MoE layer."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.moe_gpt import make_moe_gpt_decode_model
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    cfg = _moe_cfg()
+    L = cfg.n_layer
+    t0 = time.perf_counter()
+    spec = make_moe_gpt_decode_model(cfg, name=MOE_MODEL, seed=0)
+    engine = init_inference(spec, config={
+        "dtype": "bfloat16", "kv_cache_dtype": "bfloat16", "greedy": True})
+    setup_s = time.perf_counter() - t0
+    lens = [100, 250, 431, 600]
+    prompts = _ragged_prompts(np.random.default_rng(1), lens, cfg.vocab_size)
+    new = 32
+    engine.generate(prompts, max_new_tokens=2, stop_on_eos=False)  # warm-up
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=new, stop_on_eos=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts["moe_generate"] = dict(LAUNCHES)
+    _expect("moe_generate", counts["moe_generate"],
+            {"flash_attention": L, "decode_attention": L * (new - 1)})
+    if out.shape != (4, new) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"moe generate output {out.shape} out of range")
+
+    cpu_spec = make_moe_gpt_decode_model(
+        dataclasses.replace(cfg, dtype=torch.float32), name=MOE_MODEL,
+        params=_bf16_rounded(spec.params))
+    cpu = init_inference(cpu_spec, config={
+        "dtype": "float32", "kv_cache_dtype": "float32"}, device="cpu")
+    padded, plens = engine._pad_ragged(prompts)
+    last_idx = torch.as_tensor(plens).long() - 1
+    with torch.inference_mode():
+        with RouteRecorder() as rc:
+            logits, cache = engine.forward(padded)
+            last = logits[torch.arange(4, device="cuda"), last_idx.cuda()]
+            tok = last.argmax(-1).to(torch.int32)
+            pos = torch.as_tensor(plens, device="cuda").long()
+            dec, _ = spec.decode_fn(engine.params, tok, pos, cache)
+        with RouteRecorder() as rp:
+            c_logits, c_cache = cpu.forward(padded)
+            c_last = c_logits[torch.arange(4), last_idx]
+            c_dec, _ = cpu_spec.decode_fn(cpu.params, tok.cpu(), pos.cpu(),
+                                          c_cache)
+    n_moe = len(cfg.moe_layer_ids())
+    T = padded.shape[1]
+    same = _routes_alike(rc.calls, rp.calls)
+    pre = torch.stack(same[:n_moe]).reshape(n_moe, 4, T)  # prefill tokens
+    dcd = torch.stack(same[n_moe:])                       # [n_moe, 4]
+    valid = torch.arange(T)[None, :] < torch.as_tensor(plens)[:, None]
+    shares = [((pre[l][valid].sum() + dcd[l].sum()).item()
+               / (int(valid.sum()) + 4)) for l in range(n_moe)]
+    _check_route_share("moe generate", shares)
+    rows = {"prefill": pre[:, torch.arange(4), last_idx].all(dim=0),
+            "decode": dcd.all(dim=0)}
+    errs = {}
+    for name, a, b in (("prefill", last, c_last), ("decode", dec, c_dec)):
+        a = a.float().cpu()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"moe {name} logits not finite")
+        keep = rows[name]
+        if not keep.any():
+            raise AssertionError(f"moe {name}: no row routed alike in every "
+                                 f"layer")
+        errs[name] = (a[keep] - b[keep]).abs().max().item()
+        if errs[name] > LOGIT_TOL:
+            raise AssertionError(f"moe {name} logits err {errs[name]} > "
+                                 f"{LOGIT_TOL}")
+    state.update(moe_engine=engine, moe_prompts=prompts, moe_generate_s=dt)
+    return {"batch": 4, "prompt_lens": lens, "max_new_tokens": new,
+            "setup_s": setup_s, "seconds": dt, "tokens_per_s": 4 * new / dt,
+            "launches": counts["moe_generate"],
+            "routes_alike_per_layer": shares,
+            "rows_compared": {k: int(v.sum()) for k, v in rows.items()},
+            "rows_routed_otherwise": {k: int((~v).sum())
+                                      for k, v in rows.items()},
+            "logit_max_abs_err": errs, "logit_tol": LOGIT_TOL,
+            "logit_ref_std": float(c_last.float().std())}
+
+
+def _moe_serve(state, counts):
+    """ServingEngine on (b)'s engine with the serve phase's trace."""
+    import torch
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    engine = state["moe_engine"]
+    cfg = _moe_cfg()
+    L = cfg.n_layer
+    serving = engine.serving(max_slots=8, max_context=1024)
+    rng = np.random.default_rng(2)
+    lens = rng.integers(100, 601, 16).tolist()
+    prompts = _ragged_prompts(rng, lens, cfg.vocab_size)
+    new = 32
+    serving.run([Request(uid="warm", tokens=prompts[0], max_new_tokens=2,
+                         stop_on_eos=False)])
+    reqs = [Request(uid=i, tokens=p, max_new_tokens=new, stop_on_eos=False)
+            for i, p in enumerate(prompts)]
+    steps0 = serving.stats()["decode_steps"]
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = serving.run(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts["moe_serve"] = dict(LAUNCHES)
+    if sorted(res) != list(range(16)) or any(
+            len(r.tokens) != new or r.finish_reason != "length"
+            for r in res.values()):
+        raise AssertionError("moe serve: not every request completed")
+    steps = (serving.stats()["decode_steps"] - steps0) * serving.window
+    if steps <= 0:
+        raise AssertionError("moe serve ran no decode step")
+    _expect("moe_serve", counts["moe_serve"],
+            {"paged_decode_attention": L * steps})
+    if serving.allocator.num_free != serving.allocator.capacity:
+        raise AssertionError("moe serve: blocks leaked after draining")
+    ref = engine.generate(prompts, max_new_tokens=new, stop_on_eos=False)
+    agree = float(np.mean([res[i].tokens == ref[i] for i in range(16)]))
+    if not agree >= SERVE_AGREE_MIN:
+        raise AssertionError(f"moe served tokens agree with generate() on "
+                             f"{agree:.3f} < {SERVE_AGREE_MIN}")
+    state.update(moe_serve_prompts=prompts, moe_serve_s=dt)
+    return {"requests": 16, "slots": 8, "max_context": 1024,
+            "prompt_lens": lens, "max_new_tokens": new, "seconds": dt,
+            "requests_per_s": 16 / dt, "tokens_per_s": 16 * new / dt,
+            "launches": counts["moe_serve"], "decode_model_steps": steps,
+            "token_agreement_with_generate": agree,
+            "agree_min": SERVE_AGREE_MIN, "stats": serving.stats()}
+
+
+def _moe_dropless(counts):
+    """moe.layer.MoE(hidden_size=768, num_experts=8, drop_tokens=False),
+    d_ff 3072, bf16, on x [8, 512, 768]: forward and backward of
+    mean(y^2) + 0.01 l_aux, through the token-sort kernel."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.moe.layer import MoE
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.parallel import moe as pmoe
+    D, F_, E = 768, 3072, 8
+    N = MOE_MBS * MOE_SEQ
+    layer = MoE(hidden_size=D, num_experts=E, drop_tokens=False)
+    params = {k: v.cuda().requires_grad_(True) for k, v in
+              layer.init_params(d_ff=F_, seed=0, dtype=torch.bfloat16).items()}
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (MOE_MBS, MOE_SEQ, D)).astype(np.float32)).to(
+            "cuda", torch.bfloat16).requires_grad_(True)
+
+    def step():
+        y, l_aux, exp_counts = layer(params, x)
+        loss = y.float().square().mean() + 0.01 * l_aux
+        return y, exp_counts, torch.autograd.grad(loss, [x, *params.values()])
+
+    step()                                               # warm-up
+    sorts, sort = [], pmoe.token_sort
+
+    def recorded_sort(idx, n_experts):
+        out = sort(idx, n_experts)
+        sorts.append((idx, *out))
+        return out
+
+    pmoe.token_sort = recorded_sort
+    try:
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, exp_counts, grads = step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts["moe_dropless"] = dict(LAUNCHES)
+    finally:
+        pmoe.token_sort = sort
+    _expect("moe_dropless", counts["moe_dropless"], {"token_sort": 1})
+    idx, pos, sort_counts = sorts[0]
+    if int(sort_counts.sum()) != N or int(exp_counts.sum()) != N:
+        raise AssertionError(f"dropless counts {sort_counts.tolist()} do not "
+                             f"sum to {N}")
+    if torch.unique(idx.long() * N + pos.long()).numel() != N:
+        raise AssertionError("dropless (expert, pos) pairs are not unique")
+    if not all(torch.isfinite(g).all() for g in grads):
+        raise AssertionError("dropless gradients not finite")
+    # the oracle: each token through its own expert's weights, in fp32 from
+    # the same bf16 inputs (tests/test_moe.py:130-155)
+    with torch.no_grad():
+        flat = x.reshape(N, D)
+        gates = torch.softmax(flat.float() @ params["gate_w"].float(), dim=-1)
+        e = gates.argmax(dim=-1)
+        if not torch.equal(e, idx.long()):
+            raise AssertionError("the oracle routes otherwise than the layer")
+        ref = torch.empty(N, D, device="cuda")
+        for j in range(E):
+            rows = e == j
+            h = F.gelu(flat[rows].float() @ params["wi"][j].float()
+                       + params["wi_b"][j].float(), approximate="tanh")
+            ref[rows] = h @ params["wo"][j].float() + params["wo_b"][j].float()
+        ref = ref * gates.gather(-1, e[:, None])
+        err = (y.reshape(N, D).float() - ref).abs().max().item()
+        tol = DROPLESS_REL_TOL * ref.abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"dropless layer vs argmax oracle: {err} > {tol}")
+    return {"shape": [MOE_MBS, MOE_SEQ, D], "d_ff": F_, "experts": E,
+            "launches": counts["moe_dropless"],
+            "expert_counts": sort_counts.tolist(), "max_abs_err": err,
+            "tol": tol, "fwd_bwd_first_s": dt,
+            "fwd_bwd_ms": median_ms(step, reps=5, inner=1)}
+
+
 def _device_breakdown(prof, wall_s):
     """Kernel time on the card by class, from a torch.profiler run, against
     the unprofiled wall time of the same work."""
-    classes = {"attention (ours)": 0.0, "quant (ours)": 0.0, "matmul": 0.0,
+    classes = {"attention (ours)": 0.0, "quant (ours)": 0.0,
+               "token sort, norms (ours)": 0.0, "matmul": 0.0,
                "optimizer (foreach)": 0.0, "other": 0.0}
     top = []
     for ev in prof.key_averages():
@@ -1177,6 +1858,8 @@ def _device_breakdown(prof, wall_s):
             cls = "attention (ours)"
         elif "quantize_kernel" in name:
             cls = "quant (ours)"
+        elif any(k in name for k in ("token_sort_kernel", "norm_kernel")):
+            cls = "token sort, norms (ours)"
         elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass",
                                               "nvjet")):
             cls = "matmul"
@@ -1233,6 +1916,19 @@ def phase_profile(state):
         with profile(activities=acts) as prof:
             float(state["train_engine"].train_batch(state["train_batch"]))
         out["train"] = _device_breakdown(prof, state["train_s"])
+    if "moe_train_engine" in state:
+        with profile(activities=acts) as prof:
+            float(state["moe_train_engine"].train_batch(
+                state["moe_train_batch"]))
+        out["moe_train"] = _device_breakdown(prof, state["moe_train_s"])
+    if "moe_serve_prompts" in state:
+        serving = state["moe_engine"].serving(max_slots=8, max_context=1024)
+        with profile(activities=acts) as prof:
+            serving.run([Request(uid=i, tokens=p, max_new_tokens=32,
+                                 stop_on_eos=False)
+                         for i, p in enumerate(state["moe_serve_prompts"])])
+            torch.cuda.synchronize()
+        out["moe_serve"] = _device_breakdown(prof, state["moe_serve_s"])
     emit(out)
 
 
@@ -1253,19 +1949,24 @@ def main():
               file=sys.stderr)
         return 2
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else \
-        ["build", "kernels", "generate", "serve", "quant", "train"]
+        ["build", "kernels", "norms", "generate", "serve", "quant", "train",
+         "moe"]
     dev = phase_device()
     state, launches, kern = {}, {}, {}
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
         kern = phase_kernels()
-    for phase, run in (("generate", phase_generate), ("serve", phase_serve),
-                       ("quant", phase_quant), ("train", phase_train)):
+    for phase, run in (("norms", phase_norms),
+                       ("generate", phase_generate), ("serve", phase_serve),
+                       ("quant", phase_quant), ("train", phase_train),
+                       ("moe", phase_moe)):
         if phase in phases:
             counts = run(state)        # counts of each path's run; the
-            # quant phase runs four paths and returns {path: counts}
-            launches.update(counts if phase == "quant" else {phase: counts})
+            # quant and moe phases run four paths each and return
+            # {path: counts}
+            launches.update(counts if phase in ("quant", "moe")
+                            else {phase: counts})
     if "profile" in phases:
         phase_profile(state)
     print(dev["nvidia_smi"], flush=True)

@@ -157,6 +157,11 @@ class InferenceEngine:
                 f"(group {self._weight_quant[1]}) — cannot re-quantize as "
                 f"int{bits} (group {group_size}); pick one of config.quant "
                 f"and serving.quantization.weights, or make them agree")
+        if isinstance(self.params, dict) and "moe" in self.params:
+            raise NotImplementedError(
+                "weight-only quantization of an MoE tree is not ported to "
+                "deepspeed_tpu_torch yet: the expert leaves of params['moe'] "
+                "do not dequantize on use")
         from deepspeed_tpu_torch.inference.quantization import \
             quantize_param_tree
         self.params, self.quant_stats = quantize_param_tree(

@@ -308,11 +308,13 @@ def _mlp(h, p, cfg):
     return up @ p["mlp_down_w"] + p["mlp_out_b"]
 
 
-def _residual_mlp(x, attn_out, p, cfg: GPTConfig):
+def _residual_mlp(x, attn_out, p, cfg: GPTConfig, mlp_fn=None):
+    """Residual second half of a block; `mlp_fn` lets MoE swap the dense
+    MLP."""
     x = x + attn_out
     h2 = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg.use_rmsnorm,
                cfg.norm_eps)
-    return x + _mlp(h2, p, cfg)
+    return x + (_mlp(h2, p, cfg) if mlp_fn is None else mlp_fn(h2))
 
 
 def _head_logits(params, x, cfg: GPTConfig):

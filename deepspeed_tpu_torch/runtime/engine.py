@@ -7,7 +7,10 @@ step: a loop over the gradient-accumulation micro-batches (scaled loss,
 the JAX engine's `_apply_grads_fn` sequence in its order — unscale, finite
 check, fp32 global norm, clip, optimizer update of the fp32 master (or of
 the params when `bf16.master_weights` is false), masked skip, cast to the
-compute dtype, loss-scaler update, step + 1 only when finite.
+compute dtype, loss-scaler update, step + 1 only when finite. The step's
+metrics (`engine._last_metrics`) also carry the slash-keyed scalar entries
+of the loss's aux dict (`moe/aux_loss`, ...), averaged over the
+micro-batches, as the JAX engine's do.
 
 The optimizer steps the params, the fp32 master and its own state in
 place (`ops/optim.py`); the scaler state and the step counter are 0-d
@@ -208,25 +211,35 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _micro_grads(self, params, micro_batch):
-        """(grads in the params' dtype, loss) of one micro-batch; the loss
-        is scaled for the backward (fp16) and returned unscaled."""
+        """(grads in the params' dtype, loss, extras) of one micro-batch;
+        the loss is scaled for the backward (fp16) and returned unscaled.
+        `extras` are the slash-keyed scalar entries of the loss's aux dict
+        (`moe/aux_loss`, ...) as fp32, the JAX engine's aux-metrics
+        channel."""
         leaves = [p.detach().requires_grad_(p.is_floating_point())
                   for p in tree_leaves(params)]
-        loss, _ = self._loss_fn(tree_unflatten(params, leaves), micro_batch,
-                                self.generator)
+        loss, aux = self._loss_fn(tree_unflatten(params, leaves), micro_batch,
+                                  self.generator)
         wrt = [leaf for leaf in leaves if leaf.requires_grad]
         grads = iter(torch.autograd.grad(
             self.scaler.scale_loss(loss, self.state.scaler), wrt,
             allow_unused=True, materialize_grads=True))
+        extras = {}
+        if isinstance(aux, dict):
+            extras = {k: torch.as_tensor(v).detach().float()
+                      for k, v in aux.items()
+                      if "/" in k and torch.as_tensor(v).dim() == 0}
         return tree_unflatten(params, [next(grads) if leaf.requires_grad
                                        else torch.zeros_like(leaf)
-                                       for leaf in leaves]), loss.detach()
+                                       for leaf in leaves]), loss.detach(), \
+            extras
 
     def _grads(self, params, batch):
-        """The gas loop: (grads, mean loss). At gas > 1 grads accumulate in
-        `grad_accum_dtype` (fp32 by default), each divided by the predivide
-        factor, and the sum is scaled by predivide / gas; at gas == 1 they
-        stay in the compute dtype (the optimizer widens them exactly)."""
+        """The gas loop: (grads, mean loss, extras). At gas > 1 grads
+        accumulate in `grad_accum_dtype` (fp32 by default), each divided by
+        the predivide factor, and the sum is scaled by predivide / gas; at
+        gas == 1 they stay in the compute dtype (the optimizer widens them
+        exactly). The extras are the micro-batches' mean."""
         gas = self.gradient_accumulation_steps_value
         batch = _to_device(batch, self.device)
         if gas == 1:
@@ -239,16 +252,18 @@ class Engine:
                                              *x.shape[1:]), batch)
         acc_dtype = self.config.data_types.accum_dtype()
         predivide = self.config.gradient_predivide_factor or 1.0
-        acc = loss_sum = None
+        acc = loss_sum = extras = None
         for i in range(gas):
-            g, loss = self._micro_grads(params, tree_map(lambda x: x[i],
-                                                         split))
+            g, loss, ex = self._micro_grads(params, tree_map(lambda x: x[i],
+                                                             split))
             g = [x.to(acc_dtype) / predivide for x in tree_leaves(g)]
             acc = g if acc is None else [a + x for a, x in zip(acc, g)]
             loss = loss.float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
+            extras = ex if extras is None else {k: extras[k] + v
+                                                for k, v in ex.items()}
         grads = tree_unflatten(params, [a * (predivide / gas) for a in acc])
-        return grads, loss_sum / gas
+        return grads, loss_sum / gas, {k: v / gas for k, v in extras.items()}
 
     def _apply_grads(self, state, grads, loss):
         """(state, grads, mean loss) -> (state, metrics). The grads are
@@ -305,8 +320,9 @@ class Engine:
         self.tput_timer.start()
         if timed:
             self.timers(TRAIN_BATCH_TIMER).start()
-        grads, loss = self._grads(self.state.params, batch)
+        grads, loss, extras = self._grads(self.state.params, batch)
         self.state, metrics = self._apply_grads(self.state, grads, loss)
+        metrics.update(extras)
         if timed:
             self.timers(TRAIN_BATCH_TIMER).stop()
         self.tput_timer.stop(global_step=True)
@@ -325,8 +341,8 @@ class Engine:
     # accumulates them, step applies their mean at the gas boundary.
 
     def forward(self, batch):
-        grads, loss = self._micro_grads(self.state.params,
-                                        _to_device(batch, self.device))
+        grads, loss, _ = self._micro_grads(self.state.params,
+                                           _to_device(batch, self.device))
         self._forward_cache = (tree_cast(grads, torch.float32), loss)
         return loss
 

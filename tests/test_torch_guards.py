@@ -345,3 +345,98 @@ def test_the_import_scan_covers_the_quantization_modules():
     for module in ("ops/quant.py", "inference/quantization.py",
                    "ops/decode_attention.py", "inference/kv_cache.py"):
         assert f"deepspeed_tpu_torch/{module}" in names
+
+
+def test_the_import_scan_covers_the_moe_modules():
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("parallel/__init__.py", "parallel/moe.py",
+                   "moe/__init__.py", "moe/layer.py", "models/moe_gpt.py",
+                   "ops/token_sort.py", "ops/norms.py"):
+        assert f"deepspeed_tpu_torch/{module}" in names
+
+
+def test_token_sort_and_norm_wrappers_take_the_plain_version_on_the_cpu():
+    from deepspeed_tpu_torch.ops import norms as tno
+    from deepspeed_tpu_torch.ops import token_sort as tts
+    rng = np.random.default_rng(13)
+    op_builder.LAUNCHES.clear()
+    idx = torch.from_numpy(rng.integers(-1, 9, 50))
+    for got, want in zip(tts.token_sort(idx, 8),
+                         tts.token_sort_reference(idx, 8)):
+        assert torch.equal(got, want)
+    x = torch.from_numpy(rng.standard_normal((5, 64)).astype(np.float32))
+    s, b = torch.ones(64), torch.zeros(64)
+    assert torch.equal(tno.fused_layer_norm(x, s, b, residual=x),
+                       tno.layer_norm_reference(x, s, b, residual=x))
+    assert torch.equal(tno.fused_rms_norm(x, s), tno.rms_norm_reference(x, s))
+    assert sum(op_builder.LAUNCHES.values()) == 0
+
+
+class _CudaLike:
+    """Stands in for a CUDA tensor on a box without one: the attributes the
+    wrappers read before they reach their kernel."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = torch.Size(shape), dtype
+        self.device, self.is_cuda = torch.device("cuda", 0), True
+
+    def dim(self):
+        return len(self.shape)
+
+    def element_size(self):
+        return torch.empty((), dtype=self.dtype).element_size()
+
+
+@pytest.mark.parametrize("op", ["token_sort", "fused_layer_norm",
+                                "fused_rms_norm"])
+def test_token_sort_and_norm_wrappers_never_take_the_plain_version_on_cuda(
+        op, monkeypatch):
+    """Handed a CUDA tensor, each wrapper goes for its kernel (here the
+    library load, which raises) and never to its plain version."""
+    from deepspeed_tpu_torch.ops import norms as tno
+    from deepspeed_tpu_torch.ops import token_sort as tts
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    def load(name):
+        raise RuntimeError(f"kernel library {name} requested")
+
+    for mod, name in ((tts, "token_sort_reference"),
+                      (tno, "layer_norm_reference"),
+                      (tno, "rms_norm_reference")):
+        monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setattr(op_builder, "load", load)
+    monkeypatch.setattr(tts, "_MAX_EXPERTS", {})
+    x = _CudaLike((4, 64), torch.bfloat16)
+    s = _CudaLike((64,), torch.float32)
+    calls = {"token_sort": lambda: tts.token_sort(
+                 _CudaLike((32,), torch.int64), 8),
+             "fused_layer_norm": lambda: tno.fused_layer_norm(x, s, s),
+             "fused_rms_norm": lambda: tno.fused_rms_norm(x, s)}
+    with pytest.raises(RuntimeError, match="kernel library"):
+        calls[op]()
+
+
+def test_cross_rank_expert_dispatch_refuses():
+    from deepspeed_tpu_torch.parallel import moe as tmoe
+    assert not tmoe.can_use_expert_shard_map(None, 8, 64)
+    assert not tmoe.can_use_expert_shard_map(object(), 8, 64)  # one rank
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tmoe.expert_parallel_moe()
+
+
+def test_weight_quant_of_an_moe_tree_refuses_when_the_engine_is_built():
+    from deepspeed_tpu_torch.models.moe_gpt import (MoEGPTConfig,
+                                                    make_moe_gpt_decode_model)
+    cfg = MoEGPTConfig(n_layer=2, n_head=4, d_model=64, max_seq_len=64,
+                       vocab_size=128, dtype="float32", num_experts=4)
+    conf = {"dtype": "float32", "kv_cache_dtype": "float32",
+            "kv_block_size": 16, "max_out_tokens": 64}
+    spec = make_moe_gpt_decode_model(cfg, name="moe-tiny")
+    with pytest.raises(NotImplementedError, match="MoE tree"):
+        init_inference(spec, config={**conf, "quant": {"enabled": True}},
+                       device="cpu")
+    engine = init_inference(spec, config=conf, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE tree"):
+        engine.serving(quantization={"weights": "int8"})
