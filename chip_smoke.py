@@ -24,6 +24,17 @@ Phases, one JSON line each:
            ids out of range and negative, int64 ids; fused_layer_norm /
            fused_rms_norm within one output-dtype step at [4096, 768] bf16
            with and without a residual, [4096, 4096] fp16, [37, 1000] fp32;
+           the block-sparse forward, dq and dk/dv kernels (and dbias)
+           row by row within 1e-2 of each row's norm at the sparse paths'
+           shapes (B 1, H 12, T 8192, hd 64), on four layout families, at
+           hd 128 in fp16 at T 1008, with bias slabs of 1 and H heads
+           (learned and frozen), an all-padded row (the mean of its
+           visited V) and a batched mask; two planted faults (a tile
+           dropped from one visit list) that the row measure must see;
+           the public wrapper's autograd at B 2 against autograd through
+           the plain version; the evoformer kernel within one
+           output-dtype step at the evoformer phase's shapes, in fp32
+           with broadcast biases, fp16 at hd 128 and without biases;
   norms    the public norm ops at [4096, 768] bf16: one launch each;
   generate init_inference -> generate() on gpt2-125m at full width and
            depth (random weights from a numpy seed), bf16: launch counts,
@@ -83,13 +94,31 @@ Phases, one JSON line each:
            on the card and the CPU twin are recorded by wrapping the
            port's routing functions from here, and their per-layer share
            alike is held to a floor;
+  sparse   gpt2-125m at full width and depth with max_seq_len 8192,
+           bf16, through sparse_attn_fn with the Fixed layout of
+           tests/test_block_sparse_kernel.py:433-434 at 12 heads: (a)
+           initialize() -> train_batch() (the train phase's engine config,
+           micro-batch 1, seq 8192, gas 2; 1 warm-up + 3 timed steps):
+           finite falling loss, exact launches (forward 2 x 12 x gas,
+           each backward kernel 12 x gas per step, no flash), tokens/s,
+           MFU; (b) the spec's apply_fn: 12 forward launches, finite
+           logits; (c) 2-layer loss and gradients at T 2048, bf16 card vs
+           fp32 CPU; (d) SparseSelfAttention with a learned rpe and padded
+           keys: one launch of each kernel, the output and the q, k, v and
+           rpe gradients against autograd through the plain version;
+  evoformer evoformer_attention at AlphaFold 2's MSA-row (N 128, S 256,
+           8 heads of 32) and triangle (N 256, S 256, 4 heads of 32)
+           shapes, bf16, mask + pair bias: one launch a call, the output
+           and the q/k/v/mask/pair gradients against the plain version,
+           times;
   profile  (opt-in, after the phases it reads) torch.profiler over the same
            generate() call, serving runs (bf16, quantized, MoE) and one
-           train_batch (gpt2-760m, MoE): kernel time on the card by class
-           and the card's idle share of the unprofiled wall time.
+           train_batch (gpt2-760m, MoE, sparse): kernel time on the card by
+           class and the card's idle share of the unprofiled wall time.
 A comma-separated phase list as the one argument runs those phases only
 (the device phase always runs), e.g. `build,train,profile`,
-`build,kernels,quant` or `build,kernels,moe`. Then the
+`build,kernels,quant`, `build,kernels,moe`, `build,kernels,sparse` or
+`build,kernels,evoformer`. Then the
 card's name and power limit, the `kernels` summary line (one row per
 kernel and path that runs it — the flash forward has generate,
 quant_generate and train rows; quantize_int8 a quant_serve row, the K/V
@@ -206,7 +235,84 @@ ROUTE_AGREE_MIN = 0.95
 # roundings of the largest output
 DROPLESS_REL_TOL = 2.0 ** -6
 
+# the sparse phase: gpt2-125m at full width and depth, its max_seq_len
+# raised to 8192 (6.3 M more wpe parameters, the one departure from the
+# model's config: long context is what sparse attention is for), through
+# sparse_attn_fn with the JAX package's timed sparse layout
+# (tests/test_block_sparse_kernel.py:433-434) at 12 heads, trained with the
+# train phase's engine config at micro-batch 1, gas 2
+SPARSE_MODEL, SPARSE_SEQ, SPARSE_MBS, SPARSE_GAS, SPARSE_STEPS = \
+    "gpt2-125m", 8192, 1, 2, 3
+SPARSE_LAYOUT = dict(num_heads=12, block=16, num_local_blocks=256,
+                     num_global_blocks=8, attention="unidirectional")
+SPARSE_TRAIN_CONFIG = {**TRAIN_CONFIG,
+                       "train_micro_batch_size_per_gpu": SPARSE_MBS,
+                       "gradient_accumulation_steps": SPARSE_GAS}
+# its parity run: 2 layers at T 2048, a layout of the same family that is
+# sparse at that length
+SPARSE_PARITY_SEQ = 2048
+SPARSE_PARITY_LAYOUT = dict(num_heads=12, block=16, num_local_blocks=64,
+                            num_global_blocks=4, attention="unidirectional")
+# block-sparse kernels vs their plain versions on the same bf16/fp16
+# inputs, row by row: for every row of out, dq, dk, dv (one query's or one
+# key's D entries) and dbias (one query's T entries), ||got - ref||_2 over
+# ||ref||_2 (`_row_err`). p and ds narrow to 16 bits (relative 2^-9 in
+# bf16) before their products and each gradient rounds to bf16 once or
+# twice, sums are fp32: a sound kernel's worst row sits a few 2^-9 off. A
+# measure over the whole tensor's largest |entry| (the flash kernels' 2e-2
+# x max|ref|) does not see a visit list that skips a tile: at T 8192 the
+# rows that see few keys set max|ref| at ~3.5, 100x a typical row's
+# entries. The row measure must, and the kernels phase proves it on
+# planted faults (`_drop_tile`). Set from the kernels phase on an H100
+# 80GB HBM3 (700 W): the sound kernels' worst row over every case is
+# 0.0054 (dq, op path), the planted faults' rows 0.085-0.85, where the
+# old measure read them at 0.0028-0.0128, under its 2e-2.
+SPARSE_ROW_TOL = 1e-2
+# a row whose ||ref|| is below this share of the RMS row norm is held
+# against that floor instead: a padded key's dk and dv rows are exactly 0,
+# and a query that sees one key has ds = p (dp - delta) = 0 up to fp32
+# rounding, so its dq row is noise
+SPARSE_ROW_FLOOR = 0.1
+# the port's autograd (q scaling, delta, the need flags, dbias summed over
+# heads and batch) vs autograd through the plain forward, as ||err||_2 /
+# ||ref||_2 over the whole tensor. The two backward passes round at other
+# places (the kernels narrow ds to 16 bits; autograd rounds dp, the
+# gradient of the narrowed p), 2^-9 each, and ds sums to 0 along a row, so
+# single rows with cancelling terms differ by more than the row measure
+# allows; over the tensor they stay a few 2^-9 apart, while a fault in the
+# wrapper (a scale, delta, a sum over the wrong axis) is an O(1) error.
+# On the H100 above the worst reading is 0.0034 (q's gradient).
+SPARSE_AUTOGRAD_TOL = 1e-2
+# the evoformer phase: AlphaFold 2's Evoformer attention at the initial-
+# training crop of the supplementary information's Table 4 (N_res 256,
+# N_clust 128): Algorithm 7 (MSA row attention with pair bias, 8 heads of
+# c = 32) and Algorithm 13 (triangle attention around the starting node,
+# 4 heads of c = 32), bf16
+EVO_CASES = {
+    "evoformer_msa_row": dict(B=1, N=128, S=256, H=8, D=32),
+    "evoformer_triangle": dict(B=1, N=256, S=256, H=4, D=32),
+}
+# the Evoformer bound's rate: fp32-accurate products on the tensor cores.
+# Its operands are bf16 (exact in bf16) against an fp32 one (q scaled in
+# fp32, p); three bf16 pieces hold an fp32 value's 24 significant bits, so
+# three bf16 products per product keep fp32 accuracy: 989 / 3 Tflop/s. The
+# kernel runs fp32 FMAs on the CUDA cores (FP32_FLOPS), whose bound the
+# kernels line states beside it as bound_fp32_units_ms.
+EVO_FLOPS = BF16_FLOPS / 3
+# evoformer kernel vs its plain version: both compute in fp32 and narrow
+# nothing before the output, so only the order of fp32 sums differs; the
+# one rounding to the output dtype can put them one step apart (eps x
+# max|ref|), and EVO_ATOL covers the fp32 order noise of an fp32 output
+EVO_ATOL = 1e-5
+
 REPLACES = {
+    "block_sparse_attention":
+        "deepspeed_tpu/ops/pallas/block_sparse_attention.py:515",
+    "block_sparse_attention_bwd_dq":
+        "deepspeed_tpu/ops/pallas/block_sparse_attention.py:601",
+    "block_sparse_attention_bwd_dkv":
+        "deepspeed_tpu/ops/pallas/block_sparse_attention.py:659",
+    "evoformer_attention": "deepspeed_tpu/ops/pallas/evoformer_attn.py:98",
     "paged_decode_attention_quant":
         "deepspeed_tpu/ops/pallas/decode_attention.py:339",
     "quantize_int8": "deepspeed_tpu/ops/pallas/quant.py:64",
@@ -226,6 +332,12 @@ REPLACES = {
     "token_sort": "deepspeed_tpu/ops/pallas/token_sort.py:66",
 }
 SOURCES = {
+    "block_sparse_attention": "deepspeed_tpu_torch/ops/csrc/block_sparse.cu",
+    "block_sparse_attention_bwd_dq":
+        "deepspeed_tpu_torch/ops/csrc/block_sparse.cu",
+    "block_sparse_attention_bwd_dkv":
+        "deepspeed_tpu_torch/ops/csrc/block_sparse.cu",
+    "evoformer_attention": "deepspeed_tpu_torch/ops/csrc/evoformer_attn.cu",
     "flash_attention": "deepspeed_tpu_torch/ops/csrc/flash_fwd.cu",
     "flash_attention_bwd_dq": "deepspeed_tpu_torch/ops/csrc/flash_bwd.cu",
     "flash_attention_bwd_dkv": "deepspeed_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -465,6 +577,8 @@ def phase_kernels():
     results.update(_quant_kernels(rng, checks))
     results.update(_token_sort_kernel(rng, checks))
     results.update(_norm_kernels(rng, checks))
+    results.update(_block_sparse_kernels(rng, checks))
+    results.update(_evoformer_kernels(rng, checks))
     emit({"phase": "kernels", "checks": checks,
           "main_path": {f"{name}/{path}": row
                         for (name, path), row in results.items()}})
@@ -809,6 +923,492 @@ def _norm_kernels(rng, checks):
                 plain_ms=median_ms(lambda: plain(*args)),
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=median_ms(lib) if lib else None)
+    return results
+
+
+def _sparse_qkv(rng, B, H, T, D, dtype=None):
+    """q, k, v as [B, H, T, D] views of one fused [B, T, 3 H D]
+    projection, as sparse_attn_fn hands them to the kernels."""
+    import torch
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * H * D)).astype(
+        np.float32)).to("cuda", dtype or torch.bfloat16)
+    return tuple(x.reshape(B, T, H, D).transpose(1, 2)
+                 for x in qkv.split(H * D, dim=-1))
+
+
+def _row_err(got, ref):
+    """Worst row of ||got - ref||_2 / ||ref||_2 over the last dim; a row
+    whose ||ref|| is below SPARSE_ROW_FLOOR x the RMS row norm is held
+    against that floor."""
+    g = got.float().reshape(-1, got.shape[-1])
+    r = ref.float().reshape(-1, ref.shape[-1])
+    den = r.norm(dim=-1)
+    floor = SPARSE_ROW_FLOOR * den.square().mean().sqrt()
+    return ((g - r).norm(dim=-1) / den.clamp_min(floor)).max().item()
+
+
+def _l2_err(got, ref):
+    """||got - ref||_2 / ||ref||_2 over the whole tensor."""
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def _max_rel(got, ref):
+    """max|got - ref| / max|ref|: the flash kernels' measure, recorded
+    beside the row measure."""
+    return (got.float() - ref.float()).abs().max().item() \
+        / ref.float().abs().max().item()
+
+
+# (kernel, output) of the block-sparse kernels' results
+SPARSE_OUTPUTS = (("block_sparse_attention", "out"),
+                  ("block_sparse_attention_bwd_dq", "dq"),
+                  ("block_sparse_attention_bwd_dq", "dbias"),
+                  ("block_sparse_attention_bwd_dkv", "dk"),
+                  ("block_sparse_attention_bwd_dkv", "dv"))
+
+
+def _sparse_kernels_run(c, plan, saved=None):
+    """({output: tensor}, out, lse) of the three kernels on c's operands
+    with `plan`: the forward, then both backward passes from `saved` (out,
+    lse), or from the forward's own where None."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    out, lse = bsa._launch_fwd(c["qs"], c["k"], c["v"], plan, c["bias4"],
+                               c["kvb"], c["causal"])
+    o, l = saved or (out, lse)
+    delta = (c["do"].float() * o.float()).sum(-1).contiguous()
+    dq, dk, dv, dbias = bsa._launch_bwd(
+        c["qs"], c["k"], c["v"], c["do"], l, delta, plan, c["bias4"],
+        c["kvb"], c["causal"], c["scale"], c["want_dbias"])
+    if dbias is not None and c["bias4"].shape[0] == 1:
+        dbias = dbias.sum(0, keepdim=True)
+    got = {"out": out, "dq": dq, "dk": dk, "dv": dv, "dbias": dbias}
+    return {k: t for k, t in got.items() if t is not None}, out, lse
+
+
+def _sparse_check(rng, checks, case, q, k, v, layout, block, causal,
+                  bias=None, kpm=None, bias_needs_grad=None):
+    """The forward, dq and dk/dv kernels (and dbias) against their plain
+    versions on the same inputs, row by row (SPARSE_ROW_TOL): the forward's
+    out and lse, then both backward passes from the kernel's saved (out,
+    lse). Returns the operands and references, for the timing and the
+    planted faults that follow."""
+    import torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    B, H, T, D = q.shape
+    plan = bsa._layout_plan(layout, H, T, block, causal)
+    bias4, kvb, scale = bsa._operands(q, plan, None, bias, kpm)
+    bsa.check_kernel_operands(q, k, v)
+    c = dict(plan=plan, qs=(q.float() * scale).to(q.dtype), k=k, v=v,
+             bias4=bias4, kvb=kvb, scale=scale, causal=causal,
+             want_dbias=bias4 is not None and bias_needs_grad is not False,
+             do=torch.from_numpy(rng.standard_normal((B, H, T, D)).astype(
+                 np.float32)).to("cuda", q.dtype))
+    got, c["out"], c["lse"] = _sparse_kernels_run(c, plan)
+    c["delta"] = (c["do"].float() * c["out"].float()).sum(-1).contiguous()
+    ref_out, ref_lse = bsa._reference_fwd(c["qs"], k, v, plan, bias4, kvb,
+                                          causal)
+    dq, dk, dv, dbias = bsa._reference_bwd(
+        c["qs"], k, v, c["out"], c["lse"], c["do"], plan, bias4, kvb, causal,
+        scale, tuple(bias4.shape) if c["want_dbias"] else None)
+    c["ref"] = {"out": ref_out, "dq": dq, "dk": dk, "dv": dv, "dbias": dbias}
+    torch.cuda.synchronize()
+    lse_err = (c["lse"] - ref_lse).abs().max().item()
+    if not lse_err <= 1e-2:
+        raise AssertionError(f"block_sparse_attention {case}: lse err "
+                             f"{lse_err}")
+    c["errs"] = {}
+    for name, what in SPARSE_OUTPUTS:
+        if what not in got:
+            continue
+        a, b = got[what], c["ref"][what]
+        row = _row_err(a, b)
+        err = (a.float() - b.float()).abs().max().item()
+        ok = bool(np.isfinite(row) and row <= SPARSE_ROW_TOL)
+        checks.append({"kernel": name, "case": case, "output": what,
+                       "shape": list(q.shape), "dtype": str(q.dtype),
+                       "row_err": row, "tol": SPARSE_ROW_TOL,
+                       "max_abs_err": err, "max_rel_err": _max_rel(a, b),
+                       "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} {case} {what}: worst row err {row} "
+                                 f"> {SPARSE_ROW_TOL}")
+        c["errs"][name] = max(c["errs"].get(name, 0.0), err)
+    return c
+
+
+def _drop_tile(plan, h, i, j):
+    """A planted fault: a copy of `plan` whose head-h q tile i skips k tile
+    j (and k tile j's transposed list skips q tile i); the fine mask still
+    holds the tile's live cells."""
+    import copy
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    coarse = bsa._coarse(plan.fine, plan.T, bsa.TILE, bsa.TILE)
+    coarse[h, i, j] = False
+    bad = copy.copy(plan)
+    bad.counts, bad.idx = bsa._visit_lists(coarse)
+    bad.countsT, bad.idxT = bsa._visit_lists(coarse.transpose(0, 2, 1))
+    bad._device = {}
+    return bad
+
+
+def _sparse_faults(c, faults):
+    """The kernels on plans with one tile dropped from head 0's q tile
+    nbq - 2 (its first visit, a global tile, then its next-to-last, a local
+    one), against c's references: the row measure must exceed
+    SPARSE_ROW_TOL on every output the dropped tile feeds."""
+    plan = c["plan"]
+    i = plan.nbq - 2
+    n = int(plan.counts[0, i])
+    for fault, j in (("dropped_global_tile", int(plan.idx[0, i, 0])),
+                     ("dropped_late_tile", int(plan.idx[0, i, n - 2]))):
+        got, _, _ = _sparse_kernels_run(c, _drop_tile(plan, 0, i, j),
+                                        saved=(c["out"], c["lse"]))
+        for name, what in SPARSE_OUTPUTS:
+            if what not in got:
+                continue
+            row = _row_err(got[what], c["ref"][what])
+            rel = _max_rel(got[what], c["ref"][what])
+            faults.append({"kernel": name, "fault": fault, "q_tile": i,
+                           "k_tile": j, "output": what, "row_err": row,
+                           "max_rel_err": rel, "seen": row > SPARSE_ROW_TOL})
+            if not row > SPARSE_ROW_TOL:
+                raise AssertionError(f"{name} {fault} {what}: row err {row} "
+                                     f"<= {SPARSE_ROW_TOL}, the check does "
+                                     f"not see a skipped tile")
+
+
+def _sparse_autograd_check(checks, case, call, leaves, names, layout, block,
+                           causal, kpm):
+    """call(**leaves) -> out, with its gradients of sum(out^2) for `names`
+    through the port's autograd (q scaling, delta, the need flags, dbias
+    summed over heads and batch), against autograd through the plain
+    block_sparse_attention_reference on copies of the same leaves
+    (SPARSE_AUTOGRAD_TOL). Returns (the error of each output, the launch
+    counts read just after the port's run)."""
+    import torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    res = {}
+    for which in ("port", "plain"):
+        x = {n: t.detach().clone().requires_grad_(n in names)
+             for n, t in leaves.items()}
+        if which == "port":
+            out = call(**x)
+            grads = torch.autograd.grad(out.float().square().sum(),
+                                        [x[n] for n in names])
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        else:
+            out, _ = bsa.block_sparse_attention_reference(
+                x["q"], x["k"], x["v"], layout, block, causal=causal,
+                bias=x.get("bias"), key_padding_mask=kpm)
+            grads = torch.autograd.grad(out.float().square().sum(),
+                                        [x[n] for n in names])
+        res[which] = [out.detach()] + list(grads)
+        del out, grads, x
+    errs = {}
+    for what, a, b in zip(["out", *names], res["port"], res["plain"]):
+        err = _l2_err(a, b) if a.shape == b.shape else float("nan")
+        ok = bool(np.isfinite(err) and err <= SPARSE_AUTOGRAD_TOL)
+        checks.append({"kernel": "block_sparse_attention (autograd)",
+                       "case": case, "output": what, "shape": list(a.shape),
+                       "l2_err": err, "tol": SPARSE_AUTOGRAD_TOL,
+                       "max_rel_err": _max_rel(a, b), "ok": ok})
+        if not ok:
+            raise AssertionError(f"{case} {what}: l2 err {err} > "
+                                 f"{SPARSE_AUTOGRAD_TOL} against autograd "
+                                 f"through the plain version")
+        errs[what] = err
+    return errs, launches
+
+
+def _block_sparse_kernels(rng, checks):
+    """The block-sparse forward, dq and dk/dv kernels against their plain
+    versions: at the sparse phase's shape (B 1, H 12, T 8192, hd 64, its
+    Fixed layout, causal) and at the SparseSelfAttention path's (the same,
+    not causal, with a learned rpe [T, T] and padded keys); on the four
+    layout families of tests/test_block_sparse_kernel.py:38-55 (H 4, T
+    1024; Variable with a layout per head); at hd 128 in fp16 at T 1008 (no
+    multiple of 64 or 128); with a bias of one head slab and of H slabs,
+    with dbias and without; with a key-padding mask that pads every key of
+    a batch row (whose output must be the mean of its visited V); with a
+    batched [B, T, T] mask, which SparseSelfAttention hands to the kernel;
+    through the public wrapper's autograd at B 2. At the train path's shape
+    two planted faults (a skipped tile) must fail the row measure. Then
+    each kernel alone timed at the two paths' shapes."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    results = {}
+    fams = [
+        ("fixed", sa.FixedSparsityConfig(num_heads=4, block=16,
+                                         num_local_blocks=4,
+                                         num_global_blocks=1,
+                                         attention="unidirectional"), True),
+        ("bigbird", sa.BigBirdSparsityConfig(num_heads=4, block=16,
+                                             num_random_blocks=2,
+                                             num_sliding_window_blocks=3,
+                                             num_global_blocks=1), False),
+        ("bslongformer", sa.BSLongformerSparsityConfig(
+            num_heads=4, block=16, num_sliding_window_blocks=5,
+            global_block_indices=(0, 7)), False),
+        ("variable", sa.VariableSparsityConfig(
+            num_heads=4, block=16, num_random_blocks=1,
+            local_window_blocks=(2, 4, 8), global_block_indices=(0,),
+            different_layout_per_head=True), False)]
+    for name, cfg, causal in fams:
+        q, k, v = _sparse_qkv(rng, 2, 4, 1024, 64)
+        _sparse_check(rng, checks, name, q, k, v, cfg.make_layout(1024), 16,
+                      causal)
+    bigbird = sa.BigBirdSparsityConfig(num_heads=4, block=16,
+                                       num_random_blocks=2, seed=7,
+                                       different_layout_per_head=True)
+    q, k, v = _sparse_qkv(rng, 2, 4, 1008, 128, torch.float16)
+    _sparse_check(rng, checks, "hd128_fp16_T1008", q, k, v,
+                  bigbird.make_layout(1008), 16, False)
+    fixed = fams[0][1]
+    lay = fixed.make_layout(1024)
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).cuda()
+    kpm = torch.ones(2, 1024, dtype=torch.bool, device="cuda")
+    kpm[0, -100:] = False
+    for case, bias, needs, hd in (("bias_1_slab_dbias", normal(1024, 1024,
+                                                                scale=0.5),
+                                   None, 64),
+                                  ("bias_H_slabs_dbias", normal(4, 1024, 1024,
+                                                                scale=0.5),
+                                   None, 128),
+                                  ("bias_1_slab_frozen", normal(1024, 1024,
+                                                                scale=0.5),
+                                   False, 64)):
+        q, k, v = _sparse_qkv(rng, 2, 4, 1024, hd)
+        _sparse_check(rng, checks, case, q, k, v, lay, 16, True, bias=bias,
+                      kpm=kpm, bias_needs_grad=needs)
+    # every key of batch row 1 padded: its rows see -1e30 on every visited
+    # cell, so p = 1 there and the output is the mean of the visited V
+    pad = torch.ones(2, 1024, dtype=torch.bool, device="cuda")
+    pad[1] = False
+    q, k, v = _sparse_qkv(rng, 2, 4, 1024, 64)
+    got = _sparse_check(rng, checks, "all_padded_row", q, k, v, lay, 16, True,
+                        kpm=pad)
+    _, visited = got["plan"].token_masks(True, "cuda")
+    vis = visited.float()
+    mean = (vis @ v[1].float()) / vis.sum(-1, keepdim=True)
+    row = _row_err(got["out"][1], mean)
+    ok = bool(np.isfinite(row) and row <= SPARSE_ROW_TOL)
+    checks.append({"kernel": "block_sparse_attention",
+                   "case": "all_padded_row_mean_of_visited_v",
+                   "row_err": row, "tol": SPARSE_ROW_TOL,
+                   "max_rel_err": _max_rel(got["out"][1], mean), "ok": ok})
+    if not ok:
+        raise AssertionError(f"all-padded row: worst row {row} from the mean "
+                             f"of its visited V")
+    # a batched [B, T, T] keep mask: one more bias stride for the kernel
+    keep = torch.from_numpy(rng.random((2, 1024, 1024)) > 0.1).cuda()
+    keep |= torch.eye(1024, dtype=torch.bool, device="cuda")
+    q, k, v = _sparse_qkv(rng, 2, 4, 1024, 64)
+    bias = torch.where(keep, 0.0, bsa.NEG_INF)[:, None]
+    got = _sparse_check(rng, checks, "batched_mask", q, k, v, lay, 16, False,
+                        bias=bias, bias_needs_grad=False)
+    attn = sa.SparseSelfAttention(fixed)
+    out = attn(q, k, v, attn_mask=keep.float())
+    if not torch.equal(out, got["out"]):
+        raise AssertionError("SparseSelfAttention's batched mask did not "
+                             "take the kernel")
+    # the public wrapper and its autograd backward at B 2 with a learned
+    # head-shared bias and padded keys: every input's gradient, then k and
+    # v alone (no dq launch: the need flags)
+    q, k, v = (x.contiguous() for x in _sparse_qkv(rng, 2, 4, 1024, 64))
+    leaves = dict(q=q, k=k, v=v, bias=normal(1024, 1024, scale=0.5))
+    for case, names, want in (("wrapper_all_grads", ["q", "k", "v", "bias"],
+                               (1, 1, 1)),
+                              ("wrapper_kv_grads", ["k", "v"], (1, 0, 1))):
+        before = dict(LAUNCHES)
+        _, after = _sparse_autograd_check(
+            checks, case, lambda **x: bsa.block_sparse_attention(
+                x["q"], x["k"], x["v"], lay, 16, causal=True, bias=x["bias"],
+                key_padding_mask=kpm),
+            leaves, names, lay, 16, True, kpm)
+        got = tuple(after.get(n, 0) - before.get(n, 0) for n in (
+            "block_sparse_attention", "block_sparse_attention_bwd_dq",
+            "block_sparse_attention_bwd_dkv"))
+        if got != want:
+            raise AssertionError(f"{case}: launches {got}, expected {want}")
+
+    # the two paths' shapes, checked and timed
+    sparse = sa.FixedSparsityConfig(**SPARSE_LAYOUT)
+    layout = sparse.make_layout(SPARSE_SEQ)
+    B, H, T, D = SPARSE_MBS, SPARSE_LAYOUT["num_heads"], SPARSE_SEQ, 64
+    kpm = torch.ones(B, T, dtype=torch.bool, device="cuda")
+    kpm[:, -100:] = False
+    for path, causal, bias, kpm in (
+            ("sparse_train", True, None, None),
+            ("sparse_op", False, normal(T, T, scale=0.5), kpm)):
+        q, k, v = _sparse_qkv(rng, B, H, T, D)
+        c = _sparse_check(rng, checks, path, q, k, v, layout, 16, causal,
+                          bias=bias, kpm=kpm)
+        if path == "sparse_train":
+            _sparse_faults(c, checks)
+        plan, qs, bias4, kvb = c["plan"], c["qs"], c["bias4"], c["kvb"]
+        live = plan.live_cells(causal) * B
+        tile = B * T * H * D * 2               # one bf16 [B, T, H, D] tensor
+        rows = B * H * T * 4                   # one fp32 [B, H, T] vector
+        meta = sum(a.nbytes for a in (plan.counts, plan.idx, plan.countsT,
+                                      plan.idxT)) + plan.fine.size
+        extra = (bias4.numel() * 4 if bias4 is not None else 0) \
+            + (kvb.numel() * 4 if kvb is not None else 0)
+        dbias_bytes = bias4.numel() * 4 if c["want_dbias"] else 0
+        args = (qs, k, v, plan, bias4, kvb, causal)
+        bwd = (qs, k, v, c["do"], c["lse"], c["delta"], plan, bias4, kvb,
+               causal, c["scale"], c["want_dbias"])
+
+        def plain_bwd_fn():
+            return bsa._reference_bwd(
+                qs, k, v, c["out"], c["lse"], c["do"], plan, bias4, kvb,
+                causal, c["scale"],
+                tuple(bias4.shape) if c["want_dbias"] else None)
+        # the plain versions' device memory above what is live here
+        peak = {}
+        for what, fn in (("forward", lambda: bsa._reference_fwd(*args)),
+                         ("backward", plain_bwd_fn)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak[what] = torch.cuda.max_memory_allocated() - base
+        plain_bwd = median_ms(plain_bwd_fn, reps=3, inner=1, warmup=1)
+        # the yardstick: SDPA with the dense mask (layout, causal, padding)
+        # and the bias, forward and its own backward
+        live_mask, _ = plan.token_masks(causal, "cuda")
+        lib_mask = torch.where(live_mask[None], 0.0, float("-inf"))
+        if bias4 is not None:
+            lib_mask = lib_mask + bias4
+        if kvb is not None:
+            lib_mask = lib_mask + kvb[:, None, None, :]
+        lib_mask = lib_mask.to(q.dtype)
+        sq, sk, sv = (x.contiguous().requires_grad_(True) for x in (q, k, v))
+        sout = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=lib_mask,
+                                              scale=c["scale"])
+        sdo = c["do"].contiguous()
+        lib_bwd = median_ms(lambda: torch.autograd.grad(
+            sout, (sq, sk, sv), sdo, retain_graph=True), reps=5)
+        for name, nbytes, flops, fn, plain, lib in (
+                ("block_sparse_attention", 4 * tile + rows + meta + extra,
+                 4 * D * live, lambda: bsa._launch_fwd(*args),
+                 median_ms(lambda: bsa._reference_fwd(*args), reps=3,
+                           inner=1, warmup=1),
+                 median_ms(lambda: F.scaled_dot_product_attention(
+                     sq, sk, sv, attn_mask=lib_mask, scale=c["scale"]),
+                     reps=5)),
+                ("block_sparse_attention_bwd_dq",
+                 5 * tile + 2 * rows + meta + extra + dbias_bytes,
+                 6 * D * live, lambda: bsa._launch_bwd(*bwd, True, False),
+                 plain_bwd, lib_bwd),
+                ("block_sparse_attention_bwd_dkv",
+                 6 * tile + 2 * rows + meta + extra, 8 * D * live,
+                 lambda: bsa._launch_bwd(*bwd[:-1], False, False, True),
+                 plain_bwd, lib_bwd)):
+            b_ms, b_by = bound(nbytes, flops)
+            results[name, path] = dict(
+                shape=[B, H, T, D], causal=causal, live_cells=live,
+                plain_peak_bytes=peak["forward" if name ==
+                                      "block_sparse_attention"
+                                      else "backward"],
+                max_abs_err=c["errs"][name], ms=median_ms(fn, reps=9),
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib)
+        del sq, sk, sv, sout, lib_mask, live_mask
+    # evaluation runs the training path's forward shape
+    results["block_sparse_attention", "sparse_eval"] = \
+        results["block_sparse_attention", "sparse_train"]
+    return results
+
+
+def _evo_case(rng, B, N, S, H, D, dtype, mask=True, pair=True,
+              mask_shape=None, pair_shape=None):
+    """q, k, v [B, N, S, H, D] and the bias list: a key mask of -1e9 on
+    about 10 % of keys, a normal pair bias."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+    q, k, v = (t(rng.standard_normal((B, N, S, H, D))) for _ in range(3))
+    biases = []
+    if mask:
+        shape = mask_shape or (B, N, 1, 1, S)
+        biases.append(t(np.where(rng.random(shape) < 0.1, -1e9, 0.0)))
+    if pair:
+        biases.append(t(rng.standard_normal(pair_shape or (B, 1, H, S, S))))
+    return q, k, v, biases
+
+
+def _evo_tol(ref, dtype):
+    import torch
+    return torch.finfo(dtype).eps * ref.float().abs().max().item() + EVO_ATOL
+
+
+def _evoformer_kernels(rng, checks):
+    """The evoformer kernel against its plain version: at the evoformer
+    phase's two shapes (bf16, mask + pair), in fp32 at S 100 with biases
+    broadcast over the batch, in fp16 at hd 128 / S 200 with a pair bias
+    only, without biases at hd 64. Then timed at the two paths' shapes."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import evoformer_attn as evo
+    results = {}
+    cases = [(path, dict(**shape, dtype=torch.bfloat16))
+             for path, shape in EVO_CASES.items()] + [
+        (None, dict(B=2, N=3, S=100, H=2, D=64, dtype=torch.float32,
+                    mask_shape=(1, 3, 1, 1, 100),
+                    pair_shape=(1, 1, 2, 100, 100))),
+        (None, dict(B=1, N=4, S=200, H=4, D=128, dtype=torch.float16,
+                    mask=False)),
+        (None, dict(B=1, N=2, S=64, H=2, D=64, dtype=torch.bfloat16,
+                    mask=False, pair=False))]
+    for path, kw in cases:
+        q, k, v, biases = _evo_case(rng, **kw)
+        out = evo.evoformer_attention(q, k, v, biases)
+        ref = evo.evoformer_attention_reference(q, k, v, biases)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = _evo_tol(ref, kw["dtype"])
+        ok = bool(np.isfinite(err) and err <= tol and out.dtype == q.dtype)
+        checks.append({"kernel": "evoformer_attention",
+                       "shape": list(q.shape), "dtype": str(q.dtype),
+                       "biases": [list(b.shape) for b in biases],
+                       "max_abs_err": err, "tol": tol, "ok": ok})
+        if not ok:
+            raise AssertionError(f"evoformer_attention {list(q.shape)}: max "
+                                 f"abs err {err} > {tol}")
+        if path is None:
+            continue
+        B, N, S, H, D = q.shape
+        mask, pair = evo._parse_biases(biases, B, N, S, H)
+        mask32, pair32 = mask.float().contiguous(), pair.float().contiguous()
+        scale = 1.0 / D ** 0.5
+        # q k v in, out out, mask and pair in (bf16); fp32-accurate
+        # products at EVO_FLOPS, and on the fp32 units the kernel uses
+        nbytes = 4 * q.numel() * 2 + (mask.numel() + pair.numel()) * 2
+        flops = 4 * B * N * H * S * S * D
+        b_ms, b_by = bound(nbytes, flops, EVO_FLOPS)
+        sq, sk, sv = (x.permute(0, 1, 3, 2, 4).reshape(B * N, H, S, D)
+                      .contiguous() for x in (q, k, v))
+        summed = (mask[:, :, None, None, :] + pair[:, None]) \
+            .expand(B, N, H, S, S).reshape(B * N, H, S, S).contiguous()
+        results["evoformer_attention", path] = dict(
+            shape=list(q.shape), max_abs_err=err,
+            ms=median_ms(lambda: evo._launch(q, k, v, mask32, pair32, scale)),
+            plain_ms=median_ms(lambda: evo.evoformer_attention_reference(
+                q, k, v, biases), reps=5),
+            bound_ms=b_ms, bound_by=b_by,
+            bound_fp32_units_ms=bound(nbytes, flops, FP32_FLOPS)[0],
+            library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=summed)))
     return results
 
 
@@ -1333,11 +1933,12 @@ def phase_train(state):
     return counts
 
 
-def _train_parity(cfg):
+def _train_parity(cfg, name=TRAIN_MODEL, config=TRAIN_CONFIG, seq=TRAIN_SEQ,
+                  batch=2, attn_fn=None):
     """The first step's loss and every parameter's gradient at 2 layers of
-    the training model, B 2, T 512: the engine on the card in bf16 against
-    the engine on the CPU in fp32, from the same (bf16-rounded) weights and
-    batch."""
+    the training model (B `batch`, T `seq`, through `attn_fn` if given): the
+    engine on the card in bf16 against the engine on the CPU in fp32, from
+    the same (bf16-rounded) weights and batch."""
     import dataclasses
     import torch
     from deepspeed_tpu_torch import initialize
@@ -1347,36 +1948,218 @@ def _train_parity(cfg):
     params = tree_cast(tree_cast(init_gpt_params(small, seed=1),
                                  torch.bfloat16), torch.float32)
     toks = np.random.default_rng(4).integers(0, cfg.vocab_size,
-                                             (2, TRAIN_SEQ + 1))
-    config = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": 2,
+                                             (batch, seq + 1))
+    config = {**config, "train_micro_batch_size_per_gpu": batch,
               "gradient_accumulation_steps": 1}
-    name = f"{TRAIN_MODEL}-2-layers"
+    name = f"{name}-2-layers"
     card, *_ = initialize(model=make_gpt_model(small, name=name,
-                                               params=params), config=config)
+                                               params=params,
+                                               attn_fn=attn_fn),
+                          config=config)
     cpu, *_ = initialize(
         model=make_gpt_model(dataclasses.replace(small, dtype=torch.float32),
-                             name=name, params=params),
+                             name=name, params=params, attn_fn=attn_fn),
         config={**config, "bf16": {"enabled": False}}, device="cpu")
-    batch = {"tokens": torch.from_numpy(toks)}
-    g_card, l_card, _ = card._grads(card.state.params, batch)
-    g_cpu, l_cpu, _ = cpu._grads(cpu.state.params, batch)
+    batch_t = {"tokens": torch.from_numpy(toks)}
+    g_card, l_card, _ = card._grads(card.state.params, batch_t)
+    g_cpu, l_cpu, _ = cpu._grads(cpu.state.params, batch_t)
     loss_err = abs(float(l_card) - float(l_cpu))
     rel = {}
     names = _leaf_names(g_cpu)
-    for name, a, b in zip(names, tree_leaves(g_card), tree_leaves(g_cpu)):
+    for leaf, a, b in zip(names, tree_leaves(g_card), tree_leaves(g_cpu)):
         a = a.float().cpu()
         if not torch.isfinite(a).all():
-            raise AssertionError(f"gradient {name} not finite on the card")
-        rel[name] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            raise AssertionError(f"gradient {leaf} not finite on the card")
+        rel[leaf] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
     worst = max(rel, key=rel.get)
     if not loss_err <= TRAIN_LOSS_TOL or rel[worst] > TRAIN_GRAD_REL_TOL:
-        raise AssertionError(f"train parity: loss err {loss_err} (tol "
+        raise AssertionError(f"{name} parity: loss err {loss_err} (tol "
                              f"{TRAIN_LOSS_TOL}), worst gradient {worst} "
                              f"{rel[worst]} (tol {TRAIN_GRAD_REL_TOL})")
-    return {"n_layer": 2, "batch": 2, "seq": TRAIN_SEQ,
+    return {"n_layer": 2, "batch": batch, "seq": seq,
             "loss_card": float(l_card), "loss_cpu": float(l_cpu),
             "loss_abs_err": loss_err, "loss_tol": TRAIN_LOSS_TOL,
             "grad_rel_err": rel, "grad_rel_tol": TRAIN_GRAD_REL_TOL}
+
+
+def phase_sparse(state):
+    """GPT-2 with block-sparse attention: gpt2-125m at full width and depth
+    (max_seq_len 8192), bf16, random weights from a numpy seed, through
+    sparse_attn_fn with the Fixed layout of SPARSE_LAYOUT. (a) initialize
+    -> train_batch: one warm-up step, then 3 timed steps, finite falling
+    loss, exactly 2 x 12 x gas forward launches (forward and remat
+    recompute) and 12 x gas of each backward kernel per step, no flash
+    launch; (b) the spec's apply_fn on the same tokens: 12 forward launches,
+    no backward launch, finite logits; (c) the first step's loss and
+    gradients at 2 layers, T 2048 (SPARSE_PARITY_LAYOUT), bf16 card vs fp32
+    CPU; (d) SparseSelfAttention at [1, 12, 8192, 64] with a learned rpe
+    and padded keys: one launch of each kernel, the output and the q, k, v
+    and rpe gradients against autograd through the plain version."""
+    import dataclasses
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt import GPT2_CONFIGS, make_gpt_model
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        FixedSparsityConfig, SparseSelfAttention, sparse_attn_fn)
+    from deepspeed_tpu_torch.utils.tree import tree_num_params
+    cfg = dataclasses.replace(GPT2_CONFIGS[SPARSE_MODEL],
+                              max_seq_len=SPARSE_SEQ)
+    sparsity = FixedSparsityConfig(**SPARSE_LAYOUT)
+    attn_fn = sparse_attn_fn(sparsity)
+    layout = sparsity.make_layout(SPARSE_SEQ)
+    plan = bsa._plan(layout, SPARSE_SEQ, sparsity.block, True)
+    H, T = SPARSE_LAYOUT["num_heads"], SPARSE_SEQ
+    density = {"layout": float(layout.mean()),
+               "live_cells_causal": plan.live_cells(True) / (H * T * T),
+               "causal": (T + 1) / (2 * T),
+               "visited_tiles": float(plan.counts.sum())
+               / (H * plan.nbq * plan.nbk)}
+    name = f"{SPARSE_MODEL}-seq{SPARSE_SEQ}-sparse"
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=make_gpt_model(cfg, name=name, seed=0,
+                                                 attn_fn=attn_fn),
+                            config=SPARSE_TRAIN_CONFIG)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(8)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SPARSE_MBS * SPARSE_GAS, T + 1))).cuda()}
+    losses = [float(engine.train_batch(batch))]             # warm-up
+    LAUNCHES.clear()
+    step_s = []
+    for _ in range(SPARSE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        step_s.append(time.perf_counter() - t0)
+    train_counts = dict(LAUNCHES)
+    L, n = cfg.n_layer, SPARSE_GAS * SPARSE_STEPS
+    _expect("sparse_train", train_counts,
+            {"block_sparse_attention": 2 * L * n,
+             "block_sparse_attention_bwd_dq": L * n,
+             "block_sparse_attention_bwd_dkv": L * n})
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"sparse losses not finite and falling: "
+                             f"{losses}")
+    n_params = tree_num_params(engine.state.params)
+    sec = statistics.median(step_s)
+    tokens_per_s = SPARSE_MBS * SPARSE_GAS * T / sec
+
+    # (b) evaluation through the spec's apply_fn, the same attn_fn
+    tokens = batch["tokens"][:1, :-1]
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = engine.model_spec.apply_fn(engine.state.params, tokens)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_counts = dict(LAUNCHES)
+    _expect("sparse_eval", eval_counts, {"block_sparse_attention": L})
+    if tuple(logits.shape) != (1, T, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"sparse eval logits {tuple(logits.shape)} not "
+                             f"finite or misshapen")
+    del logits
+
+    # (c) 2-layer parity, bf16 card vs fp32 CPU
+    parity = _train_parity(
+        cfg, name=SPARSE_MODEL, config=SPARSE_TRAIN_CONFIG,
+        seq=SPARSE_PARITY_SEQ, batch=1,
+        attn_fn=sparse_attn_fn(FixedSparsityConfig(**SPARSE_PARITY_LAYOUT)))
+
+    # (d) the public op with a learned rpe and padded keys: its output and
+    # every gradient (q, k, v, rpe) against autograd through the plain
+    # version on the same inputs
+    attn = SparseSelfAttention(sparsity)
+    q, k, v = (x.contiguous() for x in _sparse_qkv(rng, 1, H, T, 64))
+    rpe = torch.from_numpy((rng.standard_normal((T, T)) * 0.5).astype(
+        np.float32)).cuda()
+    kpm = torch.ones(1, T, dtype=torch.bool, device="cuda")
+    kpm[:, -100:] = False
+    op_checks = []
+    LAUNCHES.clear()
+    _, op_counts = _sparse_autograd_check(
+        op_checks, "sparse_op",
+        lambda q, k, v, bias: attn(q, k, v, rpe=bias, key_padding_mask=kpm),
+        dict(q=q, k=k, v=v, bias=rpe), ["q", "k", "v", "bias"], layout,
+        sparsity.block, False, kpm)
+    _expect("sparse_op", op_counts, {"block_sparse_attention": 1,
+                                     "block_sparse_attention_bwd_dq": 1,
+                                     "block_sparse_attention_bwd_dkv": 1})
+    emit({"phase": "sparse", "model": SPARSE_MODEL, "n_layer": L,
+          "n_params": n_params, "seq": T, "layout": SPARSE_LAYOUT,
+          "density": density, "config": SPARSE_TRAIN_CONFIG,
+          "remat": cfg.remat_policy if cfg.remat else None,
+          "setup_s": setup_s, "losses": losses, "step_s": step_s,
+          "seconds_per_step": sec, "tokens_per_s": tokens_per_s,
+          "mfu": 6 * n_params * tokens_per_s / BF16_FLOPS,
+          "mfu_basis": "6 x params x tokens/s over 989e12 flop/s (no "
+                       "attention flops), the H100 SXM dense bf16 peak",
+          "launches": train_counts, "eval": {"seconds": eval_s,
+                                             "launches": eval_counts},
+          "parity": parity,
+          "op": {"shape": [1, H, T, 64], "launches": op_counts,
+                 "checks": op_checks}})
+    state.update(sparse_engine=engine, sparse_batch=batch, sparse_s=sec)
+    return {"sparse_train": train_counts, "sparse_eval": eval_counts,
+            "sparse_op": op_counts}
+
+
+def phase_evoformer(state):
+    """evoformer_attention at AlphaFold 2's Evoformer shapes (EVO_CASES),
+    bf16, with a key mask and a pair bias: one kernel launch a call, the
+    output against the plain version, the q, k, v, mask and pair gradients
+    through the port's backward finite and against autograd through the
+    plain version, and the forward and forward + backward times."""
+    import torch
+    from deepspeed_tpu_torch.ops import evoformer_attn as evo
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    rng = np.random.default_rng(9)
+    report, counts = {}, {}
+    for path, shape in EVO_CASES.items():
+        q, k, v, biases = _evo_case(rng, **shape, dtype=torch.bfloat16)
+        ins = [x.requires_grad_(True) for x in (q, k, v, *biases)]
+        LAUNCHES.clear()
+        out = evo.evoformer_attention(*ins[:3], biases=ins[3:])
+        g = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
+            np.float32)).to("cuda", out.dtype)
+        grads = torch.autograd.grad(out, ins, g)
+        torch.cuda.synchronize()
+        counts[path] = dict(LAUNCHES)
+        _expect(path, counts[path], {"evoformer_attention": 1})
+        ref_ins = [x.detach().clone().requires_grad_(True) for x in ins]
+        ref = evo.evoformer_attention_reference(*ref_ins[:3],
+                                                biases=ref_ins[3:])
+        ref_grads = torch.autograd.grad(ref, ref_ins, g)
+        err = (out.detach().float() - ref.detach().float()).abs().max().item()
+        tol = _evo_tol(ref, out.dtype)
+        grad_err = {}
+        for name, a, b in zip(("q", "k", "v", "mask", "pair"), grads,
+                              ref_grads):
+            e = (a.float() - b.float()).abs().max().item()
+            top = b.float().abs().max().item()
+            grad_err[name] = {"max_abs_err": e, "ref_max_abs": top}
+            if not (torch.isfinite(a).all() and e <= BWD_REL_TOL * top
+                    and a.shape == b.shape):
+                raise AssertionError(f"{path} d{name}: err {e} > "
+                                     f"{BWD_REL_TOL} x {top}")
+        if not err <= tol:
+            raise AssertionError(f"{path}: out err {err} > {tol}")
+        with torch.no_grad():
+            fwd_ms = median_ms(lambda: evo.evoformer_attention(
+                q, k, v, biases), reps=9)
+        fb_ms = median_ms(lambda: torch.autograd.grad(
+            evo.evoformer_attention(*ins[:3], biases=ins[3:]), ins, g),
+            reps=3, inner=1, warmup=1)
+        report[path] = {"shape": shape, "dtype": "bfloat16",
+                        "launches": counts[path], "max_abs_err": err,
+                        "tol": tol, "grads": grad_err,
+                        "forward_ms": fwd_ms,
+                        "forward_backward_ms": fb_ms}
+    emit({"phase": "evoformer", "cases": report})
+    return counts
 
 
 def _leaf_names(tree, prefix=""):
@@ -1854,7 +2637,7 @@ def _device_breakdown(prof, wall_s):
             continue
         name = ev.key
         if any(k in name for k in ("decode_attn_kernel", "flash_fwd_kernel",
-                                   "flash_bwd_")):
+                                   "flash_bwd_", "bsa_", "evo_fwd_kernel")):
             cls = "attention (ours)"
         elif "quantize_kernel" in name:
             cls = "quant (ours)"
@@ -1881,8 +2664,8 @@ def _device_breakdown(prof, wall_s):
 def phase_profile(state):
     """torch.profiler over one generate() call and one serving run at the
     generate/serve phases' shapes, one quantized serving run at the quant
-    phase's, and one train_batch at the train phase's, for the phases
-    that ran (opt-in: `python chip_smoke.py
+    phase's, and one train_batch at the train, moe and sparse phases', for
+    the phases that ran (opt-in: `python chip_smoke.py
     build,generate,serve,quant,train,profile`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1916,6 +2699,10 @@ def phase_profile(state):
         with profile(activities=acts) as prof:
             float(state["train_engine"].train_batch(state["train_batch"]))
         out["train"] = _device_breakdown(prof, state["train_s"])
+    if "sparse_engine" in state:
+        with profile(activities=acts) as prof:
+            float(state["sparse_engine"].train_batch(state["sparse_batch"]))
+        out["sparse_train"] = _device_breakdown(prof, state["sparse_s"])
     if "moe_train_engine" in state:
         with profile(activities=acts) as prof:
             float(state["moe_train_engine"].train_batch(
@@ -1950,7 +2737,7 @@ def main():
         return 2
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else \
         ["build", "kernels", "norms", "generate", "serve", "quant", "train",
-         "moe"]
+         "moe", "sparse", "evoformer"]
     dev = phase_device()
     state, launches, kern = {}, {}, {}
     if "build" in phases:
@@ -1960,12 +2747,14 @@ def main():
     for phase, run in (("norms", phase_norms),
                        ("generate", phase_generate), ("serve", phase_serve),
                        ("quant", phase_quant), ("train", phase_train),
-                       ("moe", phase_moe)):
+                       ("moe", phase_moe), ("sparse", phase_sparse),
+                       ("evoformer", phase_evoformer)):
         if phase in phases:
             counts = run(state)        # counts of each path's run; the
-            # quant and moe phases run four paths each and return
-            # {path: counts}
-            launches.update(counts if phase in ("quant", "moe")
+            # quant, moe, sparse and evoformer phases run several paths
+            # each and return {path: counts}
+            launches.update(counts if phase in ("quant", "moe", "sparse",
+                                                "evoformer")
                             else {phase: counts})
     if "profile" in phases:
         phase_profile(state)

@@ -9,6 +9,9 @@ slice ports them; so do dropout, chunked cross entropy and the selective
 remat policies. Training: `gpt_hidden` / `gpt_forward` / `gpt_loss`, and
 `make_gpt_model` for the engine; remat wraps each block in
 `torch.utils.checkpoint`, the port of `jax.checkpoint(nothing_saveable)`.
+An `attn_fn` (q, k, v [B, T, H, hd] -> [B, T, H, hd], e.g.
+`ops/sparse_attention.sparse_attn_fn`) replaces the attention of every
+training and evaluation forward, as in the JAX package.
 
 Parameters keep the JAX package's tree: stacked `[L, ...]` block leaves
 under the same names and shapes, so `params_from_jax` moves one
@@ -334,20 +337,30 @@ def _sm_scale(cfg):
     return None if cfg.scale_attn else 1.0
 
 
-def _site(cfg, phase, q, C, M, kv_dtype=None):
+def _site(cfg, phase, q, C, M, kv_dtype=None, attn_fn=None):
     return attn_dispatch.AttnSite(
         phase=phase, q_len=C, kv_len=M, head_dim=cfg.head_dim,
         kv_dtype=kv_dtype or dtype_name(q.dtype), on_cuda=q.is_cuda,
-        force_flash=cfg.use_flash_attention)
+        force_flash=cfg.use_flash_attention,
+        external_fn=attn_fn is not None)
 
 
-def _attention(q, k, v, cfg):
+def _attention(q, k, v, cfg, attn_fn=None):
     """q: [B, T, H, hd]; k, v: [B, S, Hkv, hd] -> [B, T, H, hd], causal.
 
-    Program selection goes through the dispatch layer: the flash kernel, or
+    Program selection goes through the dispatch layer: the caller's
+    `attn_fn` (K/V heads repeated to match q's first), the flash kernel, or
     on CPU operands its plain version (fp32 softmax; GQA)."""
     T, S = q.shape[1], k.shape[1]
-    if attn_dispatch.select(_site(cfg, "train", q, T, S)) == "flash":
+    program = attn_dispatch.select(_site(cfg, "train", q, T, S,
+                                         attn_fn=attn_fn))
+    if program == "external":
+        if k.shape[2] != q.shape[2]:    # external kernels expect matched heads
+            rep = q.shape[2] // k.shape[2]
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        return attn_fn(q, k, v)
+    if program == "flash":
         return flash_attention(q, k, v, causal=True, sm_scale=_sm_scale(cfg))
     if cfg.softmax_dtype != torch.float32:
         raise NotImplementedError(
@@ -377,13 +390,13 @@ def _decode_qkv(x, p, positions, cfg: GPTConfig):
     return q, k, v
 
 
-def _attn_half(x, p, cfg: GPTConfig, positions):
+def _attn_half(x, p, cfg: GPTConfig, positions, attn_fn=None):
     """Attention half-block over a whole sequence: ln1 -> qkv -> rope ->
     causal attention -> out-proj. Returns (attn_out, k, v) so the prefill
     can write k/v into the KV cache."""
     B, T, D = x.shape
     q, k, v = _decode_qkv(x, p, positions, cfg)
-    attn = _attention(q, k, v, cfg)
+    attn = _attention(q, k, v, cfg, attn_fn)
     attn_out = attn.reshape(B, T, D) @ p["attn_out_w"] + p["attn_out_b"]
     return attn_out, k, v
 
@@ -412,14 +425,14 @@ def resolve_remat_policy(name):
                               f"only)")
 
 
-def _block(x, p, cfg: GPTConfig, positions):
+def _block(x, p, cfg: GPTConfig, positions, attn_fn=None):
     """One transformer block. x: [B, T, D]."""
-    attn_out, _, _ = _attn_half(x, p, cfg, positions)
+    attn_out, _, _ = _attn_half(x, p, cfg, positions, attn_fn)
     return _residual_mlp(x, attn_out, p, cfg)
 
 
 def gpt_hidden(params, tokens, cfg: GPTConfig, positions=None, pld=None,
-               ltd=None):
+               ltd=None, attn_fn=None):
     """tokens: [B, T] int -> final-norm'd hidden states [B, T, D].
 
     With `cfg.remat` each block runs under its `resolve_remat_policy`
@@ -441,19 +454,20 @@ def gpt_hidden(params, tokens, cfg: GPTConfig, positions=None, pld=None,
         if cfg.remat and torch.is_grad_enabled() else None
     for i in range(cfg.n_layer):
         p = {k: v[i] for k, v in layers.items()}
-        x = remat(_block, x, p, cfg, positions) if remat \
-            else _block(x, p, cfg, positions)
+        x = remat(_block, x, p, cfg, positions, attn_fn) if remat \
+            else _block(x, p, cfg, positions, attn_fn)
     return _norm(x, params["lnf_scale"], params.get("lnf_bias"),
                  cfg.use_rmsnorm, cfg.norm_eps)
 
 
-def gpt_forward(params, tokens, cfg: GPTConfig, positions=None):
+def gpt_forward(params, tokens, cfg: GPTConfig, positions=None,
+                attn_fn=None):
     """tokens: [B, T] int -> logits [B, T, vocab]."""
-    return _head_logits(params, gpt_hidden(params, tokens, cfg, positions),
-                        cfg)
+    return _head_logits(params, gpt_hidden(params, tokens, cfg, positions,
+                                           attn_fn=attn_fn), cfg)
 
 
-def gpt_loss(params, batch, rng=None, cfg: GPTConfig = None):
+def gpt_loss(params, batch, rng=None, cfg: GPTConfig = None, attn_fn=None):
     """Causal-LM cross entropy, mean over the labels >= 0. batch:
     {"tokens": [B, T+1]} (inputs and labels are its shifts) or
     {"input_ids": [B, T], "labels": [B, T]}; a label < 0 is ignored.
@@ -470,7 +484,8 @@ def gpt_loss(params, batch, rng=None, cfg: GPTConfig = None):
     if cfg.loss_chunks:
         raise NotImplementedError("loss_chunks (chunked-vocab CE) is not "
                                   "ported to deepspeed_tpu_torch yet")
-    logits = _head_logits(params, gpt_hidden(params, inputs, cfg), cfg)
+    logits = _head_logits(params, gpt_hidden(params, inputs, cfg,
+                                             attn_fn=attn_fn), cfg)
     m = logits.detach().amax(dim=-1, keepdim=True)
     sumexp = torch.exp((logits - m).float()).sum(dim=-1)
     logz = m[..., 0].float() + torch.log(sumexp)
@@ -482,15 +497,17 @@ def gpt_loss(params, batch, rng=None, cfg: GPTConfig = None):
 
 
 def make_gpt_model(cfg: GPTConfig = None, name="gpt2-125m", seed=0,
-                   params=None):
+                   params=None, attn_fn=None):
     """ModelSpec for the training engine: the loss, the params (drawn from
-    numpy `seed` unless given) and the forward for evaluation."""
+    numpy `seed` unless given) and the forward for evaluation, both through
+    `attn_fn` when one is given (a sparse attention must not fall back to
+    dense in evaluation)."""
     from deepspeed_tpu_torch.runtime.engine import ModelSpec
     cfg = cfg or GPT2_CONFIGS[name]
     return ModelSpec(
-        loss_fn=partial(gpt_loss, cfg=cfg),
+        loss_fn=partial(gpt_loss, cfg=cfg, attn_fn=attn_fn),
         params=init_gpt_params(cfg, seed=seed) if params is None else params,
-        apply_fn=partial(gpt_forward, cfg=cfg),
+        apply_fn=partial(gpt_forward, cfg=cfg, attn_fn=attn_fn),
         arch_cfg=cfg, name=name)
 
 

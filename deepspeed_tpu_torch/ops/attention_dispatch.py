@@ -5,9 +5,12 @@ A call site builds an `AttnSite` (the dispatch key) and `select()` walks the
 program registry, highest priority first, to name the program that runs.
 The phases this port carries:
 
-  * `train` (also the contiguous prefill): `flash` | `dense`. Operands
-    may require grad: `flash` differentiates through the backward kernels
-    (`ops/flash_attention.py`), `dense` through autograd on CPU tensors;
+  * `train` (also the contiguous prefill): `external` | `flash` |
+    `dense`. `external` wins whenever the caller passed its own `attn_fn`
+    (e.g. `ops/sparse_attention.sparse_attn_fn`, whose kernels take or
+    refuse the site themselves). Operands may require grad: `flash`
+    differentiates through the backward kernels (`ops/flash_attention.py`),
+    `dense` through autograd on CPU tensors;
   * `decode` (one token over the contiguous cache): `decode_kernel` |
     `decode_dense`;
   * `paged_decode` / `prefill_chunk` (the serving pool): `paged_kernel` |
@@ -55,6 +58,8 @@ class AttnSite:
                                   # for the quantized pool
     on_cuda: bool = False         # operands live on a CUDA device
     force_flash: Optional[bool] = None  # GPTConfig.use_flash_attention
+    external_fn: bool = False     # caller supplied its own attn_fn, which
+                                  # the "external" program runs
 
     @property
     def square(self) -> bool:
@@ -134,6 +139,11 @@ def select(site: AttnSite) -> str:
 def _plain(site: AttnSite) -> bool:
     return not site.on_cuda
 
+
+# the caller's attn_fn (the JAX package's "external" pseudo-program)
+register_program(AttentionProgram(
+    name="external", phases=("train",), priority=1000,
+    matches=lambda s: s.external_fn))
 
 # square causal attention, no alibi/window
 register_program(AttentionProgram(

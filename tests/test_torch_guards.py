@@ -440,3 +440,69 @@ def test_weight_quant_of_an_moe_tree_refuses_when_the_engine_is_built():
     engine = init_inference(spec, config=conf, device="cpu")
     with pytest.raises(NotImplementedError, match="MoE tree"):
         engine.serving(quantization={"weights": "int8"})
+
+
+def test_the_import_scan_covers_the_sparse_and_evoformer_modules():
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("ops/sparse_attention.py", "ops/block_sparse_attention.py",
+                   "ops/evoformer_attn.py"):
+        assert f"deepspeed_tpu_torch/{module}" in names
+
+
+def test_external_attention_program_wins_over_flash():
+    """A caller's attn_fn (sparse_attn_fn) takes the training site on every
+    device and dtype, above flash, as the JAX package's "external"
+    pseudo-program does; it never reaches the flash kernel's refusals."""
+    site = lambda **kw: ad.AttnSite(**{**dict(
+        phase="train", q_len=512, kv_len=512, head_dim=64,
+        kv_dtype="bfloat16", on_cuda=True, external_fn=True), **kw})
+    assert ad.registered_programs("train")[0].name == "external"
+    assert ad.select(site()) == "external"
+    assert ad.select(site(kv_dtype="float32", head_dim=32)) == "external"
+    assert ad.select(site(on_cuda=False)) == "external"
+    assert ad.select(site(external_fn=False)) == "flash"
+    assert ad.select(site(phase="decode", q_len=1)) == "decode_kernel"
+
+
+@pytest.mark.parametrize("case", ["sparse_fp32", "sparse_hd32",
+                                  "self_attention_rpe_shape",
+                                  "evoformer_hd16", "evoformer_fp64"])
+def test_sparse_and_evoformer_sites_the_kernels_refuse_raise_on_cuda(
+        case, monkeypatch):
+    """Handed CUDA operands the kernels do not take (fp32 or head dim 32
+    for block-sparse; an rpe of no supported shape; head dim 16 or fp64 for
+    evoformer), the ops raise; no plain version runs and no kernel library
+    is loaded."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
+    from deepspeed_tpu_torch.ops import evoformer_attn as tevo
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    def load(name):
+        raise AssertionError(f"kernel library {name} requested")
+
+    for mod, name in ((tbsa, "_reference_fwd"), (tbsa, "_reference_bwd"),
+                      (tevo, "_reference_fwd"), (tsa.SparseSelfAttention,
+                                                 "_dense")):
+        monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setattr(op_builder, "load", load)
+    layout = np.tril(np.ones((4, 8, 8), bool))
+    if case.startswith("sparse"):
+        dtype, hd = (torch.float32, 64) if case == "sparse_fp32" \
+            else (torch.bfloat16, 32)
+        q = _CudaLike((1, 4, 128, hd), dtype)
+        with pytest.raises(ValueError, match="the kernels take"):
+            tbsa.block_sparse_attention(q, q, q, layout, causal=True)
+    elif case == "self_attention_rpe_shape":
+        q = _CudaLike((2, 4, 128, 64), torch.bfloat16)
+        attn = tsa.SparseSelfAttention(tsa.FixedSparsityConfig(num_heads=4))
+        with pytest.raises(NotImplementedError, match="no dense attention"):
+            attn(q, q, q, rpe=torch.zeros(2, 4, 128, 128))
+    else:
+        dtype, hd = (torch.bfloat16, 16) if case == "evoformer_hd16" \
+            else (torch.float64, 32)
+        q = _CudaLike((1, 2, 40, 4, hd), dtype)
+        with pytest.raises(ValueError, match="the kernel takes"):
+            tevo.evoformer_attention(q, q, q)
