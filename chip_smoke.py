@@ -9,7 +9,10 @@ Phases, one JSON line each:
   kernels  each kernel against its plain PyTorch version on the card at the
            shapes its paths give it (generate/serve: gpt2-125m, H=12,
            hd=64, bf16; train: gpt2-760m, B 12, T 512, H 12, hd 128,
-           causal) and at hd 128 / G=4 / ragged T; the backward kernels
+           causal); the flash forward also at T 16, 48, 200, 333 and 1000
+           (shorter than a tile, ragged against the 64-row tiles), GQA 4,
+           fp16, causal and full, q/k/v as views of one [B, T, 3, H, D]
+           tensor; the backward kernels
            also at hd 64, GQA 4 with ragged T and an lse cotangent,
            non-causal, and in fp16; the int8 paged decode at the serve
            shape with groups 64 and 32, on a shuffled table with an
@@ -19,7 +22,11 @@ Phases, one JSON line each:
            and the largest weights (wte, mlp_up_w); with medians of
            CUDA-event timings of the kernel, its plain version and, where
            one PyTorch call computes the same function, that call
-           (library_ms); token_sort bit-exact at the dropless path's shape
+           (library_ms); for the two attention forwards also the factor
+           to SDPA, both timed again in turns (ms_turns,
+           library_ms_turns) and as device time alone (a CUDA graph of
+           the calls: graph_ms, library_graph_ms); token_sort bit-exact
+           at the dropless path's shape
            (N 4096, E 8), E 64 and 128, N 65 536, an odd N, all ids equal,
            ids out of range and negative, int64 ids; fused_layer_norm /
            fused_rms_norm within one output-dtype step at [4096, 768] bf16
@@ -27,7 +34,8 @@ Phases, one JSON line each:
            the block-sparse forward, dq and dk/dv kernels (and dbias)
            row by row within 1e-2 of each row's norm at the sparse paths'
            shapes (B 1, H 12, T 8192, hd 64), on four layout families, at
-           hd 128 in fp16 at T 1008, with bias slabs of 1 and H heads
+           hd 128 in fp16 at T 1008 (also with per-head bias slabs,
+           padding and causality), with bias slabs of 1 and H heads
            (learned and frozen), an all-padded row (the mean of its
            visited V) and a batched mask; two planted faults (a tile
            dropped from one visit list) that the row measure must see;
@@ -188,8 +196,13 @@ QUANT_SERVE_AGREE_MIN = 0.8
 # step apart, plus (int4) the weights' bf16 narrowing after dequantization
 QUANT_LOGIT_TOL = 1e-1
 
-# the training main path: the bench headline lane's config
-# (bench.py:220-228) on gpt2-760m at full width and depth, at gas 2
+# the training main path: gpt2-760m at full width and depth with the bench
+# lanes' engine config (bench.py:220-228: AdamW, bf16 without master
+# weights, clipping 1.0, ZeRO 1) at micro-batch 12, seq 512, gas 2, remat
+# nothing_saveable (the one policy ported) and an fp32 gradient
+# accumulator. Not the headline lane (bench.py:2252-2263: remat
+# dots_with_no_batch_dims_saveable, a bf16 accumulator, gas 32), which
+# waits for selective remat.
 TRAIN_MODEL, TRAIN_MBS, TRAIN_SEQ, TRAIN_GAS, TRAIN_STEPS = \
     "gpt2-760m", 12, 512, 2, 3
 TRAIN_CONFIG = {
@@ -379,6 +392,77 @@ def median_ms(fn, reps=15, inner=5, warmup=3):
     return statistics.median(times)
 
 
+def median_ms_turns(fns, reps=31, inner=10, warmup=3):
+    """Medians (ms a call) of CUDA-event timings of several calls taken in
+    turns: each of `reps` rounds times `inner` calls of each fn in order,
+    so that a spell of the host's other load falls on all of them alike.
+    The two attention forwards' eager calls (20-50 us of host time each)
+    run at the host's pace: `_forward_yardsticks` reads their factor to
+    SDPA this way too."""
+    import torch
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, t in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(inner):
+                fn()
+            end.record()
+            end.synchronize()
+            t.append(start.elapsed_time(end) / inner)
+    return [statistics.median(t) for t in times]
+
+
+def graph_ms(fn, inner=20, reps=10, warmup=3):
+    """Median device time of one call of `fn`: CUDA-event timings of a
+    CUDA graph holding `inner` calls, so the host's launch time is not in
+    it (`median_ms` times eager calls, where a call whose host side is
+    slower than its kernel is timed at the host's pace)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    del graph
+    return statistics.median(times)
+
+
+def _forward_yardsticks(row, fn, sdpa, inner):
+    """The two attention forwards' factor to SDPA three ways: `row`'s `ms`
+    over its `library_ms` (both `median_ms`, as every kernel is timed);
+    the same eager calls timed in turns (`median_ms_turns`); and device
+    time alone (`graph_ms`, CUDA graphs of `inner` calls each)."""
+    ms_turns, lib_turns = median_ms_turns([fn, sdpa])
+    dev, lib_dev = graph_ms(fn, inner=inner), graph_ms(sdpa, inner=inner)
+    row.update(sdpa_factor=row["ms"] / row["library_ms"],
+               ms_turns=ms_turns, library_ms_turns=lib_turns,
+               sdpa_factor_turns=ms_turns / lib_turns,
+               graph_ms=dev, library_graph_ms=lib_dev,
+               graph_sdpa_factor=dev / lib_dev)
+
+
 def bound(nbytes, flops, peak=BF16_FLOPS):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, \
@@ -412,8 +496,15 @@ def phase_build():
           "libraries": {k: str(v.name) for k, v in libs.items()}})
 
 
-def _flash_case(rng, B, T, H, Hkv, D, causal, dtype="bfloat16"):
+def _flash_case(rng, B, T, H, Hkv, D, causal, dtype="bfloat16",
+                fused5d=False):
     import torch
+    if fused5d:
+        # q/k/v as strided views of one [B, T, 3, H, D] tensor
+        qkv = torch.from_numpy(rng.standard_normal(
+            (B, T, 3, H, D)).astype(np.float32)).to(
+                "cuda", getattr(torch, dtype))
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal
     # q/k/v as [B, T, H, D] views of one fused projection, as the model
     # hands them to the kernel
     qkv = torch.from_numpy(rng.standard_normal(
@@ -422,6 +513,24 @@ def _flash_case(rng, B, T, H, Hkv, D, causal, dtype="bfloat16"):
     q, k, v = qkv.split([H * D, Hkv * D, Hkv * D], dim=-1)
     return (q.reshape(B, T, H, D), k.reshape(B, T, Hkv, D),
             v.reshape(B, T, Hkv, D), causal)
+
+
+# the flash forward's edge cases: T short of one tile and ragged against
+# the 64-row tiles (16, 48, 200, 333, 1000), GQA 4, fp16, causal and full,
+# fused [B, T, 3, H, D] views
+FLASH_EDGE_CASES = (
+    dict(B=2, T=16, H=4, Hkv=4, D=64, causal=True, fused5d=True),
+    dict(B=2, T=48, H=8, Hkv=2, D=128, causal=False),
+    dict(B=2, T=48, H=4, Hkv=4, D=128, causal=True, dtype="float16",
+         fused5d=True),
+    dict(B=2, T=200, H=8, Hkv=8, D=128, causal=True, fused5d=True),
+    dict(B=1, T=333, H=4, Hkv=4, D=64, causal=False, dtype="float16",
+         fused5d=True),
+    dict(B=1, T=1000, H=8, Hkv=2, D=64, causal=True, dtype="float16"),
+    dict(B=1, T=1000, H=16, Hkv=4, D=128, causal=True),
+    dict(B=1, T=1000, H=8, Hkv=8, D=128, causal=False, fused5d=True),
+    dict(B=2, T=333, H=16, Hkv=4, D=128, causal=True),
+    dict(B=2, T=200, H=8, Hkv=2, D=128, causal=False))
 
 
 def _decode_case(rng, B, H, Hkv, hd, M, pos):
@@ -468,19 +577,20 @@ def phase_kernels():
                                  f"{TOL[name]}")
         return err
 
-    # --- flash forward: its two paths' shapes — generate()'s prefill (4
-    # prompts padded to 600, gpt2-125m heads) and the train step
-    # (gpt2-760m) — then hd 128 / GQA 4 / ragged T, both masks
-    for shape, path in ((dict(B=4, T=600, H=12, Hkv=12, D=64, causal=True),
-                         "generate"),
-                        (dict(B=12, T=512, H=12, Hkv=12, D=128, causal=True),
-                         "train"),
-                        (dict(B=8, T=512, H=12, Hkv=12, D=64, causal=True),
-                         "moe_train"),
-                        (dict(B=2, T=333, H=16, Hkv=4, D=128, causal=True),
-                         None),
-                        (dict(B=2, T=200, H=8, Hkv=2, D=128, causal=False),
-                         None)):
+    def check_lse(shape, lse, ref_lse):
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not lse_err <= 1e-2:
+            raise AssertionError(f"flash lse err {lse_err} at {shape}")
+
+    # --- flash forward: its paths' shapes — generate()'s prefill (4
+    # prompts padded to 600, gpt2-125m heads), the train step (gpt2-760m)
+    # and the MoE train step — then the edge cases
+    cases = [(dict(B=4, T=600, H=12, Hkv=12, D=64, causal=True),
+              "generate"),
+             (dict(B=12, T=512, H=12, Hkv=12, D=128, causal=True), "train"),
+             (dict(B=8, T=512, H=12, Hkv=12, D=64, causal=True),
+              "moe_train")] + [(shape, None) for shape in FLASH_EDGE_CASES]
+    for shape, path in cases:
         q, k, v, causal = _flash_case(rng, **shape)
         out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
                                                layout="BTHD")
@@ -488,9 +598,7 @@ def phase_kernels():
                                                     layout="BTHD")
         torch.cuda.synchronize()
         err = check("flash_attention", shape, out, ref)
-        lse_err = (lse - ref_lse).abs().max().item()
-        if not lse_err <= 1e-2:
-            raise AssertionError(f"flash lse err {lse_err}")
+        check_lse(shape, lse, ref_lse)
         if path is None:
             continue
         B, T, H, D = q.shape
@@ -498,13 +606,16 @@ def phase_kernels():
         pairs = B * H * T * (T + 1) / 2
         nbytes = 4 * B * T * H * D * 2 + B * H * T * 4
         b_ms, b_by = bound(nbytes, 4 * D * pairs)
-        results["flash_attention", path] = dict(
-            max_abs_err=err,
-            ms=median_ms(lambda: fa.flash_attention(q, k, v)),
+        fwd = lambda: fa.flash_attention(q, k, v)
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      is_causal=True)
+        row = dict(
+            max_abs_err=err, ms=median_ms(fwd),
             plain_ms=median_ms(lambda: fa.flash_attention_reference(
                 q, k, v)), bound_ms=b_ms, bound_by=b_by,
-            library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True)))
+            library_ms=median_ms(sdpa))
+        _forward_yardsticks(row, fwd, sdpa, 20)
+        results["flash_attention", path] = row
 
     # --- contiguous decode: main path = generate()'s decode over the
     # 1024-row cache (600 + 32 rounded to 512-blocks), mid-generation
@@ -1168,6 +1279,16 @@ def _block_sparse_kernels(rng, checks):
     q, k, v = _sparse_qkv(rng, 2, 4, 1008, 128, torch.float16)
     _sparse_check(rng, checks, "hd128_fp16_T1008", q, k, v,
                   bigbird.make_layout(1008), 16, False)
+    # the bias and padding tiles at a ragged T: their TMA boxes run past
+    # T on the last q and k tiles; causal, per-head bias slabs
+    pad1008 = torch.ones(2, 1008, dtype=torch.bool, device="cuda")
+    pad1008[1, -37:] = False
+    q, k, v = _sparse_qkv(rng, 2, 4, 1008, 128, torch.float16)
+    _sparse_check(rng, checks, "hd128_fp16_T1008_bias_padding", q, k, v,
+                  bigbird.make_layout(1008), 16, True,
+                  bias=torch.from_numpy((rng.standard_normal(
+                      (4, 1008, 1008)) * 0.5).astype(np.float32)).cuda(),
+                  kpm=pad1008)
     fixed = fams[0][1]
     lay = fixed.make_layout(1024)
 
@@ -1297,14 +1418,13 @@ def _block_sparse_kernels(rng, checks):
         sdo = c["do"].contiguous()
         lib_bwd = median_ms(lambda: torch.autograd.grad(
             sout, (sq, sk, sv), sdo, retain_graph=True), reps=5)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=lib_mask, scale=c["scale"])
         for name, nbytes, flops, fn, plain, lib in (
                 ("block_sparse_attention", 4 * tile + rows + meta + extra,
                  4 * D * live, lambda: bsa._launch_fwd(*args),
                  median_ms(lambda: bsa._reference_fwd(*args), reps=3,
-                           inner=1, warmup=1),
-                 median_ms(lambda: F.scaled_dot_product_attention(
-                     sq, sk, sv, attn_mask=lib_mask, scale=c["scale"]),
-                     reps=5)),
+                           inner=1, warmup=1), median_ms(sdpa, reps=5)),
                 ("block_sparse_attention_bwd_dq",
                  5 * tile + 2 * rows + meta + extra + dbias_bytes,
                  6 * D * live, lambda: bsa._launch_bwd(*bwd, True, False),
@@ -1322,6 +1442,11 @@ def _block_sparse_kernels(rng, checks):
                 max_abs_err=c["errs"][name], ms=median_ms(fn, reps=9),
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib)
+            if name == "block_sparse_attention":
+                _forward_yardsticks(results[name, path], fn, sdpa, 5)
+            else:
+                results[name, path]["sdpa_factor"] = \
+                    results[name, path]["ms"] / lib
         del sq, sk, sv, sout, lib_mask, live_mask
     # evaluation runs the training path's forward shape
     results["block_sparse_attention", "sparse_eval"] = \

@@ -145,14 +145,23 @@ class _Plan:
         self.T = T
         self._device = {}
 
+    def row_order(self):
+        """The forward's walk over its (head, q tile) rows, longest visit
+        list first: int32 [H * nbq], a permutation of h * nbq + i with
+        non-increasing counts (ties in index order), so the rows with the
+        most tiles do not start last."""
+        return np.argsort(-self.counts.reshape(-1), kind="stable") \
+            .astype(np.int32)
+
     def on(self, device):
-        """(counts, idx, fine, countsT, idxT) tensors on `device`."""
+        """(counts, idx, fine, countsT, idxT, row order) tensors on
+        `device`."""
         key = str(device)
         if key not in self._device:
             self._device[key] = tuple(
                 torch.from_numpy(np.ascontiguousarray(a)).to(device)
                 for a in (self.counts, self.idx, self.fine.astype(np.uint8),
-                          self.countsT, self.idxT))
+                          self.countsT, self.idxT, self.row_order()))
         return self._device[key]
 
     def live_cells(self, causal):
@@ -267,9 +276,9 @@ def block_sparse_attention_reference(q, k, v, layout, block=16,
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    # q k v o lse bias kvb counts idx fine | B H T D maxv | strides |
-    # bias_sb bias_sh | causal dtype stream
-    "dstt_bsa_fwd": [_P] * 10 + [ctypes.c_int] * 5 + [
+    # q k v o lse bias kvb counts idx fine order | B H T D maxv | strides
+    # | bias_sb bias_sh | causal dtype stream
+    "dstt_bsa_fwd": [_P] * 11 + [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
     # q k v do lse delta dq dbias bias kvb counts idx fine | B H T D maxv |
@@ -306,8 +315,13 @@ def _ptr(t):
 
 
 def _layout_ok(t):
-    return t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3]) \
-        and t.data_ptr() % 16 == 0
+    """What the kernels' loads take (the forward's TMA maps): a contiguous
+    last dim, the other strides positive multiples of 8 elements (16
+    bytes) where the dim has more than one entry, a 16-byte aligned
+    base."""
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(
+        n == 1 or (s > 0 and s % 8 == 0)
+        for s, n in zip(t.stride()[:3], t.shape[:3]))
 
 
 def check_kernel_operands(q, k, v, extra=()):
@@ -333,8 +347,8 @@ def check_kernel_operands(q, k, v, extra=()):
     for name, t in [("q", q), ("k", k), ("v", v), *extra]:
         if not _layout_ok(t):
             raise ValueError(f"block_sparse_attention: {name} needs a "
-                             f"contiguous last dim, strides in multiples of "
-                             f"8 and a 16-byte aligned base")
+                             f"contiguous last dim, positive strides in "
+                             f"multiples of 8 and a 16-byte aligned base")
 
 
 def _bias_strides(bias):
@@ -350,14 +364,15 @@ def _launch_fwd(qs, k, v, plan, bias, kvb, causal):
     """out [B, H, T, D] view of a [B, T, H, D] tensor, lse [B, H, T]; the
     operands checked by the caller (`check_kernel_operands`)."""
     B, H, T, D = qs.shape
-    counts, idx, fine, _, _ = plan.on(qs.device)
+    counts, idx, fine, _, _, order = plan.on(qs.device)
     out = torch.empty((B, T, H, D), dtype=qs.dtype,
                       device=qs.device).transpose(1, 2)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=qs.device)
     rc = _kernel("dstt_bsa_fwd")(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _ptr(bias), _ptr(kvb), counts.data_ptr(),
-        idx.data_ptr(), fine.data_ptr(), B, H, T, D, idx.shape[-1],
+        idx.data_ptr(), fine.data_ptr(), order.data_ptr(), B, H, T, D,
+        idx.shape[-1],
         _strides(qs, k, v, out), *_bias_strides(bias), int(causal),
         op_builder.dtype_code(qs.dtype), op_builder.stream_ptr(qs.device))
     op_builder.check(rc, "block_sparse_attention")
@@ -374,7 +389,7 @@ def _launch_bwd(qs, k, v, do, lse, delta, plan, bias, kvb, causal,
         do = do.transpose(1, 2).contiguous().transpose(1, 2)
     check_kernel_operands(qs, k, v, extra=[("do", do)])
     B, H, T, D = qs.shape
-    counts, idx, fine, countsT, idxT = plan.on(qs.device)
+    counts, idx, fine, countsT, idxT, _ = plan.on(qs.device)
     tail = (int(causal), op_builder.dtype_code(qs.dtype),
             op_builder.stream_ptr(qs.device))
     new = lambda: torch.empty((B, T, H, D), dtype=qs.dtype,

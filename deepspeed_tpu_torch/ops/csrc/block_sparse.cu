@@ -16,14 +16,27 @@
 //
 // What bounds it on the H100: operations (4 * D flops per live (q, k) cell
 // in the forward, 6 * D in the dq pass, 8 * D in the dk/dv pass, against
-// about 4 * T * D elements moved per head and pass). The design is
-// flash_fwd.cu's and flash_bwd.cu's, with the visit list in place of the
-// causal loop bound:
+// about 4 * T * D elements moved per head and pass).
+//
+// The forward is attn_fwd.cuh's Hopper mainloop (wgmma with accumulators in
+// registers, a TMA ring of K/V stages fed by a producer warp, the online
+// softmax in registers) walking visit lists:
+//   * one block per (64-row q tile, b, h) with one consumer warpgroup; the
+//     producer walks the tile's visit list (int32 [H, n_tiles, max_visits]
+//     plus counts, built on the host at these 64 x 64 tiles), so dead tiles
+//     are neither loaded nor computed, and stages the fp32 bias tile (TMA
+//     box at (q0, k0) of the [Bb, Hb, T, T] slab, index 0 on a broadcast
+//     dim) and the padding row beside K and V; the 4 x 4 fine cells are a
+//     plain load;
+//   * blocks walk the (h, q tile) rows in the plan's longest-first order
+//     (`order`, a permutation sorted by visit count), so the rows with ~70
+//     visits do not start behind those with one.
+// The backward passes keep the pre-Hopper design of flash_bwd.cu, with the
+// visit list in place of the causal loop bound:
 //   * one thread block (4 warps) per (64-row tile, b * h); its loop walks
-//     the tile's visit list (int32 [H, n_tiles, max_visits] plus counts,
-//     built on the host at these 64 x 64 tiles), so dead tiles are neither
-//     loaded nor computed. The TPU's sequential grid axis becomes that
-//     loop: no atomics, except for a head-shared learned bias (below);
+//     the tile's visit list (dk/dv: the transposed lists). The TPU's
+//     sequential grid axis becomes that loop: no atomics, except for a
+//     head-shared learned bias (below);
 //   * each warp owns a 16-row strip for every product (nvcuda::wmma
 //     16x16x16, bf16/fp16 in, fp32 accumulation) and for the elementwise
 //     work between them;
@@ -31,17 +44,18 @@
 //     fine mask (uint8 [H, T/16, T/16]; the tile's 4 x 4 cells staged in
 //     shared memory), the fp32 bias [Bb, Hb, T, T] through batch / head
 //     strides (0 where it broadcasts, so a batched [B, T, T] mask is one
-//     more stride), and the additive key-padding row [B, T]. No one-hot
-//     selection matmuls, no bias copy blocked per tile, no VMEM budget;
-//   * numerics follow the Pallas kernels: scores masked with the finite
+//     more stride), and the additive key-padding row [B, T].
+// No one-hot selection matmuls, no bias copy blocked per tile, no VMEM
+// budget. All three kernels:
+//   * follow the Pallas kernels' numerics: scores masked with the finite
 //     -1e30 (a query row whose visited keys are all padded takes the mean
 //     of its visited V, as there), m starting at -1e30, p and ds narrowed
 //     to the input dtype before their second product, fp32 statistics and
 //     accumulators. q arrives scaled and rounded by the wrapper; dq leaves
 //     rounded, then scaled in fp32 and rounded again (JAX :614); dk gets no
 //     scale (it is contracted against the scaled q, :669);
-//   * any T that is a multiple of 16: cells past T get -inf (p = 0), rows
-//     past T load as zeros and are never written;
+//   * take any T that is a multiple of 16: cells past T get -inf (p = 0),
+//     rows past T load as zeros and are never written;
 //   * dbias (only when the wrapper asks): [B, Hb, T, T] fp32, zeroed by the
 //     wrapper; a block writes ds on its visited cells. With per-head slabs
 //     (Hb == H) each cell has one writer and a plain store does. With one
@@ -50,11 +64,15 @@
 //     slabs summed afterwards, would hold H times the dense [T, T] output
 //     (3.2 GB at T 8192, H 12) where the atomics need nothing extra; their
 //     order changes only the last bits of a sum of H terms.
-// Shared memory, hd 128: 113 KB (forward), 154 KB (dq) and 187 KB (dk/dv).
-// Later work: wgmma/TMA, accumulators in registers, a persistent schedule
-// that balances rows with long and short visit lists.
+// Shared memory, hd 128: 113 KB (forward, with a bias), 154 KB (dq) and
+// 187 KB (dk/dv).
+// Later work: the backward passes on the same Hopper design (wgmma, TMA,
+// register accumulators); a persistent forward fed by a dynamic work
+// queue (fixed rounds of rows balanced worse than the hardware's own
+// block scheduling).
 
-#include "common.cuh"
+#include "attn_fwd.cuh"
+
 
 #include <mma.h>
 
@@ -71,23 +89,6 @@ constexpr float kNegInf = -1e30f;
 // dq (dq pass) or do, dk, dv (dk/dv pass), passed to the kernel by value.
 struct Strides {
   long long s[18];
-};
-
-template <int HD>
-struct FwdLayout {
-  static constexpr int LDH = HD + 8;   // 16-bit Q / K / V rows (elements)
-  static constexpr int LDS = BT + 4;   // fp32 score rows
-  static constexpr int LDP = BT + 8;   // 16-bit probability rows
-  static constexpr int LDO = HD + 4;   // fp32 output rows
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + BT * LDH * 2;
-  static constexpr size_t v_off = k_off + BT * LDH * 2;
-  static constexpr size_t s_off = v_off + BT * LDH * 2;
-  static constexpr size_t p_off = s_off + BT * LDS * 4;
-  static constexpr size_t o_off = p_off + BT * LDP * 2;
-  static constexpr size_t kb_off = o_off + BT * LDO * 4;   // padding row
-  static constexpr size_t f_off = kb_off + BT * 4;         // fine cells
-  static constexpr size_t bytes = f_off + 32;
 };
 
 // Both backward passes: four 16-bit [64, HD] tiles (the block's resident
@@ -240,98 +241,6 @@ __device__ __forceinline__ void store_strip(T* dst, long long st,
     T* out = dst + (long long)(r0 + row) * st;
     for (int d = lane; d < HD; d += 32)
       out[d] = from_f<T>(to_f(from_f<T>(acc[row * LDA + d])) * mult);
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-bsa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o,
-               float* __restrict__ lse, const float* __restrict__ bias,
-               const float* __restrict__ kvb, const int* __restrict__ counts,
-               const int* __restrict__ idx, const uint8_t* __restrict__ fine,
-               int H, int T_len, int maxv, const Strides strides,
-               long long bias_sb, long long bias_sh, int causal) {
-  using L = FwdLayout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::q_off);
-  T* Ks = reinterpret_cast<T*>(smem + L::k_off);
-  T* Vs = reinterpret_cast<T*>(smem + L::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  T* Ps = reinterpret_cast<T*>(smem + L::p_off);
-  float* Os = reinterpret_cast<float*>(smem + L::o_off);
-  float* Kb = reinterpret_cast<float*>(smem + L::kb_off);
-  uint8_t* Fs = smem + L::f_off;
-
-  const long long* st = strides.s;
-  const int qt = blockIdx.x, q0 = qt * BT, n16 = T_len / FINE;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const T* kb = k + b * st[3] + h * st[4];
-  const T* vb = v + b * st[6] + h * st[7];
-  const float* bias_bh = bias ? bias + b * bias_sb + h * bias_sh : nullptr;
-  const float* kvb_b = kvb ? kvb + (long long)b * T_len : nullptr;
-  const uint8_t* fine_h = fine + (long long)h * n16 * n16;
-  const int row_id = h * gridDim.x + qt;
-  const int n_visit = counts[row_id];
-  const int* visits = idx + (long long)row_id * maxv;
-
-  load_tile<T, HD>(Qs, q + b * st[0] + h * st[1], st[2], q0, T_len, tid);
-  for (int i = tid; i < BT * HD; i += kThreads) Os[(i / HD) * L::LDO + i % HD] = 0.f;
-  float m_r[16], l_r[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m_r[r] = kNegInf;
-    l_r[r] = 0.f;
-  }
-
-  const int row0 = 16 * warp;
-  for (int t = 0; t < n_visit; ++t) {
-    const int k0 = visits[t] * BT;
-    __syncthreads();  // the previous tile's K/V reads are done
-    load_tile<T, HD>(Ks, kb, st[5], k0, T_len, tid);
-    load_tile<T, HD>(Vs, vb, st[8], k0, T_len, tid);
-    load_meta(Fs, Kb, fine_h, n16, q0, k0, kvb_b, T_len, tid);
-    __syncthreads();
-
-    strip_abt<T, HD>(Ss, Qs, Ks, row0);   // S = Q K^T
-    __syncwarp();
-
-    // online softmax over the strip's 16 rows; each lane holds two columns
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = row0 + r, qpos = q0 + row;
-      const int c0 = lane, c1 = lane + 32;
-      const uint8_t* frow = Fs + (row / FINE) * FPT;
-      const float s0 = masked_score(Ss[row * L::LDS + c0], qpos, k0 + c0,
-                                    T_len, frow[c0 / FINE], bias_bh, Kb[c0],
-                                    kvb_b != nullptr, causal);
-      const float s1 = masked_score(Ss[row * L::LDS + c1], qpos, k0 + c1,
-                                    T_len, frow[c1 / FINE], bias_bh, Kb[c1],
-                                    kvb_b != nullptr, causal);
-      const float m_new = fmaxf(m_r[r], warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      const float alpha = expf(m_r[r] - m_new);
-      l_r[r] = l_r[r] * alpha + warp_sum(p0 + p1);
-      m_r[r] = m_new;
-      Ps[row * L::LDP + c0] = from_f<T>(p0);
-      Ps[row * L::LDP + c1] = from_f<T>(p1);
-      for (int d = lane; d < HD; d += 32) Os[row * L::LDO + d] *= alpha;
-    }
-    __syncwarp();
-
-    strip_acc<T, HD, L::LDO>(Os, Ps, Vs, row0);   // O += P V
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = row0 + r, qpos = q0 + row;
-    if (qpos >= T_len) continue;
-    const float l = fmaxf(l_r[r], 1e-30f);
-    T* orow = o + b * st[9] + h * st[10] + (long long)qpos * st[11];
-    for (int d = lane; d < HD; d += 32) orow[d] = from_f<T>(Os[row * L::LDO + d] / l);
-    if (lane == 0) lse[((long long)b * H + h) * T_len + qpos] = m_r[r] + logf(l);
   }
 }
 
@@ -534,22 +443,52 @@ Strides copy_strides(const long long* strides) {
   return st;
 }
 
+// The forward: attn_fwd.cuh's mainloop over the visit lists, one 64-row q
+// tile (one consumer warpgroup) per block, two stages of K, V, bias tile,
+// padding row and the tile's fine cells (a third stage measured no faster).
 template <typename T, int HD>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, const float* bias, const float* kvb,
-               const int* counts, const int* idx, const uint8_t* fine, int B,
-               int H, int T_len, int maxv, const Strides& st,
-               long long bias_sb, long long bias_sh, int causal,
-               cudaStream_t stream) {
-  const size_t smem = FwdLayout<HD>::bytes;
-  cudaFuncSetAttribute(bsa_fwd_kernel<T, HD>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const dim3 grid((T_len + BT - 1) / BT, B * H);
-  bsa_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, bias, kvb, counts,
-      idx, fine, H, T_len, maxv, st, bias_sb, bias_sh, causal);
-  return (int)cudaGetLastError();
+               const int* counts, const int* idx, const uint8_t* fine,
+               const int* order, int B, int H, int T_len, int maxv,
+               const long long* st, long long bias_sb, long long bias_sh,
+               int causal, cudaStream_t stream) {
+  using namespace dstt::attn;
+  FwdParams p{};
+  int rc = encode_heads<T>(&p.tq, q, B, H, T_len, HD,
+                           st[0], st[1], st[2]);
+  if (!rc) rc = encode_heads<T>(&p.tk, k, B, H, T_len, HD,
+                                st[3], st[4], st[5]);
+  if (!rc) rc = encode_heads<T>(&p.tv, v, B, H, T_len, HD,
+                                st[6], st[7], st[8]);
+  if (!rc) rc = encode_heads<T>(&p.to, o, B, H, T_len, HD,
+                                st[9], st[10], st[11]);
+  if (!rc && bias)
+    rc = encode_bias(&p.tbias, bias, bias_sb ? B : 1, bias_sh ? H : 1, T_len);
+  if (!rc && kvb) rc = encode_rows(&p.tkvb, kvb, B, T_len);
+  if (rc) return rc;
+  p.lse = lse;
+  p.o = o;
+  p.o_sb = st[9];
+  p.o_sh = st[10];
+  p.o_st = st[11];
+  p.B = B;
+  p.H = H;
+  p.G = 1;
+  p.T_len = T_len;
+  p.n_qt = (T_len + BT - 1) / BT;
+  p.scale = 1.f;
+  p.causal = causal;
+  p.counts = counts;
+  p.idx = idx;
+  p.fine = fine;
+  p.order = order;
+  p.maxv = maxv;
+  p.has_bias = bias != nullptr;
+  p.bias_b = bias_sb != 0;
+  p.bias_h = bias_sh != 0;
+  p.has_kvb = kvb != nullptr;
+  return launch<true, T, HD, 2>(p, stream);
 }
 
 template <typename T, int HD>
@@ -606,16 +545,15 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 extern "C" int dstt_bsa_fwd(const void* q, const void* k, const void* v,
                             void* o, float* lse, const float* bias,
                             const float* kvb, const int* counts,
-                            const int* idx, const uint8_t* fine, int B, int H,
-                            int T_len, int D, int maxv,
-                            const long long* strides, long long bias_sb,
-                            long long bias_sh, int causal, int dtype,
-                            void* stream) {
+                            const int* idx, const uint8_t* fine,
+                            const int* order, int B, int H, int T_len, int D,
+                            int maxv, const long long* strides,
+                            long long bias_sb, long long bias_sh, int causal,
+                            int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides st = copy_strides(strides);
 #define FWD(T, HD) launch_fwd<T, HD>(q, k, v, o, lse, bias, kvb, counts, idx, \
-                                     fine, B, H, T_len, maxv, st, bias_sb,   \
-                                     bias_sh, causal, s)
+                                     fine, order, B, H, T_len, maxv, strides, \
+                                     bias_sb, bias_sh, causal, s)
   if (dtype == 1 && D == 64) return FWD(__nv_bfloat16, 64);
   if (dtype == 1 && D == 128) return FWD(__nv_bfloat16, 128);
   if (dtype == 2 && D == 64) return FWD(__half, 64);

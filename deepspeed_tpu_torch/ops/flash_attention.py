@@ -127,30 +127,46 @@ def _kernel(source, symbol):
     return fn
 
 
-def _strides(*tensors):
-    """(batch, head, time) element strides of [B, H, T, D] views, padded to
-    the 18 entries the backward kernels read."""
-    flat = [s for t in tensors for s in t.stride()[:3]]
-    return (ctypes.c_longlong * max(18, len(flat)))(*flat)
+# where the (batch, head, time) dims sit in each layout's 4-D tensor
+_BHT = {"BHTD": (0, 1, 2), "BTHD": (0, 2, 1)}
+_STRIDE_ARRAY = ctypes.c_longlong * 18
 
 
-def check_kernel_operands(q, k, v, extra=()):
+def _strides(*tensors, layout="BHTD"):
+    """(batch, head, time) element strides of up to six tensors in
+    `layout`, padded to the 18 entries the backward kernels read."""
+    b, h, t = _BHT[layout]
+    flat = []
+    for x in tensors:
+        st = x.stride()
+        flat += (st[b], st[h], st[t])
+    return _STRIDE_ARRAY(*flat)
+
+
+_KERNEL_DTYPES = tuple(getattr(torch, name) for name in FLASH_DTYPES)
+
+
+def check_kernel_operands(q, k, v, extra=(), layout="BHTD"):
     """Raise ValueError for what the kernels do not take. q/k/v (and the
-    `extra` (name, tensor) pairs, shaped like q) are [B, H, T, D] views."""
-    B, H, T, D = q.shape
-    Hkv = k.shape[1]
-    for name, t, shape in [("k", k, (B, Hkv, T, D)), ("v", v, (B, Hkv, T, D))] \
-            + [(n, t, (B, H, T, D)) for n, t in extra]:
+    `extra` (name, tensor) pairs, shaped like q) are 4-D tensors in
+    `layout`. Every launch runs it, so it builds no message unless it
+    raises."""
+    bd, hd, td = _BHT[layout]
+    B, H, T, D = q.shape[bd], q.shape[hd], q.shape[td], q.shape[3]
+    Hkv = k.shape[hd]
+    kv = (B, Hkv, T, D) if layout == "BHTD" else (B, T, Hkv, D)
+    for name, t, shape in (("k", k, kv), ("v", v, kv),
+                           *((n, t, q.shape) for n, t in extra)):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} is {t.dtype} on "
                              f"{t.device}, q is {q.dtype} on {q.device}")
-        if tuple(t.shape) != shape:
+        if t.shape != shape:
             raise ValueError(f"flash_attention: {name} shape "
-                             f"{tuple(t.shape)}, expected {shape}")
+                             f"{tuple(t.shape)}, expected {tuple(shape)}")
     if H % Hkv:
         raise ValueError(f"flash_attention: {H} query heads over {Hkv} kv "
                          f"heads")
-    if str(q.dtype).replace("torch.", "") not in FLASH_DTYPES:
+    if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"flash_attention: the kernels take {FLASH_DTYPES}, "
                          f"got {q.dtype}")
     if D not in KERNEL_HEAD_DIMS:
@@ -158,33 +174,45 @@ def check_kernel_operands(q, k, v, extra=()):
                          f"{KERNEL_HEAD_DIMS}")
     if T < 1 or B * H > 65535:
         raise ValueError(f"flash_attention: T={T}, B*H={B * H} out of range")
-    for name, t in [("q", q), ("k", k), ("v", v), *extra]:
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if not _kernel_layout_ok(t):
             raise ValueError(f"flash_attention: {name} needs a contiguous "
-                             f"last dim, strides in multiples of 8 and a "
-                             f"16-byte aligned base")
+                             f"last dim, positive strides in multiples of 8 "
+                             f"and a 16-byte aligned base")
 
 
 def _kernel_layout_ok(t):
-    return t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3]) \
-        and t.data_ptr() % 16 == 0
+    """What the kernels' loads take (the forward's TMA maps): a contiguous
+    last dim, the other strides positive multiples of 8 elements (16
+    bytes) where the dim has more than one entry, a 16-byte aligned
+    base. The test is the same in either layout."""
+    (s0, s1, s2, s3), (n0, n1, n2, _) = t.stride(), t.shape
+    return s3 == 1 and t.data_ptr() % 16 == 0 \
+        and (n0 == 1 or (s0 > 0 and s0 % 8 == 0)) \
+        and (n1 == 1 or (s1 > 0 and s1 % 8 == 0)) \
+        and (n2 == 1 or (s2 > 0 and s2 % 8 == 0))
 
 
-def _launch_fwd(qh, kh, vh, sm_scale, causal):
-    """out [B, H, T, D] view of a [B, T, H, D] tensor, lse [B, H, T]."""
-    check_kernel_operands(qh, kh, vh)
-    B, H, T, D = qh.shape
-    oh = torch.empty((B, T, H, D), dtype=qh.dtype,
-                     device=qh.device).transpose(1, 2)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=qh.device)
+def _launch_fwd(q, k, v, sm_scale, causal, layout="BHTD"):
+    """(out, lse [B, H, T]) of q, k, v in `layout`; out in that layout over
+    a [B, T, H, D] tensor. The kernel reads each operand by its strides
+    (a fused projection's views in place)."""
+    check_kernel_operands(q, k, v, layout=layout)
+    bd, hd, td = _BHT[layout]
+    B, H, T, D = q.shape[bd], q.shape[hd], q.shape[td], q.shape[3]
+    o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    if layout == "BHTD":
+        o = o.transpose(1, 2)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     rc = _kernel("flash_fwd", "dstt_flash_fwd")(
-        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), oh.data_ptr(),
-        lse.data_ptr(), B, H, kh.shape[1], T, D, _strides(qh, kh, vh, oh),
-        float(sm_scale), int(bool(causal)), op_builder.dtype_code(qh.dtype),
-        op_builder.stream_ptr(qh.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, H, k.shape[hd], T, D,
+        _strides(q, k, v, o, layout=layout), float(sm_scale),
+        int(bool(causal)), op_builder.dtype_code(q.dtype),
+        op_builder.stream_ptr(q.device))
     op_builder.check(rc, "flash_attention")
     op_builder.LAUNCHES["flash_attention"] += 1
-    return oh, lse
+    return o, lse
 
 
 def _launch_bwd(qh, kh, vh, doh, lse, delta, sm_scale, causal, need_dq,
@@ -238,41 +266,45 @@ def _device_check(q):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """(out, lse) = flash(q, k, v), all [B, H, T, D] views."""
+    """(out, lse) = flash(q, k, v), q / k / v / out in `layout`."""
 
     @staticmethod
-    def forward(ctx, qh, kh, vh, causal, sm_scale):
-        if _device_check(qh):
-            oh, lse = _launch_fwd(qh, kh, vh, sm_scale, causal)
+    def forward(ctx, q, k, v, causal, sm_scale, layout):
+        if _device_check(q):
+            o, lse = _launch_fwd(q, k, v, sm_scale, causal, layout)
         else:
-            oh, lse = flash_attention_reference(qh, kh, vh, causal, sm_scale,
-                                                layout="BHTD")
-        ctx.save_for_backward(qh, kh, vh, oh, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+            o, lse = flash_attention_reference(q, k, v, causal, sm_scale,
+                                               layout=layout)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale, ctx.layout = causal, sm_scale, layout
         ctx.set_materialize_grads(False)
-        return oh, lse
+        return o, lse
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, doh, dlse):
-        qh, kh, vh, oh, lse = ctx.saved_tensors
-        if doh is None:
-            doh = torch.zeros_like(oh)
-        if not _device_check(qh):
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        if not _device_check(q):
             dq, dk, dv = flash_attention_bwd_reference(
-                qh, kh, vh, oh, lse, doh, dlse, ctx.causal, ctx.sm_scale,
-                layout="BHTD")
-            return dq, dk, dv, None, None
+                q, k, v, o, lse, do, dlse, ctx.causal, ctx.sm_scale,
+                layout=ctx.layout)
+            return dq, dk, dv, None, None, None
+        qh, kh, vh, oh, doh = (_to_bhtd(x, ctx.layout)
+                               for x in (q, k, v, o, do))
         # delta = rowsum(do * o) in fp32 from the saved o, as XLA computes
         # it around the Pallas kernels (`_flash_bwd` :284)
         delta = (doh.float() * oh.float()).sum(-1)
         if dlse is not None:
             delta = delta - dlse.float()
         need = ctx.needs_input_grad
-        dq, dk, dv = _launch_bwd(qh, kh, vh, doh, lse, delta.contiguous(),
-                                 ctx.sm_scale, ctx.causal, need[0],
-                                 need[1] or need[2])
-        return dq, dk, dv, None, None
+        grads = _launch_bwd(qh, kh, vh, doh, lse, delta.contiguous(),
+                            ctx.sm_scale, ctx.causal, need[0],
+                            need[1] or need[2])
+        if ctx.layout == "BTHD":
+            grads = (None if g is None else g.transpose(1, 2) for g in grads)
+        return (*grads, None, None, None)
 
 
 def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None,
@@ -280,12 +312,13 @@ def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None,
     """(out, lse) flash attention, differentiable in both outputs; lse is
     [B, H, T] fp32 — the statistic ring attention merges per-shard partials
     with."""
-    qh, kh, vh = (_to_bhtd(x, layout) for x in (q, k, v))
+    if layout not in _BHT:
+        raise ValueError(f"unknown layout {layout!r} (expected BTHD or "
+                         f"BHTD)")
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(qh.shape[-1])
-    oh, lse = _FlashAttention.apply(qh, kh, vh, bool(causal),
-                                    float(sm_scale))
-    return (oh.transpose(1, 2) if layout == "BTHD" else oh), lse
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale),
+                                 layout)
 
 
 def flash_attention(q, k, v, causal=True, sm_scale=None, layout="BTHD"):

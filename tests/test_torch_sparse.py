@@ -520,6 +520,102 @@ def test_a_plan_for_another_shape_is_refused():
         tbsa._attend(q, k, v, plan, causal=True)
 
 
+@pytest.mark.parametrize("name, causal", [
+    ("fixed", False), ("fixed", True), ("bigbird_heads", False),
+    ("bslongformer", False), ("variable", False)])
+def test_row_order_walks_every_row_longest_first(name, causal):
+    """The forward kernel's walk over (head, q tile) rows: a permutation of
+    h * n_qtiles + i whose visit counts never rise, ties in index order;
+    the plan hands it to the device beside the visit lists."""
+    plan = tbsa._layout_plan(_cfg(tsa, name).make_layout(T), H, T, 16,
+                             causal)
+    order = plan.row_order()
+    assert order.dtype == np.int32
+    np.testing.assert_array_equal(np.sort(order), np.arange(H * plan.nbq))
+    counts = plan.counts.reshape(-1)[order]
+    assert (np.diff(counts) <= 0).all()
+    for c in np.unique(counts):              # stable among equal counts
+        rows = order[counts == c]
+        assert (np.diff(rows) > 0).all()
+    assert counts[0] == plan.counts.max()
+    on = plan.on("cpu")
+    assert len(on) == 6
+    np.testing.assert_array_equal(on[5].numpy(), order)
+
+
+def test_row_order_follows_a_plan_whose_lists_change():
+    """A copy of a plan with other visit lists (chip_smoke.py's planted
+    dropped tile) walks its own counts, not the original's."""
+    import copy
+    plan = tbsa._layout_plan(_cfg(tsa, "fixed").make_layout(T), H, T, 16,
+                             True)
+    coarse = tbsa._coarse(plan.fine, T, tbsa.TILE, tbsa.TILE)
+    i = int(np.argmax(plan.counts[0]))
+    coarse[0, i, int(plan.idx[0, i, 0])] = False
+    bad = copy.copy(plan)
+    bad.counts, bad.idx = tbsa._visit_lists(coarse)
+    bad._device = {}
+    counts = bad.counts.reshape(-1)[bad.row_order()]
+    assert (np.diff(counts) <= 0).all()
+    np.testing.assert_array_equal(bad.on("cpu")[5].numpy(),
+                                  bad.row_order())
+
+
+def _strided(case):
+    """[B, H, T, D] bf16 views of the kinds the kernels' TMA maps take
+    ("fused", "unit_dims") and refuse (the rest)."""
+    D = 64                                   # a head width the kernels take
+    base = torch.zeros(B, T, 3 * H * D + 8, dtype=torch.bfloat16)
+    fused = base[..., :3 * H * D].reshape(B, T, 3, H, D)[:, :, 0] \
+        .transpose(1, 2)
+    if case == "fused":
+        return fused
+    if case == "unit_dims":                  # extent-1 dims: any stride
+        return torch.zeros(T, D, dtype=torch.bfloat16)[None, None] \
+            .as_strided((1, 1, T, D), (3, 5, D, 1))
+    if case == "expanded_heads":             # stride 0 over H > 1
+        return torch.zeros(B, 1, T, D, dtype=torch.bfloat16) \
+            .expand(B, H, T, D)
+    if case == "row_stride_not_16_bytes":
+        odd = torch.zeros(B, H, T, D + 4, dtype=torch.bfloat16)
+        return odd[..., :D]
+    if case == "base_not_16_bytes":
+        return base[..., 4:4 + H * D].reshape(B, T, H, D).transpose(1, 2)
+    if case == "last_dim_strided":
+        return torch.zeros(B, H, T, 2 * D, dtype=torch.bfloat16)[..., ::2]
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["fused", "unit_dims"])
+def test_kernel_operands_tma_describes_pass(case):
+    q = _strided(case)
+    assert tbsa._layout_ok(q)
+
+
+@pytest.mark.parametrize("case", ["expanded_heads", "row_stride_not_16_bytes",
+                                  "base_not_16_bytes", "last_dim_strided"])
+def test_views_tma_cannot_describe_are_refused_before_a_launch(
+        case, monkeypatch):
+    """Handed (as on the card) a view the forward's TMA maps cannot
+    describe, the op raises ValueError before any kernel library is
+    loaded, and runs no plain version."""
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    def load(name):
+        raise AssertionError(f"kernel library {name} requested")
+
+    monkeypatch.setattr(tbsa, "_on_cuda", lambda q: True)
+    monkeypatch.setattr(tbsa, "_reference_fwd", refuse)
+    monkeypatch.setattr(op_builder, "load", load)
+    good = _strided("fused")
+    bad = _strided(case)
+    assert not tbsa._layout_ok(bad)
+    layout = _cfg(tsa, "fixed").make_layout(T)
+    with pytest.raises(ValueError, match="positive strides"):
+        tbsa.block_sparse_attention(good, bad, good, layout, causal=True)
+
+
 # ----------------------------------------------------------------------
 # GPT through the attn_fn slot
 # ----------------------------------------------------------------------
