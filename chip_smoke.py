@@ -14,7 +14,13 @@ Phases, one JSON line each:
            fp16, causal and full, q/k/v as views of one [B, T, 3, H, D]
            tensor; the backward kernels
            also at hd 64, GQA 4 with ragged T and an lse cotangent,
-           non-causal, and in fp16; the int8 paged decode at the serve
+           non-causal, in fp16, at T 16, 48 and 1000, MQA (16 query heads
+           over one kv head), within 2e-2 of max|ref| and row by row
+           (the block-sparse measure), with two planted faults (a plain
+           backward missing one tile) that the row measure must see, and
+           the pair timed against SDPA's backward eagerly, in turns and as
+           device time alone (torch.profiler), with SDPA's backend; the
+           int8 paged decode at the serve
            shape with groups 64 and 32, on a shuffled table with an
            all-trash row and at hd 128 / GQA 4 (one bf16 step of each
            element, and 1e-2); quantize and
@@ -696,16 +702,33 @@ def phase_kernels():
     return results
 
 
+# the backward pair's cases beyond its paths' shapes: T short of one tile
+# (16, 48) and ragged at hd 128 (1000), MQA (16 query heads over one kv
+# head: the longest dk/dv walk), fp16 at hd 64, causal, and full attention
+# at hd 128 with T a multiple of 64
+BWD_EDGE_CASES = (
+    dict(B=2, T=16, H=4, Hkv=4, D=64, causal=True, fused5d=True),
+    dict(B=2, T=48, H=8, Hkv=2, D=128, causal=True),
+    dict(B=1, T=1000, H=8, Hkv=2, D=128, causal=True),
+    dict(B=2, T=256, H=16, Hkv=1, D=128, causal=True),
+    dict(B=2, T=512, H=8, Hkv=8, D=64, causal=True, dtype="float16"),
+    dict(B=2, T=384, H=8, Hkv=8, D=128, causal=False))
+
+
 def _backward_kernels(rng, checks):
     """The dq and dk/dv kernels through the autograd path (q/k/v strided
     views of one fused projection, as the model hands them over) against
     the plain backward on the same inputs and saved (out, lse): at the
     two training paths' shapes (gpt2-760m: H 12, hd 128, B 12, T 512;
     moe-gpt-125m-e8: H 12, hd 64, B 8, T 512; causal), at hd 64 / T 600,
-    at GQA 4 with a ragged T and an lse cotangent, non-causal, and at GQA 4
-    with a ragged T in fp16. The forward of each case is held against its
-    plain version too. Then each kernel alone timed at each path's
-    shape."""
+    at GQA 4 with a ragged T and an lse cotangent, non-causal, at GQA 4
+    with a ragged T in fp16, and at BWD_EDGE_CASES. Each gradient is held
+    at BWD_REL_TOL x max|ref| and row by row (`_row_err`, SPARSE_ROW_TOL);
+    the forward of each case against its plain version too. At the train
+    shape two planted faults (a plain backward with one 64 x 64 tile
+    dropped) must exceed the row measure. Then each kernel alone timed at
+    each path's shape, and the pair against SDPA's backward three ways
+    (`_backward_yardsticks`)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import flash_attention as fa
@@ -719,43 +742,12 @@ def _backward_kernels(rng, checks):
             (dict(B=2, T=333, H=16, Hkv=4, D=128, causal=True), None, True),
             (dict(B=2, T=200, H=8, Hkv=2, D=64, causal=False), None, False),
             (dict(B=2, T=333, H=16, Hkv=4, D=128, causal=True,
-                  dtype="float16"), None, False)):
-        q, k, v, causal = _flash_case(rng, **shape)
-        for t in (q, k, v):
-            t.requires_grad_(True)
-        out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
-        do = torch.randn_like(out)
-        dlse = torch.randn_like(lse) if with_dlse else None
-        grads = torch.autograd.grad(
-            (out, lse) if with_dlse else (out,), (q, k, v),
-            (do, dlse) if with_dlse else (do,))
-        qd, kd, vd = (x.detach() for x in (q, k, v))
-        ref_out, ref_lse = fa.flash_attention_reference(qd, kd, vd, causal)
-        ref = fa.flash_attention_bwd_reference(
-            qd, kd, vd, out.detach(), lse.detach(), do, dlse, causal)
-        torch.cuda.synchronize()
-        fwd_err = (out.detach().float() - ref_out.float()).abs().max().item()
-        lse_err = (lse.detach() - ref_lse).abs().max().item()
-        if not (fwd_err <= TOL["flash_attention"] and lse_err <= 1e-2):
-            raise AssertionError(f"flash forward {shape}: out err {fwd_err}"
-                                 f", lse err {lse_err}")
-        errs = {}
-        for name, idx in (("flash_attention_bwd_dq", (0,)),
-                          ("flash_attention_bwd_dkv", (1, 2))):
-            err = max((grads[i].float() - ref[i].float()).abs().max().item()
-                      for i in idx)
-            scale = max(ref[i].float().abs().max().item() for i in idx)
-            ok = bool(np.isfinite(err) and err <= BWD_REL_TOL * scale)
-            checks.append({"kernel": name, "shape": shape,
-                           "lse_cotangent": with_dlse,
-                           "forward_max_abs_err": fwd_err,
-                           "max_abs_err": err,
-                           "ref_max_abs": scale,
-                           "tol": BWD_REL_TOL * scale, "ok": ok})
-            if not ok:
-                raise AssertionError(f"{name} {shape}: max abs err {err} > "
-                                     f"{BWD_REL_TOL} x {scale}")
-            errs[name] = err
+                  dtype="float16"), None, False),
+            *((shape, None, False) for shape in BWD_EDGE_CASES)):
+        q, k, v, do, out, lse, ref, errs, bwd_args = _backward_case(
+            rng, checks, shape, with_dlse)
+        if path == "train":
+            _flash_faults(checks, bwd_args, ref, -(-shape["T"] // 64))
         if path is None:
             continue
         B, T, H, D = q.shape
@@ -773,8 +765,9 @@ def _backward_kernels(rng, checks):
                       for x in (qh, kh, vh))
         sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
         sdo = doh.contiguous()
-        library_ms = median_ms(lambda: torch.autograd.grad(
-            sout, (sq, sk, sv), sdo, retain_graph=True))
+        sdpa = lambda: torch.autograd.grad(sout, (sq, sk, sv), sdo,
+                                           retain_graph=True)
+        library_ms = median_ms(sdpa)
         tile = B * T * H * D * 2          # one bf16 [B, T, H, D] tensor
         rows = B * H * T * 4              # one fp32 [B, H, T] row vector
         for name, need, flops, nbytes in (
@@ -789,7 +782,174 @@ def _backward_kernels(rng, checks):
                     qh, kh, vh, doh, lse_d, delta, sm, True, *need)),
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms)
+        _backward_yardsticks(
+            results["flash_attention_bwd_dq", path],
+            results["flash_attention_bwd_dkv", path],
+            lambda: fa._launch_bwd(qh, kh, vh, doh, lse_d, delta, sm, True,
+                                   True, True),
+            sdpa, sout.grad_fn.name())
     return results
+
+
+def _backward_case(rng, checks, shape, with_dlse):
+    """One case of the backward pair: q/k/v views of one fused projection
+    (`_flash_case`) through the autograd path, against the plain backward
+    on the same inputs and saved (out, lse), with an lse cotangent where
+    `with_dlse`; each gradient at BWD_REL_TOL x max|ref| and row by row
+    (`_row_err`, SPARSE_ROW_TOL), the forward against its plain version.
+    Appends one record a kernel to `checks`; returns (q, k, v, do, out,
+    lse, ref, {kernel: max abs err}, the plain backward's arguments)."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    q, k, v, causal = _flash_case(rng, **shape)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+    do = torch.randn_like(out)
+    dlse = torch.randn_like(lse) if with_dlse else None
+    grads = torch.autograd.grad(
+        (out, lse) if with_dlse else (out,), (q, k, v),
+        (do, dlse) if with_dlse else (do,))
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    ref_out, ref_lse = fa.flash_attention_reference(qd, kd, vd, causal)
+    bwd_args = (qd, kd, vd, out.detach(), lse.detach(), do, dlse, causal)
+    ref = fa.flash_attention_bwd_reference(*bwd_args)
+    torch.cuda.synchronize()
+    fwd_err = (out.detach().float() - ref_out.float()).abs().max().item()
+    lse_err = (lse.detach() - ref_lse).abs().max().item()
+    if not (fwd_err <= TOL["flash_attention"] and lse_err <= 1e-2):
+        raise AssertionError(f"flash forward {shape}: out err {fwd_err}"
+                             f", lse err {lse_err}")
+    errs = {}
+    for name, idx in (("flash_attention_bwd_dq", (0,)),
+                      ("flash_attention_bwd_dkv", (1, 2))):
+        err = max((grads[i].float() - ref[i].float()).abs().max().item()
+                  for i in idx)
+        scale = max(ref[i].float().abs().max().item() for i in idx)
+        row = max(_row_err(grads[i], ref[i]) for i in idx)
+        ok = bool(np.isfinite(err) and err <= BWD_REL_TOL * scale
+                  and np.isfinite(row) and row <= SPARSE_ROW_TOL)
+        checks.append({"kernel": name, "shape": shape,
+                       "lse_cotangent": with_dlse,
+                       "forward_max_abs_err": fwd_err,
+                       "max_abs_err": err,
+                       "ref_max_abs": scale,
+                       "tol": BWD_REL_TOL * scale, "row_err": row,
+                       "row_tol": SPARSE_ROW_TOL, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} {shape}: max abs err {err} > "
+                                 f"{BWD_REL_TOL} x {scale} or worst row "
+                                 f"err {row} > {SPARSE_ROW_TOL}")
+        errs[name] = err
+    return q, k, v, do, out, lse, ref, errs, bwd_args
+
+
+def _flash_dropped_bwd(qt, kt, *args):
+    """A planted fault for the flash backward's row measure: the plain
+    backward (`flash_attention_bwd_reference(*args)`) with the scores of q
+    tile `qt` x k tile `kt` (64 x 64) masked, as a kernel that skipped
+    that K/V tile for that q tile (dq) or that q tile for that k tile
+    (dk/dv) would compute."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    scores = fa._scores
+
+    def dropped(qh, kh, causal, sm_scale):
+        s = scores(qh, kh, causal, sm_scale)
+        s[..., 64 * qt:64 * (qt + 1), 64 * kt:64 * (kt + 1)] = fa.NEG_INF
+        return s
+    fa._scores = dropped
+    try:
+        return fa.flash_attention_bwd_reference(*args)
+    finally:
+        fa._scores = scores
+
+
+def _flash_faults(checks, bwd_args, ref, n_t):
+    """The row measure against the plain backward with one tile dropped
+    (q tile n_t - 2 loses k tile 0, then its diagonal k tile): it must
+    exceed SPARSE_ROW_TOL on dq, dk and dv, as `_sparse_faults` shows for
+    the block-sparse kernels."""
+    for fault, qt, kt in (("dropped_first_tile", n_t - 2, 0),
+                          ("dropped_diagonal_tile", n_t - 2, n_t - 2)):
+        bad = _flash_dropped_bwd(qt, kt, *bwd_args)
+        for name, what, i in (("flash_attention_bwd_dq", "dq", 0),
+                              ("flash_attention_bwd_dkv", "dk", 1),
+                              ("flash_attention_bwd_dkv", "dv", 2)):
+            row = _row_err(bad[i], ref[i])
+            checks.append({"kernel": name, "fault": fault, "q_tile": qt,
+                           "k_tile": kt, "output": what, "row_err": row,
+                           "max_rel_err": _max_rel(bad[i], ref[i]),
+                           "seen": row > SPARSE_ROW_TOL})
+            if not row > SPARSE_ROW_TOL:
+                raise AssertionError(f"{name} {fault} {what}: row err {row} "
+                                     f"<= {SPARSE_ROW_TOL}, the check does "
+                                     f"not see a skipped tile")
+
+
+def _device_ms(fn, calls=10, warmup=3):
+    """Device time of one call of `fn` alone: the CUDA kernels' time that
+    torch.profiler records over `calls` calls, over `calls` (an autograd
+    backward whose forward ran outside a CUDA graph cannot be captured in
+    one, so `graph_ms` cannot time SDPA's backward); with the kernels'
+    names and launches a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, kernels = 0.0, {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = ev.self_cuda_time_total
+        if t <= 0 or ev.device_type.name != "CUDA":
+            continue
+        us += t
+        kernels[ev.key[:80]] = ev.count / calls
+    return us / 1e3 / calls, kernels
+
+
+def _host_ms(fn, calls=50):
+    """Host time of one call: the wall time of `calls` calls enqueued back
+    to back (no synchronize between them), over `calls`."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / calls
+
+
+def _backward_yardsticks(row_dq, row_dkv, pair, sdpa, backend):
+    """The backward pair's (dq + dk/dv) factor to SDPA's backward three
+    ways: the sum of the two rows' `ms` over `library_ms` (eager
+    `median_ms` of each call alone, run 6F's yardstick, which the aims are
+    held to); the pair and SDPA's backward timed in turns
+    (`median_ms_turns`); and device time alone (`_device_ms`). With the
+    pair's host time a call, and SDPA's backend (its autograd node) and
+    kernels, to tell a change of backend from noise."""
+    ms_turns, lib_turns = median_ms_turns([pair, sdpa])
+    dev, _ = _device_ms(pair)
+    lib_dev, lib_kernels = _device_ms(sdpa)
+    pair_ms = row_dq["ms"] + row_dkv["ms"]
+    info = dict(pair_ms=pair_ms,
+                pair_sdpa_factor=pair_ms / row_dq["library_ms"],
+                pair_ms_turns=ms_turns, library_ms_turns=lib_turns,
+                pair_sdpa_factor_turns=ms_turns / lib_turns,
+                pair_device_ms=dev, library_device_ms=lib_dev,
+                pair_device_sdpa_factor=dev / lib_dev,
+                pair_host_ms=_host_ms(pair), sdpa_backend=backend,
+                sdpa_kernels=lib_kernels)
+    row_dq.update(info)
+    row_dkv.update(info)
 
 
 def _quant_pool_case(rng, B, H, Hkv, hd, bs, nb, g, pos, tables=None):
@@ -2749,11 +2909,12 @@ def _moe_dropless(counts):
 
 def _device_breakdown(prof, wall_s):
     """Kernel time on the card by class, from a torch.profiler run, against
-    the unprofiled wall time of the same work."""
+    the unprofiled wall time of the same work; our attention kernels also
+    one by one (ms and calls)."""
     classes = {"attention (ours)": 0.0, "quant (ours)": 0.0,
                "token sort, norms (ours)": 0.0, "matmul": 0.0,
                "optimizer (foreach)": 0.0, "other": 0.0}
-    top = []
+    top, ours = [], {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -2764,6 +2925,9 @@ def _device_breakdown(prof, wall_s):
         if any(k in name for k in ("decode_attn_kernel", "flash_fwd_kernel",
                                    "flash_bwd_", "bsa_", "evo_fwd_kernel")):
             cls = "attention (ours)"
+            o = ours.setdefault(name[:80], {"ms": 0.0, "calls": 0})
+            o["ms"] += us / 1e3
+            o["calls"] += ev.count
         elif "quantize_kernel" in name:
             cls = "quant (ours)"
         elif any(k in name for k in ("token_sort_kernel", "norm_kernel")):
@@ -2781,7 +2945,7 @@ def _device_breakdown(prof, wall_s):
     top.sort(reverse=True)
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / (wall_s * 1e3),
-            "by_class_ms": classes,
+            "by_class_ms": classes, "attention_kernels": ours,
             "top_kernels": [{"ms": t, "calls": c, "name": n}
                             for t, c, n in top[:8]]}
 

@@ -31,8 +31,9 @@
 //   * blocks walk the (h, q tile) rows in the plan's longest-first order
 //     (`order`, a permutation sorted by visit count), so the rows with ~70
 //     visits do not start behind those with one.
-// The backward passes keep the pre-Hopper design of flash_bwd.cu, with the
-// visit list in place of the causal loop bound:
+// The backward passes are still a pre-Hopper design (flash_bwd.cu's wgmma /
+// TMA passes, the same products over a causal walk, are the model for
+// their redesign), with the visit list as the loop:
 //   * one thread block (4 warps) per (64-row tile, b * h); its loop walks
 //     the tile's visit list (dk/dv: the transposed lists). The TPU's
 //     sequential grid axis becomes that loop: no atomics, except for a

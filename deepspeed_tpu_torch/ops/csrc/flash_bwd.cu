@@ -1,7 +1,8 @@
 // flash_bwd.cu — flash-attention backward (dq, and dk / dv), Hopper.
 //
 // Replaces the two Pallas backward kernels of
-// deepspeed_tpu/ops/pallas/flash_attention.py, both driven by _flash_bwd:
+// deepspeed_tpu/ops/pallas/flash_attention.py, both driven by _flash_bwd
+// (:278):
 //   * the dq pass (pallas_call :297, kernel _bwd_dq_kernel :176):
 //       dq = scale * sum_k ds k,  ds = p (dp - delta),  p = exp(s - lse),
 //       dp = do v^T, s = scale * q k^T;
@@ -14,382 +15,679 @@
 //
 // What bounds it on the H100: operations at training lengths (6 * D flops
 // per causal (q, k) pair in the dq pass, 8 * D in the dk/dv pass, against
-// about 4 * T * D elements moved per head and pass). The design keeps the
-// T x T probabilities out of device memory and puts all four products of a
-// tile on the tensor cores (nvcuda::wmma 16x16x16, bf16/fp16 in, fp32
-// accumulation), as flash_fwd.cu does for the forward:
-//   * Two passes, no atomics. The TPU carries dq (or dk/dv) in VMEM scratch
-//     across a sequential grid axis; here a loop inside one thread block
-//     takes that axis' place:
-//       - dq: one block (4 warps) per (q tile of 64 rows, b * h) walks the
-//         K/V tiles and stops at the causal frontier;
-//       - dk/dv: one block per (k tile of 64 rows, b * kv head) walks the q
-//         tiles from the first one that reaches its k tile, for each of the
-//         G query heads of its kv head in turn, so grouped-query attention
-//         sums dk/dv over the group in the block's fp32 accumulators and
-//         writes [B, T, Hkv, D] directly.
-//   * Each warp owns a 16-row strip of the block's tile for every product
-//     and for the elementwise softmax backward between them, so only the
-//     tile loads synchronise the whole block.
-//   * Rounding follows the Pallas kernels: p = exp(s - lse) in fp32, p
-//     narrowed to the input dtype before dv += p^T do, ds narrowed before
-//     dq += ds k and dk += ds^T q, fp32 accumulators, sm_scale applied to
-//     dq and dk once at the end.
-//   * The ragged edge of any T is masked in the kernel (no T % 128 rule):
-//     rows past T load as zeros, their p is 0, and they are never written.
-//   * Strides are passed per tensor, so [B, T, H, D] views of the fused qkv
-//     projection are read in place, and the gradients are written in the
-//     layout the wrapper allocated.
-// Shared memory, hd 128: 154 KB (dq) and 187 KB (dk/dv), one block per SM;
-// tiles are sized for shared memory, not for the TPU's 512 x 512 VMEM
-// blocks. Later work: wgmma/TMA, accumulators in registers, 128-row tiles.
+// about 5-6 * T * D elements moved per head and pass). Both passes keep the
+// T x T probabilities out of device memory and run every product on wgmma
+// with fp32 accumulators in registers, on the forward's building blocks
+// (sm90.cuh):
+//   * Two passes, no atomics. A work item is one 64-row tile of one head:
+//       - dq: (q tile, b, h). Q and dO are the item's resident tiles; the
+//         K/V tiles stream from 0 to the causal frontier;
+//       - dk/dv: (k tile, b, kv head hk). K and V are resident; the Q/dO
+//         tiles stream, for each of the G query heads of hk in turn, from
+//         the first q tile that reaches this k tile to the last, so
+//         grouped-query attention sums dk / dv over the group in registers
+//         and writes [B, T, Hkv, D] once.
+//   * A block is one consumer warpgroup (the item's 64 rows) and one
+//     producer warp (dk/dv: the first warp of a producer warpgroup that
+//     gives its registers to the consumers with setmaxnreg, so that two
+//     blocks fit an SM at hd 128). The producer keeps a ring of STAGES
+//     stages filled with TMA copies (128-byte swizzle, full / empty
+//     mbarriers) and brings each item's resident pair on barriers of its
+//     own; the consumers release the resident pair as soon as its last
+//     product has read it, so the next item's copies overlap this one's
+//     end. Blocks are persistent (as many as fit the card) and walk the
+//     items longest first: the last q tile first (dq), k tile 0 first
+//     (dk/dv).
+//   * Every product has one of the forward's two forms (sm90.cuh):
+//     score-shaped, m64n64k16 from shared memory (S = Q K^T, dP = dO V^T;
+//     S^T = K Q^T, dP^T = V dO^T: the dk/dv pass computes the transposes
+//     directly, so nothing is transposed in the kernel), and accumulating,
+//     m64nHDk16 with the left factor as a register fragment of a score
+//     accumulator narrowed to 16 bits and the right one read through the
+//     transposed descriptor (dQ += dS K; dV += P^T dO, dK += dS^T Q). So
+//     K (dq) and Q, dO (dk/dv) are each read both ways from one tile.
+//   * The softmax backward runs in registers: p = exp2(s scale log2e -
+//     lse log2e), ds = p (dp - delta). The dq pass reads lse and delta of
+//     its two rows a thread once per item; in the dk/dv pass the columns
+//     are queries, so the producer stages each q tile's 64 lse and delta
+//     values beside Q and dO (plain loads: a [B, H, T] row of a ragged T is
+//     not 16-byte aligned for TMA) and publishes them with the stage's
+//     arrive (the full barrier counts the 32 producer lanes and the TMA
+//     bytes).
+//   * Overlap inside a stage: the two score products are two commit
+//     groups, and p is computed while dP is still on the tensor cores.
+//     Between stages, the SM's other block (two a SM in both passes at
+//     hd 128) fills the tensor cores while one computes its softmax.
+//   * Masks run only on tiles that cross the diagonal or T (a template
+//     parameter, as the forward's FlashScore): causality (kpos > qpos) and
+//     columns past T give p = 0. Rows past T arrive as zeros (TMA's
+//     out-of-bounds fill) and are never written.
+//   * Rounding follows the Pallas kernels: p in fp32, p narrowed to the
+//     input dtype before dv += p^T do, ds narrowed before dq += ds k and
+//     dk += ds^T q, fp32 accumulators, scale applied to dq and dk once at
+//     the end.
+//   * Strides are passed per tensor (TMA maps over [B, T, H, D] views, the
+//     fused qkv projection read in place); the gradients are written from
+//     registers in the layout the wrapper allocated.
+// Budget per block, hd 128: shared memory 97 KB (dq: Q, dO and two K/V
+// stages) and 98 KB (dk/dv: K, V and two Q/dO/lse/delta stages);
+// registers per consumer thread: dQ 64 fp32 + S, dP 32 each (dq), dK, dV
+// 64 each + S^T, dP^T 32 each (dk/dv). nvcc -Xptxas -v
+// (tools/attn_bwd_ab.py --ptxas) and the counts' effect are in PERF.md.
+//
+// Later work: 128-row items (two consumer warpgroups sharing each stage)
+// and the next stage's score products issued under this one's softmax.
 
-#include "common.cuh"
+#include "sm90.cuh"
 
-#include <mma.h>
-
+namespace dstt {
+namespace bwd {
 namespace {
 
-using namespace dstt;
-using namespace nvcuda;
+using namespace dstt::sm90;
 
-constexpr int BT = 64, kWarps = 4, kThreads = 32 * kWarps;  // tile rows
+constexpr int BT = 64;          // rows of every tile (q and k)
+constexpr int STAGES = 2;       // ring stages
+// dq: one consumer warpgroup and one producer warp. dk/dv: one consumer
+// warpgroup and a producer warpgroup, so that setmaxnreg can move the
+// producer's registers to the consumers (dK and dV take 128 of them a
+// thread): two blocks fit an SM at hd 128 (64 K registers = 2 x (4 warps x
+// 232 + 4 x 24) x 32).
+constexpr int kDqThreads = 160, kDkvThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Element strides (batch, head, time) of q, k, v, do, then dq (dq pass) or
-// dk, dv (dk/dv pass), passed to the kernel by value.
-struct Strides {
-  long long s[18];
+struct BwdParams {
+  CUtensorMap tq, tk, tv, tdo;    // [B, T, H(kv), D] views, box {64, 1, 64, 1}
+  const float* lse;               // [B, H, T] fp32, contiguous
+  const float* delta;             // [B, H, T] fp32, contiguous
+  void* g0;                       // dq (dq pass) or dk
+  void* g1;                       // dv (dk/dv pass)
+  long long g0_sb, g0_sh, g0_st;  // element strides (batch, head, time)
+  long long g1_sb, g1_sh, g1_st;
+  int B, H, G, T_len, n_t;        // G: query heads a kv head; n_t: tiles
+  float scale;
+  int causal;
 };
 
-// Shared-memory layout common to both passes: four 16-bit [64, HD] tiles
-// (the block's resident pair and the streamed pair), two fp32 [64, 64]
-// score tiles (S and dP), two 16-bit [64, 64] tiles (P and dS), two fp32
-// [64, HD] accumulators (dq uses one), and the streamed rows' lse / delta.
-template <int HD>
-struct Layout {
-  static constexpr int LDH = HD + 8;   // 16-bit [64, HD] rows (elements)
-  static constexpr int LDS = BT + 4;   // fp32 score rows
-  static constexpr int LDP = BT + 8;   // 16-bit probability rows
-  static constexpr int LDA = HD + 4;   // fp32 accumulator rows
-  static constexpr size_t tile16 = BT * LDH * 2;
-  static constexpr size_t a_off = 0;                 // resident tile 1
-  static constexpr size_t b_off = a_off + tile16;    // resident tile 2
-  static constexpr size_t c_off = b_off + tile16;    // streamed tile 1
-  static constexpr size_t d_off = c_off + tile16;    // streamed tile 2
-  static constexpr size_t s_off = d_off + tile16;
-  static constexpr size_t dp_off = s_off + BT * LDS * 4;
-  static constexpr size_t p_off = dp_off + BT * LDS * 4;
-  static constexpr size_t ds_off = p_off + BT * LDP * 2;
-  static constexpr size_t l_off = ds_off + BT * LDP * 2;
-  static constexpr size_t dl_off = l_off + BT * 4;
-  static constexpr size_t acc1_off = dl_off + BT * 4;
-  static constexpr size_t acc2_off = acc1_off + BT * LDA * 4;
-  static constexpr size_t bytes_dq = acc2_off;
-  static constexpr size_t bytes_dkv = acc2_off + BT * LDA * 4;
+// Shared memory of either pass: the item's two resident tiles, STAGES
+// stages of two streamed tiles, and (dk/dv: ROWS) the stages' 64 lse and 64
+// delta values; then the barriers.
+template <int HD, bool ROWS>
+struct BwdSmem {
+  static constexpr int P = HD / 64;                   // 64-column panels
+  static constexpr int tile = P * PANEL;              // one 64-row tile
+  static constexpr int res_off = 0;
+  static constexpr int ring_off = 2 * tile;
+  static constexpr int rows_off = ring_off + STAGES * 2 * tile;
+  static constexpr int rows_bytes = ROWS ? 2 * BT * 4 : 0;   // a stage's
+  static constexpr int bar_off = rows_off + STAGES * rows_bytes;
+  // full[STAGES], empty[STAGES], the resident pair's full and empty; + 1024
+  // for aligning the dynamic shared-memory base
+  static constexpr int bytes = bar_off + (2 * STAGES + 2) * 8 + 1024;
 };
 
-// Stage rows r0 .. r0+63 of one head ([T, HD] with row stride `st`) into
-// shared memory; rows at or past T are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long st,
-                                          int r0, int T_len, int tid) {
-  constexpr int VEC = 8, VPR = HD / VEC, LDH = Layout<HD>::LDH;
-  for (int i = tid; i < BT * VPR; i += kThreads) {
-    const int r = i / VPR, c = (i % VPR) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < T_len)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * st + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
+// dq work item r (0 .. B * H * n_t - 1): the q tiles walked from the last
+// (the longest causal row) down.
+struct DqItem {
+  int b, h, q0, n_k;
+};
+
+__device__ __forceinline__ DqItem dq_item(const BwdParams& p, int r) {
+  DqItem it;
+  const int bh = r % (p.B * p.H);
+  const int qt = p.n_t - 1 - r / (p.B * p.H);
+  it.b = bh / p.H;
+  it.h = bh % p.H;
+  it.q0 = qt * BT;
+  it.n_k = p.causal ? qt + 1 : p.n_t;
+  return it;
 }
 
-// Rows r0 .. r0+63 of one head's lse and delta ([T] fp32 each); 0 past T.
-__device__ __forceinline__ void load_rows(float* l_dst, float* d_dst,
-                                          const float* lse, const float* delta,
-                                          int r0, int T_len, int tid) {
-  for (int i = tid; i < BT; i += kThreads) {
-    const bool in = r0 + i < T_len;
-    l_dst[i] = in ? lse[r0 + i] : 0.f;
-    d_dst[i] = in ? delta[r0 + i] : 0.f;
-  }
+// dk/dv work item r (0 .. B * Hkv * n_t - 1): k tile 0 (the longest causal
+// walk) first; q tiles qt0 .. n_t - 1 of each of the G query heads.
+struct DkvItem {
+  int b, hk, k0, qt0;
+};
+
+__device__ __forceinline__ DkvItem dkv_item(const BwdParams& p, int r) {
+  DkvItem it;
+  const int hkv = p.H / p.G;
+  const int bh = r % (p.B * hkv);
+  const int kt = r / (p.B * hkv);
+  it.b = bh / hkv;
+  it.hk = bh % hkv;
+  it.k0 = kt * BT;
+  it.qt0 = p.causal ? kt : 0;
+  return it;
 }
 
-// Out[strip of 16 rows, 64 cols] (fp32, row stride LDS) = A[strip] B^T over
-// HD, with A and B both [64, HD] 16-bit tiles: the score-shaped products
-// S = Q K^T, dP = dO V^T (dq pass) and S^T = K Q^T, dP^T = V dO^T (dk/dv).
+__device__ __forceinline__ void init_barriers(uint64_t* full,
+                                              uint32_t arrivals) {
+  uint64_t* empty = full + STAGES;
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) {
+    mbar_init(&full[s], arrivals);
+    mbar_init(&empty[s], 128);
+  }
+  mbar_init(empty + STAGES, 1);          // the resident pair: full
+  mbar_init(empty + STAGES + 1, 128);    // and empty
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Two score-shaped products on wgmma, one commit group each: a = A1 B1^T
+// first, then b = A2 B2^T; the four 64-row tiles K-major in shared memory.
 template <typename T, int HD>
-__device__ __forceinline__ void strip_abt(float* out, const T* A, const T* B,
-                                          int row0) {
-  using L = Layout<HD>;
+__device__ __forceinline__ void score_pair(float (&a)[32], float (&b)[32],
+                                           const unsigned char* A1,
+                                           const unsigned char* B1,
+                                           const unsigned char* A2,
+                                           const unsigned char* B2) {
+  fence_regs(a);
+  fence_regs(b);
+  wg_fence();
 #pragma unroll
-  for (int j = 0; j < BT / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-    wmma::fill_fragment(sf, 0.f);
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int off = (kk / 4) * PANEL + (kk % 4) * 32;
+    wgmma_ss<T>(a, desc_sw128(A1 + off), desc_sw128(B1 + off), kk > 0);
+  }
+  wg_commit();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bf;
-      wmma::load_matrix_sync(af, A + row0 * L::LDH + 16 * kk, L::LDH);
-      wmma::load_matrix_sync(bf, B + 16 * j * L::LDH + 16 * kk, L::LDH);
-      wmma::mma_sync(sf, af, bf, sf);
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int off = (kk / 4) * PANEL + (kk % 4) * 32;
+    wgmma_ss<T>(b, desc_sw128(A2 + off), desc_sw128(B2 + off), kk > 0);
+  }
+  wg_commit();
+}
+
+// acc[64 x HD] += A (four 16-column register fragments) Y, Y a 64-row tile
+// read through the transposed descriptor; one commit group.
+template <typename T, int N>
+__device__ __forceinline__ void accumulate(float (&acc)[N],
+                                           const uint32_t (&a)[BT / 16][4],
+                                           const unsigned char* Y) {
+  fence_regs(acc);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk)
+    wgmma_rs<T>(acc, a[kk], desc_sw128(Y + kk * 16 * 128, PANEL), 1);
+  wg_commit();
+}
+
+// A score accumulator narrowed to T as the A fragments of an accumulating
+// product: k slice kk is accumulator columns 16 kk .. 16 kk + 15.
+template <typename T>
+__device__ __forceinline__ void fragments(uint32_t (&a)[BT / 16][4],
+                                          const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[kk][e] = pack2<T>(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+}
+
+// A thread's accumulator element i sits at tile row (i & 2 ? r1 : r0) and
+// column 8 (i >> 2) + 2 qi + (i & 1); r0 = 16 warp + lane / 4, r1 = r0 + 8.
+
+// dq pass: p = exp2(s scale log2e - lse log2e) in place, lse of the
+// thread's two rows (l0, l1) in log2 units; where MASK, 0 at keys past T
+// and (causal) above the diagonal.
+template <bool MASK>
+__device__ __forceinline__ void dq_probs(float (&sc)[32], float sl2, float l0,
+                                         float l1, int k0, int qpos0,
+                                         int qpos1, int qi, int T_len,
+                                         bool causal) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float x = exp2f(fmaf(sc[i], sl2, -((i & 2) ? l1 : l0)));
+    if (MASK) {
+      const int kpos = k0 + 8 * (i >> 2) + 2 * qi + (i & 1);
+      const int qpos = (i & 2) ? qpos1 : qpos0;
+      if (kpos >= T_len || (causal && kpos > qpos)) x = 0.f;
     }
-    wmma::store_matrix_sync(out + row0 * L::LDS + 16 * j, sf, L::LDS,
-                            wmma::mem_row_major);
+    sc[i] = x;
   }
 }
 
-// Acc[strip, HD] (fp32, row stride LDA) += P[strip, 64] (16-bit, row stride
-// LDP) . B[64, HD] (16-bit tile): dq += ds k, dv += p^T do, dk += ds^T q.
-template <typename T, int HD>
-__device__ __forceinline__ void strip_acc(float* acc, const T* P, const T* B,
-                                          int row0) {
-  using L = Layout<HD>;
+// dk/dv pass: the same on S^T, whose columns are queries: lse (log2 units)
+// of the stage's 64 columns from shared memory; where MASK, 0 at queries
+// past T and (causal) where the key (row) follows the query.
+template <bool MASK>
+__device__ __forceinline__ void dkv_probs(float (&sc)[32], const float* lse2,
+                                          float sl2, int q0, int kpos0,
+                                          int kpos1, int qi, int T_len,
+                                          bool causal) {
 #pragma unroll
-  for (int j = 0; j < HD / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-    wmma::load_matrix_sync(of, acc + row0 * L::LDA + 16 * j, L::LDA,
-                           wmma::mem_row_major);
+  for (int j = 0; j < 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * qi);
 #pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> pf;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bf;
-      wmma::load_matrix_sync(pf, P + row0 * L::LDP + 16 * kk, L::LDP);
-      wmma::load_matrix_sync(bf, B + 16 * kk * L::LDH + 16 * j, L::LDH);
-      wmma::mma_sync(of, pf, bf, of);
-    }
-    wmma::store_matrix_sync(acc + row0 * L::LDA + 16 * j, of, L::LDA,
-                            wmma::mem_row_major);
-  }
-}
-
-// Write a warp's strip of an fp32 accumulator, times `mult`, narrowed to T,
-// to rows r0 + row0 .. (masked at T) of one head with row stride `st`.
-template <typename T, int HD>
-__device__ __forceinline__ void store_strip(T* dst, long long st,
-                                            const float* acc, float mult,
-                                            int r0, int row0, int T_len,
-                                            int lane) {
-  using L = Layout<HD>;
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = row0 + r;
-    if (r0 + row >= T_len) continue;
-    T* out = dst + (long long)(r0 + row) * st;
-    for (int d = lane; d < HD; d += 32) out[d] = from_f<T>(acc[row * L::LDA + d] * mult);
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int H, int G, int T_len, const Strides strides,
-                    float scale, int causal) {
-  using L = Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::a_off);
-  T* dOs = reinterpret_cast<T*>(smem + L::b_off);
-  T* Ks = reinterpret_cast<T*>(smem + L::c_off);
-  T* Vs = reinterpret_cast<T*>(smem + L::d_off);
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  float* dPs = reinterpret_cast<float*>(smem + L::dp_off);
-  T* dSs = reinterpret_cast<T*>(smem + L::ds_off);
-  float* Ls = reinterpret_cast<float*>(smem + L::l_off);
-  float* Dl = reinterpret_cast<float*>(smem + L::dl_off);
-  float* dQa = reinterpret_cast<float*>(smem + L::acc1_off);
-
-  const long long* st = strides.s;
-  const int q0 = blockIdx.x * BT;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / G;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long rows = ((long long)b * H + h) * T_len;
-  const T* kb = k + b * st[3] + hk * st[4];
-  const T* vb = v + b * st[6] + hk * st[7];
-
-  load_tile<T, HD>(Qs, q + b * st[0] + h * st[1], st[2], q0, T_len, tid);
-  load_tile<T, HD>(dOs, dout + b * st[9] + h * st[10], st[11], q0, T_len, tid);
-  load_rows(Ls, Dl, lse + rows, delta + rows, q0, T_len, tid);
-  for (int i = tid; i < BT * HD; i += kThreads) dQa[(i / HD) * L::LDA + i % HD] = 0.f;
-
-  int kt_end = (T_len + BT - 1) / BT;
-  if (causal) kt_end = min(kt_end, (q0 + BT - 1) / BT + 1);
-  const int row0 = 16 * warp;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // the previous tile's K/V reads are done
-    load_tile<T, HD>(Ks, kb, st[5], k0, T_len, tid);
-    load_tile<T, HD>(Vs, vb, st[8], k0, T_len, tid);
-    __syncthreads();
-
-    strip_abt<T, HD>(Ss, Qs, Ks, row0);    // S  = Q K^T
-    strip_abt<T, HD>(dPs, dOs, Vs, row0);  // dP = dO V^T
-    __syncwarp();
-
-    // ds = p (dp - delta), p = exp(scale s - lse); each lane two columns
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = row0 + r, qpos = q0 + row;
-      const float l = Ls[row], dl = Dl[row];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half, kpos = k0 + c;
-        const bool valid = qpos < T_len && kpos < T_len && (!causal || kpos <= qpos);
-        const float p = valid ? expf(Ss[row * L::LDS + c] * scale - l) : 0.f;
-        dSs[row * L::LDP + c] = from_f<T>(p * (dPs[row * L::LDS + c] - dl));
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      float x = exp2f(fmaf(sc[i], sl2, -((e & 1) ? l.y : l.x)));
+      if (MASK) {
+        const int qpos = q0 + 8 * j + 2 * qi + (e & 1);
+        const int kpos = (e & 2) ? kpos1 : kpos0;
+        if (qpos >= T_len || (causal && kpos > qpos)) x = 0.f;
       }
+      sc[i] = x;
     }
-    __syncwarp();
-
-    strip_acc<T, HD>(dQa, dSs, Ks, row0);  // dQ += dS K
-    __syncwarp();
   }
-  store_strip<T, HD>(dq + b * st[12] + h * st[13], st[14], dQa, scale, q0,
-                     row0, T_len, lane);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int G, int T_len,
-                     const Strides strides, float scale, int causal) {
-  using L = Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem + L::a_off);
-  T* Vs = reinterpret_cast<T*>(smem + L::b_off);
-  T* Qs = reinterpret_cast<T*>(smem + L::c_off);
-  T* dOs = reinterpret_cast<T*>(smem + L::d_off);
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  float* dPs = reinterpret_cast<float*>(smem + L::dp_off);
-  T* Ps = reinterpret_cast<T*>(smem + L::p_off);
-  T* dSs = reinterpret_cast<T*>(smem + L::ds_off);
-  float* Ls = reinterpret_cast<float*>(smem + L::l_off);
-  float* Dl = reinterpret_cast<float*>(smem + L::dl_off);
-  float* dKa = reinterpret_cast<float*>(smem + L::acc1_off);
-  float* dVa = reinterpret_cast<float*>(smem + L::acc2_off);
-
-  const long long* st = strides.s;
-  const int k0 = blockIdx.x * BT;
-  const int Hkv = H / G;
-  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  load_tile<T, HD>(Ks, k + b * st[3] + hk * st[4], st[5], k0, T_len, tid);
-  load_tile<T, HD>(Vs, v + b * st[6] + hk * st[7], st[8], k0, T_len, tid);
-  for (int i = tid; i < BT * HD; i += kThreads) {
-    dKa[(i / HD) * L::LDA + i % HD] = 0.f;
-    dVa[(i / HD) * L::LDA + i % HD] = 0.f;
+// Rows pos0 / pos1 (inside T) of a [64 x HD] fp32 accumulator, times
+// `mult`, narrowed to T, to one head's rows with element stride `st`.
+template <typename T, int N>
+__device__ __forceinline__ void store_rows(T* base, long long st,
+                                           const float (&acc)[N], float mult,
+                                           int pos0, int pos1, int qi,
+                                           int T_len) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const int col = 8 * j + 2 * qi;
+    if (pos0 < T_len)
+      *reinterpret_cast<uint32_t*>(base + pos0 * st + col) =
+          pack2<T>(acc[4 * j] * mult, acc[4 * j + 1] * mult);
+    if (pos1 < T_len)
+      *reinterpret_cast<uint32_t*>(base + pos1 * st + col) =
+          pack2<T>(acc[4 * j + 2] * mult, acc[4 * j + 3] * mult);
   }
+}
 
-  // causal: q tiles wholly before this k tile see none of it
-  const int qt_begin = causal ? k0 / BT : 0;
-  const int qt_end = (T_len + BT - 1) / BT;
-  const int row0 = 16 * warp;
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const long long rows = ((long long)b * H + h) * T_len;
-    const T* qb = q + b * st[0] + h * st[1];
-    const T* db = dout + b * st[9] + h * st[10];
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * BT;
-      __syncthreads();  // the previous tile's Q/dO reads are done
-      load_tile<T, HD>(Qs, qb, st[2], q0, T_len, tid);
-      load_tile<T, HD>(dOs, db, st[11], q0, T_len, tid);
-      load_rows(Ls, Dl, lse + rows, delta + rows, q0, T_len, tid);
-      __syncthreads();
+// ---------------------------------------------------------------------------
+// the dq pass
+// ---------------------------------------------------------------------------
 
-      strip_abt<T, HD>(Ss, Ks, Qs, row0);    // S^T  = K Q^T
-      strip_abt<T, HD>(dPs, Vs, dOs, row0);  // dP^T = V dO^T
-      __syncwarp();
+template <typename T, int HD>
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_bwd_dq_kernel(__grid_constant__ const BwdParams p) {
+  using L = BwdSmem<HD, false>;
+  constexpr int P = L::P;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = smem + L::res_off;
+  unsigned char* dOs = Qs + L::tile;
+  unsigned char* ring = smem + L::ring_off;     // stage s: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* empty = full + STAGES;
+  uint64_t* rfull = empty + STAGES;             // Q and dO
+  uint64_t* rempty = rfull + 1;
+  const int T_len = p.T_len;
+  const int n_items = p.B * p.H * p.n_t;
 
-      // rows are keys, columns queries
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) init_barriers(full, 1);
+  __syncthreads();
+
+  if (warp == 4) {
+    // ---------------- producer: one thread issues every copy ----------------
+    if (lane == 0) {
+      int t = 0;                                    // position in the ring
+      for (int w = 0;; ++w) {
+        const int r = item_of(w, blockIdx.x, gridDim.x);
+        if (r >= n_items) break;
+        const DqItem it = dq_item(p, r);
+        mbar_wait(rempty, (w & 1) ^ 1);
+        mbar_expect_tx(rfull, 2 * L::tile);
 #pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        const int row = row0 + r, kpos = k0 + row;
+        for (int pp = 0; pp < P; ++pp) {
+          tma_load_4d(Qs + pp * PANEL, &p.tq, rfull, 64 * pp, it.h, it.q0,
+                      it.b);
+          tma_load_4d(dOs + pp * PANEL, &p.tdo, rfull, 64 * pp, it.h, it.q0,
+                      it.b);
+        }
+        const int hk = it.h / p.G;
+        for (int kt = 0; kt < it.n_k; ++kt, ++t) {
+          const int s = t % STAGES, n = t / STAGES;
+          mbar_wait(&empty[s], (n & 1) ^ 1);
+          unsigned char* Ks = ring + 2 * s * L::tile;
+          mbar_expect_tx(&full[s], 2 * L::tile);
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int c = lane + 32 * half, qpos = q0 + c;
-          const bool valid = qpos < T_len && kpos < T_len && (!causal || kpos <= qpos);
-          const float p = valid ? expf(Ss[row * L::LDS + c] * scale - Ls[c]) : 0.f;
-          Ps[row * L::LDP + c] = from_f<T>(p);
-          dSs[row * L::LDP + c] = from_f<T>(p * (dPs[row * L::LDS + c] - Dl[c]));
+          for (int pp = 0; pp < P; ++pp) {
+            tma_load_4d(Ks + pp * PANEL, &p.tk, &full[s], 64 * pp, hk,
+                        kt * BT, it.b);
+            tma_load_4d(Ks + L::tile + pp * PANEL, &p.tv, &full[s], 64 * pp,
+                        hk, kt * BT, it.b);
+          }
         }
       }
-      __syncwarp();
+    }
+  } else {
+    // ---------------- consumers: one warpgroup, the item's 64 q rows -------
+    const int qi = lane & 3;
+    const int rl0 = 16 * warp + (lane >> 2), rl1 = rl0 + 8;
+    const bool causal = p.causal;
+    const float sl2 = p.scale * kLog2e;
+    int t = 0;                                      // position in the ring
+    for (int w = 0;; ++w) {
+      const int r = item_of(w, blockIdx.x, gridDim.x);
+      if (r >= n_items) break;
+      const DqItem it = dq_item(p, r);
+      const int qpos0 = it.q0 + rl0, qpos1 = it.q0 + rl1;
+      const long long row = ((long long)it.b * p.H + it.h) * T_len;
+      // lse (in log2 units) and delta of the thread's two rows; 0 past T,
+      // where Q and dO are zero rows: p = 1, dp = 0, ds = 0
+      const float l0 = qpos0 < T_len ? p.lse[row + qpos0] * kLog2e : 0.f;
+      const float l1 = qpos1 < T_len ? p.lse[row + qpos1] * kLog2e : 0.f;
+      const float d0 = qpos0 < T_len ? p.delta[row + qpos0] : 0.f;
+      const float d1 = qpos1 < T_len ? p.delta[row + qpos1] : 0.f;
+      // dQ [64 x HD] as one m64nHD accumulator
+      float dq[HD / 2];
+#pragma unroll
+      for (int x = 0; x < HD / 2; ++x) dq[x] = 0.f;
+      mbar_wait(rfull, w & 1);
 
-      strip_acc<T, HD>(dVa, Ps, dOs, row0);  // dV += P^T dO
-      strip_acc<T, HD>(dKa, dSs, Qs, row0);  // dK += dS^T Q
-      __syncwarp();
+      for (int kt = 0; kt < it.n_k; ++kt, ++t) {
+        const int s = t % STAGES, n = t / STAGES;
+        mbar_wait(&full[s], n & 1);
+        const unsigned char* Ks = ring + 2 * s * L::tile;
+        const unsigned char* Vs = Ks + L::tile;
+        float sc[32], dp[32];
+        score_pair<T, HD>(sc, dp, Qs, Ks, dOs, Vs);   // S = Q K^T, dP = dO V^T
+        wg_wait<1>();
+        fence_regs(sc);
+        const int k0 = kt * BT;
+        if (k0 + BT > T_len || (causal && k0 + BT - 1 > it.q0))
+          dq_probs<true>(sc, sl2, l0, l1, k0, qpos0, qpos1, qi, T_len, causal);
+        else
+          dq_probs<false>(sc, sl2, l0, l1, k0, qpos0, qpos1, qi, T_len,
+                          causal);
+        wg_wait<0>();
+        fence_regs(dp);
+        if (kt == it.n_k - 1) mbar_arrive(rempty);  // Q, dO read for good
+        // ds = p (dp - delta), narrowed: the A fragments of dQ += dS K
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          dp[i] = sc[i] * (dp[i] - ((i & 2) ? d1 : d0));
+        uint32_t da[BT / 16][4];
+        fragments<T>(da, dp);
+        accumulate<T>(dq, da, Ks);
+        wg_wait<0>();
+        fence_regs(dq);
+        mbar_arrive(&empty[s]);
+      }
+
+      T* base = static_cast<T*>(p.g0) + it.b * p.g0_sb + it.h * p.g0_sh;
+      store_rows<T>(base, p.g0_st, dq, p.scale, qpos0, qpos1, qi, T_len);
     }
   }
-  store_strip<T, HD>(dk + b * st[12] + hk * st[13], st[14], dKa, scale, k0,
-                     row0, T_len, lane);
-  store_strip<T, HD>(dv + b * st[15] + hk * st[16], st[17], dVa, 1.f, k0,
-                     row0, T_len, lane);
 }
 
+// ---------------------------------------------------------------------------
+// the dk/dv pass
+// ---------------------------------------------------------------------------
+
 template <typename T, int HD>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, void* dq, int B, int H,
-              int G, int T_len, const Strides& st, float scale, int causal,
-              cudaStream_t stream) {
-  const size_t smem = Layout<HD>::bytes_dq;
-  cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const dim3 grid((T_len + BT - 1) / BT, B * H);
-  flash_bwd_dq_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), H, G, T_len, st, scale, causal);
+__global__ void __launch_bounds__(kDkvThreads, 2)
+flash_bwd_dkv_kernel(__grid_constant__ const BwdParams p) {
+  using L = BwdSmem<HD, true>;
+  constexpr int P = L::P;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Ks = smem + L::res_off;
+  unsigned char* Vs = Ks + L::tile;
+  unsigned char* ring = smem + L::ring_off;     // stage s: Q, then dO
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* empty = full + STAGES;
+  uint64_t* rfull = empty + STAGES;             // K and V
+  uint64_t* rempty = rfull + 1;
+  const int T_len = p.T_len;
+  const int n_items = p.B * (p.H / p.G) * p.n_t;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // a stage is full once the 32 producer lanes have stored its lse / delta
+  // and arrived (lane 0 with the TMA bytes expected) and the bytes landed
+  if (tid == 0) init_barriers(full, 32);
+  __syncthreads();
+
+  if (warp >= 4) {
+    // ---------------- producer: the whole of warp 4 ----------------
+    // the producer warpgroup gives its registers to the consumers' (all
+    // four warps take part), then warps 5-7 leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp > 4) return;
+    int t = 0;                                      // position in the ring
+    for (int w = 0;; ++w) {
+      const int r = item_of(w, blockIdx.x, gridDim.x);
+      if (r >= n_items) break;
+      const DkvItem it = dkv_item(p, r);
+      if (lane == 0) {
+        mbar_wait(rempty, (w & 1) ^ 1);
+        mbar_expect_tx(rfull, 2 * L::tile);
+#pragma unroll
+        for (int pp = 0; pp < P; ++pp) {
+          tma_load_4d(Ks + pp * PANEL, &p.tk, rfull, 64 * pp, it.hk, it.k0,
+                      it.b);
+          tma_load_4d(Vs + pp * PANEL, &p.tv, rfull, 64 * pp, it.hk, it.k0,
+                      it.b);
+        }
+      }
+      const int n_q = p.n_t - it.qt0;
+      for (int i = 0; i < p.G * n_q; ++i, ++t) {
+        const int h = it.hk * p.G + i / n_q;
+        const int q0 = (it.qt0 + i % n_q) * BT;
+        const long long row = ((long long)it.b * p.H + h) * T_len;
+        // this stage's lse (log2 units) and delta, two columns a lane, read
+        // before the wait; 0 past T
+        float lv[2], dl[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qpos = q0 + lane + 32 * c;
+          lv[c] = qpos < T_len ? p.lse[row + qpos] * kLog2e : 0.f;
+          dl[c] = qpos < T_len ? p.delta[row + qpos] : 0.f;
+        }
+        const int s = t % STAGES, n = t / STAGES;
+        mbar_wait(&empty[s], (n & 1) ^ 1);
+        float* rows = reinterpret_cast<float*>(smem + L::rows_off
+                                               + s * L::rows_bytes);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          rows[lane + 32 * c] = lv[c];
+          rows[BT + lane + 32 * c] = dl[c];
+        }
+        if (lane == 0) {
+          unsigned char* Qs = ring + 2 * s * L::tile;
+          mbar_expect_tx(&full[s], 2 * L::tile);
+#pragma unroll
+          for (int pp = 0; pp < P; ++pp) {
+            tma_load_4d(Qs + pp * PANEL, &p.tq, &full[s], 64 * pp, h, q0,
+                        it.b);
+            tma_load_4d(Qs + L::tile + pp * PANEL, &p.tdo, &full[s], 64 * pp,
+                        h, q0, it.b);
+          }
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumers: one warpgroup, the item's 64 key rows -----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int qi = lane & 3;
+    const int rl0 = 16 * warp + (lane >> 2), rl1 = rl0 + 8;
+    const bool causal = p.causal;
+    const float sl2 = p.scale * kLog2e;
+    int t = 0;                                      // position in the ring
+    for (int w = 0;; ++w) {
+      const int r = item_of(w, blockIdx.x, gridDim.x);
+      if (r >= n_items) break;
+      const DkvItem it = dkv_item(p, r);
+      const int kpos0 = it.k0 + rl0, kpos1 = it.k0 + rl1;
+      // dK, dV [64 x HD], each one m64nHD accumulator, summed over the
+      // G x q-tile walk
+      float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+      for (int x = 0; x < HD / 2; ++x) {
+        dk[x] = 0.f;
+        dv[x] = 0.f;
+      }
+      mbar_wait(rfull, w & 1);
+
+      const int n_q = p.n_t - it.qt0, n_st = p.G * n_q;
+      for (int i = 0; i < n_st; ++i, ++t) {
+        const int s = t % STAGES, n = t / STAGES;
+        mbar_wait(&full[s], n & 1);
+        const unsigned char* Qs = ring + 2 * s * L::tile;
+        const unsigned char* dOs = Qs + L::tile;
+        const float* rows = reinterpret_cast<const float*>(
+            smem + L::rows_off + s * L::rows_bytes);
+        float sc[32], dp[32];
+        score_pair<T, HD>(sc, dp, Ks, Qs, Vs, dOs);   // S^T, dP^T
+        wg_wait<1>();
+        fence_regs(sc);
+        const int q0 = (it.qt0 + i % n_q) * BT;
+        if (q0 + BT > T_len || (causal && q0 < it.k0 + BT - 1))
+          dkv_probs<true>(sc, rows, sl2, q0, kpos0, kpos1, qi, T_len, causal);
+        else
+          dkv_probs<false>(sc, rows, sl2, q0, kpos0, kpos1, qi, T_len,
+                           causal);
+        wg_wait<0>();                               // dP^T done
+        fence_regs(dp);
+        if (i == n_st - 1) mbar_arrive(rempty);     // K, V read for good
+        // dS^T = P^T (dP^T - delta[col]); then dV += P^T dO and dK += dS^T Q
+        // with P^T and dS^T narrowed
+        const float* dl = rows + BT;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d = *reinterpret_cast<const float2*>(dl + 8 * j
+                                                            + 2 * qi);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] = sc[4 * j + e]
+                            * (dp[4 * j + e] - ((e & 1) ? d.y : d.x));
+        }
+        uint32_t pa[BT / 16][4], da[BT / 16][4];
+        fragments<T>(pa, sc);
+        fragments<T>(da, dp);
+        accumulate<T>(dv, pa, dOs);
+        accumulate<T>(dk, da, Qs);
+        wg_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        mbar_arrive(&empty[s]);
+      }
+
+      T* kb = static_cast<T*>(p.g0) + it.b * p.g0_sb + it.hk * p.g0_sh;
+      store_rows<T>(kb, p.g0_st, dk, p.scale, kpos0, kpos1, qi, T_len);
+      T* vb = static_cast<T*>(p.g1) + it.b * p.g1_sb + it.hk * p.g1_sh;
+      store_rows<T>(vb, p.g1_st, dv, 1.f, kpos0, kpos1, qi, T_len);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// Launch one pass: as many persistent blocks as fit the card at once (found
+// once per device and kernel), at most one per item.
+template <bool DKV, typename T, int HD>
+int launch(const BwdParams& p, cudaStream_t stream) {
+  constexpr int smem = BwdSmem<HD, DKV>::bytes;
+  auto kernel = [] {
+    if constexpr (DKV)
+      return flash_bwd_dkv_kernel<T, HD>;
+    else
+      return flash_bwd_dq_kernel<T, HD>;
+  }();
+  static int grid_of[64] = {};
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  constexpr int threads = DKV ? kDkvThreads : kDqThreads;
+  if (grid_of[dev] == 0) {
+    rc = cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+    int per_sm = 0, sms = 0;
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         threads, smem);
+    if (rc == cudaSuccess)
+      rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return (int)rc;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    grid_of[dev] = per_sm * sms;
+  }
+  const long long items =
+      (long long)p.B * (DKV ? p.H / p.G : p.H) * p.n_t;
+  if (items == 0) return 0;
+  const int blocks = (int)(items < grid_of[dev] ? items : grid_of[dev]);
+  kernel<<<blocks, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dk, void* dv,
-               int B, int H, int G, int T_len, const Strides& st,
-               float scale, int causal, cudaStream_t stream) {
-  const size_t smem = Layout<HD>::bytes_dkv;
-  cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, HD>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const dim3 grid((T_len + BT - 1) / BT, B * (H / G));
-  flash_bwd_dkv_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, G, T_len, st, scale,
-      causal);
-  return (int)cudaGetLastError();
+template <bool DKV, typename T, int HD>
+int run(const void* q, const void* k, const void* v, const void* dout,
+        const float* lse, const float* delta, void* g0, void* g1, int B,
+        int H, int Hkv, int T_len, const long long* st, float scale,
+        int causal, cudaStream_t stream) {
+  BwdParams p{};
+  int rc = encode_heads<T>(&p.tq, q, B, H, T_len, HD, st[0], st[1], st[2]);
+  if (!rc) rc = encode_heads<T>(&p.tk, k, B, Hkv, T_len, HD,
+                                st[3], st[4], st[5]);
+  if (!rc) rc = encode_heads<T>(&p.tv, v, B, Hkv, T_len, HD,
+                                st[6], st[7], st[8]);
+  if (!rc) rc = encode_heads<T>(&p.tdo, dout, B, H, T_len, HD,
+                                st[9], st[10], st[11]);
+  if (rc) return rc;
+  p.lse = lse;
+  p.delta = delta;
+  p.g0 = g0;
+  p.g1 = g1;
+  p.g0_sb = st[12];
+  p.g0_sh = st[13];
+  p.g0_st = st[14];
+  p.g1_sb = st[15];
+  p.g1_sh = st[16];
+  p.g1_st = st[17];
+  p.B = B;
+  p.H = H;
+  p.G = H / Hkv;
+  p.T_len = T_len;
+  p.n_t = (T_len + BT - 1) / BT;
+  p.scale = scale;
+  p.causal = causal;
+  return launch<DKV, T, HD>(p, stream);
+}
+
+template <bool DKV>
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             const float* lse, const float* delta, void* g0, void* g1, int B,
+             int H, int Hkv, int T_len, int D, const long long* st,
+             float scale, int causal, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RUN(T, HD) run<DKV, T, HD>(q, k, v, dout, lse, delta, g0, g1, B, H, \
+                                   Hkv, T_len, st, scale, causal, s)
+  if (dtype == 1 && D == 64) return RUN(__nv_bfloat16, 64);
+  if (dtype == 1 && D == 128) return RUN(__nv_bfloat16, 128);
+  if (dtype == 2 && D == 64) return RUN(__half, 64);
+  if (dtype == 2 && D == 128) return RUN(__half, 128);
+#undef RUN
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
+}  // namespace bwd
+}  // namespace dstt
 
 // q / do / dq [B, *, H, D] and k / v / dk / dv [B, *, Hkv, D] in any layout
-// whose last dim is contiguous. `strides` (host memory) holds 18 element
-// strides, (batch, head, time) for q, k, v, do, then dq (dq pass; the last
-// three are unused) or dk, dv (dk/dv pass). lse and delta [B, H, T] fp32 contiguous. dtype: 1 bfloat16,
-// 2 float16. Each returns cudaGetLastError().
+// whose last dim is contiguous and whose other strides are multiples of 16
+// bytes, 16-byte aligned. `strides` (host memory) holds 18 element strides,
+// (batch, head, time) for q, k, v, do, then dq (dq pass; the last three are
+// unused) or dk, dv (dk/dv pass). lse and delta [B, H, T] fp32 contiguous.
+// dtype: 1 bfloat16, 2 float16. Each returns cudaGetLastError(), or 10000 +
+// the CUresult of a failed tensor-map encode.
 extern "C" int dstt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, void* dq, int B, int H,
                                  int Hkv, int T_len, int D,
                                  const long long* strides, float scale,
                                  int causal, int dtype, void* stream) {
-  const int G = H / Hkv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Strides st;
-  for (int i = 0; i < 18; ++i) st.s[i] = strides[i];
-#define DQ(T, HD) launch_dq<T, HD>(q, k, v, dout, lse, delta, dq, B, H, G, \
-                                   T_len, st, scale, causal, s)
-  if (dtype == 1 && D == 64) return DQ(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) return DQ(__nv_bfloat16, 128);
-  if (dtype == 2 && D == 64) return DQ(__half, 64);
-  if (dtype == 2 && D == 128) return DQ(__half, 128);
-#undef DQ
-  return (int)cudaErrorInvalidValue;
+  return dstt::bwd::dispatch<false>(q, k, v, dout, lse, delta, dq, nullptr,
+                                    B, H, Hkv, T_len, D, strides, scale,
+                                    causal, dtype, stream);
 }
 
 extern "C" int dstt_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -398,16 +696,7 @@ extern "C" int dstt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   int B, int H, int Hkv, int T_len, int D,
                                   const long long* strides, float scale,
                                   int causal, int dtype, void* stream) {
-  const int G = H / Hkv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Strides st;
-  for (int i = 0; i < 18; ++i) st.s[i] = strides[i];
-#define DKV(T, HD) launch_dkv<T, HD>(q, k, v, dout, lse, delta, dk, dv, B, H, \
-                                     G, T_len, st, scale, causal, s)
-  if (dtype == 1 && D == 64) return DKV(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) return DKV(__nv_bfloat16, 128);
-  if (dtype == 2 && D == 64) return DKV(__half, 64);
-  if (dtype == 2 && D == 128) return DKV(__half, 128);
-#undef DKV
-  return (int)cudaErrorInvalidValue;
+  return dstt::bwd::dispatch<true>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                   Hkv, T_len, D, strides, scale, causal,
+                                   dtype, stream);
 }

@@ -41,8 +41,8 @@
 // again; at long T the copies alone take most of the kernel's time, and a
 // TMA multicast across a cluster of q tiles would share them), the next
 // tile's Q K^T issued under this tile's softmax (tried, slower as
-// written), setmaxnreg; the backward kernels (flash_bwd.cu) are still the
-// pre-Hopper WMMA design.
+// written), setmaxnreg. The backward kernels (flash_bwd.cu) read the lse
+// written here and are built on the same wgmma / TMA blocks (sm90.cuh).
 
 #include "attn_fwd.cuh"
 
