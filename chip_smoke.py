@@ -47,8 +47,16 @@ Phases, one JSON line each:
            dropped from one visit list) that the row measure must see;
            the public wrapper's autograd at B 2 against autograd through
            the plain version; the evoformer kernel within one
-           output-dtype step at the evoformer phase's shapes, in fp32
-           with broadcast biases, fp16 at hd 128 and without biases;
+           output-dtype step at the evoformer phase's shapes, there also
+           with at least 0.999 of its output elements bit-equal to the
+           plain version's, with two planted faults (a plain forward
+           missing one key tile, and one with P narrowed to one bf16
+           piece) that those checks must reject, timed eagerly, in turns
+           and as device time against SDPA with the summed bias; and in
+           fp32 with broadcast biases, fp16 at hd 128, without biases, at
+           S 255 / 257 / 640, pair rows TMA cannot read (S 100 fp16, S
+           99 fp32), hd 32 / 64 / 128 in bf16 and fp16, fp32 biases
+           under bf16 q, fused q/k/v views and B * N * H above 65 535;
   norms    the public norm ops at [4096, 768] bf16: one launch each;
   generate init_inference -> generate() on gpt2-125m at full width and
            depth (random weights from a numpy seed), bf16: launch counts,
@@ -124,7 +132,9 @@ Phases, one JSON line each:
            8 heads of 32) and triangle (N 256, S 256, 4 heads of 32)
            shapes, bf16, mask + pair bias: one launch a call, the output
            and the q/k/v/mask/pair gradients against the plain version,
-           times;
+           the forward's and forward + backward's times, the latter also
+           with the backward one MSA row at a time (as before it was
+           chunked);
   profile  (opt-in, after the phases it reads) torch.profiler over the same
            generate() call, serving runs (bf16, quantized, MoE) and one
            train_batch (gpt2-760m, MoE, sparse): kernel time on the card by
@@ -311,18 +321,54 @@ EVO_CASES = {
     "evoformer_msa_row": dict(B=1, N=128, S=256, H=8, D=32),
     "evoformer_triangle": dict(B=1, N=256, S=256, H=4, D=32),
 }
-# the Evoformer bound's rate: fp32-accurate products on the tensor cores.
-# Its operands are bf16 (exact in bf16) against an fp32 one (q scaled in
-# fp32, p); three bf16 pieces hold an fp32 value's 24 significant bits, so
-# three bf16 products per product keep fp32 accuracy: 989 / 3 Tflop/s. The
-# kernel runs fp32 FMAs on the CUDA cores (FP32_FLOPS), whose bound the
-# kernels line states beside it as bound_fp32_units_ms.
-EVO_FLOPS = BF16_FLOPS / 3
+# the Evoformer bound's tensor-core work, fp32-accurate at BF16_FLOPS:
+# S = Q K^T once (q and k are exact in 16 bits, so one product is exact),
+# P V once per 16-bit piece of the fp32 P (three pieces hold its 24
+# significant bits). The kernels line states the fp32 units' bound (both
+# products once at FP32_FLOPS) beside it as bound_fp32_units_ms.
+EVO_P_PIECES = 3
 # evoformer kernel vs its plain version: both compute in fp32 and narrow
 # nothing before the output, so only the order of fp32 sums differs; the
 # one rounding to the output dtype can put them one step apart (eps x
 # max|ref|), and EVO_ATOL covers the fp32 order noise of an fp32 output
 EVO_ATOL = 1e-5
+# ... and the share of output elements bit-equal to the plain version's at
+# the two bf16 path shapes: fp32 order noise (~1e-6 relative) flips the
+# bf16 rounding of about one element in 10^4, while P narrowed to one
+# bf16 piece (2^-9 relative per p) flips tens of percent
+EVO_BIT_EQUAL_MIN = 0.999
+# ... and its floor at EVO_EDGE_CASES' 16-bit outputs, by dtype. The noise
+# grows with the key tiles (each rescales O) and with a finer output step:
+# on the H100 of PERF.md the kernel reads >= 0.99845 in bf16 (S 640) and
+# >= 0.99635 in fp16, a bf16 kernel with two pieces of P <= 0.99582, and
+# P narrowed to one piece of V's type 0.62-0.72 in both (which stays
+# within the one-step tolerance: only this share sees it)
+EVO_EDGE_BIT_EQUAL_MIN = {"torch.bfloat16": 0.9975, "torch.float16": 0.99}
+# the evoformer kernel's cases beyond its paths' shapes (bf16 unless
+# given): the fp32 kernel with biases broadcast over the batch; fp16 at hd
+# 128 with a pair only; no biases; S ragged around the paths' 256 (255,
+# 257); pair rows TMA cannot read (S 100 fp16: 200-byte rows; S 99 fp32);
+# hd 32 / 64 / 128 in bf16 and fp16; an fp32 mask and an fp32 pair shared
+# by the heads under bf16 q;
+# q / k / v as views of one [B, N, S, 3, H, D] tensor; a slab wider than
+# the kernel's window (S 640: two chunks a row); B * N * H above 65 535
+EVO_EDGE_CASES = (
+    dict(B=2, N=3, S=100, H=2, D=64, dtype="float32",
+         mask_shape=(1, 3, 1, 1, 100), pair_shape=(1, 1, 2, 100, 100)),
+    dict(B=1, N=4, S=200, H=4, D=128, dtype="float16", mask=False),
+    dict(B=1, N=2, S=64, H=2, D=64, mask=False, pair=False),
+    dict(B=1, N=9, S=255, H=2, D=32),
+    dict(B=1, N=9, S=257, H=2, D=32),
+    dict(B=2, N=10, S=100, H=2, D=32, dtype="float16"),
+    dict(B=1, N=5, S=99, H=2, D=64, bias_dtype="float32"),
+    *(dict(B=1, N=12, S=192, H=2, D=d, dtype=t)
+      for d in (32, 64, 128) for t in ("bfloat16", "float16")),
+    dict(B=1, N=9, S=128, H=3, D=64, bias_dtype="float32",
+         pair_shape=(1, 1, 1, 128, 128)),
+    dict(B=1, N=10, S=128, H=4, D=32, fused=True),
+    dict(B=1, N=3, S=640, H=2, D=32),
+    dict(B=1, N=8200, S=16, H=8, D=32),
+)
 
 REPLACES = {
     "block_sparse_attention":
@@ -1614,21 +1660,30 @@ def _block_sparse_kernels(rng, checks):
     return results
 
 
-def _evo_case(rng, B, N, S, H, D, dtype, mask=True, pair=True,
-              mask_shape=None, pair_shape=None):
-    """q, k, v [B, N, S, H, D] and the bias list: a key mask of -1e9 on
-    about 10 % of keys, a normal pair bias."""
+def _evo_case(rng, B, N, S, H, D, dtype="bfloat16", mask=True, pair=True,
+              mask_shape=None, pair_shape=None, bias_dtype=None,
+              fused=False):
+    """q, k, v [B, N, S, H, D] (`fused`: views of one [B, N, S, 3, H, D]
+    tensor) and the bias list (in `bias_dtype`, default q's): a key mask
+    of -1e9 on about 10 % of keys, a normal pair bias."""
     import torch
+    dtype = getattr(torch, dtype)
+    bdt = getattr(torch, bias_dtype) if bias_dtype else dtype
 
-    def t(a):
-        return torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
-    q, k, v = (t(rng.standard_normal((B, N, S, H, D))) for _ in range(3))
+    def t(a, dt=dtype):
+        return torch.from_numpy(a.astype(np.float32)).to("cuda", dt)
+    if fused:
+        qkv = t(rng.standard_normal((B, N, S, 3, H, D)))
+        q, k, v = qkv.unbind(3)
+    else:
+        q, k, v = (t(rng.standard_normal((B, N, S, H, D))) for _ in range(3))
     biases = []
     if mask:
         shape = mask_shape or (B, N, 1, 1, S)
-        biases.append(t(np.where(rng.random(shape) < 0.1, -1e9, 0.0)))
+        biases.append(t(np.where(rng.random(shape) < 0.1, -1e9, 0.0), bdt))
     if pair:
-        biases.append(t(rng.standard_normal(pair_shape or (B, 1, H, S, S))))
+        biases.append(t(rng.standard_normal(pair_shape or (B, 1, H, S, S)),
+                        bdt))
     return q, k, v, biases
 
 
@@ -1637,63 +1692,123 @@ def _evo_tol(ref, dtype):
     return torch.finfo(dtype).eps * ref.float().abs().max().item() + EVO_ATOL
 
 
+def _evo_readings(out, ref):
+    """(max abs error, share of elements bit-equal) of an output against
+    the plain version's."""
+    err = (out.float() - ref.float()).abs().max().item()
+    return err, (out == ref).float().mean().item()
+
+
+def _evo_plain_fault(q, k, v, biases, fault):
+    """The plain forward with one planted fault: "dropped_tile" (keys 64 ..
+    127, one key tile, get p = 0) or "narrowed_p" (p narrowed to one piece
+    of V's 16-bit type before P V, the row sums still in fp32, as a kernel
+    without the split would)."""
+    import torch
+    from deepspeed_tpu_torch.ops import evoformer_attn as evo
+    B, N, S, H, D = q.shape
+    mask, pair = evo._parse_biases(biases, B, N, S, H)
+    s = evo._scores(q, k, mask, pair, 1.0 / D ** 0.5)
+    if fault == "dropped_tile":
+        s[..., 64:128] = -float("inf")
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    if fault == "narrowed_p":
+        p = p.to(v.dtype).float()
+    out = torch.einsum("bnhqk,bnkhd->bnqhd", p / l, v.float())
+    return out.to(q.dtype)
+
+
+def _evo_check(path, q, k, v, biases, out, ref):
+    """The kernel's output against the plain version's on these inputs:
+    finite, in q's dtype, within the one-step tolerance and, for a 16-bit
+    output, at or above the bit-equal share's floor (EVO_BIT_EQUAL_MIN at a
+    path's shape, EVO_EDGE_BIT_EQUAL_MIN at the others). Planted faults on
+    the same inputs must fail those checks: P narrowed to one piece at
+    every 16-bit case (only the share sees it), one key tile dropped at
+    the paths' shapes (the tolerance sees it). Returns the check's row
+    (raises only if a planted fault passes)."""
+    err, share = _evo_readings(out, ref)
+    tol = _evo_tol(ref, q.dtype)
+    floor = EVO_BIT_EQUAL_MIN if path else \
+        EVO_EDGE_BIT_EQUAL_MIN.get(str(q.dtype))
+    ok = bool(np.isfinite(err) and err <= tol and out.dtype == q.dtype
+              and (floor is None or share >= floor))
+    faults = {}
+    kinds = ("narrowed_p",) if floor else ()
+    for fault in kinds + ("dropped_tile",) if path else kinds:
+        f_err, f_share = _evo_readings(
+            _evo_plain_fault(q, k, v, biases, fault), ref)
+        faults[fault] = {"max_abs_err": f_err, "bit_equal_share": f_share}
+        if not (f_err > tol if fault == "dropped_tile" else f_share < floor):
+            raise AssertionError(f"planted evoformer fault {fault} at "
+                                 f"{list(q.shape)} passes the checks: "
+                                 f"{faults[fault]}, tol {tol}, floor {floor}")
+    return {"kernel": "evoformer_attention", "shape": list(q.shape),
+            "dtype": str(q.dtype),
+            "biases": [[list(b.shape), str(b.dtype)] for b in biases],
+            "max_abs_err": err, "tol": tol, "bit_equal_share": share,
+            "bit_equal_min": floor, "faults": faults, "ok": ok}
+
+
 def _evoformer_kernels(rng, checks):
-    """The evoformer kernel against its plain version: at the evoformer
-    phase's two shapes (bf16, mask + pair), in fp32 at S 100 with biases
-    broadcast over the batch, in fp16 at hd 128 / S 200 with a pair bias
-    only, without biases at hd 64. Then timed at the two paths' shapes."""
+    """The evoformer kernel against its plain version (`_evo_check`): at
+    the evoformer phase's two shapes (bf16, mask + pair) and at
+    EVO_EDGE_CASES. Then timed at the two paths' shapes: eagerly, in turns
+    and as device time alone (CUDA graphs), against SDPA with the summed
+    bias."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import evoformer_attn as evo
     results = {}
-    cases = [(path, dict(**shape, dtype=torch.bfloat16))
-             for path, shape in EVO_CASES.items()] + [
-        (None, dict(B=2, N=3, S=100, H=2, D=64, dtype=torch.float32,
-                    mask_shape=(1, 3, 1, 1, 100),
-                    pair_shape=(1, 1, 2, 100, 100))),
-        (None, dict(B=1, N=4, S=200, H=4, D=128, dtype=torch.float16,
-                    mask=False)),
-        (None, dict(B=1, N=2, S=64, H=2, D=64, dtype=torch.bfloat16,
-                    mask=False, pair=False))]
+    cases = [(path, dict(**shape)) for path, shape in EVO_CASES.items()] \
+        + [(None, dict(shape)) for shape in EVO_EDGE_CASES]
     for path, kw in cases:
         q, k, v, biases = _evo_case(rng, **kw)
         out = evo.evoformer_attention(q, k, v, biases)
         ref = evo.evoformer_attention_reference(q, k, v, biases)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = _evo_tol(ref, kw["dtype"])
-        ok = bool(np.isfinite(err) and err <= tol and out.dtype == q.dtype)
-        checks.append({"kernel": "evoformer_attention",
-                       "shape": list(q.shape), "dtype": str(q.dtype),
-                       "biases": [list(b.shape) for b in biases],
-                       "max_abs_err": err, "tol": tol, "ok": ok})
-        if not ok:
-            raise AssertionError(f"evoformer_attention {list(q.shape)}: max "
-                                 f"abs err {err} > {tol}")
+        check = _evo_check(path, q, k, v, biases, out, ref)
+        check["fused"] = bool(kw.get("fused"))
+        checks.append(check)
+        if not check["ok"]:
+            raise AssertionError(f"evoformer_attention {check['shape']}: "
+                                 f"max abs err {check['max_abs_err']} (tol "
+                                 f"{check['tol']}), bit-equal share "
+                                 f"{check['bit_equal_share']} (floor "
+                                 f"{check['bit_equal_min']})")
+        del ref
         if path is None:
             continue
         B, N, S, H, D = q.shape
         mask, pair = evo._parse_biases(biases, B, N, S, H)
-        mask32, pair32 = mask.float().contiguous(), pair.float().contiguous()
         scale = 1.0 / D ** 0.5
-        # q k v in, out out, mask and pair in (bf16); fp32-accurate
-        # products at EVO_FLOPS, and on the fp32 units the kernel uses
-        nbytes = 4 * q.numel() * 2 + (mask.numel() + pair.numel()) * 2
-        flops = 4 * B * N * H * S * S * D
-        b_ms, b_by = bound(nbytes, flops, EVO_FLOPS)
+        # q k v in, out out, mask and pair in (their dtype); the tensor
+        # cores' fp32-accurate work (S once, P V once per piece of P), and
+        # both products once on the fp32 units
+        nbytes = 4 * q.numel() * q.element_size() \
+            + mask.numel() * mask.element_size() \
+            + pair.numel() * pair.element_size()
+        flops = 2 * B * N * H * S * S * D
+        b_ms, b_by = bound(nbytes, flops * (1 + EVO_P_PIECES))
         sq, sk, sv = (x.permute(0, 1, 3, 2, 4).reshape(B * N, H, S, D)
                       .contiguous() for x in (q, k, v))
         summed = (mask[:, :, None, None, :] + pair[:, None]) \
             .expand(B, N, H, S, S).reshape(B * N, H, S, S).contiguous()
-        results["evoformer_attention", path] = dict(
-            shape=list(q.shape), max_abs_err=err,
-            ms=median_ms(lambda: evo._launch(q, k, v, mask32, pair32, scale)),
+        fn = lambda: evo._launch(q, k, v, mask, pair, scale)
+        sdpa = lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                      attn_mask=summed)
+        row = results["evoformer_attention", path] = dict(
+            shape=list(q.shape), max_abs_err=check["max_abs_err"],
+            bit_equal_share=check["bit_equal_share"],
+            faults=check["faults"], ms=median_ms(fn),
             plain_ms=median_ms(lambda: evo.evoformer_attention_reference(
                 q, k, v, biases), reps=5),
             bound_ms=b_ms, bound_by=b_by,
-            bound_fp32_units_ms=bound(nbytes, flops, FP32_FLOPS)[0],
-            library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-                sq, sk, sv, attn_mask=summed)))
+            bound_fp32_units_ms=bound(nbytes, 2 * flops, FP32_FLOPS)[0],
+            library_ms=median_ms(sdpa))
+        _forward_yardsticks(row, fn, sdpa, 10)
+        del sq, sk, sv, summed
     return results
 
 
@@ -2397,14 +2512,15 @@ def phase_evoformer(state):
     bf16, with a key mask and a pair bias: one kernel launch a call, the
     output against the plain version, the q, k, v, mask and pair gradients
     through the port's backward finite and against autograd through the
-    plain version, and the forward and forward + backward times."""
+    plain version, and the forward and forward + backward times (the
+    backward chunked, `evo.bwd_rows` rows at once)."""
     import torch
     from deepspeed_tpu_torch.ops import evoformer_attn as evo
     from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
     rng = np.random.default_rng(9)
     report, counts = {}, {}
     for path, shape in EVO_CASES.items():
-        q, k, v, biases = _evo_case(rng, **shape, dtype=torch.bfloat16)
+        q, k, v, biases = _evo_case(rng, **shape)
         ins = [x.requires_grad_(True) for x in (q, k, v, *biases)]
         LAUNCHES.clear()
         out = evo.evoformer_attention(*ins[:3], biases=ins[3:])
@@ -2435,14 +2551,16 @@ def phase_evoformer(state):
         with torch.no_grad():
             fwd_ms = median_ms(lambda: evo.evoformer_attention(
                 q, k, v, biases), reps=9)
-        fb_ms = median_ms(lambda: torch.autograd.grad(
-            evo.evoformer_attention(*ins[:3], biases=ins[3:]), ins, g),
-            reps=3, inner=1, warmup=1)
+        fb = lambda: torch.autograd.grad(
+            evo.evoformer_attention(*ins[:3], biases=ins[3:]), ins, g)
+        fb_ms = median_ms(fb, reps=3, inner=1, warmup=1)
         report[path] = {"shape": shape, "dtype": "bfloat16",
                         "launches": counts[path], "max_abs_err": err,
                         "tol": tol, "grads": grad_err,
                         "forward_ms": fwd_ms,
-                        "forward_backward_ms": fb_ms}
+                        "forward_backward_ms": fb_ms,
+                        "backward_rows": evo.bwd_rows(
+                            shape["B"], shape["N"], shape["S"], shape["H"])}
     emit({"phase": "evoformer", "cases": report})
     return counts
 

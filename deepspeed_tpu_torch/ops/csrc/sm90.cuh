@@ -14,6 +14,10 @@
 //   * transposed (the reduction runs down the rows): the B operand of an
 //     accumulating product P Y, k slice kk at row 16 kk, the next
 //     64-column panel `lbo` = PANEL bytes on.
+// A 32-column tile of 16-bit elements (head dim 32) is one panel of 64
+// rows x 64 bytes with the 64-byte swizzle instead (`desc_sw64`, a TMA box
+// of 32 columns, `encode_5d`): the same two reads, with 512-byte 8-row
+// core groups.
 #pragma once
 
 #include <cuda.h>
@@ -81,6 +85,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -121,6 +136,17 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p,
          | (static_cast<uint64_t>(1) << 62);
 }
 
+// The same for panels of 64-byte rows with the 64-byte swizzle (layout type
+// 2): 8-row core groups 512 bytes apart (base 512-byte aligned); `lbo`
+// steps a transposed operand to its next 32-column panel.
+__device__ __forceinline__ uint64_t desc_sw64(const void* p,
+                                              uint32_t lbo = 512) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(lbo >> 4) << 16)
+         | (static_cast<uint64_t>(512 >> 4) << 32)
+         | (static_cast<uint64_t>(2) << 62);
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -142,6 +168,23 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
+
+#define DSTT_ACC16                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define DSTT_ACC16_OPS(d)                                                  \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// d[64 x 32] += A[64 x 16] (registers) B[16 x 32], B N-major in shared
+// memory (transpose bit set).
+#define DSTT_WGMMA_RS32(TY)                                                \
+  asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %21, 0;\n\t"          \
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+               DSTT_ACC16 ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n\t}\n"\
+               : DSTT_ACC16_OPS(d)                                         \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                 "r"(accumulate))
 
 #define DSTT_ACC32                                                         \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
@@ -210,6 +253,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
 }
 
 template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    DSTT_WGMMA_RS32("bf16");
+  } else {
+    DSTT_WGMMA_RS32("f16");
+  }
+}
+
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t db, int accumulate) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
@@ -230,12 +283,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 }
 
 #undef DSTT_WGMMA_SS
+#undef DSTT_WGMMA_RS32
 #undef DSTT_WGMMA_RS
 #undef DSTT_WGMMA_RS128
 #undef DSTT_ACC64_OPS
 #undef DSTT_ACC64
 #undef DSTT_ACC32_OPS
 #undef DSTT_ACC32
+#undef DSTT_ACC16_OPS
+#undef DSTT_ACC16
 
 // Two fp32 values narrowed to T, packed low (x) and high (y) into 32 bits.
 template <typename T>
@@ -246,6 +302,19 @@ __device__ __forceinline__ uint32_t pack2(float x, float y) {
   } else {
     __half2 v = __floats2half2_rn(x, y);
     return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// The two fp32 values of a pack2 word, widened back.
+template <typename T>
+__device__ __forceinline__ void unpack2(uint32_t u, float& x, float& y) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    x = __uint_as_float(u << 16);
+    y = __uint_as_float(u & 0xFFFF0000u);
+  } else {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&u));
+    x = f.x;
+    y = f.y;
   }
 }
 
@@ -314,6 +383,34 @@ int encode_heads(CUtensorMap* map, const void* base, int B, int Hx, int T_len,
                          box,
                          estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : kEncodeError + (int)rc;
+}
+
+// 5-D map over {D, H, S, N, B} of a [B, N, S, H, D]-indexed view with
+// element strides (sb, sn, ss, sh), box {D2, 1, 64, 1, 1} with D2 = min(D,
+// 64) columns (128 or 64 bytes): one 64-row panel per copy, with the 128-
+// or the 64-byte swizzle to match, out-of-bounds rows filled with zeros.
+template <typename T>
+int encode_5d(CUtensorMap* map, const void* base, int B, int N, int S, int H,
+              int D, long long sb, long long sn, long long ss, long long sh) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[5] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {tma_stride(sh * 2, H), tma_stride(ss * 2, S),
+                                 tma_stride(sn * 2, N), tma_stride(sb * 2, B)};
+  const cuuint32_t cols = D < 64 ? D : 64;
+  const cuuint32_t box[5] = {cols, 1, 64, 1, 1};
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapDataType dt = std::is_same<T, __nv_bfloat16>::value
+                                     ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  const CUresult rc = fn(map, dt, 5, const_cast<void*>(base), dims, strides,
+                         box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : kEncodeError + (int)rc;

@@ -9,14 +9,21 @@ dims). Returns [B, N, S, H, D] in q's dtype; differentiable in q, k, v and
 both biases.
 
 The forward is one `torch.autograd.Function`: on a CUDA tensor it launches
-the hand-written kernel (`csrc/evoformer_attn.cu`: fp32 throughout, any S,
-D in {32, 64, 128}) or raises; on a CPU tensor it runs the plain version
+the hand-written kernel (`csrc/evoformer_attn.cu`: bf16 / fp16 on the
+tensor cores with fp32-accurate products, the pair bias read once per
+group of at least 8 MSA rows; fp32 on the CUDA cores; any S and B * N *
+H, D in {32, 64, 128}) or raises; on a CPU tensor it runs the plain version
 (`evoformer_attention_reference`, the counterpart of `_evo_attn_math`).
+The kernel reads the biases in their own dtype (the pair in q's dtype or
+fp32) and q, k, v in place wherever its TMA maps can (strides multiples of
+16 bytes); a view they cannot read is copied first.
 The backward is plain PyTorch on every device, as the JAX backward is jnp
-(`_evo_core_bwd`): it recomputes one MSA row at a time, so its extra memory
-is [B, H, S, S], and returns the mask and pair gradients in their inputs'
-shapes. The JAX op falls back to jnp where its TPU tiles do not fit; the
-port's kernel takes any S, and runs no such fallback on the card.
+(`_evo_core_bwd`): it recomputes the attention a chunk of MSA rows at a
+time, the chunk sized so that its fp32 intermediates stay under
+`BWD_CHUNK_BYTES` (JAX's scan holds one row), and returns the mask and pair
+gradients in their inputs' shapes. The JAX op falls back to jnp where its
+TPU tiles do not fit; the port's kernel takes any S, and runs no such
+fallback on the card.
 """
 
 import ctypes
@@ -29,6 +36,10 @@ from deepspeed_tpu_torch.ops import op_builder
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the backward's fp32 [C, B, H, S, S] intermediates (scores / p, dp, ds and
+# one product's temporary) held under this many bytes
+BWD_CHUNK_BYTES = 256 << 20
+_BWD_LIVE = 4
 
 
 def _parse_biases(biases, B, N, S, H):
@@ -86,11 +97,20 @@ def evoformer_attention_reference(q, k, v, biases=(), sm_scale=None):
     return _reference_fwd(q, k, v, mask, pair, sm_scale)
 
 
-def _backward(q, k, v, mask, pair, g, sm_scale):
-    """The counterpart of `_evo_core_bwd`: recompute one MSA row at a time
-    (extra memory [B, H, S, S]). Returns (dq, dk, dv, dmask [Bm, Nm, S] or
-    None, dpair [Bp, Hp, S, S] or None)."""
+def bwd_rows(B, N, S, H):
+    """MSA rows the backward recomputes at once: as many as keep its
+    `_BWD_LIVE` fp32 [rows, B, H, S, S] intermediates under
+    `BWD_CHUNK_BYTES`, at least one."""
+    per_row = _BWD_LIVE * B * H * S * S * 4
+    return max(1, min(N, BWD_CHUNK_BYTES // per_row))
+
+
+def _backward(q, k, v, mask, pair, g, sm_scale, rows=None):
+    """The counterpart of `_evo_core_bwd`: recompute `rows` MSA rows at a
+    time (default `bwd_rows`; JAX scans one). Returns (dq, dk, dv, dmask
+    [Bm, Nm, S] or None, dpair [Bp, Hp, S, S] or None)."""
     B, N, S, H, D = q.shape
+    rows = rows or bwd_rows(B, N, S, H)
     dq, dk, dv = (torch.empty(q.shape, dtype=x.dtype, device=q.device)
                   for x in (q, k, v))
     dmask = torch.empty((B, N, S), dtype=torch.float32, device=q.device) \
@@ -99,23 +119,26 @@ def _backward(q, k, v, mask, pair, g, sm_scale):
         if pair is not None else None
     mask_full = mask.float().expand(B, N, S) if mask is not None else None
     pair_full = pair.float().expand(B, H, S, S) if pair is not None else None
-    for n in range(N):
-        qn, kn, vn, gn = (x[:, n].float() for x in (q, k, v, g))  # [B,S,H,D]
-        s = torch.einsum("bqhd,bkhd->bhqk", qn, kn) * sm_scale
+    for n0 in range(0, N, rows):
+        sl = slice(n0, n0 + rows)
+        qn, kn, vn, gn = (x[:, sl].float() for x in (q, k, v, g))  # [B,C,S,H,D]
+        s = torch.einsum("bnqhd,bnkhd->bnhqk", qn, kn) * sm_scale
         if mask_full is not None:
-            s = s + mask_full[:, n, None, None, :]
+            s = s + mask_full[:, sl, None, None, :]
         if pair_full is not None:
-            s = s + pair_full
+            s = s + pair_full[:, None]
         p = torch.softmax(s, dim=-1)
-        dv[:, n] = torch.einsum("bhqk,bqhd->bkhd", p, gn)
-        dp = torch.einsum("bqhd,bkhd->bhqk", gn, vn)
+        del s
+        dv[:, sl] = torch.einsum("bnhqk,bnqhd->bnkhd", p, gn)
+        dp = torch.einsum("bnqhd,bnkhd->bnhqk", gn, vn)
         ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-        dq[:, n] = torch.einsum("bhqk,bkhd->bqhd", ds, kn) * sm_scale
-        dk[:, n] = torch.einsum("bhqk,bqhd->bkhd", ds, qn) * sm_scale
+        del p, dp
+        dq[:, sl] = torch.einsum("bnhqk,bnkhd->bnqhd", ds, kn) * sm_scale
+        dk[:, sl] = torch.einsum("bnhqk,bnqhd->bnkhd", ds, qn) * sm_scale
         if dmask is not None:
-            dmask[:, n] = ds.sum((1, 2))
+            dmask[:, sl] = ds.sum((2, 3))
         if dpair is not None:
-            dpair += ds
+            dpair += ds.sum(1)
     if dmask is not None:
         dmask = _unbroadcast(dmask, mask.shape).to(mask.dtype)
     if dpair is not None:
@@ -129,12 +152,18 @@ def _unbroadcast(grad, shape):
     return grad.sum(dims, keepdim=True) if dims else grad
 
 
+# the extern "C" entry point's parameters: q, k, v, o, mask, pair | B, N, S,
+# H, D | strides | mask_sb, mask_sn, pair_sb, pair_sh | mask_dtype,
+# pair_dtype | scale | dtype | stream
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_longlong] * 4 + [
+    ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
 def _kernel():
     fn = op_builder.load("evoformer_attn").dstt_evoformer_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-            ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_longlong] * 4 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
@@ -143,6 +172,28 @@ def _bias_strides(t, dims):
     """Element strides of a contiguous bias over its leading `dims`, 0 where
     it broadcasts (size 1)."""
     return [t.stride(i) if t.shape[i] > 1 else 0 for i in range(dims)]
+
+
+def _kernel_layout_ok(t):
+    """What the 16-bit kernel's TMA maps read in place: a contiguous last
+    dim, the other strides positive multiples of 16 bytes where the dim has
+    more than one entry, a 16-byte aligned base."""
+    step = 16 // t.element_size()
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        n == 1 or (st > 0 and st % step == 0)
+        for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def _kernel_bias(t, dtype, pair):
+    """A bias as the kernel reads it: contiguous, in its own dtype where the
+    kernel takes it (a 16-bit q's mask: any kernel dtype; its pair: q's
+    dtype or fp32), widened to fp32 otherwise (and for an fp32 q)."""
+    if t is None:
+        return None
+    if dtype == torch.float32 or t.dtype not in KERNEL_DTYPES or (
+            pair and t.dtype not in (dtype, torch.float32)):
+        t = t.float()
+    return t.contiguous()
 
 
 def check_kernel_operands(q, k, v):
@@ -158,9 +209,8 @@ def check_kernel_operands(q, k, v):
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"evoformer_attention: head dim {D}; the kernel "
                          f"takes {KERNEL_HEAD_DIMS}")
-    if B * N * H > 65535 or S < 1:
-        raise ValueError(f"evoformer_attention: B*N*H={B * N * H}, S={S} out "
-                         f"of range")
+    if S < 1:
+        raise ValueError(f"evoformer_attention: S={S} out of range")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(4) != 1:
             raise ValueError(f"evoformer_attention: {name} needs a "
@@ -169,13 +219,15 @@ def check_kernel_operands(q, k, v):
 
 def _launch(q, k, v, mask, pair, sm_scale):
     check_kernel_operands(q, k, v)
+    if q.dtype != torch.float32:
+        q, k, v = (t if _kernel_layout_ok(t) else t.contiguous()
+                   for t in (q, k, v))
     B, N, S, H, D = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if mask is not None:
-        mask = mask.float().contiguous()
-    if pair is not None:
-        pair = pair.float().contiguous()
+    mask = _kernel_bias(mask, q.dtype, pair=False)
+    pair = _kernel_bias(pair, q.dtype, pair=True)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:4]]
+    code = op_builder.dtype_code
     rc = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if mask is None else mask.data_ptr(),
@@ -183,8 +235,9 @@ def _launch(q, k, v, mask, pair, sm_scale):
         (ctypes.c_longlong * 16)(*strides),
         *(_bias_strides(mask, 2) if mask is not None else (0, 0)),
         *(_bias_strides(pair, 2) if pair is not None else (0, 0)),
-        float(sm_scale), op_builder.dtype_code(q.dtype),
-        op_builder.stream_ptr(q.device))
+        code(mask.dtype) if mask is not None else 0,
+        code(pair.dtype) if pair is not None else 0,
+        float(sm_scale), code(q.dtype), op_builder.stream_ptr(q.device))
     op_builder.check(rc, "evoformer_attention")
     op_builder.LAUNCHES["evoformer_attention"] += 1
     return out

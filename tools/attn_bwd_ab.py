@@ -25,7 +25,6 @@ import argparse
 import json
 import pathlib
 import statistics
-import subprocess
 import sys
 
 import numpy as np
@@ -35,26 +34,12 @@ import torch.nn.functional as F
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
-from attn_fwd_ab import _use  # noqa: E402  (this script's own directory)
+from attn_fwd_ab import _ptxas, _use  # noqa: E402  (this directory)
 from deepspeed_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from deepspeed_tpu_torch.ops import op_builder  # noqa: E402
 
 SHAPES = {"train": dict(B=12, T=512, H=12, Hkv=12, D=128, causal=True),
           "moe_train": dict(B=8, T=512, H=12, Hkv=12, D=64, causal=True)}
-
-
-def _ptxas(src):
-    """nvcc's -Xptxas -v lines for flash_bwd.cu in `src`."""
-    out = pathlib.Path(src) / "out"
-    out.mkdir(parents=True, exist_ok=True)
-    cmd = [op_builder.nvcc_path(), *op_builder.NVCC_FLAGS, "-Xptxas", "-v",
-           "-o", str(out / "ptxas.so"), str(pathlib.Path(src) / "flash_bwd.cu")]
-    log = subprocess.run(cmd, capture_output=True, text=True)
-    if log.returncode:
-        return [f"nvcc exit {log.returncode}", log.stderr[-3000:]]
-    return [line.strip() for line in (log.stdout + log.stderr).splitlines()
-            if "Compiling entry" in line or "registers" in line
-            or "spill" in line]
 
 
 def _operands(rng, shape):
@@ -78,7 +63,9 @@ def main():
         sys.exit("attn_bwd_ab: no CUDA card")
     if args.ptxas:
         for src in args.dirs:
-            print(json.dumps({"dir": src, "ptxas": _ptxas(src)}), flush=True)
+            print(json.dumps({"dir": src,
+                              "ptxas": _ptxas(src, "flash_bwd.cu")}),
+                  flush=True)
     rng = np.random.default_rng(0)
     ops = {n: _operands(rng, s) for n, s in SHAPES.items()}
     times, broken = {}, set()

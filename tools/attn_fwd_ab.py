@@ -24,6 +24,7 @@ import argparse
 import json
 import pathlib
 import statistics
+import subprocess
 import sys
 
 import numpy as np
@@ -49,6 +50,22 @@ def _use(src):
     op_builder.CSRC = pathlib.Path(src)
     op_builder.BUILD_DIR = pathlib.Path(src) / "out"
     op_builder._LIBS.clear()
+
+
+def _ptxas(src, source):
+    """nvcc's -Xptxas -v lines (registers, spills, shared memory of each
+    kernel) for the file `source` in `src`, built with
+    `op_builder.NVCC_FLAGS`."""
+    out = pathlib.Path(src) / "out"
+    out.mkdir(parents=True, exist_ok=True)
+    cmd = [op_builder.nvcc_path(), *op_builder.NVCC_FLAGS, "-Xptxas", "-v",
+           "-o", str(out / "ptxas.so"), str(pathlib.Path(src) / source)]
+    log = subprocess.run(cmd, capture_output=True, text=True)
+    if log.returncode:
+        return [f"nvcc exit {log.returncode}", log.stderr[-3000:]]
+    return [line.strip() for line in (log.stdout + log.stderr).splitlines()
+            if "Compiling entry" in line or "registers" in line
+            or "spill" in line]
 
 
 def main():
