@@ -46,7 +46,10 @@ Phases, one JSON line each:
            visited V) and a batched mask; two planted faults (a tile
            dropped from one visit list) that the row measure must see;
            the public wrapper's autograd at B 2 against autograd through
-           the plain version; the evoformer kernel within one
+           the plain version; the backward pair timed against SDPA's
+           backward with the dense mask eagerly, in turns and as device
+           time, and at the op path the dq pass also without its dbias;
+           the evoformer kernel within one
            output-dtype step at the evoformer phase's shapes, there also
            with at least 0.999 of its output elements bit-equal to the
            plain version's, with two planted faults (a plain forward
@@ -1315,7 +1318,7 @@ def _sparse_check(rng, checks, case, q, k, v, layout, block, causal,
     plan = bsa._layout_plan(layout, H, T, block, causal)
     bias4, kvb, scale = bsa._operands(q, plan, None, bias, kpm)
     bsa.check_kernel_operands(q, k, v)
-    c = dict(plan=plan, qs=(q.float() * scale).to(q.dtype), k=k, v=v,
+    c = dict(plan=plan, q=q, qs=(q.float() * scale).to(q.dtype), k=k, v=v,
              bias4=bias4, kvb=kvb, scale=scale, causal=causal,
              want_dbias=bias4 is not None and bias_needs_grad is not False,
              do=torch.from_numpy(rng.standard_normal((B, H, T, D)).astype(
@@ -1439,31 +1442,29 @@ def _sparse_autograd_check(checks, case, call, leaves, names, layout, block,
     return errs, launches
 
 
-def _block_sparse_kernels(rng, checks):
-    """The block-sparse forward, dq and dk/dv kernels against their plain
-    versions: at the sparse phase's shape (B 1, H 12, T 8192, hd 64, its
-    Fixed layout, causal) and at the SparseSelfAttention path's (the same,
-    not causal, with a learned rpe [T, T] and padded keys); on the four
-    layout families of tests/test_block_sparse_kernel.py:38-55 (H 4, T
-    1024; Variable with a layout per head); at hd 128 in fp16 at T 1008 (no
-    multiple of 64 or 128); with a bias of one head slab and of H slabs,
-    with dbias and without; with a key-padding mask that pads every key of
-    a batch row (whose output must be the mean of its visited V); with a
-    batched [B, T, T] mask, which SparseSelfAttention hands to the kernel;
-    through the public wrapper's autograd at B 2. At the train path's shape
-    two planted faults (a skipped tile) must fail the row measure. Then
-    each kernel alone timed at the two paths' shapes."""
+# the Fixed layout family of the kernels' cases beyond the paths (H 4, T
+# 1024): tests/test_block_sparse_kernel.py:38-55's
+SPARSE_FAMILY_FIXED = dict(num_heads=4, block=16, num_local_blocks=4,
+                           num_global_blocks=1, attention="unidirectional")
+
+
+def _sparse_cases(rng):
+    """The block-sparse kernels' cases beyond the paths' shapes, as (case,
+    q, k, v, layout at block 16, causal, keyword arguments of
+    `_sparse_check`), drawn from `rng` as they are checked: the four layout
+    families of tests/test_block_sparse_kernel.py:38-55 (H 4, T 1024;
+    Variable with a layout per head); hd 128 in fp16 at T 1008 (no
+    multiple of 64 or 128), also causal with per-head bias slabs and
+    padding (their TMA boxes run past T on the last tiles); a bias of one
+    head slab and of H slabs, with dbias and without (frozen); a
+    key-padding mask that pads every key of a batch row ("all_padded_row",
+    whose output must be the mean of its visited V); a batched [B, T, T]
+    keep mask ("batched_mask", one more bias stride for the kernel)."""
     import torch
-    import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops import sparse_attention as sa
-    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
-    results = {}
     fams = [
-        ("fixed", sa.FixedSparsityConfig(num_heads=4, block=16,
-                                         num_local_blocks=4,
-                                         num_global_blocks=1,
-                                         attention="unidirectional"), True),
+        ("fixed", sa.FixedSparsityConfig(**SPARSE_FAMILY_FIXED), True),
         ("bigbird", sa.BigBirdSparsityConfig(num_heads=4, block=16,
                                              num_random_blocks=2,
                                              num_sliding_window_blocks=3,
@@ -1476,27 +1477,23 @@ def _block_sparse_kernels(rng, checks):
             local_window_blocks=(2, 4, 8), global_block_indices=(0,),
             different_layout_per_head=True), False)]
     for name, cfg, causal in fams:
-        q, k, v = _sparse_qkv(rng, 2, 4, 1024, 64)
-        _sparse_check(rng, checks, name, q, k, v, cfg.make_layout(1024), 16,
-                      causal)
+        yield (name, *_sparse_qkv(rng, 2, 4, 1024, 64), cfg.make_layout(1024),
+               causal, {})
     bigbird = sa.BigBirdSparsityConfig(num_heads=4, block=16,
                                        num_random_blocks=2, seed=7,
                                        different_layout_per_head=True)
-    q, k, v = _sparse_qkv(rng, 2, 4, 1008, 128, torch.float16)
-    _sparse_check(rng, checks, "hd128_fp16_T1008", q, k, v,
-                  bigbird.make_layout(1008), 16, False)
-    # the bias and padding tiles at a ragged T: their TMA boxes run past
-    # T on the last q and k tiles; causal, per-head bias slabs
+    yield ("hd128_fp16_T1008",
+           *_sparse_qkv(rng, 2, 4, 1008, 128, torch.float16),
+           bigbird.make_layout(1008), False, {})
     pad1008 = torch.ones(2, 1008, dtype=torch.bool, device="cuda")
     pad1008[1, -37:] = False
     q, k, v = _sparse_qkv(rng, 2, 4, 1008, 128, torch.float16)
-    _sparse_check(rng, checks, "hd128_fp16_T1008_bias_padding", q, k, v,
-                  bigbird.make_layout(1008), 16, True,
-                  bias=torch.from_numpy((rng.standard_normal(
-                      (4, 1008, 1008)) * 0.5).astype(np.float32)).cuda(),
-                  kpm=pad1008)
-    fixed = fams[0][1]
-    lay = fixed.make_layout(1024)
+    yield ("hd128_fp16_T1008_bias_padding", q, k, v,
+           bigbird.make_layout(1008), True,
+           dict(bias=torch.from_numpy((rng.standard_normal(
+               (4, 1008, 1008)) * 0.5).astype(np.float32)).cuda(),
+                kpm=pad1008))
+    lay = sa.FixedSparsityConfig(**SPARSE_FAMILY_FIXED).make_layout(1024)
 
     def normal(*shape, scale=1.0):
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
@@ -1512,40 +1509,110 @@ def _block_sparse_kernels(rng, checks):
                                   ("bias_1_slab_frozen", normal(1024, 1024,
                                                                 scale=0.5),
                                    False, 64)):
-        q, k, v = _sparse_qkv(rng, 2, 4, 1024, hd)
-        _sparse_check(rng, checks, case, q, k, v, lay, 16, True, bias=bias,
-                      kpm=kpm, bias_needs_grad=needs)
-    # every key of batch row 1 padded: its rows see -1e30 on every visited
-    # cell, so p = 1 there and the output is the mean of the visited V
+        yield (case, *_sparse_qkv(rng, 2, 4, 1024, hd), lay, True,
+               dict(bias=bias, kpm=kpm, bias_needs_grad=needs))
     pad = torch.ones(2, 1024, dtype=torch.bool, device="cuda")
     pad[1] = False
+    yield ("all_padded_row", *_sparse_qkv(rng, 2, 4, 1024, 64), lay, True,
+           dict(kpm=pad))
+    keep = torch.from_numpy(rng.random((2, 1024, 1024)) > 0.1).cuda()
+    keep |= torch.eye(1024, dtype=torch.bool, device="cuda")
     q, k, v = _sparse_qkv(rng, 2, 4, 1024, 64)
-    got = _sparse_check(rng, checks, "all_padded_row", q, k, v, lay, 16, True,
-                        kpm=pad)
-    _, visited = got["plan"].token_masks(True, "cuda")
+    yield ("batched_mask", q, k, v, lay, False,
+           dict(bias=torch.where(keep, 0.0, bsa.NEG_INF)[:, None],
+                bias_needs_grad=False))
+
+
+def _sparse_paths(rng):
+    """The block-sparse kernels at their paths' shapes, as `_sparse_cases`
+    yields its cases: the sparse phase's train step ("sparse_train": B 1,
+    H 12, T 8192, hd 64, its Fixed layout, causal) and SparseSelfAttention
+    with a learned rpe [T, T] and 100 padded keys ("sparse_op": the same,
+    not causal)."""
+    import torch
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    layout = sa.FixedSparsityConfig(**SPARSE_LAYOUT).make_layout(SPARSE_SEQ)
+    B, H, T, D = SPARSE_MBS, SPARSE_LAYOUT["num_heads"], SPARSE_SEQ, 64
+    bias = torch.from_numpy((rng.standard_normal((T, T)) * 0.5).astype(
+        np.float32)).cuda()
+    kpm = torch.ones(B, T, dtype=torch.bool, device="cuda")
+    kpm[:, -100:] = False
+    yield ("sparse_train", *_sparse_qkv(rng, B, H, T, D), layout, True, {})
+    yield ("sparse_op", *_sparse_qkv(rng, B, H, T, D), layout, False,
+           dict(bias=bias, kpm=kpm))
+
+
+def _bias_read_bytes(plan, bias4):
+    """Bytes of the fp32 bias slabs [Bb, Hb, T, T] that the block-sparse
+    kernels must read: the 64 x 64 boxes (inside T) of the tiles in the
+    visit lists, each head's own where each head has a slab, their union
+    over the heads where one slab serves them all; 0 without a bias."""
+    if bias4 is None:
+        return 0
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    H, nbq = plan.counts.shape
+    tiles = np.zeros((H, nbq, plan.nbk), bool)
+    hh, ii, vv = np.nonzero(np.arange(plan.idx.shape[-1])
+                            < plan.counts[..., None])
+    tiles[hh, ii, plan.idx[hh, ii, vv]] = True
+    if bias4.shape[1] == 1:
+        tiles = tiles.any(0, keepdims=True)
+    span = np.minimum(bsa.TILE, plan.T - bsa.TILE * np.arange(nbq))
+    cells = int((tiles * (span[:, None] * span[None, :])).sum())
+    return bias4.shape[0] * cells * 4
+
+
+def _block_sparse_kernels(rng, checks):
+    """The block-sparse forward, dq and dk/dv kernels against their plain
+    versions: at `_sparse_cases` (the all-padded row's output also against
+    the mean of its visited V, and SparseSelfAttention on the batched mask
+    equal to the kernel's output); through the public wrapper's autograd
+    at B 2; at the paths' shapes (`_sparse_paths`). At the train path's shape
+    two planted faults (a skipped tile) must fail the row measure. Then
+    each kernel alone timed at the two paths' shapes, the backward pair
+    against SDPA's backward three ways (`_backward_yardsticks`), and, where
+    the path's bias is learned (sparse_op), the dq pass also without its
+    dbias, eagerly and as device time."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    results, got = {}, {}
+    for case, q, k, v, layout, causal, kw in _sparse_cases(rng):
+        got[case] = _sparse_check(rng, checks, case, q, k, v, layout, 16,
+                                  causal, **kw)
+    # every key of batch row 1 padded: its rows see -1e30 on every visited
+    # cell, so p = 1 there and the output is the mean of the visited V
+    c = got["all_padded_row"]
+    _, visited = c["plan"].token_masks(True, "cuda")
     vis = visited.float()
-    mean = (vis @ v[1].float()) / vis.sum(-1, keepdim=True)
-    row = _row_err(got["out"][1], mean)
+    mean = (vis @ c["v"][1].float()) / vis.sum(-1, keepdim=True)
+    row = _row_err(c["out"][1], mean)
     ok = bool(np.isfinite(row) and row <= SPARSE_ROW_TOL)
     checks.append({"kernel": "block_sparse_attention",
                    "case": "all_padded_row_mean_of_visited_v",
                    "row_err": row, "tol": SPARSE_ROW_TOL,
-                   "max_rel_err": _max_rel(got["out"][1], mean), "ok": ok})
+                   "max_rel_err": _max_rel(c["out"][1], mean), "ok": ok})
     if not ok:
         raise AssertionError(f"all-padded row: worst row {row} from the mean "
                              f"of its visited V")
-    # a batched [B, T, T] keep mask: one more bias stride for the kernel
-    keep = torch.from_numpy(rng.random((2, 1024, 1024)) > 0.1).cuda()
-    keep |= torch.eye(1024, dtype=torch.bool, device="cuda")
-    q, k, v = _sparse_qkv(rng, 2, 4, 1024, 64)
-    bias = torch.where(keep, 0.0, bsa.NEG_INF)[:, None]
-    got = _sparse_check(rng, checks, "batched_mask", q, k, v, lay, 16, False,
-                        bias=bias, bias_needs_grad=False)
-    attn = sa.SparseSelfAttention(fixed)
-    out = attn(q, k, v, attn_mask=keep.float())
-    if not torch.equal(out, got["out"]):
+    # the batched [B, T, T] keep mask takes the kernel in SparseSelfAttention
+    c = got["batched_mask"]
+    fixed = sa.FixedSparsityConfig(**SPARSE_FAMILY_FIXED)
+    lay = fixed.make_layout(1024)
+    keep = c["bias4"][:, 0] == 0
+    out = sa.SparseSelfAttention(fixed)(c["q"], c["k"], c["v"],
+                                        attn_mask=keep.float())
+    if not torch.equal(out, c["out"]):
         raise AssertionError("SparseSelfAttention's batched mask did not "
                              "take the kernel")
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).cuda()
+    kpm = torch.ones(2, 1024, dtype=torch.bool, device="cuda")
+    kpm[0, -100:] = False
     # the public wrapper and its autograd backward at B 2 with a learned
     # head-shared bias and padded keys: every input's gradient, then k and
     # v alone (no dq launch: the need flags)
@@ -1560,24 +1627,17 @@ def _block_sparse_kernels(rng, checks):
                 x["q"], x["k"], x["v"], lay, 16, causal=True, bias=x["bias"],
                 key_padding_mask=kpm),
             leaves, names, lay, 16, True, kpm)
-        got = tuple(after.get(n, 0) - before.get(n, 0) for n in (
+        seen = tuple(after.get(n, 0) - before.get(n, 0) for n in (
             "block_sparse_attention", "block_sparse_attention_bwd_dq",
             "block_sparse_attention_bwd_dkv"))
-        if got != want:
-            raise AssertionError(f"{case}: launches {got}, expected {want}")
+        if seen != want:
+            raise AssertionError(f"{case}: launches {seen}, expected {want}")
 
     # the two paths' shapes, checked and timed
-    sparse = sa.FixedSparsityConfig(**SPARSE_LAYOUT)
-    layout = sparse.make_layout(SPARSE_SEQ)
-    B, H, T, D = SPARSE_MBS, SPARSE_LAYOUT["num_heads"], SPARSE_SEQ, 64
-    kpm = torch.ones(B, T, dtype=torch.bool, device="cuda")
-    kpm[:, -100:] = False
-    for path, causal, bias, kpm in (
-            ("sparse_train", True, None, None),
-            ("sparse_op", False, normal(T, T, scale=0.5), kpm)):
-        q, k, v = _sparse_qkv(rng, B, H, T, D)
+    for path, q, k, v, layout, causal, kw in _sparse_paths(rng):
+        B, H, T, D = q.shape
         c = _sparse_check(rng, checks, path, q, k, v, layout, 16, causal,
-                          bias=bias, kpm=kpm)
+                          **kw)
         if path == "sparse_train":
             _sparse_faults(c, checks)
         plan, qs, bias4, kvb = c["plan"], c["qs"], c["bias4"], c["kvb"]
@@ -1586,7 +1646,9 @@ def _block_sparse_kernels(rng, checks):
         rows = B * H * T * 4                   # one fp32 [B, H, T] vector
         meta = sum(a.nbytes for a in (plan.counts, plan.idx, plan.countsT,
                                       plan.idxT)) + plan.fine.size
-        extra = (bias4.numel() * 4 if bias4 is not None else 0) \
+        # the bias is read only in the boxes of the visited tiles; dbias,
+        # an output, is written whole
+        extra = _bias_read_bytes(plan, bias4) \
             + (kvb.numel() * 4 if kvb is not None else 0)
         dbias_bytes = bias4.numel() * 4 if c["want_dbias"] else 0
         args = (qs, k, v, plan, bias4, kvb, causal)
@@ -1622,8 +1684,9 @@ def _block_sparse_kernels(rng, checks):
         sout = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=lib_mask,
                                               scale=c["scale"])
         sdo = c["do"].contiguous()
-        lib_bwd = median_ms(lambda: torch.autograd.grad(
-            sout, (sq, sk, sv), sdo, retain_graph=True), reps=5)
+        sdpa_bwd = lambda: torch.autograd.grad(sout, (sq, sk, sv), sdo,
+                                               retain_graph=True)
+        lib_bwd = median_ms(sdpa_bwd, reps=5)
         sdpa = lambda: F.scaled_dot_product_attention(
             sq, sk, sv, attn_mask=lib_mask, scale=c["scale"])
         for name, nbytes, flops, fn, plain, lib in (
@@ -1653,6 +1716,21 @@ def _block_sparse_kernels(rng, checks):
             else:
                 results[name, path]["sdpa_factor"] = \
                     results[name, path]["ms"] / lib
+        row_dq = results["block_sparse_attention_bwd_dq", path]
+        if c["want_dbias"]:
+            # the dq pass's cost of the learned head-shared bias's gradient
+            # (its zeroing and the reductions): the same launch without it
+            nodb = bwd[:-1] + (False,)
+            row_dq.update(
+                ms_no_dbias=median_ms(lambda: bsa._launch_bwd(
+                    *nodb, True, False), reps=9),
+                device_ms=_device_ms(lambda: bsa._launch_bwd(
+                    *bwd, True, False))[0],
+                device_ms_no_dbias=_device_ms(lambda: bsa._launch_bwd(
+                    *nodb, True, False))[0])
+        _backward_yardsticks(
+            row_dq, results["block_sparse_attention_bwd_dkv", path],
+            lambda: bsa._launch_bwd(*bwd), sdpa_bwd, sout.grad_fn.name())
         del sq, sk, sv, sout, lib_mask, live_mask
     # evaluation runs the training path's forward shape
     results["block_sparse_attention", "sparse_eval"] = \

@@ -6,7 +6,9 @@ The [H, T/block, T/block] block layout of a sparsity config
 fine mask) and coarsened to the kernel's 64 x 64 tiles; for every (head, q
 tile) a visit list names the k tiles that hold a live fine cell, and the
 transposed lists name, for every k tile, the q tiles that visit it. Compute
-and device-memory traffic scale with the layout's density, not T^2.
+and device-memory traffic scale with the layout's density, not T^2. The
+kernels walk their (b, h, tile) items longest list first: the forward and
+the dq pass in the plan's `row_order`, the dk/dv pass in its `col_order`.
 
 `block_sparse_attention(q, k, v, layout, ...)` is differentiable through
 one `torch.autograd.Function`. On a CUDA tensor each pass launches its
@@ -33,8 +35,9 @@ the "visited keys" of an all-padded row are those of its 64 x 64 tiles:
 where the two tilings visit different keys for such a row, the port and JAX
 give different means (a deliberate divergence; ROADMAP.md queue 3).
 The Pallas-only parts do not carry over: no one-hot selection or expansion
-matmuls (the kernel reads the fine mask, bias and padding row by index), no
-bias copy blocked per tile, no VMEM budget, no automatic block_q.
+matmuls (the kernels read the fine mask by index and copy each visited
+tile's bias box and padding row beside K and V), no bias copy blocked per
+tile, no VMEM budget, no automatic block_q.
 """
 
 import ctypes
@@ -146,22 +149,32 @@ class _Plan:
         self._device = {}
 
     def row_order(self):
-        """The forward's walk over its (head, q tile) rows, longest visit
-        list first: int32 [H * nbq], a permutation of h * nbq + i with
-        non-increasing counts (ties in index order), so the rows with the
-        most tiles do not start last."""
+        """The forward's and the dq pass's walk over their (head, q tile)
+        rows, longest visit list first: int32 [H * nbq], a permutation of
+        h * nbq + i with non-increasing counts (ties in index order), so
+        the rows with the most tiles do not start last."""
         return np.argsort(-self.counts.reshape(-1), kind="stable") \
             .astype(np.int32)
 
+    def col_order(self):
+        """The dk/dv pass's walk over its (head, k tile) columns, the
+        transposed twin of `row_order`: int32 [H * nbk], a permutation of
+        h * nbk + j with non-increasing transposed counts (ties in index
+        order), so the k tiles that nearly every q tile visits (the global
+        blocks) do not start last."""
+        return np.argsort(-self.countsT.reshape(-1), kind="stable") \
+            .astype(np.int32)
+
     def on(self, device):
-        """(counts, idx, fine, countsT, idxT, row order) tensors on
-        `device`."""
+        """(counts, idx, fine, countsT, idxT, row order, col order) tensors
+        on `device`."""
         key = str(device)
         if key not in self._device:
             self._device[key] = tuple(
                 torch.from_numpy(np.ascontiguousarray(a)).to(device)
                 for a in (self.counts, self.idx, self.fine.astype(np.uint8),
-                          self.countsT, self.idxT, self.row_order()))
+                          self.countsT, self.idxT, self.row_order(),
+                          self.col_order()))
         return self._device[key]
 
     def live_cells(self, causal):
@@ -281,15 +294,16 @@ _ARGTYPES = {
     "dstt_bsa_fwd": [_P] * 11 + [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
-    # q k v do lse delta dq dbias bias kvb counts idx fine | B H T D maxv |
-    # strides | bias_sb bias_sh | dbias_heads scale causal dtype stream
-    "dstt_bsa_bwd_dq": [_P] * 13 + [ctypes.c_int] * 5 + [
+    # q k v do lse delta dq dbias bias kvb counts idx fine order | B H T D
+    # maxv | strides | bias_sb bias_sh | dbias_heads scale causal dtype
+    # stream
+    "dstt_bsa_bwd_dq": [_P] * 14 + [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_int, _P],
-    # q k v do lse delta dk dv bias kvb countsT idxT fine | B H T D maxvT |
-    # strides | bias_sb bias_sh | causal dtype stream
-    "dstt_bsa_bwd_dkv": [_P] * 13 + [ctypes.c_int] * 5 + [
+    # q k v do lse delta dk dv bias kvb countsT idxT fine orderT | B H T D
+    # maxvT | strides | bias_sb bias_sh | causal dtype stream
+    "dstt_bsa_bwd_dkv": [_P] * 14 + [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
 }
@@ -364,7 +378,7 @@ def _launch_fwd(qs, k, v, plan, bias, kvb, causal):
     """out [B, H, T, D] view of a [B, T, H, D] tensor, lse [B, H, T]; the
     operands checked by the caller (`check_kernel_operands`)."""
     B, H, T, D = qs.shape
-    counts, idx, fine, _, _, order = plan.on(qs.device)
+    counts, idx, fine, _, _, order, _ = plan.on(qs.device)
     out = torch.empty((B, T, H, D), dtype=qs.dtype,
                       device=qs.device).transpose(1, 2)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=qs.device)
@@ -389,7 +403,7 @@ def _launch_bwd(qs, k, v, do, lse, delta, plan, bias, kvb, causal,
         do = do.transpose(1, 2).contiguous().transpose(1, 2)
     check_kernel_operands(qs, k, v, extra=[("do", do)])
     B, H, T, D = qs.shape
-    counts, idx, fine, countsT, idxT, _ = plan.on(qs.device)
+    counts, idx, fine, countsT, idxT, order, orderT = plan.on(qs.device)
     tail = (int(causal), op_builder.dtype_code(qs.dtype),
             op_builder.stream_ptr(qs.device))
     new = lambda: torch.empty((B, T, H, D), dtype=qs.dtype,
@@ -405,7 +419,7 @@ def _launch_bwd(qs, k, v, do, lse, delta, plan, bias, kvb, causal,
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(dbias),
             _ptr(bias), _ptr(kvb), counts.data_ptr(), idx.data_ptr(),
-            fine.data_ptr(), B, H, T, D, idx.shape[-1],
+            fine.data_ptr(), order.data_ptr(), B, H, T, D, idx.shape[-1],
             _strides(qs, k, v, do, dq), *_bias_strides(bias),
             bias.shape[1] if want_dbias else 0, float(sm_scale), *tail)
         op_builder.check(rc, "block_sparse_attention backward (dq)")
@@ -416,7 +430,7 @@ def _launch_bwd(qs, k, v, do, lse, delta, plan, bias, kvb, causal,
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _ptr(bias), _ptr(kvb), countsT.data_ptr(), idxT.data_ptr(),
-            fine.data_ptr(), B, H, T, D, idxT.shape[-1],
+            fine.data_ptr(), orderT.data_ptr(), B, H, T, D, idxT.shape[-1],
             _strides(qs, k, v, do, dk, dv), *_bias_strides(bias), *tail)
         op_builder.check(rc, "block_sparse_attention backward (dk/dv)")
         op_builder.LAUNCHES["block_sparse_attention_bwd_dkv"] += 1

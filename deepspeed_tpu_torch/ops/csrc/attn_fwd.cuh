@@ -85,16 +85,69 @@ constexpr float kNegInf = -1e30f;      // the block-sparse masked score
 // the kernel
 // ---------------------------------------------------------------------------
 
-// Block-sparse: what the producer stages beside a K/V tile for the
-// consumers: the tile's first key, its 4 x 4 fine cells (row-major) and
-// whether it needs no mask at all (every cell live, below the diagonal
-// where causal, inside T).
+// Block-sparse: what a producer stages beside a streamed tile for the
+// consumers (the forward's and dq's K/V tiles, dk/dv's Q/dO tiles): the
+// tile's first row (a key; dk/dv: a query), whether it needs no mask at all
+// (every cell live, below the diagonal where causal, inside T), and its
+// 4 x 4 fine cells, one byte each: row-major (q cell, k cell), or for dk/dv
+// transposed (k cell, q cell), so a warp's four cells are the 4 bytes at
+// live[4 warp].
 struct StageMeta {
-  int k0;
+  int r0;
   int plain;
   uint8_t live[16];
   int pad[2];
 };
+
+// The (q0, k0) tile's 4 x 4 cells of one head's fine mask [T/16, T/16],
+// 0 past T: q cell a's four bytes (k cells 0-3) in w[a].
+__device__ __forceinline__ void tile_cells(uint32_t (&w)[4],
+                                           const uint8_t* fine_h, int n16,
+                                           int q0, int k0) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int qa = q0 / 16 + a, kc = k0 / 16 + c;
+      const uint32_t v = (qa < n16 && kc < n16)
+                             ? fine_h[(long long)qa * n16 + kc] : 0;
+      x |= v << (8 * c);
+    }
+    w[a] = x;
+  }
+}
+
+// Fill a stage's StageMeta: first row r0, the (q0, k0) tile's cells w
+// (tile_cells; `transposed` for dk/dv: k cell c's four bytes in word c)
+// and whether the tile needs no mask. Cells move as words (a 16-bit mask
+// unpacked a byte at a time cost the block-sparse forward's one producer
+// thread 4-6 % on an H100; PERF.md).
+__device__ __forceinline__ void fill_stage(StageMeta& m, int r0,
+                                           const uint32_t (&w)[4],
+                                           bool transposed, int q0, int k0,
+                                           int T_len, bool causal) {
+  m.r0 = r0;
+  m.plain = (w[0] & w[1] & w[2] & w[3]) == 0x01010101u
+            && (!causal || k0 + BK - 1 <= q0) && k0 + BK <= T_len
+            && q0 + BM <= T_len;
+  uint32_t* live = reinterpret_cast<uint32_t*>(m.live);
+  if (transposed) {
+    // the 4 x 4 byte transpose: (w0, w1) and (w2, w3) interleaved, then
+    // their halves joined
+    const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140),
+                   hi01 = __byte_perm(w[0], w[1], 0x7362),
+                   lo23 = __byte_perm(w[2], w[3], 0x5140),
+                   hi23 = __byte_perm(w[2], w[3], 0x7362);
+    live[0] = __byte_perm(lo01, lo23, 0x5410);
+    live[1] = __byte_perm(lo01, lo23, 0x7632);
+    live[2] = __byte_perm(hi01, hi23, 0x5410);
+    live[3] = __byte_perm(hi01, hi23, 0x7632);
+  } else {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) live[a] = w[a];
+  }
+}
 
 struct FwdParams {
   CUtensorMap tq, tk, tv;     // [B, T, H(kv), D] views, boxes {64, 1, 64, 1}
@@ -424,21 +477,9 @@ bsa_fwd_kernel(__grid_constant__ const FwdParams p) {
         const int k0 = visits[t] * BK;
         // written before the arrive below, whose release the consumers'
         // wait on full[s] acquires
-        StageMeta& m = meta[s];
-        m.k0 = k0;
-        bool all = true;
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int qa = q0 / 16 + a, kc = k0 / 16 + c;
-            const uint8_t v = (qa < n16 && kc < n16)
-                                  ? fine_h[(long long)qa * n16 + kc] : 0;
-            m.live[4 * a + c] = v;
-            all = all && v;
-          }
-        m.plain = all && (!p.causal || k0 + BK - 1 <= q0)
-                  && k0 + BK <= T_len && q0 + BM <= T_len;
+        uint32_t w[4];
+        tile_cells(w, fine_h, n16, q0, k0);
+        fill_stage(meta[s], k0, w, false, q0, k0, T_len, p.causal);
         mbar_expect_tx(&full[s], bytes);
 #pragma unroll
         for (int pp = 0; pp < P; ++pp) {
@@ -473,7 +514,7 @@ bsa_fwd_kernel(__grid_constant__ const FwdParams p) {
     for (int t = 0; t < n_k; ++t) {
       const int s = t % STAGES, n = t / STAGES;
       mbar_wait(&full[s], n & 1);
-      const int k0 = meta[s].k0;
+      const int k0 = meta[s].r0;
       // this warp's 16 rows are fine row wl of the tile
       const uint32_t live4 =
           *reinterpret_cast<const uint32_t*>(&meta[s].live[4 * wl]);
@@ -709,40 +750,15 @@ template <bool SPARSE, typename T, int HD, int STAGES>
 int launch(const FwdParams& p, cudaStream_t stream) {
   using L = Smem<HD, STAGES, SPARSE ? 1 : 2>;
   const bool bias = SPARSE && p.has_bias;
-  const int smem = L::bytes(bias);
-  auto kernel = [] {
+  constexpr auto kernel = [] {
     if constexpr (SPARSE)
       return bsa_fwd_kernel<T, HD, STAGES>;
     else
       return flash_fwd_kernel<T, HD, STAGES>;
   }();
-  // per device, set once: the shared-memory attribute (the most this
-  // kernel asks for) and the blocks that fit, with and without a bias
-  static int grid_of[64][2] = {};
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc != cudaSuccess) return (int)rc;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (grid_of[dev][bias] == 0) {
-    rc = cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              L::bytes(SPARSE));
-    int per_sm = 0, sms = 0;
-    if (rc == cudaSuccess)
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                         160, smem);
-    if (rc == cudaSuccess)
-      rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (rc != cudaSuccess) return (int)rc;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    grid_of[dev][bias] = per_sm * sms;
-  }
-  const long long items = (long long)p.B * p.H * p.n_qt;
-  if (items == 0) return 0;
-  const int blocks = (int)(SPARSE || items < grid_of[dev][bias]
-                               ? items : grid_of[dev][bias]);
-  kernel<<<blocks, 160, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_items<kernel, 160>(p, (long long)p.B * p.H * p.n_qt,
+                                   L::bytes(bias), L::bytes(SPARSE), bias,
+                                   !SPARSE, stream);
 }
 
 }  // namespace

@@ -18,7 +18,8 @@
 // about 5-6 * T * D elements moved per head and pass). Both passes keep the
 // T x T probabilities out of device memory and run every product on wgmma
 // with fp32 accumulators in registers, on the forward's building blocks
-// (sm90.cuh):
+// (sm90.cuh) and the pass-level helpers it shares with block_sparse.cu's
+// backward (attn_bwd.cuh):
 //   * Two passes, no atomics. A work item is one 64-row tile of one head:
 //       - dq: (q tile, b, h). Q and dO are the item's resident tiles; the
 //         K/V tiles stream from 0 to the causal frontier;
@@ -78,23 +79,13 @@
 // Later work: 128-row items (two consumer warpgroups sharing each stage)
 // and the next stage's score products issued under this one's softmax.
 
-#include "sm90.cuh"
+#include "attn_bwd.cuh"
 
 namespace dstt {
 namespace bwd {
 namespace {
 
 using namespace dstt::sm90;
-
-constexpr int BT = 64;          // rows of every tile (q and k)
-constexpr int STAGES = 2;       // ring stages
-// dq: one consumer warpgroup and one producer warp. dk/dv: one consumer
-// warpgroup and a producer warpgroup, so that setmaxnreg can move the
-// producer's registers to the consumers (dK and dV take 128 of them a
-// thread): two blocks fit an SM at hd 128 (64 K registers = 2 x (4 warps x
-// 232 + 4 x 24) x 32).
-constexpr int kDqThreads = 160, kDkvThreads = 256;
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdParams {
   CUtensorMap tq, tk, tv, tdo;    // [B, T, H(kv), D] views, box {64, 1, 64, 1}
@@ -107,23 +98,6 @@ struct BwdParams {
   int B, H, G, T_len, n_t;        // G: query heads a kv head; n_t: tiles
   float scale;
   int causal;
-};
-
-// Shared memory of either pass: the item's two resident tiles, STAGES
-// stages of two streamed tiles, and (dk/dv: ROWS) the stages' 64 lse and 64
-// delta values; then the barriers.
-template <int HD, bool ROWS>
-struct BwdSmem {
-  static constexpr int P = HD / 64;                   // 64-column panels
-  static constexpr int tile = P * PANEL;              // one 64-row tile
-  static constexpr int res_off = 0;
-  static constexpr int ring_off = 2 * tile;
-  static constexpr int rows_off = ring_off + STAGES * 2 * tile;
-  static constexpr int rows_bytes = ROWS ? 2 * BT * 4 : 0;   // a stage's
-  static constexpr int bar_off = rows_off + STAGES * rows_bytes;
-  // full[STAGES], empty[STAGES], the resident pair's full and empty; + 1024
-  // for aligning the dynamic shared-memory base
-  static constexpr int bytes = bar_off + (2 * STAGES + 2) * 8 + 1024;
 };
 
 // dq work item r (0 .. B * H * n_t - 1): the q tiles walked from the last
@@ -159,70 +133,6 @@ __device__ __forceinline__ DkvItem dkv_item(const BwdParams& p, int r) {
   it.k0 = kt * BT;
   it.qt0 = p.causal ? kt : 0;
   return it;
-}
-
-__device__ __forceinline__ void init_barriers(uint64_t* full,
-                                              uint32_t arrivals) {
-  uint64_t* empty = full + STAGES;
-#pragma unroll
-  for (int s = 0; s < STAGES; ++s) {
-    mbar_init(&full[s], arrivals);
-    mbar_init(&empty[s], 128);
-  }
-  mbar_init(empty + STAGES, 1);          // the resident pair: full
-  mbar_init(empty + STAGES + 1, 128);    // and empty
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// Two score-shaped products on wgmma, one commit group each: a = A1 B1^T
-// first, then b = A2 B2^T; the four 64-row tiles K-major in shared memory.
-template <typename T, int HD>
-__device__ __forceinline__ void score_pair(float (&a)[32], float (&b)[32],
-                                           const unsigned char* A1,
-                                           const unsigned char* B1,
-                                           const unsigned char* A2,
-                                           const unsigned char* B2) {
-  fence_regs(a);
-  fence_regs(b);
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int off = (kk / 4) * PANEL + (kk % 4) * 32;
-    wgmma_ss<T>(a, desc_sw128(A1 + off), desc_sw128(B1 + off), kk > 0);
-  }
-  wg_commit();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int off = (kk / 4) * PANEL + (kk % 4) * 32;
-    wgmma_ss<T>(b, desc_sw128(A2 + off), desc_sw128(B2 + off), kk > 0);
-  }
-  wg_commit();
-}
-
-// acc[64 x HD] += A (four 16-column register fragments) Y, Y a 64-row tile
-// read through the transposed descriptor; one commit group.
-template <typename T, int N>
-__device__ __forceinline__ void accumulate(float (&acc)[N],
-                                           const uint32_t (&a)[BT / 16][4],
-                                           const unsigned char* Y) {
-  fence_regs(acc);
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk)
-    wgmma_rs<T>(acc, a[kk], desc_sw128(Y + kk * 16 * 128, PANEL), 1);
-  wg_commit();
-}
-
-// A score accumulator narrowed to T as the A fragments of an accumulating
-// product: k slice kk is accumulator columns 16 kk .. 16 kk + 15.
-template <typename T>
-__device__ __forceinline__ void fragments(uint32_t (&a)[BT / 16][4],
-                                          const float (&x)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      a[kk][e] = pack2<T>(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
 }
 
 // A thread's accumulator element i sits at tile row (i & 2 ? r1 : r0) and
@@ -270,25 +180,6 @@ __device__ __forceinline__ void dkv_probs(float (&sc)[32], const float* lse2,
       }
       sc[i] = x;
     }
-  }
-}
-
-// Rows pos0 / pos1 (inside T) of a [64 x HD] fp32 accumulator, times
-// `mult`, narrowed to T, to one head's rows with element stride `st`.
-template <typename T, int N>
-__device__ __forceinline__ void store_rows(T* base, long long st,
-                                           const float (&acc)[N], float mult,
-                                           int pos0, int pos1, int qi,
-                                           int T_len) {
-#pragma unroll
-  for (int j = 0; j < N / 4; ++j) {
-    const int col = 8 * j + 2 * qi;
-    if (pos0 < T_len)
-      *reinterpret_cast<uint32_t*>(base + pos0 * st + col) =
-          pack2<T>(acc[4 * j] * mult, acc[4 * j + 1] * mult);
-    if (pos1 < T_len)
-      *reinterpret_cast<uint32_t*>(base + pos1 * st + col) =
-          pack2<T>(acc[4 * j + 2] * mult, acc[4 * j + 3] * mult);
   }
 }
 
@@ -470,21 +361,12 @@ flash_bwd_dkv_kernel(__grid_constant__ const BwdParams p) {
         // this stage's lse (log2 units) and delta, two columns a lane, read
         // before the wait; 0 past T
         float lv[2], dl[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int qpos = q0 + lane + 32 * c;
-          lv[c] = qpos < T_len ? p.lse[row + qpos] * kLog2e : 0.f;
-          dl[c] = qpos < T_len ? p.delta[row + qpos] : 0.f;
-        }
+        fetch_rows(lv, dl, p.lse, p.delta, row, q0, lane, T_len, kLog2e);
         const int s = t % STAGES, n = t / STAGES;
         mbar_wait(&empty[s], (n & 1) ^ 1);
-        float* rows = reinterpret_cast<float*>(smem + L::rows_off
-                                               + s * L::rows_bytes);
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          rows[lane + 32 * c] = lv[c];
-          rows[BT + lane + 32 * c] = dl[c];
-        }
+        put_rows(reinterpret_cast<float*>(smem + L::rows_off
+                                          + s * L::rows_bytes),
+                 lv, dl, lane);
         if (lane == 0) {
           unsigned char* Qs = ring + 2 * s * L::tile;
           mbar_expect_tx(&full[s], 2 * L::tile);
@@ -579,43 +461,21 @@ flash_bwd_dkv_kernel(__grid_constant__ const BwdParams p) {
 // host side
 // ---------------------------------------------------------------------------
 
-// Launch one pass: as many persistent blocks as fit the card at once (found
-// once per device and kernel), at most one per item.
+// Launch one pass: as many persistent blocks as fit the card at once, at
+// most one per item.
 template <bool DKV, typename T, int HD>
 int launch(const BwdParams& p, cudaStream_t stream) {
   constexpr int smem = BwdSmem<HD, DKV>::bytes;
-  auto kernel = [] {
+  constexpr auto kernel = [] {
     if constexpr (DKV)
       return flash_bwd_dkv_kernel<T, HD>;
     else
       return flash_bwd_dq_kernel<T, HD>;
   }();
-  static int grid_of[64] = {};
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc != cudaSuccess) return (int)rc;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  constexpr int threads = DKV ? kDkvThreads : kDqThreads;
-  if (grid_of[dev] == 0) {
-    rc = cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
-    int per_sm = 0, sms = 0;
-    if (rc == cudaSuccess)
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                         threads, smem);
-    if (rc == cudaSuccess)
-      rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (rc != cudaSuccess) return (int)rc;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    grid_of[dev] = per_sm * sms;
-  }
   const long long items =
       (long long)p.B * (DKV ? p.H / p.G : p.H) * p.n_t;
-  if (items == 0) return 0;
-  const int blocks = (int)(items < grid_of[dev] ? items : grid_of[dev]);
-  kernel<<<blocks, threads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_items<kernel, DKV ? kDkvThreads : kDqThreads>(
+      p, items, smem, smem, 0, true, stream);
 }
 
 template <bool DKV, typename T, int HD>

@@ -1,8 +1,10 @@
 // sm90.cuh — the Hopper building blocks of the attention kernels
-// (attn_fwd.cuh's two forwards, flash_bwd.cu's two backward passes): PTX
-// wrappers for mbarriers, TMA copies and wgmma, the shared-memory
-// descriptor that matches TMA's 128-byte swizzle, and the host side that
-// encodes [B, T, H, D] views as tensor maps.
+// (attn_fwd.cuh's two forwards; the flash and block-sparse backward
+// passes, through attn_bwd.cuh; the Evoformer forward): PTX wrappers for
+// mbarriers, TMA copies (loads, stores, reduce-adds) and wgmma, the
+// shared-memory descriptor that matches TMA's 128-byte swizzle, and the
+// host side that launches the kernels over their work items and encodes
+// [B, T, H, D] views as tensor maps.
 //
 // Tiles of 16-bit elements sit in shared memory as 64-column panels of 64
 // rows x 128 bytes (PANEL bytes each, 1024-byte aligned), with the 128-byte
@@ -111,6 +113,20 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              int c2, int c3) {
   asm volatile(
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// dst (a box of the tensor map at the coordinates) += the shared-memory
+// tile at src, an fp32 reduction in L2 (bulk group: commit, then wait for
+// the read before src is written again).
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
       " [%0, {%2, %3, %4, %5}], [%1];\n"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3)
@@ -323,6 +339,46 @@ __device__ __forceinline__ void unpack2(uint32_t u, float& x, float& y) {
 // items (first in the walk) spread over the blocks.
 __device__ __forceinline__ int item_of(int i, int blk, int nblk) {
   return i * nblk + ((i & 1) ? nblk - 1 - blk : blk);
+}
+
+// ---------------------------------------------------------------------------
+// host side: launches
+// ---------------------------------------------------------------------------
+
+// Launch `Kernel` (THREADS threads, `smem` bytes of dynamic shared memory)
+// over `items` work items: as many persistent blocks as fit the card at
+// once, at most one per item, or (`persistent` false) one block per item.
+// Once per device and `slot` (a kernel's two shared-memory sizes, e.g. with
+// and without a bias), it sets the kernel's shared-memory attribute to
+// `smem_max`, the most any of its launches asks for, and finds how many
+// blocks fit.
+template <auto Kernel, int THREADS, typename Params>
+int launch_items(const Params& p, long long items, int smem, int smem_max,
+                 int slot, bool persistent, cudaStream_t stream) {
+  static int grid_of[64][2] = {};
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (grid_of[dev][slot] == 0) {
+    rc = cudaFuncSetAttribute(Kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_max);
+    int per_sm = 0, sms = 0;
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
+                                                         THREADS, smem);
+    if (rc == cudaSuccess)
+      rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return (int)rc;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    grid_of[dev][slot] = per_sm * sms;
+  }
+  if (items == 0) return 0;
+  const int blocks = (int)(!persistent || items < grid_of[dev][slot]
+                               ? items : grid_of[dev][slot]);
+  Kernel<<<blocks, THREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -13,6 +13,10 @@ sum in other orders), the GPT logits, loss and gradients at 1e-4, the
 4-step engine trajectory at rtol 1e-4.
 """
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -539,7 +543,7 @@ def test_row_order_walks_every_row_longest_first(name, causal):
         assert (np.diff(rows) > 0).all()
     assert counts[0] == plan.counts.max()
     on = plan.on("cpu")
-    assert len(on) == 6
+    assert len(on) == 7
     np.testing.assert_array_equal(on[5].numpy(), order)
 
 
@@ -559,6 +563,76 @@ def test_row_order_follows_a_plan_whose_lists_change():
     assert (np.diff(counts) <= 0).all()
     np.testing.assert_array_equal(bad.on("cpu")[5].numpy(),
                                   bad.row_order())
+
+
+@pytest.mark.parametrize("name, causal", [
+    ("fixed", False), ("fixed", True), ("bigbird_heads", False),
+    ("bslongformer", False), ("variable", False)])
+def test_col_order_walks_every_column_longest_first(name, causal):
+    """The dk/dv kernel's walk over (head, k tile) columns: a permutation
+    of h * n_ktiles + j whose transposed visit counts never rise, ties in
+    index order; the plan hands it to the device after the row order."""
+    plan = tbsa._layout_plan(_cfg(tsa, name).make_layout(T), H, T, 16,
+                             causal)
+    order = plan.col_order()
+    assert order.dtype == np.int32
+    np.testing.assert_array_equal(np.sort(order), np.arange(H * plan.nbk))
+    counts = plan.countsT.reshape(-1)[order]
+    assert (np.diff(counts) <= 0).all()
+    for c in np.unique(counts):              # stable among equal counts
+        cols = order[counts == c]
+        assert (np.diff(cols) > 0).all()
+    assert counts[0] == plan.countsT.max()
+    # every live cell's k tile is walked: the transposed counts sum to the
+    # row counts
+    assert counts.sum() == plan.counts.sum()
+    on = plan.on("cpu")
+    np.testing.assert_array_equal(on[6].numpy(), order)
+
+
+def test_col_order_follows_a_plan_whose_lists_change():
+    """A copy of a plan with other transposed lists (chip_smoke.py's planted
+    dropped tile) walks its own counts, not the original's."""
+    import copy
+    plan = tbsa._layout_plan(_cfg(tsa, "fixed").make_layout(T), H, T, 16,
+                             True)
+    coarse = tbsa._coarse(plan.fine, T, tbsa.TILE, tbsa.TILE)
+    j = int(np.argmax(plan.countsT[0]))
+    coarse[0, int(plan.idxT[0, j, 0]), j] = False
+    bad = copy.copy(plan)
+    bad.counts, bad.idx = tbsa._visit_lists(coarse)
+    bad.countsT, bad.idxT = tbsa._visit_lists(coarse.transpose(0, 2, 1))
+    bad._device = {}
+    assert bad.countsT[0, j] == plan.countsT[0, j] - 1
+    counts = bad.countsT.reshape(-1)[bad.col_order()]
+    assert (np.diff(counts) <= 0).all()
+    np.testing.assert_array_equal(bad.on("cpu")[6].numpy(),
+                                  bad.col_order())
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+            "const int*": ctypes.c_void_p, "const uint8_t*": ctypes.c_void_p,
+            "int": ctypes.c_int, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong,
+            "const long long*": ctypes.POINTER(ctypes.c_longlong)}
+
+
+@pytest.mark.parametrize("symbol", ["dstt_bsa_fwd", "dstt_bsa_bwd_dq",
+                                    "dstt_bsa_bwd_dkv"])
+def test_argtypes_match_the_c_signatures(symbol):
+    """`_ARGTYPES` declares each parameter of block_sparse.cu's extern "C"
+    entry points with the ctypes type its C type needs (a pointer never as
+    a 32-bit int), in order: the backward passes take their walk's order
+    after the fine mask."""
+    text = (Path(tbsa.__file__).parent / "csrc" / "block_sparse.cu") \
+        .read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
+    assert m, f"{symbol} not found in block_sparse.cu"
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    ctypes_of = [_C_TYPES[re.sub(r"\s*\w+$", "", p).replace(" *", "*")]
+                 for p in params]
+    assert tbsa._ARGTYPES[symbol] == ctypes_of
 
 
 def _strided(case):
