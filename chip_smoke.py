@@ -35,8 +35,18 @@ Phases, one JSON line each:
            at the dropless path's shape
            (N 4096, E 8), E 64 and 128, N 65 536, an odd N, all ids equal,
            ids out of range and negative, int64 ids; fused_layer_norm /
-           fused_rms_norm within one output-dtype step at [4096, 768] bf16
-           with and without a residual, [4096, 4096] fp16, [37, 1000] fp32;
+           fused_rms_norm within one output-dtype step and with at least
+           0.999 of the outputs bit-equal to the plain version's at every
+           NORM_SWEEP case (model widths 768 to 12288, bf16 and fp16
+           with a residual, fp32, a decode step's 16 rows, rows not a
+           multiple of 16 bytes) and NORM_EDGE_CASES (residuals of another dtype,
+           fp32 or mixed parameters, the widest rows (32768), an unaligned
+           start, D 1, the warp kernel's widths), with two planted faults
+           (a row's last 16-byte vector left out of the statistics, a
+           ring slot read stale) that the check must reject, each sweep
+           case timed eagerly, as CUDA-graph device time and host time a
+           call, in turns with F.layer_norm / F.rms_norm, inputs rotated
+           past L2 (but for the three launch-bound cases);
            the block-sparse forward, dq and dk/dv kernels (and dbias)
            row by row within 1e-2 of each row's norm at the sparse paths'
            shapes (B 1, H 12, T 8192, hd 64), on four layout families, at
@@ -60,7 +70,8 @@ Phases, one JSON line each:
            S 255 / 257 / 640, pair rows TMA cannot read (S 100 fp16, S
            99 fp32), hd 32 / 64 / 128 in bf16 and fp16, fp32 biases
            under bf16 q, fused q/k/v views and B * N * H above 65 535;
-  norms    the public norm ops at [4096, 768] bf16: one launch each;
+  norms    the public norm ops at [4096, 768] bf16 with bf16 scale and
+           bias: one launch each, and no other kernel in the profiler;
   generate init_inference -> generate() on gpt2-125m at full width and
            depth (random weights from a numpy seed), bf16: launch counts,
            prefill and first-decode logits held against the port's fp32
@@ -473,35 +484,47 @@ def median_ms_turns(fns, reps=31, inner=10, warmup=3):
     return [statistics.median(t) for t in times]
 
 
+def graph_ms_turns(fns, inner=20, reps=10, warmup=3):
+    """Median device time of one call of each fn, as `graph_ms`, with the
+    graphs (`inner` calls each) replayed in turns: each of `reps` rounds
+    replays every graph once, so a change of the card's clock falls on all
+    of them alike."""
+    import torch
+    graphs = []
+    for fn in fns:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.no_grad(), torch.cuda.stream(side):
+            for _ in range(warmup):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(graph):
+            for _ in range(inner):
+                fn()
+        graph.replay()
+        graphs.append(graph)
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for graph, t in zip(graphs, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            t.append(start.elapsed_time(end) / inner)
+    del graphs
+    return [statistics.median(t) for t in times]
+
+
 def graph_ms(fn, inner=20, reps=10, warmup=3):
     """Median device time of one call of `fn`: CUDA-event timings of a
     CUDA graph holding `inner` calls, so the host's launch time is not in
     it (`median_ms` times eager calls, where a call whose host side is
     slower than its kernel is timed at the host's pace)."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.no_grad(), torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.no_grad(), torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    del graph
-    return statistics.median(times)
+    return graph_ms_turns([fn], inner, reps, warmup)[0]
 
 
 def _forward_yardsticks(row, fn, sdpa, inner):
@@ -1182,68 +1205,287 @@ def _token_sort_kernel(rng, checks):
 
 
 NORM_MAIN = (4096, 768)        # the norms path's shape: [8 x 512, d_model]
+# the norms' timing sweep, (case, rows, D, x dtype, residual dtype): rows
+# are a step's tokens and widths the repo's model widths; scale and bias
+# in x's dtype (one launch a call). gpt2-125m (NORM_MAIN), alone and with
+# the residual of its blocks (the phase's own call: the warp-row kernel's
+# residual add); gpt2-760m training (micro-batch 12 x seq 512);
+# gpt2-6.7b / llama2-7b with a residual; llama2-70b / llama3-70b; fp32
+# rows of 8192; 12288; a decode step's 16 rows; widths that are not
+# multiples of 16 bytes in the dtype (fp32 1000 is; bf16 100 is not)
+NORM_SWEEP = (
+    ("gpt2_125m", 4096, 768, "bfloat16", None),
+    ("gpt2_125m_res", 4096, 768, "bfloat16", "bfloat16"),
+    ("gpt2_760m_train", 6144, 1536, "bfloat16", None),
+    ("width_4096_res", 4096, 4096, "float16", "float16"),
+    ("width_8192", 2048, 8192, "bfloat16", None),
+    ("fp32_8192", 4096, 8192, "float32", None),
+    ("width_12288", 1024, 12288, "bfloat16", None),
+    ("decode_rows", 16, 4096, "bfloat16", None),
+    ("ragged_1000", 37, 1000, "float32", "float32"),
+    ("ragged_100", 64, 100, "bfloat16", None),
+)
+# a replayed CUDA graph reads inputs that fit the 50 MB L2 from L2: the
+# sweep's timed calls rotate over buffer sets (`_Rotating`) so that at
+# least this many bytes pass between two calls on one set. At most 32
+# sets: the three launch-bound cases (decode_rows, ragged_*) move only
+# 0.8-14 MB between two uses of a set, and are read from L2
+NORM_COLD_BYTES = 200e6
+
+
+def _norm_sets(rng, rows, D, dtype, res_dtype):
+    """Input sets for one sweep case: {x, residual} sets (enough of them
+    to move NORM_COLD_BYTES between two uses of one), and one scale and
+    bias in x's dtype, shared as a model's are."""
+    import torch
+    dt = getattr(torch, dtype)
+    rt = getattr(torch, res_dtype) if res_dtype else None
+    out_dt = torch.promote_types(dt, rt) if rt else dt
+    per_set = rows * D * (dt.itemsize + (rt.itemsize if rt else 0)
+                          + out_dt.itemsize)
+    n = int(min(32, max(1, -(-NORM_COLD_BYTES // per_set))))
+
+    def randn(shape, t):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", t)
+    sets = [dict(x=randn((rows, D), dt),
+                 residual=randn((rows, D), rt) if rt else None)
+            for _ in range(n)]
+    scale = (1 + 0.1 * randn((D,), torch.float32)).to(dt)
+    bias = (0.1 * randn((D,), torch.float32)).to(dt)
+    return sets, scale, bias
+
+
+class _Rotating:
+    """fn(**sets[i]) for i = 0, 1, 2, ... in turn, holding the last
+    len(sets) outputs: the inputs of a call were last read len(sets) calls
+    ago, and a captured graph's pool hands an output's memory to no call
+    within that distance."""
+
+    def __init__(self, fn, sets):
+        self.fn, self.sets, self.i = fn, sets, 0
+        self.keep = [None] * len(sets)
+
+    def __call__(self):
+        k = self.i % len(self.sets)
+        self.keep[k] = self.fn(**self.sets[k])
+        self.i += 1
+        return self.keep[k]
+
+
+def _norm_bound(rows, D, x, res, scale, rms):
+    """The sweep case's bound: x (+ residual) read once, out written once
+    in the promoted dtype, scale (and bias) read once; ~8 fp32 operations
+    an element at the fp32 units."""
+    import torch
+    out_size = (torch.promote_types(x.dtype, res.dtype) if res is not None
+                else x.dtype).itemsize
+    nbytes = rows * D * (x.element_size() + out_size
+                         + (res.element_size() if res is not None else 0)) \
+        + (1 if rms else 2) * D * scale.element_size()
+    return bound(nbytes, 8 * rows * D, FP32_FLOPS)
+
+
+# norms: the kernel against its plain version: within one output-dtype
+# step at max|ref|, and at least this share of output elements bit-equal
+# to the plain version's. Both compute the correctly rounded fp32
+# statistics and round each element once, so a sound kernel reads 1.0; a
+# statistic a few parts in 10^4 off (a row's last 16-byte vector left out
+# of its sums at D 4096 and above) stays within the one-step tolerance in
+# 16 bits but flips a few percent of the outputs
+NORM_BIT_EQUAL_MIN = 0.999
+# the norms' cases beyond the sweep (x bf16, no residual, scale and bias
+# in x's dtype unless given): residuals of another dtype (bf16 + fp32 and
+# fp16 + bf16 -> fp32 out, fp32 + fp16); fp32 parameters under bf16 x; a
+# bf16 scale with an fp32 bias; the widest rows, 32768 (fp32 with a
+# residual: its slots do not fit twice, direct reads); a start 2 bytes off
+# 16 (masked reads); D 1; the warp kernel's widths (528-byte rows: NV 2;
+# 2048 bytes, its widest) and 1032, just past it; a 3-D x
+NORM_EDGE_CASES = (
+    dict(rows=4096, D=768, res="float32"),
+    dict(rows=512, D=4096, dtype="float16", res="bfloat16"),
+    dict(rows=64, D=1000, dtype="float32", res="float16"),
+    dict(rows=4096, D=768, param="float32"),
+    dict(rows=256, D=1536, bias="float32"),
+    dict(rows=64, D=32768),
+    dict(rows=16, D=32768, dtype="float32", res="float32"),
+    dict(rows=8, D=32768, dtype="float16", res="float16"),
+    dict(rows=300, D=1000, offset=1),
+    dict(rows=33, D=1, dtype="float32"),
+    dict(rows=100, D=264, dtype="float16"),
+    dict(rows=1000, D=1024),
+    dict(rows=1000, D=1032, res="bfloat16"),
+    dict(rows=96, D=512, lead=(4, 24)),
+)
+# the planted ring fault's grid: blocks walk rows b, b + NORM_FAULT_GRID, ...
+NORM_FAULT_GRID = 132
+
+
+def _norm_check(name, label, out, ref, checks, fault=None):
+    """One norms check: max abs error within one output-dtype step at
+    max|ref| (fp32: eps x max|ref|) and a bit-equal share at least
+    NORM_BIT_EQUAL_MIN; appended to `checks`. A planted fault must fail
+    it: raises if a fault passes or the kernel fails."""
+    import torch
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = torch.finfo(ref.dtype).eps * ref.float().abs().max().item()
+    share = (out == ref).float().mean().item()
+    ok = bool(np.isfinite(err) and err <= tol and share >= NORM_BIT_EQUAL_MIN
+              and out.dtype == ref.dtype and out.shape == ref.shape)
+    row = {"kernel": name, "case": label, "shape": list(ref.shape),
+           "dtype": str(ref.dtype), "max_abs_err": err, "tol": tol,
+           "bit_equal_share": share}
+    if fault:
+        row.update(fault=fault, seen=not ok)
+        if ok:
+            raise AssertionError(f"{name} {label}: the planted fault {fault} "
+                                 f"passes the check (err {err}, bit-equal "
+                                 f"share {share})")
+    else:
+        row["ok"] = ok
+        if not ok:
+            raise AssertionError(f"{name} {label}: max abs err {err} (tol "
+                                 f"{tol}), bit-equal share {share}, "
+                                 f"{out.dtype} {tuple(out.shape)}")
+    checks.append(row)
+    return row
+
+
+def _norm_fault_last_vector(x, scale, bias, residual, rms):
+    """The plain version with the row's statistics taken without its last
+    16-byte vector of the sum (its last partial one where D is not a
+    multiple of it)."""
+    import torch
+    s = x if residual is None else x + residual
+    D = s.shape[-1]
+    vec = 16 // s.element_size()
+    keep = D - (D % vec or vec)
+    sf = s.float()
+    part = sf[..., :keep].double()
+    if rms:
+        ms = part.square().mean(-1, keepdim=True).float()
+        y = sf * (1.0 / torch.sqrt(ms + 1e-5))
+        return (y * scale.float()).to(s.dtype)
+    mean = part.mean(-1, keepdim=True).float()
+    var = (part.float() - mean).square().double().mean(-1, keepdim=True) \
+        .float()
+    y = (sf - mean) * (1.0 / torch.sqrt(var + 1e-5))
+    return (y * scale.float() + bias.float()).to(s.dtype)
+
+
+def _norm_fault_stale_slot(plain, x, residual):
+    """The plain version as a ring of two slots would give it were the
+    second slot read stale: the rows a block takes in its odd turns
+    (blocks walk rows b, b + NORM_FAULT_GRID, ...) normalised from the
+    row it took before."""
+    import torch
+    src = np.arange(x.shape[0])
+    src[(src // NORM_FAULT_GRID) % 2 == 1] -= NORM_FAULT_GRID
+    idx = torch.from_numpy(src).to(x.device)
+    return plain(x[idx], None if residual is None else residual[idx])
+
+
+def _norm_edge_case(rng, rows, D, dtype="bfloat16", res=None, param=None,
+                    bias=None, offset=0, lead=None):
+    """x (2-D, or `lead` + [D]; `offset` elements into a flat buffer),
+    residual, scale and bias for one NORM_EDGE_CASES entry."""
+    import torch
+
+    def randn(n, t):
+        return torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to("cuda", getattr(torch, t))
+    shape = (*lead, D) if lead else (rows, D)
+    x = randn(rows * D + offset, dtype)[offset:].view(shape)
+    r = randn(rows * D, res).view(shape) if res else None
+    p = param or dtype
+    scale = (1 + 0.1 * randn(D, "float32")).to(getattr(torch, p))
+    b = (0.1 * randn(D, "float32")).to(getattr(torch, bias or p))
+    return x, r, scale, b
 
 
 def _norm_kernels(rng, checks):
-    """fused_layer_norm / fused_rms_norm against their plain versions:
-    [4096, 768] bf16 with and without a residual, [4096, 4096] fp16 and a
-    ragged [37, 1000] fp32. Tolerance: one step of the output dtype at the
-    output's largest |entry| (eps x max|ref|): the statistics are fp32 in
-    both versions and only their summation order differs, so the two fp32
-    results lie a fraction of an fp32 step apart before the one rounding
-    to the output dtype, which can put them one step apart. Then each op
-    timed at [4096, 768] bf16 without a residual, with F.layer_norm /
-    F.rms_norm as the library call."""
+    """fused_layer_norm / fused_rms_norm against their plain versions
+    (`_norm_check`: one output-dtype step and the bit-equal share) at
+    every NORM_SWEEP case and NORM_EDGE_CASES; two planted faults that the
+    check must reject: a row's last 16-byte vector left out of its
+    statistics (every sweep case) and a ring's second slot read stale (the
+    sweep cases whose rows take the block-row kernel, several a block).
+    Then each op timed at every sweep case, its inputs rotated past L2
+    where 32 sets reach NORM_COLD_BYTES (`_Rotating`): eager (`median_ms`), device time alone (CUDA graphs, in
+    turns with the library call: `graph_ms`, `library_graph_ms`), the
+    host's time a call (`host_ms`), the plain version (`plain_ms`) and the
+    library call in turns with the kernel (`ms_turns`, `library_ms`):
+    F.layer_norm / F.rms_norm, after the residual add (a second launch)
+    where there is one. The row at NORM_MAIN is the main path's; each row
+    carries the sweep."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import norms
-    results = {}
+    ops = (("fused_layer_norm", norms.fused_layer_norm,
+            norms.layer_norm_reference),
+           ("fused_rms_norm", norms.fused_rms_norm, norms.rms_norm_reference))
 
-    def randn(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).cuda()
-    for (rows, D), dtype, residual in ((NORM_MAIN, torch.bfloat16, False),
-                                       (NORM_MAIN, torch.bfloat16, True),
-                                       ((4096, 4096), torch.float16, True),
-                                       ((37, 1000), torch.float32, True)):
-        x = randn(rows, D).to(dtype)
-        res = randn(rows, D).to(dtype) if residual else None
-        scale, bias = 1 + 0.1 * randn(D), 0.1 * randn(D)
-        for name, fn, plain, args in (
-                ("fused_layer_norm", norms.fused_layer_norm,
-                 norms.layer_norm_reference, (x, scale, bias)),
-                ("fused_rms_norm", norms.fused_rms_norm,
-                 norms.rms_norm_reference, (x, scale))):
-            out = fn(*args, residual=res)
-            ref = plain(*args, residual=res)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = torch.finfo(dtype).eps * ref.float().abs().max().item()
-            ok = bool(np.isfinite(err) and err <= tol and out.dtype == dtype)
-            checks.append({"kernel": name, "shape": [rows, D],
-                           "dtype": str(dtype), "residual": residual,
-                           "max_abs_err": err, "tol": tol, "ok": ok})
-            if not ok:
-                raise AssertionError(f"{name} [{rows}, {D}] {dtype}: max abs "
-                                     f"err {err} > {tol}")
-            if (rows, D) != NORM_MAIN or residual:
-                continue
-            # x in, out out (scale, bias f32); ~8 fp32 operations an element
-            nbytes = 2 * rows * D * x.element_size() + 2 * D * 4
-            b_ms, b_by = bound(nbytes, 8 * rows * D, FP32_FLOPS)
-            s16, b16 = scale.to(dtype), bias.to(dtype)
-            if name == "fused_layer_norm":
-                lib = lambda: F.layer_norm(x, (D,), s16, b16, 1e-5)
+    def bind(name, fn, scale, bias):
+        if name == "fused_rms_norm":
+            return lambda x, residual: fn(x, scale, 1e-5, residual)
+        return lambda x, residual: fn(x, scale, bias, 1e-5, residual)
+
+    for i, case in enumerate(NORM_EDGE_CASES):
+        x, r, scale, bias = _norm_edge_case(rng, **case)
+        for name, fn, plain in ops:
+            _norm_check(name, f"edge_{i}", bind(name, fn, scale, bias)(x, r),
+                        bind(name, plain, scale, bias)(x, r), checks)
+    results = {name: {} for name, _, _ in ops}
+    for case, rows, D, dtype, res_dtype in NORM_SWEEP:
+        sets, scale, bias = _norm_sets(rng, rows, D, dtype, res_dtype)
+        x, r = sets[0]["x"], sets[0]["residual"]
+        # rows past the warp-row kernel's widest take the block-row ring,
+        # where blocks take several rows each
+        ring = D * x.element_size() > norms.WARP_MAX_BYTES \
+            and rows >= 2 * NORM_FAULT_GRID
+        for name, fn, plain in ops:
+            rms = name == "fused_rms_norm"
+            call, ref_fn = bind(name, fn, scale, bias), \
+                bind(name, plain, scale, bias)
+            ref = ref_fn(x, r)
+            err = _norm_check(name, case, call(x, r), ref, checks)
+            _norm_check(name, case, _norm_fault_last_vector(
+                x, scale, bias, r, rms), ref, checks, fault="last_vector")
+            if ring:
+                _norm_check(name, case, _norm_fault_stale_slot(ref_fn, x, r),
+                            ref, checks, fault="stale_slot")
+            if rms:
+                lib = lambda x, residual: F.rms_norm(
+                    x if residual is None else x + residual, (D,), scale,
+                    1e-5)
             else:
-                lib = (lambda: F.rms_norm(x, (D,), s16, 1e-5)) \
-                    if hasattr(F, "rms_norm") else None
-            results[name, "norms"] = dict(
-                shape=[rows, D], max_abs_err=err,
-                ms=median_ms(lambda: fn(*args)),
-                plain_ms=median_ms(lambda: plain(*args)),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=median_ms(lib) if lib else None)
-    return results
+                lib = lambda x, residual: F.layer_norm(
+                    x if residual is None else x + residual, (D,), scale,
+                    bias, 1e-5)
+            ours, theirs = _Rotating(call, sets), _Rotating(lib, sets)
+            inner = len(sets) * max(1, round(20 / len(sets)))
+            g_ours, g_lib = graph_ms_turns([ours, theirs], inner=inner)
+            t_ours, t_lib = median_ms_turns([ours, theirs],
+                                            inner=len(sets))
+            b_ms, b_by = _norm_bound(rows, D, x, r, scale, rms)
+            results[name][case] = dict(
+                shape=[rows, D], dtype=dtype, residual=res_dtype,
+                max_abs_err=err["max_abs_err"],
+                bit_equal_share=err["bit_equal_share"],
+                ms=median_ms(ours, inner=len(sets)), graph_ms=g_ours,
+                host_ms=_host_ms(ours), ms_turns=t_ours,
+                plain_ms=median_ms(_Rotating(ref_fn, sets), reps=5,
+                                   inner=len(sets)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=t_lib,
+                library_graph_ms=g_lib, library_host_ms=_host_ms(theirs),
+                graph_bound_factor=g_ours / b_ms,
+                graph_library_factor=g_ours / g_lib)
+            del ours, theirs
+        del sets
+        torch.cuda.empty_cache()
+    main = NORM_SWEEP[0][0]
+    return {(name, "norms"): {**rows_[main], "sweep": rows_}
+            for name, rows_ in results.items()}
 
 
 def _sparse_qkv(rng, B, H, T, D, dtype=None):
@@ -1891,10 +2133,12 @@ def _evoformer_kernels(rng, checks):
 
 
 def phase_norms(state):
-    """The public norm ops as a user calls them, at [4096, 768] bf16
-    (LayerNorm after a residual add, RMSNorm without): one launch each,
-    finite outputs of x's shape and dtype within one bf16 step of the plain
-    versions."""
+    """The public norm ops as a user calls them, at [4096, 768] bf16 with
+    bf16 scale and bias (LayerNorm after a residual add, RMSNorm without):
+    one launch each, counted by the wrappers, and no other kernel in the
+    profiler's trace of their calls (the parameters are read in their own
+    dtype, with no cast); finite outputs of x's shape and dtype within one
+    bf16 step of the plain versions."""
     import torch
     from deepspeed_tpu_torch.ops import norms
     from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
@@ -1911,6 +2155,19 @@ def phase_norms(state):
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
     _expect("norms", counts, {"fused_layer_norm": 1, "fused_rms_norm": 1})
+    kernels = {}
+    for name, call in (
+            ("fused_layer_norm", lambda: norms.fused_layer_norm(
+                x, scale, bias, 1e-5, residual=res)),
+            ("fused_rms_norm", lambda: norms.fused_rms_norm(x, scale, 1e-5))):
+        # the wrapper counts its launches (one a call, above); the trace
+        # shows that nothing else runs, no cast of the parameters (a long
+        # run's profiler drops some events, so its counts are not exact)
+        _, kernels[name] = _device_ms(call)
+        if not kernels[name] or any("dstt::norms" not in k
+                                    for k in kernels[name]):
+            raise AssertionError(f"{name}: kernels in its calls "
+                                 f"{kernels[name]}, want its own alone")
     errs = {}
     for name, out, ref in (
             ("fused_layer_norm", ln,
@@ -1925,7 +2182,8 @@ def phase_norms(state):
         if errs[name] > tol:
             raise AssertionError(f"{name}: err {errs[name]} > {tol}")
     emit({"phase": "norms", "shape": list(NORM_MAIN), "dtype": "bfloat16",
-          "launches": counts, "max_abs_err": errs})
+          "launches": counts, "kernels_a_call": kernels,
+          "max_abs_err": errs})
     return counts
 
 

@@ -756,9 +756,9 @@ int launch(const FwdParams& p, cudaStream_t stream) {
     else
       return flash_fwd_kernel<T, HD, STAGES>;
   }();
-  return launch_items<kernel, 160>(p, (long long)p.B * p.H * p.n_qt,
-                                   L::bytes(bias), L::bytes(SPARSE), bias,
-                                   !SPARSE, stream);
+  return launch_items<kernel>(p, (long long)p.B * p.H * p.n_qt, 160,
+                              L::bytes(bias), L::bytes(SPARSE), !SPARSE,
+                              stream);
 }
 
 }  // namespace

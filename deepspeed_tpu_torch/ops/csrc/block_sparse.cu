@@ -724,9 +724,10 @@ int launch_bwd(const BsaBwdParams& p, cudaStream_t stream) {
     else
       return bsa_bwd_dq_kernel<T, HD>;
   }();
-  return launch_items<kernel, DKV ? kDkvThreads : kDqThreads>(
-      p, (long long)p.B * p.H * p.n_t, L::bytes(p.has_bias), L::bytes(true),
-      p.has_bias, true, stream);
+  return launch_items<kernel>(p, (long long)p.B * p.H * p.n_t,
+                              DKV ? kDkvThreads : kDqThreads,
+                              L::bytes(p.has_bias), L::bytes(true), true,
+                              stream);
 }
 
 template <bool DKV, typename T, int HD>

@@ -474,8 +474,8 @@ int launch(const BwdParams& p, cudaStream_t stream) {
   }();
   const long long items =
       (long long)p.B * (DKV ? p.H / p.G : p.H) * p.n_t;
-  return launch_items<kernel, DKV ? kDkvThreads : kDqThreads>(
-      p, items, smem, smem, 0, true, stream);
+  return launch_items<kernel>(p, items, DKV ? kDkvThreads : kDqThreads,
+                              smem, smem, true, stream);
 }
 
 template <bool DKV, typename T, int HD>

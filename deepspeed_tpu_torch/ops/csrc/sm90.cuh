@@ -1,7 +1,8 @@
 // sm90.cuh — the Hopper building blocks of the attention kernels
 // (attn_fwd.cuh's two forwards; the flash and block-sparse backward
-// passes, through attn_bwd.cuh; the Evoformer forward): PTX wrappers for
-// mbarriers, TMA copies (loads, stores, reduce-adds) and wgmma, the
+// passes, through attn_bwd.cuh; the Evoformer forward) and of the norms'
+// row ring (norms.cu): PTX wrappers for mbarriers, TMA copies (tensor
+// loads, stores, reduce-adds; 1-D bulk loads) and wgmma, the
 // shared-memory descriptor that matches TMA's 128-byte swizzle, and the
 // host side that launches the kernels over their work items and encodes
 // [B, T, H, D] views as tensor maps.
@@ -74,6 +75,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
                  : "=r"(done) : "r"(addr), "r"(parity) : "memory");
     if (tries == (1u << 26)) __trap();
   }
+}
+
+// 1-D bulk copy of `bytes` from device memory to shared memory, completing
+// on `bar` (whose phase expects the bytes: mbar_expect_tx). Both addresses
+// 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)),
+         "l"(static_cast<uint64_t>(__cvta_generic_to_global(src))),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
@@ -345,39 +360,49 @@ __device__ __forceinline__ int item_of(int i, int blk, int nblk) {
 // host side: launches
 // ---------------------------------------------------------------------------
 
-// Launch `Kernel` (THREADS threads, `smem` bytes of dynamic shared memory)
-// over `items` work items: as many persistent blocks as fit the card at
-// once, at most one per item, or (`persistent` false) one block per item.
-// Once per device and `slot` (a kernel's two shared-memory sizes, e.g. with
-// and without a bias), it sets the kernel's shared-memory attribute to
-// `smem_max`, the most any of its launches asks for, and finds how many
-// blocks fit.
-template <auto Kernel, int THREADS, typename Params>
-int launch_items(const Params& p, long long items, int smem, int smem_max,
-                 int slot, bool persistent, cudaStream_t stream) {
-  static int grid_of[64][2] = {};
+// Launch `Kernel` (`threads` threads, `smem` bytes of dynamic shared
+// memory) over `items` work items: as many persistent blocks as fit the
+// card at once, at most one per item, or (`persistent` false) one block per
+// item. Once per device it sets the kernel's shared-memory attribute to
+// `smem_max`, the most any of its launches asks for; how many blocks fit is
+// found once per (threads, smem) and remembered for the last kFits pairs
+// asked on the device (a kernel's callers repeat a few shapes: a bias or
+// none, a norm's row width).
+template <auto Kernel, typename Params>
+int launch_items(const Params& p, long long items, int threads, int smem,
+                 int smem_max, bool persistent, cudaStream_t stream) {
+  struct Fit {
+    int threads, smem, grid;
+  };
+  constexpr int kFits = 4;
+  static Fit fits[64][kFits] = {};
+  static int found[64] = {};   // pairs found on the device so far
   int dev = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return (int)rc;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (grid_of[dev][slot] == 0) {
-    rc = cudaFuncSetAttribute(Kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_max);
+  int grid = 0;
+  for (const Fit& f : fits[dev])
+    if (f.grid > 0 && f.threads == threads && f.smem == smem) grid = f.grid;
+  if (grid == 0) {
+    if (found[dev] == 0)
+      rc = cudaFuncSetAttribute(Kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem_max);
     int per_sm = 0, sms = 0;
     if (rc == cudaSuccess)
       rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
-                                                         THREADS, smem);
+                                                         threads, smem);
     if (rc == cudaSuccess)
       rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (rc != cudaSuccess) return (int)rc;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    grid_of[dev][slot] = per_sm * sms;
+    grid = per_sm * sms;
+    fits[dev][found[dev]++ % kFits] = Fit{threads, smem, grid};
   }
   if (items == 0) return 0;
-  const int blocks = (int)(!persistent || items < grid_of[dev][slot]
-                               ? items : grid_of[dev][slot]);
-  Kernel<<<blocks, THREADS, smem, stream>>>(p);
+  const int blocks = (int)(!persistent || items < grid ? items : grid);
+  Kernel<<<blocks, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -418,6 +418,122 @@ def test_token_sort_and_norm_wrappers_never_take_the_plain_version_on_cuda(
         calls[op]()
 
 
+class _CudaBuffer(_CudaLike):
+    """A `_CudaLike` the norm wrappers can take all the way to their launch:
+    contiguous, with an address; a cast is recorded in `casts`."""
+
+    casts = []
+
+    def contiguous(self):
+        return self
+
+    def data_ptr(self):
+        return id(self)
+
+    def numel(self):
+        return int(np.prod(self.shape))
+
+    def new_empty(self, shape, dtype):
+        return _CudaBuffer(shape, dtype)
+
+    def float(self):
+        _CudaBuffer.casts.append(self.dtype)
+        return _CudaBuffer(self.shape, torch.float32)
+
+
+class _FakeNormEntry:
+    """Stands in for the library's `dstt_norm`: records each call's
+    arguments and returns 0 (no error)."""
+    argtypes = restype = None
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("x_dtype, res_dtype, scale_dtype, bias_dtype", [
+    ("bfloat16", None, "bfloat16", "bfloat16"),
+    ("bfloat16", "float32", "bfloat16", "bfloat16"),
+    ("float16", "bfloat16", "float16", "float16"),
+    ("float32", "float16", "bfloat16", "bfloat16"),
+    ("bfloat16", None, "float32", "float32"),
+    ("bfloat16", None, "bfloat16", "float32"),
+])
+@pytest.mark.parametrize("D", [100, 768, 12288, 32768])
+def test_norm_wrappers_launch_once_on_the_parameters_as_they_are(
+        x_dtype, res_dtype, scale_dtype, bias_dtype, D, monkeypatch):
+    """On CUDA tensors each norm wrapper launches its kernel once, for any
+    last dim up to MAX_DIM, a residual of any of the three dtypes (the
+    output in the promoted dtype) and scale / bias in their own dtype: it
+    hands the kernel the parameters it was given, with their dtype code,
+    and casts nothing, but for a scale and a bias of two dtypes (both
+    widened to fp32, exactly)."""
+    from deepspeed_tpu_torch.ops import norms as tno
+    entry = _FakeNormEntry()
+    monkeypatch.setattr(op_builder, "load",
+                        lambda name: type("Lib", (), {"dstt_norm": entry}))
+    monkeypatch.setattr(op_builder, "stream_ptr", lambda device: None)
+    monkeypatch.setattr(tno, "layer_norm_reference", None)
+    monkeypatch.setattr(tno, "rms_norm_reference", None)
+    _CudaBuffer.casts = []
+    op_builder.LAUNCHES.clear()
+    dt = lambda name: getattr(torch, name)
+    x = _CudaBuffer((2, 3, D), dt(x_dtype))
+    res = _CudaBuffer((2, 3, D), dt(res_dtype)) if res_dtype else None
+    scale = _CudaBuffer((D,), dt(scale_dtype))
+    bias = _CudaBuffer((D,), dt(bias_dtype))
+    out_ln = tno.fused_layer_norm(x, scale, bias, 1e-5, residual=res)
+    out_rms = tno.fused_rms_norm(x, scale, 1e-5, residual=res)
+    want_out = dt(x_dtype) if res is None else \
+        torch.promote_types(dt(x_dtype), dt(res_dtype))
+    assert out_ln.dtype == out_rms.dtype == want_out
+    assert dict(op_builder.LAUNCHES) == {"fused_layer_norm": 1,
+                                         "fused_rms_norm": 1}
+    code = op_builder.dtype_code
+    mixed = scale_dtype != bias_dtype
+    for args, rms in zip(entry.calls, (0, 1)):
+        (xp, rp, sp, bp, _, rows, d, _, is_rms, x_code, r_code, p_code,
+         _) = args
+        assert (xp, rows, d, is_rms, x_code) == (id(x), 6, D, rms,
+                                                 code(dt(x_dtype)))
+        assert rp == (None if res is None else id(res))
+        assert r_code == (0 if res is None else code(dt(res_dtype)))
+        if rms or not mixed:
+            assert sp == id(scale) and p_code == code(dt(scale_dtype))
+        else:
+            assert sp != id(scale) and bp != id(bias) and p_code == 0
+        if not rms and not mixed:
+            assert bp == id(bias)
+    assert _CudaBuffer.casts == ([dt(scale_dtype), dt(bias_dtype)]
+                                 if mixed else [])
+
+
+@pytest.mark.parametrize("case", ["wider_than_max", "fp64", "residual_shape",
+                                  "scale_shape"])
+def test_norm_wrappers_refuse_what_the_kernel_does_not_take(case,
+                                                            monkeypatch):
+    """The wrappers raise before any launch on what the kernel does not
+    take: a last dim above MAX_DIM, a dtype outside the three, a residual of
+    another shape, a scale that is not [D]."""
+    from deepspeed_tpu_torch.ops import norms as tno
+
+    def load(name):
+        raise AssertionError(f"kernel library {name} requested")
+    monkeypatch.setattr(op_builder, "load", load)
+    D = tno.MAX_DIM + 1 if case == "wider_than_max" else 64
+    x = _CudaBuffer((4, D), torch.float64 if case == "fp64"
+                    else torch.bfloat16)
+    res = _CudaBuffer((4, 2 * D) if case == "residual_shape" else (4, D),
+                      torch.bfloat16)
+    scale = _CudaBuffer((D + 1,) if case == "scale_shape" else (D,),
+                        torch.float32)
+    with pytest.raises(ValueError):
+        tno.fused_layer_norm(x, scale, scale, residual=res)
+
+
 def test_cross_rank_expert_dispatch_refuses():
     from deepspeed_tpu_torch.parallel import moe as tmoe
     assert not tmoe.can_use_expert_shard_map(None, 8, 64)

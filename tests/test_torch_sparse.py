@@ -150,6 +150,15 @@ def test_live_cells_count_the_token_mask(causal):
     assert not (live & ~visited).any()
 
 
+def test_jax_computes_before_the_first_op_parity_test():
+    """The file's first JAX computation (backend start, first compile):
+    a small matmul against numpy. It runs just before the first test that
+    calls the JAX op, so that a fault of the process's start fails here and
+    one of the op's parity fails there."""
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    np.testing.assert_array_equal(np.asarray(jnp.asarray(a) @ a.T), a @ a.T)
+
+
 def test_head_broadcast_layout_matches_jax():
     """A one-head layout serves every head, as in JAX."""
     layout = _cfg(tsa, "bigbird").make_layout(T)[:1]
