@@ -15,7 +15,8 @@ Phases, one JSON line each:
            tensor; the backward kernels
            also at hd 64, GQA 4 with ragged T and an lse cotangent,
            non-causal, in fp16, at T 16, 48 and 1000, MQA (16 query heads
-           over one kv head), within 2e-2 of max|ref| and row by row
+           over one kv head), B * H above 65 535, within 2e-2 of max|ref|
+           and row by row
            (the block-sparse measure), with two planted faults (a plain
            backward missing one tile) that the row measure must see, and
            the pair timed against SDPA's backward eagerly, in turns and as
@@ -25,7 +26,17 @@ Phases, one JSON line each:
            all-trash row and at hd 128 / GQA 4 (one bf16 step of each
            element, and 1e-2); quantize and
            dequantize (int8, int4) bit-exact at the K/V pool-write shape
-           and the largest weights (wte, mlp_up_w); with medians of
+           and the largest weights (wte, mlp_up_w); dequantize also at a
+           flat length with a tail, slices of stacked leaves (one not
+           aligned to the kernel's unit), g 7, 8, 12 and 25, fp32 and
+           fp16 outputs, and several
+           leaves in one launch (those cases by dtype, a gpt2-125m layer's
+           eight leaves, 40 leaves in two launches), with a planted fault
+           (the tail left unwritten) that the check must reject, and timed
+           at every dequantize a gpt2-125m model step makes, one layer's
+           launch and a whole model step's dequantization (15 launches) as
+           CUDA-graph device time in turns with q.to(bf16) on the same
+           payloads (copy_ms), inputs rotated past L2; with medians of
            CUDA-event timings of the kernel, its plain version and, where
            one PyTorch call computes the same function, that call
            (library_ms); for the two attention forwards also the factor
@@ -53,8 +64,9 @@ Phases, one JSON line each:
            hd 128 in fp16 at T 1008 (also with per-head bias slabs,
            padding and causality), with bias slabs of 1 and H heads
            (learned and frozen), an all-padded row (the mean of its
-           visited V) and a batched mask; two planted faults (a tile
-           dropped from one visit list) that the row measure must see;
+           visited V), a batched mask and B * H above 65 535; two
+           planted faults (a tile dropped from one visit list) that the
+           row measure must see;
            the public wrapper's autograd at B 2 against autograd through
            the plain version; the backward pair timed against SDPA's
            backward with the dense mask eagerly, in turns and as device
@@ -776,9 +788,11 @@ def phase_kernels():
 
 # the backward pair's cases beyond its paths' shapes: T short of one tile
 # (16, 48) and ragged at hd 128 (1000), MQA (16 query heads over one kv
-# head: the longest dk/dv walk), fp16 at hd 64, causal, and full attention
-# at hd 128 with T a multiple of 64
+# head: the longest dk/dv walk), fp16 at hd 64, causal, full attention
+# at hd 128 with T a multiple of 64, and B * H above 65 535 (65 600 rows of
+# 16 queries: the forward and both passes walk that many items)
 BWD_EDGE_CASES = (
+    dict(B=4100, T=16, H=16, Hkv=16, D=64, causal=True),
     dict(B=2, T=16, H=4, Hkv=4, D=64, causal=True, fused5d=True),
     dict(B=2, T=48, H=8, Hkv=2, D=128, causal=True),
     dict(B=1, T=1000, H=8, Hkv=2, D=128, causal=True),
@@ -1050,9 +1064,10 @@ def _quant_kernels(rng, checks):
     against their plain versions on the card, then timed: the paged decode
     at the quantized serve path's shape (8 slots, bs 512, hd 64, g 64),
     quantize_int8 at its per-step shape (the K/V pool write, 8 slots x 12
-    heads of 64), dequantize_int8 and the int4 pair at wte [50304, 768]
-    (the LM head's table, dequantized every model step) — each with every
-    shape's times under `by_shape`."""
+    heads of 64) and at wte [50304, 768], quantize_int4 at wte — each with
+    every shape's times under `by_shape`; the dequantize kernels also at
+    `_dequant_kernels`' cases, and timed at every dequantize of a model
+    step (`_dequant_timing`; the row: wte, the LM head's table)."""
     import torch
     from deepspeed_tpu_torch.ops import decode_attention as da
     from deepspeed_tpu_torch.ops import quant
@@ -1134,31 +1149,301 @@ def _quant_kernels(rng, checks):
             payload = rows * D * bits // 8
             nbytes = rows * D * x.element_size() + payload + rows * D // g * 4
             b_ms, b_by = bound(nbytes, 4 * rows * D, FP32_FLOPS)
-            for name, fn, plain in (
-                    (f"quantize_int{bits}",
-                     lambda: (quant.quantize_int8 if bits == 8
-                              else quant.quantize_int4)(x, g),
-                     lambda: quant.quantize_reference(x, g, bits)),
-                    (f"dequantize_int{bits}",
-                     lambda: (quant.dequantize_int8 if bits == 8
-                              else quant.dequantize_int4)(qr, sr, dtype, g),
-                     lambda: quant.dequantize_reference(qr, sr, dtype, g,
-                                                        bits))):
-                timed.setdefault(name, {})[label] = dict(
-                    shape=[rows, D], group=g, max_abs_err=0.0,
-                    ms=median_ms(fn), plain_ms=median_ms(plain),
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            name = f"quantize_int{bits}"
+            timed.setdefault(name, {})[label] = dict(
+                shape=[rows, D], group=g, max_abs_err=0.0,
+                ms=median_ms(lambda: quant.quantize(x, g, bits)),
+                plain_ms=median_ms(
+                    lambda: quant.quantize_reference(x, g, bits)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
     # quantize_int8 runs on two paths: the K/V pool write of every model
     # step, and the int8 weights' quantization when the serving engine is
     # built; quantize_int4 only at the int4 engine's build
     for name, path, label in (("quantize_int8", "quant_serve", "kv_write"),
                               ("quantize_int8", "quant_serve_build", "wte"),
-                              ("dequantize_int8", "quant_serve", "wte"),
-                              ("quantize_int4", "quant_generate_build", "wte"),
-                              ("dequantize_int4", "quant_generate", "wte")):
-        results[name, path] = dict(timed[name][label],
-                                   by_shape=timed[name])
+                              ("quantize_int4", "quant_generate_build",
+                               "wte")):
+        results[name, path] = dict(timed[name][label], by_shape=timed[name])
+    # the dequantize kernels beyond those pairs, then timed at every
+    # dequantize a model step of their paths makes (the row: wte's)
+    _dequant_kernels(rng, checks)
+    for bits, path in ((8, "quant_serve"), (4, "quant_generate")):
+        by_shape = _dequant_timing(bits)
+        results[f"dequantize_int{bits}", path] = dict(by_shape["wte"],
+                                                      by_shape=by_shape)
     return results
+
+
+# the dequantize cases beyond the quantize pairs, each bit-exact against
+# the plain version at both bit widths: (label, shape, the index of the
+# slice taken from a stacked leaf or None, g, output dtype). The kernel
+# works in units of one 16-byte output vector (8 elements into bf16 /
+# fp16, 4 into fp32): a flat length with a tail after the last whole unit
+# (6 elements), with a scale an element (g 25); g 7 into fp32 (an int4
+# byte spans two groups) with a tail of 2; g 12 (a scale an element, no
+# tail); g 8 into fp16 (one scale a unit); slices of stacked leaves whose
+# payload starts on a unit's bytes (one scale a unit; bf16 and fp32) and
+# one that does not (294 / 147 bytes in: scalar throughout)
+DEQUANT_EDGE_CASES = (
+    ("tail", (999, 50), None, 25, "bfloat16"),
+    ("g7_fp32_tail", (41, 14), None, 7, "float32"),
+    ("g12", (64, 96), None, 12, "bfloat16"),
+    ("g8_fp16", (33, 64), None, 8, "float16"),
+    ("slice_aligned", (3, 37, 24), 1, 8, "bfloat16"),
+    ("slice_aligned_fp32", (3, 3, 100), 1, 4, "float32"),
+    ("slice_unaligned_g7", (5, 21, 14), 1, 7, "bfloat16"),
+)
+# gpt2-125m's stacked block leaves (the quant phase's model), [n_layer, ...]
+# each: every one is weight-quantized (quantize_param_tree's rule), so a
+# layer's eight leaves dequantize in one launch
+DEQUANT_LAYER = {
+    "attn_qkv_w": (768, 2304), "attn_qkv_b": (2304,),
+    "attn_out_w": (768, 768), "attn_out_b": (768,),
+    "mlp_up_w": (768, 3072), "mlp_up_b": (3072,),
+    "mlp_down_w": (3072, 768), "mlp_out_b": (768,)}
+# rows 9-10's timed shapes: every dequantize a gpt2-125m model step makes
+# at g 64 into bf16, as (label, dense shape) — the LM head's table; each
+# block leaf of a layer (mlp_out_b is attn_out_b's shape); the embedding
+# rows of a decode step over 8 slots (wte and wpe alike); int8 only, the
+# prefill's K/V gather of one layer (`dequantize_kv`, 24 a prefill chunk)
+# — then one layer's leaves in one launch ("layer") and one model step's
+# dequantization ("model_step": 12 layers, the wte rows, the wpe rows and
+# the head, as `_layer`, `_embed` and `_head_logits` make it)
+DEQUANT_SHAPES = (("wte", (50304, 768)),
+                  *((k, v) for k, v in DEQUANT_LAYER.items()
+                    if k != "mlp_out_b"),
+                  ("embed_rows", (8, 1, 768)),
+                  ("kv_gather", (1, 12, 1024, 64)))
+DEQUANT_STEP_LAUNCHES = 15       # 12 layers + wte rows + wpe rows + head
+
+
+def _dequant_check(checks, label, bits, got, ref, fault=None):
+    """One dequantize check: the kernel's output bit-equal to the plain
+    version's. A planted fault must fail it."""
+    import torch
+    exact = bool(got.dtype == ref.dtype and got.shape == ref.shape
+                 and torch.equal(got, ref))
+    row = {"kernel": f"dequantize_int{bits}", "case": label,
+           "shape": list(ref.shape), "dtype": str(ref.dtype),
+           "bit_exact": exact}
+    if fault:
+        row.update(fault=fault, seen=not exact)
+        if exact:
+            raise AssertionError(f"dequantize_int{bits} {label}: the planted "
+                                 f"fault {fault} passes the check")
+    else:
+        row["ok"] = exact
+        if not exact:
+            raise AssertionError(f"dequantize_int{bits} {label}: kernel != "
+                                 f"plain version")
+    checks.append(row)
+
+
+def _dequant_fault_tail(ref):
+    """The plain version's output with its last partial 16-byte vector
+    (the tail after the kernel's last whole unit) left unwritten: NaN, as
+    a fresh allocation may hold."""
+    out = ref.clone().reshape(-1)
+    tail = out.numel() % (16 // out.element_size())
+    out[out.numel() - tail:] = float("nan")
+    return out.view(ref.shape)
+
+
+def _dequant_kernels(rng, checks):
+    """dequantize_int8 / int4 beyond the quantize pairs, bit-exact against
+    the plain version: at DEQUANT_EDGE_CASES one leaf a call; the same
+    leaves of each output dtype in one `dequantize_many` launch (leaves of
+    every mode side by side); one gpt2-125m layer's eight leaves (slices of
+    [2, ...] stacked leaves, g 64, bf16) in one launch; 40 leaves, which
+    take two launches. A planted fault (the tail case's last partial vector
+    left unwritten) must fail the check."""
+    import torch
+    from deepspeed_tpu_torch.ops import quant
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+
+    def leaf(shape, index, g, bits):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+        q, s = quant.quantize_reference(x, g, bits)
+        return (q, s) if index is None else (q[index], s[index])
+
+    for bits in (8, 4):
+        by_dtype = {}
+        for label, shape, index, g, dtype in DEQUANT_EDGE_CASES:
+            q, s = leaf(shape, index, g, bits)
+            dt = getattr(torch, dtype)
+            ref = quant.dequantize_reference(q, s, dt, g, bits)
+            _dequant_check(checks, label, bits,
+                           quant.dequantize(q, s, dt, g, bits), ref)
+            if label == "tail":
+                _dequant_check(checks, label, bits,
+                               _dequant_fault_tail(ref), ref,
+                               fault="tail_unwritten")
+            by_dtype.setdefault(dtype, []).append((label, (q, s, dt, g,
+                                                           bits), ref))
+        layer = []
+        for name, shape in DEQUANT_LAYER.items():
+            q, s = leaf((2, *shape), 1, 64, bits)
+            layer.append((f"layer/{name}", (q, s, torch.bfloat16, 64, bits),
+                          quant.dequantize_reference(q, s, torch.bfloat16,
+                                                     64, bits)))
+        q40, s40 = leaf((40, 3, 64), None, 32, bits)
+        many = [(f"many/{i}", (q40[i], s40[i], torch.float32, 32, bits),
+                 quant.dequantize_reference(q40[i], s40[i], torch.float32,
+                                            32, bits)) for i in range(40)]
+        groups = [(v, 1) for v in by_dtype.values()] + [(layer, 1),
+                                                        (many, 2)]
+        for group, want in groups:
+            before = LAUNCHES[f"dequantize_int{bits}"]
+            outs = quant.dequantize_many([args for _, args, _ in group])
+            launches = LAUNCHES[f"dequantize_int{bits}"] - before
+            if launches != want:
+                raise AssertionError(f"dequantize_many of {len(group)} "
+                                     f"leaves: {launches} launches, not "
+                                     f"{want}")
+            for (label, _, ref), out in zip(group, outs):
+                _dequant_check(checks, f"grouped/{label}", bits, out, ref)
+
+
+DEQUANT_GROUP = 64
+
+
+def _dequant_bytes(n, g, bits, out_size=2):
+    """Bytes a dequantize of n elements must move: the payload and the
+    fp32 scales read once, the output written once."""
+    return n * bits // 8 + n // g * 4 + n * out_size
+
+
+def _dequant_sets(gen, shape, bits):
+    """{q, s} sets of one dense shape at g 64 (normals through the plain
+    quantizer), enough to move NORM_COLD_BYTES between two uses of one
+    set, at most 64 (the biases and the embedding rows stay in L2)."""
+    import torch
+    from deepspeed_tpu_torch.ops import quant
+    per_set = _dequant_bytes(int(np.prod(shape)), DEQUANT_GROUP, bits)
+    n_sets = int(min(64, max(1, -(-NORM_COLD_BYTES // per_set))))
+    sets = []
+    for _ in range(n_sets):
+        q, s = quant.quantize_reference(
+            torch.randn(shape, generator=gen, device="cuda"), DEQUANT_GROUP,
+            bits)
+        sets.append(dict(q=q, s=s))
+    return sets
+
+
+def _dequant_tree(bits, gen):
+    """A gpt2-125m weight tree (the DEQUANT_LAYER blocks of 12 layers, wte,
+    wpe; bf16 normals) weight-quantized as the engines quantize it
+    (`quantize_param_tree`, g 64)."""
+    import torch
+    from deepspeed_tpu_torch.inference.quantization import \
+        quantize_param_tree
+
+    def randn(*shape):
+        return (0.02 * torch.randn(shape, generator=gen, device="cuda")).to(
+            torch.bfloat16)
+    tree = {"blocks": {k: randn(12, *v) for k, v in DEQUANT_LAYER.items()},
+            "wte": randn(50304, 768), "wpe": randn(1024, 768)}
+    return quantize_param_tree(tree, bits=bits, group_size=DEQUANT_GROUP)[0]
+
+
+def _dequant_step(tree, tokens, positions, layer, dense):
+    """One model step's dequantization over a quantized tree, as the model
+    functions make it: `layer(tree, i)` for each of the 12 layers
+    (`_layer`), the gathered wte and wpe rows (`_embed`) and the head's
+    table (`_head_logits`), each through `dense`."""
+    def step():
+        return [layer(tree, i) for i in range(12)] + [
+            dense(tree["wte"][tokens]), dense(tree["wpe"][positions]),
+            dense(tree["wte"])]
+    return step
+
+
+def _dequant_row(shape, n, nbytes, n_sets, kern, copy, plain):
+    """A dequantize timing: device time alone, `kern` and `copy` (the
+    elementwise yardstick) captured in CUDA graphs and replayed in turns;
+    eager and host time a call; the plain version; the byte bound."""
+    inner = n_sets * max(1, round(20 / n_sets))
+    g_kern, g_copy = graph_ms_turns([kern, copy], inner=inner)
+    b_ms, b_by = bound(nbytes, n, FP32_FLOPS)
+    return dict(shape=shape, group=DEQUANT_GROUP, dtype="torch.bfloat16",
+                sets=n_sets, bytes=nbytes, max_abs_err=0.0,
+                ms=median_ms(kern, inner=n_sets), graph_ms=g_kern,
+                host_ms=_host_ms(kern), copy_ms=g_copy,
+                plain_ms=median_ms(plain, reps=5, inner=n_sets),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                graph_bound_factor=g_kern / b_ms)
+
+
+def _dequant_timing(bits):
+    """dequantize_int{bits} timed into bf16 at g 64 at DEQUANT_SHAPES (one
+    leaf a call), at "layer" (one launch for a layer's eight leaves, the 12
+    layers of `_dequant_tree` in turn) and at "model_step"
+    (`_dequant_step`), each by `_dequant_row`: the kernel and `q.to(bf16)`
+    on the same payloads (`copy_ms`: no one library call computes the
+    function) as device time in turns, inputs rotated past L2. The model
+    step launches the kernel DEQUANT_STEP_LAUNCHES times."""
+    import torch
+    from deepspeed_tpu_torch.inference.quantization import dense
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops import quant
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    gen = torch.Generator(device="cuda").manual_seed(bits)
+    bf16, g = torch.bfloat16, DEQUANT_GROUP
+    rows = {}
+    for label, shape in DEQUANT_SHAPES:
+        if label == "kv_gather" and bits == 4:
+            continue
+        sets = _dequant_sets(gen, shape, bits)
+        n = int(np.prod(shape))
+        rows[label] = _dequant_row(
+            list(shape), n, _dequant_bytes(n, g, bits), len(sets),
+            _Rotating(lambda q, s: quant.dequantize(q, s, bf16, g, bits),
+                      sets),
+            _Rotating(lambda q, s: q.to(bf16), sets),
+            _Rotating(lambda q, s: quant.dequantize_reference(
+                q, s, bf16, g, bits), sets))
+        del sets
+    tree = _dequant_tree(bits, gen)
+    blocks = tree["blocks"]
+    layer_n = [int(np.prod(v)) for v in DEQUANT_LAYER.values()]
+    layer_bytes = sum(_dequant_bytes(n, g, bits) for n in layer_n)
+    sets = [{"i": i} for i in range(12)]
+    rows["layer"] = _dequant_row(
+        "8 leaves", sum(layer_n), layer_bytes, len(sets),
+        _Rotating(lambda i: gpt._layer(tree, i), sets),
+        _Rotating(lambda i: [blocks[k][i].q.to(bf16) for k in blocks], sets),
+        _Rotating(lambda i: quant.dequantize_many_reference(
+            [(blocks[k][i].q, blocks[k][i].scale, bf16, g, bits)
+             for k in blocks]), sets))
+    tokens = torch.randint(0, 50304, (8, 1), generator=gen, device="cuda")
+    positions = torch.randint(0, 1024, (8, 1), generator=gen, device="cuda")
+    step = _dequant_step(tree, tokens, positions, gpt._layer, dense)
+    what = f"dequantize_int{bits}"
+    before = LAUNCHES[what]
+    step()
+    if LAUNCHES[what] - before != DEQUANT_STEP_LAUNCHES:
+        raise AssertionError(f"one model step launched {what} "
+                             f"{LAUNCHES[what] - before} times, not "
+                             f"{DEQUANT_STEP_LAUNCHES}")
+    wte = tree["wte"]
+    step_n = 12 * sum(layer_n) + 2 * 8 * 768 + 50304 * 768
+    step_bytes = 12 * layer_bytes + 2 * _dequant_bytes(8 * 768, g, bits) \
+        + _dequant_bytes(50304 * 768, g, bits)
+    rows["model_step"] = _dequant_row(
+        "12 layers, wte and wpe rows, the head", step_n, step_bytes, 1,
+        _Rotating(step, [{}]),
+        _Rotating(lambda: [t.q.to(bf16) for t in blocks.values()]
+                  + [wte.q.to(bf16)], [{}]),
+        _Rotating(lambda: [quant.dequantize_many_reference(
+            [(blocks[k][i].q, blocks[k][i].scale, bf16, g, bits)
+             for k in blocks]) for i in range(12)]
+            + [quant.dequantize_reference(wte.q, wte.scale, bf16, g, bits)],
+            [{}]))
+    rows["model_step"]["launches_a_step"] = DEQUANT_STEP_LAUNCHES
+    del tree, blocks, wte
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _token_sort_kernel(rng, checks):
@@ -1701,7 +1986,9 @@ def _sparse_cases(rng):
     head slab and of H slabs, with dbias and without (frozen); a
     key-padding mask that pads every key of a batch row ("all_padded_row",
     whose output must be the mean of its visited V); a batched [B, T, T]
-    keep mask ("batched_mask", one more bias stride for the kernel)."""
+    keep mask ("batched_mask", one more bias stride for the kernel); B * H
+    above 65 535 ("bh_above_65535": B 4100, H 16, T 32, a dense causal
+    layout)."""
     import torch
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops import sparse_attention as sa
@@ -1763,6 +2050,8 @@ def _sparse_cases(rng):
     yield ("batched_mask", q, k, v, lay, False,
            dict(bias=torch.where(keep, 0.0, bsa.NEG_INF)[:, None],
                 bias_needs_grad=False))
+    yield ("bh_above_65535", *_sparse_qkv(rng, 4100, 16, 32, 64),
+           np.ones((16, 2, 2), bool), True, {})
 
 
 def _sparse_paths(rng):
@@ -1824,6 +2113,7 @@ def _block_sparse_kernels(rng, checks):
     for case, q, k, v, layout, causal, kw in _sparse_cases(rng):
         got[case] = _sparse_check(rng, checks, case, q, k, v, layout, 16,
                                   causal, **kw)
+    del got["bh_above_65535"]
     # every key of batch row 1 padded: its rows see -1e30 on every visited
     # cell, so p = 1 there and the output is the mean of the visited V
     c = got["all_padded_row"]
@@ -2355,11 +2645,13 @@ def torch_equal(x, y):
 
 
 def _dequant_per_step(params, n_layer):
-    """dequantize launches of one model step over a quantized tree: each
-    quantized block leaf once per layer, wte / wpe rows in the embedding,
-    the LM-head table (wte when tied, else lm_head) once."""
+    """dequantize launches of one model step over a quantized tree: one a
+    layer for each (bits, dtype) among the quantized block leaves (`_layer`
+    dequantizes a layer's leaves together), wte / wpe rows in the
+    embedding, the LM-head table (wte when tied, else lm_head) once."""
     leaves = _quantized_leaves(params)
-    block = sum(n.startswith("blocks/") for n in leaves)
+    block = len({(t.bits, t.dtype) for n, t in leaves.items()
+                 if n.startswith("blocks/")})
     embed = sum(n in leaves for n in ("wte", "wpe"))
     head = int(("lm_head" if "lm_head" in params else "wte") in leaves)
     return n_layer * block + embed + head

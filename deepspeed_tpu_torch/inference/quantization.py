@@ -5,9 +5,10 @@ Weight-only quantization (WOQ): `quantize_param_tree` turns every large
 float matrix leaf of a parameter tree into a `QuantizedTensor` (int8, or
 int4 packed two a byte, plus fp32 scales per group of the last dim) once,
 at engine build. The model functions (`models/gpt.py`) dequantize on use:
-one layer's leaves at a time, only the gathered rows of an embedding, the
-LM-head table where it is multiplied — so device memory holds the
-quantized tree plus one dense layer, never the whole dense tree. The JAX
+one layer's leaves at a time (`dequantize_tensors`: one launch a layer),
+only the gathered rows of an embedding, the LM-head table where it is
+multiplied — so device memory holds the quantized tree plus one dense
+layer, never the whole dense tree. The JAX
 package instead dequantizes the whole tree inside jit (`wrap_fn_dequant`)
 and leaves the fusion to XLA; the numbers are the same, since groups lie
 along the last dim and a row of the dense tensor depends only on the same
@@ -72,6 +73,22 @@ def quantize_tensor(x, bits=8, group_size=64):
 
 def dequantize_tensor(t: QuantizedTensor):
     return quant_ops.dequantize(t.q, t.scale, t.dtype, t.group_size, t.bits)
+
+
+def dequantize_tensors(tensors):
+    """Several QuantizedTensors dense, in order: one `dequantize_many` call
+    (one launch on CUDA) for each (bits, dtype) among them."""
+    groups = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault((t.bits, t.dtype), []).append(i)
+    out = [None] * len(tensors)
+    for idx in groups.values():
+        dense_leaves = quant_ops.dequantize_many(
+            [(tensors[i].q, tensors[i].scale, tensors[i].dtype,
+              tensors[i].group_size, tensors[i].bits) for i in idx])
+        for i, d in zip(idx, dense_leaves):
+            out[i] = d
+    return out
 
 
 def quantize_param_tree(params, bits=8, group_size=64, min_size=4096,

@@ -38,8 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from deepspeed_tpu_torch.inference.quantization import (QuantizedTensor,
-                                                        dense, quantize_kv)
+from deepspeed_tpu_torch.inference.quantization import (
+    QuantizedTensor, dense, dequantize_tensors, quantize_kv)
 from deepspeed_tpu_torch.ops import attention_dispatch as attn_dispatch
 from deepspeed_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference, paged_decode_attention,
@@ -403,8 +403,13 @@ def _attn_half(x, p, cfg: GPTConfig, positions, attn_fn=None):
 
 def _layer(params, i):
     """Layer i's block leaves, dense: quantized leaves dequantize here, one
-    layer at a time."""
-    return {k: dense(v[i]) for k, v in params["blocks"].items()}
+    layer at a time, together (one launch for a layer's leaves of one bit
+    width and dtype)."""
+    p = {k: v[i] for k, v in params["blocks"].items()}
+    names = [k for k, v in p.items() if isinstance(v, QuantizedTensor)]
+    if names:
+        p.update(zip(names, dequantize_tensors([p[k] for k in names])))
+    return p
 
 
 # ----------------------------------------------------------------------

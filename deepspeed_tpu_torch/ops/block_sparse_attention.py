@@ -355,9 +355,9 @@ def check_kernel_operands(q, k, v, extra=()):
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"block_sparse_attention: head_dim {D}; the kernels "
                          f"take {KERNEL_HEAD_DIMS}")
-    if T % FINE or B * H > 65535:
-        raise ValueError(f"block_sparse_attention: T={T} (a multiple of "
-                         f"{FINE}), B*H={B * H} out of range")
+    if T % FINE:
+        raise ValueError(f"block_sparse_attention: T={T} is not a multiple "
+                         f"of {FINE}")
     for name, t in [("q", q), ("k", k), ("v", v), *extra]:
         if not _layout_ok(t):
             raise ValueError(f"block_sparse_attention: {name} needs a "

@@ -23,26 +23,55 @@
 //   dequant: float(q) * scale in fp32, narrowed once to the output dtype
 //
 // What bounds it on the H100: memory. Each element is read once and written
-// once with a handful of operations, far below the card's ridge point. So
-// the design makes one pass over the data, reading each row twice (the
-// second read hits L1/L2) and no intermediate in device memory:
+// once with a handful of operations, far below the card's ridge point.
 //   quantize   one 128-thread block per row; pass 1 gives each group to a
 //              warp, whose lanes stride the group and reduce |max| with a
 //              shuffle; the scales go to shared memory and to the output;
 //              pass 2 quantizes the row (or packs its byte pairs) with
-//              neighbouring threads on neighbouring elements;
-//   dequantize a 2-D grid (column tiles x rows), one element (or one packed
-//              byte) per thread, scales loaded as scalars: a row of D/g
-//              floats need not be 16-byte aligned (D/g = 1 when g = D).
-// Known limit: a row is one block, so a row of D = 64 (the K/V pool write)
-// leaves most of a block's threads idle; several rows per block is the
-// later fix.
+//              neighbouring threads on neighbouring elements, reading the
+//              row a second time from L1/L2. A row of D = 64 (the K/V pool
+//              write) leaves most of a block's threads idle.
+//   dequantize flat and vectorised. Groups lie along the last dim and
+//              D % g == 0, so a leaf is one flat array: out[i] = q[i] *
+//              s[i / g] (int8); byte j holds elements 2j and 2j + 1 (int4).
+//              One launch takes up to kMaxLeaves leaves (a model layer's),
+//              each with its own length and g, passed by value in the
+//              kernel's __grid_constant__ parameters. The work is cut into
+//              units, the elements of one 16-byte output vector (8 into
+//              bf16 / fp16, 4 into fp32: 8 or 4 payload bytes for int8, 4
+//              or 2 for int4), and the units into tiles of 1024 within one
+//              leaf, one block a tile (not persistent: the block scheduler
+//              overlaps one block's stores with the next blocks' loads).
+//              A block reads its leaf's fields once; thread t takes units
+//              t, t + 256, t + 512, t + 768 of the tile, so a warp's
+//              payload loads and its 16-byte stores are each one
+//              contiguous run, and issues their loads and scales before
+//              it converts any. Ints become floats exactly by the
+//              magic-number trick (the bits of 2^23 + b, less 2^23 + the
+//              bias), are multiplied by the scale in fp32 and narrowed two
+//              at a time (cvt.rn.bf16x2 / f16x2). Where g is a multiple of
+//              the unit one scale serves the unit (its index a shift, or a
+//              32-bit division); otherwise (g 7: an int4 byte spans two
+//              groups) each element takes its own, by a running group
+//              index. The elements after a leaf's last whole unit are a
+//              scalar tail; a leaf whose payload is not aligned to its unit
+//              (a slice of a stacked leaf can start anywhere) is scalar
+//              throughout. Stores keep the default cache policy: a layer's
+//              dense leaves (14 MB at gpt2-125m) fit the 50 MB L2, and the
+//              matmuls read them next. Against a persistent grid-stride
+//              walk with double-buffered batches (PERF.md §5): 8–13 %
+//              faster at wte, −6 to +2 % at a layer; 8 units a thread spill
+//              and run up to 56 % slower.
 
-#include "common.cuh"
+#include <type_traits>
 
+#include "sm90.cuh"
+
+namespace dstt {
+namespace quant {
 namespace {
 
-using namespace dstt;
+using namespace dstt::sm90;
 
 constexpr int kThreads = 128;
 
@@ -91,28 +120,6 @@ quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
   }
 }
 
-template <typename T, int BITS>
-__global__ void __launch_bounds__(kThreads)
-dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
-                  T* __restrict__ out, long long rows, int D, int g) {
-  const int ng = D / g;
-  const int j = blockIdx.x * kThreads + threadIdx.x;  // element or byte
-  const int width = BITS == 8 ? D : D / 2;
-  if (j >= width) return;
-  for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
-    const float* sr = s + row * ng;
-    if (BITS == 8) {
-      out[row * D + j] = from_f<T>((float)q[row * D + j] * sr[j / g]);
-    } else {
-      const unsigned b = (uint8_t)q[row * width + j];
-      const int e = 2 * j;
-      out[row * D + e] = from_f<T>((float)((int)(b & 0xF) - 8) * sr[e / g]);
-      out[row * D + e + 1] =
-          from_f<T>((float)((int)(b >> 4) - 8) * sr[(e + 1) / g]);
-    }
-  }
-}
-
 template <typename T>
 int quantize_t(const void* x, void* q, void* s, long long rows, int D, int g,
                int bits, cudaStream_t stream) {
@@ -128,20 +135,225 @@ int quantize_t(const void* x, void* q, void* s, long long rows, int D, int g,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// dequantize
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxLeaves = 32;   // leaves one launch takes
+constexpr int kDqThreads = 256;
+
+enum Mode : int {
+  kOneScale = 0,    // units, one scale each (g a multiple of the unit)
+  kPerElement = 1,  // units, a scale an element
+  kScalar = 2,      // element by element: an unaligned payload or output
+};
+
+// A unit is the elements of one 16-byte output vector: E = 16 / sizeof(T)
+// elements, PB = E x BITS / 8 payload bytes (int8: 8 into bf16 / fp16, 4
+// into fp32; int4: 4 or 2).
+struct Leaf {
+  const int8_t* q;   // payload
+  const float* s;    // scales, one per group of g elements
+  void* out;         // n elements of the output dtype
+  long long n;       // output elements
+  long long first;   // the leaf's first tile in the launch
+  long long nvec;    // whole units (vector modes)
+  int g;
+  int gv;            // g / E (kOneScale)
+  int gv_shift;      // log2(gv) where gv is a power of two, else -1
+  int mode;
+};
+
+struct ManyParams {
+  Leaf leaf[kMaxLeaves];
+  long long tiles;
+  int n_leaves;
+};
+
+// One element by its flat index e: a tail, a scalar leaf.
+template <typename T, int BITS>
+__device__ __forceinline__ void dequant1(const int8_t* q, const float* s,
+                                         T* out, int g, long long e) {
+  int v;
+  if (BITS == 8) {
+    v = q[e];
+  } else {
+    const unsigned b = (uint8_t)q[e >> 1];
+    v = (int)((e & 1) ? b >> 4 : b & 0xFu) - 8;
+  }
+  out[e] = from_f<T>((float)v * s[e / g]);
+}
+
+// A unit's PB payload bytes (PB-byte aligned), as one or two words.
+template <int PB>
+__device__ __forceinline__ uint2 load_unit(const int8_t* p) {
+  if constexpr (PB == 8) {
+    return *reinterpret_cast<const uint2*>(p);
+  } else if constexpr (PB == 4) {
+    return make_uint2(*reinterpret_cast<const uint32_t*>(p), 0u);
+  } else {
+    return make_uint2(*reinterpret_cast<const uint16_t*>(p), 0u);
+  }
+}
+
+// The E ints of a unit as floats, exactly. int8 (element k = byte k): the
+// bits of 2^23 + (b + 128), less 2^23 + 128. int4 (element k = nibble k:
+// byte j's low nibble is element 2j): the bits of 2^23 + nibble, less
+// 2^23 + 8.
+template <int BITS, int E>
+__device__ __forceinline__ void to_floats(uint2 w, float* f) {
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    if (BITS == 8) {
+      const uint32_t u = (k < 4 ? w.x : w.y) ^ 0x80808080u;
+      f[k] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7440u + (k & 3))) -
+             8388736.f;
+    } else {
+      f[k] = __int_as_float(0x4B000000u | ((w.x >> (4 * k)) & 0xFu)) -
+             8388616.f;
+    }
+  }
+}
+
+// Unit k of a leaf (elements k E ...): payload `w`, and scale `sc` where one
+// serves the unit (`one`), else a scale an element by a running group
+// index; stored as one 16-byte vector.
+template <typename T, int BITS>
+__device__ __forceinline__ void dequant_unit(T* out, const float* s, int g,
+                                             bool one, long long k, uint2 w,
+                                             float sc) {
+  constexpr int E = 16 / sizeof(T);
+  const long long e0 = k * E;
+  float f[E];
+  to_floats<BITS, E>(w, f);
+  if (one) {
+#pragma unroll
+    for (int j = 0; j < E; ++j) f[j] *= sc;
+  } else {
+    long long gi = e0 / g;
+    int r = (int)(e0 - gi * g);
+    sc = s[gi];
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      f[j] *= sc;
+      if (++r == g && j + 1 < E) {
+        r = 0;
+        sc = s[++gi];
+      }
+    }
+  }
+  T* dst = out + e0;
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+  } else {
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(pack2<T>(f[0], f[1]), pack2<T>(f[2], f[3]),
+                   pack2<T>(f[4], f[5]), pack2<T>(f[6], f[7]));
+  }
+}
+
+constexpr int kTileUnits = 4;   // units a thread: a tile is 1024 units
+
+// One block a tile of one leaf: thread t takes units t, t + 256, ... of
+// the tile (a warp's loads and 16-byte stores contiguous), issuing their
+// payload and scale loads before it converts any.
+template <typename T, int BITS>
+__global__ void __launch_bounds__(kDqThreads)
+dequantize_kernel(__grid_constant__ const ManyParams p) {
+  constexpr int E = 16 / sizeof(T), PB = E * BITS / 8, U = kTileUnits;
+  const long long t = blockIdx.x;
+  int li = 0;
+  while (li + 1 < p.n_leaves && t >= p.leaf[li + 1].first) ++li;
+  const Leaf& L = p.leaf[li];
+  const int8_t* q = L.q;
+  const float* s = L.s;
+  T* out = static_cast<T*>(L.out);
+  const long long n = L.n, nvec = L.nvec;
+  const int g = L.g, gv = L.gv, shift = L.gv_shift, mode = L.mode;
+  const long long k0 = (t - L.first) * (kDqThreads * U) + threadIdx.x;
+  if (mode == kScalar) {
+    for (int j = 0; j < U; ++j) {
+      const long long k = k0 + (long long)j * kDqThreads;
+      for (long long e = k * E; e < (k + 1) * E && e < n; ++e)
+        dequant1<T, BITS>(q, s, out, g, e);
+    }
+    return;
+  }
+  uint2 w[U];
+  float sc[U];
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    const long long k = k0 + (long long)j * kDqThreads;
+    if (k < nvec) {
+      w[j] = load_unit<PB>(q + k * PB);
+      if (mode == kOneScale)
+        sc[j] = s[shift >= 0 ? (unsigned)k >> shift : (unsigned)k / gv];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    const long long k = k0 + (long long)j * kDqThreads;
+    if (k < nvec)
+      dequant_unit<T, BITS>(out, s, g, mode == kOneScale, k, w[j], sc[j]);
+    else if (k == nvec)  // the tail after the last whole unit
+      for (long long e = k * E; e < n; ++e) dequant1<T, BITS>(q, s, out, g, e);
+  }
+}
+
+// A leaf's plan: whole units where its output is 16-byte aligned and its
+// payload PB-byte aligned (then a tail unit for the elements after the
+// last whole one), else scalar units; returns its tiles.
+template <typename T, int BITS>
+long long plan_leaf(Leaf& L, long long first) {
+  constexpr int E = 16 / sizeof(T), PB = E * BITS / 8;
+  const bool aligned = reinterpret_cast<uintptr_t>(L.out) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(L.q) % PB == 0;
+  L.first = first;
+  L.gv = L.g / E;
+  L.gv_shift = -1;
+  for (int b = 0; b < 31; ++b)
+    if (L.gv == (1 << b)) L.gv_shift = b;
+  L.nvec = aligned ? L.n / E : 0;
+  // a unit index past 32 bits would need a 64-bit division; no leaf that
+  // fits the card gets there, but the per-element path would take it
+  L.mode = !aligned                                         ? kScalar
+           : L.g % E == 0 && L.nvec < (1LL << 32)           ? kOneScale
+                                                            : kPerElement;
+  const long long units = (L.n + E - 1) / E;
+  return (units + kDqThreads * kTileUnits - 1) / (kDqThreads * kTileUnits);
+}
+
+template <typename T, int BITS>
+int dequantize_t(int n_leaves, const void* const* q, const void* const* s,
+                 void* const* out, const long long* n, const int* g,
+                 cudaStream_t stream) {
+  ManyParams p{};
+  p.n_leaves = n_leaves;
+  for (int i = 0; i < n_leaves; ++i) {
+    Leaf& L = p.leaf[i];
+    L.q = static_cast<const int8_t*>(q[i]);
+    L.s = static_cast<const float*>(s[i]);
+    L.out = out[i];
+    L.n = n[i];
+    L.g = g[i];
+    const long long tiles = plan_leaf<T, BITS>(L, p.tiles);
+    p.tiles += tiles;
+  }
+  return launch_items<dequantize_kernel<T, BITS>>(p, p.tiles, kDqThreads, 0,
+                                                  0, false, stream);
+}
+
 template <typename T>
-int dequantize_t(const void* q, const void* s, void* out, long long rows,
-                 int D, int g, int bits, cudaStream_t stream) {
-  const int width = bits == 8 ? D : D / 2;
-  const dim3 grid((width + kThreads - 1) / kThreads,
-                  (unsigned)(rows < 65535 ? rows : 65535));
-  auto kernel = bits == 8 ? dequantize_kernel<T, 8> : dequantize_kernel<T, 4>;
-  kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(s),
-      static_cast<T*>(out), rows, D, g);
-  return (int)cudaGetLastError();
+int dequantize_bits(int n_leaves, const void* const* q, const void* const* s,
+                    void* const* out, const long long* n, const int* g,
+                    int bits, cudaStream_t stream) {
+  return bits == 8 ? dequantize_t<T, 8>(n_leaves, q, s, out, n, g, stream)
+                   : dequantize_t<T, 4>(n_leaves, q, s, out, n, g, stream);
 }
 
 }  // namespace
+}  // namespace quant
+}  // namespace dstt
 
 // x [rows, D] (dtype: 0 float32, 1 bfloat16, 2 float16) -> q int8 [rows, D]
 // (bits 8) or [rows, D/2] (bits 4), scales f32 [rows, D/g]. The caller
@@ -149,6 +361,7 @@ int dequantize_t(const void* q, const void* s, void* out, long long rows,
 // cudaGetLastError().
 extern "C" int dstt_quantize(const void* x, void* q, void* s, long long rows,
                              int D, int g, int bits, int dtype, void* stream) {
+  using namespace dstt::quant;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
   switch (dtype) {
@@ -159,16 +372,28 @@ extern "C" int dstt_quantize(const void* x, void* q, void* s, long long rows,
   return (int)cudaErrorInvalidValue;
 }
 
-// The inverse: q and scales as above -> out [rows, D] in `dtype`.
-extern "C" int dstt_dequantize(const void* q, const void* s, void* out,
-                               long long rows, int D, int g, int bits,
-                               int dtype, void* stream) {
+// The inverse, for `n_leaves` (1 to 32) leaves in one launch: leaf i's
+// payload q[i] (n[i] int8, or n[i] / 2 packed bytes for bits 4) and scales
+// s[i] (n[i] / g[i] floats) -> out[i], n[i] elements in `dtype`. The caller
+// guarantees n[i] >= 1, n[i] % g[i] == 0 and, for bits 4, n[i] even.
+// Returns cudaGetLastError().
+extern "C" int dstt_dequantize_many(int n_leaves, const void* const* q,
+                                    const void* const* s, void* const* out,
+                                    const long long* n, const int* g,
+                                    int bits, int dtype, void* stream) {
+  using namespace dstt::quant;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
+  if ((bits != 8 && bits != 4) || n_leaves < 1 || n_leaves > kMaxLeaves)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_leaves; ++i)
+    if (n[i] < 1 || g[i] < 1 || n[i] % g[i] != 0 || (bits == 4 && n[i] % 2))
+      return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return dequantize_t<float>(q, s, out, rows, D, g, bits, st);
-    case 1: return dequantize_t<__nv_bfloat16>(q, s, out, rows, D, g, bits, st);
-    case 2: return dequantize_t<__half>(q, s, out, rows, D, g, bits, st);
+    case 0: return dequantize_bits<float>(n_leaves, q, s, out, n, g, bits, st);
+    case 1:
+      return dequantize_bits<__nv_bfloat16>(n_leaves, q, s, out, n, g, bits,
+                                            st);
+    case 2: return dequantize_bits<__half>(n_leaves, q, s, out, n, g, bits, st);
   }
   return (int)cudaErrorInvalidValue;
 }

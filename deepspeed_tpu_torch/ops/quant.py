@@ -7,12 +7,13 @@ q = clip(round_half_even(x / scale), -qmax, qmax). int4 packs two values a
 byte as biased nibbles q + 8 (lo nibble = even index), stored as int8.
 Dequantization multiplies in fp32 and narrows to the output dtype last.
 
-These four functions are the numerics of the weight-only quantization and
-of the int8 KV pool (`inference/quantization.py`). On a CUDA tensor each
+These functions are the numerics of the weight-only quantization and of
+the int8 KV pool (`inference/quantization.py`). On a CUDA tensor each
 wrapper launches the hand-written kernel (`csrc/quant.cu`) and counts the
 launch in `op_builder.LAUNCHES`; on a CPU tensor it runs the plain version
 beside it. There is no fallback: a CUDA input the kernel does not take
-raises.
+raises. `dequantize_many` dequantizes several leaves (a model layer's) in
+one launch; `dequantize` is its one-leaf case.
 """
 
 import ctypes
@@ -71,11 +72,14 @@ def dequantize_reference(q, scales, dtype, group_size, bits=8):
     return x.reshape(q.shape).to(dtype)
 
 
+# leaves one dequantize launch takes (quant.cu kMaxLeaves)
+MAX_LEAVES = 32
+
 _ARGTYPES = {
     "dstt_quantize": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
         ctypes.c_int] * 4 + [ctypes.c_void_p],
-    "dstt_dequantize": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "dstt_dequantize_many": [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p],
 }
 
 
@@ -119,11 +123,9 @@ def quantize(x, group_size, bits):
     return q, s
 
 
-def dequantize(q, scales, dtype, group_size, bits):
-    """Inverse of `quantize` at the same `bits`."""
-    what = f"dequantize_int{bits}"
-    if q.device.type == "cpu":
-        return dequantize_reference(q, scales, dtype, group_size, bits)
+def _check_dequantize(q, scales, dtype, group_size, bits, what):
+    """Raise ValueError for a CUDA leaf the kernel does not take; returns
+    the dense last dim."""
     _check_cuda(q, what)
     D = q.shape[-1] * (2 if bits == 4 else 1)
     _check_geometry(D, group_size, bits, what)
@@ -138,17 +140,62 @@ def dequantize(q, scales, dtype, group_size, bits):
     if dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise ValueError(f"{what}: output dtype {dtype} (the kernel writes "
                          f"float32/bfloat16/float16)")
-    q, scales = q.contiguous(), scales.contiguous()
-    rows = q.numel() // q.shape[-1]
-    out = torch.empty(q.shape[:-1] + (D,), dtype=dtype, device=q.device)
-    if rows == 0:
-        return out
-    rc = _kernel("dstt_dequantize")(
-        q.data_ptr(), scales.data_ptr(), out.data_ptr(), rows, D, group_size,
-        bits, op_builder.dtype_code(dtype), op_builder.stream_ptr(q.device))
-    op_builder.check(rc, what)
-    op_builder.LAUNCHES[what] += 1
-    return out
+    return D
+
+
+def dequantize_many_reference(leaves):
+    """Plain version of `dequantize_many`: `dequantize_reference` of each
+    leaf in turn."""
+    return [dequantize_reference(*leaf) for leaf in leaves]
+
+
+def dequantize_many(leaves):
+    """Several leaves dense, in order. Each leaf is `dequantize`'s
+    arguments, (q, scales, dtype, group_size, bits); all of one `bits` and
+    one `dtype` (mixed ones raise). On CUDA one launch takes up to
+    MAX_LEAVES leaves, each with its own length and group size: a model
+    layer's quantized leaves in one launch."""
+    leaves = list(leaves)
+    if not leaves:
+        return []
+    _, _, dtype, _, bits = leaves[0]
+    if any(leaf[4] != bits for leaf in leaves) or \
+            any(leaf[2] != dtype for leaf in leaves):
+        raise ValueError(
+            f"dequantize_many: one launch takes one bit width and one output "
+            f"dtype, got bits {sorted({leaf[4] for leaf in leaves})} and "
+            f"dtypes {sorted({str(leaf[2]) for leaf in leaves})}")
+    what = f"dequantize_int{bits}"
+    if all(leaf[0].device.type == "cpu" for leaf in leaves):
+        return dequantize_many_reference(leaves)
+    outs, args = [], []
+    for q, scales, _, group_size, _ in leaves:
+        D = _check_dequantize(q, scales, dtype, group_size, bits, what)
+        q, scales = q.contiguous(), scales.contiguous()
+        out = q.new_empty(tuple(q.shape[:-1]) + (D,), dtype=dtype)
+        outs.append(out)
+        n = out.numel()
+        if n:
+            args.append((q.data_ptr(), scales.data_ptr(), out.data_ptr(), n,
+                         group_size))
+    fn = _kernel("dstt_dequantize_many") if args else None
+    for i in range(0, len(args), MAX_LEAVES):
+        chunk = args[i:i + MAX_LEAVES]
+        k = len(chunk)
+        qp, sp, op, n, g = zip(*chunk)
+        rc = fn(k, (ctypes.c_void_p * k)(*qp), (ctypes.c_void_p * k)(*sp),
+                (ctypes.c_void_p * k)(*op), (ctypes.c_longlong * k)(*n),
+                (ctypes.c_int * k)(*g), bits, op_builder.dtype_code(dtype),
+                op_builder.stream_ptr(leaves[0][0].device))
+        op_builder.check(rc, what)
+        op_builder.LAUNCHES[what] += 1
+    return outs
+
+
+def dequantize(q, scales, dtype, group_size, bits):
+    """Inverse of `quantize` at the same `bits` (one leaf of
+    `dequantize_many`)."""
+    return dequantize_many([(q, scales, dtype, group_size, bits)])[0]
 
 
 def quantize_int8(x, group_size):

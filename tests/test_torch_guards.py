@@ -534,6 +534,114 @@ def test_norm_wrappers_refuse_what_the_kernel_does_not_take(case,
         tno.fused_layer_norm(x, scale, scale, residual=res)
 
 
+def _dequant_leaf(shape, g, bits=8, dtype=torch.bfloat16):
+    """A `dequantize_many` leaf of CUDA-like buffers: payload [..., D] (int4:
+    [..., D/2]) and scales [..., D/g] for a dense shape."""
+    D = shape[-1]
+    q = _CudaBuffer(shape[:-1] + (D // 2 if bits == 4 else D,), torch.int8)
+    s = _CudaBuffer(shape[:-1] + (D // g,), torch.float32)
+    return (q, s, dtype, g, bits)
+
+
+def test_grouped_dequantize_never_takes_the_plain_version_on_cuda(
+        monkeypatch):
+    """Handed CUDA tensors, `dequantize_many` (and `dequantize`, its
+    one-leaf case) goes for the kernel (here the library load, which
+    raises) and never to a plain version."""
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    def load(name):
+        raise RuntimeError(f"kernel library {name} requested")
+
+    for name in ("dequantize_reference", "dequantize_many_reference"):
+        monkeypatch.setattr(tqo, name, refuse)
+    monkeypatch.setattr(op_builder, "load", load)
+    leaves = [_dequant_leaf((4, 64), 32), _dequant_leaf((2, 3, 128), 64)]
+    with pytest.raises(RuntimeError, match="kernel library"):
+        tqo.dequantize_many(leaves)
+    with pytest.raises(RuntimeError, match="kernel library"):
+        tqo.dequantize(*leaves[0])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_grouped_dequantize_is_one_launch_with_each_leafs_operands(
+        bits, dtype, monkeypatch):
+    """On CUDA tensors one `dequantize_many` call of up to MAX_LEAVES leaves
+    is one launch of `dstt_dequantize_many`, handed each leaf's payload,
+    scales and output pointers, its element count and its group size, the
+    bit width and the output dtype's code; the outputs are [..., D] in that
+    dtype. 40 leaves take two launches."""
+    entry = _FakeNormEntry()
+    monkeypatch.setattr(op_builder, "load", lambda name: type(
+        "Lib", (), {"dstt_dequantize_many": entry}))
+    monkeypatch.setattr(op_builder, "stream_ptr", lambda device: None)
+    monkeypatch.setattr(tqo, "dequantize_reference", None)
+    op_builder.LAUNCHES.clear()
+    dt = getattr(torch, dtype)
+    shapes = [((768, 2304), 64), ((2304,), 64), ((3, 14), 7), ((5, 96), 32)]
+    leaves = [_dequant_leaf(shape, g, bits, dt) for shape, g in shapes]
+    outs = tqo.dequantize_many(leaves)
+    assert dict(op_builder.LAUNCHES) == {f"dequantize_int{bits}": 1}
+    (args,) = entry.calls
+    k, qp, sp, op, n, g, b, code, _ = args
+    assert (k, b, code) == (4, bits, op_builder.dtype_code(dt))
+    assert list(qp) == [id(leaf[0]) for leaf in leaves]
+    assert list(sp) == [id(leaf[1]) for leaf in leaves]
+    assert list(op) == [id(out) for out in outs]
+    assert list(n) == [int(np.prod(shape)) for shape, _ in shapes]
+    assert list(g) == [g_ for _, g_ in shapes]
+    for out, (shape, _) in zip(outs, shapes):
+        assert tuple(out.shape) == shape and out.dtype == dt
+    tqo.dequantize_many([_dequant_leaf((3, 64), 32, bits, dt)
+                         for _ in range(40)])
+    assert op_builder.LAUNCHES[f"dequantize_int{bits}"] == 3
+    assert [c[0] for c in entry.calls[1:]] == [tqo.MAX_LEAVES,
+                                              40 - tqo.MAX_LEAVES]
+
+
+@pytest.mark.parametrize("case", ["mixed_bits", "mixed_dtypes"])
+def test_grouped_dequantize_refuses_mixed_bits_or_dtypes(case, monkeypatch):
+    """One launch takes one bit width and one output dtype: a mix raises
+    before any library is loaded, on the CPU as on CUDA."""
+    def load(name):
+        raise AssertionError(f"kernel library {name} requested")
+    monkeypatch.setattr(op_builder, "load", load)
+    a = _dequant_leaf((4, 64), 32)
+    b = _dequant_leaf((4, 64), 32, bits=4) if case == "mixed_bits" else \
+        _dequant_leaf((4, 64), 32, dtype=torch.float16)
+    with pytest.raises(ValueError, match="one bit width and one output"):
+        tqo.dequantize_many([a, b])
+    q = torch.zeros(4, 64, dtype=torch.int8)
+    s = torch.ones(4, 2)
+    cpu = [(q, s, torch.float32, 32, 8),
+           (q, s, torch.float32, 32, 4) if case == "mixed_bits"
+           else (q, s, torch.bfloat16, 32, 8)]
+    with pytest.raises(ValueError, match="one bit width and one output"):
+        tqo.dequantize_many(cpu)
+
+
+def test_flash_and_block_sparse_checks_take_any_batch_times_heads():
+    """B * H above 65 535 is taken (the kernels walk B * H * n_t items);
+    the other limits still hold (meta tensors: no data, no kernel)."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
+    for B, H in ((4100, 16), (1, 70000)):
+        t = torch.empty((B, H, 32, 64), dtype=torch.bfloat16, device="meta")
+        tfa.check_kernel_operands(t, t, t)
+        tfa.check_kernel_operands(*(x.transpose(1, 2) for x in (t, t, t)),
+                                  layout="BTHD")
+        tbsa.check_kernel_operands(t, t, t)
+    odd = torch.empty((4100, 16, 40, 64), dtype=torch.bfloat16,
+                      device="meta")
+    with pytest.raises(ValueError, match="not a multiple of 16"):
+        tbsa.check_kernel_operands(odd, odd, odd)
+    empty = torch.empty((4100, 16, 0, 64), dtype=torch.bfloat16,
+                        device="meta")
+    with pytest.raises(ValueError, match="out of range"):
+        tfa.check_kernel_operands(empty, empty, empty)
+
+
 def test_cross_rank_expert_dispatch_refuses():
     from deepspeed_tpu_torch.parallel import moe as tmoe
     assert not tmoe.can_use_expert_shard_map(None, 8, 64)

@@ -160,6 +160,72 @@ def test_dequantizers_match_jax(bits, dtype):
                                    rtol=SCALE_RTOL, atol=1e-7)
 
 
+# dequantize_many's leaves: (shape, g, index of the slice of a stacked leaf
+# or None) — g 7 (an int4 byte spans two groups), 32 and 64, and a slice
+DEQUANT_MANY_LEAVES = (((6, 14), 7, None), ((5, 96), 32, None),
+                       ((4, 128), 64, None), ((3, 10, 64), 32, 1))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_dequantize_many_matches_its_leaves_and_jax(bits, dtype):
+    """The grouped dequantize's plain version (a CPU call) equals
+    dequantize_reference leaf by leaf, and JAX's dequantize_tensor of the
+    same quantized leaves within SCALE_RTOL, over leaves of mixed g, a
+    slice of a stacked leaf and int4 bytes that span two groups; a leaf
+    into fp32, bf16 or fp16."""
+    rng = np.random.default_rng(20 + bits)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    leaves, refs = [], []
+    for shape, g, index in DEQUANT_MANY_LEAVES:
+        t = jq.quantize_tensor(jnp.asarray(_normal(rng, *shape)).astype(jdt),
+                               bits=bits, group_size=g)
+        q, s = torch.from_numpy(np.array(t.q)), torch.from_numpy(
+            np.array(t.scale))
+        ref = np.asarray(jq.dequantize_tensor(t).astype(jnp.float32))
+        if index is not None:
+            q, s, ref = q[index], s[index], ref[index]
+        leaves.append((q, s, tdt, g, bits))
+        refs.append(ref)
+    outs = tqo.dequantize_many(leaves)
+    assert len(outs) == len(leaves)
+    for out, leaf, ref in zip(outs, leaves, refs):
+        assert out.dtype == tdt
+        assert torch.equal(out, tqo.dequantize_reference(*leaf))
+        np.testing.assert_allclose(out.float().numpy(), ref,
+                                   rtol=SCALE_RTOL, atol=1e-7)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_layer_dequantizes_to_the_layer_of_jaxs_whole_tree(bits):
+    """`_layer` on a weight-quantized tree (its leaves dequantized
+    together, one launch on the card) equals layer i of the JAX package's
+    whole-tree dequantize (`dequantize_param_tree`, the wrap_fn_dequant
+    view), leaf by leaf."""
+    jcfg = jgpt.GPTConfig(n_layer=3, n_head=4, d_model=128, max_seq_len=64,
+                          vocab_size=256, dtype=jnp.float32, remat=False)
+    rng = np.random.default_rng(30 + bits)
+    jparams = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(_normal(rng, *a.shape) * 0.02),
+        jgpt.init_gpt_params(jcfg, seed=0))
+    jtree, _ = jq.quantize_param_tree(jparams, bits=bits, group_size=32,
+                                      min_size=256)   # the biases too
+    jdense = jq.dequantize_param_tree(jtree)["blocks"]
+    ttree = tgpt.params_from_jax(jax.tree_util.tree_map(np.asarray, jtree))
+    quantized = [k for k, v in ttree["blocks"].items()
+                 if isinstance(v, tq.QuantizedTensor)]
+    assert len(quantized) == 8
+    for i in range(jcfg.n_layer):
+        layer = tgpt._layer(ttree, i)
+        assert sorted(layer) == sorted(jdense)
+        for name, leaf in layer.items():
+            assert not isinstance(leaf, tq.QuantizedTensor), name
+            np.testing.assert_allclose(leaf.numpy(),
+                                       np.asarray(jdense[name][i]),
+                                       rtol=SCALE_RTOL, atol=1e-7,
+                                       err_msg=f"layer {i} {name}")
+
+
 @pytest.mark.parametrize("call,match", [
     (lambda: tq.quantize_tensor(torch.ones(4, 100), bits=8, group_size=64),
      "does not tile into groups"),

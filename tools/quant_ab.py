@@ -1,0 +1,315 @@
+"""A/B of the dequantize kernels (int8 and int4) built from several source
+directories (copies of `deepspeed_tpu_torch/ops/csrc`, e.g. the parent
+commit's), checked and timed in turns on one CUDA card; then the other
+kernels no redesign has taken (decode, paged decode, int8 paged decode,
+quantize int8 / int4, token_sort) as device time at their paths' shapes.
+
+    python tools/quant_ab.py DIR [DIR ...] [--reps N] [--ptxas] [--no-others]
+
+With --ptxas, first prints for each directory what nvcc's `-Xptxas -v`
+says of each kernel of its `quant.cu`. Then, for each bit width and each
+dequantize a gpt2-125m model step makes (`chip_smoke.DEQUANT_SHAPES`: the
+LM head's table, each block leaf, the embedding rows, the prefill's K/V
+gather; g 64 into bf16), one layer's leaves ("layer") and one model step's
+dequantization ("model_step": 12 layers, the wte and wpe rows, the head),
+it checks each directory's output bit for bit against the plain version
+and times, for each directory and for `q.to(bfloat16)` on the same
+payloads (`copy`, the elementwise yardstick):
+  * device time alone, the calls in CUDA graphs replayed in turns
+    (`chip_smoke.graph_ms_turns`), rotating over input sets that move
+    chip_smoke.NORM_COLD_BYTES between two uses of one (the 12 layers in
+    turn for "layer"), so no input is read from L2 but the launch-bound
+    biases' and rows' (`graph_ms`);
+  * the profiler's kernel time a call and the kernels' names and launches
+    a call (`device_ms`, `kernels`);
+  * the host's time a call, calls enqueued back to back (`host_ms`);
+  * eager calls timed in turns (`eager_ms`).
+At wte it also times what the card reaches at the dense table's bytes:
+`zero_()` of the bf16 output (writes only, "wte_write_only") and a bf16
+copy of it ("wte_bf16_copy"), each against its own byte bound.
+A directory whose library has no grouped entry point (`dstt_dequantize`
+only) is called one leaf a launch through that entry, with the checks,
+the two `contiguous()` and the allocation its wrapper made: "layer" is
+then eight launches and "model_step" 99, as its `_layer` made them.
+Prints one JSON line per (bits, shape, variant), then one per other
+kernel (the last directory's build), then the card's name and power
+limit. Run from the repo's root; it needs the CUDA toolkit and a card.
+"""
+
+import argparse
+import ctypes
+import json
+import pathlib
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+import chip_smoke as cs  # noqa: E402
+from attn_fwd_ab import _ptxas, _use  # noqa: E402  (this directory)
+from deepspeed_tpu_torch.inference.quantization import (  # noqa: E402
+    QuantizedTensor, dense)
+from deepspeed_tpu_torch.models import gpt  # noqa: E402
+from deepspeed_tpu_torch.ops import decode_attention as da  # noqa: E402
+from deepspeed_tpu_torch.ops import op_builder, quant  # noqa: E402
+from deepspeed_tpu_torch.ops import token_sort as ts  # noqa: E402
+
+# the one-leaf entry point of libraries without `dstt_dequantize_many`
+_OLD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
+    ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _old_dequantize(lib, q, s, dtype, g, bits):
+    """One leaf through the one-leaf entry point, as its wrapper called
+    it: the checks, both contiguous(), an allocation, the ctypes call."""
+    fn = lib.dstt_dequantize
+    if fn.argtypes is None:
+        fn.argtypes = _OLD_ARGTYPES
+        fn.restype = ctypes.c_int
+    what = f"dequantize_int{bits}"
+    D = quant._check_dequantize(q, s, dtype, g, bits, what)
+    q, s = q.contiguous(), s.contiguous()
+    out = torch.empty(q.shape[:-1] + (D,), dtype=dtype, device=q.device)
+    rc = fn(q.data_ptr(), s.data_ptr(), out.data_ptr(),
+            q.numel() // q.shape[-1], D, g, bits,
+            op_builder.dtype_code(dtype), op_builder.stream_ptr(q.device))
+    op_builder.check(rc, what)
+    return out
+
+
+def _calls(lib):
+    """(one leaf, a layer, dense) of a directory's library."""
+    if hasattr(lib, "dstt_dequantize_many"):
+        def single(q, s, dtype, g, bits):
+            op_builder._LIBS["quant"] = lib
+            return quant.dequantize(q, s, dtype, g, bits)
+
+        def layer(tree, i):
+            op_builder._LIBS["quant"] = lib
+            return gpt._layer(tree, i)
+
+        def dense_(t):
+            op_builder._LIBS["quant"] = lib
+            return dense(t)
+        return single, layer, dense_
+
+    def single(q, s, dtype, g, bits):
+        return _old_dequantize(lib, q, s, dtype, g, bits)
+
+    def dense_(t):
+        if not isinstance(t, QuantizedTensor):
+            return t
+        return _old_dequantize(lib, t.q, t.scale, t.dtype, t.group_size,
+                               t.bits)
+
+    def layer(tree, i):
+        return {k: dense_(v[i]) for k, v in tree["blocks"].items()}
+    return single, layer, dense_
+
+
+def _same(a, b):
+    if isinstance(a, (list, tuple)):
+        return all(_same(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_same(a[k], b[k]) for k in a)
+    return bool(torch.equal(a, b))
+
+
+def _time(label, bits, rows, variants, n_sets, nbytes, n, reps):
+    """Time `variants` ((name, rotating call) pairs) in turns: device time
+    in CUDA graphs, eager, the profiler's kernels, host time; print one
+    line each, beside the byte bound of `nbytes`."""
+    b_ms, b_by = cs.bound(nbytes, n, cs.FP32_FLOPS)
+    fns = [fn for _, fn in variants]
+    inner = n_sets * max(1, round(20 / n_sets))
+    graph = cs.graph_ms_turns(fns, inner=inner, reps=reps)
+    eager = cs.median_ms_turns(fns, inner=n_sets)
+    for (name, rot), g, e in zip(variants, graph, eager):
+        dev, kernels = cs._device_ms(rot, calls=max(10, n_sets))
+        info = {"bits": bits, "case": label, "variant": name,
+                "shape": rows, "sets": n_sets, "bytes": nbytes,
+                "bound_ms": b_ms, "bound_by": b_by, "graph_ms": g,
+                "eager_ms": e, "device_ms": dev, "kernels": kernels,
+                "host_ms": cs._host_ms(rot), "graph_bound_factor": g / b_ms}
+        print(json.dumps(info), flush=True)
+
+
+def _dequant_ab(dirs, libs, bits, reps):
+    bf16, g = torch.bfloat16, cs.DEQUANT_GROUP
+    gen = torch.Generator(device="cuda").manual_seed(bits)
+    calls = {src: _calls(libs[src]) for src in dirs}
+    for label, shape in cs.DEQUANT_SHAPES:
+        if label == "kv_gather" and bits == 4:
+            continue
+        sets = cs._dequant_sets(gen, shape, bits)
+        ref = quant.dequantize_reference(sets[0]["q"], sets[0]["s"], bf16, g,
+                                         bits)
+        variants = []
+        for src in dirs:
+            single = calls[src][0]
+            fn = (lambda q, s, single=single: single(q, s, bf16, g, bits))
+            if not _same(fn(**sets[0]), ref):
+                raise AssertionError(f"{src} int{bits} {label}: kernel != "
+                                     f"plain version")
+            variants.append((src, cs._Rotating(fn, sets)))
+        variants.append(("copy", cs._Rotating(lambda q, s: q.to(bf16),
+                                              sets)))
+        n = int(np.prod(shape))
+        _time(label, bits, list(shape), variants, len(sets),
+              cs._dequant_bytes(n, g, bits), n, reps)
+        if label == "wte" and bits == 8:
+            # what the card writes, and copies, at the dense table's bytes
+            outs = [dict(o=torch.empty(shape, dtype=bf16, device="cuda"),
+                         src=torch.randn(shape, generator=gen,
+                                         device="cuda").to(bf16))
+                    for _ in sets]
+            _time("wte_write_only", bits, list(shape), [("zero_", cs._Rotating(
+                lambda o, src: o.zero_(), outs))], len(outs), 2 * n, n, reps)
+            _time("wte_bf16_copy", bits, list(shape), [("copy_", cs._Rotating(
+                lambda o, src: o.copy_(src), outs))], len(outs), 4 * n, n,
+                reps)
+            del outs
+        del sets, variants
+    tree = cs._dequant_tree(bits, gen)
+    blocks = tree["blocks"]
+    layer_n = [int(np.prod(v)) for v in cs.DEQUANT_LAYER.values()]
+    layer_bytes = sum(cs._dequant_bytes(k, g, bits) for k in layer_n)
+    ref = {k: quant.dequantize_reference(v[3].q, v[3].scale, bf16, g, bits)
+           for k, v in blocks.items()}
+    sets = [{"i": i} for i in range(12)]
+    variants = []
+    for src in dirs:
+        layer = calls[src][1]
+        if not _same(layer(tree, 3), ref):
+            raise AssertionError(f"{src} int{bits} layer: kernel != plain "
+                                 f"version")
+        variants.append((src, cs._Rotating(
+            lambda i, layer=layer: layer(tree, i), sets)))
+    variants.append(("copy", cs._Rotating(
+        lambda i: [blocks[k][i].q.to(bf16) for k in blocks], sets)))
+    _time("layer", bits, "8 leaves", variants, len(sets), layer_bytes,
+          sum(layer_n), reps)
+    tokens = torch.randint(0, 50304, (8, 1), generator=gen, device="cuda")
+    positions = torch.randint(0, 1024, (8, 1), generator=gen, device="cuda")
+    variants = [(src, cs._Rotating(cs._dequant_step(
+        tree, tokens, positions, calls[src][1], calls[src][2]), [{}]))
+        for src in dirs]
+    wte = tree["wte"]
+    variants.append(("copy", cs._Rotating(
+        lambda: [t.q.to(bf16) for t in blocks.values()] + [wte.q.to(bf16)],
+        [{}])))
+    step_bytes = 12 * layer_bytes + 2 * cs._dequant_bytes(8 * 768, g, bits) \
+        + cs._dequant_bytes(50304 * 768, g, bits)
+    _time("model_step", bits, "12 layers, wte and wpe rows, the head",
+          variants, 1, step_bytes, 12 * sum(layer_n) + 2 * 8 * 768
+          + 50304 * 768, reps)
+    del tree, blocks, wte, variants
+    torch.cuda.empty_cache()
+
+
+def _others(reps):
+    """Rows 4-8 and 13 at their paths' shapes (chip_smoke's kernels phase),
+    the inputs rotated past L2: device time in CUDA graphs, eager, host,
+    the profiler's kernels; bounds as chip_smoke's rows count them."""
+    rng = np.random.default_rng(0)
+    lens = [100, 250, 431, 600]
+    serve_pos = [150, 0, 400, 640, 1000, 0, 260, 520]
+
+    def n_sets(per_set):
+        return int(min(64, max(1, -(-cs.NORM_COLD_BYTES // per_set))))
+
+    cases = []
+    # row 4: generate()'s decode over the 1024-row cache, mid-generation
+    sh = dict(B=4, H=12, Hkv=12, hd=64, M=1024, pos=[n + 16 for n in lens])
+    sets = [dict(zip(("q", "kc", "vc", "pos"), cs._decode_case(rng, **sh)))
+            for _ in range(n_sets(2 * 4 * 12 * 1024 * 64 * 2))]
+    live = sum(p + 1 for p in sh["pos"])
+    cases.append(("decode_attention", "generate", sets,
+                  lambda q, kc, vc, pos: da.decode_attention(q, kc, vc, pos),
+                  cs.bound(2 * live * 12 * 64 * 2 + 2 * 4 * 12 * 64 * 2,
+                           4 * live * 12 * 64, cs.FP32_FLOPS)))
+    # row 5: the serving engine's paged decode, 8 slots, 512-row blocks
+    sh = dict(B=8, H=12, Hkv=12, hd=64, bs=512, nb=2, pos=serve_pos)
+    sets = [dict(zip(("q", "kp", "vp", "tables", "pos"),
+                     cs._paged_case(rng, **sh)))
+            for _ in range(n_sets(2 * 17 * 12 * 512 * 64 * 2))]
+    live = sum(p + 1 for p in serve_pos)
+    cases.append(("paged_decode_attention", "serve", sets,
+                  lambda q, kp, vp, tables, pos: da.paged_decode_attention(
+                      q, kp, vp, tables, pos),
+                  cs.bound(2 * live * 12 * 64 * 2 + 2 * 8 * 12 * 64 * 2
+                           + 16 * 4, 4 * live * 12 * 64, cs.FP32_FLOPS)))
+    # row 6: the same over the int8 pool, g 64
+    sets = []
+    for _ in range(n_sets(2 * 17 * 12 * 512 * (64 + 4))):
+        q, pool, tables, pos = cs._quant_pool_case(rng, g=64, **sh)
+        sets.append(dict(q=q, k=pool["k"], v=pool["v"], ks=pool["k_scale"],
+                         vs=pool["v_scale"], tables=tables, pos=pos))
+    cases.append(("paged_decode_attention_quant", "quant_serve", sets,
+                  lambda q, k, v, ks, vs, tables, pos:
+                  da.paged_decode_attention_quant(q, k, v, ks, vs, tables,
+                                                  pos),
+                  cs.bound(2 * live * 12 * (64 + 4) + 2 * 8 * 12 * 64 * 2
+                           + 16 * 4, 4 * live * 12 * 64, cs.FP32_FLOPS)))
+    # rows 7-8: the K/V pool write (96 rows of 64) and the weights' wte
+    for bits, path, (rows, D) in ((8, "quant_serve", (96, 64)),
+                                  (8, "quant_serve_build", (50304, 768)),
+                                  (4, "quant_generate_build", (50304, 768))):
+        nbytes = rows * D * 2 + rows * D * bits // 8 + rows * D // 64 * 4
+        sets = [dict(x=torch.from_numpy(rng.standard_normal(
+            (rows, D)).astype(np.float32)).to("cuda", torch.bfloat16))
+            for _ in range(n_sets(nbytes))]
+        cases.append((f"quantize_int{bits}", path, sets,
+                      lambda x, bits=bits: quant.quantize(x, 64, bits),
+                      cs.bound(nbytes, 4 * rows * D, cs.FP32_FLOPS)))
+    # row 13: the dropless layer's sort, N 4096 tokens over 8 experts
+    sets = [dict(idx=torch.from_numpy(rng.integers(0, 8, 4096)).to(
+        "cuda", torch.int32)) for _ in range(64)]
+    cases.append(("token_sort", "moe_dropless", sets,
+                  lambda idx: ts.token_sort(idx, 8),
+                  cs.bound(4 * 4096 * 2 + 4 * 8, 4096 * 8, cs.FP32_FLOPS)))
+    for name, path, sets, fn, (b_ms, b_by) in cases:
+        rot = cs._Rotating(fn, sets)
+        inner = len(sets) * max(1, round(20 / len(sets)))
+        (g,) = cs.graph_ms_turns([rot], inner=inner, reps=reps)
+        dev, kernels = cs._device_ms(rot, calls=max(10, len(sets)))
+        print(json.dumps({
+            "kernel": name, "path": path, "sets": len(sets),
+            "bound_ms": b_ms, "bound_by": b_by, "graph_ms": g,
+            "eager_ms": cs.median_ms(rot, inner=len(sets)),
+            "device_ms": dev, "kernels": kernels,
+            "host_ms": cs._host_ms(rot), "graph_bound_factor": g / b_ms}),
+            flush=True)
+        del rot, sets
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("dirs", nargs="+")
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--no-others", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("quant_ab: no CUDA card")
+    smi = cs.phase_device()["nvidia_smi"]
+    if args.ptxas:
+        for src in args.dirs:
+            print(json.dumps({"dir": src, "ptxas": _ptxas(src, "quant.cu")}),
+                  flush=True)
+    libs = {}
+    for src in args.dirs:
+        _use(src)
+        libs[src] = op_builder.load("quant")
+    for bits in (8, 4):
+        _dequant_ab(args.dirs, libs, bits, args.reps)
+    if not args.no_others:
+        op_builder._LIBS["quant"] = libs[args.dirs[-1]]
+        _others(args.reps)
+    print(smi, flush=True)
+
+
+if __name__ == "__main__":
+    main()
