@@ -24,7 +24,18 @@ Phases, one JSON line each:
            int8 paged decode at the serve
            shape with groups 64 and 32, on a shuffled table with an
            all-trash row and at hd 128 / GQA 4 (one bf16 step of each
-           element, and 1e-2); quantize and
+           element, and 1e-2); both paged decodes (split into chunks of
+           positions) also at PAGED_EDGE_CASES / QUANT_PAGED_EDGE_CASES
+           (chunk edges, full capacity and past it, trash-only rows, 16-
+           and 48-row blocks, a table naming blocks in two rows, GQA 4, 8
+           and 16, hd 128, fp16, fp32, g 8 to 128, a row of 64 chunks)
+           and Llama-3-8B's attention
+           at position 4095, with two planted faults each (the combine
+           skipping a row's last live chunk, one chunk's partial stale
+           from the previous call) that the check must reject, timed as
+           CUDA-graph device time (inputs rotated past L2) and host time a
+           call at the serve and long-context shapes; the contiguous
+           decode also as device time beside SDPA's; quantize and
            dequantize (int8, int4) bit-exact at the K/V pool-write shape
            and the largest weights (wte, mlp_up_w); dequantize also at a
            flat length with a tail, slices of stacked leaves (one not
@@ -633,19 +644,23 @@ def _decode_case(rng, B, H, Hkv, hd, M, pos):
             torch.tensor(pos, dtype=torch.int32, device="cuda"))
 
 
-def _paged_case(rng, B, H, Hkv, hd, bs, nb, pos):
+def _paged_case(rng, B, H, Hkv, hd, bs, nb, pos, dtype="bfloat16",
+                tables=None):
+    """q, a paged K/V pool, block tables (shuffled, inactive rows on the
+    trash block only, unless given) and pos, in `dtype` on the card."""
     import torch
-    N = B * nb + 1
-    perm = rng.permutation(np.arange(1, N)).astype(np.int32)
-    tables = perm[:B * nb].reshape(B, nb)
-    live = [p > 0 for p in pos]
-    tables[~np.asarray(live)] = 0          # inactive rows: trash block only
+    N = B * nb + 1 if tables is None else int(np.max(tables)) + 1
+    if tables is None:
+        perm = rng.permutation(np.arange(1, N)).astype(np.int32)
+        tables = perm[:B * nb].reshape(B, nb)
+        live = [p > 0 for p in pos]
+        tables[~np.asarray(live)] = 0      # inactive rows: trash block only
 
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to("cuda", torch.bfloat16)
+            np.float32)).to("cuda", getattr(torch, dtype))
     return (randn(B, H, hd), randn(N, Hkv, bs, hd), randn(N, Hkv, bs, hd),
-            torch.tensor(tables, device="cuda"),
+            torch.tensor(np.asarray(tables, np.int32), device="cuda"),
             torch.tensor(pos, dtype=torch.int32, device="cuda"))
 
 
@@ -776,6 +791,7 @@ def phase_kernels():
         results["paged_decode_attention", "serve"]
     results.update(_backward_kernels(rng, checks))
     results.update(_quant_kernels(rng, checks))
+    _paged_split_kernels(rng, checks, results)
     results.update(_token_sort_kernel(rng, checks))
     results.update(_norm_kernels(rng, checks))
     results.update(_block_sparse_kernels(rng, checks))
@@ -1038,9 +1054,11 @@ def _backward_yardsticks(row_dq, row_dkv, pair, sdpa, backend):
     row_dkv.update(info)
 
 
-def _quant_pool_case(rng, B, H, Hkv, hd, bs, nb, g, pos, tables=None):
+def _quant_pool_case(rng, B, H, Hkv, hd, bs, nb, g, pos, tables=None,
+                     dtype="bfloat16"):
     """An int8 pool (quantized with the plain version from fp32 normals),
-    bf16 q, shuffled block tables (inactive rows: trash block only)."""
+    q in `dtype` (bf16), shuffled block tables (inactive rows: trash block
+    only) unless given."""
     import torch
     from deepspeed_tpu_torch.ops import quant
     N = B * nb + 1 if tables is None else int(np.max(tables)) + 1
@@ -1054,7 +1072,7 @@ def _quant_pool_case(rng, B, H, Hkv, hd, bs, nb, g, pos, tables=None):
             np.float32)).cuda()
         pool[name], pool[name + "_scale"] = quant.quantize_reference(x, g)
     q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(
-        np.float32)).to("cuda", torch.bfloat16)
+        np.float32)).to("cuda", getattr(torch, dtype))
     return (q, pool, torch.tensor(np.asarray(tables, np.int32), device="cuda"),
             torch.tensor(pos, dtype=torch.int32, device="cuda"))
 
@@ -1172,6 +1190,239 @@ def _quant_kernels(rng, checks):
         results[f"dequantize_int{bits}", path] = dict(by_shape["wte"],
                                                       by_shape=by_shape)
     return results
+
+
+# rows 5 and 6 (the paged decode over the bf16 and the int8 pool) beyond
+# their paths' shapes, bf16 unless given. The kernels split each row's
+# prefix into chunks (split_plan: 128 positions at the serve shape):
+# positions at a chunk's edges (chunk - 1, chunk, chunk + 1), a row at full
+# capacity and one past it (clamped), rows at 0 on the trash block only,
+# 16-row blocks with a chunk across 4 pages, 48-row blocks (page
+# segments cut by the kernel's tiles), a table that names two physical
+# blocks in two rows, GQA 4 and 8, hd 128, fp16 and fp32, one row at 4095
+# (64 chunks of 64 to merge) and 16 query heads over one kv head (two
+# passes of 8); the int8 pool also at g 8 (two groups a lane's 8
+# elements), 16, 32, 64 and 128
+PAGED_EDGE_CASES = (
+    dict(B=6, H=12, Hkv=12, hd=64, bs=512, nb=2,
+         pos=[127, 128, 129, 1023, 0, 2000]),
+    dict(B=5, H=16, Hkv=4, hd=128, bs=16, nb=24, pos=[63, 64, 65, 383, 0]),
+    dict(B=4, H=32, Hkv=4, hd=64, bs=16, nb=20, pos=[127, 128, 129, 319]),
+    dict(B=3, H=12, Hkv=12, hd=64, bs=48, nb=5, pos=[239, 130, 47]),
+    dict(B=4, H=16, Hkv=2, hd=128, bs=128, nb=4, pos=[300, 511, 64, 0],
+         tables=[[3, 1, 7, 5], [3, 1, 2, 8], [6, 4, 9, 2], [0, 0, 0, 0]]),
+    dict(B=4, H=8, Hkv=8, hd=64, bs=64, nb=6, pos=[129, 383, 0, 200],
+         dtype="float16"),
+    dict(B=4, H=8, Hkv=2, hd=128, bs=32, nb=8, pos=[65, 255, 0, 127],
+         dtype="float32"),
+    dict(B=1, H=32, Hkv=8, hd=128, bs=512, nb=8, pos=[4095]),
+    dict(B=2, H=16, Hkv=1, hd=64, bs=64, nb=4, pos=[200, 255]),
+)
+QUANT_PAGED_EDGE_CASES = (
+    dict(PAGED_EDGE_CASES[0], g=64),
+    *(dict(PAGED_EDGE_CASES[1], g=g) for g in (32, 64, 128)),
+    dict(PAGED_EDGE_CASES[2], g=8),
+    dict(PAGED_EDGE_CASES[3], g=32),
+    dict(PAGED_EDGE_CASES[4], g=128),
+    dict(PAGED_EDGE_CASES[5], g=16),
+    dict(PAGED_EDGE_CASES[6], g=64),
+    dict(PAGED_EDGE_CASES[7], g=64),
+    dict(PAGED_EDGE_CASES[8], g=32),
+)
+# the long-context kernel case: Llama-3-8B's attention (32 query heads over
+# 8 kv heads of 128, deepspeed_tpu/models/llama.py), 8 rows at position
+# 4095 of 512-row blocks, bf16 and the int8 pool at g 64; no model path of
+# the port runs it yet
+PAGED_LONG = dict(B=8, H=32, Hkv=8, hd=128, bs=512, nb=8, pos=[4095] * 8)
+PAGED_SERVE = dict(B=8, H=12, Hkv=12, hd=64, bs=512, nb=2,
+                   pos=[150, 0, 400, 640, 1000, 0, 260, 520])
+
+
+def _paged_args(rng, case):
+    """(kwargs of the row's wrapper, kwargs of its plain version) for one
+    case: the int8 pool where the case names a group size g."""
+    c = dict(case)
+    g = c.pop("g", None)
+    if g is None:
+        q, kp, vp, t, pos = _paged_case(rng, **c)
+        kw = dict(q=q, k_pool=kp, v_pool=vp, block_tables=t, pos=pos)
+        return kw, kw
+    q, pool, t, pos = _quant_pool_case(rng, g=g, **c)
+    return (dict(q=q, k_pool=pool["k"], v_pool=pool["v"],
+                 k_scale=pool["k_scale"], v_scale=pool["v_scale"],
+                 block_tables=t, pos=pos),
+            dict(q=q, pool_l=pool, block_tables=t, pos=pos))
+
+
+def _paged_fns(case):
+    """(row name, wrapper, plain version) of a case."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    if "g" in case:
+        return ("paged_decode_attention_quant",
+                da.paged_decode_attention_quant,
+                da.paged_decode_attention_quant_reference)
+    return ("paged_decode_attention", da.paged_decode_attention,
+            da.paged_decode_attention_reference)
+
+
+def _paged_bound(case):
+    """The byte / operation bound of one call: each row's live K/V (and
+    int8 scales) read once, q read and out written once, the tables."""
+    import torch
+    B, H, Hkv, hd = case["B"], case["H"], case["Hkv"], case["hd"]
+    cap = case["bs"] * case["nb"]
+    live = sum(min(p, cap - 1) + 1 for p in case["pos"] if p >= 0)
+    esize = getattr(torch, case.get("dtype", "bfloat16")).itemsize
+    kv = hd * esize if "g" not in case else hd + 4 * (hd // case["g"])
+    nbytes = 2 * live * Hkv * kv + 2 * B * H * hd * esize + B * case["nb"] * 4
+    return bound(nbytes, 4 * live * H * hd, FP32_FLOPS)
+
+
+def _paged_check(checks, name, label, out, ref, fault=None):
+    """One paged-decode check: max abs error within TOL[name]; for the int8
+    pool also every element within one bf16 step (QUANT_DECODE_REL x |ref|
+    + QUANT_DECODE_ATOL); appended to `checks`. A planted fault must fail
+    it: raises if a fault passes or the kernel fails."""
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    ok = bool(np.isfinite(err) and err <= TOL[name]
+              and out.shape == ref.shape and out.dtype == ref.dtype)
+    row = {"kernel": name, "case": label, "max_abs_err": err,
+           "tol": TOL[name]}
+    if name == "paged_decode_attention_quant":
+        steps = (diff / (QUANT_DECODE_REL * ref.float().abs()
+                         + QUANT_DECODE_ATOL)).max().item()
+        ok = ok and steps <= 1.0
+        row["max_err_over_bf16_step"] = steps
+    if fault:
+        row.update(fault=fault, seen=not ok)
+        if ok:
+            raise AssertionError(f"{name} {label}: the planted fault {fault} "
+                                 f"passes the check ({row})")
+    else:
+        row["ok"] = ok
+        if not ok:
+            raise AssertionError(f"{name} {label}: {row}")
+    checks.append(row)
+    return err
+
+
+def _paged_fault(kw, fault, seed=0):
+    """The plain split algorithm (`paged_partials_reference`, then
+    `combine_partials_reference`, at the wrapper's split plan) with a
+    planted fault in the chunk partials of the row whose last live chunk
+    holds the most positions: "dropped_last_chunk", the combine skips that
+    chunk; "stale_partial", that chunk's partial is the previous call's
+    (the previous decode step: another q, every pos one less)."""
+    import torch
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    q, k, v, tables, pos = (kw[n] for n in ("q", "k_pool", "v_pool",
+                                            "block_tables", "pos"))
+    scales = (kw["k_scale"], kw["v_scale"]) if "k_scale" in kw else None
+    cap = k.shape[2] * tables.shape[1]
+    chunk, _ = da.split_plan(cap, q.shape[0] * k.shape[1])
+    m, l, acc = da.paged_partials_reference(q, k, v, tables, pos, chunk,
+                                            scales=scales)
+    lens = [min(p, cap - 1) + 1 for p in pos.tolist()]
+    b = max((i for i, n in enumerate(lens) if n > chunk),
+            key=lambda i: (lens[i] - 1) % chunk)
+    c = (lens[b] - 1) // chunk
+    if fault == "dropped_last_chunk":
+        m[b, :, c], l[b, :, c], acc[b, :, c] = float("-inf"), 0.0, 0.0
+    else:
+        gen = torch.Generator(device=q.device).manual_seed(seed)
+        q_prev = torch.randn(q.shape, generator=gen, device=q.device).to(
+            q.dtype)
+        pm, pl, pa = da.paged_partials_reference(q_prev, k, v, tables,
+                                                 pos - 1, chunk,
+                                                 scales=scales)
+        m[b, :, c], l[b, :, c], acc[b, :, c] = pm[b, :, c], pl[b, :, c], \
+            pa[b, :, c]
+    return da.combine_partials_reference(m, l, acc, q.dtype)
+
+
+def _paged_sets(rng, case):
+    """Wrapper kwargs of one case, enough sets to move NORM_COLD_BYTES
+    between two uses of one (at most 16): the pools are read from device
+    memory, as a serving step finds them."""
+    import torch
+    esize = getattr(torch, case.get("dtype", "bfloat16")).itemsize
+    hd = case["hd"]
+    kv = hd * esize if "g" not in case else hd + 4 * (hd // case["g"])
+    per_set = 2 * (case["B"] * case["nb"] + 1) * case["Hkv"] * case["bs"] \
+        * kv
+    n = int(min(16, max(1, -(-NORM_COLD_BYTES // per_set))))
+    return [_paged_args(rng, case)[0] for _ in range(n)]
+
+
+def _paged_timed(rng, case, reps=10):
+    """One case timed: device time of the wrapper in CUDA graphs with its
+    inputs rotated past L2 (`graph_ms`), the wrapper's host time a call, the
+    bound; the kernel's check on the first set."""
+    _, fn, _ = _paged_fns(case)
+    sets = _paged_sets(rng, case)
+    rot = _Rotating(fn, sets)
+    inner = len(sets) * max(1, round(20 / len(sets)))
+    (g,) = graph_ms_turns([rot], inner=inner, reps=reps)
+    b_ms, b_by = _paged_bound(case)
+    return dict(sets=len(sets), graph_ms=g, host_ms=_host_ms(rot),
+                bound_ms=b_ms, bound_by=b_by, graph_bound_factor=g / b_ms)
+
+
+def _paged_split_kernels(rng, checks, results):
+    """Rows 5 and 6, the split kernels: every PAGED_EDGE_CASES /
+    QUANT_PAGED_EDGE_CASES case and the long-context shape against the
+    plain version; two planted faults at each path's shape that the check
+    must reject; the paths' rows gain device time in CUDA graphs (inputs
+    rotated past L2), host time a call and the long-context shape's
+    readings (`by_shape`); row 4 gains its own device time and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    long_q = dict(PAGED_LONG, g=64)
+    for i, case in enumerate(PAGED_EDGE_CASES + QUANT_PAGED_EDGE_CASES
+                             + (PAGED_LONG, long_q)):
+        name, fn, plain = _paged_fns(case)
+        kw, pkw = _paged_args(rng, case)
+        out, ref = fn(**kw), plain(**pkw)
+        torch.cuda.synchronize()
+        label = {k: v for k, v in case.items() if k != "tables"}
+        _paged_check(checks, name, label, out, ref)
+        del kw, pkw, out, ref
+    for case, path in ((PAGED_SERVE, "serve"),
+                       (dict(PAGED_SERVE, g=64), "quant_serve")):
+        name, fn, plain = _paged_fns(case)
+        kw, pkw = _paged_args(rng, case)
+        ref = plain(**pkw)
+        for fault in ("dropped_last_chunk", "stale_partial"):
+            _paged_check(checks, name, path, _paged_fault(kw, fault), ref,
+                         fault=fault)
+        row = results[name, path]
+        row.update(_paged_timed(rng, case))
+        row["chunk"], row["n_chunks"] = da.split_plan(
+            case["bs"] * case["nb"], case["B"] * case["Hkv"])
+        long_case = PAGED_LONG if "g" not in case else long_q
+        row["by_shape"] = {"long_context": dict(
+            _paged_timed(rng, long_case, reps=5),
+            shape={k: v for k, v in long_case.items() if k != "pos"})}
+        torch.cuda.empty_cache()
+    # row 4 as device time, and SDPA's at its shape (a masked einsum's
+    # worth of work over the whole cache)
+    lens = [100, 250, 431, 600]
+    sets = []
+    for _ in range(8):
+        q, kc, vc, pos = _decode_case(rng, B=4, H=12, Hkv=12, hd=64, M=1024,
+                                      pos=[n + 16 for n in lens])
+        mask = (torch.arange(1024, device="cuda")[None, :]
+                <= pos[:, None].long())[:, None, None, :]
+        sets.append(dict(q=q, kc=kc, vc=vc, pos=pos, mask=mask))
+    g_kern, g_sdpa = graph_ms_turns([
+        _Rotating(lambda q, kc, vc, pos, mask: da.decode_attention(
+            q, kc, vc, pos), sets),
+        _Rotating(lambda q, kc, vc, pos, mask: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask), sets)], inner=16)
+    results["decode_attention", "generate"].update(
+        graph_ms=g_kern, library_graph_ms=g_sdpa, graph_sets=len(sets))
 
 
 # the dequantize cases beyond the quantize pairs, each bit-exact against

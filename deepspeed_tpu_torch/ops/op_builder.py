@@ -105,10 +105,15 @@ def check(rc, what):
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+_DTYPE_CODES = {}
+
+
 def dtype_code(dtype):
-    import torch
-    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-    return codes[dtype]
+    if not _DTYPE_CODES:
+        import torch
+        _DTYPE_CODES.update({torch.float32: 0, torch.bfloat16: 1,
+                             torch.float16: 2})
+    return _DTYPE_CODES[dtype]
 
 
 def stream_ptr(device):

@@ -1,8 +1,9 @@
 """A/B of the dequantize kernels (int8 and int4) built from several source
 directories (copies of `deepspeed_tpu_torch/ops/csrc`, e.g. the parent
-commit's), checked and timed in turns on one CUDA card; then the other
-kernels no redesign has taken (decode, paged decode, int8 paged decode,
-quantize int8 / int4, token_sort) as device time at their paths' shapes.
+commit's), checked and timed in turns on one CUDA card; then rows 4–8 and
+13 (decode, paged decode, int8 paged decode, quantize int8 / int4,
+token_sort) as device time at their paths' shapes (rows 5 and 6 in detail:
+`tools/decode_ab.py`).
 
     python tools/quant_ab.py DIR [DIR ...] [--reps N] [--ptxas] [--no-others]
 
