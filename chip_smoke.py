@@ -35,9 +35,25 @@ Phases, one JSON line each:
            from the previous call) that the check must reject, timed as
            CUDA-graph device time (inputs rotated past L2) and host time a
            call at the serve and long-context shapes; the contiguous
-           decode also as device time beside SDPA's; quantize and
-           dequantize (int8, int4) bit-exact at the K/V pool-write shape
-           and the largest weights (wte, mlp_up_w); dequantize also at a
+           decode (the same split kernel with no table) also at
+           DECODE_EDGE_CASES (chunk edges, pos 0, M - 1 and past M, M 1000
+           and 77, G 1 / 4 / 8 / 16, hd 128, fp16, fp32, a 4095-position
+           row) and Llama-3-8B's attention over a 4096-row cache, with the
+           same two planted faults, and as device time beside SDPA's and
+           at the long shape; the int8 pool write (one launch a layer for
+           K and V) bit-exact against the plain sequence (quantize, then
+           the index writes) on every block but the trash block at
+           KV_WRITE_CASES (g 4 to 128, hd 64 and 128, bf16 / fp16 / fp32
+           views of the qkv projection, decode steps with inactive rows
+           and prefill chunks of 64 and 80, shuffled tables), with two
+           planted faults (a token's K scales taken from V, its last
+           payload vector left unwritten) that the check must reject, one
+           kernel a call in the profiler, and timed against the plain
+           sequence; quantize and dequantize (int8, int4) bit-exact at
+           the K/V rows' shape and the largest weights (wte, mlp_up_w;
+           wte's quantize_int8 also as device time) and at groups the
+           int8 vector path takes (4, 8, 24, 768, 1024) or not (7, 12, an
+           unaligned view); dequantize also at a
            flat length with a tail, slices of stacked leaves (one not
            aligned to the kernel's unit), g 7, 8, 12 and 25, fp32 and
            fp16 outputs, and several
@@ -109,8 +125,8 @@ Phases, one JSON line each:
            with int8 weights (one quantize_int8 per quantized leaf), then
            the int8 KV pool and int8 weights over the serve phase's 16
            requests — completion, drained pool, one int8 paged decode per
-           layer per decode step, two quantize_int8 per layer per model
-           step for the K/V writes, the WOQ dequantize_int8 count derived
+           layer per decode step, one quantize_int8 per layer per model
+           step for the K/V write, the WOQ dequantize_int8 count derived
            from the quantized tree; the served tokens' agreement with the
            same engine's generate(), quantized weights byte-equal to the
            port's CPU quantization of the same bf16-rounded weights,
@@ -634,16 +650,6 @@ FLASH_EDGE_CASES = (
     dict(B=2, T=200, H=8, Hkv=2, D=128, causal=False))
 
 
-def _decode_case(rng, B, H, Hkv, hd, M, pos):
-    import torch
-
-    def randn(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to("cuda", torch.bfloat16)
-    return (randn(B, H, hd), randn(B, Hkv, M, hd), randn(B, Hkv, M, hd),
-            torch.tensor(pos, dtype=torch.int32, device="cuda"))
-
-
 def _paged_case(rng, B, H, Hkv, hd, bs, nb, pos, dtype="bfloat16",
                 tables=None):
     """q, a paged K/V pool, block tables (shuffled, inactive rows on the
@@ -724,13 +730,12 @@ def phase_kernels():
 
     # --- contiguous decode: main path = generate()'s decode over the
     # 1024-row cache (600 + 32 rounded to 512-blocks), mid-generation
-    lens = [100, 250, 431, 600]
     for shape, main in (
-            (dict(B=4, H=12, Hkv=12, hd=64, M=1024,
-                  pos=[n + 16 for n in lens]), True),
+            (DECODE_GENERATE, True),
             (dict(B=8, H=32, Hkv=8, hd=128, M=2000,
                   pos=[0, 1, 63, 64, 700, 1999, 1500, 5]), False)):
-        q, kc, vc, pos = _decode_case(rng, **shape)
+        kw = _decode_args(rng, shape)
+        q, kc, vc, pos = (kw[n] for n in ("q", "k", "v", "pos"))
         out = da.decode_attention(q, kc, vc, pos)
         ref = da.decode_attention_reference(q, kc, vc, pos)
         torch.cuda.synchronize()
@@ -738,11 +743,7 @@ def phase_kernels():
                                          if k_ != "pos"}, out, ref)
         if not main:
             continue
-        B, H, hd = q.shape
-        Hkv = kc.shape[1]
-        live = sum(p + 1 for p in shape["pos"])
-        nbytes = 2 * live * Hkv * hd * 2 + 2 * B * H * hd * 2
-        b_ms, b_by = bound(nbytes, 4 * live * H * hd, FP32_FLOPS)
+        b_ms, b_by = _decode_bound(shape)
         mask = (torch.arange(kc.shape[2], device="cuda")[None, :]
                 <= pos[:, None].long())[:, None, None, :]
         results["decode_attention", "generate"] = dict(
@@ -792,6 +793,7 @@ def phase_kernels():
     results.update(_backward_kernels(rng, checks))
     results.update(_quant_kernels(rng, checks))
     _paged_split_kernels(rng, checks, results)
+    _decode_split_kernels(rng, checks, results)
     results.update(_token_sort_kernel(rng, checks))
     results.update(_norm_kernels(rng, checks))
     results.update(_block_sparse_kernels(rng, checks))
@@ -1135,16 +1137,30 @@ def _quant_kernels(rng, checks):
             plain_ms=median_ms(lambda: plain(q, pool, tables, pos)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    # quantize / dequantize: bit-exact, payload and scales
+    # quantize / dequantize: bit-exact, payload and scales; int8 takes the
+    # vector path wherever g divides 8 or is a multiple of 8 up to 1024 and
+    # x is 16-byte aligned, else the row body (g 7, 12; an unaligned view)
     timed = {}
     for (rows, D), g, dtype, label in (
-            ((96, 64), 64, torch.bfloat16, "kv_write"),
+            ((96, 64), 64, torch.bfloat16, "kv_rows"),
             ((96, 64), 32, torch.float16, None),
             ((50304, 768), 64, torch.bfloat16, "wte"),
             ((768, 3072), 64, torch.bfloat16, "mlp_up_w"),
-            ((40, 14), 7, torch.float32, None)):    # a byte spans two groups
-        x = torch.from_numpy(rng.standard_normal((rows, D)).astype(
-            np.float32)).to("cuda", dtype)
+            ((40, 14), 7, torch.float32, None),     # a byte spans two groups
+            ((96, 64), 8, torch.bfloat16, None),
+            ((33, 96), 24, torch.float16, None),    # 3 lanes a group
+            ((12, 768), 768, torch.float32, None),  # 3 units a lane
+            ((64, 2048), 1024, torch.bfloat16, None),
+            ((16, 64), 4, torch.float32, None),     # groups within a unit
+            ((9, 96), 12, torch.bfloat16, None),    # the row body
+            ((37, 72), 8, "unaligned", None)):      # a view 2 bytes in
+        if dtype == "unaligned":
+            x = torch.from_numpy(rng.standard_normal(rows * D + 1).astype(
+                np.float32)).to("cuda", torch.bfloat16)[1:].view(rows, D)
+            dtype = torch.bfloat16
+        else:
+            x = torch.from_numpy(rng.standard_normal((rows, D)).astype(
+                np.float32)).to("cuda", dtype)
         for bits in (8, 4):
             qk, sk = (quant.quantize_int8 if bits == 8
                       else quant.quantize_int4)(x, g)
@@ -1175,10 +1191,21 @@ def _quant_kernels(rng, checks):
                     lambda: quant.quantize_reference(x, g, bits)),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
     # quantize_int8 runs on two paths: the K/V pool write of every model
-    # step, and the int8 weights' quantization when the serving engine is
-    # built; quantize_int4 only at the int4 engine's build
-    for name, path, label in (("quantize_int8", "quant_serve", "kv_write"),
-                              ("quantize_int8", "quant_serve_build", "wte"),
+    # step (the fused write, one launch a layer), and the int8 weights'
+    # quantization when the serving engine is built (wte: also device
+    # time); quantize_int4 only at the int4 engine's build
+    write = _kv_write_kernels(rng, checks)
+    wte = timed["quantize_int8"]["wte"]
+    sets = [dict(x=torch.from_numpy(rng.standard_normal(
+        (50304, 768)).astype(np.float32)).to("cuda", torch.bfloat16))
+        for _ in range(3)]
+    wte["graph_ms"] = graph_ms(_Rotating(
+        lambda x: quant.quantize_int8(x, 64), sets), inner=6)
+    wte["graph_bound_factor"] = wte["graph_ms"] / wte["bound_ms"]
+    del sets
+    results["quantize_int8", "quant_serve"] = dict(
+        write, by_shape=dict(timed["quantize_int8"]))
+    for name, path, label in (("quantize_int8", "quant_serve_build", "wte"),
                               ("quantize_int4", "quant_generate_build",
                                "wte")):
         results[name, path] = dict(timed[name][label], by_shape=timed[name])
@@ -1190,6 +1217,185 @@ def _quant_kernels(rng, checks):
         results[f"dequantize_int{bits}", path] = dict(by_shape["wte"],
                                                       by_shape=by_shape)
     return results
+
+
+# the int8 pool write (row 7 on the quant_serve path: one launch a layer
+# for K and V) beyond its path's shape: g 4 (groups within a lane's 8
+# elements), 8, 16, 32, 64 and 128 (= hd), hd 64 and 128, bf16 / fp16 /
+# fp32 K/V as views of the fused qkv projection (strided rows), decode
+# steps (C 1, inactive rows on the trash block) and prefill chunks (C 64
+# and 80), 16- and 512-row blocks, shuffled tables; each bit-exact against
+# the plain sequence on every block but the trash block, both pools
+KV_WRITE_SERVE = dict(B=8, C=1, H=12, Hkv=12, hd=64, g=64, bs=512, nb=2,
+                      inactive=2)
+KV_WRITE_CASES = (
+    KV_WRITE_SERVE,
+    dict(B=4, C=1, H=16, Hkv=8, hd=128, g=8, bs=64, nb=3, dtype="float16",
+         inactive=1),
+    dict(B=1, C=64, H=12, Hkv=12, hd=64, g=16, bs=512, nb=2),
+    dict(B=2, C=80, H=8, Hkv=4, hd=128, g=32, bs=16, nb=12,
+         dtype="float32"),
+    dict(B=6, C=1, H=8, Hkv=2, hd=128, g=128, bs=16, nb=8, inactive=2),
+    dict(B=3, C=5, H=4, Hkv=2, hd=64, g=4, bs=16, nb=2, dtype="float32"),
+    dict(B=5, C=1, H=12, Hkv=12, hd=64, g=32, bs=512, nb=2, dtype="float16",
+         inactive=1),
+)
+
+
+def _kv_write_args(rng, case):
+    """(k, v, tables, positions, pool) of one write case on the card: K/V
+    views of a fused qkv projection [B, C, (H + 2 Hkv) hd]; shuffled
+    tables, the first `inactive` rows all-trash at position 0; distinct
+    positions a row (consecutive for C > 1, as a prefill chunk); the pool
+    random, so that a cell left unwritten shows."""
+    import torch
+    B, C, H, Hkv, hd, g, bs, nb = (case[n] for n in (
+        "B", "C", "H", "Hkv", "hd", "g", "bs", "nb"))
+    dt = getattr(torch, case.get("dtype", "bfloat16"))
+    N = B * nb + 1
+    tables = rng.permutation(np.arange(1, N))[:B * nb].reshape(
+        B, nb).astype(np.int32)
+    cap = nb * bs
+    if C == 1:
+        pos = rng.integers(0, cap, (B, 1))
+    else:
+        pos = rng.integers(0, cap - C + 1, (B, 1)) + np.arange(C)[None]
+    n_off = case.get("inactive", 0)
+    tables[:n_off], pos[:n_off] = 0, 0
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B, C, (H + 2 * Hkv) * hd)).astype(np.float32)).to("cuda", dt)
+    _, k, v = qkv.split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
+    pool = {}
+    for name in ("k", "v"):
+        pool[name] = torch.from_numpy(rng.integers(
+            -127, 128, (N, Hkv, bs, hd)).astype(np.int8)).cuda()
+        pool[name + "_scale"] = torch.from_numpy(rng.random(
+            (N, Hkv, bs, hd // g)).astype(np.float32)).cuda()
+    return (k.reshape(B, C, Hkv, hd), v.reshape(B, C, Hkv, hd),
+            torch.tensor(tables, device="cuda"),
+            torch.tensor(pos, dtype=torch.int64, device="cuda"), pool)
+
+
+_POOL_NAMES = ("k", "v", "k_scale", "v_scale")
+
+
+def _kv_write_check(checks, label, got, ref, fault=None):
+    """Every pool tensor bit-equal to the plain sequence's outside the
+    trash block (block 0, where inactive rows collide); a planted fault
+    must fail it."""
+    import torch
+    equal = {n: bool(torch.equal(got[n][1:], ref[n][1:]))
+             for n in _POOL_NAMES}
+    ok = all(equal.values())
+    row = {"kernel": "quantize_int8", "case": label, "bit_exact": equal}
+    if fault:
+        row.update(fault=fault, seen=not ok)
+        if ok:
+            raise AssertionError(f"quantize_kv_write {label}: the planted "
+                                 f"fault {fault} passes the check")
+    else:
+        row["ok"] = ok
+        if not ok:
+            raise AssertionError(f"quantize_kv_write {label}: kernel != "
+                                 f"plain sequence ({equal})")
+    checks.append(row)
+
+
+def _kv_write_fault(args, fault):
+    """The plain sequence with a planted fault at the last real token:
+    "scale_from_other_tensor", its K scales are V's; "last_vector_unwritten",
+    its last kv head's last 8 K payload bytes keep the pool's old ones."""
+    from deepspeed_tpu_torch.ops import quant
+    k, v, tables, pos, pool = args
+    ref = {n: t.clone() for n, t in pool.items()}
+    quant.quantize_kv_write_reference(k, v, tables, pos,
+                                      *(ref[n] for n in _POOL_NAMES))
+    B, C = pos.shape
+    bs = pool["k"].shape[2]
+    p = int(pos[B - 1, C - 1])
+    blk, off = int(tables[B - 1, p // bs]), p % bs
+    if fault == "scale_from_other_tensor":
+        ref["k_scale"][blk, :, off] = ref["v_scale"][blk, :, off]
+    else:
+        ref["k"][blk, -1, off, -8:] = pool["k"][blk, -1, off, -8:]
+    return ref
+
+
+def _kv_write_bound(case):
+    """The write's bound: K and V read once, payload and scales written
+    once, positions and the rows' table entries read once."""
+    import torch
+    B, C, Hkv, hd, g = (case[n] for n in ("B", "C", "Hkv", "hd", "g"))
+    esize = getattr(torch, case.get("dtype", "bfloat16")).itemsize
+    n = 2 * B * C * Hkv * hd
+    nbytes = n * esize + n + n // g * 4 + B * C * (8 + 4)
+    return bound(nbytes, 4 * n, FP32_FLOPS)
+
+
+def _kv_write_kernels(rng, checks):
+    """The fused int8 pool write against the plain sequence (`quantize_kv_
+    write_reference`: quantize_reference of K and V, then the index
+    writes) at KV_WRITE_CASES, the two planted faults at the serve shape,
+    the kernels one call launches (the wrapper's count: one; the profiler:
+    its own alone, no gather or scatter), then timed at the serve shape: eager, device time in CUDA
+    graphs of the kernel and of the plain sequence in turns, host time."""
+    import torch
+    from deepspeed_tpu_torch.ops import quant
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    for case in KV_WRITE_CASES:
+        k, v, tables, pos, pool = _kv_write_args(rng, case)
+        got = {n: t.clone() for n, t in pool.items()}
+        ref = {n: t.clone() for n, t in pool.items()}
+        quant.quantize_kv_write(k, v, tables, pos,
+                                *(got[n] for n in _POOL_NAMES))
+        quant.quantize_kv_write_reference(k, v, tables, pos,
+                                          *(ref[n] for n in _POOL_NAMES))
+        torch.cuda.synchronize()
+        _kv_write_check(checks, dict(case), got, ref)
+    args = _kv_write_args(rng, KV_WRITE_SERVE)
+    k, v, tables, pos, pool = args
+    got = {n: t.clone() for n, t in pool.items()}
+    quant.quantize_kv_write(k, v, tables, pos, *(got[n] for n in _POOL_NAMES))
+    for fault in ("scale_from_other_tensor", "last_vector_unwritten"):
+        _kv_write_check(checks, "serve", got, _kv_write_fault(args, fault),
+                        fault=fault)
+    pools = [dict(pool)] + [{n: t.clone() for n, t in pool.items()}
+                            for _ in range(7)]
+    sets = [dict(kx=k, vx=v, tables=tables, pos=pos, pool=p) for p in pools]
+
+    def fused(kx, vx, tables, pos, pool):
+        quant.quantize_kv_write(kx, vx, tables, pos,
+                                *(pool[n] for n in _POOL_NAMES))
+
+    def plain(kx, vx, tables, pos, pool):
+        quant.quantize_kv_write_reference(kx, vx, tables, pos,
+                                          *(pool[n] for n in _POOL_NAMES))
+    kern, ref_fn = _Rotating(fused, sets), _Rotating(plain, sets)
+    # the wrapper counts its launches, one a call; the trace shows that
+    # nothing else runs, no gather, scatter or copy (a long run's profiler
+    # drops some events, so its counts are not exact: see _norms)
+    LAUNCHES.clear()
+    for _ in range(16):
+        kern()
+    torch.cuda.synchronize()
+    if dict(LAUNCHES) != {"quantize_int8": 16}:
+        raise AssertionError(f"quantize_kv_write: {dict(LAUNCHES)} launches "
+                             f"in 16 calls, expected 16 of quantize_int8")
+    _, kernels = _device_ms(kern, calls=16)
+    if len(kernels) != 1 or any("quantize_vec_kernel" not in n
+                                for n in kernels):
+        raise AssertionError(f"quantize_kv_write: kernels in its calls "
+                             f"{kernels}, want the fused write alone")
+    # the plain sequence makes a host tensor a call: no CUDA graph of it
+    # (the parent's kernel sequence: tools/quant_ab.py)
+    g_kern = graph_ms(kern, inner=16)
+    b_ms, b_by = _kv_write_bound(KV_WRITE_SERVE)
+    return dict(shape={n: v for n, v in KV_WRITE_SERVE.items()},
+                max_abs_err=0.0, ms=median_ms(kern), plain_ms=median_ms(ref_fn),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                graph_ms=g_kern, host_ms=_host_ms(kern),
+                plain_host_ms=_host_ms(ref_fn), kernels_a_call=kernels,
+                graph_bound_factor=g_kern / b_ms)
 
 
 # rows 5 and 6 (the paged decode over the bf16 and the int8 pool) beyond
@@ -1406,23 +1612,136 @@ def _paged_split_kernels(rng, checks, results):
             _paged_timed(rng, long_case, reps=5),
             shape={k: v for k, v in long_case.items() if k != "pos"})}
         torch.cuda.empty_cache()
-    # row 4 as device time, and SDPA's at its shape (a masked einsum's
-    # worth of work over the whole cache)
-    lens = [100, 250, 431, 600]
+
+
+# row 4 (the contiguous decode, the split kernel with no table) beyond its
+# path's shape, bf16 unless given. The plan (split_plan(M, B x Hkv)) cuts
+# generate()'s 1024-row cache into chunks of 64: positions at a chunk's
+# edges (63, 64, 65), 0, M - 1 and past M (clamped to M - 1); M not a
+# multiple of 64 (1000, 77); G 1, 4, 8 and 16 (two passes of 8); hd 128;
+# fp16 and fp32; one row at 4095 (64 chunks to merge)
+DECODE_EDGE_CASES = (
+    dict(B=6, H=12, Hkv=12, hd=64, M=1024, pos=[63, 64, 65, 0, 1023, 1500]),
+    dict(B=4, H=8, Hkv=8, hd=64, M=1000, pos=[0, 999, 640, 2000],
+         dtype="float16"),
+    dict(B=3, H=16, Hkv=1, hd=64, M=77, pos=[0, 76, 500], dtype="float32"),
+    dict(B=5, H=16, Hkv=4, hd=128, M=512, pos=[63, 64, 65, 511, 0]),
+    dict(B=2, H=32, Hkv=4, hd=64, M=640, pos=[128, 639], dtype="float16"),
+    dict(B=3, H=8, Hkv=8, hd=128, M=300, pos=[299, 64, 5],
+         dtype="float32"),
+    dict(B=1, H=32, Hkv=8, hd=128, M=4096, pos=[4095]),
+)
+# generate()'s decode (gpt2-125m, 4 prompts of 100-600 tokens, 16 tokens
+# in) and row 4's long-context shape: Llama-3-8B's attention as
+# PAGED_LONG, 8 rows at position 4095 of a contiguous 4096-row cache
+DECODE_GENERATE = dict(B=4, H=12, Hkv=12, hd=64, M=1024,
+                       pos=[n + 16 for n in (100, 250, 431, 600)])
+DECODE_LONG = dict(B=8, H=32, Hkv=8, hd=128, M=4096, pos=[4095] * 8)
+
+
+def _decode_args(rng, case):
+    """Row 4's wrapper kwargs for one case: q, the cache, pos on the
+    card in the case's dtype."""
+    import torch
+    B, H, Hkv, hd, M = (case[n] for n in ("B", "H", "Hkv", "hd", "M"))
+    dt = getattr(torch, case.get("dtype", "bfloat16"))
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dt)
+    return dict(q=randn(B, H, hd), k=randn(B, Hkv, M, hd),
+                v=randn(B, Hkv, M, hd),
+                pos=torch.tensor(case["pos"], dtype=torch.int32,
+                                 device="cuda"))
+
+
+def _decode_bound(case):
+    """Row 4's bound: each row's live K/V (pos clamped to M - 1) read
+    once, q read and out written once."""
+    import torch
+    B, H, Hkv, hd, M = (case[n] for n in ("B", "H", "Hkv", "hd", "M"))
+    esize = getattr(torch, case.get("dtype", "bfloat16")).itemsize
+    live = sum(min(p, M - 1) + 1 for p in case["pos"] if p >= 0)
+    return bound(2 * live * Hkv * hd * esize + 2 * B * H * hd * esize,
+                 4 * live * H * hd, FP32_FLOPS)
+
+
+def _decode_as_paged(kw):
+    """Row 4's kwargs as the paged plain versions take them: the cache as
+    a pool of B blocks of M rows, row b's table [b]."""
+    import torch
+    B = kw["q"].shape[0]
+    return dict(q=kw["q"], k_pool=kw["k"], v_pool=kw["v"],
+                block_tables=torch.arange(B, dtype=torch.int32,
+                                          device=kw["q"].device)[:, None],
+                pos=kw["pos"])
+
+
+def _decode_timed(rng, case, reps=10):
+    """Row 4 at one case: device time in CUDA graphs with the inputs
+    rotated past L2, host time a call, the bound."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    per_set = 2 * case["B"] * case["Hkv"] * case["M"] * case["hd"] * 2
+    sets = [_decode_args(rng, case) for _ in range(
+        int(min(8, max(2, -(-NORM_COLD_BYTES // per_set)))))]
+    rot = _Rotating(da.decode_attention, sets)
+    inner = len(sets) * max(1, round(16 / len(sets)))
+    (g,) = graph_ms_turns([rot], inner=inner, reps=reps)
+    b_ms, b_by = _decode_bound(case)
+    return dict(sets=len(sets), graph_ms=g, host_ms=_host_ms(rot),
+                bound_ms=b_ms, bound_by=b_by, graph_bound_factor=g / b_ms)
+
+
+def _decode_split_kernels(rng, checks, results):
+    """Row 4, the split kernel over the contiguous cache: every
+    DECODE_EDGE_CASES case and the long-context shape against
+    `decode_attention_reference`; the paged planted faults (a dropped last
+    chunk, a stale chunk partial) built on the cache as a table-less pool,
+    which the check must reject; the path's row gains device time beside
+    SDPA's (in turns, inputs rotated past L2), host time a call, its split
+    and the long-context shape's readings (`by_shape`)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    name = "decode_attention"
+    for case in DECODE_EDGE_CASES + (DECODE_LONG,):
+        kw = _decode_args(rng, case)
+        out, ref = da.decode_attention(**kw), da.decode_attention_reference(
+            **kw)
+        torch.cuda.synchronize()
+        _paged_check(checks, name, dict(case), out, ref)
+        del kw, out, ref
+    kw = _decode_args(rng, DECODE_GENERATE)
+    ref = da.decode_attention_reference(**kw)
+    for fault in ("dropped_last_chunk", "stale_partial"):
+        _paged_check(checks, name, "generate",
+                     _paged_fault(_decode_as_paged(kw), fault), ref,
+                     fault=fault)
+    # device time and SDPA's at the path's shape (a masked einsum's worth
+    # of work over the whole cache), in turns
     sets = []
     for _ in range(8):
-        q, kc, vc, pos = _decode_case(rng, B=4, H=12, Hkv=12, hd=64, M=1024,
-                                      pos=[n + 16 for n in lens])
-        mask = (torch.arange(1024, device="cuda")[None, :]
-                <= pos[:, None].long())[:, None, None, :]
-        sets.append(dict(q=q, kc=kc, vc=vc, pos=pos, mask=mask))
-    g_kern, g_sdpa = graph_ms_turns([
-        _Rotating(lambda q, kc, vc, pos, mask: da.decode_attention(
-            q, kc, vc, pos), sets),
-        _Rotating(lambda q, kc, vc, pos, mask: F.scaled_dot_product_attention(
-            q[:, :, None], kc, vc, attn_mask=mask), sets)], inner=16)
-    results["decode_attention", "generate"].update(
-        graph_ms=g_kern, library_graph_ms=g_sdpa, graph_sets=len(sets))
+        kw = _decode_args(rng, DECODE_GENERATE)
+        kw["mask"] = (torch.arange(DECODE_GENERATE["M"], device="cuda")[
+            None, :] <= kw["pos"][:, None].long())[:, None, None, :]
+        sets.append(kw)
+    kern = _Rotating(lambda q, k, v, pos, mask: da.decode_attention(
+        q, k, v, pos), sets)
+    g_kern, g_sdpa = graph_ms_turns([kern, _Rotating(
+        lambda q, k, v, pos, mask: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask), sets)], inner=16)
+    chunk, n_chunks = da.split_plan(DECODE_GENERATE["M"],
+                                    DECODE_GENERATE["B"]
+                                    * DECODE_GENERATE["Hkv"])
+    results[name, "generate"].update(
+        graph_ms=g_kern, library_graph_ms=g_sdpa, graph_sets=len(sets),
+        graph_sdpa_factor=g_kern / g_sdpa, host_ms=_host_ms(kern),
+        chunk=chunk, n_chunks=n_chunks,
+        by_shape={"long_context": dict(
+            _decode_timed(rng, DECODE_LONG, reps=5),
+            shape={k: v for k, v in DECODE_LONG.items() if k != "pos"})})
+    del sets, kern
+    torch.cuda.empty_cache()
 
 
 # the dequantize cases beyond the quantize pairs, each bit-exact against
@@ -3026,7 +3345,7 @@ def phase_quant(state):
     decodes = (st["decode_steps"] - st0["decode_steps"]) * serving.window
     per_step = _dequant_per_step(engine.params, L)
     want = {"paged_decode_attention_quant": L * decodes,
-            "quantize_int8": 2 * L * (prefills + decodes),
+            "quantize_int8": L * (prefills + decodes),
             "dequantize_int8": per_step * (prefills + decodes)
             + 2 * L * prefills}
     if prefills <= 0 or decodes <= 0:
@@ -3919,13 +4238,14 @@ def _device_breakdown(prof, wall_s):
         if us <= 0 or ev.device_type.name != "CUDA":
             continue
         name = ev.key
-        if any(k in name for k in ("decode_attn_kernel", "flash_fwd_kernel",
+        if any(k in name for k in ("paged_decode_kernel", "flash_fwd_kernel",
                                    "flash_bwd_", "bsa_", "evo_fwd_kernel")):
             cls = "attention (ours)"
             o = ours.setdefault(name[:80], {"ms": 0.0, "calls": 0})
             o["ms"] += us / 1e3
             o["calls"] += ev.count
-        elif "quantize_kernel" in name:
+        elif any(k in name for k in ("quantize_kernel",
+                                     "quantize_vec_kernel")):
             cls = "quant (ours)"
         elif any(k in name for k in ("token_sort_kernel", "norm_kernel")):
             cls = "token sort, norms (ours)"

@@ -14,9 +14,10 @@ and leaves the fusion to XLA; the numbers are the same, since groups lie
 along the last dim and a row of the dense tensor depends only on the same
 row of the payload and its scales.
 
-The int8 KV pool: `quantize_kv` / `dequantize_kv` are its cache-write and
-read primitives (`init_paged_kv_pool(dtype=int8)` keeps `k_scale` /
-`v_scale` beside the payload).
+The int8 KV pool: `quantize_kv` / `dequantize_kv` are its quantize and
+read primitives, `quantize_kv_write` its cache write (one launch a layer
+on CUDA; `init_paged_kv_pool(dtype=int8)` keeps `k_scale` / `v_scale`
+beside the payload).
 
 Every function here runs the `ops/quant.py` kernels on CUDA tensors and
 their plain versions on CPU tensors.
@@ -156,6 +157,18 @@ def quantize_kv(x, group_size):
     the int8 pool's cache write (`quantize_int8`'s numerics; a group that
     does not tile D raises ValueError)."""
     return quant_ops.quantize_int8(x, group_size)
+
+
+def quantize_kv_write(pool_l, k, v, block_tables, positions):
+    """The int8 pool's cache write for one layer, in place: the new tokens'
+    k, v [B, C, Hkv, hd] quantized (`quantize_kv`'s numerics) into
+    `pool_l` {"k", "v", "k_scale", "v_scale"} at each token's physical
+    block (block_tables [B, nb] at positions [B, C] // block) and offset
+    (positions % block): `ops/quant.quantize_kv_write`, one launch on
+    CUDA."""
+    quant_ops.quantize_kv_write(k, v, block_tables, positions, pool_l["k"],
+                                pool_l["v"], pool_l["k_scale"],
+                                pool_l["v_scale"])
 
 
 def dequantize_kv(q, scale, dtype=torch.bfloat16):

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.inference.quantization import (
-    QuantizedTensor, dense, dequantize_tensors, quantize_kv)
+    QuantizedTensor, dense, dequantize_tensors, quantize_kv_write)
 from deepspeed_tpu_torch.ops import attention_dispatch as attn_dispatch
 from deepspeed_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference, paged_decode_attention,
@@ -634,15 +634,12 @@ def _paged_attn_half(x, p, pool_l, positions, block_tables, cfg: GPTConfig):
     # block; the write order there is unspecified and irrelevant. A real
     # row's (block, offset) is unique in the step, so its payload and its
     # scales come from the same token.
-    blk = torch.gather(block_tables.long(), 1, (positions // bs).long())   # [B, C]
-    off = positions % bs
     if quantized:
-        g = cfg.head_dim // pool_l["k_scale"].shape[-1]
-        for name, t in (("k", k), ("v", v)):
-            qt, st = quantize_kv(t, g)
-            pool_l[name][blk, :, off] = qt
-            pool_l[f"{name}_scale"][blk, :, off] = st
+        quantize_kv_write(pool_l, k, v, block_tables, positions)
     else:
+        blk = torch.gather(block_tables.long(), 1,
+                           (positions // bs).long())                  # [B, C]
+        off = positions % bs
         pool_l["k"][blk, :, off] = k.to(pool_l["k"].dtype)
         pool_l["v"][blk, :, off] = v.to(pool_l["v"].dtype)
     phase = "paged_decode" if C == 1 else "prefill_chunk"

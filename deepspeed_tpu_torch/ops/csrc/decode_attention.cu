@@ -2,7 +2,11 @@
 //
 // Replaces the Pallas kernels of deepspeed_tpu/ops/pallas/decode_attention.py:
 //   * decode_attention (:108, kernel _decode_kernel :77) — contiguous cache
-//     k/v [B, Hkv, M, hd]: `decode_attn_kernel` below;
+//     k/v [B, Hkv, M, hd]: `paged_decode_kernel` with no table. The cache is
+//     a pool [N = B, Hkv, bs = M, hd] in which row b owns one block, block
+//     b: the pool's address ((phys * Hkv + h) * bs + p % bs) * hd with phys
+//     = b and bs = M is the cache's ((b * Hkv + h) * M + p) * hd, so a tile
+//     is one page segment and no table is read;
 //   * paged_decode_attention (:194, kernel _paged_decode_kernel :180) — a
 //     paged pool k/v [N, Hkv, block, hd] addressed through block tables
 //     [B, nb]: `paged_decode_kernel`;
@@ -24,16 +28,6 @@
 // many of its bytes are in flight at once; the fp32 CUDA cores keep up with
 // the bf16 pool (the int8 pool's dequantization is the exception, below).
 //
-// decode_attn_kernel (the contiguous cache of generate(); its paged and
-// int8 modes are no longer instantiated): one thread block per (row b, kv
-// head) holds the G query heads of its group and walks tiles of TILE
-// positions up to pos[b] one after another, staging each K/V tile in fp32
-// shared memory with 16-byte loads, with m / l / acc in shared memory. The
-// grid is B * Hkv blocks (48 at generate's decode, for 132 SMs), each with
-// a few KB in flight, and the longest row's tiles run in series: ~27x its
-// bound, twice SDPA's device time at its shape. It moves onto the paged
-// kernel's design in a later change.
-//
 // paged_decode_kernel (flash-decoding): each row's live prefix is split
 // across the card. A work item is (row b, kv head h, chunk c) of `chunk`
 // positions, from the wrapper's split_plan (shapes only: pos is read on the
@@ -46,9 +40,9 @@
 // w + 4, ...) through a ring of two stages: lane 0 issues one 1-D bulk copy
 // (sm90.cuh bulk_load) of K, of V (and of the int8 scales) a page segment
 // onto the stage's mbarrier, the chunk's table entries read a lane each
-// beside pos, so the next tile lands while this one is computed. A lane
-// takes 8 elements of a row for every dtype (hd 64: 8 lanes a row, 4 rows a
-// warp instruction); q sits in registers (fp32); a row's dot products are
+// beside pos (none for the contiguous cache), so the next tile lands while
+// this one is computed. A lane takes 8 elements of a row for every dtype
+// (hd 64: 8 lanes a row, 4 rows a warp instruction); q sits in registers (fp32); a row's dot products are
 // summed over its lanes by shuffles; the softmax is online per warp and
 // tile (exp2 of log2e-scaled scores); each lane accumulates P·V for its 8
 // elements in fp32 registers for every head of the pass (P stays fp32).
@@ -64,219 +58,25 @@
 // clamped to the capacity. Up to GQ 4 the kernel is held to 128 registers
 // (four blocks an SM).
 //
-// Measured on the H100 (PERF.md §6): the serving shape runs at ~3.8x its
-// byte bound, held by the launch, two dependent reads (pos, the table),
-// DRAM latency and the merge's global round trips (~2 µs); the bf16
-// long-context shape at 1.37x; the int8 pool at long context by the
-// dequantization in registers (~3.4x: some nine operations an element at
-// GQ 4). A cluster of a row's chunks meeting in distributed shared memory
-// ran slower (whole clusters fit fewer blocks at once).
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md §6, device time under
+// CUDA graphs): generate()'s contiguous decode 7.79 µs, SDPA with the
+// prefix mask 17.66 (the first design, a block per (row, kv head) walking
+// its prefix in series, 36.12); the contiguous long-context shape at
+// 1.40x its byte bound. The serving shape runs at ~3.8x its byte bound,
+// held by the launch, two dependent reads (pos, the table), DRAM latency
+// and the merge's global round trips (~2 µs); the bf16 long-context shape
+// at 1.37x; the int8 pool at long context by the dequantization in
+// registers (~3.4x: some nine operations an element at GQ 4). A cluster
+// of a row's chunks meeting in distributed shared memory ran slower
+// (whole clusters fit fewer blocks at once).
 
 #include <climits>
 #include <type_traits>
 
 #include "sm90.cuh"
 
-namespace {
-
-using namespace dstt;
-
-constexpr int kThreads = 128;
-
-// Element offset of the [hd] K/V row at logical position p of (row b, kv
-// head h). Contiguous: ((b*Hkv + h)*M + p) * HD. Paged: the row's table
-// names the physical block of logical block p / bs.
-struct KvAddr {
-  const int* table;  // [B, nb] block tables; null for the contiguous cache
-  int nb, bs, Hkv, M;
-  __device__ __forceinline__ long long row(int b, int h, int p, int hd) const {
-    if (table == nullptr) return ((long long)(b * Hkv + h) * M + p) * hd;
-    const long long phys = table[(long long)b * nb + p / bs];
-    return ((phys * Hkv + h) * bs + p % bs) * hd;
-  }
-};
-
-// T: q / out dtype. KV: the K/V element type — T, or int8_t with per-group
-// f32 scales ksc / vsc ([..., HD / ng] rows beside the payload rows).
-template <typename T, typename KV, int HD>
-__global__ void __launch_bounds__(kThreads)
-decode_attn_kernel(const T* __restrict__ q, const KV* __restrict__ k,
-                   const KV* __restrict__ v, const float* __restrict__ ksc,
-                   const float* __restrict__ vsc, int ng, T* __restrict__ out,
-                   const int* __restrict__ pos, KvAddr addr, int G,
-                   int capacity, float scale) {
-  constexpr int TILE = 4096 / HD;      // 64 positions at hd 64, 32 at hd 128
-  constexpr int LD = HD + 1;           // padded rows: conflict-free walks
-  constexpr int VEC = 16 / sizeof(KV);
-  constexpr int VPR = HD / VEC;        // 16-byte vectors per row
-  extern __shared__ float smem[];
-  float* ks = smem;                    // [TILE][LD]
-  float* vs = ks + TILE * LD;          // [TILE][LD]
-  float* qs = vs + TILE * LD;          // [G][HD]
-  float* acc = qs + G * HD;            // [G][HD]
-  float* sc = acc + G * HD;            // [G][TILE] scores, then probabilities
-  float* m_s = sc + G * TILE;          // [G] running max
-  float* l_s = m_s + G;                // [G] running denominator
-  float* a_s = l_s + G;                // [G] this tile's rescale factor
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long qrow = ((long long)b * addr.Hkv + h) * G * HD;
-  const int len = min(pos[b] + 1, capacity);
-
-  for (int i = tid; i < G * HD; i += kThreads) {
-    qs[i] = to_f(q[qrow + i]);
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < len; t0 += TILE) {
-    const int n = min(TILE, len - t0);
-    __syncthreads();  // previous tile fully consumed (and q staged)
-    for (int i = tid; i < TILE * VPR; i += kThreads) {
-      const int r = i / VPR, c = (i % VPR) * VEC;
-      float kf[VEC], vf[VEC];
-      if (r < n) {
-        const long long row = addr.row(b, h, t0 + r, HD);
-        load16(k + row + c, kf);
-        load16(v + row + c, vf);
-        if constexpr (std::is_same<KV, int8_t>::value) {
-          const long long srow = row / HD * ng;
-          const int gs = HD / ng;
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) {
-            kf[j] = to_f(from_f<T>(kf[j] * ksc[srow + (c + j) / gs]));
-            vf[j] = to_f(from_f<T>(vf[j] * vsc[srow + (c + j) / gs]));
-          }
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) kf[j] = vf[j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        ks[r * LD + c + j] = kf[j];
-        vs[r * LD + c + j] = vf[j];
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * TILE; i += kThreads) {
-      const int g = i / TILE, r = i % TILE;
-      float s = -INFINITY;
-      if (r < n) {
-        float d = 0.f;
-#pragma unroll 16
-        for (int j = 0; j < HD; ++j) d += qs[g * HD + j] * ks[r * LD + j];
-        s = d * scale;
-      }
-      sc[i] = s;
-    }
-    __syncthreads();
-
-    // online-softmax statistics: one warp per query head of the group
-    for (int g = warp; g < G; g += kThreads / 32) {
-      float* sg = sc + g * TILE;
-      float mx = -INFINITY;
-      for (int r = lane; r < TILE; r += 32) mx = fmaxf(mx, sg[r]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);  // finite: position t0 is live
-      float sum = 0.f;
-      for (int r = lane; r < TILE; r += 32) {
-        const float p = expf(sg[r] - m_new);
-        sg[r] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * HD; i += kThreads) {
-      const int g = i / HD, d = i % HD;
-      const float* p = sc + g * TILE;
-      float a = acc[i] * a_s[g];
-      for (int r = 0; r < n; ++r) a += p[r] * vs[r * LD + d];
-      acc[i] = a;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < G * HD; i += kThreads) {
-    const float l = fmaxf(l_s[i / HD], 1e-30f);
-    out[qrow + i] = from_f<T>(acc[i] / l);
-  }
-}
-
-// The K/V operands of one launch: payload pointers, and for the int8 pool
-// the scale pointers and the number of scale groups per K/V vector.
-struct KvData {
-  const void *k, *v;
-  const float *ksc, *vsc;
-  int ng;
-};
-
-template <typename T, typename KV, int HD>
-int launch(const void* q, KvData kv, void* out, const int* pos, KvAddr addr,
-           int B, int G, int capacity, float scale, cudaStream_t stream) {
-  constexpr int TILE = 4096 / HD;
-  const size_t smem =
-      sizeof(float) * (2 * TILE * (HD + 1) + 2 * G * HD + G * TILE + 3 * G);
-  cudaFuncSetAttribute(decode_attn_kernel<T, KV, HD>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  decode_attn_kernel<T, KV, HD><<<dim3(addr.Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(kv.k),
-      static_cast<const KV*>(kv.v), kv.ksc, kv.vsc, kv.ng,
-      static_cast<T*>(out), pos, addr, G, capacity, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, typename KV>
-int launch_hd(int hd, const void* q, KvData kv, void* out, const int* pos,
-              KvAddr addr, int B, int G, int capacity, float scale,
-              cudaStream_t stream) {
-  if (hd == 64)
-    return launch<T, KV, 64>(q, kv, out, pos, addr, B, G, capacity, scale, stream);
-  if (hd == 128)
-    return launch<T, KV, 128>(q, kv, out, pos, addr, B, G, capacity, scale, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
-
-// q [B, H, hd], out [B, H, hd]; pos [B] int32. table == null: k/v are the
-// contiguous cache [B, Hkv, M, hd] and `m_or_bs` is M. Otherwise k/v are the
-// pool [N, Hkv, bs, hd], table is [B, nb] int32 and `m_or_bs` is bs.
-// dtype: 0 float32, 1 bfloat16, 2 float16. Returns cudaGetLastError().
-extern "C" int dstt_decode_attention(const void* q, const void* k,
-                                     const void* v, void* out, const int* pos,
-                                     const int* table, int B, int H, int Hkv,
-                                     int hd, int m_or_bs, int nb, float scale,
-                                     int dtype, void* stream) {
-  KvAddr addr{table, nb, m_or_bs, Hkv, m_or_bs};
-  KvData kv{k, v, nullptr, nullptr, 0};
-  const int capacity = table == nullptr ? m_or_bs : nb * m_or_bs;
-  const int G = H / Hkv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_hd<float, float>(hd, q, kv, out, pos, addr, B, G, capacity, scale, s);
-    case 1: return launch_hd<__nv_bfloat16, __nv_bfloat16>(hd, q, kv, out, pos, addr, B, G, capacity, scale, s);
-    case 2: return launch_hd<__half, __half>(hd, q, kv, out, pos, addr, B, G, capacity, scale, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-
 // ---------------------------------------------------------------------------
-// paged_decode_kernel: the paged pool, each row's prefix split into chunks
+// paged_decode_kernel: each row's prefix split into chunks
 // ---------------------------------------------------------------------------
 
 namespace dstt {
@@ -296,13 +96,20 @@ struct Params {
   const float *ksc, *vsc;  // int8 pool: [N, Hkv, bs, ng] scales; else null
   void* out;               // [B, H, HD]
   const int* pos;          // [B]
-  const int* table;        // [B, nb]
+  const int* table;        // [B, nb]; null: the contiguous cache (nb 1)
   float* part;             // [items, G, HD] sums, then [items, G] (m, l)
   unsigned* tickets;       // [B * Hkv], 0 at rest
   int Hkv, G, bs, nb, ng, lgs, chunk, nch, capacity;
   int sc_bulk;             // the scales' segments are whole 16 bytes
   float scale;             // sm_scale * log2(e): scores in the exp2 domain
 };
+
+// The physical block of row b's logical block pg: the row's table entry,
+// or, for the contiguous cache [B, Hkv, M, hd] (a pool of B blocks of M
+// rows, no table), block b itself.
+__device__ __forceinline__ long long page(const Params& p, int b, int pg) {
+  return p.table ? (long long)p.table[(long long)b * p.nb + pg] : b;
+}
 
 // x and y narrowed to T (two at a time) and widened back
 template <typename T>
@@ -384,7 +191,7 @@ paged_decode_kernel(const __grid_constant__ Params p) {
   const int first = start / p.bs;
   const int span = min(p.nb - 1, (start + p.chunk - 1) / p.bs) - first + 1;
   long long phys0 = 0;
-  if (lane < span) phys0 = p.table[(long long)b * p.nb + first + lane];
+  if (lane < span) phys0 = page(p, b, first + lane);
   const int pb = p.pos[b];
   const int len = pb < 0 ? 0 : min(pb, p.capacity - 1) + 1;
   const int nlive = max(1, (len + p.chunk - 1) / p.chunk);
@@ -428,8 +235,7 @@ paged_decode_kernel(const __grid_constant__ Params p) {
       const int rel = pg - first;
       const long long ph = __shfl_sync(0xffffffffu, phys0, rel & 31);
       if (lane == 0) {
-        const long long phys =
-            rel < 32 ? ph : (long long)p.table[(long long)b * p.nb + pg];
+        const long long phys = rel < 32 ? ph : page(p, b, pg);
         const long long row = (phys * p.Hkv + h) * p.bs + off;
         const int rr = q0 - lo;
         const uint32_t kvb = run * HD * sizeof(KV);
@@ -493,8 +299,8 @@ paged_decode_kernel(const __grid_constant__ Params p) {
         for (int e = lane; e < (rows << lng); e += 32) {
           const int lp = start + rt + (e >> lng), pg = lp / p.bs;
           const long long at =
-              (((long long)p.table[(long long)b * p.nb + pg] * p.Hkv + h) *
-                   p.bs + (lp - pg * p.bs)) * p.ng + (e & (p.ng - 1));
+              ((page(p, b, pg) * p.Hkv + h) * p.bs + (lp - pg * p.bs)) *
+                  p.ng + (e & (p.ng - 1));
           kss[e] = p.ksc[at];
           vss[e] = p.vsc[at];
         }
@@ -734,7 +540,8 @@ int paged_dispatch(const Params& p, int hd, long long items,
 // Decode attention over the paged pool: k/v [N, Hkv, bs, hd] in q's dtype
 // (ng 0), or int8 with f32 scales k_scale / v_scale [N, Hkv, bs, ng] (ng a
 // power of two dividing hd). q / out [B, H, hd]; pos [B], table [B, nb]
-// int32; part: fp32 scratch of B * Hkv * n_chunks * (H / Hkv) * (hd + 2)
+// int32. table null: k/v are the contiguous cache [B, Hkv, M, hd], bs = M
+// and nb = 1 (row b's one page is block b). part: fp32 scratch of B * Hkv * n_chunks * (H / Hkv) * (hd + 2)
 // floats; tickets: B * Hkv unsigned counters, 0 at rest (the kernel leaves
 // them 0). chunk: positions a work item, a multiple of 64; n_chunks =
 // ceil(nb * bs / chunk). dtype: 0 float32, 1 bfloat16, 2 float16. Returns
@@ -749,6 +556,7 @@ extern "C" int dstt_paged_decode(const void* q, const void* k, const void* v,
   using namespace dstt::paged;
   const long long capacity = (long long)nb * bs;
   if (B < 1 || Hkv < 1 || H % Hkv || bs < 1 || nb < 1 ||
+      (table == nullptr && nb != 1) ||
       capacity > INT_MAX / 2 || chunk < 64 || chunk % 64 ||
       n_chunks != (capacity + chunk - 1) / chunk)
     return (int)cudaErrorInvalidValue;

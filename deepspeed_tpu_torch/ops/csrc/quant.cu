@@ -3,7 +3,9 @@
 //
 // Replaces the Pallas kernels of deepspeed_tpu/ops/pallas/quant.py:
 //   * quantize_int8 (:53, kernel _quant_kernel :25) and dequantize_int8
-//     (:170, kernel _dequant_kernel :37);
+//     (:170, kernel _dequant_kernel :37); quantize_int8 also as the int8
+//     KV pool's cache write, which the JAX package leaves to XLA
+//     (deepspeed_tpu/models/gpt.py: quantize_kv, then .at[blk, :, off].set);
 //   * quantize_int4 (:111, kernel _quant4_kernel :81) and dequantize_int4
 //     (:145, kernel _dequant4_kernel :98).
 // One source; the bit width is a template parameter (qmax 127 or 7).
@@ -24,13 +26,35 @@
 //
 // What bounds it on the H100: memory. Each element is read once and written
 // once with a handful of operations, far below the card's ridge point.
-//   quantize   one 128-thread block per row; pass 1 gives each group to a
-//              warp, whose lanes stride the group and reduce |max| with a
-//              shuffle; the scales go to shared memory and to the output;
-//              pass 2 quantizes the row (or packs its byte pairs) with
-//              neighbouring threads on neighbouring elements, reading the
-//              row a second time from L1/L2. A row of D = 64 (the K/V pool
-//              write) leaves most of a block's threads idle.
+//   quantize   int8 (quantize_int8, and the int8 pool's cache write of a
+//              layer's K and V in one launch): quantize_vec_kernel. A lane
+//              takes a unit of 8 elements (one 16-byte load of bf16 /
+//              fp16, two of fp32) and keeps it in registers: x is read
+//              once. A group of g elements is a team of g / 8 lanes (a
+//              power of two >= it, up to 32; above g 256 a lane takes 2
+//              or 4 units), whose amax is an xor shuffle over the team; g
+//              dividing 8 reduces inside the unit. The team's first lane
+//              writes the scale; each lane stores its 8 payload bytes, so a
+//              warp's stores are one run. The dense quantize gives a warp 4
+//              tiles of 32 units with all loads issued first; the pool
+//              write one tile, and reads positions and the table in the
+//              kernel, so one launch replaces the table gather, `//`, `%`,
+//              two quantizes and four index writes (26.5 -> 2.9 µs of
+//              device time at the serving shape, NVIDIA H100 80GB HBM3,
+//              700 W; PERF.md §6). wte [50304, 768] g 64: 154.9 -> 52.6-
+//              53.7 µs, 1.49-1.52x its byte bound; 1, 2 or 8 units a lane,
+//              128-thread blocks, streaming loads, and a multiply by the
+//              group's reciprocal in place of the divisions measured no
+//              faster (PERF.md §5).
+//              int4, and int8 groups the vector path cannot take (g
+//              neither dividing 8 nor a multiple of 8, g > 1024, an
+//              unaligned x): quantize_kernel, one 128-thread block per row;
+//              pass 1 gives each group to a warp, whose lanes stride the
+//              group and reduce |max| with a shuffle; the scales go to
+//              shared memory and to the output; pass 2 quantizes the row
+//              (or packs its byte pairs) with neighbouring threads on
+//              neighbouring elements, reading the row a second time from
+//              L1/L2.
 //   dequantize flat and vectorised. Groups lie along the last dim and
 //              D % g == 0, so a leaf is one flat array: out[i] = q[i] *
 //              s[i / g] (int8); byte j holds elements 2j and 2j + 1 (int4).
@@ -63,6 +87,7 @@
 //              faster at wte, −6 to +2 % at a layer; 8 units a thread spill
 //              and run up to 56 % slower.
 
+#include <climits>
 #include <type_traits>
 
 #include "sm90.cuh"
@@ -133,6 +158,281 @@ int quantize_t(const void* x, void* q, void* s, long long rows, int D, int g,
       static_cast<const T*>(x), static_cast<int8_t*>(q),
       static_cast<float*>(s), D, g);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// quantize_int8, vectorised: the dense [rows, D] and the K/V pool write
+// ---------------------------------------------------------------------------
+
+constexpr int kVecThreads = 256;
+constexpr int kVecUnits = 4;    // tiles a warp of the dense quantize (R 1)
+constexpr int kVecMaxGroup = 1024;  // 32 lanes x 4 units of 8 elements
+
+// The tiling of one launch. A unit is 8 consecutive elements of a row (one
+// 16-byte load of bf16 / fp16, two of fp32; 8 payload bytes). A tiling
+// group is gt = max(g, 8) elements (gu = gt / 8 units, spg = gt / g
+// scales). A team of T = 2^lgT lanes (a power of two >= gu, at most 32)
+// takes a group, its lane j unit j (R > 1 units a lane: units j, j + 32,
+// ...); a tile is the 32 / T groups of one warp instruction.
+struct Tiling {
+  long long groups;   // tiling groups of the launch
+  int g, lgg;         // the quant group; log2(g) where g < 8
+  int gt, gu, spg, lgT;
+};
+
+// Dense x [rows, D] -> q [rows, D], s [rows, D / g]: group G of the flat
+// array starts at element G * gt, its scales at G * spg.
+struct DenseSite {
+  static constexpr bool kOneTile = false;  // KT tiles a warp
+  Tiling t;
+  const void* x;
+  int8_t* q;
+  float* s;
+  struct At {
+    long long G;
+  };
+  __device__ __forceinline__ At at(long long G) const { return {G}; }
+  __device__ __forceinline__ int tensor(const At&) const { return 0; }
+  __device__ __forceinline__ const void* x_of(int) const { return x; }
+  __device__ __forceinline__ int8_t* q_of(int) const { return q; }
+  __device__ __forceinline__ float* s_of(int) const { return s; }
+  __device__ __forceinline__ long long src(const At& a) const {
+    return a.G * t.gt;
+  }
+  __device__ __forceinline__ bool dst(const At& a, long long& d,
+                                      long long& sd) const {
+    d = a.G * t.gt;
+    sd = a.G * t.spg;
+    return true;
+  }
+};
+
+// The int8 pool write: K, V [B, C, Hkv, D] (each (b, c) row of Hkv * D
+// elements contiguous, b and c strided) -> the pool's payload [N, Hkv, bs,
+// D] and scales [N, Hkv, bs, D / g] at (table[b, pos / bs], h, pos % bs),
+// pos = positions[b, c]. Groups below per = B * C * Hkv * gpr are K's, the
+// rest V's; gpr tiling groups a (b, c, h) row. The host keeps the group
+// count below 2^31, so the indices divide in 32 bits (a 64-bit division is
+// a called routine: the first design, all in 64 bits, took 9 µs at the
+// serving shape). A warp takes one tile (the serving shape's 192 groups
+// spread over 48 warps).
+struct PoolSite {
+  static constexpr bool kOneTile = true;
+  Tiling t;
+  const void* x[2];
+  long long sb[2], sc[2];     // element strides of b and c
+  const void* pos;            // [B, C], int32 or int64
+  const void* table;          // [B, nb], int32 or int64
+  int pos64, table64;
+  int8_t* q[2];
+  float* s[2];
+  unsigned per, C, Hkv, gpr;  // groups a tensor; C; Hkv; groups a row
+  int D, ng, bs, nb;
+  struct At {
+    unsigned bc, h, gr;       // row (b * C + c, h), group in the row
+    int ti;                   // 0 K, 1 V
+  };
+  __device__ __forceinline__ At at(long long G) const {
+    At a;
+    unsigned u = (unsigned)G;
+    a.ti = u >= per;
+    if (a.ti) u -= per;
+    const unsigned r = u / gpr;
+    a.gr = u - r * gpr;
+    a.bc = r / Hkv;
+    a.h = r - a.bc * Hkv;
+    return a;
+  }
+  __device__ __forceinline__ int tensor(const At& a) const { return a.ti; }
+  __device__ __forceinline__ const void* x_of(int ti) const { return x[ti]; }
+  __device__ __forceinline__ int8_t* q_of(int ti) const { return q[ti]; }
+  __device__ __forceinline__ float* s_of(int ti) const { return s[ti]; }
+  __device__ __forceinline__ long long src(const At& a) const {
+    const unsigned b = a.bc / C, c = a.bc - b * C;
+    return b * sb[a.ti] + c * sc[a.ti] + (long long)a.h * D +
+           (long long)a.gr * t.gt;
+  }
+  __device__ __forceinline__ bool dst(const At& a, long long& d,
+                                      long long& sd) const {
+    const long long p = pos64 ? static_cast<const long long*>(pos)[a.bc]
+                              : static_cast<const int*>(pos)[a.bc];
+    // a position before 0 or past the table (the scheduler admits none)
+    // is skipped: the kernel never writes outside the pool
+    if (p < 0 || p >= (long long)nb * bs) return false;
+    const unsigned lb = (unsigned)p / bs;
+    const long long e = (long long)(a.bc / C) * nb + lb;
+    const long long phys = table64 ? static_cast<const long long*>(table)[e]
+                                   : static_cast<const int*>(table)[e];
+    const long long row = (phys * Hkv + a.h) * bs + ((unsigned)p - lb * bs);
+    d = row * D + (long long)a.gr * t.gt;
+    sd = row * ng + (long long)a.gr * t.spg;
+    return true;
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ void load_unit(const T* p, float (&f)[8]) {
+  load16(p, f);
+  if constexpr (sizeof(T) == 4) load16(p + 4, f + 4);
+}
+
+// four quantized values' low bytes as one word (byte k = value k)
+__device__ __forceinline__ uint32_t pack4(const int* n) {
+  return __byte_perm(__byte_perm(n[0], n[1], 0x0040),
+                     __byte_perm(n[2], n[3], 0x0040), 0x5410);
+}
+
+// One launch quantizes `t.groups` tiling groups: warp w of block k takes
+// tiles (k KT + i) 8 + w, i < KT, and issues all its loads before any
+// arithmetic (KT x R units in flight a lane). A group's amax is the max
+// over its lanes' units by an xor shuffle over the team; where g < 8 a
+// unit holds 8 / g groups, each reduced in registers. The team's first
+// lane writes the scales; each lane stores its 8 payload bytes (a warp's
+// stores one contiguous run where gu is a power of two). Numerics as
+// quantize_kernel, bit for bit: scale = fmaxf(amax, 1e-8f) / 127 (IEEE
+// division), q = clamp(rintf(x / scale), -127, 127).
+template <typename T, int R, typename Site>
+__global__ void __launch_bounds__(kVecThreads)
+quantize_vec_kernel(const __grid_constant__ Site site) {
+  constexpr int KT = Site::kOneTile || R > 1 ? 1 : kVecUnits;
+  const Tiling& tl = site.t;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int TS = 1 << tl.lgT;  // lanes a team
+  const int team = lane >> tl.lgT, j0 = lane & (TS - 1);
+  long long G[KT];
+  typename Site::At at[KT];
+  bool live[KT][R];
+  float x[KT][R][8];
+#pragma unroll
+  for (int i = 0; i < KT; ++i) {
+    const long long tile =
+        ((long long)blockIdx.x * KT + i) * (kVecThreads / 32) + warp;
+    G[i] = (tile << (5 - tl.lgT)) + team;
+    const bool in = G[i] < tl.groups;
+    at[i] = site.at(in ? G[i] : 0);
+    const T* xs = static_cast<const T*>(site.x_of(site.tensor(at[i])));
+    const long long base = site.src(at[i]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int j = j0 + 32 * r;
+      live[i][r] = in && j < tl.gu;
+      if (live[i][r]) {
+        load_unit(xs + base + 8 * j, x[i][r]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x[i][r][e] = 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < KT; ++i) {
+    long long d = 0, sd = 0;
+    const bool to = G[i] < tl.groups && site.dst(at[i], d, sd);
+    const int ti = site.tensor(at[i]);
+    int8_t* qd = site.q_of(ti);
+    float* sdst = site.s_of(ti);
+    // each element's scale: its group's amax over the lane's units (g < 8:
+    // over its g elements of the unit), then over the team
+    float sc[R][8];
+    if (tl.g >= 8) {
+      float m = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(x[i][r][e]));
+      for (int o = 1; o < TS; o <<= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      const float s = fmaxf(m, 1e-8f) / 127.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sc[r][e] = s;
+      if (to && j0 == 0) sdst[sd] = s;
+    } else {
+      float a[8], m[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) m[e] = a[e] = fabsf(x[i][0][e]);
+      if (tl.g >= 2) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) m[e] = fmaxf(a[e], a[e ^ 1]);
+      }
+      if (tl.g >= 4) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) a[e] = m[e];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) m[e] = fmaxf(a[e], a[e ^ 2]);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sc[0][e] = fmaxf(m[e], 1e-8f) / 127.f;
+        if (to && (e & (tl.g - 1)) == 0) sdst[sd + (e >> tl.lgg)] = sc[0][e];
+      }
+    }
+    if (!to) continue;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!live[i][r]) continue;
+      // clamped before the round-to-nearest-even conversion: the same
+      // integer as quantize_kernel's rintf, clamp, cast (NaN -> -127)
+      int n[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        n[e] = __float2int_rn(
+            fminf(fmaxf(x[i][r][e] / sc[r][e], -127.f), 127.f));
+      *reinterpret_cast<uint2*>(qd + d + 8 * (j0 + 32 * r)) =
+          make_uint2(pack4(n), pack4(n + 4));
+    }
+  }
+}
+
+// The vector tiling of n elements in rows of D at group g, and the units
+// a lane takes of a group (R: 1, 2 or 4); 0 where the vector path cannot
+// take g: it takes g dividing 8, or g a multiple of 8 up to 32 x 4 units.
+int vec_tiling(Tiling& t, long long n, int D, int g) {
+  if (D % 8 || g < 1 || D % g) return 0;
+  if (g < 8 ? 8 % g : g % 8 || g > kVecMaxGroup) return 0;
+  t.g = g;
+  t.lgg = 0;
+  while (g < 8 && (1 << t.lgg) < g) ++t.lgg;
+  t.gt = g < 8 ? 8 : g;
+  t.gu = t.gt / 8;
+  t.spg = t.gt / g;
+  t.groups = n / t.gt;
+  t.lgT = 0;
+  while ((1 << t.lgT) < t.gu && t.lgT < 5) ++t.lgT;
+  return t.gu <= 32 ? 1 : t.gu <= 64 ? 2 : 4;
+}
+
+template <typename T, typename Site>
+int vec_launch(const Site& site, int R, cudaStream_t stream) {
+  const long long per_tile = 32 >> site.t.lgT;
+  const long long tiles = (site.t.groups + per_tile - 1) / per_tile;
+  const long long per_block =
+      (kVecThreads / 32) * (Site::kOneTile || R > 1 ? 1 : kVecUnits);
+  const long long blocks = (tiles + per_block - 1) / per_block;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;
+  if (R == 1)
+    quantize_vec_kernel<T, 1, Site><<<(int)blocks, kVecThreads, 0, stream>>>(site);
+  else if (R == 2)
+    quantize_vec_kernel<T, 2, Site><<<(int)blocks, kVecThreads, 0, stream>>>(site);
+  else
+    quantize_vec_kernel<T, 4, Site><<<(int)blocks, kVecThreads, 0, stream>>>(site);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int quantize_int8_t(const void* x, void* q, void* s, long long rows, int D,
+                    int g, cudaStream_t stream) {
+  DenseSite site{};
+  const int R = vec_tiling(site.t, rows * D, D, g);
+  if (R == 0 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(q) % 8)
+    return quantize_t<T>(x, q, s, rows, D, g, 8, stream);
+  site.x = x;
+  site.q = static_cast<int8_t*>(q);
+  site.s = static_cast<float*>(s);
+  return vec_launch<T>(site, R, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -364,10 +664,79 @@ extern "C" int dstt_quantize(const void* x, void* q, void* s, long long rows,
   using namespace dstt::quant;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
+  if (bits == 8) {
+    switch (dtype) {
+      case 0: return quantize_int8_t<float>(x, q, s, rows, D, g, st);
+      case 1: return quantize_int8_t<__nv_bfloat16>(x, q, s, rows, D, g, st);
+      case 2: return quantize_int8_t<__half>(x, q, s, rows, D, g, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (dtype) {
     case 0: return quantize_t<float>(x, q, s, rows, D, g, bits, st);
     case 1: return quantize_t<__nv_bfloat16>(x, q, s, rows, D, g, bits, st);
     case 2: return quantize_t<__half>(x, q, s, rows, D, g, bits, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 pool's cache write for one layer, K and V in one launch: k, v
+// [B, C, Hkv, D] in `dtype` (element strides kb / kc, vb / vc of b and c;
+// each (b, c) row of Hkv * D elements contiguous); positions [B, C] and
+// table [B, nb] int32 or int64 (pos64, table64); the pool's payload kq /
+// vq int8 [N, Hkv, bs, D] and scales ks / vs f32 [N, Hkv, bs, D / g].
+// Token (b, c)'s K and V rows quantize into (table[b, pos / bs], h, pos %
+// bs) as quantize_int8 does (bit for bit); a position whose block is past
+// the table is skipped. x and its strides must keep 16-byte units, the
+// payload 8-byte ones, and g must divide 8 or be a multiple of 8 (at most
+// 1024). Returns cudaGetLastError().
+extern "C" int dstt_quantize_kv_write(
+    const void* k, const void* v, long long kb, long long kc, long long vb,
+    long long vc, const void* pos, int pos64, const void* table, int table64,
+    void* kq, void* vq, void* ks, void* vs, int B, int C, int Hkv, int D,
+    int g, int bs, int nb, int dtype, void* stream) {
+  using namespace dstt::quant;
+  if (dtype < 0 || dtype > 2 || B < 1 || C < 1 || Hkv < 1 || bs < 1 ||
+      nb < 1)
+    return (int)cudaErrorInvalidValue;
+  PoolSite site{};
+  const long long rows = (long long)B * C * Hkv;
+  const int R = vec_tiling(site.t, 2 * rows * D, D, g);
+  const long long esize = dtype == 0 ? 4 : 2;
+  const long long strides[4] = {kb, kc, vb, vc};
+  bool ok = R > 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(kq) % 8 == 0 &&
+            reinterpret_cast<uintptr_t>(vq) % 8 == 0;
+  for (long long st : strides) ok = ok && (st * esize) % 16 == 0;
+  if (!ok || site.t.groups >= INT_MAX) return (int)cudaErrorInvalidValue;
+  site.x[0] = k;
+  site.x[1] = v;
+  site.sb[0] = kb;
+  site.sc[0] = kc;
+  site.sb[1] = vb;
+  site.sc[1] = vc;
+  site.pos = pos;
+  site.pos64 = pos64;
+  site.table = table;
+  site.table64 = table64;
+  site.q[0] = static_cast<int8_t*>(kq);
+  site.q[1] = static_cast<int8_t*>(vq);
+  site.s[0] = static_cast<float*>(ks);
+  site.s[1] = static_cast<float*>(vs);
+  site.C = C;
+  site.Hkv = Hkv;
+  site.D = D;
+  site.gpr = D / site.t.gt;
+  site.per = (unsigned)(rows * site.gpr);
+  site.ng = D / g;
+  site.bs = bs;
+  site.nb = nb;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return vec_launch<float>(site, R, st);
+    case 1: return vec_launch<__nv_bfloat16>(site, R, st);
+    case 2: return vec_launch<__half>(site, R, st);
   }
   return (int)cudaErrorInvalidValue;
 }

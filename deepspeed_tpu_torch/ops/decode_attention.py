@@ -8,11 +8,13 @@ GQA: H is a multiple of Hkv, each kv head serves G = H // Hkv query heads.
 The int8 pool (`paged_decode_attention_quant`) keeps k/v as int8 with f32
 scales k_scale/v_scale [N, Hkv, block, hd // g] beside them.
 
-On a CUDA tensor the wrappers launch the hand-written kernels
-(`csrc/decode_attention.cu`); on a CPU tensor they run the plain version.
+On a CUDA tensor the wrappers launch the hand-written kernel
+(`csrc/decode_attention.cu`: one split kernel for the three, the
+contiguous cache taken as a pool whose row b owns block b); on a CPU
+tensor they run the plain version.
 There is no fallback: a CUDA input the kernel does not take raises.
 
-The paged kernels split each row's live prefix into chunks of positions
+The kernel splits each row's live prefix into chunks of positions
 (`split_plan`, from the shapes alone: the wrappers never read `pos` on the
 host, which would wait for the card and break CUDA-graph capture); each
 chunk's partial softmax (m, l, acc) goes to fp32 scratch and the row's last
@@ -32,13 +34,13 @@ from deepspeed_tpu_torch.ops.attention_dispatch import (DECODE_DTYPES,
                                                         KERNEL_HEAD_DIMS)
 
 NEG_INF = -1e30
-# the paged kernels' split: chunks of a power of two, at least MIN_CHUNK
+# the split kernel's plan: chunks of a power of two, at least MIN_CHUNK
 # positions (every tile of the kernel divides it), at most about
 # SPLIT_ITEMS work items a call (one wave of the H100's 132 SMs at the 4 to
 # 6 blocks an SM the paths' kernels fit; PERF.md §5)
 MIN_CHUNK = 64
 SPLIT_ITEMS = 768
-# the paged kernel's scratch (the chunks' partials, fp32) and ticket
+# the split kernel's scratch (the chunks' partials, fp32) and ticket
 # counters, kept per (device, stream): a launch on a stream ends before the
 # next one starts. At least this many tickets (rows x kv heads).
 _MIN_TICKETS = 4096
@@ -48,10 +50,11 @@ _DTYPES = {getattr(torch, name) for name in DECODE_DTYPES}
 
 @functools.lru_cache(maxsize=256)
 def split_plan(capacity, rows):
-    """(chunk, n_chunks) of the paged kernels, from shapes only: each of
+    """(chunk, n_chunks) of the split kernel, from shapes only: each of
     `rows` (rows x kv heads) cut into chunks of its `capacity` (nb *
-    block) of a power of two positions, at least MIN_CHUNK and at least
-    capacity / (SPLIT_ITEMS / rows): 128 at the serving path's shape (96
+    block, or the contiguous cache's M) of a power of two positions, at
+    least MIN_CHUNK and at least capacity / (SPLIT_ITEMS / rows): 128 at
+    the serving path's shape (96 rows of 1024), 64 at generate()'s (48
     rows of 1024), 512 at 64 rows of 4096."""
     n = max(1, min(-(-SPLIT_ITEMS // rows), -(-capacity // MIN_CHUNK)))
     chunk = max(MIN_CHUNK, 1 << (-(-capacity // n) - 1).bit_length())
@@ -156,18 +159,14 @@ def combine_partials_reference(m, l, acc, dtype):
     return out.reshape(B, Hkv * G, hd).to(dtype)
 
 
-_ARGTYPES = {
-    "dstt_decode_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "dstt_paged_decode": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-}
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
-def _kernel(name="dstt_decode_attention"):
-    fn = getattr(op_builder.load("decode_attention"), name)
+def _kernel():
+    fn = op_builder.load("decode_attention").dstt_paged_decode
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
@@ -199,24 +198,6 @@ def _check(q, k, v, what, kv_dtype=None):
     return B, H, Hkv, hd
 
 
-def _launch(what, q, k, v, pos, sm_scale):
-    """Check and launch the contiguous-cache kernel."""
-    B, H, Hkv, hd = _check(q, k, v, what)
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(hd)
-    pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
-    if pos.shape != (B,):
-        raise ValueError(f"{what}: pos {tuple(pos.shape)}, expected ({B},)")
-    out = torch.empty_like(q)
-    rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   pos.data_ptr(), None, B, H, Hkv, hd, k.shape[2], 0,
-                   float(sm_scale), op_builder.dtype_code(q.dtype),
-                   op_builder.stream_ptr(q.device))
-    op_builder.check(rc, what)
-    op_builder.LAUNCHES[what] += 1
-    return out
-
-
 def _scratch(q, stream, n_part, n_tickets):
     """The paged kernel's scratch on q's card for `stream`: (fp32 partials,
     at least `n_part`; ticket counters, at least `n_tickets`, zero at rest:
@@ -238,32 +219,42 @@ def _scratch(q, stream, n_part, n_tickets):
 
 
 def _launch_paged(what, q, k, v, block_tables, pos, sm_scale, scales=None):
-    """Check and launch the paged kernel over the fp pool, or with
-    `scales` (k_scale, v_scale) over the int8 pool: the split plan from
-    the shapes, the stream's scratch for the chunks' partials, one launch;
-    pos and the table stay on the card."""
+    """Check and launch the split kernel over the fp pool, or with `scales`
+    (k_scale, v_scale) over the int8 pool, or with no `block_tables` over
+    the contiguous cache [B, Hkv, M, hd] (a pool of B blocks of M rows,
+    row b's one page block b): the split plan from the shapes, the
+    stream's scratch for the chunks' partials, one launch; pos and the
+    table stay on the card."""
     B, H, Hkv, hd = _check(q, k, v, what,
                            kv_dtype=torch.int8 if scales else None)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(hd)
     dev = q.device
-    table = block_tables.to(device=dev, dtype=torch.int32).contiguous()
-    if table.dim() != 2 or table.shape[0] != B:
-        raise ValueError(f"{what}: tables {tuple(table.shape)} for {B} rows")
+    if block_tables is None:
+        if k.shape[0] != B or v.shape != k.shape:
+            raise ValueError(f"{what}: cache k {tuple(k.shape)}, v "
+                             f"{tuple(v.shape)} for {B} rows")
+        table, bs, nb = None, k.shape[2], 1
+    else:
+        table = block_tables.to(device=dev, dtype=torch.int32).contiguous()
+        if table.dim() != 2 or table.shape[0] != B:
+            raise ValueError(f"{what}: tables {tuple(table.shape)} for {B} "
+                             f"rows")
+        bs, nb = k.shape[2], table.shape[1]
     pos = pos.to(device=dev, dtype=torch.int32).contiguous()
     if pos.shape != (B,):
         raise ValueError(f"{what}: pos {tuple(pos.shape)}, expected ({B},)")
-    bs, nb = k.shape[2], table.shape[1]
     chunk, n_chunks = split_plan(nb * bs, B * Hkv)
     out = torch.empty_like(q)
     stream = op_builder.stream_ptr(dev)
     part, tickets = _scratch(q, stream, B * H * n_chunks * (hd + 2),
                              B * Hkv)
     ks, vs = scales if scales else (None, None)
-    rc = _kernel("dstt_paged_decode")(
+    rc = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         ks.data_ptr() if scales else None, vs.data_ptr() if scales else None,
-        out.data_ptr(), pos.data_ptr(), table.data_ptr(), part.data_ptr(),
+        out.data_ptr(), pos.data_ptr(),
+        None if table is None else table.data_ptr(), part.data_ptr(),
         tickets.data_ptr(), B, H, Hkv, hd, bs, nb,
         ks.shape[-1] if scales else 0, chunk, n_chunks, float(sm_scale),
         op_builder.dtype_code(q.dtype), stream)
@@ -275,13 +266,14 @@ def _launch_paged(what, q, k, v, block_tables, pos, sm_scale, scales=None):
 def decode_attention(q, k, v, pos, sm_scale=None):
     """q [B, H, hd]; k, v [B, Hkv, M, hd]; pos [B] int -> [B, H, hd].
 
-    Attends each query head to cache positions 0..pos inclusive. The kernel
-    reads only the live prefix of each row, whatever M is allocated."""
+    Attends each query head to cache positions 0..pos inclusive (pos
+    clamped to M - 1). The kernel reads only the live prefix of each row,
+    whatever M is allocated: it is the paged split kernel with no table."""
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, pos, sm_scale=sm_scale)
     if not q.is_cuda:
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    return _launch("decode_attention", q, k, v, pos, sm_scale)
+    return _launch_paged("decode_attention", q, k, v, None, pos, sm_scale)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, pos,

@@ -80,7 +80,12 @@ _ARGTYPES = {
         ctypes.c_int] * 4 + [ctypes.c_void_p],
     "dstt_dequantize_many": [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "dstt_quantize_kv_write": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4
+    + [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+_INDEX = (torch.int32, torch.int64)
 
 
 def _kernel(name):
@@ -104,7 +109,7 @@ def quantize(x, group_size, bits):
     _check_cuda(x, what)
     D = x.shape[-1]
     _check_geometry(D, group_size, bits, what)
-    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+    if x.dtype not in _FLOATS:
         raise ValueError(f"{what}: the kernel takes float32/bfloat16/float16, "
                          f"got {x.dtype}")
     x = x.contiguous()              # rows of a strided view, packed
@@ -219,3 +224,110 @@ def dequantize_int4(q, scales, dtype, group_size):
     """Inverse of `quantize_int4`: packed [..., D//2] + scales -> [..., D] in
     `dtype`."""
     return dequantize(q, scales, dtype, group_size, 4)
+
+
+def _check_kv_write(k, v, block_tables, positions, k_pool, v_pool, k_scale,
+                    v_scale):
+    """Shapes and dtypes of the int8 pool write, on every device; returns
+    the group size g (ValueError on a mismatch)."""
+    what = "quantize_kv_write"
+    if k.dim() != 4 or v.shape != k.shape or v.dtype != k.dtype:
+        raise ValueError(f"{what}: k {tuple(k.shape)} {k.dtype}, v "
+                         f"{tuple(v.shape)} {v.dtype}: expected two "
+                         f"[B, C, Hkv, hd] of one dtype")
+    B, C, Hkv, D = k.shape
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8 or \
+            k_pool.dim() != 4 or v_pool.shape != k_pool.shape or \
+            k_pool.shape[1] != Hkv or k_pool.shape[3] != D:
+        raise ValueError(f"{what}: pool payload {tuple(k_pool.shape)} "
+                         f"{k_pool.dtype} / {tuple(v_pool.shape)} "
+                         f"{v_pool.dtype}: expected int8 [N, {Hkv}, bs, {D}]")
+    ng = k_scale.shape[-1] if k_scale.dim() == 4 else 0
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32 or \
+            ng < 1 or D % ng or v_scale.shape != k_scale.shape or \
+            k_scale.shape[:3] != k_pool.shape[:3]:
+        raise ValueError(f"{what}: scales {tuple(k_scale.shape)} "
+                         f"{k_scale.dtype} / {tuple(v_scale.shape)} "
+                         f"{v_scale.dtype}: expected float32 "
+                         f"{tuple(k_pool.shape[:3])} + (hd // g,)")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B or \
+            tuple(positions.shape) != (B, C):
+        raise ValueError(f"{what}: tables {tuple(block_tables.shape)}, "
+                         f"positions {tuple(positions.shape)} for k "
+                         f"{tuple(k.shape)}")
+    return D // ng
+
+
+def quantize_kv_write_reference(k, v, block_tables, positions, k_pool,
+                                v_pool, k_scale, v_scale):
+    """Plain version of `quantize_kv_write`: block and offset of each new
+    token through the table, `quantize_reference` of K and of V, and four
+    index writes into the pool."""
+    g = _check_kv_write(k, v, block_tables, positions, k_pool, v_pool,
+                        k_scale, v_scale)
+    bs = k_pool.shape[2]
+    blk = torch.gather(block_tables.long(), 1, (positions // bs).long())
+    off = positions % bs
+    for x, pool, scale in ((k, k_pool, k_scale), (v, v_pool, v_scale)):
+        q, s = quantize_reference(x, g)
+        pool[blk, :, off] = q
+        scale[blk, :, off] = s
+
+
+def quantize_kv_write(k, v, block_tables, positions, k_pool, v_pool,
+                      k_scale, v_scale):
+    """One layer's int8 pool write, in place: the new tokens' K and V
+    [B, C, Hkv, hd] quantized groupwise (`quantize_int8`'s numerics, g =
+    hd // k_scale.shape[-1]) into k_pool / v_pool int8 [N, Hkv, bs, hd] and
+    k_scale / v_scale f32 [N, Hkv, bs, hd // g] at (block_tables[b,
+    pos // bs], h, pos % bs), pos = positions[b, c]. On CUDA one launch
+    (counted as a `quantize_int8` launch) computes blocks and offsets,
+    quantizes both tensors and stores payload and scales; a K/V view
+    whose (b, c) rows are not contiguous is packed first. Tokens of
+    inactive slots (all-trash tables, pos 0) collide in the trash block,
+    where the write order is unspecified; each real token's (block,
+    offset) is unique in the step, so its payload and scales come from
+    the same token. g must divide 8 or be a multiple of 8 (at most 1024)
+    on CUDA."""
+    if k.device.type == "cpu":
+        return quantize_kv_write_reference(k, v, block_tables, positions,
+                                           k_pool, v_pool, k_scale, v_scale)
+    what = "quantize_int8"
+    _check_cuda(k, what)
+    g = _check_kv_write(k, v, block_tables, positions, k_pool, v_pool,
+                        k_scale, v_scale)
+    B, C, Hkv, D = k.shape
+    if k.dtype not in _FLOATS:
+        raise ValueError(f"{what}: the kernel takes float32/bfloat16/float16, "
+                         f"got {k.dtype}")
+    if not (g % 8 == 0 and g <= 1024 or 8 % g == 0) or D % 8:
+        raise ValueError(f"{what}: the pool write takes head_dim a multiple "
+                         f"of 8 and groups dividing 8 or a multiple of 8 up "
+                         f"to 1024, got head_dim {D}, g {g}")
+    if block_tables.dtype not in _INDEX or positions.dtype not in _INDEX:
+        raise ValueError(f"{what}: tables {block_tables.dtype} and positions "
+                         f"{positions.dtype} must be int32 or int64")
+    dev, esize = k.device, k.element_size()
+    for t in (v, block_tables, positions, k_pool, v_pool, k_scale, v_scale):
+        if t.device != dev:
+            raise ValueError(f"{what}: every tensor on {dev}, got {t.device}")
+    for t in (k_pool, v_pool, k_scale, v_scale):
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: the pool tensors must be contiguous")
+    xs = []
+    for x in (k, v):
+        if x.stride(3) != 1 or x.stride(2) != D or x.data_ptr() % 16 \
+                or (x.stride(0) * esize) % 16 or (x.stride(1) * esize) % 16:
+            x = x.contiguous()
+        xs.append(x)
+    k, v = xs
+    tables, positions = block_tables.contiguous(), positions.contiguous()
+    rc = _kernel("dstt_quantize_kv_write")(
+        k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), v.stride(0),
+        v.stride(1), positions.data_ptr(), positions.dtype == torch.int64,
+        tables.data_ptr(), tables.dtype == torch.int64, k_pool.data_ptr(),
+        v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), B, C, Hkv,
+        D, g, k_pool.shape[2], tables.shape[1], op_builder.dtype_code(k.dtype),
+        op_builder.stream_ptr(dev))
+    op_builder.check(rc, what)
+    op_builder.LAUNCHES[what] += 1

@@ -1,13 +1,15 @@
-"""The paged decode kernels' split algorithm, held to the JAX package.
+"""The decode kernel's split algorithm, held to the JAX package.
 
-The CUDA kernels behind `paged_decode_attention` and
-`paged_decode_attention_quant` cut each row's live prefix into chunks of
+The CUDA kernel behind `decode_attention`, `paged_decode_attention` and
+`paged_decode_attention_quant` cuts each row's live prefix into chunks of
 positions (`split_plan`), compute one partial softmax (m, l, acc) a chunk
 and merge a row's partials at the end. `paged_partials_reference` and
 `combine_partials_reference` are that algorithm in plain PyTorch; here they
 run over the same numpy inputs as JAX's Pallas kernels (interpret mode on
 the CPU, as tests/test_torch_kernels.py and tests/test_torch_quant.py run
-them), with rows at position 0, chunk - 1, chunk and capacity - 1.
+them), with rows at position 0, chunk - 1, chunk and capacity - 1. The
+contiguous cache [B, Hkv, M, hd] runs the same algorithm as a pool of B
+blocks of M rows whose row b owns block b (an identity table).
 
 Tolerance: fp32 on both sides, the sums in another order (chunks merged
 at the end against one online softmax over the pool's blocks): rtol = atol
@@ -30,7 +32,7 @@ import torch
 
 from deepspeed_tpu.inference import quantization as jq
 from deepspeed_tpu.ops.pallas.decode_attention import (
-    paged_decode_attention, paged_decode_attention_quant)
+    decode_attention, paged_decode_attention, paged_decode_attention_quant)
 from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import op_builder
 
@@ -101,6 +103,45 @@ def test_split_matches_pallas_paged_decode(chunk, G):
 def test_split_matches_pallas_paged_decode_quant(chunk, G, group):
     *_, out = _split(G, chunk, group)
     np.testing.assert_allclose(out.numpy(), _pallas(G, chunk, group), **TOL)
+
+
+M_CACHE = 192                                 # the contiguous cache's M
+
+
+@functools.lru_cache(maxsize=None)
+def _cache_inputs(G):
+    """q and the contiguous cache k, v [B, Hkv, M, hd] as numpy arrays."""
+    rng = np.random.default_rng(500 + G)
+    return (_normal(rng, B, Hkv * G, HD), _normal(rng, B, Hkv, M_CACHE, HD),
+            _normal(rng, B, Hkv, M_CACHE, HD))
+
+
+def _cache_pos(chunk):
+    return np.asarray([0, chunk - 1, chunk, M_CACHE - 1], np.int32)
+
+
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_split_over_the_contiguous_cache_matches_pallas_decode(chunk, G):
+    """Row 4's algorithm: the split partials and their combine over the
+    contiguous cache, viewed as a pool whose row b owns block b of M rows
+    (identity table, bs = M), equal JAX's Pallas `decode_attention` on the
+    same inputs (M 192: the last chunk of 128 half live)."""
+    q, k, v = _cache_inputs(G)
+    pos = _cache_pos(chunk)
+    want = np.asarray(decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), jnp.asarray(pos)))
+    m, l, acc = tda.paged_partials_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.arange(B, dtype=torch.int32)[:, None], torch.from_numpy(pos),
+        chunk)
+    assert m.shape[2] == -(-M_CACHE // chunk)
+    out = tda.combine_partials_reference(m, l, acc, torch.float32)
+    np.testing.assert_allclose(out.numpy(), want, **TOL)
+    np.testing.assert_allclose(
+        tda.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v),
+                             torch.from_numpy(pos)).numpy(), want, **TOL)
 
 
 @pytest.mark.parametrize("chunk", CHUNKS)
@@ -267,6 +308,46 @@ def test_the_split_plan_follows_from_the_shapes_alone(hd, bs, nb, G, quant,
     assert entry.calls[0][8:10] == entry.calls[1][8:10]
 
 
+@pytest.mark.parametrize("hd, M, G", [(64, 1024, 1), (128, 4096, 4),
+                                      (64, 77, 16)])
+def test_decode_attention_hands_the_split_kernel_no_table(hd, M, G,
+                                                          monkeypatch):
+    """On CUDA tensors `decode_attention` launches the split kernel once a
+    call with no table (bs = M, nb = 1), `split_plan(M, rows x kv heads)`
+    and the stream's scratch: the same for every pos, which the host never
+    reads (`_Pos` fails on any access but its address)."""
+    entry = _Entry()
+    monkeypatch.setattr(op_builder, "load", lambda name: type(
+        "Lib", (), {"dstt_paged_decode": entry}))
+    monkeypatch.setattr(op_builder, "stream_ptr",
+                        lambda device: ctypes.c_void_p(None))
+    monkeypatch.setattr(tda, "_SCRATCH", {})
+    monkeypatch.setattr(torch, "empty_like",
+                        lambda t: _Buf(t.shape, t.dtype))
+    op_builder.LAUNCHES.clear()
+    Bq, Hk, dt = 4, 3, torch.float16
+    q = _Buf((Bq, Hk * G, hd), dt)
+    k, v = _Buf((Bq, Hk, M, hd), dt), _Buf((Bq, Hk, M, hd), dt)
+    _Buf.made = []
+    for _ in range(2):
+        tda.decode_attention(q, k, v, _Pos(Bq))
+    assert dict(op_builder.LAUNCHES) == {"decode_attention": 2}
+    chunk, n = tda.split_plan(M, Bq * Hk)
+    for args in entry.calls:
+        assert args[7] is None and args[3] is None and args[4] is None
+        *_, Bn, H, Hkv, hd_, bs_, nb_, ng, chunk_, n_, scale, code, _ = args
+        assert (Bn, H, Hkv, hd_, bs_, nb_, ng) == (Bq, Hk * G, Hk, hd, M, 1,
+                                                   0)
+        assert (chunk_, n_) == (chunk, n)
+        assert code == op_builder.dtype_code(dt)
+        assert abs(scale - hd ** -0.5) < 1e-7
+    assert _Buf.made == [((Bq * Hk * G * n * (hd + 2),), torch.float32),
+                         ((tda._MIN_TICKETS,), torch.int32)]
+    with pytest.raises(ValueError, match="for 4 rows"):
+        tda.decode_attention(q, _Buf((Bq + 1, Hk, M, hd), dt),
+                             _Buf((Bq + 1, Hk, M, hd), dt), _Pos(Bq))
+
+
 # the check chip_smoke.py holds the paged kernels to on the card, and its
 # planted faults, on plain versions
 _spec = importlib.util.spec_from_file_location(
@@ -342,3 +423,46 @@ def test_chip_smoke_paged_bounds():
     nbytes = 2 * 8 * 4096 * 8 * (128 + 8) + 2 * 8 * 32 * 128 * 2 + 8 * 8 * 4
     assert chip_smoke._paged_bound(long_q)[0] == pytest.approx(
         nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_chip_smoke_decode_check_sees_each_planted_fault():
+    """Row 4 at generate()'s shape (bf16, chip_smoke.DECODE_GENERATE): the
+    split algorithm over the cache as a table-less pool passes chip_smoke's
+    check (1e-2), and each planted fault fails it."""
+    case = chip_smoke.DECODE_GENERATE
+    rng = np.random.default_rng(9)
+    bf = lambda *s: torch.from_numpy(_normal(rng, *s)).bfloat16()
+    kw = dict(q=bf(case["B"], case["H"], case["hd"]),
+              k=bf(case["B"], case["Hkv"], case["M"], case["hd"]),
+              v=bf(case["B"], case["Hkv"], case["M"], case["hd"]),
+              pos=torch.tensor(case["pos"], dtype=torch.int32))
+    ref = tda.decode_attention_reference(**kw)
+    paged = chip_smoke._decode_as_paged(kw)
+    chunk, n = tda.split_plan(case["M"], case["B"] * case["Hkv"])
+    assert (chunk, n) == (64, 16)
+    sound = tda.combine_partials_reference(*tda.paged_partials_reference(
+        paged["q"], paged["k_pool"], paged["v_pool"], paged["block_tables"],
+        paged["pos"], chunk), torch.bfloat16)
+    chip_smoke._paged_check([], "decode_attention", "cpu", sound, ref)
+    for fault in ("dropped_last_chunk", "stale_partial"):
+        checks = []
+        chip_smoke._paged_check(checks, "decode_attention", "cpu",
+                                chip_smoke._paged_fault(paged, fault), ref,
+                                fault=fault)
+        assert checks[0]["seen"]
+
+
+def test_chip_smoke_decode_bounds():
+    """Row 4's bound in the kernels line: each row's live K/V (pos clamped
+    to M - 1) once, q and out once."""
+    live = sum(p + 1 for p in chip_smoke.DECODE_GENERATE["pos"])
+    want = 2 * live * 12 * 64 * 2 + 2 * 4 * 12 * 64 * 2
+    assert chip_smoke._decode_bound(chip_smoke.DECODE_GENERATE) == \
+        chip_smoke.bound(want, 4 * live * 12 * 64, chip_smoke.FP32_FLOPS)
+    nbytes = 2 * 8 * 4096 * 8 * 128 * 2 + 2 * 8 * 32 * 128 * 2
+    assert chip_smoke._decode_bound(chip_smoke.DECODE_LONG)[0] == \
+        pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    clamped = dict(B=1, H=1, Hkv=1, hd=64, M=100, pos=[500],
+                   dtype="float32")
+    assert chip_smoke._decode_bound(clamped)[0] == pytest.approx(
+        (2 * 100 * 64 * 4 + 2 * 64 * 4) / chip_smoke.HBM_BYTES_PER_S * 1e3)

@@ -244,6 +244,160 @@ def test_quantizer_refusals(call, match):
 
 
 # ----------------------------------------------------------------------
+# the int8 pool write: K7 fused with the scatter, one launch a layer
+# ----------------------------------------------------------------------
+
+
+def _kv_write_inputs(rng, B, C, Hkv, hd, g, bs, nb, inactive=0):
+    """K/V [B, C, Hkv, hd], shuffled tables (the first `inactive` rows
+    all-trash at position 0), distinct positions a row (consecutive for
+    C > 1, as a prefill chunk) and a random int8 pool, as numpy arrays."""
+    N = B * nb + 1
+    tables = rng.permutation(np.arange(1, N))[:B * nb].reshape(
+        B, nb).astype(np.int32)
+    cap = nb * bs
+    if C == 1:
+        pos = rng.integers(0, cap, (B, 1))
+    else:
+        pos = rng.integers(0, cap - C + 1, (B, 1)) + np.arange(C)[None]
+    tables[:inactive], pos[:inactive] = 0, 0
+    pool = {n: rng.integers(-127, 128, (N, Hkv, bs, hd)).astype(np.int8)
+            for n in ("k", "v")}
+    pool.update({f"{n}_scale": rng.random((N, Hkv, bs, hd // g)).astype(
+        np.float32) for n in ("k", "v")})
+    return (_normal(rng, B, C, Hkv, hd), _normal(rng, B, C, Hkv, hd),
+            tables, pos.astype(np.int32), pool)
+
+
+@pytest.mark.parametrize("group", [16, 32, 64])
+@pytest.mark.parametrize("C, inactive", [(1, 2), (24, 0)],
+                         ids=["decode", "prefill_chunk"])
+def test_kv_write_matches_jax_quantize_and_scatter(C, inactive, group):
+    """The port's int8 pool write (`quantize_kv_write`, its plain version
+    on the CPU) against the JAX package's cache write on the same numpy K,
+    V, tables and positions (`quantize_kv`, then `.at[blk, :, off].set` of
+    payload and scales, deepspeed_tpu/models/gpt.py's paged attention
+    half): all four pool tensors bit-equal outside the trash block, where
+    inactive rows collide."""
+    rng = np.random.default_rng(40 + C + group)
+    B, Hkv, hd, bs, nb = 5, 2, 64, 16, 3
+    k, v, tables, pos, pool = _kv_write_inputs(rng, B, C, Hkv, hd, group,
+                                               bs, nb, inactive)
+    blk = np.take_along_axis(tables, pos // bs, axis=1)
+    off = pos % bs
+    want = {n: jnp.asarray(a) for n, a in pool.items()}
+    for name, x in (("k", k), ("v", v)):
+        q, sc = jq.quantize_kv(jnp.asarray(x), group)
+        want[name] = want[name].at[blk, :, off, :].set(q)
+        want[f"{name}_scale"] = want[f"{name}_scale"].at[blk, :, off, :].set(
+            sc)
+    got = {n: torch.from_numpy(a.copy()) for n, a in pool.items()}
+    tq.quantize_kv_write(got, torch.from_numpy(k), torch.from_numpy(v),
+                         torch.from_numpy(tables), torch.from_numpy(pos))
+    for name in ("k", "v", "k_scale", "v_scale"):
+        np.testing.assert_array_equal(got[name].numpy()[1:],
+                                      np.asarray(want[name])[1:],
+                                      err_msg=name)
+        assert not np.array_equal(got[name].numpy(), pool[name])
+
+
+def _pool_for(hd=64, g=32, **bad):
+    rng = np.random.default_rng(3)
+    k, v, tables, pos, pool = _kv_write_inputs(rng, 2, 1, 2, hd, g, 16, 2)
+    t = {n: torch.from_numpy(a) for n, a in pool.items()}
+    t.update(bad)
+    return t, torch.from_numpy(k), torch.from_numpy(v), \
+        torch.from_numpy(tables), torch.from_numpy(pos)
+
+
+@pytest.mark.parametrize("bad, match", [
+    ({"k": torch.zeros(5, 2, 16, 64)}, "expected int8"),
+    ({"v": torch.zeros(5, 2, 16, 32, dtype=torch.int8)}, "expected int8"),
+    ({"k_scale": torch.zeros(5, 2, 16, 2, dtype=torch.float16)},
+     "expected float32"),
+    ({"v_scale": torch.zeros(5, 2, 16, 3)}, "expected float32"),
+    ({"k_scale": torch.zeros(5, 2, 8, 2), "v_scale": torch.zeros(5, 2, 8, 2)},
+     "expected float32"),
+], ids=["payload_dtype", "payload_shape", "scale_dtype", "scale_groups",
+        "scale_shape"])
+def test_kv_write_refuses_a_pool_it_cannot_hold(bad, match):
+    pool, k, v, tables, pos = _pool_for(**bad)
+    with pytest.raises(ValueError, match=match):
+        tq.quantize_kv_write(pool, k, v, tables, pos)
+
+
+class _Cuda:
+    """A CUDA-like tensor with shape, strides and dtype, for the write's
+    host side: nothing reaches a card."""
+
+    def __init__(self, shape, dtype, strides=None, ptr=4096):
+        self.shape, self.dtype = torch.Size(shape), dtype
+        self._strides = strides or torch.empty(shape, device="meta").stride()
+        self.device, self.is_cuda, self.ptr = torch.device("cuda", 0), True, ptr
+
+    def dim(self):
+        return len(self.shape)
+
+    def stride(self, i):
+        return self._strides[i]
+
+    def element_size(self):
+        return torch.empty((), dtype=self.dtype).element_size()
+
+    def data_ptr(self):
+        return self.ptr
+
+    def is_contiguous(self):
+        return True
+
+    def contiguous(self):
+        return self
+
+
+def test_kv_write_is_one_launch_on_the_projections_views(monkeypatch):
+    """On CUDA tensors the write is one launch of `dstt_quantize_kv_write`
+    (counted as quantize_int8), handed the K/V views of the fused qkv
+    projection with their strides, int64 positions, int32 tables and the
+    group size: no copy, gather or scatter on the host side."""
+    from deepspeed_tpu_torch.ops import op_builder
+    calls = []
+
+    class Entry:
+        argtypes = restype = None
+
+        def __call__(self, *args):
+            calls.append(args)
+            return 0
+    monkeypatch.setattr(op_builder, "load", lambda name: type(
+        "Lib", (), {"dstt_quantize_kv_write": Entry()}))
+    monkeypatch.setattr(op_builder, "stream_ptr", lambda device: None)
+    op_builder.LAUNCHES.clear()
+    B, C, H, Hkv, hd, g, N, bs, nb = 8, 1, 12, 12, 64, 16, 17, 512, 2
+    row = (H + 2 * Hkv) * hd
+    k = _Cuda((B, C, Hkv, hd), torch.bfloat16, (C * row, row, hd, 1), 16 * 96)
+    v = _Cuda((B, C, Hkv, hd), torch.bfloat16, (C * row, row, hd, 1), 16 * 192)
+    pool = [_Cuda((N, Hkv, bs, hd), torch.int8) for _ in range(2)] + \
+        [_Cuda((N, Hkv, bs, hd // g), torch.float32) for _ in range(2)]
+    tables = _Cuda((B, nb), torch.int32)
+    pos = _Cuda((B, C), torch.int64)
+    tqo.quantize_kv_write(k, v, tables, pos, *pool)
+    assert dict(op_builder.LAUNCHES) == {"quantize_int8": 1}
+    (args,) = calls
+    assert args[:6] == (16 * 96, 16 * 192, C * row, row, C * row, row)
+    assert args[7] is True and args[9] is False
+    assert args[14:21] == (B, C, Hkv, hd, g, bs, nb)
+    assert args[21] == op_builder.dtype_code(torch.bfloat16)
+    # g 12 (head_dim 96): a group neither divides 8 nor is a multiple of 8
+    k96, v96 = (_Cuda((B, C, Hkv, 96), torch.bfloat16) for _ in range(2))
+    with pytest.raises(ValueError, match="groups dividing 8"):
+        tqo.quantize_kv_write(
+            k96, v96, tables, pos,
+            *[_Cuda((N, Hkv, bs, 96), torch.int8) for _ in range(2)],
+            *[_Cuda((N, Hkv, bs, 8), torch.float32) for _ in range(2)])
+    assert len(calls) == 1
+
+
+# ----------------------------------------------------------------------
 # K6: decode attention over the int8 pool
 # ----------------------------------------------------------------------
 

@@ -1,8 +1,8 @@
-"""A/B of the paged decode kernels (PERF.md rows 5 and 6) built from several
+"""A/B of the decode kernels (PERF.md rows 4, 5 and 6) built from several
 source directories (copies of `deepspeed_tpu_torch/ops/csrc`, e.g. the
 parent commit's from `git archive`), checked and timed in turns on one CUDA
-card, with row 4 (the contiguous decode) as a control and SDPA at row 4's
-shape; then, optionally, end-to-end tokens/s of two whole trees in turns.
+card, with SDPA at row 4's shape; then, optionally, end-to-end tokens/s of
+two whole trees in turns.
 
     python tools/decode_ab.py DIR [DIR ...] [--reps N] [--ptxas]
         [--chunks C[,C ...]] [--trees A B --turns N]
@@ -12,7 +12,10 @@ serving decode, 8 slots, 12 heads of 64, 512-row blocks, table width 2),
 "quant_serve" (row 6, the same over the int8 pool, g 64), "long" and
 "long_int8" (chip_smoke.PAGED_LONG: Llama-3-8B's attention, 32 query heads
 over 8 kv heads of 128, 8 rows at position 4095, bf16 and the int8 pool at
-g 64) and "generate" (row 4, generate()'s decode over a 1024-row cache).
+g 64), "generate" (row 4, generate()'s decode over a 1024-row cache:
+chip_smoke.DECODE_GENERATE) and "long_contiguous" (row 4 at Llama-3-8B's
+attention, 8 rows at position 4095 of a 4096-row cache:
+chip_smoke.DECODE_LONG).
 Each directory's kernel is first checked against the plain version
 (chip_smoke's `_paged_check` / `TOL`), then all are timed in turns: device
 time of CUDA graphs of the wrapper replayed in turns, the inputs rotated
@@ -28,11 +31,12 @@ other chunk sizes too (`DIR#chunkC`). Each DIR is called through the
 wrappers of its own tree where a decode_attention.py sits beside it (a
 `git archive` of another commit's deepspeed_tpu_torch/ops, e.g. the
 parent's), else through this tree's.
-SDPA's device time at row 4's shape is timed beside row 4.
+SDPA's device time at row 4's generate shape is timed beside row 4 there.
 
 With `--trees A B`, then runs `python chip_smoke.py
 build,generate,serve,quant,moe` in each tree in turns (A B B A, `--turns`
-times) and prints each run's serve, quant_serve and moe_serve tokens/s.
+times) and prints each run's generate, serve, quant_generate,
+quant_serve, moe_generate and moe_serve tokens/s.
 
 Prints one JSON line per (case, variant), then the card's name and power
 limit. Run from the repo's root; it needs the CUDA toolkit and a card.
@@ -60,8 +64,8 @@ from deepspeed_tpu_torch.ops import op_builder  # noqa: E402
 
 CASES = {"serve": cs.PAGED_SERVE, "quant_serve": dict(cs.PAGED_SERVE, g=64),
          "long": cs.PAGED_LONG, "long_int8": dict(cs.PAGED_LONG, g=64)}
-GENERATE = dict(B=4, H=12, Hkv=12, hd=64, M=1024,
-                pos=[n + 16 for n in (100, 250, 431, 600)])
+ROW4_CASES = {"generate": cs.DECODE_GENERATE,
+              "long_contiguous": cs.DECODE_LONG}
 # the line that ends a chunk's work where it is the row's only live chunk;
 # "return" there for every chunk leaves the combine out
 _COMBINE_CUT = ("  if (nlive == 1) return;\n", "  return;\n")
@@ -184,16 +188,19 @@ def _host_turns(fns, rounds=7, calls=50):
     return [statistics.median(t) for t in times]
 
 
-def _time_generate(dirs, reps):
-    """Row 4 through each directory (the same kernel, the control) and
-    SDPA with the prefix mask at its shape, in turns."""
+def _time_row4(label, dirs, reps):
+    """Row 4 through each directory's wrappers at one of ROW4_CASES, in
+    turns, and at the generate shape SDPA with the prefix mask."""
+    case = ROW4_CASES[label]
     rng = np.random.default_rng(1)
+    per_set = 2 * case["B"] * case["Hkv"] * case["M"] * case["hd"] * 2
     sets = []
-    for _ in range(8):
-        q, kc, vc, pos = cs._decode_case(rng, **GENERATE)
-        mask = (torch.arange(GENERATE["M"], device="cuda")[None, :]
-                <= pos[:, None].long())[:, None, None, :]
-        sets.append(dict(q=q, kc=kc, vc=vc, pos=pos, mask=mask))
+    for _ in range(int(min(8, max(2, -(-cs.NORM_COLD_BYTES // per_set))))):
+        kw = cs._decode_args(rng, case)
+        mask = (torch.arange(case["M"], device="cuda")[None, :]
+                <= kw["pos"][:, None].long())[:, None, None, :]
+        sets.append(dict(q=kw["q"], kc=kw["k"], vc=kw["v"], pos=kw["pos"],
+                         mask=mask))
     calls = []
     for src in dirs:
         mod = _MODULES.get(src, da)
@@ -204,26 +211,26 @@ def _time_generate(dirs, reps):
             op_builder._LIBS["decode_attention"] = lib
             return mod.decode_attention(q, kc, vc, pos)
         calls.append((src, row4))
-    calls.append(("sdpa", lambda q, kc, vc, pos, mask:
-                  F.scaled_dot_product_attention(q[:, :, None], kc, vc,
-                                                 attn_mask=mask)))
+    if case["H"] == case["Hkv"]:
+        calls.append(("sdpa", lambda q, kc, vc, pos, mask:
+                      F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                                     attn_mask=mask)))
     kw = sets[0]
     ref = da.decode_attention_reference(kw["q"], kw["kc"], kw["vc"],
                                         kw["pos"])
     rots = [cs._Rotating(fn, sets) for _, fn in calls]
-    graph = cs.graph_ms_turns(rots, inner=16, reps=reps)
+    inner = len(sets) * max(1, round(16 / len(sets)))
+    graph = cs.graph_ms_turns(rots, inner=inner, reps=reps)
     host = _host_turns(rots)
-    live = sum(p + 1 for p in GENERATE["pos"])
-    b_ms, b_by = cs.bound(2 * live * 12 * 64 * 2 + 2 * 4 * 12 * 64 * 2,
-                          4 * live * 12 * 64, cs.FP32_FLOPS)
+    b_ms, b_by = cs._decode_bound(case)
     for (vname, fn), rot, g, hst in zip(calls, rots, graph, host):
         out = fn(**kw).reshape(ref.shape)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        dev, kernels = cs._device_ms(rot, calls=16)
+        dev, kernels = cs._device_ms(rot, calls=max(10, len(sets)))
         print(json.dumps({
-            "case": "generate", "kernel": "decode_attention",
-            "variant": vname, "shape": {k: v for k, v in GENERATE.items()
+            "case": label, "kernel": "decode_attention",
+            "variant": vname, "shape": {k: v for k, v in case.items()
                                         if k != "pos"},
             "sets": len(sets), "max_abs_err": err, "bound_ms": b_ms,
             "bound_by": b_by, "graph_ms": g, "graph_bound_factor": g / b_ms,
@@ -232,8 +239,9 @@ def _time_generate(dirs, reps):
 
 
 def _tokens(trees, turns):
-    """chip_smoke's serving phases in each tree in turns (A B B A ...):
-    serve, quant_serve and moe_serve tokens/s of each run."""
+    """chip_smoke's generate and serving phases in each tree in turns (A B
+    B A ...): generate, serve, quant_generate, quant_serve, moe_generate
+    and moe_serve tokens/s of each run."""
     order = []
     for _ in range(turns):
         order += [trees[0], trees[1], trees[1], trees[0]]
@@ -251,11 +259,13 @@ def _tokens(trees, turns):
                 continue
             if not isinstance(obj, dict):
                 continue
-            if obj.get("phase") == "serve":
-                got["serve"] = obj["tokens_per_s"]
+            if obj.get("phase") in ("generate", "serve"):
+                got[obj["phase"]] = obj["tokens_per_s"]
             elif obj.get("phase") == "quant":
+                got["quant_generate"] = obj["generate_int4"]["tokens_per_s"]
                 got["quant_serve"] = obj["serve"]["tokens_per_s"]
             elif obj.get("phase") == "moe":
+                got["moe_generate"] = obj["generate"]["tokens_per_s"]
                 got["moe_serve"] = obj["serve"]["tokens_per_s"]
         if run.returncode:
             got["stderr"] = run.stderr[-2000:]
@@ -286,7 +296,9 @@ def main():
     for label, case in CASES.items():
         _time_case(label, case, variants, args.reps)
         torch.cuda.empty_cache()
-    _time_generate(args.dirs, args.reps)
+    for label in ROW4_CASES:
+        _time_row4(label, args.dirs, args.reps)
+        torch.cuda.empty_cache()
     if args.trees:
         _tokens(args.trees, args.turns)
     print(smi, flush=True)

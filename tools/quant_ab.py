@@ -1,11 +1,25 @@
-"""A/B of the dequantize kernels (int8 and int4) built from several source
+"""A/B of the quantize and dequantize kernels built from several source
 directories (copies of `deepspeed_tpu_torch/ops/csrc`, e.g. the parent
-commit's), checked and timed in turns on one CUDA card; then rows 4–8 and
-13 (decode, paged decode, int8 paged decode, quantize int8 / int4,
-token_sort) as device time at their paths' shapes (rows 5 and 6 in detail:
-`tools/decode_ab.py`).
+commit's), checked and timed in turns on one CUDA card: first row 7 (the
+int8 pool write and wte's quantize_int8), then the dequantize kernels
+(int8 and int4); then rows 4–8 and 13 (decode, paged decode, int8 paged
+decode, quantize int8 / int4, token_sort) as device time at their paths'
+shapes (rows 4–6 in detail: `tools/decode_ab.py`).
 
     python tools/quant_ab.py DIR [DIR ...] [--reps N] [--ptxas] [--no-others]
+        [--no-dequantize]
+
+Row 7: at the quantized serving path's shape (chip_smoke.KV_WRITE_SERVE:
+8 slots, 12 kv heads of 64, g 64, bf16 K/V as views of the qkv
+projection, int64 positions, 512-row blocks), one layer's K/V write as
+the parent's model made it ("sequence": the table gather, `//`, `%`, two
+`quantize` calls through the directory's `dstt_quantize` and four index
+writes) and, where the directory's library has `dstt_quantize_kv_write`,
+as one fused launch ("fused"): each checked bit for bit against the plain
+sequence on every block but the trash block, then timed in turns (device
+time in CUDA graphs, the profiler's kernels and launches a call, host
+time a call). Then quantize_int8 of wte [50304, 768] g 64 through each
+directory (bit-exact, device time in turns, inputs rotated past L2).
 
 With --ptxas, first prints for each directory what nvcc's `-Xptxas -v`
 says of each kernel of its `quant.cu`. Then, for each bit width and each
@@ -137,6 +151,94 @@ def _time(label, bits, rows, variants, n_sets, nbytes, n, reps):
         print(json.dumps(info), flush=True)
 
 
+def _write_ab(dirs, libs, reps):
+    """Row 7 at the serve path's write and at wte, each directory in
+    turns (see the module's docstring)."""
+    rng = np.random.default_rng(7)
+    case = cs.KV_WRITE_SERVE
+    k, v, tables, pos, pool = cs._kv_write_args(rng, case)
+    bs, g = pool["k"].shape[2], case["hd"] // pool["k_scale"].shape[-1]
+    names = cs._POOL_NAMES
+
+    def sequence(lib):
+        def call(pool):
+            op_builder._LIBS["quant"] = lib
+            blk = torch.gather(tables.long(), 1, (pos // bs).long())
+            off = pos % bs
+            for name, x in (("k", k), ("v", v)):
+                qt, st = quant.quantize(x, g, 8)
+                pool[name][blk, :, off] = qt
+                pool[f"{name}_scale"][blk, :, off] = st
+        return call
+
+    def fused(lib):
+        def call(pool):
+            op_builder._LIBS["quant"] = lib
+            quant.quantize_kv_write(k, v, tables, pos,
+                                    *(pool[n] for n in names))
+        return call
+    ref = {n: t.clone() for n, t in pool.items()}
+    quant.quantize_kv_write_reference(k, v, tables, pos,
+                                      *(ref[n] for n in names))
+    variants = []
+    for src in dirs:
+        made = [("sequence", sequence(libs[src]))]
+        if hasattr(libs[src], "dstt_quantize_kv_write"):
+            made.append(("fused", fused(libs[src])))
+        for kind, fn in made:
+            got = {n: t.clone() for n, t in pool.items()}
+            fn(got)
+            torch.cuda.synchronize()
+            checks = []
+            cs._kv_write_check(checks, f"{src} {kind}", got, ref)
+            variants.append((f"{src}#{kind}", cs._Rotating(fn, [
+                dict(pool={n: t.clone() for n, t in pool.items()})
+                for _ in range(8)])))
+    b_ms, b_by = cs._kv_write_bound(case)
+    fns = [fn for _, fn in variants]
+    graph = cs.graph_ms_turns(fns, inner=16, reps=reps)
+    host = [[] for _ in fns]
+    for _ in range(7):
+        for fn, h in zip(fns, host):
+            h.append(cs._host_ms(fn))
+    for (name, rot), gms, h in zip(variants, graph, host):
+        dev, kernels = cs._device_ms(rot, calls=16)
+        print(json.dumps({
+            "case": "kv_write", "variant": name,
+            "shape": {n: x for n, x in case.items()}, "bound_ms": b_ms,
+            "bound_by": b_by, "graph_ms": gms, "device_ms": dev,
+            "kernels": kernels, "launches": sum(kernels.values()),
+            "host_ms": float(np.median(h))}), flush=True)
+    del variants, fns
+    # wte's quantize_int8 (the serving engine's build), inputs rotated
+    sets = [dict(x=torch.from_numpy(rng.standard_normal(
+        (50304, 768)).astype(np.float32)).to("cuda", torch.bfloat16))
+        for _ in range(3)]
+    qr, sr = quant.quantize_reference(sets[0]["x"], 64)
+    rots = []
+    for src in dirs:
+        def wte(x, lib=libs[src]):
+            op_builder._LIBS["quant"] = lib
+            return quant.quantize(x, 64, 8)
+        qk, sk = wte(**sets[0])
+        if not (torch.equal(qk, qr) and torch.equal(sk, sr)):
+            raise AssertionError(f"{src} wte: kernel != plain version")
+        rots.append(cs._Rotating(wte, sets))
+    n = 50304 * 768
+    b_ms, b_by = cs.bound(n * 2 + n + n // 64 * 4, 4 * n, cs.FP32_FLOPS)
+    graph = cs.graph_ms_turns(rots, inner=6, reps=reps)
+    for src, rot, gms in zip(dirs, rots, graph):
+        dev, kernels = cs._device_ms(rot, calls=6)
+        print(json.dumps({
+            "case": "wte", "kernel": "quantize_int8", "variant": src,
+            "shape": [50304, 768], "group": 64, "bound_ms": b_ms,
+            "bound_by": b_by, "graph_ms": gms,
+            "graph_bound_factor": gms / b_ms, "device_ms": dev,
+            "kernels": kernels}), flush=True)
+    del sets, rots
+    torch.cuda.empty_cache()
+
+
 def _dequant_ab(dirs, libs, bits, reps):
     bf16, g = torch.bfloat16, cs.DEQUANT_GROUP
     gen = torch.Generator(device="cuda").manual_seed(bits)
@@ -224,7 +326,8 @@ def _others(reps):
     cases = []
     # row 4: generate()'s decode over the 1024-row cache, mid-generation
     sh = dict(B=4, H=12, Hkv=12, hd=64, M=1024, pos=[n + 16 for n in lens])
-    sets = [dict(zip(("q", "kc", "vc", "pos"), cs._decode_case(rng, **sh)))
+    sets = [dict(zip(("q", "kc", "vc", "pos"),
+                     cs._decode_args(rng, sh).values()))
             for _ in range(n_sets(2 * 4 * 12 * 1024 * 64 * 2))]
     live = sum(p + 1 for p in sh["pos"])
     cases.append(("decode_attention", "generate", sets,
@@ -254,9 +357,8 @@ def _others(reps):
                                                   pos),
                   cs.bound(2 * live * 12 * (64 + 4) + 2 * 8 * 12 * 64 * 2
                            + 16 * 4, 4 * live * 12 * 64, cs.FP32_FLOPS)))
-    # rows 7-8: the K/V pool write (96 rows of 64) and the weights' wte
-    for bits, path, (rows, D) in ((8, "quant_serve", (96, 64)),
-                                  (8, "quant_serve_build", (50304, 768)),
+    # rows 7-8: the weights' wte (the K/V pool write: `_write_ab`)
+    for bits, path, (rows, D) in ((8, "quant_serve_build", (50304, 768)),
                                   (4, "quant_generate_build", (50304, 768))):
         nbytes = rows * D * 2 + rows * D * bits // 8 + rows * D // 64 * 4
         sets = [dict(x=torch.from_numpy(rng.standard_normal(
@@ -292,6 +394,7 @@ def main():
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--no-others", action="store_true")
+    ap.add_argument("--no-dequantize", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("quant_ab: no CUDA card")
@@ -304,8 +407,10 @@ def main():
     for src in args.dirs:
         _use(src)
         libs[src] = op_builder.load("quant")
-    for bits in (8, 4):
-        _dequant_ab(args.dirs, libs, bits, args.reps)
+    _write_ab(args.dirs, libs, args.reps)
+    if not args.no_dequantize:
+        for bits in (8, 4):
+            _dequant_ab(args.dirs, libs, bits, args.reps)
     if not args.no_others:
         op_builder._LIBS["quant"] = libs[args.dirs[-1]]
         _others(args.reps)
