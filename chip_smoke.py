@@ -51,9 +51,11 @@ Phases, one JSON line each:
            kernel a call in the profiler, and timed against the plain
            sequence; quantize and dequantize (int8, int4) bit-exact at
            the K/V rows' shape and the largest weights (wte, mlp_up_w;
-           wte's quantize_int8 also as device time) and at groups the
-           int8 vector path takes (4, 8, 24, 768, 1024) or not (7, 12, an
-           unaligned view); dequantize also at a
+           wte's quantize_int8 and quantize_int4 also as device time) and
+           at groups the vector path of either width takes (4, 8, 24, 768,
+           1024) or not (7, 12, an unaligned view), with a planted fault
+           (one unit of wte's int4 payload with its nibbles swapped) that
+           the check must reject; dequantize also at a
            flat length with a tail, slices of stacked leaves (one not
            aligned to the kernel's unit), g 7, 8, 12 and 25, fp32 and
            fp16 outputs, and several
@@ -71,8 +73,14 @@ Phases, one JSON line each:
            library_ms_turns) and as device time alone (a CUDA graph of
            the calls: graph_ms, library_graph_ms); token_sort bit-exact
            at the dropless path's shape
-           (N 4096, E 8), E 64 and 128, N 65 536, an odd N, all ids equal,
-           ids out of range and negative, int64 ids; fused_layer_norm /
+           (N 4096, E 8; int32 ids, and int64 as the path holds them), E
+           64 and 128, N 65 536 (16 blocks and their look-back), a second
+           N 65 536 launched straight after it with other ids (a stale
+           look-back word or ticket would show), three tiles and one, an
+           odd N, all ids equal, ids out of range and negative, int64 ids
+           and int64 ids past 2^32, and a CUDA graph of the sort replayed
+           over three id sets, each replay checked; timed as CUDA-graph
+           device time at N 4096 (int32, int64) and 65 536; fused_layer_norm /
            fused_rms_norm within one output-dtype step and with at least
            0.999 of the outputs bit-equal to the plain version's at every
            NORM_SWEEP case (model widths 768 to 12288, bf16 and fp16
@@ -164,8 +172,9 @@ Phases, one JSON line each:
            serving engine on the serve trace: completion, drained pool,
            exact paged-decode launches, agreement with (b)'s generate();
            (d) the dropless moe.layer.MoE on x [8, 512, 768]: one
-           token_sort launch, counts and unique slots, the per-token
-           argmax oracle, finite gradients. Each MoE layer's top-1 routes
+           token_sort launch, handed argmax's int64 ids, and the layer's
+           sort one kernel in the profiler (no cast before it), counts and
+           unique slots, the per-token argmax oracle, finite gradients. Each MoE layer's top-1 routes
            on the card and the CPU twin are recorded by wrapping the
            port's routing functions from here, and their per-layer share
            alike is held to a floor;
@@ -527,7 +536,9 @@ def graph_ms_turns(fns, inner=20, reps=10, warmup=3):
     """Median device time of one call of each fn, as `graph_ms`, with the
     graphs (`inner` calls each) replayed in turns: each of `reps` rounds
     replays every graph once, so a change of the card's clock falls on all
-    of them alike."""
+    of them alike. Each graph is captured on the stream its warm-up ran on,
+    so what a wrapper keeps per stream (a kernel's scratch) is made before
+    the capture and not recorded into the graph."""
     import torch
     graphs = []
     for fn in fns:
@@ -538,7 +549,7 @@ def graph_ms_turns(fns, inner=20, reps=10, warmup=3):
                 fn()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(graph):
+        with torch.no_grad(), torch.cuda.graph(graph, stream=side):
             for _ in range(inner):
                 fn()
         graph.replay()
@@ -1190,18 +1201,42 @@ def _quant_kernels(rng, checks):
                 plain_ms=median_ms(
                     lambda: quant.quantize_reference(x, g, bits)),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # the quotient's rounding: every element at or beside a tie of the
+    # round to nearest even (x / s = k + 1/2), both widths, g 64 (the
+    # vector body's team), 4 (groups within a unit) and 12 (the row body)
+    for (rows, D), g, dtype in (((256, 768), 64, torch.float32),
+                                ((256, 768), 64, torch.bfloat16),
+                                ((64, 96), 4, torch.float16),
+                                ((33, 96), 12, torch.float32)):
+        for bits in (8, 4):
+            x = _quant_ties(rng, rows, D, g, bits, dtype)
+            qk, sk = quant.quantize(x, g, bits)
+            qr, sr = quant.quantize_reference(x, g, bits)
+            torch.cuda.synchronize()
+            exact = bool(torch.equal(qk, qr) and torch.equal(sk, sr))
+            checks.append({"kernel": f"quantize_int{bits}", "case": "ties",
+                           "shape": [rows, D], "group": g,
+                           "dtype": str(dtype), "bit_exact": exact,
+                           "ok": exact})
+            if not exact:
+                raise AssertionError(f"int{bits} ties [{rows}, {D}] g {g} "
+                                     f"{dtype}: kernel != plain version")
     # quantize_int8 runs on two paths: the K/V pool write of every model
     # step (the fused write, one launch a layer), and the int8 weights'
-    # quantization when the serving engine is built (wte: also device
-    # time); quantize_int4 only at the int4 engine's build
+    # quantization when the serving engine is built; quantize_int4 only at
+    # the int4 engine's build (wte of both: also device time, in turns)
     write = _kv_write_kernels(rng, checks)
-    wte = timed["quantize_int8"]["wte"]
     sets = [dict(x=torch.from_numpy(rng.standard_normal(
         (50304, 768)).astype(np.float32)).to("cuda", torch.bfloat16))
         for _ in range(3)]
-    wte["graph_ms"] = graph_ms(_Rotating(
-        lambda x: quant.quantize_int8(x, 64), sets), inner=6)
-    wte["graph_bound_factor"] = wte["graph_ms"] / wte["bound_ms"]
+    wte_ms = graph_ms_turns([_Rotating(
+        lambda x, bits=bits: quant.quantize(x, 64, bits), sets)
+        for bits in (8, 4)], inner=6)
+    for bits, ms in zip((8, 4), wte_ms):
+        wte = timed[f"quantize_int{bits}"]["wte"]
+        wte["graph_ms"] = ms
+        wte["graph_bound_factor"] = ms / wte["bound_ms"]
+    _int4_nibble_fault(checks, sets[0]["x"])
     del sets
     results["quantize_int8", "quant_serve"] = dict(
         write, by_shape=dict(timed["quantize_int8"]))
@@ -1217,6 +1252,70 @@ def _quant_kernels(rng, checks):
         results[f"dequantize_int{bits}", path] = dict(by_shape["wte"],
                                                       by_shape=by_shape)
     return results
+
+
+def _quant_ties(rng, rows, D, g, bits, dtype):
+    """x [rows, D] on the card whose groups hold their amax first and
+    then values at or within two ulps (of x's dtype) of the quantizer's
+    ties, x / s = k + 1/2 for k < qmax - 1, either sign. In fp32 the amax is
+    random and s = amax / qmax rounded; in bf16 / fp16, s is a power of
+    two (amax = qmax s), so the ties are exact in x's dtype."""
+    import torch
+    qmax = 127 if bits == 8 else 7
+    ng = D // g
+    if dtype == torch.float32:
+        amax = rng.uniform(0.01, 100.0, (rows, ng)).astype(np.float32)
+        s = amax / np.float32(qmax)
+    else:
+        s = np.ldexp(np.float32(1), rng.integers(-6, 6, (rows, ng))).astype(
+            np.float32)
+        amax = np.float32(qmax) * s
+    # k < qmax - 1: two ulps above (qmax - 3/2) s stay below the amax
+    x = (rng.integers(0, qmax - 1, (rows, ng, g)) + np.float32(0.5)) \
+        * s[..., None]
+    x = torch.from_numpy(x.astype(np.float32)).to(dtype)
+    bits_view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                 torch.float16: torch.int16}[dtype]
+    steps = torch.from_numpy(rng.integers(-2, 3, (rows, ng, g))).to(bits_view)
+    x = (x.view(bits_view) + steps).view(dtype)     # positive: ulps apart
+    sign = torch.from_numpy(rng.choice([-1.0, 1.0], (rows, ng, g))).to(dtype)
+    x = x * sign
+    x[..., 0] = torch.from_numpy(amax).to(dtype) * sign[..., 0]
+    return x.reshape(rows, D).to("cuda")
+
+
+def _swap_unit_nibbles(q, unit=None):
+    """A copy of an int4 payload with one unit's 4 bytes (8 elements) each
+    holding its two nibbles the other way round: the first unit the swap
+    changes, or `unit`. The likely fault of a packing that puts the even
+    element in the high nibble."""
+    import torch
+    flat = q.reshape(-1).view(torch.uint8)
+    units = flat[:flat.numel() // 4 * 4].reshape(-1, 4).to(torch.int32)
+    swapped = ((units & 0xF) << 4) | (units >> 4)
+    if unit is None:
+        unit = int((swapped != units).any(dim=1).int().argmax())
+    out = flat.clone()
+    out[4 * unit:4 * unit + 4] = swapped[unit].to(torch.uint8)
+    return out.view(torch.int8).reshape(q.shape)
+
+
+def _int4_nibble_fault(checks, x):
+    """The int4 quantize's planted fault: wte's payload with one unit's
+    nibbles swapped must fail the bit-exact check that the kernel passes."""
+    import torch
+    from deepspeed_tpu_torch.ops import quant
+    qk, _ = quant.quantize_int4(x, 64)
+    qr, _ = quant.quantize_reference(x, 64, 4)
+    fault = _swap_unit_nibbles(qk)
+    torch.cuda.synchronize()
+    seen = bool(torch.equal(qk, qr)) and not torch.equal(fault, qr)
+    checks.append({"kernel": "quantize_int4", "shape": list(x.shape),
+                   "fault": "unit_nibbles_swapped", "seen": seen,
+                   "ok": seen})
+    if not seen:
+        raise AssertionError("quantize_int4: the swapped-nibble fault "
+                             "passed the bit-exact check")
 
 
 # the int8 pool write (row 7 on the quant_serve path: one launch a layer
@@ -1901,20 +2000,26 @@ def _dequant_sets(gen, shape, bits):
     return sets
 
 
-def _dequant_tree(bits, gen):
-    """A gpt2-125m weight tree (the DEQUANT_LAYER blocks of 12 layers, wte,
-    wpe; bf16 normals) weight-quantized as the engines quantize it
-    (`quantize_param_tree`, g 64)."""
+def _weight_tree(gen):
+    """A gpt2-125m weight tree on the card: the DEQUANT_LAYER blocks of 12
+    layers, wte, wpe; bf16 normals of std 0.02. Its 10 leaves are what the
+    weight-only engines quantize, one launch each."""
     import torch
-    from deepspeed_tpu_torch.inference.quantization import \
-        quantize_param_tree
 
     def randn(*shape):
         return (0.02 * torch.randn(shape, generator=gen, device="cuda")).to(
             torch.bfloat16)
-    tree = {"blocks": {k: randn(12, *v) for k, v in DEQUANT_LAYER.items()},
+    return {"blocks": {k: randn(12, *v) for k, v in DEQUANT_LAYER.items()},
             "wte": randn(50304, 768), "wpe": randn(1024, 768)}
-    return quantize_param_tree(tree, bits=bits, group_size=DEQUANT_GROUP)[0]
+
+
+def _dequant_tree(bits, gen):
+    """`_weight_tree` weight-quantized as the engines quantize it
+    (`quantize_param_tree`, g 64)."""
+    from deepspeed_tpu_torch.inference.quantization import \
+        quantize_param_tree
+    return quantize_param_tree(_weight_tree(gen), bits=bits,
+                               group_size=DEQUANT_GROUP)[0]
 
 
 def _dequant_step(tree, tokens, positions, layer, dense):
@@ -2016,46 +2121,132 @@ def _dequant_timing(bits):
     return rows
 
 
+def _token_sort_check(checks, label, idx, E, pos, counts):
+    """One sort's output against the plain version, bit for bit."""
+    import torch
+    from deepspeed_tpu_torch.ops import token_sort as ts
+    ref_pos, ref_counts = ts.token_sort_reference(idx, E)
+    exact = bool(torch.equal(pos, ref_pos)
+                 and torch.equal(counts, ref_counts))
+    checks.append({"kernel": "token_sort", "case": label,
+                   "n": int(idx.numel()), "experts": E,
+                   "dtype": str(idx.dtype), "bit_exact": exact, "ok": exact})
+    if not exact:
+        raise AssertionError(f"token_sort {label}: kernel != plain version")
+
+
+def _past_int32_ids(rng, n):
+    """int64 ids in [0, 8) with some moved past int32: + 2^32, 2^31 + 1,
+    -2^32 + 3. Each matches no expert (an int32 cast would wrap most of
+    them into range)."""
+    ids = rng.integers(0, 8, n).astype(np.int64)
+    ids[::5] += 2 ** 32
+    ids[1::7] = 2 ** 31 + 1
+    ids[2::11] = -(2 ** 32) + 3
+    return ids
+
+
+def _token_sort_graph_replays(rng, checks, tile):
+    """A CUDA graph of one sort over three tiles and one (four blocks and
+    their look-back), captured once and replayed over three id sets
+    copied into its input, each replay's output checked: each replay
+    starts from the scratch the previous one left, so a kernel that did
+    not reset it would fail here (the scratch is made before the capture,
+    by the warm-up on the capture's stream)."""
+    import torch
+    from deepspeed_tpu_torch.ops import token_sort as ts
+    E, n = 8, 3 * tile + 1
+    sets = [torch.from_numpy(rng.integers(0, E, n)).to("cuda", torch.int64)
+            for _ in range(3)]
+    static = sets[0].clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ts.token_sort(static, E)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = ts.token_sort(static, E)
+    for i, ids in enumerate(sets[1:] + sets[:1]):
+        static.copy_(ids)
+        graph.replay()
+        torch.cuda.synchronize()
+        _token_sort_check(checks, f"graph_replay_{i}", ids, E, *out)
+    del graph
+
+
 def _token_sort_kernel(rng, checks):
     """token_sort against its plain version, bit for bit: at the dropless
-    path's shape (N 4096 = 8 x 512 tokens, E 8), at E 64 and 128, at
-    N 65 536, at an odd N, with every id equal, with ids out of range and
-    negative, and from int64 ids; then timed at the path's shape."""
+    path's shape (N 4096 = 8 x 512 tokens, E 8; int32 ids, and int64 as
+    the path holds them), at E 64 and 128, at N 65 536 (sixteen tiles)
+    followed straight away by another N 65 536 with other ids (a stale
+    look-back word or ticket would show), at three tiles and one, at an odd
+    N, with every id equal, with ids out of range and negative, from int64
+    ids and from int64 ids past int32; a CUDA graph of the sort replayed
+    over three id sets; then timed at the path's shape (int64 ids: the
+    row; int32) and at N 65 536 as device time in CUDA graphs, in turns,
+    the ids rotated over 64 sets."""
     import torch
     from deepspeed_tpu_torch.ops import token_sort as ts
     results = {}
-    cases = (("path", rng.integers(0, 8, 4096), 8),
-             ("e64", rng.integers(0, 64, 4096), 64),
-             ("e128", rng.integers(0, 128, 4096), 128),
-             ("n65536", rng.integers(0, 8, 65536), 8),
-             ("odd_n", rng.integers(0, 8, 4097), 8),
-             ("all_equal", np.full(4096, 5), 8),
-             ("out_of_range", rng.integers(-5, 13, 4096), 8),
-             ("int64", rng.integers(0, 8, 3001), 8))
-    for label, ids, E in cases:
-        dtype = torch.int64 if label == "int64" else torch.int32
+    tile = ts.tile_tokens("cuda", 8)
+    i32, i64 = torch.int32, torch.int64
+    cases = (("path", rng.integers(0, 8, 4096), 8, i32),
+             ("e64", rng.integers(0, 64, 4096), 64, i32),
+             ("e128", rng.integers(0, 128, 4096), 128, i32),
+             ("n65536", rng.integers(0, 8, 65536), 8, i32),
+             ("odd_n", rng.integers(0, 8, 4097), 8, i32),
+             ("all_equal", np.full(4096, 5), 8, i32),
+             ("out_of_range", rng.integers(-5, 13, 4096), 8, i32),
+             ("int64", rng.integers(0, 8, 3001), 8, i64),
+             ("path_int64", rng.integers(0, 8, 4096), 8, i64),
+             ("three_tiles_and_one", rng.integers(0, 8, 3 * tile + 1), 8,
+              i32),
+             ("int64_past_int32", _past_int32_ids(rng, 3 * tile + 1), 8,
+              i64),
+             ("all_equal_n65536", np.full(65536, 7), 8, i64),
+             ("e128_n65536", rng.integers(-1, 129, 65536), 128, i32))
+    for label, ids, E, dtype in cases:
         idx = torch.from_numpy(np.asarray(ids)).to("cuda", dtype)
         pos, counts = ts.token_sort(idx, E)
-        ref_pos, ref_counts = ts.token_sort_reference(idx, E)
+        if label == "n65536":
+            other = torch.from_numpy(rng.integers(0, 8, 65536)).to(
+                "cuda", dtype)
+            back = ts.token_sort(other, E)   # no synchronize between
         torch.cuda.synchronize()
-        exact = bool(torch.equal(pos, ref_pos)
-                     and torch.equal(counts, ref_counts))
-        checks.append({"kernel": "token_sort", "case": label,
-                       "n": int(idx.numel()), "experts": E,
-                       "dtype": str(dtype), "bit_exact": exact, "ok": exact})
-        if not exact:
-            raise AssertionError(f"token_sort {label}: kernel != plain "
-                                 f"version")
-        if label != "path":
-            continue
-        n = idx.numel()
+        _token_sort_check(checks, label, idx, E, pos, counts)
+        if label == "n65536":
+            _token_sort_check(checks, "n65536_back_to_back", other, E, *back)
+    _token_sort_graph_replays(rng, checks, tile)
+
+    def sets(n, dtype, k=64):
+        return [dict(idx=torch.from_numpy(rng.integers(0, 8, n)).to(
+            "cuda", dtype)) for _ in range(k)]
+
+    def row(n, id_bytes):
         # ids in, ranks out, counts out; one compare per token and expert
-        b_ms, b_by = bound(4 * n + 4 * n + 4 * E, n * E, FP32_FLOPS)
-        results["token_sort", "moe_dropless"] = dict(
-            shape={"n": n, "experts": E}, max_abs_err=0.0,
-            ms=median_ms(lambda: ts.token_sort(idx, E)),
-            plain_ms=median_ms(lambda: ts.token_sort_reference(idx, E)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        return bound(id_bytes * n + 4 * n + 4 * 8, n * 8, FP32_FLOPS)
+    timed = (("path_int64", sets(4096, i64), 8), ("path_int32",
+             sets(4096, i32), 4), ("n65536", sets(65536, i32), 4))
+    g_ms = graph_ms_turns([_Rotating(lambda idx: ts.token_sort(idx, 8), st)
+                           for _, st, _ in timed], inner=64)
+    by_shape = {}
+    for (label, st, id_bytes), g in zip(timed, g_ms):
+        n = st[0]["idx"].numel()
+        b_ms, b_by = row(n, id_bytes)
+        by_shape[label] = dict(n=n, experts=8, ids=str(st[0]["idx"].dtype),
+                               bound_ms=b_ms, bound_by=b_by, graph_ms=g,
+                               graph_bound_factor=g / b_ms)
+    idx = timed[0][1][0]["idx"]
+    path = by_shape["path_int64"]
+    results["token_sort", "moe_dropless"] = dict(
+        shape={"n": 4096, "experts": 8, "ids": "int64"}, max_abs_err=0.0,
+        ms=median_ms(lambda: ts.token_sort(idx, 8)),
+        plain_ms=median_ms(lambda: ts.token_sort_reference(idx, 8)),
+        bound_ms=path["bound_ms"], bound_by=path["bound_by"],
+        library_ms=None, graph_ms=path["graph_ms"],
+        graph_bound_factor=path["graph_bound_factor"], tile=tile,
+        by_shape=by_shape)
     return results
 
 
@@ -4190,6 +4381,27 @@ def _moe_dropless(counts):
         pmoe.token_sort = sort
     _expect("moe_dropless", counts["moe_dropless"], {"token_sort": 1})
     idx, pos, sort_counts = sorts[0]
+    # the layer hands the sort argmax's int64 ids, and the sort is one
+    # kernel: no cast before it (the profiler's kernels of the layer's own
+    # call, on its own ids). This late in the script the profiler records
+    # few of the events (1 of 16 on an H100; PERF.md §5), so the kernels
+    # are gathered over profiled runs of 16 calls until 16 sort launches
+    # are seen
+    if idx.dtype != torch.int64:
+        raise AssertionError(f"dropless: token_sort got {idx.dtype} ids, "
+                             f"not argmax's int64")
+    sort_kernels, runs = {}, 0
+    while runs < 64 and sum(v for k, v in sort_kernels.items()
+                            if "token_sort_kernel" in k) < 16:
+        _, seen = _device_ms(lambda: sort(idx, E), calls=16)
+        for k, per_call in seen.items():
+            sort_kernels[k] = sort_kernels.get(k, 0) + round(per_call * 16)
+        runs += 1
+    if len(sort_kernels) != 1 or any("token_sort_kernel" not in k
+                                     for k in sort_kernels):
+        raise AssertionError(f"dropless: the sort's kernels {sort_kernels} "
+                             f"over {runs} x 16 calls, want "
+                             f"token_sort_kernel alone")
     if int(sort_counts.sum()) != N or int(exp_counts.sum()) != N:
         raise AssertionError(f"dropless counts {sort_counts.tolist()} do not "
                              f"sum to {N}")
@@ -4217,7 +4429,8 @@ def _moe_dropless(counts):
     if not err <= tol:
         raise AssertionError(f"dropless layer vs argmax oracle: {err} > {tol}")
     return {"shape": [MOE_MBS, MOE_SEQ, D], "d_ff": F_, "experts": E,
-            "launches": counts["moe_dropless"],
+            "launches": counts["moe_dropless"], "sort_kernels": sort_kernels,
+            "sort_profiled_calls": 16 * runs,
             "expert_counts": sort_counts.tolist(), "max_abs_err": err,
             "tol": tol, "fwd_bwd_first_s": dt,
             "fwd_bwd_ms": median_ms(step, reps=5, inner=1)}

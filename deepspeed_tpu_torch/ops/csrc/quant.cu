@@ -26,35 +26,39 @@
 //
 // What bounds it on the H100: memory. Each element is read once and written
 // once with a handful of operations, far below the card's ridge point.
-//   quantize   int8 (quantize_int8, and the int8 pool's cache write of a
-//              layer's K and V in one launch): quantize_vec_kernel. A lane
-//              takes a unit of 8 elements (one 16-byte load of bf16 /
-//              fp16, two of fp32) and keeps it in registers: x is read
-//              once. A group of g elements is a team of g / 8 lanes (a
-//              power of two >= it, up to 32; above g 256 a lane takes 2
-//              or 4 units), whose amax is an xor shuffle over the team; g
-//              dividing 8 reduces inside the unit. The team's first lane
-//              writes the scale; each lane stores its 8 payload bytes, so a
-//              warp's stores are one run. The dense quantize gives a warp 4
-//              tiles of 32 units with all loads issued first; the pool
-//              write one tile, and reads positions and the table in the
-//              kernel, so one launch replaces the table gather, `//`, `%`,
-//              two quantizes and four index writes (26.5 -> 2.9 µs of
-//              device time at the serving shape, NVIDIA H100 80GB HBM3,
-//              700 W; PERF.md §6). wte [50304, 768] g 64: 154.9 -> 52.6-
-//              53.7 µs, 1.49-1.52x its byte bound; 1, 2 or 8 units a lane,
-//              128-thread blocks, streaming loads, and a multiply by the
-//              group's reciprocal in place of the divisions measured no
-//              faster (PERF.md §5).
-//              int4, and int8 groups the vector path cannot take (g
-//              neither dividing 8 nor a multiple of 8, g > 1024, an
-//              unaligned x): quantize_kernel, one 128-thread block per row;
-//              pass 1 gives each group to a warp, whose lanes stride the
-//              group and reduce |max| with a shuffle; the scales go to
-//              shared memory and to the output; pass 2 quantizes the row
-//              (or packs its byte pairs) with neighbouring threads on
-//              neighbouring elements, reading the row a second time from
-//              L1/L2.
+//   quantize   quantize_int8 and quantize_int4 (dense), and the int8
+//              pool's cache write of a layer's K and V in one launch:
+//              quantize_vec_kernel. A lane takes a unit of 8 elements (one
+//              16-byte load of bf16 / fp16, two of fp32) and keeps it in
+//              registers: x is read once. A group of g elements is a team
+//              of g / 8 lanes (a power of two >= it, up to 32; above g 256
+//              a lane takes 2 or 4 units), whose amax is an xor shuffle
+//              over the team; g dividing 8 reduces inside the unit. The
+//              team's first lane writes the scale; each lane stores its
+//              unit's payload as one word (8 bytes at int8; 8 nibbles, 4
+//              bytes, at int4), so a warp's stores are one run. The dense
+//              quantize gives a warp 4 tiles of 32 units with all loads
+//              issued first; the pool write one tile, and reads positions
+//              and the table in the kernel, so one launch replaces the
+//              table gather, `//`, `%`, two quantizes and four index
+//              writes (26.5 -> 2.9 µs of device time at the serving
+//              shape, NVIDIA H100 80GB HBM3, 700 W; PERF.md §6). wte
+//              [50304, 768] g 64, int8: 154.9 -> 52.6-53.7 µs, 1.49-1.52x
+//              its byte bound; int4 154.1 -> 53.1-53.4 µs, 1.80x. Both
+//              widths take the same time: their reads of x hold them
+//              (~1.5 TB/s). 1, 2, 8 or 16 units a lane, 128-thread blocks,
+//              streaming loads, units held raw in registers, and an exact
+//              quotient from the group's reciprocal (two fma corrections)
+//              in place of the divisions measured no faster (PERF.md §5).
+//              Groups the vector path cannot take (g neither dividing 8
+//              nor a multiple of 8, g > 1024, an unaligned x):
+//              quantize_kernel, one 128-thread block per row; pass 1 gives
+//              each group to a warp, whose lanes stride the group and
+//              reduce |max| with a shuffle; the scales go to shared memory
+//              and to the output; pass 2 quantizes the row (or packs its
+//              byte pairs, whose two elements may lie in two groups: g 7)
+//              with neighbouring threads on neighbouring elements, reading
+//              the row a second time from L1/L2.
 //   dequantize flat and vectorised. Groups lie along the last dim and
 //              D % g == 0, so a leaf is one flat array: out[i] = q[i] *
 //              s[i / g] (int8); byte j holds elements 2j and 2j + 1 (int4).
@@ -161,7 +165,8 @@ int quantize_t(const void* x, void* q, void* s, long long rows, int D, int g,
 }
 
 // ---------------------------------------------------------------------------
-// quantize_int8, vectorised: the dense [rows, D] and the K/V pool write
+// quantize, vectorised: the dense [rows, D] (int8 and int4) and the int8
+// K/V pool write
 // ---------------------------------------------------------------------------
 
 constexpr int kVecThreads = 256;
@@ -169,9 +174,9 @@ constexpr int kVecUnits = 4;    // tiles a warp of the dense quantize (R 1)
 constexpr int kVecMaxGroup = 1024;  // 32 lanes x 4 units of 8 elements
 
 // The tiling of one launch. A unit is 8 consecutive elements of a row (one
-// 16-byte load of bf16 / fp16, two of fp32; 8 payload bytes). A tiling
-// group is gt = max(g, 8) elements (gu = gt / 8 units, spg = gt / g
-// scales). A team of T = 2^lgT lanes (a power of two >= gu, at most 32)
+// 16-byte load of bf16 / fp16, two of fp32; 8 payload bytes, 4 at int4).
+// A tiling group is gt = max(g, 8) elements (gu = gt / 8 units, spg = gt /
+// g scales). A team of T = 2^lgT lanes (a power of two >= gu, at most 32)
 // takes a group, its lane j unit j (R > 1 units a lane: units j, j + 32,
 // ...); a tile is the 32 / T groups of one warp instruction.
 struct Tiling {
@@ -180,8 +185,9 @@ struct Tiling {
   int gt, gu, spg, lgT;
 };
 
-// Dense x [rows, D] -> q [rows, D], s [rows, D / g]: group G of the flat
-// array starts at element G * gt, its scales at G * spg.
+// Dense x [rows, D] -> q [rows, D] (int4: [rows, D / 2]), s [rows, D / g]:
+// group G of the flat array starts at element G * gt (payload byte G * gt
+// at int8, G * gt / 2 at int4), its scales at G * spg.
 struct DenseSite {
   static constexpr bool kOneTile = false;  // KT tiles a warp
   Tiling t;
@@ -282,19 +288,31 @@ __device__ __forceinline__ uint32_t pack4(const int* n) {
                      __byte_perm(n[2], n[3], 0x0040), 0x5410);
 }
 
+// eight int4 values in [-7, 7] as one word of biased nibbles q + 8: byte j
+// = (value 2j + 8) | (value 2j + 1 + 8) << 4, the even element in the low
+// nibble (nibble k = value k)
+__device__ __forceinline__ uint32_t pack8_nibbles(const int* n) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) w |= (uint32_t)(n[k] + 8) << (4 * k);
+  return w;
+}
+
 // One launch quantizes `t.groups` tiling groups: warp w of block k takes
 // tiles (k KT + i) 8 + w, i < KT, and issues all its loads before any
 // arithmetic (KT x R units in flight a lane). A group's amax is the max
 // over its lanes' units by an xor shuffle over the team; where g < 8 a
 // unit holds 8 / g groups, each reduced in registers. The team's first
-// lane writes the scales; each lane stores its 8 payload bytes (a warp's
-// stores one contiguous run where gu is a power of two). Numerics as
-// quantize_kernel, bit for bit: scale = fmaxf(amax, 1e-8f) / 127 (IEEE
-// division), q = clamp(rintf(x / scale), -127, 127).
-template <typename T, int R, typename Site>
+// lane writes the scales; each lane stores its unit's payload as one
+// word, 8 bytes at int8 and 4 (8 nibbles) at int4 (a warp's stores one
+// contiguous run where gu is a power of two). Numerics as quantize_kernel,
+// bit for bit: scale = fmaxf(amax, 1e-8f) / qmax (IEEE division), q =
+// clamp(rintf(x / scale), -qmax, qmax), qmax 127 or 7.
+template <typename T, int BITS, int R, typename Site>
 __global__ void __launch_bounds__(kVecThreads)
 quantize_vec_kernel(const __grid_constant__ Site site) {
   constexpr int KT = Site::kOneTile || R > 1 ? 1 : kVecUnits;
+  constexpr float QMAX = BITS == 8 ? 127.f : 7.f;
   const Tiling& tl = site.t;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int TS = 1 << tl.lgT;  // lanes a team
@@ -342,7 +360,7 @@ quantize_vec_kernel(const __grid_constant__ Site site) {
         for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(x[i][r][e]));
       for (int o = 1; o < TS; o <<= 1)
         m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      const float s = fmaxf(m, 1e-8f) / 127.f;
+      const float s = fmaxf(m, 1e-8f) / QMAX;
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -364,7 +382,7 @@ quantize_vec_kernel(const __grid_constant__ Site site) {
       }
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        sc[0][e] = fmaxf(m[e], 1e-8f) / 127.f;
+        sc[0][e] = fmaxf(m[e], 1e-8f) / QMAX;
         if (to && (e & (tl.g - 1)) == 0) sdst[sd + (e >> tl.lgg)] = sc[0][e];
       }
     }
@@ -373,14 +391,19 @@ quantize_vec_kernel(const __grid_constant__ Site site) {
     for (int r = 0; r < R; ++r) {
       if (!live[i][r]) continue;
       // clamped before the round-to-nearest-even conversion: the same
-      // integer as quantize_kernel's rintf, clamp, cast (NaN -> -127)
+      // integer as quantize_kernel's rintf, clamp, cast (NaN -> -qmax)
       int n[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e)
         n[e] = __float2int_rn(
-            fminf(fmaxf(x[i][r][e] / sc[r][e], -127.f), 127.f));
-      *reinterpret_cast<uint2*>(qd + d + 8 * (j0 + 32 * r)) =
-          make_uint2(pack4(n), pack4(n + 4));
+            fminf(fmaxf(x[i][r][e] / sc[r][e], -QMAX), QMAX));
+      const int j = j0 + 32 * r;
+      if constexpr (BITS == 8) {
+        *reinterpret_cast<uint2*>(qd + d + 8 * j) =
+            make_uint2(pack4(n), pack4(n + 4));
+      } else {
+        *reinterpret_cast<uint32_t*>(qd + d / 2 + 4 * j) = pack8_nibbles(n);
+      }
     }
   }
 }
@@ -403,7 +426,7 @@ int vec_tiling(Tiling& t, long long n, int D, int g) {
   return t.gu <= 32 ? 1 : t.gu <= 64 ? 2 : 4;
 }
 
-template <typename T, typename Site>
+template <typename T, int BITS, typename Site>
 int vec_launch(const Site& site, int R, cudaStream_t stream) {
   const long long per_tile = 32 >> site.t.lgT;
   const long long tiles = (site.t.groups + per_tile - 1) / per_tile;
@@ -413,26 +436,33 @@ int vec_launch(const Site& site, int R, cudaStream_t stream) {
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   if (blocks == 0) return 0;
   if (R == 1)
-    quantize_vec_kernel<T, 1, Site><<<(int)blocks, kVecThreads, 0, stream>>>(site);
+    quantize_vec_kernel<T, BITS, 1, Site>
+        <<<(int)blocks, kVecThreads, 0, stream>>>(site);
   else if (R == 2)
-    quantize_vec_kernel<T, 2, Site><<<(int)blocks, kVecThreads, 0, stream>>>(site);
+    quantize_vec_kernel<T, BITS, 2, Site>
+        <<<(int)blocks, kVecThreads, 0, stream>>>(site);
   else
-    quantize_vec_kernel<T, 4, Site><<<(int)blocks, kVecThreads, 0, stream>>>(site);
+    quantize_vec_kernel<T, BITS, 4, Site>
+        <<<(int)blocks, kVecThreads, 0, stream>>>(site);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int quantize_int8_t(const void* x, void* q, void* s, long long rows, int D,
-                    int g, cudaStream_t stream) {
+// The dense quantize: the vector body where it takes g and x is 16-byte
+// aligned and q aligned to a unit's payload word (8 bytes, 4 at int4),
+// else the row body, the only kernel for those inputs (g 7: an int4 byte
+// spans two groups; g 12; views that start off a 16-byte boundary).
+template <typename T, int BITS>
+int quantize_dense_t(const void* x, void* q, void* s, long long rows, int D,
+                     int g, cudaStream_t stream) {
   DenseSite site{};
   const int R = vec_tiling(site.t, rows * D, D, g);
   if (R == 0 || reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(q) % 8)
-    return quantize_t<T>(x, q, s, rows, D, g, 8, stream);
+      reinterpret_cast<uintptr_t>(q) % (BITS == 8 ? 8 : 4))
+    return quantize_t<T>(x, q, s, rows, D, g, BITS, stream);
   site.x = x;
   site.q = static_cast<int8_t*>(q);
   site.s = static_cast<float*>(s);
-  return vec_launch<T>(site, R, stream);
+  return vec_launch<T, BITS>(site, R, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -657,8 +687,10 @@ int dequantize_bits(int n_leaves, const void* const* q, const void* const* s,
 
 // x [rows, D] (dtype: 0 float32, 1 bfloat16, 2 float16) -> q int8 [rows, D]
 // (bits 8) or [rows, D/2] (bits 4), scales f32 [rows, D/g]. The caller
-// guarantees rows >= 1, D % g == 0 and, for bits 4, D even. Returns
-// cudaGetLastError().
+// guarantees rows >= 1, D % g == 0 and, for bits 4, D even. Both widths
+// take the vector body where D % 8 == 0, g divides 8 or is a multiple of
+// 8 up to 1024, x is 16-byte aligned and q 8-byte (int8) or 4-byte (int4)
+// aligned; every other input the row body. Returns cudaGetLastError().
 extern "C" int dstt_quantize(const void* x, void* q, void* s, long long rows,
                              int D, int g, int bits, int dtype, void* stream) {
   using namespace dstt::quant;
@@ -666,16 +698,16 @@ extern "C" int dstt_quantize(const void* x, void* q, void* s, long long rows,
   if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
   if (bits == 8) {
     switch (dtype) {
-      case 0: return quantize_int8_t<float>(x, q, s, rows, D, g, st);
-      case 1: return quantize_int8_t<__nv_bfloat16>(x, q, s, rows, D, g, st);
-      case 2: return quantize_int8_t<__half>(x, q, s, rows, D, g, st);
+      case 0: return quantize_dense_t<float, 8>(x, q, s, rows, D, g, st);
+      case 1: return quantize_dense_t<__nv_bfloat16, 8>(x, q, s, rows, D, g, st);
+      case 2: return quantize_dense_t<__half, 8>(x, q, s, rows, D, g, st);
     }
     return (int)cudaErrorInvalidValue;
   }
   switch (dtype) {
-    case 0: return quantize_t<float>(x, q, s, rows, D, g, bits, st);
-    case 1: return quantize_t<__nv_bfloat16>(x, q, s, rows, D, g, bits, st);
-    case 2: return quantize_t<__half>(x, q, s, rows, D, g, bits, st);
+    case 0: return quantize_dense_t<float, 4>(x, q, s, rows, D, g, st);
+    case 1: return quantize_dense_t<__nv_bfloat16, 4>(x, q, s, rows, D, g, st);
+    case 2: return quantize_dense_t<__half, 4>(x, q, s, rows, D, g, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -734,9 +766,9 @@ extern "C" int dstt_quantize_kv_write(
   site.nb = nb;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return vec_launch<float>(site, R, st);
-    case 1: return vec_launch<__nv_bfloat16>(site, R, st);
-    case 2: return vec_launch<__half>(site, R, st);
+    case 0: return vec_launch<float, 8>(site, R, st);
+    case 1: return vec_launch<__nv_bfloat16, 8>(site, R, st);
+    case 2: return vec_launch<__half, 8>(site, R, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -102,7 +102,11 @@ def _check_cuda(t, what):
 
 
 def quantize(x, group_size, bits):
-    """x [..., D] float -> (q, scales) at `bits` 8 or 4 (any other raises)."""
+    """x [..., D] float -> (q, scales) at `bits` 8 or 4 (any other raises).
+    On CUDA one launch of `dstt_quantize` at either width: the vector body
+    where D is a multiple of 8, g divides 8 or is a multiple of 8 up to
+    1024 and x is 16-byte aligned (q is allocated here, so its payload
+    words are aligned), else the row body."""
     what = f"quantize_int{bits}"
     if x.device.type == "cpu":
         return quantize_reference(x, group_size, bits)
@@ -114,10 +118,9 @@ def quantize(x, group_size, bits):
                          f"got {x.dtype}")
     x = x.contiguous()              # rows of a strided view, packed
     rows = x.numel() // D
-    q = torch.empty(x.shape[:-1] + (D if bits == 8 else D // 2,),
-                    dtype=torch.int8, device=x.device)
-    s = torch.empty(x.shape[:-1] + (D // group_size,), dtype=torch.float32,
-                    device=x.device)
+    q = x.new_empty(x.shape[:-1] + (D if bits == 8 else D // 2,),
+                    dtype=torch.int8)
+    s = x.new_empty(x.shape[:-1] + (D // group_size,), dtype=torch.float32)
     if rows == 0:
         return q, s
     rc = _kernel("dstt_quantize")(

@@ -17,6 +17,8 @@ served greedy tokens identical.
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -397,6 +399,54 @@ def test_kv_write_is_one_launch_on_the_projections_views(monkeypatch):
     assert len(calls) == 1
 
 
+class _CudaX(_Cuda):
+    """A CUDA-like dense input the quantize wrapper takes to its launch."""
+
+    def numel(self):
+        return int(np.prod(self.shape))
+
+    def new_empty(self, shape, dtype):
+        return _CudaX(shape, dtype, ptr=id(shape))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape, g", [((6, 768), 64), ((5, 14), 7),
+                                      ((2, 3, 96), 12)])
+def test_dense_quantize_is_one_launch_at_either_width(bits, shape, g,
+                                                      monkeypatch):
+    """On a CUDA tensor `quantize` at 4 bits, as at 8, is one launch of
+    `dstt_quantize` (counted as quantize_int4 / quantize_int8), handed x's
+    pointer, rows, D, g, the bit width and the dtype's code; the library
+    picks the vector or the row body inside that one launch. q is
+    [..., D / 2] int8 at 4 bits, scales [..., D / g] float32."""
+    from deepspeed_tpu_torch.ops import op_builder
+    calls = []
+
+    class Entry:
+        argtypes = restype = None
+
+        def __call__(self, *args):
+            calls.append(args)
+            return 0
+    monkeypatch.setattr(op_builder, "load", lambda name: type(
+        "Lib", (), {"dstt_quantize": Entry()}))
+    monkeypatch.setattr(op_builder, "stream_ptr", lambda device: None)
+    monkeypatch.setattr(tqo, "quantize_reference", None)
+    op_builder.LAUNCHES.clear()
+    x = _CudaX(shape, torch.bfloat16, ptr=16 * 64)
+    q, s = tqo.quantize(x, g, bits)
+    assert dict(op_builder.LAUNCHES) == {f"quantize_int{bits}": 1}
+    (args,) = calls
+    D = shape[-1]
+    rows = int(np.prod(shape)) // D
+    assert args[0] == 16 * 64 and args[3:8] == (
+        rows, D, g, bits, op_builder.dtype_code(torch.bfloat16))
+    assert (tuple(q.shape), q.dtype) == (
+        shape[:-1] + (D // 2 if bits == 4 else D,), torch.int8)
+    assert (tuple(s.shape), s.dtype) == (shape[:-1] + (D // g,),
+                                         torch.float32)
+
+
 # ----------------------------------------------------------------------
 # K6: decode attention over the int8 pool
 # ----------------------------------------------------------------------
@@ -635,3 +685,33 @@ def test_quantized_pool_contract_is_checked():
     with pytest.raises(ValueError, match="quantized-pool contract"):
         engine.serving(max_slots=2, max_context=64,
                        quantization={"kv_cache_dtype": "int8"})
+
+
+# the check chip_smoke.py holds quantize_int4 to on the card, and its
+# planted fault
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+
+@pytest.mark.parametrize("shape, g", [((50, 768), 64), ((9, 16), 4)])
+def test_chip_smoke_int4_fault_swaps_one_units_nibbles(shape, g):
+    """chip_smoke's planted int4 fault (`_swap_unit_nibbles`) changes the
+    4 bytes of exactly one unit of 8 elements, each byte's two nibbles
+    exchanged (the even element moved to the high nibble), so the
+    bit-exact comparison with the plain version fails; swapping twice
+    restores it."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        shape).astype(np.float32))
+    q, _ = tqo.quantize_reference(x, g, 4)
+    fault = chip_smoke._swap_unit_nibbles(q)
+    assert fault.shape == q.shape and fault.dtype == torch.int8
+    diff = (fault != q).reshape(-1).nonzero().reshape(-1)
+    assert diff.numel() > 0 and int(diff[-1]) - int(diff[0]) < 4
+    unit = int(diff[0]) // 4
+    b = q.reshape(-1)[4 * unit:4 * unit + 4].view(torch.uint8).int()
+    got = fault.reshape(-1)[4 * unit:4 * unit + 4].view(torch.uint8).int()
+    assert torch.equal(got, ((b & 0xF) << 4) | (b >> 4))
+    assert not torch.equal(fault, q)
+    assert torch.equal(chip_smoke._swap_unit_nibbles(fault, unit), q)

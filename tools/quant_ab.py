@@ -2,9 +2,10 @@
 directories (copies of `deepspeed_tpu_torch/ops/csrc`, e.g. the parent
 commit's), checked and timed in turns on one CUDA card: first row 7 (the
 int8 pool write and wte's quantize_int8), then the dequantize kernels
-(int8 and int4); then rows 4–8 and 13 (decode, paged decode, int8 paged
-decode, quantize int8 / int4, token_sort) as device time at their paths'
-shapes (rows 4–6 in detail: `tools/decode_ab.py`).
+(int8 and int4); then rows 8 and 13 (quantize_int4, token_sort) through
+each directory in turns, and rows 4–7 (decode, paged decode, int8 paged
+decode, quantize_int8) through the last directory's build, as device time
+at their paths' shapes (rows 4–6 in detail: `tools/decode_ab.py`).
 
     python tools/quant_ab.py DIR [DIR ...] [--reps N] [--ptxas] [--no-others]
         [--no-dequantize]
@@ -46,9 +47,20 @@ A directory whose library has no grouped entry point (`dstt_dequantize`
 only) is called one leaf a launch through that entry, with the checks,
 the two `contiguous()` and the allocation its wrapper made: "layer" is
 then eight launches and "model_step" 99, as its `_layer` made them.
-Prints one JSON line per (bits, shape, variant), then one per other
-kernel (the last directory's build), then the card's name and power
-limit. Run from the repo's root; it needs the CUDA toolkit and a card.
+Rows 8 and 13 (`_rows_8_13`), each directory's build in turns, device
+time in CUDA graphs, the inputs rotated past L2, bit-exact against the
+plain version first: quantize_int4 at wte [50304, 768] and mlp_up_w
+[768, 3072] (bf16, g 64) and the int4 engine's whole build
+(`quant_generate_build`: `quantize_param_tree` over a gpt2-125m tree,
+its 10 launches); token_sort at the dropless path's N 4096, E 8 with
+int64 ids as the path holds them (the bound counts 8 bytes an id), with
+int32 ids, at N 65 536 and at E 128. A directory whose token_sort
+library has no `dstt_token_sort_tile` (the single-block kernel) is
+called as its wrapper called it: int64 ids cast to int32 first.
+Prints one JSON line per (bits, shape, variant), then one per row 8 / 13
+case and directory, then one per other kernel, then the card's name and
+power limit. Run from the repo's root; it needs the CUDA toolkit and a
+card.
 """
 
 import argparse
@@ -65,7 +77,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 from attn_fwd_ab import _ptxas, _use  # noqa: E402  (this directory)
 from deepspeed_tpu_torch.inference.quantization import (  # noqa: E402
-    QuantizedTensor, dense)
+    QuantizedTensor, dense, quantize_param_tree)
 from deepspeed_tpu_torch.models import gpt  # noqa: E402
 from deepspeed_tpu_torch.ops import decode_attention as da  # noqa: E402
 from deepspeed_tpu_torch.ops import op_builder, quant  # noqa: E402
@@ -130,6 +142,12 @@ def _same(a, b):
     if isinstance(a, dict):
         return sorted(a) == sorted(b) and all(_same(a[k], b[k]) for k in a)
     return bool(torch.equal(a, b))
+
+
+def _cold_sets(per_set):
+    """Input sets of `per_set` bytes that move chip_smoke.NORM_COLD_BYTES
+    between two uses of one (at most 64): rotated, none is read from L2."""
+    return int(min(64, max(1, -(-cs.NORM_COLD_BYTES // per_set))))
 
 
 def _time(label, bits, rows, variants, n_sets, nbytes, n, reps):
@@ -313,22 +331,18 @@ def _dequant_ab(dirs, libs, bits, reps):
 
 
 def _others(reps):
-    """Rows 4-8 and 13 at their paths' shapes (chip_smoke's kernels phase),
-    the inputs rotated past L2: device time in CUDA graphs, eager, host,
-    the profiler's kernels; bounds as chip_smoke's rows count them."""
+    """Rows 4-7 at their paths' shapes (chip_smoke's kernels phase), the
+    inputs rotated past L2: device time in CUDA graphs, eager, host, the
+    profiler's kernels; bounds as chip_smoke's rows count them."""
     rng = np.random.default_rng(0)
     lens = [100, 250, 431, 600]
     serve_pos = [150, 0, 400, 640, 1000, 0, 260, 520]
-
-    def n_sets(per_set):
-        return int(min(64, max(1, -(-cs.NORM_COLD_BYTES // per_set))))
-
     cases = []
     # row 4: generate()'s decode over the 1024-row cache, mid-generation
     sh = dict(B=4, H=12, Hkv=12, hd=64, M=1024, pos=[n + 16 for n in lens])
     sets = [dict(zip(("q", "kc", "vc", "pos"),
                      cs._decode_args(rng, sh).values()))
-            for _ in range(n_sets(2 * 4 * 12 * 1024 * 64 * 2))]
+            for _ in range(_cold_sets(2 * 4 * 12 * 1024 * 64 * 2))]
     live = sum(p + 1 for p in sh["pos"])
     cases.append(("decode_attention", "generate", sets,
                   lambda q, kc, vc, pos: da.decode_attention(q, kc, vc, pos),
@@ -338,7 +352,7 @@ def _others(reps):
     sh = dict(B=8, H=12, Hkv=12, hd=64, bs=512, nb=2, pos=serve_pos)
     sets = [dict(zip(("q", "kp", "vp", "tables", "pos"),
                      cs._paged_case(rng, **sh)))
-            for _ in range(n_sets(2 * 17 * 12 * 512 * 64 * 2))]
+            for _ in range(_cold_sets(2 * 17 * 12 * 512 * 64 * 2))]
     live = sum(p + 1 for p in serve_pos)
     cases.append(("paged_decode_attention", "serve", sets,
                   lambda q, kp, vp, tables, pos: da.paged_decode_attention(
@@ -347,7 +361,7 @@ def _others(reps):
                            + 16 * 4, 4 * live * 12 * 64, cs.FP32_FLOPS)))
     # row 6: the same over the int8 pool, g 64
     sets = []
-    for _ in range(n_sets(2 * 17 * 12 * 512 * (64 + 4))):
+    for _ in range(_cold_sets(2 * 17 * 12 * 512 * (64 + 4))):
         q, pool, tables, pos = cs._quant_pool_case(rng, g=64, **sh)
         sets.append(dict(q=q, k=pool["k"], v=pool["v"], ks=pool["k_scale"],
                          vs=pool["v_scale"], tables=tables, pos=pos))
@@ -357,22 +371,15 @@ def _others(reps):
                                                   pos),
                   cs.bound(2 * live * 12 * (64 + 4) + 2 * 8 * 12 * 64 * 2
                            + 16 * 4, 4 * live * 12 * 64, cs.FP32_FLOPS)))
-    # rows 7-8: the weights' wte (the K/V pool write: `_write_ab`)
-    for bits, path, (rows, D) in ((8, "quant_serve_build", (50304, 768)),
-                                  (4, "quant_generate_build", (50304, 768))):
+    # row 7: the weights' wte (the K/V pool write: `_write_ab`)
+    for bits, path, (rows, D) in ((8, "quant_serve_build", (50304, 768)),):
         nbytes = rows * D * 2 + rows * D * bits // 8 + rows * D // 64 * 4
         sets = [dict(x=torch.from_numpy(rng.standard_normal(
             (rows, D)).astype(np.float32)).to("cuda", torch.bfloat16))
-            for _ in range(n_sets(nbytes))]
+            for _ in range(_cold_sets(nbytes))]
         cases.append((f"quantize_int{bits}", path, sets,
                       lambda x, bits=bits: quant.quantize(x, 64, bits),
                       cs.bound(nbytes, 4 * rows * D, cs.FP32_FLOPS)))
-    # row 13: the dropless layer's sort, N 4096 tokens over 8 experts
-    sets = [dict(idx=torch.from_numpy(rng.integers(0, 8, 4096)).to(
-        "cuda", torch.int32)) for _ in range(64)]
-    cases.append(("token_sort", "moe_dropless", sets,
-                  lambda idx: ts.token_sort(idx, 8),
-                  cs.bound(4 * 4096 * 2 + 4 * 8, 4096 * 8, cs.FP32_FLOPS)))
     for name, path, sets, fn, (b_ms, b_by) in cases:
         rot = cs._Rotating(fn, sets)
         inner = len(sets) * max(1, round(20 / len(sets)))
@@ -386,6 +393,140 @@ def _others(reps):
             "host_ms": cs._host_ms(rot), "graph_bound_factor": g / b_ms}),
             flush=True)
         del rot, sets
+
+
+def _old_token_sort(lib):
+    """The single-block library's sort as its wrapper called it: the ids
+    cast to int32 (a launch for int64 ids), then one launch."""
+    fn = lib.dstt_token_sort
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                               ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+    def sort(idx, E):
+        idx32 = idx.to(torch.int32).contiguous()
+        n = idx32.shape[0]
+        pos = torch.empty(n, dtype=torch.int32, device=idx.device)
+        counts = torch.empty(E, dtype=torch.int32, device=idx.device)
+        rc = fn(idx32.data_ptr(), pos.data_ptr(), counts.data_ptr(), n, E,
+                op_builder.stream_ptr(idx.device))
+        op_builder.check(rc, "token_sort")
+        return pos, counts
+    return sort
+
+
+def _sort_of(lib):
+    """A directory's sort: through the wrapper with that library and its
+    own tile choices (a variant may take fewer sub-tiles a block)."""
+    if not hasattr(lib, "dstt_token_sort_tile"):
+        return _old_token_sort(lib)
+    tiles = {}
+
+    def sort(idx, E):
+        op_builder._LIBS["token_sort"] = lib
+        ts._TILE = tiles
+        return ts.token_sort(idx, E)
+    return sort
+
+
+def _ab_rows(label, kernel, variants, sets, b_ms, b_by, reps, check):
+    """Each directory's call of one case (`variants`: (dir, fn)), checked by
+    `check` on the first set, then timed in turns over the rotated sets:
+    device time in CUDA graphs, the profiler's kernels a call, host time.
+    One JSON line a directory."""
+    rots = []
+    for src, fn in variants:
+        check(src, fn(**sets[0]))
+        rots.append(cs._Rotating(fn, sets))
+    inner = len(sets) * max(1, round(20 / len(sets)))
+    graph = cs.graph_ms_turns(rots, inner=inner, reps=reps)
+    for (src, _), rot, gms in zip(variants, rots, graph):
+        dev, kernels = cs._device_ms(rot, calls=max(10, len(sets)))
+        print(json.dumps({
+            "kernel": kernel, "case": label, "variant": src,
+            "sets": len(sets), "bound_ms": b_ms, "bound_by": b_by,
+            "graph_ms": gms, "graph_bound_factor": gms / b_ms,
+            "device_ms": dev, "kernels": kernels,
+            "launches": sum(kernels.values()),
+            "host_ms": cs._host_ms(rot)}), flush=True)
+    del rots
+
+
+def _rows_8_13(dirs, libs, reps):
+    """Rows 8 and 13 through each directory in turns (the module's
+    docstring)."""
+    rng = np.random.default_rng(8)
+
+    def quant4(lib):
+        def call(x):
+            op_builder._LIBS["quant"] = lib
+            return quant.quantize(x, 64, 4)
+        return call
+    for label, (rows, D) in (("wte", (50304, 768)),
+                             ("mlp_up_w", (768, 3072))):
+        nbytes = rows * D * 2 + rows * D // 2 + rows * D // 64 * 4
+        sets = [dict(x=torch.from_numpy(rng.standard_normal(
+            (rows, D)).astype(np.float32)).to("cuda", torch.bfloat16))
+            for _ in range(_cold_sets(nbytes))]
+        want = quant.quantize_reference(sets[0]["x"], 64, 4)
+
+        def check(src, got, want=want, label=label):
+            if not _same(list(got), list(want)):
+                raise AssertionError(f"{src} int4 {label}: kernel != plain "
+                                     f"version")
+        _ab_rows(label, "quantize_int4", [(src, quant4(libs[src]))
+                                          for src in dirs], sets,
+                 *cs.bound(nbytes, 4 * rows * D, cs.FP32_FLOPS), reps, check)
+        del sets
+    # the int4 engine's build: quantize_param_tree over gpt2-125m's leaves
+    tree = cs._weight_tree(torch.Generator(device="cuda").manual_seed(4))
+    leaves = [*tree["blocks"].values(), tree["wte"], tree["wpe"]]
+    n = sum(x.numel() for x in leaves)
+    want = [t for x in leaves for t in quant.quantize_reference(x, 64, 4)]
+
+    def build(lib):
+        def call():
+            op_builder._LIBS["quant"] = lib
+            return quantize_param_tree(tree, bits=4, group_size=64)[0]
+        return call
+
+    def check_build(src, got):
+        flat = [t for leaf in [*got["blocks"].values(), got["wte"],
+                               got["wpe"]] for t in (leaf.q, leaf.scale)]
+        if not _same(flat, want):
+            raise AssertionError(f"{src} quant_generate_build: kernel != "
+                                 f"plain version")
+    _ab_rows("quant_generate_build", "quantize_int4",
+             [(src, build(libs[src])) for src in dirs], [{}],
+             *cs.bound(n * 2 + n // 2 + n // 64 * 4, 4 * n, cs.FP32_FLOPS),
+             reps, check_build)
+    del tree, leaves, want
+    torch.cuda.empty_cache()
+    # row 13: the dropless layer's sort and beyond it
+    sort_libs = {}
+    for src in dirs:
+        _use(src)
+        sort_libs[src] = op_builder.load("token_sort")
+    for label, n, E, dtype in (("path_int64", 4096, 8, torch.int64),
+                               ("path_int32", 4096, 8, torch.int32),
+                               ("n65536", 65536, 8, torch.int32),
+                               ("e128", 4096, 128, torch.int32)):
+        sets = [dict(idx=torch.from_numpy(rng.integers(0, E, n)).to(
+            "cuda", dtype)) for _ in range(64)]
+        want = ts.token_sort_reference(sets[0]["idx"], E)
+
+        def check(src, got, want=want, label=label):
+            if not _same(list(got), list(want)):
+                raise AssertionError(f"{src} token_sort {label}: kernel != "
+                                     f"plain version")
+        id_bytes = 8 if dtype == torch.int64 else 4
+        variants = [(src, lambda idx, sort=_sort_of(sort_libs[src]), E=E:
+                     sort(idx, E)) for src in dirs]
+        _ab_rows(label, "token_sort", variants, sets,
+                 *cs.bound(id_bytes * n + 4 * n + 4 * E, n * E,
+                           cs.FP32_FLOPS), reps, check)
+        del sets
 
 
 def main():
@@ -412,6 +553,8 @@ def main():
         for bits in (8, 4):
             _dequant_ab(args.dirs, libs, bits, args.reps)
     if not args.no_others:
+        _rows_8_13(args.dirs, libs, args.reps)
+        _use(args.dirs[-1])
         op_builder._LIBS["quant"] = libs[args.dirs[-1]]
         _others(args.reps)
     print(smi, flush=True)
