@@ -9,6 +9,7 @@ Phases, one JSON line each:
   kernels  each kernel against its plain PyTorch version on the card at the
            shapes its paths give it (generate/serve: gpt2-125m, H=12,
            hd=64, bf16; train: gpt2-760m, B 12, T 512, H 12, hd 128,
+           causal; north_star: gpt2-1.3b, B 4, T 512, H 16, hd 128,
            causal); the flash forward also at T 16, 48, 200, 333 and 1000
            (shorter than a tile, ragged against the 64-row tiles), GQA 4,
            fp16, causal and full, q/k/v as views of one [B, T, 3, H, D]
@@ -127,7 +128,11 @@ Phases, one JSON line each:
            slots over the paged pool; completion, one paged-decode launch
            per layer per decode step, drained
            pool, the served tokens' agreement with generate() on the same
-           prompts, requests/s and tokens/s;
+           prompts, requests/s and tokens/s; telemetry on (registry only,
+           cleared after the warm-up request): TTFT, TPOT, queue wait and
+           e2e count / p50 / p90 / p99 with exact counts (16 each, TPOT
+           16 x 31), and the same trace through a serving engine with
+           telemetry off giving the same tokens;
   quant    quantized serving on the same model, four paths, each with
            exact launch counts of its own: (a) the engine.serving build
            with int8 weights (one quantize_int8 per quantized leaf), then
@@ -135,7 +140,8 @@ Phases, one JSON line each:
            requests — completion, drained pool, one int8 paged decode per
            layer per decode step, one quantize_int8 per layer per model
            step for the K/V write, the WOQ dequantize_int8 count derived
-           from the quantized tree; the served tokens' agreement with the
+           from the quantized tree, the serve phase's latency readings and
+           checks; the served tokens' agreement with the
            same engine's generate(), quantized weights byte-equal to the
            port's CPU quantization of the same bf16-rounded weights,
            prefill and first-decode logits (the decode over each pool)
@@ -146,17 +152,32 @@ Phases, one JSON line each:
            prefill / first-decode logits against the CPU run; weight and
            pool bytes, peak device memory of the build and of the timed
            run apart, requests/s and tokens/s;
-  train    initialize() -> train_batch() on gpt2-760m at full width and
-           depth (24 layers, d_model 1536, 12 heads of 128, random weights
-           from a numpy seed): AdamW, bf16 without master weights, clipping
-           1.0, ZeRO 1, micro-batch 12, seq 512, gas 2, remat
-           nothing_saveable. One warm-up step, then 3 timed steps on one
-           batch: finite falling loss, no overflow, exact launch counts
-           (flash forward 2 x 24 x gas per step — forward and remat
-           recompute — and 24 x gas per backward kernel), seconds per step,
-           tokens/s and MFU; then the first step's loss and every
-           parameter's gradient at 2 layers, bf16 on the card against the
-           port's fp32 CPU run of the same weights and batch;
+  train    bench.py's headline lane: initialize() -> train_batch() on
+           gpt2-760m at full width and depth (24 layers, d_model 1536, 12
+           heads of 128, random weights from a numpy seed): AdamW, bf16
+           without master weights, clipping 1.0, ZeRO 1, micro-batch 12,
+           seq 512, gas 32, remat dots_with_no_batch_dims_saveable, a bf16
+           gradient accumulator, telemetry on (registry only) and a CSV
+           monitor. One warm-up step, then 3 timed steps on one batch:
+           finite falling loss, no overflow, exact launch counts (flash
+           forward 2 x 24 x gas per step — forward and remat recompute —
+           and 24 x gas per backward kernel), seconds per step, tokens/s
+           and MFU, the registry's train/step_time_ms p50 within 10 % of
+           this script's median and its tokens/s, TFLOP/s, MFU and memory
+           watermarks; the aten.mm + aten.addmm of one micro-batch under
+           the policy, 3 x 24 fewer than under nothing_saveable; one step
+           under nothing_saveable and each policy's peak memory; the CSV
+           monitor's Train/loss rows equal to the losses; then the first
+           step's loss and every parameter's gradient at 2 layers, bf16 on
+           the card against the port's fp32 CPU run of the same weights
+           and batch;
+  north_star bench.py's north-star lane on one card: gpt2-1.3b at full
+           width and depth (24 layers, d_model 2048, 16 heads of 128,
+           random weights from a numpy seed), ZeRO 3, micro-batch 4, seq
+           512, gas 64, the bf16 accumulator, the headline's remat policy,
+           no master weights: 1 warm-up and 2 timed steps, exact flash
+           launches, finite losses, seconds per step, tokens/s, MFU and the
+           registry's readings;
   moe      moe-gpt-125m-e8 (docs/parallelism.md:76: 12 layers, d_model
            768, 8 experts in every second block, capacity factor 1.25)
            at full width and depth, bf16, random weights from a numpy seed,
@@ -170,7 +191,8 @@ Phases, one JSON line each:
            exact launches, prefill / first-decode logits against the CPU
            twin on the rows routed alike in every MoE layer; (c) the
            serving engine on the serve trace: completion, drained pool,
-           exact paged-decode launches, agreement with (b)'s generate();
+           exact paged-decode launches, agreement with (b)'s generate(),
+           the serve phase's latency readings and checks;
            (d) the dropless moe.layer.MoE on x [8, 512, 768]: one
            token_sort launch, handed argmax's int64 ids, and the layer's
            sort one kernel in the profiler (no cast before it), counts and
@@ -202,12 +224,14 @@ Phases, one JSON line each:
            train_batch (gpt2-760m, MoE, sparse): kernel time on the card by
            class and the card's idle share of the unprofiled wall time.
 A comma-separated phase list as the one argument runs those phases only
-(the device phase always runs), e.g. `build,train,profile`,
+(the device phase always runs), e.g. `build,kernels,train,north_star`
+(the training lanes), `build,serve` (TTFT / TPOT), `build,train,profile`,
 `build,kernels,quant`, `build,kernels,moe`, `build,kernels,sparse` or
 `build,kernels,evoformer`. Then the
 card's name and power limit, the `kernels` summary line (one row per
 kernel and path that runs it — the flash forward has generate,
-quant_generate and train rows; quantize_int8 a quant_serve row, the K/V
+quant_generate, train, north_star and moe_train rows; quantize_int8 a
+quant_serve row, the K/V
 writes, and a quant_serve_build row, the weights — with `launches`
 counted from 0 just before that path's run and read just after, and
 times at that path's shape), and as the last
@@ -274,24 +298,55 @@ QUANT_SERVE_AGREE_MIN = 0.8
 # step apart, plus (int4) the weights' bf16 narrowing after dequantization
 QUANT_LOGIT_TOL = 1e-1
 
-# the training main path: gpt2-760m at full width and depth with the bench
-# lanes' engine config (bench.py:220-228: AdamW, bf16 without master
-# weights, clipping 1.0, ZeRO 1) at micro-batch 12, seq 512, gas 2, remat
-# nothing_saveable (the one policy ported) and an fp32 gradient
-# accumulator. Not the headline lane (bench.py:2252-2263: remat
-# dots_with_no_batch_dims_saveable, a bf16 accumulator, gas 32), which
-# waits for selective remat.
-TRAIN_MODEL, TRAIN_MBS, TRAIN_SEQ, TRAIN_GAS, TRAIN_STEPS = \
-    "gpt2-760m", 12, 512, 2, 3
-TRAIN_CONFIG = {
-    "train_micro_batch_size_per_gpu": TRAIN_MBS,
-    "gradient_accumulation_steps": TRAIN_GAS,
+# the bench lanes' engine config (bench.py:220-228: AdamW, bf16 without
+# master weights, clipping 1.0; the ZeRO stage and the batch are the lane's)
+BENCH_ENGINE_CONFIG = {
     "optimizer": {"type": "AdamW", "params": {"lr": 1e-4,
                                               "weight_decay": 0.1}},
     "bf16": {"enabled": True, "master_weights": False},
     "gradient_clipping": 1.0,
-    "zero_optimization": {"stage": 1},
     "steps_per_print": 10**9,
+}
+# telemetry on the card: the registry only (every file sink off, so no
+# file and no directory)
+REGISTRY_ONLY = {"enabled": True, "prometheus": False, "jsonl": False,
+                 "monitor_bridge": False}
+# the training main path: bench.py's headline lane (bench.py:2252-2263,
+# :1944) on gpt2-760m at full width and depth: micro-batch 12, seq 512,
+# gas 32, ZeRO 1, remat dots_with_no_batch_dims_saveable, a bf16 gradient
+# accumulator and a bf16 softmax (the flash kernels keep fp32 statistics
+# whatever it says, in both packages), with telemetry on
+TRAIN_MODEL, TRAIN_MBS, TRAIN_SEQ, TRAIN_GAS, TRAIN_STEPS = \
+    "gpt2-760m", 12, 512, 32, 3
+TRAIN_POLICY = "dots_with_no_batch_dims_saveable"
+TRAIN_CONFIG = {
+    **BENCH_ENGINE_CONFIG,
+    "train_micro_batch_size_per_gpu": TRAIN_MBS,
+    "gradient_accumulation_steps": TRAIN_GAS,
+    "zero_optimization": {"stage": 1},
+    "data_types": {"grad_accum_dtype": "bf16"},
+    "telemetry": REGISTRY_ONLY,
+}
+# the registry's train/step_time_ms p50 (CUDA events around the step)
+# against this script's own wall clock around train_batch and the loss
+# read: the same interval but for the host's launch of the first kernel
+# and its read of the loss
+STEP_TIME_REL_TOL = 0.1
+# the north-star lane (bench.py:1970-1977): gpt2-1.3b (24 layers, d_model
+# 2048, 16 heads of 128) at full width and depth on one card, ZeRO 3 (one
+# computation at one rank), micro-batch 4, seq 512, gas 64, the bf16
+# accumulator, the headline's remat policy, no master weights
+NORTH_MODEL, NORTH_MBS, NORTH_SEQ, NORTH_GAS, NORTH_STEPS = \
+    "gpt2-1.3b", 4, 512, 64, 2
+# the attention of one north-star micro-batch: B 4, T 512, 16 heads of 128
+NORTH_ATTN = dict(B=NORTH_MBS, T=NORTH_SEQ, H=16, Hkv=16, D=128, causal=True)
+NORTH_CONFIG = {
+    **BENCH_ENGINE_CONFIG,
+    "train_micro_batch_size_per_gpu": NORTH_MBS,
+    "gradient_accumulation_steps": NORTH_GAS,
+    "zero_optimization": {"stage": 3},
+    "data_types": {"grad_accum_dtype": "bf16"},
+    "telemetry": REGISTRY_ONLY,
 }
 
 # the MoE phase: moe-gpt-125m-e8, the MoE config of docs/parallelism.md:76
@@ -331,12 +386,14 @@ DROPLESS_REL_TOL = 2.0 ** -6
 # model's config: long context is what sparse attention is for), through
 # sparse_attn_fn with the JAX package's timed sparse layout
 # (tests/test_block_sparse_kernel.py:433-434) at 12 heads, trained with the
-# train phase's engine config at micro-batch 1, gas 2
+# bench lanes' engine config, ZeRO 1, an fp32 accumulator, remat
+# nothing_saveable, at micro-batch 1, gas 2
 SPARSE_MODEL, SPARSE_SEQ, SPARSE_MBS, SPARSE_GAS, SPARSE_STEPS = \
     "gpt2-125m", 8192, 1, 2, 3
 SPARSE_LAYOUT = dict(num_heads=12, block=16, num_local_blocks=256,
                      num_global_blocks=8, attention="unidirectional")
-SPARSE_TRAIN_CONFIG = {**TRAIN_CONFIG,
+SPARSE_TRAIN_CONFIG = {**BENCH_ENGINE_CONFIG,
+                       "zero_optimization": {"stage": 1},
                        "train_micro_batch_size_per_gpu": SPARSE_MBS,
                        "gradient_accumulation_steps": SPARSE_GAS}
 # its parity run: 2 layers at T 2048, a layout of the same family that is
@@ -710,6 +767,7 @@ def phase_kernels():
     cases = [(dict(B=4, T=600, H=12, Hkv=12, D=64, causal=True),
               "generate"),
              (dict(B=12, T=512, H=12, Hkv=12, D=128, causal=True), "train"),
+             (NORTH_ATTN, "north_star"),
              (dict(B=8, T=512, H=12, Hkv=12, D=64, causal=True),
               "moe_train")] + [(shape, None) for shape in FLASH_EDGE_CASES]
     for shape, path in cases:
@@ -851,6 +909,7 @@ def _backward_kernels(rng, checks):
     for shape, path, with_dlse in (
             (dict(B=12, T=512, H=12, Hkv=12, D=128, causal=True), "train",
              False),
+            (NORTH_ATTN, "north_star", False),
             (dict(B=8, T=512, H=12, Hkv=12, D=64, causal=True), "moe_train",
              False),
             (dict(B=4, T=600, H=12, Hkv=12, D=64, causal=True), None, False),
@@ -3257,8 +3316,7 @@ def phase_generate(state):
     cfg = GPT2_CONFIGS["gpt2-125m"]
     t0 = time.perf_counter()
     spec = make_gpt_decode_model(cfg, name="gpt2-125m", seed=0)
-    engine = init_inference(spec, config={
-        "dtype": "bfloat16", "kv_cache_dtype": "bfloat16", "greedy": True})
+    engine = init_inference(spec, config=SERVE_ENGINE_CONFIG)
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(1)
     lens = [100, 250, 431, 600]
@@ -3323,10 +3381,22 @@ def phase_generate(state):
 
 
 def phase_serve(state):
+    """ServingEngine on the generate phase's engine (built here when that
+    phase did not run): 16 ragged requests through 8 slots, with telemetry
+    on over the timed run; then the same trace through a serving engine
+    with telemetry off, token for token."""
     import torch
+    from deepspeed_tpu_torch import init_inference
     from deepspeed_tpu_torch.inference.scheduler import Request
+    from deepspeed_tpu_torch.models.gpt import (GPT2_CONFIGS,
+                                                make_gpt_decode_model)
     from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
-    engine = state["engine"]
+    cfg = GPT2_CONFIGS["gpt2-125m"]
+    engine = state.get("engine")
+    if engine is None:
+        engine = init_inference(make_gpt_decode_model(cfg, name="gpt2-125m",
+                                                      seed=0),
+                                config=SERVE_ENGINE_CONFIG)
     serving = engine.serving(max_slots=8, max_context=1024)
     rng = np.random.default_rng(2)
     lens = rng.integers(100, 601, 16).tolist()
@@ -3334,9 +3404,10 @@ def phase_serve(state):
     new = 32
     serving.run([Request(uid="warm", tokens=prompts[0], max_new_tokens=2,
                          stop_on_eos=False)])
+    serving.telemetry.registry.clear()      # the timed run's latency only
     reqs = [Request(uid=i, tokens=p, max_new_tokens=new, stop_on_eos=False)
             for i, p in enumerate(prompts)]
-    engine_layers = state["n_layer"]
+    engine_layers = cfg.n_layer
     steps0 = serving.stats()["decode_steps"]
     LAUNCHES.clear()
     torch.cuda.synchronize()
@@ -3358,6 +3429,9 @@ def phase_serve(state):
                              f"{engine_layers} x {steps} decode steps")
     if serving.allocator.num_free != serving.allocator.capacity:
         raise AssertionError("blocks leaked after draining")
+    latency = _latency("serve", serving, reqs)
+    off = _tokens_without_telemetry(engine, reqs, res, max_slots=8,
+                                    max_context=1024)
     # the served tokens against generate() on the same prompts: in bf16 a
     # near-tied argmax may flip between the paged and contiguous paths, so
     # the check is a floor on the share of equal tokens, not identity
@@ -3371,8 +3445,59 @@ def phase_serve(state):
           "prompt_lens": lens, "max_new_tokens": new, "seconds": dt,
           "requests_per_s": 16 / dt, "tokens_per_s": 16 * new / dt,
           "launches": counts, "token_agreement_with_generate": agree,
+          "latency": latency, "telemetry_off": off,
           "stats": serving.stats()})
     return counts
+
+
+# the serving paths' engines: bf16, greedy, telemetry on (registry only)
+SERVE_ENGINE_CONFIG = {"dtype": "bfloat16", "kv_cache_dtype": "bfloat16",
+                       "greedy": True, "telemetry": REGISTRY_ONLY}
+LATENCY_METRICS = ("ttft_ms", "tpot_ms", "queue_wait_ms", "e2e_ms")
+
+
+def _latency(path, serving, reqs):
+    """The timed run's latency histograms (the registry cleared after the
+    warm-up request): TTFT, e2e and queue wait once a request, TPOT once a
+    token after each request's first (every request runs its whole budget:
+    stop_on_eos=False), and 0 < p50 <= p99 each. Returns count, p50, p90,
+    p99, mean, min and max of each."""
+    lat = serving.latency_snapshot()
+    n = len(reqs)
+    want = {"ttft_ms": n, "tpot_ms": sum(r.max_new_tokens for r in reqs) - n,
+            "queue_wait_ms": n, "e2e_ms": n}
+    got = {k: lat.get(k, {}).get("count") for k in LATENCY_METRICS}
+    if got != want:
+        raise AssertionError(f"{path} latency counts {got} != {want}")
+    for k in LATENCY_METRICS:
+        if not 0 < lat[k]["p50"] <= lat[k]["p99"]:
+            raise AssertionError(f"{path} {k}: p50 {lat[k]['p50']} p99 "
+                                 f"{lat[k]['p99']}")
+    return {k: {s: lat[k][s] for s in ("count", "p50", "p90", "p99", "mean",
+                                       "min", "max")}
+            for k in LATENCY_METRICS}
+
+
+def _tokens_without_telemetry(engine, reqs, res, **kw):
+    """The trace once more (untimed) through a serving engine over the same
+    engine with its telemetry block off: the tokens must equal the timed
+    run's, and that engine must record nothing."""
+    cfg = engine.config
+    engine.config = dataclasses.replace(cfg, telemetry=None)
+    try:
+        serving = engine.serving(**kw)
+    finally:
+        engine.config = cfg
+    out = serving.run(reqs)
+    if serving.telemetry.enabled or serving.latency_snapshot() or \
+            "latency" in serving.stats() or \
+            any(r.timing is not None for r in out.values()):
+        raise AssertionError("a serving engine with telemetry off recorded")
+    differ = [uid for uid in res
+              if not np.array_equal(res[uid].tokens, out[uid].tokens)]
+    if differ:
+        raise AssertionError(f"telemetry changed the tokens of {differ}")
+    return {"requests": len(out), "tokens_equal": True}
 
 
 def _quantized_leaves(tree, prefix=""):
@@ -3501,7 +3626,8 @@ def phase_quant(state):
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
-    engine = init_inference(spec, config=base)
+    engine = init_inference(spec, config={**base,
+                                          "telemetry": REGISTRY_ONLY})
     serving = engine.serving(max_slots=8, max_context=1024,
                              quantization=quantization)
     torch.cuda.synchronize()
@@ -3511,6 +3637,7 @@ def phase_quant(state):
     expect("quant_serve_build", {"quantize_int8": n_q})
     serving.run([Request(uid="warm", tokens=prompts[0], max_new_tokens=2,
                          stop_on_eos=False)])
+    serving.telemetry.registry.clear()      # the timed run's latency only
     reqs = [Request(uid=i, tokens=p, max_new_tokens=new, stop_on_eos=False)
             for i, p in enumerate(prompts)]
     st0 = serving.stats()
@@ -3529,6 +3656,7 @@ def phase_quant(state):
         raise AssertionError("quant serve: not every request completed")
     if serving.allocator.num_free != serving.allocator.capacity:
         raise AssertionError("quant serve: blocks leaked after draining")
+    latency = _latency("quant serve", serving, reqs)
     # this run's model steps: prefill chunks, and decode calls of `window`
     # model steps each
     st = serving.stats()
@@ -3584,7 +3712,7 @@ def phase_quant(state):
                          "dequantize_per_model_step": per_step},
         "build_launches": counts["quant_serve_build"],
         "token_agreement_with_generate": agree,
-        "agree_min": QUANT_SERVE_AGREE_MIN,
+        "agree_min": QUANT_SERVE_AGREE_MIN, "latency": latency,
         "quant_stats": serving.weight_quant_stats,
         "quantized_leaves_equal_to_cpu": n_same,
         "logit_max_abs_err": errs, "logit_tol": QUANT_LOGIT_TOL,
@@ -3669,23 +3797,43 @@ def phase_quant(state):
 
 
 def phase_train(state):
+    """bench.py's headline lane (TRAIN_CONFIG) through initialize() ->
+    train_batch(): 1 warm-up step, then TRAIN_STEPS timed steps with the
+    registry cleared after the warm-up, exact flash launches (the forward
+    twice a layer and micro-batch: remat replays it; each backward kernel
+    once), a finite falling loss, the registry's step time against this
+    script's, MFU; the GEMMs of one micro-batch under TRAIN_POLICY and
+    under nothing_saveable; one more step under nothing_saveable with each
+    policy's peak memory; the CSV monitor's Train/loss rows; the 2-layer
+    first-step parity under TRAIN_POLICY."""
+    import tempfile
     import torch
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.gpt import GPT2_CONFIGS, make_gpt_model
     from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
     from deepspeed_tpu_torch.utils.tree import tree_num_params
-    cfg = GPT2_CONFIGS[TRAIN_MODEL]       # remat nothing_saveable: default
+    # a private config object: the nothing_saveable step below switches the
+    # policy of this engine's loss by setting its field
+    cfg = dataclasses.replace(GPT2_CONFIGS[TRAIN_MODEL],
+                              remat_policy=TRAIN_POLICY,
+                              softmax_dtype=torch.bfloat16)
+    csv_dir = tempfile.TemporaryDirectory()
+    config = {**TRAIN_CONFIG, "steps_per_print": 1,
+              "csv_monitor": {"enabled": True, "output_path": csv_dir.name,
+                              "job_name": "train"}}
     t0 = time.perf_counter()
     engine, *_ = initialize(model=make_gpt_model(cfg, name=TRAIN_MODEL,
-                                                 seed=0),
-                            config=TRAIN_CONFIG)
+                                                 seed=0), config=config)
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(3)
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (TRAIN_MBS * TRAIN_GAS, TRAIN_SEQ + 1))).cuda()}
     losses = [float(engine.train_batch(batch))]             # warm-up
+    engine.telemetry.registry.clear()
 
     LAUNCHES.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     step_s, overflow = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -3695,6 +3843,7 @@ def phase_train(state):
         losses.append(loss)
         overflow.append(bool(engine._last_metrics["overflow"]))
     counts = dict(LAUNCHES)
+    peak = {TRAIN_POLICY: torch.cuda.max_memory_allocated()}
     L = cfg.n_layer
     want = {"flash_attention": 2 * L * TRAIN_GAS * TRAIN_STEPS,
             "flash_attention_bwd_dq": L * TRAIN_GAS * TRAIN_STEPS,
@@ -3708,17 +3857,201 @@ def phase_train(state):
     n_params = tree_num_params(engine.state.params)
     sec = statistics.median(step_s)
     tokens_per_s = TRAIN_MBS * TRAIN_GAS * TRAIN_SEQ / sec
+    snap = engine.telemetry.registry.snapshot()
+    registry = _train_registry(snap, TRAIN_STEPS, sec)
+
+    # the GEMMs one micro-batch dispatches (forward, backward and the
+    # remat replay) under each policy, and one step under nothing_saveable
+    micro = {"tokens": batch["tokens"][:TRAIN_MBS]}
+    gemms = {TRAIN_POLICY: _micro_gemms(engine, micro)}
+    micro_s = {TRAIN_POLICY: _micro_times(engine, micro)}
+    cfg.remat_policy = "nothing_saveable"
+    try:
+        gemms["nothing_saveable"] = _micro_gemms(engine, micro)
+        micro_s["nothing_saveable"] = _micro_times(engine, micro)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        nothing_s = time.perf_counter() - t0
+        peak["nothing_saveable"] = torch.cuda.max_memory_allocated()
+    finally:
+        cfg.remat_policy = TRAIN_POLICY
+    # the replay of a block under nothing_saveable runs its qkv, attn_out
+    # and mlp_up projections (the down projection's output is needed by no
+    # backward formula, and the replay stops once every saved tensor is
+    # back); the headline policy keeps all four outputs
+    fewer = gemms["nothing_saveable"] - gemms[TRAIN_POLICY]
+    if fewer != 3 * L:
+        raise AssertionError(f"GEMMs of a micro-batch {gemms}: "
+                             f"{TRAIN_POLICY} saves {fewer}, not 3 x {L}")
+    rows = _csv_rows(csv_dir.name, "train", "Train/loss")
+    csv_dir.cleanup()
+    if rows != [(i + 1, v) for i, v in enumerate(losses)]:
+        raise AssertionError(f"CSV monitor Train/loss rows {rows} != the "
+                             f"losses {losses}")
     parity = _train_parity(cfg)
     emit({"phase": "train", "model": TRAIN_MODEL, "n_layer": L,
           "n_params": n_params, "config": TRAIN_CONFIG, "seq": TRAIN_SEQ,
-          "remat": cfg.remat_policy if cfg.remat else None,
+          "remat": cfg.remat_policy, "softmax_dtype": str(cfg.softmax_dtype),
           "setup_s": setup_s, "losses": losses, "step_s": step_s,
           "seconds_per_step": sec, "tokens_per_s": tokens_per_s,
           "mfu": 6 * n_params * tokens_per_s / BF16_FLOPS,
           "mfu_basis": "6 x params x tokens/s over 989e12 flop/s, the H100 "
                        "SXM dense bf16 peak from NVIDIA's data sheet",
-          "launches": counts, "parity": parity})
+          "registry": registry, "launches": counts,
+          "gemms_per_micro_batch": gemms, "gemms_saved": fewer,
+          "micro_batch_s": micro_s,
+          "nothing_saveable_step_s": nothing_s, "peak_bytes": peak,
+          "csv_monitor_rows": len(rows), "parity": parity})
     state.update(train_engine=engine, train_batch=batch, train_s=sec)
+    return counts
+
+
+def _train_registry(snap, steps, sec):
+    """The engine registry's train/* readings over `steps` timed steps:
+    its step-time p50 within STEP_TIME_REL_TOL of this script's median
+    `sec`, tokens/s, TFLOP/s and MFU present and positive, the card's
+    allocator watermarks."""
+    st = snap.get("train/step_time_ms", {})
+    if st.get("count") != steps:
+        raise AssertionError(f"train/step_time_ms count {st.get('count')} "
+                             f"!= {steps} timed steps")
+    rel = abs(st["p50"] / 1e3 - sec) / sec
+    if not rel <= STEP_TIME_REL_TOL:
+        raise AssertionError(f"train/step_time_ms p50 {st['p50']} ms is "
+                             f"{rel:.3f} off this script's {sec} s")
+    out = {"step_time_ms": {k: st[k] for k in ("count", "p50", "p90", "p99",
+                                               "mean", "min", "max")},
+           "step_time_rel_diff": rel, "step_time_rel_tol": STEP_TIME_REL_TOL}
+    from deepspeed_tpu_torch.telemetry import device_peak_flops
+    keys = ["tokens_per_sec", "tflops_per_chip", "hbm_bytes_in_use",
+            "hbm_peak_bytes"]
+    if device_peak_flops() is not None:     # else train/mfu is left unset
+        keys.append("mfu")
+    for key in keys:
+        value = snap.get(f"train/{key}", {}).get("value")
+        if not (value is not None and value > 0):
+            raise AssertionError(f"train/{key} {value} not set or not "
+                                 f"positive")
+        out[key] = value
+    return out
+
+
+def _micro_gemms(engine, micro):
+    """aten.mm + aten.addmm dispatched by one micro-batch's forward and
+    backward through the engine's loss (the remat replay included)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Gemms(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ in ("mm", "addmm"):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    mode = Gemms()
+    with mode:
+        engine._micro_grads(engine.state.params, micro)
+    return mode.n
+
+
+def _micro_times(engine, micro, reps=3):
+    """One micro-batch's forward and backward through the engine's loss:
+    the host's time to enqueue it (until the call returns), its time to
+    the end of its work on the card (a synchronize after), medians of
+    `reps` runs after one more, and the card's kernel time in it
+    (torch.profiler, `_device_ms`). Host time near the total, and kernel
+    time well below it, mean the host holds the card back."""
+    import torch
+    host, total = [], []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._micro_grads(engine.state.params, micro)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append(t1 - t0)
+        total.append(time.perf_counter() - t0)
+    device_ms, _ = _device_ms(
+        lambda: engine._micro_grads(engine.state.params, micro), calls=2,
+        warmup=1)
+    sec = statistics.median(total[1:])
+    return {"host_s": statistics.median(host[1:]), "s": sec,
+            "device_s": device_ms / 1e3, "busy": device_ms / 1e3 / sec}
+
+
+def _csv_rows(out_dir, job, tag):
+    """[(step, value)] of a CSV monitor's file for `tag`."""
+    import csv
+    import pathlib
+    path = pathlib.Path(out_dir) / job / (tag.replace("/", "_") + ".csv")
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    if rows[0] != ["step", tag]:
+        raise AssertionError(f"CSV monitor header {rows[0]}")
+    return [(int(a), float(b)) for a, b in rows[1:]]
+
+
+def phase_north_star(state):
+    """bench.py's north-star lane (NORTH_CONFIG) on one card: gpt2-1.3b at
+    full width and depth, random weights from a numpy seed, ZeRO 3, gas 64,
+    through initialize() -> train_batch(): 1 warm-up step, NORTH_STEPS
+    timed steps, exact flash launches, a finite loss, seconds a step,
+    tokens/s and MFU, the registry's readings beside them."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt import GPT2_CONFIGS, make_gpt_model
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.utils.tree import tree_num_params
+    cfg = dataclasses.replace(GPT2_CONFIGS[NORTH_MODEL],
+                              remat_policy=TRAIN_POLICY)
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=make_gpt_model(cfg, name=NORTH_MODEL,
+                                                 seed=0),
+                            config=NORTH_CONFIG)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(6)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (NORTH_MBS * NORTH_GAS, NORTH_SEQ + 1))).cuda()}
+    losses = [float(engine.train_batch(batch))]             # warm-up
+    engine.telemetry.registry.clear()
+    LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(NORTH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        step_s.append(time.perf_counter() - t0)
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layer
+    want = {"flash_attention": 2 * L * NORTH_GAS * NORTH_STEPS,
+            "flash_attention_bwd_dq": L * NORTH_GAS * NORTH_STEPS,
+            "flash_attention_bwd_dkv": L * NORTH_GAS * NORTH_STEPS}
+    if counts != want:
+        raise AssertionError(f"north_star launches {counts} != {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"north_star losses not finite: {losses}")
+    n_params = tree_num_params(engine.state.params)
+    sec = statistics.median(step_s)
+    tokens_per_s = NORTH_MBS * NORTH_GAS * NORTH_SEQ / sec
+    registry = _train_registry(engine.telemetry.registry.snapshot(),
+                               NORTH_STEPS, sec)
+    micro_s = _micro_times(engine, {"tokens": batch["tokens"][:NORTH_MBS]})
+    emit({"phase": "north_star", "model": NORTH_MODEL, "n_layer": L,
+          "n_params": n_params, "config": NORTH_CONFIG, "seq": NORTH_SEQ,
+          "remat": cfg.remat_policy, "setup_s": setup_s, "losses": losses,
+          "step_s": step_s, "seconds_per_step": sec,
+          "tokens_per_s": tokens_per_s,
+          "mfu": 6 * n_params * tokens_per_s / BF16_FLOPS,
+          "mfu_basis": "6 x params x tokens/s over 989e12 flop/s",
+          "registry": registry, "micro_batch_s": micro_s,
+          "peak_bytes": peak, "launches": counts})
+    del engine
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -3745,9 +4078,12 @@ def _train_parity(cfg, name=TRAIN_MODEL, config=TRAIN_CONFIG, seq=TRAIN_SEQ,
                                                params=params,
                                                attn_fn=attn_fn),
                           config=config)
+    # the fp32 reference: fp32 activations and softmax (the CPU's plain
+    # attention takes no other)
     cpu, *_ = initialize(
-        model=make_gpt_model(dataclasses.replace(small, dtype=torch.float32),
-                             name=name, params=params, attn_fn=attn_fn),
+        model=make_gpt_model(dataclasses.replace(
+            small, dtype=torch.float32, softmax_dtype=torch.float32),
+            name=name, params=params, attn_fn=attn_fn),
         config={**config, "bf16": {"enabled": False}}, device="cpu")
     batch_t = {"tokens": torch.from_numpy(toks)}
     g_card, l_card, _ = card._grads(card.state.params, batch_t)
@@ -4213,8 +4549,7 @@ def _moe_generate(state, counts):
     L = cfg.n_layer
     t0 = time.perf_counter()
     spec = make_moe_gpt_decode_model(cfg, name=MOE_MODEL, seed=0)
-    engine = init_inference(spec, config={
-        "dtype": "bfloat16", "kv_cache_dtype": "bfloat16", "greedy": True})
+    engine = init_inference(spec, config=SERVE_ENGINE_CONFIG)
     setup_s = time.perf_counter() - t0
     lens = [100, 250, 431, 600]
     prompts = _ragged_prompts(np.random.default_rng(1), lens, cfg.vocab_size)
@@ -4302,6 +4637,7 @@ def _moe_serve(state, counts):
     new = 32
     serving.run([Request(uid="warm", tokens=prompts[0], max_new_tokens=2,
                          stop_on_eos=False)])
+    serving.telemetry.registry.clear()      # the timed run's latency only
     reqs = [Request(uid=i, tokens=p, max_new_tokens=new, stop_on_eos=False)
             for i, p in enumerate(prompts)]
     steps0 = serving.stats()["decode_steps"]
@@ -4312,6 +4648,7 @@ def _moe_serve(state, counts):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts["moe_serve"] = dict(LAUNCHES)
+    latency = _latency("moe serve", serving, reqs)
     if sorted(res) != list(range(16)) or any(
             len(r.tokens) != new or r.finish_reason != "length"
             for r in res.values()):
@@ -4334,7 +4671,8 @@ def _moe_serve(state, counts):
             "requests_per_s": 16 / dt, "tokens_per_s": 16 * new / dt,
             "launches": counts["moe_serve"], "decode_model_steps": steps,
             "token_agreement_with_generate": agree,
-            "agree_min": SERVE_AGREE_MIN, "stats": serving.stats()}
+            "agree_min": SERVE_AGREE_MIN, "latency": latency,
+            "stats": serving.stats()}
 
 
 def _moe_dropless(counts):
@@ -4556,7 +4894,7 @@ def main():
         return 2
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else \
         ["build", "kernels", "norms", "generate", "serve", "quant", "train",
-         "moe", "sparse", "evoformer"]
+         "north_star", "moe", "sparse", "evoformer"]
     dev = phase_device()
     state, launches, kern = {}, {}, {}
     if "build" in phases:
@@ -4566,6 +4904,7 @@ def main():
     for phase, run in (("norms", phase_norms),
                        ("generate", phase_generate), ("serve", phase_serve),
                        ("quant", phase_quant), ("train", phase_train),
+                       ("north_star", phase_north_star),
                        ("moe", phase_moe), ("sparse", phase_sparse),
                        ("evoformer", phase_evoformer)):
         if phase in phases:

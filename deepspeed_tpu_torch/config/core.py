@@ -7,9 +7,11 @@ bf16, optimizer, scheduler, ZeRO stage, gradient clipping, the gradient
 accumulator dtype, activation checkpointing). A feature of that config the
 port does not carry yet raises `NotImplementedError` when the config is
 built: offload, ZeRO++ / compressed wires, a mesh of more than one rank,
-pipeline, MoE, telemetry, checkpointing and fault tolerance, curriculum
-and data efficiency, compression, progressive layer drop, the monitors and
-profilers.
+pipeline, MoE, checkpointing and fault tolerance, curriculum and data
+efficiency, compression, progressive layer drop and the profilers. The
+`telemetry` block and the monitors (`tensorboard`, `wandb`, `csv_monitor`)
+are ported; the telemetry block's request tracing, flight recorder and
+memscope are not.
 """
 
 import copy
@@ -213,13 +215,79 @@ class DataTypesConfig(ConfigModel):
         return GRAD_ACCUM_DTYPES[(self.grad_accum_dtype or "fp32").lower()]
 
 
+# telemetry features of the JAX package that this port does not carry yet
+_UNPORTED_TELEMETRY = ("tracing", "flight_recorder", "memscope")
+
+
+@dataclass
+class TelemetryConfig(ConfigModel):
+    """Unified telemetry (`telemetry/`): metrics registry + exporters +
+    spans, the JAX package's fields and defaults. Opt-in: when disabled
+    (default) the instrumented subsystems record nothing and no file is
+    written. Shared by the train config and `TpuInferenceConfig`. There is
+    no compiled program to cost-analyze: the MFU numerator is always the
+    analytic 6N model flops, whatever `measure_program_flops` says.
+    `tracing`, `flight_recorder` and `memscope` raise (ROADMAP queue 1
+    item 10); their sizing fields are accepted and unused."""
+    enabled: bool = False
+    output_path: str = "telemetry"   # dir for <subsystem>.prom/.jsonl/.trace.json
+    export_interval: int = 20        # steps between exports (scheduler
+                                     # iterations for serving, optimizer steps
+                                     # for training)
+    prometheus: bool = True          # text-exposition file (atomic rewrite)
+    jsonl: bool = True               # append-only log
+    monitor_bridge: bool = True      # flatten snapshots into MonitorMaster
+                                     # scalars so TB/WandB/CSV keep working
+    chrome_trace: bool = False       # host-side span timeline (Perfetto)
+    peak_tflops: float = 0.0         # per-device peak override for MFU
+                                     # (TFLOPs); 0 = the NVIDIA table in
+                                     # telemetry/__init__.py
+    measure_program_flops: bool = True  # accepted; the numerator is 6N
+    tracing: bool = False
+    flight_recorder: bool = False
+    flight_recorder_events: int = 256
+    memscope: bool = False
+    memscope_programs: bool = True
+    memscope_capacity_bytes: int = 0
+    memscope_preflight: str = "warn"
+
+    def __post_init__(self):
+        for name in _UNPORTED_TELEMETRY:
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"telemetry.{name} is not ported to deepspeed_tpu_torch "
+                    f"yet (ROADMAP queue 1 item 10; the JAX package "
+                    f"deepspeed_tpu serves it)")
+
+
+@dataclass
+class TensorBoardConfig(ConfigModel):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedTPUJob"
+
+
+@dataclass
+class WandbConfig(ConfigModel):
+    enabled: bool = False
+    group: Optional[str] = None
+    team: Optional[str] = None
+    project: str = "deepspeed_tpu"
+
+
+@dataclass
+class CsvConfig(ConfigModel):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedTPUJob"
+
+
 # blocks of the JAX config that this port refuses when they are switched
 # on (an "enabled" flag), or given at all (the others)
-_UNPORTED_ENABLED = ("fault_tolerance", "telemetry", "moe", "data_efficiency",
+_UNPORTED_ENABLED = ("fault_tolerance", "moe", "data_efficiency",
                      "progressive_layer_drop", "flops_profiler", "eigenvalue",
-                     "tensorboard", "wandb", "csv_monitor", "comms_logger",
-                     "gradient_compression", "autotuning", "elasticity",
-                     "curriculum_learning")
+                     "comms_logger", "gradient_compression", "autotuning",
+                     "elasticity", "curriculum_learning")
 _UNPORTED_CONTENT = ("pipeline", "compression_training", "checkpoint")
 _UNPORTED_FLAGS = ("sparse_gradients", "prescale_gradients",
                    "memory_breakdown", "dump_state",
@@ -262,6 +330,10 @@ class TpuTrainConfig(ConfigModel):
     activation_checkpointing: ActivationCheckpointingConfig = field(
         default_factory=ActivationCheckpointingConfig)
     data_types: DataTypesConfig = field(default_factory=DataTypesConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    tensorboard: TensorBoardConfig = field(default_factory=TensorBoardConfig)
+    wandb: WandbConfig = field(default_factory=WandbConfig)
+    csv_monitor: CsvConfig = field(default_factory=CsvConfig)
 
     gradient_clipping: float = 0.0
     gradient_predivide_factor: float = 1.0

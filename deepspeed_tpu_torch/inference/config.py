@@ -11,7 +11,7 @@ ignored. Those checks run in `__post_init__`, so they hold for
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
-from deepspeed_tpu_torch.config.core import ConfigModel
+from deepspeed_tpu_torch.config.core import ConfigModel, TelemetryConfig
 from deepspeed_tpu_torch.config.core import not_ported as _not_ported
 
 
@@ -120,7 +120,9 @@ class TpuInferenceConfig(ConfigModel):
     # TPU-measured default; the H100's best value is not measured yet
     kv_block_size: int = 512
     serving: ServingConfig = field(default_factory=ServingConfig)
-    telemetry: Dict[str, Any] = field(default_factory=dict)
+    # unified telemetry (telemetry/): the serving engine's TTFT / TPOT /
+    # queue-wait / e2e histograms, pool gauges and phase spans
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     zero: Dict[str, Any] = field(default_factory=dict)
 
     _LEGACY_DTYPES = {"fp16": "float16", "half": "float16", "bf16": "bfloat16",
@@ -129,8 +131,7 @@ class TpuInferenceConfig(ConfigModel):
                       "torch.float32": "float32"}
 
     def __post_init__(self):
-        if (self.telemetry or {}).get("enabled"):
-            _not_ported("telemetry.enabled")
+        self.telemetry = _as_block(self.telemetry, TelemetryConfig)
         if (self.zero or {}).get("offload_param"):
             _not_ported("zero.offload_param (ZeRO-Inference weight spill)")
 

@@ -23,12 +23,24 @@ the engine's resident params (`InferenceEngine.enable_weight_quant`), and
 `kv_cache_dtype="int8"` builds the int8 pool, whose K/V quantize at cache
 write and dequantize inside the paged decode kernel.
 
+Telemetry (the engine config's `telemetry` block, off by default):
+`serving/queue_wait_ms` at admission, `serving/ttft_ms` at a request's
+first emitted token, `serving/tpot_ms` per token (interpolated inside each
+emission burst, so a decode window of K tokens gives K samples) and
+`serving/e2e_ms` at retirement, the queue / slot / pool gauges and the
+admit / prefill-chunk / decode-window spans; `latency_snapshot()` reads
+them. Every stamp is taken on the host clock after the tokens it times are
+on the host, at the reads the scheduler makes anyway: telemetry adds no
+device synchronization. With it off, no stamp is taken and no file is
+written.
+
 Prefix caching, speculative decoding, disaggregated handoff, auditing,
-degradation, telemetry and tracing are later slices of the port.
+degradation and request tracing are later slices of the port.
 """
 
 import collections
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -39,6 +51,7 @@ from deepspeed_tpu_torch.inference.kv_cache import (BlockAllocator,
                                                     blocks_needed,
                                                     max_written_pos)
 from deepspeed_tpu_torch.models.gpt import as_dtype
+from deepspeed_tpu_torch.telemetry import Telemetry
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 
@@ -66,6 +79,9 @@ class CompletedRequest:
     prompt_len: int
     tokens: np.ndarray        # generated tokens; the EOS (if emitted) is kept
     finish_reason: str        # "eos" | "length" | "cancelled"
+    timing: Optional[Dict[str, float]] = None  # telemetry only: monotonic
+                              # arrival/admit/first_token/finish stamps
+                              # (None when telemetry is disabled)
 
 
 _FREE, _PREFILL, _DECODE = 0, 1, 2
@@ -73,7 +89,8 @@ _FREE, _PREFILL, _DECODE = 0, 1, 2
 
 class _Slot:
     __slots__ = ("idx", "state", "uid", "prompt", "prompt_len", "padded_len",
-                 "max_new", "eos", "blocks", "cursor", "pos", "emitted")
+                 "max_new", "eos", "blocks", "cursor", "pos", "emitted",
+                 "t_arrive", "t_admit", "t_first", "t_prev")
 
     def __init__(self, idx):
         self.idx = idx
@@ -87,6 +104,8 @@ class _Slot:
         self.blocks = []
         self.cursor = self.pos = 0
         self.emitted = []
+        self.t_arrive = self.t_admit = self.t_first = None  # telemetry stamps
+        self.t_prev = None      # last emission sync (TPOT interpolation anchor)
 
 
 class ServingEngine:
@@ -97,9 +116,12 @@ class ServingEngine:
 
         serving = engine.serving(max_slots=8, max_context=2048)
         results = serving.run([Request(uid=0, tokens=prompt)])
+
+    `clock` (default `time.monotonic`) stamps request timing; tests inject
+    one to pin TTFT / TPOT.
     """
 
-    def __init__(self, engine, **overrides):
+    def __init__(self, engine, clock=None, **overrides):
         spec = engine.model_spec
         missing = [n for n in ("prefill_paged_fn", "decode_paged_fn",
                                "init_paged_pool")
@@ -211,6 +233,13 @@ class ServingEngine:
         self.peak_active = 0
         self.cancelled = 0
 
+        # telemetry: TTFT/TPOT/queue-wait/e2e histograms + queue/slot/pool
+        # gauges + per-phase spans. Disabled by default — then every record
+        # site below is a single attribute check and nothing is written
+        self.telemetry = Telemetry(getattr(self.config, "telemetry", None),
+                                   subsystem="serving")
+        self._clock = clock if clock is not None else time.monotonic
+
         pool_mb = sum(t.numel() * t.element_size()
                       for t in self.pool.values()) / 2**20
         log_dist(f"serving engine: {spec.name} slots={self.max_slots} "
@@ -255,6 +284,10 @@ class ServingEngine:
     # request lifecycle
     # ------------------------------------------------------------------
 
+    def set_clock(self, clock):
+        """Replace the clock that stamps request timing."""
+        self._clock = clock
+
     def check_admissible(self, prompt_len: int, max_new: int,
                          uid: Any = "?") -> int:
         """Raise `InadmissibleRequestError` when the request can NEVER fit
@@ -290,7 +323,9 @@ class ServingEngine:
         need = self.check_admissible(prompt_len, request.max_new_tokens,
                                      uid=request.uid)
         padded = -(-prompt_len // self.chunk) * self.chunk
-        self.queue.append((request, prompt, prompt_len, padded, need))
+        t_arrive = self._clock() if self.telemetry.enabled else None
+        self.queue.append((request, prompt, prompt_len, padded, need,
+                           t_arrive))
 
     def _resolve_eos(self, req: Request):
         if not req.stop_on_eos:
@@ -305,7 +340,7 @@ class ServingEngine:
     def _admit(self):
         free = [s for s in self.slots if s.state == _FREE]
         while self.queue and free:
-            req, prompt, prompt_len, padded, need = self.queue[0]
+            req, prompt, prompt_len, padded, need, t_arrive = self.queue[0]
             blocks = self.allocator.alloc(need)
             if blocks is None:
                 # pool exhausted: FIFO backpressure — the head waits for
@@ -325,6 +360,11 @@ class ServingEngine:
             slot.cursor = 0
             slot.pos = prompt_len
             slot.emitted = []
+            slot.t_arrive = t_arrive
+            if self.telemetry.enabled:
+                slot.t_admit = self._clock()
+                self.telemetry.observe("serving/queue_wait_ms",
+                                       (slot.t_admit - t_arrive) * 1e3)
             self.tables[slot.idx, :] = TRASH_BLOCK
             self.tables[slot.idx, :len(blocks)] = blocks
 
@@ -332,19 +372,48 @@ class ServingEngine:
         # blocks return to the pool the step the sequence finishes
         self.allocator.free(slot.blocks[::-1])
         self.tables[slot.idx, :] = TRASH_BLOCK
+        timing = None
+        if self.telemetry.enabled and slot.t_admit is not None:
+            t_finish = self._clock()
+            self.telemetry.observe("serving/e2e_ms",
+                                   (t_finish - slot.t_arrive) * 1e3)
+            # TPOT is recorded per emission burst in _observe_tpot, not as a
+            # per-request mean here
+            timing = {"arrival": slot.t_arrive, "admit": slot.t_admit,
+                      "first_token": slot.t_first, "finish": t_finish}
         done = CompletedRequest(uid=slot.uid, prompt_len=slot.prompt_len,
                                 tokens=np.asarray(slot.emitted, np.int32),
-                                finish_reason=reason)
+                                finish_reason=reason, timing=timing)
         slot.reset()
         return done
 
     def _emit(self, slot: _Slot, tok: int, finished: List[CompletedRequest]):
         slot.emitted.append(int(tok))
         self.tokens_generated += 1
+        if self.telemetry.enabled and len(slot.emitted) == 1 \
+                and slot.t_arrive is not None:
+            slot.t_first = slot.t_prev = self._clock()
+            self.telemetry.observe("serving/ttft_ms",
+                                   (slot.t_first - slot.t_arrive) * 1e3)
         if slot.eos is not None and int(tok) == slot.eos:
             finished.append(self._retire(slot, "eos"))
         elif len(slot.emitted) >= slot.max_new:
             finished.append(self._retire(slot, "length"))
+
+    def _observe_tpot(self, slot, anchor, j):
+        """Per-token TPOT with intra-burst interpolation: a decode sync
+        that emits `j` tokens for a slot since `anchor` (the previous
+        emission sync) spreads the interval evenly over them — j samples of
+        dt/j each — so `serving/tpot_ms` stays honest whether a step emits
+        one token or a K-token decode window."""
+        if not self.telemetry.enabled or anchor is None or j <= 0:
+            return
+        t_now = self._clock()
+        per_tok = (t_now - anchor) / j * 1e3
+        for _ in range(j):
+            self.telemetry.observe("serving/tpot_ms", per_tok)
+        if slot.state != _FREE:            # retired slots were reset already
+            slot.t_prev = t_now
 
     def cancel(self, uid) -> Optional[CompletedRequest]:
         """Withdraw a request wherever it lives: a queued one never touches
@@ -373,7 +442,8 @@ class ServingEngine:
         """One scheduler iteration. Returns the requests that finished."""
         finished: List[CompletedRequest] = []
         self.steps += 1
-        self._admit()
+        with self.telemetry.span("serving/admit"):
+            self._admit()
 
         # chunked prefill, bounded per step so arriving prompts cannot stall
         # the running batch for more than prefill_budget chunk-times
@@ -387,13 +457,15 @@ class ServingEngine:
                 final = start + self.chunk >= slot.padded_len
                 last = (slot.prompt_len - 1 - start) if final \
                     else self.chunk - 1
-                tok = self._prefill_step(chunk, start, last,
-                                         self.tables[slot.idx][None])
+                with self.telemetry.span("serving/prefill_chunk"):
+                    tok = self._prefill_step(chunk, start, last,
+                                             self.tables[slot.idx][None])
                 slot.cursor = start + self.chunk
                 budget -= 1
                 self.prefill_chunks += 1
                 if final:
                     slot.state = _DECODE
+                    # the first token's read: TTFT is stamped after it
                     self._emit(slot, int(tok[0]), finished)
 
         # decode: ONE call shape for every slot; non-decoding slots ride
@@ -410,14 +482,26 @@ class ServingEngine:
                 tok[s.idx] = s.emitted[-1]
                 pos[s.idx] = s.pos
                 tables[s.idx] = self.tables[s.idx]
-            nxt = self._decode_step(tok, pos, tables, self.window)
+            with self.telemetry.span("serving/decode_window"):
+                # returns on the host: the window's one device read
+                nxt = self._decode_step(tok, pos, tables, self.window)
             self.decode_steps += 1
             for s in dec:
                 s.pos += self.window
+                anchor, j = s.t_prev, 0
                 for t in nxt[s.idx]:
                     self._emit(s, int(t), finished)
+                    j += 1
                     if s.state == _FREE:            # retired mid-window
                         break
+                self._observe_tpot(s, anchor, j)
+
+        if self.telemetry.enabled:
+            self.telemetry.set_gauge("serving/queue_depth", len(self.queue))
+            self.telemetry.set_gauge("serving/active_slots", self.num_active)
+            self.telemetry.set_gauge("serving/free_blocks",
+                                     self.allocator.num_free)
+            self.telemetry.maybe_export(self.steps)
         return finished
 
     @property
@@ -439,7 +523,16 @@ class ServingEngine:
                     f"serving scheduler made no progress: queue="
                     f"{len(self.queue)} active={self.num_active} "
                     f"free_blocks={self.allocator.num_free}")
+        # drained: flush the tail of the trace into the exporters (a run
+        # shorter than export_interval would otherwise leave no files)
+        if self.telemetry.enabled:
+            self.telemetry.export(self.steps)
         return out
+
+    def close(self):
+        """Engine shutdown: the telemetry's final export, and its files
+        closed."""
+        self.telemetry.close()
 
     def stats(self) -> Dict[str, Any]:
         out = {"steps": self.steps, "decode_steps": self.decode_steps,
@@ -459,4 +552,16 @@ class ServingEngine:
                 # bytes before / after (payload + scales) over the whole tree
                 q["weight_quant"] = dict(self.weight_quant_stats)
             out["quantization"] = q
+        if self.telemetry.enabled:
+            out["latency"] = self.latency_snapshot()
         return out
+
+    def latency_snapshot(self) -> Dict[str, Dict[str, float]]:
+        """Per-request latency histogram snapshots (ttft_ms / tpot_ms /
+        queue_wait_ms / e2e_ms -> count/mean/p50/p90/p99/min/max). Empty
+        when telemetry is disabled."""
+        if not self.telemetry.enabled:
+            return {}
+        snap = self.telemetry.registry.snapshot()
+        return {name.split("/", 1)[1]: m for name, m in snap.items()
+                if m.get("type") == "histogram" and name.startswith("serving/")}

@@ -5,10 +5,12 @@ Pre-LN GPT-2 (learned positions, LayerNorm, GELU, MHA) with the cheap
 LLaMA-style flags (rotary embeddings, RMSNorm, SwiGLU, grouped-query
 attention). Alibi, sliding windows, per-layer attention types and the
 NeoX/GPT-J parallel residual raise `NotImplementedError` until a later
-slice ports them; so do dropout, chunked cross entropy and the selective
-remat policies. Training: `gpt_hidden` / `gpt_forward` / `gpt_loss`, and
-`make_gpt_model` for the engine; remat wraps each block in
-`torch.utils.checkpoint`, the port of `jax.checkpoint(nothing_saveable)`.
+slice ports them; so do dropout and chunked cross entropy. Training:
+`gpt_hidden` / `gpt_forward` / `gpt_loss`, and `make_gpt_model` for the
+engine; remat wraps each block in non-reentrant `torch.utils.checkpoint`
+under the config's `remat_policy` (`resolve_remat_policy`: the argument-free
+`jax.checkpoint_policies` names and the package's `save_matmuls` /
+`save_matmuls_probs`).
 An `attn_fn` (q, k, v [B, T, H, hd] -> [B, T, H, hd], e.g.
 `ops/sparse_attention.sparse_attn_fn`) replaces the attention of every
 training and evaluation forward, as in the JAX package.
@@ -36,7 +38,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from deepspeed_tpu_torch.inference.quantization import (
     QuantizedTensor, dense, dequantize_tensors, quantize_kv_write)
@@ -46,6 +49,8 @@ from deepspeed_tpu_torch.ops.decode_attention import (
     paged_decode_attention_quant)
 from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_attention_reference)
+from deepspeed_tpu_torch.utils.checkpoint_names import (checkpoint_name,
+                                                        current_name)
 
 _DTYPES = {"float32": torch.float32, "float": torch.float32,
            "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -69,6 +74,108 @@ def as_dtype(dtype):
 
 def dtype_name(dtype):
     return str(dtype).replace("torch.", "")
+
+
+# ----------------------------------------------------------------------
+# remat policies
+# ----------------------------------------------------------------------
+
+
+SAVE_MATMULS_NAMES = ("qkv_proj", "attn_out", "mlp_up", "mlp_down")
+
+_aten = torch.ops.aten
+# the dots without batch dimensions (the projections) and with them (the
+# plain attention's score and value products)
+_DOTS_NO_BATCH = frozenset({_aten.mm, _aten.addmm})
+_DOTS = _DOTS_NO_BATCH | {_aten.bmm, _aten.baddbmm}
+# allocations: the flash kernels write their outputs into these (through
+# ctypes, unseen by the dispatcher), so a cached one would be written again
+# by the recomputed kernel
+_ALLOCS = frozenset({_aten.empty, _aten.empty_like, _aten.empty_strided,
+                     _aten.new_empty, _aten.new_empty_strided})
+
+_SAVE, _RECOMPUTE = CheckpointPolicy.MUST_SAVE, \
+    CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _savable(func, args, kwargs):
+    """An op whose output a policy may keep: not a view, not a mutation,
+    not an allocation, and computed from some tensor."""
+    if func.is_view or func._schema.is_mutable \
+            or func.overloadpacket in _ALLOCS:
+        return False
+    return any(isinstance(a, torch.Tensor) for a in args) or \
+        any(isinstance(a, torch.Tensor) for a in kwargs.values())
+
+
+def _ops_policy(ops):
+    def policy(ctx, func, *args, **kwargs):
+        return _SAVE if func.overloadpacket in ops else _RECOMPUTE
+    return policy
+
+
+def _everything_policy(ctx, func, *args, **kwargs):
+    return _SAVE if _savable(func, args, kwargs) else _RECOMPUTE
+
+
+def _names_policy(names):
+    def policy(ctx, func, *args, **kwargs):
+        return _SAVE if current_name() in names and \
+            _savable(func, args, kwargs) else _RECOMPUTE
+    return policy
+
+
+# remat_policy name -> the op policy of torch's selective checkpoint (None:
+# plain checkpoint, every op recomputed). JAX's argument-free
+# `jax.checkpoint_policies` names and its two package names.
+REMAT_POLICIES = {
+    "nothing_saveable": None,
+    "everything_saveable": _everything_policy,
+    "dots_saveable": _ops_policy(_DOTS),
+    "checkpoint_dots": _ops_policy(_DOTS),
+    "dots_with_no_batch_dims_saveable": _ops_policy(_DOTS_NO_BATCH),
+    "checkpoint_dots_with_no_batch_dims": _ops_policy(_DOTS_NO_BATCH),
+    "save_matmuls": _names_policy(frozenset(SAVE_MATMULS_NAMES)),
+    "save_matmuls_probs": _names_policy(
+        frozenset(SAVE_MATMULS_NAMES + ("attn_probs",))),
+}
+
+
+def resolve_remat_policy(name):
+    """remat_policy string -> the wrapper a block runs under with remat on:
+    non-reentrant `torch.utils.checkpoint`, with torch's selective contexts
+    over the name's op policy.
+
+    * "nothing_saveable" keeps only the block's input (plain checkpoint);
+    * "dots_with_no_batch_dims_saveable" keeps the outputs of `aten.mm` /
+      `aten.addmm` (the projections), "dots_saveable" also `aten.bmm` /
+      `aten.baddbmm`; every other op is recomputed;
+    * "everything_saveable" keeps every op's output but views, mutations
+      and allocations;
+    * "save_matmuls" keeps the ops of the `qkv_proj`, `attn_out`, `mlp_up`
+      and `mlp_down` regions (`utils/checkpoint_names.py`: the JAX
+      package's checkpoint names), "save_matmuls_probs" also the plain
+      attention's `attn_probs`. The flash path has no probs tensor, so
+      there both keep the same ops.
+
+    The recompute replays every op the policy does not keep. The attention
+    kernels launch through ctypes and the dispatcher never sees them: no
+    policy keeps their outputs, so the backward runs their forward again
+    (in JAX a `pallas_call` is no dot either), and the allocations they
+    write into are never kept. A name that is not in `REMAT_POLICIES` (an
+    unknown one, or a `jax.checkpoint_policies` factory such as
+    `save_only_these_names`) raises ValueError."""
+    if name not in REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {name!r}: expected one of "
+            f"{sorted(REMAT_POLICIES)} (the policy factories of "
+            f"jax.checkpoint_policies take arguments a config cannot give)")
+    policy = REMAT_POLICIES[name]
+    if policy is None:
+        return partial(checkpoint, use_reentrant=False)
+    return partial(checkpoint, use_reentrant=False,
+                   context_fn=partial(create_selective_checkpoint_contexts,
+                                      policy))
 
 
 @dataclasses.dataclass
@@ -96,7 +203,7 @@ class GPTConfig:
     scale_attn: bool = True          # False: unscaled scores (GPT-Neo)
     tie_embeddings: bool = True
     remat: bool = True               # torch.utils.checkpoint each block
-    remat_policy: str = "nothing_saveable"  # the only policy ported
+    remat_policy: str = "nothing_saveable"  # REMAT_POLICIES
     dropout: float = 0.0             # > 0 not ported
     loss_chunks: int = 0             # > 0 (chunked-vocab CE) not ported
     softmax_dtype: torch.dtype = torch.float32  # the plain path's softmax
@@ -127,13 +234,13 @@ class GPTConfig:
             ("parallel_residual", self.parallel_residual),
             ("dropout", self.dropout > 0),
             ("loss_chunks", self.loss_chunks > 0),
-            (f"remat_policy={self.remat_policy!r}",
-             self.remat and self.remat_policy != "nothing_saveable"),
         ) if on]
         if unported:
             raise NotImplementedError(
                 f"GPTConfig flags {unported} are not ported to "
                 f"deepspeed_tpu_torch yet (the JAX package serves them)")
+        if self.remat:
+            resolve_remat_policy(self.remat_policy)     # raises if unknown
 
     @property
     def head_dim(self):
@@ -304,11 +411,16 @@ def _embed(params, tokens, positions, cfg: GPTConfig):
 
 
 def _mlp(h, p, cfg):
-    if cfg.use_swiglu:
-        up = F.silu(h @ p["mlp_gate_w"]) * (h @ p["mlp_up_w"])
-    else:
-        up = _act(h @ p["mlp_up_w"] + p["mlp_up_b"], cfg)
-    return up @ p["mlp_down_w"] + p["mlp_out_b"]
+    """The MLP half; the up projections and the activation are the
+    `mlp_up` region of `save_matmuls`, the down projection `mlp_down` (the
+    JAX package's checkpoint names)."""
+    with checkpoint_name("mlp_up"):
+        if cfg.use_swiglu:
+            up = F.silu(h @ p["mlp_gate_w"]) * (h @ p["mlp_up_w"])
+        else:
+            up = _act(h @ p["mlp_up_w"] + p["mlp_up_b"], cfg)
+    with checkpoint_name("mlp_down"):
+        return up @ p["mlp_down_w"] + p["mlp_out_b"]
 
 
 def _residual_mlp(x, attn_out, p, cfg: GPTConfig, mlp_fn=None):
@@ -373,12 +485,14 @@ def _attention(q, k, v, cfg, attn_fn=None):
 def _decode_qkv(x, p, positions, cfg: GPTConfig):
     """Shared attention preamble (prefill, decode, paged): ln1 -> fused qkv -> split/reshape -> rope at absolute positions.
     x: [B, C, D]; positions: [B, C]. Returns q [B,C,H,hd], k/v [B,C,Hkv,hd]
-    (views of the fused projection where no rope applies)."""
+    (views of the fused projection where no rope applies). The projection
+    is the `qkv_proj` region of `save_matmuls`."""
     B, C, _ = x.shape
     H, Hkv, hd = cfg.n_head, cfg.n_kv_head, cfg.head_dim
     h = _norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg.use_rmsnorm,
               cfg.norm_eps)
-    qkv = h @ p["attn_qkv_w"] + p["attn_qkv_b"]
+    with checkpoint_name("qkv_proj"):
+        qkv = h @ p["attn_qkv_w"] + p["attn_qkv_b"]
     q, k, v = qkv.split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
     q = q.reshape(B, C, H, hd)
     k = k.reshape(B, C, Hkv, hd)
@@ -396,8 +510,9 @@ def _attn_half(x, p, cfg: GPTConfig, positions, attn_fn=None):
     can write k/v into the KV cache."""
     B, T, D = x.shape
     q, k, v = _decode_qkv(x, p, positions, cfg)
-    attn = _attention(q, k, v, cfg, attn_fn)
-    attn_out = attn.reshape(B, T, D) @ p["attn_out_w"] + p["attn_out_b"]
+    attn = _attention(q, k, v, cfg, attn_fn).reshape(B, T, D)
+    with checkpoint_name("attn_out"):
+        attn_out = attn @ p["attn_out_w"] + p["attn_out_b"]
     return attn_out, k, v
 
 
@@ -417,19 +532,6 @@ def _layer(params, i):
 # ----------------------------------------------------------------------
 
 
-def resolve_remat_policy(name):
-    """remat_policy string -> the wrapper a block runs under with remat on.
-    "nothing_saveable" (the JAX default: keep only the block's input and
-    recompute the rest in the backward) is non-reentrant
-    `torch.utils.checkpoint`. The selective policies ("save_matmuls",
-    "dots_saveable", ...) are not ported."""
-    if name == "nothing_saveable":
-        return partial(checkpoint, use_reentrant=False)
-    raise NotImplementedError(f"remat_policy {name!r} is not ported to "
-                              f"deepspeed_tpu_torch yet (nothing_saveable "
-                              f"only)")
-
-
 def _block(x, p, cfg: GPTConfig, positions, attn_fn=None):
     """One transformer block. x: [B, T, D]."""
     attn_out, _, _ = _attn_half(x, p, cfg, positions, attn_fn)
@@ -441,7 +543,7 @@ def gpt_hidden(params, tokens, cfg: GPTConfig, positions=None, pld=None,
     """tokens: [B, T] int -> final-norm'd hidden states [B, T, D].
 
     With `cfg.remat` each block runs under its `resolve_remat_policy`
-    wrapper: only its input is kept and the backward recomputes the block,
+    wrapper: the policy's ops are kept and the backward recomputes the rest,
     so the attention kernel's forward runs twice per block. Progressive
     layer drop (`pld`) and random-LTD (`ltd`) are not ported."""
     if pld is not None or ltd is not None:

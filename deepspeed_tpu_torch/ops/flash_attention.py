@@ -25,6 +25,7 @@ from torch.autograd.function import once_differentiable
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.attention_dispatch import (FLASH_DTYPES,
                                                         KERNEL_HEAD_DIMS)
+from deepspeed_tpu_torch.utils.checkpoint_names import checkpoint_name
 
 NEG_INF = -1e30
 
@@ -64,7 +65,9 @@ def flash_attention_reference(q, k, v, causal=True, sm_scale=None,
         sm_scale = 1.0 / math.sqrt(qh.shape[-1])
     s = _scores(qh, kh, causal, sm_scale)
     lse = torch.logsumexp(s, dim=-1)
-    out = torch.einsum("bhts,bhsd->bhtd", torch.softmax(s, dim=-1), vh)
+    with checkpoint_name("attn_probs"):     # save_matmuls_probs keeps it
+        probs = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhts,bhsd->bhtd", probs, vh)
     if layout == "BTHD":
         out = out.transpose(1, 2)
     return out.to(q.dtype), lse

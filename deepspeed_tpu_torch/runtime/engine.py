@@ -18,8 +18,21 @@ tensors replaced each step. Everything stays on the engine's device. The
 host waits for the card once per step: `ThroughputTimer` reads a CUDA
 event at the end of `train_batch`, as the JAX engine's timers fence. It
 waits more only when asked to report: the `train_batch` timer's event
-with `wall_clock_breakdown`, and, with fp16 loss scaling, the overflow
-flag that `_after_step` logs.
+with `wall_clock_breakdown` or telemetry, and, with fp16 loss scaling, the
+overflow flag that `_after_step` logs.
+
+Telemetry (the `telemetry` config block, off by default): the
+`train_batch` timer's interval, which ends with a wait for the card, is the
+step time of `train/step_time_ms`; `train/tokens_per_sec`,
+`train/tflops_per_chip` (the analytic 6 x params x tokens: there is no
+compiled program to cost-analyze), `train/mfu` (over the card's peak, left
+unset on a device `telemetry.PEAK_FLOPS` does not know and no
+`peak_tflops` override), the allocator's `train/hbm_bytes_in_use` /
+`train/hbm_peak_bytes` on CUDA, and every slash-keyed step metric
+(`moe/aux_loss`, ...) as a gauge. The monitors (`tensorboard`,
+`csv_monitor`, `wandb`) get `Train/loss`, `Train/lr`, `Train/loss_scale`
+and `Train/grad_norm` every `steps_per_print` steps. With both off, a step
+reads nothing more from the card.
 
 One rank: ZeRO stages 0-3 are accepted and are one computation, as on the
 JAX package's one-device mesh; more than one rank raises. The engine runs
@@ -40,7 +53,8 @@ from deepspeed_tpu_torch.runtime import lr_schedules
 from deepspeed_tpu_torch.runtime.dataloader import (RepeatingLoader,
                                                     TpuDataLoader)
 from deepspeed_tpu_torch.runtime.precision import LossScaler, LossScaleState
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.telemetry import Telemetry
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (TRAIN_BATCH_TIMER,
                                              SynchronizedWallClockTimer,
                                              ThroughputTimer)
@@ -168,7 +182,14 @@ class Engine:
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_batch_size_value,
             steps_per_output=config.steps_per_print, device=self.device)
+        self.monitor = self._build_monitor()
         self._last_metrics = {}
+        # unified telemetry (`telemetry` config block): opt-in; the
+        # default-disabled object costs one attribute check per step and
+        # writes nothing
+        self.telemetry = Telemetry(config.telemetry, subsystem="train",
+                                   monitor=self.monitor)
+        self._program_flops = None   # per-train_batch flops, computed once
 
     # ------------------------------------------------------------------
     # state
@@ -316,7 +337,8 @@ class Engine:
                 raise ValueError("train_batch needs a batch, a data_iter or "
                                  "training_data")
             batch = next(it)
-        timed = self.config.wall_clock_breakdown    # its only reader
+        # the train_batch timer's readers: the breakdown log and telemetry
+        timed = self.config.wall_clock_breakdown or self.telemetry.enabled
         self.tput_timer.start()
         if timed:
             self.timers(TRAIN_BATCH_TIMER).start()
@@ -324,9 +346,12 @@ class Engine:
         self.state, metrics = self._apply_grads(self.state, grads, loss)
         metrics.update(extras)
         if timed:
-            self.timers(TRAIN_BATCH_TIMER).stop()
+            self.timers(TRAIN_BATCH_TIMER).stop()   # waits for the card
         self.tput_timer.stop(global_step=True)
         self._after_step(metrics, count_micro=True)
+        if self.telemetry.enabled:
+            self._record_step_telemetry(batch,
+                                        self.timers(TRAIN_BATCH_TIMER).last)
         return metrics["loss"]
 
     def eval_batch(self, batch, rng=None):
@@ -378,6 +403,14 @@ class Engine:
         if count_micro:
             self.micro_steps += self.gradient_accumulation_steps_value
         self._last_metrics = metrics
+        if self.telemetry.enabled:
+            # slash-namespaced metrics (moe/aux_loss, moe/overflow_tokens,
+            # ...) are model-emitted gauges; the fixed train/* set is
+            # _record_step_telemetry's
+            reg = self.telemetry.registry
+            for k, v in metrics.items():
+                if "/" in k:
+                    reg.gauge(k).set(float(v))
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
         # overflow can only occur under fp16: the one host read of a step,
@@ -387,9 +420,67 @@ class Engine:
             log_dist(f"step {self.global_steps}: grad overflow — step "
                      f"skipped (loss scale -> "
                      f"{float(self.state.scaler.scale):.1f})", ranks=[0])
+        if self.monitor is not None and self.monitor.enabled and \
+                self.global_steps % self.config.steps_per_print == 0:
+            self.monitor.write_events([
+                ("Train/loss", float(metrics["loss"]), self.global_steps),
+                ("Train/lr", float(metrics["lr"]), self.global_steps),
+                ("Train/loss_scale", float(metrics["loss_scale"]),
+                 self.global_steps),
+                ("Train/grad_norm", float(metrics["grad_norm"]),
+                 self.global_steps)])
         if self.config.wall_clock_breakdown and \
                 self.global_steps % self.config.steps_per_print == 0:
             self.timers.log([TRAIN_BATCH_TIMER])
+
+    # ------------------------------------------------------------------
+    # telemetry (`telemetry` config block) and the monitors
+    # ------------------------------------------------------------------
+
+    def _record_step_telemetry(self, batch, step_seconds):
+        """Per-step observability: the step-time histogram, tokens/s, and
+        achieved TFLOP/s and MFU = model flops / (step time x the card's
+        peak). `step_seconds` is the train_batch timer's interval, which
+        ended with a wait for the card."""
+        reg = self.telemetry.registry
+        reg.histogram("train/step_time_ms").observe(step_seconds * 1e3)
+        tokens = None
+        if isinstance(batch, dict):
+            t = batch.get("tokens", batch.get("input_ids"))
+            if t is not None:
+                tokens = int(t.numel() if isinstance(t, torch.Tensor)
+                             else np.asarray(t).size)
+        if tokens:
+            reg.gauge("train/tokens_per_sec").set(tokens / step_seconds)
+        if self._program_flops is None:
+            # the analytic 6N model flops a step (the PaLM MFU convention):
+            # the kernels launched through ctypes are invisible to a flop
+            # counter of the dispatcher
+            self._program_flops = 6.0 * tree_num_params(self.state.params) \
+                * tokens if tokens else 0.0
+        if self._program_flops > 0:
+            achieved = self._program_flops / step_seconds
+            reg.gauge("train/tflops_per_chip").set(achieved / 1e12)
+            peak = self.telemetry.peak_flops(self.device)
+            if peak:
+                reg.gauge("train/mfu").set(achieved / peak)
+        if self.device.type == "cuda":
+            stats = torch.cuda.memory_stats(self.device)
+            for src, dst in (("allocated_bytes.all.current",
+                              "train/hbm_bytes_in_use"),
+                             ("allocated_bytes.all.peak",
+                              "train/hbm_peak_bytes")):
+                if src in stats:
+                    reg.gauge(dst).set(float(stats[src]))
+        self.telemetry.maybe_export(self.global_steps)
+
+    def _build_monitor(self):
+        try:
+            from deepspeed_tpu_torch.monitor.monitor import MonitorMaster
+            return MonitorMaster(self.config)
+        except Exception as e:
+            logger.warning(f"monitor unavailable: {e}")
+            return None
 
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None,
                      shuffle=True):

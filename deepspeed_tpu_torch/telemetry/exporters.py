@@ -1,0 +1,158 @@
+"""Exporters: Prometheus text exposition, append-only JSONL, monitor bridge
+(counterpart of `deepspeed_tpu/telemetry/exporters.py`: the same text and
+records for the same registry contents).
+
+Three sinks for one registry, each serving a different consumer:
+
+  * `PrometheusFileExporter` — the text exposition format written atomically
+    (tmp + rename), so a node-exporter-style textfile collector or a sidecar
+    `cat` can scrape mid-write without tearing;
+  * `JsonlExporter` — one JSON object per export (step, wall time, full
+    snapshot), append-only; the JAX package's `bin/dstpu_metrics` reads
+    this file as it reads its own;
+  * `MonitorBridge` — flattens snapshots into `(tag, value, step)` scalars
+    through `monitor.write_events_safe`, so existing TB/WandB/CSV dashboards
+    keep working: a histogram fans out to `<name>/p50|p90|p99|mean|count`.
+"""
+
+import json
+import math
+import os
+import time
+
+from deepspeed_tpu_torch.telemetry.registry import Counter, Gauge, Histogram
+
+__all__ = ["prometheus_text", "PrometheusFileExporter", "JsonlExporter",
+           "MonitorBridge"]
+
+
+def _prom_name(name):
+    """Sanitize a metric name for Prometheus ([a-zA-Z0-9_:] only, and a
+    leading digit gets an underscore prefix — the name grammar is
+    `[a-zA-Z_:][a-zA-Z0-9_:]*`)."""
+    pn = "".join(c if c.isalnum() or c in "_:" else "_" for c in name)
+    return "_" + pn if pn[:1].isdigit() else pn
+
+
+def _escape_help(text):
+    """HELP-line escaping per the text format: backslash and newline."""
+    return str(text).replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _escape_label(value):
+    """Label-value escaping per the text format: backslash, double quote,
+    newline."""
+    return str(value).replace("\\", "\\\\").replace('"', '\\"') \
+        .replace("\n", "\\n")
+
+
+def _fmt(v):
+    if v != v or v in (math.inf, -math.inf):     # NaN / +-Inf
+        return {math.inf: "+Inf", -math.inf: "-Inf"}.get(v, "NaN")
+    if float(v).is_integer():
+        return str(int(v))
+    return f"{v:.10g}"
+
+
+def prometheus_text(registry, help_map=None):
+    """Render a registry in the Prometheus text exposition format.
+
+    Conformance points external scrapers check (pinned by the exporter
+    conformance test): every metric family carries `# HELP` then `# TYPE`
+    exactly once, HELP text and label values are escaped, counters end in
+    `_total`, and every histogram exposes the mandatory `+Inf` bucket whose
+    cumulative count equals `_count` (with `_sum` alongside). `help_map`
+    overrides the per-metric HELP text (original metric name -> text);
+    the default text is the registry name itself, which carries the unit
+    suffix convention (`*_ms`) the catalog documents."""
+    help_map = help_map or {}
+    lines = []
+    for name, m in registry.metrics():
+        pn = _prom_name(name)
+        help_text = _escape_help(help_map.get(name, f"deepspeed-tpu {name}"))
+        if isinstance(m, Counter):
+            if not pn.endswith("_total"):
+                pn += "_total"
+            lines.append(f"# HELP {pn} {help_text}")
+            lines.append(f"# TYPE {pn} counter")
+            lines.append(f"{pn} {_fmt(m.value)}")
+        elif isinstance(m, Gauge):
+            lines.append(f"# HELP {pn} {help_text}")
+            lines.append(f"# TYPE {pn} gauge")
+            lines.append(f"{pn} {_fmt(m.value)}")
+        elif isinstance(m, Histogram):
+            lines.append(f"# HELP {pn} {help_text}")
+            lines.append(f"# TYPE {pn} histogram")
+            for edge, cum in m.cumulative_buckets():
+                lines.append(
+                    f'{pn}_bucket{{le="{_escape_label(_fmt(edge))}"}} {cum}')
+            lines.append(f"{pn}_sum {_fmt(m.sum)}")
+            lines.append(f"{pn}_count {m.count}")
+    return "\n".join(lines) + "\n"
+
+
+class PrometheusFileExporter:
+    """Atomic textfile exposition — write tmp, fsync-free rename (the file is
+    derived state; losing the last interval on a crash is fine, a half-
+    written scrape is not)."""
+
+    def __init__(self, path):
+        self.path = str(path)
+
+    def export(self, registry, step=None, snapshot=None):
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(prometheus_text(registry))
+        os.replace(tmp, self.path)
+
+    def close(self):
+        pass
+
+
+class JsonlExporter:
+    """Append-only metrics log: one `{"step", "time", "metrics"}` object per
+    export. Opened lazily so an enabled-but-never-exported telemetry block
+    leaves no empty file behind."""
+
+    def __init__(self, path):
+        self.path = str(path)
+        self._f = None
+
+    def export(self, registry, step=None, snapshot=None):
+        if self._f is None:
+            self._f = open(self.path, "a")
+        snap = snapshot if snapshot is not None else registry.snapshot()
+        self._f.write(json.dumps({"step": step, "time": time.time(),
+                                  "metrics": snap}) + "\n")
+        self._f.flush()
+
+    def close(self):
+        if self._f is not None:
+            try:
+                self._f.close()
+            finally:
+                self._f = None
+
+
+class MonitorBridge:
+    """Registry snapshots -> MonitorMaster scalars (never-die contract)."""
+
+    def __init__(self, monitor):
+        self.monitor = monitor
+
+    def export(self, registry, step=None, snapshot=None):
+        from deepspeed_tpu_torch.monitor.monitor import write_events_safe
+        snap = snapshot if snapshot is not None else registry.snapshot()
+        step = int(step or 0)
+        events = []
+        for name, m in snap.items():
+            if m["type"] == "histogram":
+                for stat in ("p50", "p90", "p99", "mean"):
+                    events.append((f"{name}/{stat}", float(m[stat]), step))
+                events.append((f"{name}/count", float(m["count"]), step))
+            else:
+                events.append((name, float(m["value"]), step))
+        write_events_safe(self.monitor, events)
+
+    def close(self):
+        pass

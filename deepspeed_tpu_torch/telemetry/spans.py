@@ -1,0 +1,122 @@
+"""Host-side spans: named timed regions layered on the nvtx shim
+(counterpart of `deepspeed_tpu/telemetry/spans.py`).
+
+A span does two things at once:
+
+  * enters a profiler range via `utils/nvtx.annotate` (a hard no-op unless
+    a torch profiler records), so the region shows up in a torch.profiler
+    trace when one is being captured;
+  * optionally records `(name, start, duration)` into a `ChromeTraceSink`,
+    so a scheduler-step timeline (admit / prefill chunk / decode window) can
+    be opened in Perfetto without a profiler session.
+
+A span times the HOST: its clock is `time.perf_counter`, and on the card a
+span ends when the host leaves the block, not when the kernels it enqueued
+finish. A span around a block that reads a result back to the host (the
+serving engine's decode window) covers the device's work up to that read;
+one around launches alone covers their enqueueing only.
+
+The sink writes the Chrome trace event format as streamed JSON: an opening
+`[` then one complete event object per line, comma-terminated. Perfetto and
+chrome://tracing both accept the unterminated-array form, which is what
+makes the sink append-only and crash-safe. Beyond the duration ("X") events
+the sink also speaks the metadata ("M": `process_name`/`thread_name`) subset
+of the format, so each replica of a pool can get its own named track.
+"""
+
+import json
+import os
+import threading
+import time
+
+from deepspeed_tpu_torch.utils import nvtx
+
+__all__ = ["Span", "ChromeTraceSink", "span"]
+
+
+class ChromeTraceSink:
+    """Streamed chrome-trace event log (open directly in Perfetto). One sink
+    = one run = one file: the file is truncated at first write so a re-run
+    into the same output path cannot interleave two runs' timelines (every
+    event's `ts` is relative to THIS sink's construction). Within the run
+    events append and flush one by one — the timeline is readable mid-run
+    and survives a crash."""
+
+    def __init__(self, path):
+        self.path = str(path)
+        self._f = None
+        self._t0 = time.perf_counter()
+        self._lock = threading.Lock()
+
+    def write(self, ev):
+        """Append one raw chrome-trace event dict (already carrying its own
+        `ts`/`dur` in trace microseconds), on a clock the caller owns;
+        `add` below converts from this sink's perf_counter baseline."""
+        with self._lock:
+            if self._f is None:
+                self._f = open(self.path, "w")
+                self._f.write("[\n")
+            self._f.write(json.dumps(ev) + ",\n")
+            self._f.flush()     # crash-safe: the timeline is readable mid-run
+
+    def add(self, name, start_s, dur_s, tid=0):
+        """Record one complete event; timestamps are seconds on the
+        `time.perf_counter` clock (converted to trace microseconds).
+        `tid` picks the Perfetto track — per-replica tids keep a serving
+        pool's timelines from collapsing onto one row."""
+        self.write({"name": name, "ph": "X", "pid": os.getpid(), "tid": tid,
+                    "ts": round((start_s - self._t0) * 1e6, 3),
+                    "dur": round(dur_s * 1e6, 3)})
+
+    def add_meta(self, kind, value, tid=0):
+        """Metadata event: kind is "process_name" or "thread_name"; value
+        labels this pid (or `tid`'s track) in the Perfetto UI."""
+        self.write({"name": kind, "ph": "M", "pid": os.getpid(), "tid": tid,
+                    "ts": 0, "args": {"name": str(value)}})
+
+    def close(self):
+        with self._lock:
+            if self._f is not None:
+                try:
+                    self._f.flush()
+                    self._f.close()
+                finally:
+                    self._f = None
+
+
+class Span:
+    """Context manager: nvtx annotation + optional chrome-trace event +
+    optional histogram observation (duration in ms). `tid` selects the
+    chrome-trace track (default 0 — single-engine timelines; the serving
+    stack passes its replica tid so pool timelines stay separated)."""
+
+    __slots__ = ("name", "sink", "histogram", "tid", "_t0", "_nvtx")
+
+    def __init__(self, name, sink=None, histogram=None, tid=0):
+        self.name = name
+        self.sink = sink
+        self.histogram = histogram
+        self.tid = tid
+        self._t0 = 0.0
+        self._nvtx = None
+
+    def __enter__(self):
+        self._nvtx = nvtx.annotate(self.name)
+        self._nvtx.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        dur = time.perf_counter() - self._t0
+        self._nvtx.__exit__(exc_type, exc, tb)
+        self._nvtx = None
+        if self.sink is not None:
+            self.sink.add(self.name, self._t0, dur, tid=self.tid)
+        if self.histogram is not None:
+            self.histogram.observe(dur * 1e3)
+        return False
+
+
+def span(name, sink=None, histogram=None, tid=0):
+    """Open a named span (see `Span`); usable as `with span("admit"): ...`."""
+    return Span(name, sink=sink, histogram=histogram, tid=tid)

@@ -31,6 +31,7 @@ class Timer:
         self.started = False
         self.start_time = 0.0
         self.elapsed_total = 0.0
+        self.last = 0.0          # seconds of the last start/stop interval
         self.count = 0
         self._event = None
 
@@ -51,9 +52,10 @@ class Timer:
             end = torch.cuda.Event(enable_timing=True)
             end.record()
             end.synchronize()
-            self.elapsed_total += self._event.elapsed_time(end) / 1e3
+            self.last = self._event.elapsed_time(end) / 1e3
         else:
-            self.elapsed_total += time.perf_counter() - self.start_time
+            self.last = time.perf_counter() - self.start_time
+        self.elapsed_total += self.last
         self.count += 1
         self.started = False
 

@@ -108,7 +108,8 @@ def test_cuda_wrappers_take_the_plain_version_for_cpu_tensors():
     {"serving": {"enable_prefix_caching": True}},
     {"serving": {"degradation": {"enabled": True}}},
     {"serving": {"audit_interval": 4}},
-    {"telemetry": {"enabled": True}},
+    {"telemetry": {"enabled": True, "tracing": True}},
+    {"telemetry": {"flight_recorder": True}},
     {"tensor_parallel": {"tp_size": 2}},
     {"mp_size": 2},
     {"zero": {"offload_param": {"device": "cpu"}}},
@@ -275,7 +276,7 @@ def test_initialize_refuses_to_train_on_the_cpu_quietly():
     {"optimizer": {"type": "OneBitAdam"}},
     {"optimizer": {"type": "ZeroOneAdam"}},
     {"optimizer": {"type": "OneBitLamb"}},
-    {"telemetry": {"enabled": True}},
+    {"telemetry": {"enabled": True, "memscope": True}},
     {"checkpoint": {"async_save": True}},
     {"fault_tolerance": {"enabled": True}},
     {"curriculum_learning": {"enabled": True}},
@@ -292,9 +293,7 @@ def test_unported_train_features_refuse_at_config_time(override):
         TpuTrainConfig.load({"train_micro_batch_size_per_gpu": 2, **override})
 
 
-@pytest.mark.parametrize("flags", [dict(dropout=0.1), dict(loss_chunks=4),
-                                   dict(remat_policy="save_matmuls"),
-                                   dict(remat_policy="dots_saveable")],
+@pytest.mark.parametrize("flags", [dict(dropout=0.1), dict(loss_chunks=4)],
                          ids=lambda f: str(f))
 def test_unported_model_training_flags_refuse_when_built(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
