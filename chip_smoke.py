@@ -862,6 +862,7 @@ def phase_kernels():
     results.update(_backward_kernels(rng, checks))
     results.update(_quant_kernels(rng, checks))
     _paged_split_kernels(rng, checks, results)
+    _serving_feature_kernels(rng, checks, results)
     _decode_split_kernels(rng, checks, results)
     results.update(_token_sort_kernel(rng, checks))
     results.update(_norm_kernels(rng, checks))
@@ -3242,6 +3243,598 @@ def _evoformer_kernels(rng, checks):
     return results
 
 
+# ----------------------------------------------------------------------
+# the serving features: prefix cache, spec decode, the ladder
+# ----------------------------------------------------------------------
+
+# bench.py's prefix-cache lane (bench.py:821-878): a GQA rotary model (8
+# layers, d_model 1024, 8 heads over 4 kv heads of 128), 16 requests that
+# share a 512-token system prompt with 8-63-token tails and 8-31 new tokens,
+# 8 slots, 128-token blocks and prefill chunks, max_context 1024
+PREFIX_CFG = dict(n_layer=8, n_head=8, n_kv_head=4, d_model=1024,
+                  max_seq_len=1024, vocab_size=50304, use_rotary=True)
+PREFIX_REQUESTS, PREFIX_SLOTS, PREFIX_LEN = 16, 8, 512
+# bench.py's spec-decode lane (bench.py:880-1013): 4 layers, d_model 512, 8
+# heads over 4 kv heads of 64, 8 repetitive prompts (a 4-11-token pattern
+# tiled to 48-127 tokens) with 32-63 new tokens, 4 slots, max_context 512,
+# draft_k 4
+SPEC_CFG = dict(n_layer=4, n_head=8, n_kv_head=4, d_model=512,
+                max_seq_len=1024, vocab_size=50304, use_rotary=True)
+SPEC_REQUESTS, SPEC_SLOTS, SPEC_DRAFT_K = 8, 4, 4
+LANE_ENGINE_CONFIG = {"dtype": "bfloat16", "kv_cache_dtype": "bfloat16",
+                      "greedy": True, "kv_block_size": 128,
+                      "max_out_tokens": 1024, "telemetry": REGISTRY_ONLY}
+# share of positions where the warm wave's tokens equal the cold wave's:
+# the warm wave reads the cold wave's own cached K/V (written by the same
+# chunks), so only the decode batch's other rows differ between the waves
+PREFIX_AGREE_MIN = 0.9
+# share of positions where spec decode's tokens equal the drafter-off
+# run's in bf16 (bench.py:966-977): the verify's gather + bf16 einsum and
+# the decode kernel's fp32 P can flip a near-tied argmax
+SPEC_AGREE_MIN = 0.9
+# fp32 self-draft against drafter-off: a token may differ only where the
+# drafter-off logits' top two lie closer than this (fp32 summation order)
+SPEC_NEAR_TIE = 1e-3
+# the degradation sub-run (tests/test_selfheal.py:595-653's ladder): the
+# trace plus two priority-0 requests, all submitted at once
+SPEC_LADDER = {"enabled": True, "eval_interval": 1, "queue_high": 2,
+               "queue_low": 1, "free_block_low": 0.0,
+               "free_block_high": 0.0, "hold_steps": 2,
+               "shed_below_priority": 1}
+# the kernels at these paths' shapes: the prefix lane's decode over 8 slots
+# of 8 blocks (positions mid-decode past the 512-token prefix), the spec
+# lane's over 4 slots of 4 blocks (a position at a block's last row), and
+# the verify's int8 pool write (5 tokens a row)
+PAGED_PREFIX = dict(B=8, H=8, Hkv=4, hd=128, bs=128, nb=8,
+                    pos=[530, 545, 560, 575, 590, 600, 520, 555])
+PAGED_SPEC = dict(B=4, H=8, Hkv=4, hd=64, bs=128, nb=4,
+                  pos=[60, 127, 150, 185])
+VERIFY_WRITE = dict(B=4, C=5, H=8, Hkv=4, hd=64, g=64, bs=128, nb=4)
+
+
+def _live_cells(tables, pos, n_blocks, bs):
+    """[N, bs] bool: the pool cells some row reads (positions 0..pos of
+    the row, through its table)."""
+    live = np.zeros((n_blocks, bs), bool)
+    for row, p in zip(np.asarray(tables), pos):
+        for t in range(p + 1):
+            live[row[t // bs], t % bs] = True
+    return live
+
+
+def _poisoned(kw, pos):
+    """A copy of a paged call's kwargs with every pool cell past each row's
+    position (K, V, and the int8 pool's scales) set to a large finite
+    value: 1e4, 127 in the int8 payload."""
+    import torch
+    tables = kw["block_tables"].cpu().numpy()
+    n_blocks, _, bs, _ = kw["k_pool"].shape
+    dead = torch.from_numpy(~_live_cells(tables, pos, n_blocks, bs)).to(
+        kw["k_pool"].device)[:, None, :, None]
+    out = dict(kw)
+    for name in ("k_pool", "v_pool", "k_scale", "v_scale"):
+        if name in kw:
+            t = kw[name]
+            big = 127 if t.dtype == torch.int8 else 1e4
+            out[name] = torch.where(dead, torch.full_like(t, big), t)
+    return out
+
+
+def _stale_kv_kernels(rng, checks):
+    """Rows 5 and 6 read nothing past a row's position: the kernel's output
+    with every cell past it poisoned is bit-equal to the unpoisoned call's,
+    at the serve, prefix-cache and spec-decode shapes (bf16, fp32 and the
+    int8 pool; rows at block edges and on the trash block)."""
+    import torch
+    for case in (PAGED_SERVE, dict(PAGED_SERVE, g=64), PAGED_PREFIX,
+                 PAGED_SPEC, dict(PAGED_SPEC, dtype="float32"),
+                 dict(PAGED_SPEC, g=64),
+                 dict(PAGED_SPEC, bs=16, nb=32, pos=[15, 16, 300, 511])):
+        name, fn, _ = _paged_fns(case)
+        kw, _ = _paged_args(rng, case)
+        out = fn(**kw)
+        bad = fn(**_poisoned(kw, case["pos"]))
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, bad))
+        checks.append({"kernel": name, "case": "poisoned_past_pos",
+                       "shape": {k: v for k, v in case.items()},
+                       "bit_equal": equal, "ok": equal})
+        if not equal:
+            raise AssertionError(f"{name} {case}: cells past pos change the "
+                                 f"output (max |diff| "
+                                 f"{(out.float() - bad.float()).abs().max()})")
+
+
+def _verify_write_case(rng, dtype):
+    """The verify's pool write: 5 tokens a row at positions 126-130 of
+    128-token blocks (across a block edge, offsets 126, 127 then 0-2),
+    rows 0-2 with their own written blocks and two read-only blocks (11,
+    12) shared in their tables, row 3 inactive (all trash, positions 0-4);
+    k / v views of a qkv projection. Returns (k, v, tables, positions, pool,
+    written cells [N, bs])."""
+    import torch
+    c = VERIFY_WRITE
+    B, C, H, Hkv, hd, g, bs = (c[n] for n in ("B", "C", "H", "Hkv", "hd",
+                                              "g", "bs"))
+    tables = np.array([[1, 2, 11, 12], [3, 4, 11, 12], [5, 6, 11, 12],
+                       [0, 0, 0, 0]], np.int32)
+    pos = np.array([np.arange(126, 131)] * 3 + [np.arange(5)], np.int64)
+    n_blocks = 13
+    written = np.zeros((n_blocks, bs), bool)
+    for row, ps in zip(tables[:3], pos[:3]):
+        for p in ps:
+            written[row[p // bs], p % bs] = True
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B, C, (H + 2 * Hkv) * hd)).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+    _, k, v = qkv.split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
+    if dtype == "int8":
+        pool = {}
+        for name in ("k", "v"):
+            pool[name] = torch.from_numpy(rng.integers(
+                -127, 128, (n_blocks, Hkv, bs, hd)).astype(np.int8)).cuda()
+            pool[name + "_scale"] = torch.from_numpy(rng.random(
+                (n_blocks, Hkv, bs, hd // g)).astype(np.float32)).cuda()
+    else:
+        pool = {n: torch.from_numpy(rng.standard_normal(
+            (n_blocks, Hkv, bs, hd)).astype(np.float32)).to(
+                "cuda", torch.bfloat16) for n in ("k", "v")}
+    return (k.reshape(B, C, Hkv, hd), v.reshape(B, C, Hkv, hd),
+            torch.tensor(tables, device="cuda"),
+            torch.tensor(pos, device="cuda"), pool, written)
+
+
+def _verify_write_kernels(rng, checks):
+    """The int8 pool write (row 7, one launch) and the bf16 pool's index
+    write, each through the path's `paged_kv_write`, at the verify's shape:
+    bit-exact against the plain version (the int8 pool: quantize_reference
+    and the index writes; bf16: one token at a time), and no byte changed
+    outside the written (block, offset) cells but in the trash block."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import paged_kv_write
+    from deepspeed_tpu_torch.ops import quant
+    for dtype in ("int8", "bfloat16"):
+        k, v, tables, pos, pool, written = _verify_write_case(rng, dtype)
+        got = {n: t.clone() for n, t in pool.items()}
+        ref = {n: t.clone() for n, t in pool.items()}
+        paged_kv_write(got, k, v, tables, pos)
+        if dtype == "int8":
+            quant.quantize_kv_write_reference(
+                k, v, tables, pos, *(ref[n] for n in _POOL_NAMES))
+        else:
+            bs = pool["k"].shape[2]
+            for b in range(pos.shape[0]):
+                for c in range(pos.shape[1]):
+                    p = int(pos[b, c])
+                    blk = int(tables[b, p // bs])
+                    ref["k"][blk, :, p % bs] = k[b, c]
+                    ref["v"][blk, :, p % bs] = v[b, c]
+        torch.cuda.synchronize()
+        keep = torch.from_numpy(~written).cuda()[1:, None, :, None]
+        exact, untouched = {}, {}
+        for n in got:
+            exact[n] = bool(torch.equal(got[n][1:], ref[n][1:]))
+            same = (got[n][1:] == pool[n][1:]) | ~keep
+            untouched[n] = bool(same.all())
+        ok = all(exact.values()) and all(untouched.values())
+        checks.append({"kernel": "quantize_int8" if dtype == "int8"
+                       else "bf16_pool_write", "case": "verify_write",
+                       "shape": dict(VERIFY_WRITE, dtype=dtype),
+                       "positions": [126, 130], "shared_blocks": [11, 12],
+                       "bit_exact": exact, "untouched_outside": untouched,
+                       "ok": ok})
+        if not ok:
+            raise AssertionError(f"verify pool write ({dtype}): bit-exact "
+                                 f"{exact}, untouched {untouched}")
+
+
+def _feature_rows(rng, checks, results):
+    """The kernels line's rows of the prefix-cache and spec-decode paths,
+    each at its path's shape: rows 5 and 6 (checked, eager and plain times,
+    device time with inputs rotated past L2), row 7 (the verify's int8
+    write) and row 10 (the verify's dequantizing gather)."""
+    import torch
+    from deepspeed_tpu_torch.ops import quant
+    rows = {}
+    for case, paths in (
+            (PAGED_PREFIX, ("prefix_cache",)),
+            (PAGED_SPEC, ("spec_off", "spec_ladder")),
+            (dict(PAGED_SPEC, dtype="float32"),
+             ("spec_off_fp32", "spec_model_fp32")),
+            (dict(PAGED_SPEC, g=64), ("spec_off_int8", "spec_model_int8"))):
+        name, fn, plain = _paged_fns(case)
+        kw, pkw = _paged_args(rng, case)
+        out, ref = fn(**kw), plain(**pkw)
+        torch.cuda.synchronize()
+        err = _paged_check(checks, name, paths[0], out, ref)
+        b_ms, b_by = _paged_bound(case)
+        row = dict(shape={k: v for k, v in case.items() if k != "pos"},
+                   max_abs_err=err, ms=median_ms(lambda: fn(**kw)),
+                   plain_ms=median_ms(lambda: plain(**pkw)),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        row.update(_paged_timed(rng, case, reps=5))
+        for path in paths:
+            rows[name, path] = row
+    # row 7 at the verify's write (5 tokens a row)
+    k, v, tables, pos, pool = _kv_write_args(rng, VERIFY_WRITE)
+    got = {n: t.clone() for n, t in pool.items()}
+    ref = {n: t.clone() for n, t in pool.items()}
+    quant.quantize_kv_write(k, v, tables, pos, *(got[n] for n in _POOL_NAMES))
+    quant.quantize_kv_write_reference(k, v, tables, pos,
+                                      *(ref[n] for n in _POOL_NAMES))
+    torch.cuda.synchronize()
+    _kv_write_check(checks, dict(VERIFY_WRITE), got, ref)
+    b_ms, b_by = _kv_write_bound(VERIFY_WRITE)
+    write = dict(
+        shape=dict(VERIFY_WRITE), max_abs_err=0.0,
+        ms=median_ms(lambda: quant.quantize_kv_write(
+            k, v, tables, pos, *(got[n] for n in _POOL_NAMES))),
+        plain_ms=median_ms(lambda: quant.quantize_kv_write_reference(
+            k, v, tables, pos, *(ref[n] for n in _POOL_NAMES))),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # row 10 at the verify's dequantizing gather: a [4, 4, 512, 64] int8
+    # K (or V) with one scale a 64-group, into bf16
+    B, Hkv, S, hd, g = 4, 4, 4 * 128, 64, 64
+    q8 = torch.from_numpy(rng.integers(-127, 128, (B, Hkv, S, hd)).astype(
+        np.int8)).cuda()
+    sc = torch.from_numpy(rng.random((B, Hkv, S, hd // g)).astype(
+        np.float32)).cuda()
+    dk = quant.dequantize_int8(q8, sc, torch.bfloat16, g)
+    dr = quant.dequantize_reference(q8, sc, torch.bfloat16, g, 8)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(dk, dr))
+    checks.append({"kernel": "dequantize_int8", "case": "verify_gather",
+                   "shape": [B, Hkv, S, hd], "group": g, "bit_exact": exact,
+                   "ok": exact})
+    if not exact:
+        raise AssertionError("dequantize_int8 at the verify's gather: "
+                             "kernel != plain version")
+    n = B * Hkv * S * hd
+    b_ms, b_by = bound(n + n // g * 4 + 2 * n, n, FP32_FLOPS)
+    gather = dict(
+        shape=[B, Hkv, S, hd], group=g, max_abs_err=0.0,
+        ms=median_ms(lambda: quant.dequantize_int8(q8, sc, torch.bfloat16,
+                                                   g)),
+        plain_ms=median_ms(lambda: quant.dequantize_reference(
+            q8, sc, torch.bfloat16, g, 8)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    for path in ("spec_off_int8", "spec_model_int8"):
+        rows["quantize_int8", path] = write
+        rows["dequantize_int8", path] = gather
+    results.update(rows)
+
+
+def _serving_feature_kernels(rng, checks, results):
+    import torch
+    _stale_kv_kernels(rng, checks)
+    _verify_write_kernels(rng, checks)
+    _feature_rows(rng, checks, results)
+    torch.cuda.empty_cache()
+
+
+def _lane_engine(cfg_kw, name, dtype=None):
+    """init_inference over a GPTConfig of `cfg_kw` with random weights from
+    numpy seed 0 (bf16 unless `dtype`): (cfg, spec, engine)."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.gpt import GPTConfig, \
+        make_gpt_decode_model
+    cfg = GPTConfig(**cfg_kw, dtype=dtype or torch.bfloat16)
+    spec = make_gpt_decode_model(cfg, name=name, seed=0)
+    config = dict(LANE_ENGINE_CONFIG)
+    if dtype is not None:
+        config.update(dtype="float32", kv_cache_dtype="float32")
+    return cfg, spec, init_inference(spec, config=config)
+
+
+def _timed_run(serving, reqs):
+    """Run a trace, timed: (results, seconds, launches)."""
+    import torch
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = serving.run(reqs)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(LAUNCHES)
+
+
+def _completed(path, res, reqs):
+    if sorted(res, key=str) != sorted((r.uid for r in reqs), key=str) or any(
+            len(res[r.uid].tokens) != r.max_new_tokens
+            or res[r.uid].finish_reason != "length" for r in reqs):
+        raise AssertionError(f"{path}: not every request completed with "
+                             f"its budget")
+
+
+def _agreement(a, b, uids):
+    """Share of positions whose tokens are equal (bench.py:966-977)."""
+    matched = total = 0
+    for uid in uids:
+        x, y = a[uid].tokens, b[uid].tokens
+        total += len(x)
+        matched += int((x[:len(y)] == y[:len(x)]).sum())
+    return matched / max(1, total)
+
+
+def _clean_close(path, serving):
+    """close()'s final audit must be clean, and so every scheduled one."""
+    report = serving.close()
+    audit = serving.stats().get("audit", {})
+    if not report.ok or audit.get("violations"):
+        raise AssertionError(f"{path}: pool audit {report.summary()} "
+                             f"({audit})")
+    return report.summary()
+
+
+def phase_prefix_cache(state):
+    """bench.py's prefix-cache lane through the port's ServingEngine: a cold
+    wave then a warm wave of the same 16 requests on one cache-enabled
+    engine (after a warm-up request on a separate engine)."""
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    t0 = time.perf_counter()
+    cfg, spec, engine = _lane_engine(PREFIX_CFG, "prefix-cache-lane")
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, (PREFIX_LEN,)).astype(np.int32)
+    tails = [rng.integers(0, cfg.vocab_size, (int(t),)).astype(np.int32)
+             for t in rng.integers(8, 64, PREFIX_REQUESTS)]
+    news = [int(n) for n in rng.integers(8, 32, PREFIX_REQUESTS)]
+    kw = dict(max_slots=PREFIX_SLOTS, max_context=1024, prefill_chunk=128,
+              enable_prefix_caching=True)
+    warm_up = np.random.default_rng(1).integers(0, cfg.vocab_size, (300,))
+    engine.serving(**kw).run([Request(uid="warm-up", tokens=warm_up,
+                                      max_new_tokens=4, stop_on_eos=False)])
+    serving = engine.serving(**kw)
+    L = cfg.n_layer
+    waves, outs, counts = {}, {}, {}
+    for wave, base in (("cold", 0), ("warm", 10_000)):
+        reqs = [Request(uid=base + i, tokens=np.concatenate([prefix, t]),
+                        max_new_tokens=n, stop_on_eos=False)
+                for i, (t, n) in enumerate(zip(tails, news))]
+        serving.telemetry.registry.clear()
+        st0 = serving.stats()
+        res, dt, launches = _timed_run(serving, reqs)
+        st1 = serving.stats()
+        _completed(f"prefix_cache {wave}", res, reqs)
+        steps = st1["decode_steps"] - st0["decode_steps"]
+        _expect(f"prefix_cache {wave}", launches,
+                {"paged_decode_attention": L * steps})
+        for name, n in launches.items():
+            counts[name] = counts.get(name, 0) + n
+        pc0, pc1 = st0["prefix_cache"], st1["prefix_cache"]
+        toks = sum(len(r.tokens) for r in res.values())
+        waves[wave] = dict(
+            seconds=dt, tokens_per_s=toks / dt,
+            prefill_chunks=st1["prefill_chunks"] - st0["prefill_chunks"],
+            decode_steps=steps,
+            hit_tokens=pc1["hit_tokens"] - pc0["hit_tokens"],
+            prefill_chunks_skipped=pc1["prefill_chunks_skipped"]
+            - pc0["prefill_chunks_skipped"],
+            evictions=pc1["evictions"] - pc0["evictions"],
+            latency=_latency(f"prefix_cache {wave}", serving, reqs))
+        outs[wave] = {uid - base: r for uid, r in res.items()}
+    cold, warm = waves["cold"], waves["warm"]
+    if not warm["prefill_chunks"] < cold["prefill_chunks"]:
+        raise AssertionError(f"prefix_cache: warm wave ran "
+                             f"{warm['prefill_chunks']} prefill chunks, cold "
+                             f"{cold['prefill_chunks']}")
+    agree = _agreement(outs["cold"], outs["warm"], range(PREFIX_REQUESTS))
+    if not agree >= PREFIX_AGREE_MIN:
+        raise AssertionError(f"prefix_cache: warm tokens equal cold on "
+                             f"{agree:.3f} < {PREFIX_AGREE_MIN}")
+    if serving.allocator.available != serving.allocator.capacity:
+        raise AssertionError("prefix_cache: blocks leaked after draining")
+    audit = _clean_close("prefix_cache", serving)
+    emit({"phase": "prefix_cache", "model": PREFIX_CFG, "dtype": "bfloat16",
+          "source": "bench.py:821-878", "requests_a_wave": PREFIX_REQUESTS,
+          "slots": PREFIX_SLOTS, "shared_prefix_tokens": PREFIX_LEN,
+          "tail_lens": [len(t) for t in tails], "max_new_tokens": news,
+          "setup_s": setup_s, "cold": cold, "warm": warm,
+          "warm_over_cold_tokens_per_s": warm["tokens_per_s"]
+          / cold["tokens_per_s"],
+          "warm_tokens_equal_cold": agree, "launches": counts,
+          "audit": audit, "stats": serving.stats()})
+    return counts
+
+
+def _top2_gap(serving, prompt):
+    """The fp32 engine's logits after `prompt` (prefill through a fresh
+    pool, as the scheduler chunks it): the gap between its two largest."""
+    logits, _, _ = _paged_logits(serving, prompt)
+    top = logits.topk(2).values
+    return float(top[0] - top[1]), int(logits.argmax())
+
+
+def _spec_mode(engine, path, reqs, **over):
+    """One timed run of the spec lane's trace through a fresh serving
+    engine: (serving, results, seconds, launches, stats, latency, audit)."""
+    serving = engine.serving(max_slots=SPEC_SLOTS, max_context=512,
+                             prefill_chunk=128, **over)
+    res, dt, launches = _timed_run(serving, reqs)
+    _completed(path, res, reqs)
+    latency = _latency(path, serving, reqs)
+    audit = _clean_close(path, serving)
+    st = serving.stats()
+    toks = sum(len(r.tokens) for r in res.values())
+    summary = dict(seconds=dt, tokens_per_s=toks / dt,
+                   decode_steps=st["decode_steps"],
+                   prefill_chunks=st["prefill_chunks"], latency=latency,
+                   audit=audit, launches=launches)
+    if "spec_decode" in st:
+        summary["spec_decode"] = st["spec_decode"]
+    return serving, res, launches, st, summary
+
+
+def phase_spec_decode(state):
+    """bench.py's spec-decode lane through the port's ServingEngine: (a)
+    drafter off against ngram; (b) the target drafting for itself in fp32,
+    token for token; (c) (b) over the int8 pool in bf16; (d) ngram with the
+    degradation ladder under queue pressure."""
+    import dataclasses
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    from deepspeed_tpu_torch.models.gpt import make_gpt_decode_model
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    t0 = time.perf_counter()
+    cfg, spec, engine = _lane_engine(SPEC_CFG, "spec-decode-lane")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    spec32 = make_gpt_decode_model(cfg32, name="spec-decode-lane",
+                                   params=spec.params)
+    engine32 = init_inference(spec32, config=dict(
+        LANE_ENGINE_CONFIG, dtype="float32", kv_cache_dtype="float32"))
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts, news = [], []
+    for _ in range(SPEC_REQUESTS):
+        pat = rng.integers(0, cfg.vocab_size, (int(rng.integers(4, 12)),))
+        reps = -(-int(rng.integers(48, 128)) // len(pat))
+        prompts.append(np.tile(pat, reps).astype(np.int32))
+        news.append(int(rng.integers(32, 64)))
+    mk = lambda priority=0: [Request(uid=i, tokens=p, max_new_tokens=n,
+                                     stop_on_eos=False, priority=priority)
+                             for i, (p, n) in enumerate(zip(prompts, news))]
+    ngram = {"drafter": "ngram", "draft_k": SPEC_DRAFT_K}
+    model = {"drafter": "model", "draft_k": SPEC_DRAFT_K}
+    int8 = {"kv_cache_dtype": "int8"}
+    L, k, uids = cfg.n_layer, SPEC_DRAFT_K, range(SPEC_REQUESTS)
+    warm = [Request(uid="warm-up", tokens=prompts[0], max_new_tokens=8,
+                    stop_on_eos=False)]
+    for e in (engine, engine32):
+        e.serving(max_slots=SPEC_SLOTS, max_context=512, prefill_chunk=128,
+                  spec_decode=ngram).run(warm)
+    runs, counts = {}, {}
+
+    # (a) drafter off against prompt lookup
+    _, off, c, st, runs["spec_off"] = _spec_mode(engine, "spec_off", mk())
+    _expect("spec_off", c, {"paged_decode_attention":
+                            L * st["decode_steps"]})
+    counts["spec_off"] = c
+    _, ng, c, st, runs["spec_ngram"] = _spec_mode(engine, "spec_ngram", mk(),
+                                                  spec_decode=ngram)
+    _expect("spec_ngram", c, {})       # prefill and verify: the gather
+    counts["spec_ngram"] = c
+    parity_a = _agreement(off, ng, uids)
+    if not parity_a > SPEC_AGREE_MIN:
+        raise AssertionError(f"spec_ngram: greedy parity {parity_a:.3f} <= "
+                             f"{SPEC_AGREE_MIN}")
+
+    # (b) fp32, the target as its own draft model: token for token
+    s32, off32, c, st, runs["spec_off_fp32"] = _spec_mode(
+        engine32, "spec_off_fp32", mk())
+    _expect("spec_off_fp32", c, {"paged_decode_attention":
+                                 L * st["decode_steps"]})
+    counts["spec_off_fp32"] = c
+    _, self32, c, st, runs["spec_model_fp32"] = _spec_mode(
+        engine32, "spec_model_fp32", mk(), spec_decode=model,
+        draft_spec=spec32)
+    verify = st["spec_decode"]["verify_steps"]
+    _expect("spec_model_fp32", c, {"paged_decode_attention": k * L * verify})
+    counts["spec_model_fp32"] = c
+    mismatches = []
+    for i in uids:
+        a, b = off32[i].tokens, self32[i].tokens
+        diff = np.nonzero(a != b)[0]
+        if diff.size:
+            j = int(diff[0])
+            gap, top = _top2_gap(engine32.serving(
+                max_slots=1, max_context=512, prefill_chunk=128),
+                np.concatenate([prompts[i], a[:j]]).astype(np.int64))
+            mismatches.append({"request": i, "position": j,
+                               "off": int(a[j]), "self_draft": int(b[j]),
+                               "top2_gap": gap, "argmax": top})
+    print(json.dumps({"spec_model_fp32_mismatches": mismatches}), flush=True)
+    far = [m for m in mismatches if not m["top2_gap"] < SPEC_NEAR_TIE]
+    if far:
+        raise AssertionError(f"spec_model_fp32: tokens differ from drafter-"
+                             f"off past the near-tie rule: {far}")
+
+    # (c) (b) over the int8 pool, bf16
+    _, offq, c, st, runs["spec_off_int8"] = _spec_mode(
+        engine, "spec_off_int8", mk(), quantization=int8)
+    P, D = st["prefill_chunks"], st["decode_steps"]
+    _expect("spec_off_int8", c, {"paged_decode_attention_quant": L * D,
+                                 "quantize_int8": L * (P + D),
+                                 "dequantize_int8": 2 * L * P})
+    counts["spec_off_int8"] = c
+    _, selfq, c, st, runs["spec_model_int8"] = _spec_mode(
+        engine, "spec_model_int8", mk(), spec_decode=model, draft_spec=spec,
+        quantization=int8)
+    P, V = st["prefill_chunks"], st["spec_decode"]["verify_steps"]
+    # target and draft mirror: a write and a dequantizing gather (K and V)
+    # a layer of every prefill chunk; the verify a write and a gather; each
+    # of the k draft steps a write and the int8 paged decode
+    _expect("spec_model_int8", c, {
+        "paged_decode_attention_quant": k * L * V,
+        "quantize_int8": L * (2 * P + V + k * V),
+        "dequantize_int8": 2 * L * (2 * P + V)})
+    counts["spec_model_int8"] = c
+    parity_c = _agreement(offq, selfq, uids)
+    if not parity_c > SPEC_AGREE_MIN:
+        raise AssertionError(f"spec_model_int8: parity {parity_c:.3f} <= "
+                             f"{SPEC_AGREE_MIN}")
+
+    # (d) ngram with the degradation ladder under queue pressure
+    serving = engine.serving(max_slots=SPEC_SLOTS, max_context=512,
+                             prefill_chunk=128, spec_decode=ngram,
+                             degradation=SPEC_LADDER)
+    reqs = mk(priority=1) + [Request(uid=f"low{j}", tokens=prompts[j],
+                                     max_new_tokens=news[j],
+                                     stop_on_eos=False, priority=0)
+                             for j in range(2)]
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        serving.submit(r)
+    done, levels = {}, []
+    while serving.num_active or serving.queue_depth:
+        for d in serving.step():
+            done[d.uid] = d
+        levels.append(serving.pressure.level)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c = dict(LAUNCHES)
+    st = serving.stats()
+    fallback = st["decode_steps"] - st["spec_decode"]["verify_steps"]
+    _expect("spec_ladder", c, {"paged_decode_attention": L * fallback})
+    counts["spec_ladder"] = c
+    peak = levels.index(max(levels))
+    shed = sorted(u for u, d in done.items()
+                  if d.finish_reason == "cancelled")
+    if not (max(levels) >= 2 and fallback > 0 and levels[-1] == 0
+            and all(a >= b for a, b in zip(levels[peak:],
+                                           levels[peak + 1:]))):
+        raise AssertionError(f"spec_ladder: levels {levels}")
+    if shed != ["low0", "low1"]:
+        raise AssertionError(f"spec_ladder: shed {shed}, want the two "
+                             f"priority-0 requests")
+    _completed("spec_ladder", {u: done[u] for u in uids}, mk())
+    parity_d = _agreement(off, done, uids)
+    if not parity_d > SPEC_AGREE_MIN:
+        raise AssertionError(f"spec_ladder: parity {parity_d:.3f} <= "
+                             f"{SPEC_AGREE_MIN}")
+    runs["spec_ladder"] = dict(
+        seconds=dt, levels=levels, peak_level=max(levels),
+        fallback_decode_steps=fallback, shed=shed,
+        degradation=st["degradation"], spec_decode=st["spec_decode"],
+        latency=serving.latency_snapshot(),
+        audit=_clean_close("spec_ladder", serving), launches=c)
+    emit({"phase": "spec_decode", "model": SPEC_CFG,
+          "source": "bench.py:880-1013", "requests": SPEC_REQUESTS,
+          "slots": SPEC_SLOTS, "draft_k": k,
+          "prompt_lens": [len(p) for p in prompts], "max_new_tokens": news,
+          "setup_s": setup_s, "runs": runs,
+          "ngram_over_off_tokens_per_s": runs["spec_ngram"]["tokens_per_s"]
+          / runs["spec_off"]["tokens_per_s"],
+          "parity": {"ngram_vs_off": parity_a,
+                     "model_int8_vs_off_int8": parity_c,
+                     "ladder_vs_off": parity_d},
+          "fp32_self_draft_mismatches": mismatches})
+    return counts
+
+
 def phase_norms(state):
     """The public norm ops as a user calls them, at [4096, 768] bf16 with
     bf16 scale and bias (LayerNorm after a residual add, RMSNorm without):
@@ -4893,8 +5486,9 @@ def main():
               file=sys.stderr)
         return 2
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else \
-        ["build", "kernels", "norms", "generate", "serve", "quant", "train",
-         "north_star", "moe", "sparse", "evoformer"]
+        ["build", "kernels", "norms", "generate", "serve", "quant",
+         "prefix_cache", "spec_decode", "train", "north_star", "moe",
+         "sparse", "evoformer"]
     dev = phase_device()
     state, launches, kern = {}, {}, {}
     if "build" in phases:
@@ -4903,7 +5497,10 @@ def main():
         kern = phase_kernels()
     for phase, run in (("norms", phase_norms),
                        ("generate", phase_generate), ("serve", phase_serve),
-                       ("quant", phase_quant), ("train", phase_train),
+                       ("quant", phase_quant),
+                       ("prefix_cache", phase_prefix_cache),
+                       ("spec_decode", phase_spec_decode),
+                       ("train", phase_train),
                        ("north_star", phase_north_star),
                        ("moe", phase_moe), ("sparse", phase_sparse),
                        ("evoformer", phase_evoformer)):
@@ -4911,8 +5508,8 @@ def main():
             counts = run(state)        # counts of each path's run; the
             # quant, moe, sparse and evoformer phases run several paths
             # each and return {path: counts}
-            launches.update(counts if phase in ("quant", "moe", "sparse",
-                                                "evoformer")
+            launches.update(counts if phase in ("quant", "spec_decode",
+                                                "moe", "sparse", "evoformer")
                             else {phase: counts})
     if "profile" in phases:
         phase_profile(state)

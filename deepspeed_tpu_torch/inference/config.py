@@ -39,15 +39,16 @@ class TensorParallelConfig(ConfigModel):
 
 @dataclass
 class SpecDecodeConfig(ConfigModel):
-    drafter: str = "off"          # "off" | "ngram" | "model"
-    draft_k: int = 4
-    ngram_max: int = 4
-    ngram_min: int = 1
-
-    def __post_init__(self):
-        if str(self.drafter or "off") != "off":
-            _not_ported(f"speculative decoding (spec_decode.drafter="
-                        f"{self.drafter!r})")
+    """Speculative decoding (`inference/spec_decode.py`): a drafter
+    proposes `draft_k` tokens a slot, one verify call scores them for every
+    slot, and the longest agreeing prefix plus one bonus token is emitted.
+    Greedy output is token-identical to the decode step's."""
+    drafter: str = "off"          # "off" | "ngram" (prompt lookup) |
+                                  # "model" (a draft DecodeModelSpec passed
+                                  # to `engine.serving(draft_spec=...)`)
+    draft_k: int = 4              # drafts proposed and verified a step
+    ngram_max: int = 4            # longest / shortest suffix n-gram the
+    ngram_min: int = 1            # prompt-lookup drafter tries
 
 
 @dataclass
@@ -62,11 +63,35 @@ class ServingQuantizationConfig(ConfigModel):
 
 @dataclass
 class DegradationConfig(ConfigModel):
+    """The graceful-degradation ladder (`serving/degradation.py`): every
+    `eval_interval` syncs a `PressureController` reads the free-block
+    fraction, the queue depth and (with telemetry) TTFT p99, and walks one
+    rung a pressured evaluation — 1 cap the accepted draft to 1, 2 disable
+    spec decode, 3 force the 1-step decode window, 4 flush the reclaimable
+    prefix-cache blocks, 5 shed queued requests below
+    `shed_below_priority` — and one rung down after `hold_steps`
+    consecutive calm evaluations. Disabled, no controller is built."""
     enabled: bool = False
+    eval_interval: int = 4        # scheduler syncs between evaluations
+    free_block_low: float = 0.10  # available/capacity below this: pressure
+    free_block_high: float = 0.30 # ... at/above this: calm
+    queue_high: int = 16          # queue depth over this: pressure
+    queue_low: int = 2            # ... at/below this: calm
+    ttft_p99_ms: float = 0.0      # TTFT p99 over this: pressure (0 = off;
+                                  # needs telemetry for the histogram)
+    hold_steps: int = 3           # consecutive calm evals a rung down
+    shed_below_priority: int = 0  # level 5 sheds queued requests with
+                                  # Request.priority strictly below this
+    headroom_low: float = 0.0     # the HBM-headroom signal: > 0 refused
+    headroom_high: float = 0.0
 
     def __post_init__(self):
-        if self.enabled:
-            _not_ported("serving.degradation (the pressure ladder)")
+        if float(self.headroom_low or 0) > 0:
+            # the signal reads the memscope ledger (queue 1 item 10), which
+            # the port does not have yet
+            _not_ported("serving.degradation.headroom_low > 0 (the HBM "
+                        "headroom signal reads telemetry/memscope.py's "
+                        "ledger, queue 1 item 10)")
 
 
 @dataclass
@@ -80,12 +105,22 @@ class ServingConfig(ConfigModel):
     prefill_chunk: int = 0        # chunked-prefill width; 0 = kv_block_size
     prefill_chunks_per_step: int = 1
     decode_steps_per_sync: int = 1  # decode window: tokens per host sync
-    enable_prefix_caching: bool = False
+    enable_prefix_caching: bool = False  # automatic prefix caching
+                                  # (inference/prefix_cache.py)
     spec_decode: SpecDecodeConfig = field(default_factory=SpecDecodeConfig)
-    audit_interval: int = 0
+                                  # replaces the decode window when on
+    audit_interval: int = 0       # run the pool auditor (inference/
+                                  # audit.py) every N syncs; 0 = on demand
+                                  # and at close() only
+    audit_action: str = "repair"  # on a failed audit: "repair" rebuilds
+                                  # the bookkeeping from the slot tables;
+                                  # "raise" raises PoolCorruptionError
     degradation: DegradationConfig = field(default_factory=DegradationConfig)
     quantization: ServingQuantizationConfig = field(
         default_factory=ServingQuantizationConfig)
+    prefix_cache_policy: str = "lru"  # a cached block's last reader
+                                  # retires: "lru" parks it on the
+                                  # reclaimable list, "none" frees it
 
     def __post_init__(self):
         # `engine.serving(spec_decode={...})`-style overrides arrive as dicts
@@ -93,10 +128,6 @@ class ServingConfig(ConfigModel):
         self.degradation = _as_block(self.degradation, DegradationConfig)
         self.quantization = _as_block(self.quantization,
                                       ServingQuantizationConfig)
-        if self.enable_prefix_caching:
-            _not_ported("serving.enable_prefix_caching")
-        if int(self.audit_interval or 0):
-            _not_ported("serving.audit_interval (the pool auditor)")
 
 
 @dataclass

@@ -5,7 +5,9 @@ A model for inference is a `DecodeModelSpec`:
   * `decode_fn(params, token, pos, cache) -> (logits, cache)`
   * `init_cache(batch, max_len, dtype, device)` -> KV cache
 plus, for the continuous-batching server, the paged contract
-(`prefill_paged_fn`, `decode_paged_fn`, `init_paged_pool`).
+(`prefill_paged_fn`, `decode_paged_fn`, `init_paged_pool`, and for
+speculative decoding `verify_paged_fn`) and the prefix cache's
+`cache_fingerprint`.
 `models.gpt.make_gpt_decode_model` provides all of them.
 
 The engine runs on `cuda` unless the caller passes `device="cpu"`; with no
@@ -88,15 +90,31 @@ class DecodeModelSpec:
     #                    pool, block_tables[B,nb]) -> (logits[B,V], pool)
     #   decode_paged_fn(params, token[B], pos[B], pool, block_tables[B,nb])
     #       -> (logits[B,V], pool)
+    #   verify_paged_fn(params, tokens[B,C], pos[B], pool, block_tables)
+    #       -> (logits[B,C,V], pool): the spec-decode verify, every
+    #       position's logits
     #   init_paged_pool(num_blocks, block_size, dtype, kv_group_size=0,
     #                   device=...) -> pool; dtype int8 selects the
     #       quantized pool (k/v int8 plus k_scale/v_scale f32
     #       [L, N, Hkv, block, hd // g], g = kv_group_size or head_dim)
     prefill_paged_fn: Optional[Callable] = None
     decode_paged_fn: Optional[Callable] = None
+    verify_paged_fn: Optional[Callable] = None
     init_paged_pool: Optional[Callable] = None
+    # prefix-cache identity: seeds the hash chain so two architectures
+    # never serve each other's cached blocks (None: the spec's name)
+    cache_fingerprint: Optional[str] = None
     dtype: Any = None          # activation dtype the functions compute in
     max_positions: Optional[int] = None  # learned-position table size
+
+
+def params_to(tree, device, dtype):
+    """A parameter tree on `device`, its float leaves in `dtype`, cast leaf
+    by leaf as they move: the card never holds the fp32 tree beside its
+    cast copy."""
+    return tree_map(lambda t: t.to(device, dtype)
+                    if isinstance(t, torch.Tensor) and t.is_floating_point()
+                    else t.to(device), tree)
 
 
 class InferenceEngine:
@@ -118,12 +136,7 @@ class InferenceEngine:
             raise ValueError(
                 f"model '{model.name}' computes in {model.dtype} but the "
                 f"engine dtype is {config.dtype}: make them match")
-        # leaf by leaf, cast as it moves: the card never holds the fp32
-        # tree beside its cast copy
-        self.params = tree_map(
-            lambda t: t.to(self.device, self.dtype)
-            if isinstance(t, torch.Tensor) and t.is_floating_point()
-            else t.to(self.device), model.params)
+        self.params = params_to(model.params, self.device, self.dtype)
         self.quant_stats = None
         self._weight_quant = None         # (bits, group_size) once quantized
         if config.quant.enabled:
@@ -295,12 +308,14 @@ class InferenceEngine:
             pos, done = pos + 1, new_done
         return out.cpu().numpy()
 
-    def serving(self, **overrides):
+    def serving(self, draft_spec=None, **overrides):
         """Continuous-batching serving engine over this engine's params:
         persistent paged KV pool + request scheduler (inference/
-        scheduler.py). `overrides` patch `config.serving` fields."""
+        scheduler.py). `overrides` patch `config.serving` fields (pass a
+        dict for a nested block such as `spec_decode`); `draft_spec` is
+        the draft model of `spec_decode={"drafter": "model"}`."""
         from deepspeed_tpu_torch.inference.scheduler import ServingEngine
-        return ServingEngine(self, **overrides)
+        return ServingEngine(self, draft_spec=draft_spec, **overrides)
 
 
 def init_inference(model=None, config=None, device=None, **kwargs):

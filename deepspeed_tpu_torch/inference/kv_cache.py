@@ -12,11 +12,17 @@ Block 0 is RESERVED as the trash block: inactive slots point every table
 entry at it, so the fixed-shape decode step runs over all slots — dead
 slots' writes land there and their reads produce output nobody looks at.
 
-The allocator is host-side plain Python. Prefix caching (and with it the
-JAX allocator's reclaimable LRU list) is not ported yet; the reference
-counts are, so a shared block frees only when its last reader lets go.
+The allocator is host-side plain Python. Prefix caching
+(`inference/prefix_cache.py`) layers on its reference counts: a block
+shared by several sequences frees only when its last reader retires, and a
+refcount-0 block whose content is still registered parks on a reclaimable
+LRU instead of the free list. `alloc()` counts reclaimable blocks as
+available and evicts them (through the `on_evict` hook, which unregisters
+the hash) only when the free list cannot serve a request, so caching never
+reduces usable capacity.
 """
 
+import collections
 from typing import List, Optional
 
 import torch
@@ -30,16 +36,30 @@ class BlockAllocator:
     Block 0 (TRASH_BLOCK) is never handed out. alloc() is all-or-nothing:
     a request gets every block it needs or stays queued — partial
     allocation would deadlock two half-admitted requests. The free list
-    pops low ids first; a shadow set makes the double-free guard O(1)."""
+    pops low ids first; a shadow set makes the double-free guard O(1).
 
-    def __init__(self, num_blocks: int):
+    Every allocated block carries a refcount (1 at alloc); `incref` adds a
+    reader, `free` is a decref. At zero a block that `is_cached` claims
+    parks on the reclaimable LRU (policy "lru"); everything else, and
+    every block under policy "none", returns to the free list, its cached
+    content unregistered on the spot."""
+
+    def __init__(self, num_blocks: int, policy: str = "lru"):
         if num_blocks < 2:
             raise ValueError("pool needs >= 1 usable block past the trash "
                              "block")
+        if policy not in ("lru", "none"):
+            raise ValueError(f"unknown reclaim policy {policy!r} (expected "
+                             f"'lru' or 'none')")
         self.num_blocks = num_blocks
+        self.policy = policy
         self._free = list(range(num_blocks - 1, 0, -1))
         self._free_set = set(self._free)
-        self._refs = {}                     # block -> refcount
+        self._refs = {}                     # block -> refcount (0: parked)
+        self._reclaimable = collections.OrderedDict()   # LRU, oldest first
+        self.is_cached = None               # hook: block -> bool
+        self.on_evict = None                # hook: block evicted
+        self.evictions = 0
 
     @property
     def capacity(self) -> int:
@@ -50,13 +70,41 @@ class BlockAllocator:
     def num_free(self) -> int:
         return len(self._free)
 
+    @property
+    def num_reclaimable(self) -> int:
+        return len(self._reclaimable)
+
+    @property
+    def available(self) -> int:
+        """Blocks an alloc() can obtain: free + reclaimable. This, not
+        num_free, is what admission backpressure reads."""
+        return len(self._free) + len(self._reclaimable)
+
     def refcount(self, b: int) -> int:
         return self._refs.get(b, 0)
 
+    def _push_free(self, b: int):
+        self._free.append(b)
+        self._free_set.add(b)
+
+    def _evict_one(self):
+        """Recycle the least-recently-parked reclaimable block: unregister
+        its content (on_evict) and hand it to the free list."""
+        b, _ = self._reclaimable.popitem(last=False)
+        del self._refs[b]
+        self.evictions += 1
+        if self.on_evict is not None:
+            self.on_evict(b)
+        self._push_free(b)
+
     def alloc(self, n: int) -> Optional[List[int]]:
-        """Pop n blocks, or None (and no state change) if fewer are free."""
-        if n > len(self._free):
+        """Pop n blocks, or None (and no state change) if fewer are
+        available. Reclaimable blocks are evicted oldest first, only as
+        many as the free list is short."""
+        if n > self.available:
             return None
+        while len(self._free) < n:
+            self._evict_one()
         got = []
         for _ in range(n):
             b = self._free.pop()
@@ -66,14 +114,28 @@ class BlockAllocator:
         return got
 
     def incref(self, b: int) -> int:
-        """Add a reader to an allocated block."""
-        if b == TRASH_BLOCK or b not in self._refs:
+        """Add a reader to an allocated or reclaimable block (a prefix-cache
+        hit). A reclaimable block leaves the LRU: its content is live
+        again without a copy."""
+        if b == TRASH_BLOCK or b not in self._refs or b in self._free_set:
             raise ValueError(f"incref of unallocated block {b}")
         self._refs[b] += 1
+        self._reclaimable.pop(b, None)
         return self._refs[b]
 
+    def flush_reclaimable(self, keep: int = 0) -> int:
+        """Evict parked blocks now, oldest first, down to `keep` survivors
+        (the degradation ladder's cache-flush rung). Returns the number
+        evicted."""
+        n = 0
+        while len(self._reclaimable) > max(0, int(keep)):
+            self._evict_one()
+            n += 1
+        return n
+
     def free(self, blocks: List[int]):
-        """Decref each block; at zero it returns to the free list."""
+        """Decref each block; at zero it parks (cached, policy "lru") or
+        returns to the free list."""
         for b in blocks:
             if b == TRASH_BLOCK:
                 raise ValueError("freeing the trash block")
@@ -82,14 +144,21 @@ class BlockAllocator:
             if self._refs.get(b, 0) <= 0:
                 raise ValueError(f"free of unallocated block {b}")
             self._refs[b] -= 1
-            if self._refs[b] == 0:
+            if self._refs[b] > 0:
+                continue
+            cached = self.is_cached is not None and self.is_cached(b)
+            if cached and self.policy == "lru":
+                self._reclaimable[b] = None     # most-recently-parked end
+            else:
+                # not an eviction: `evictions` counts demand-driven reclaim
+                if cached and self.on_evict is not None:
+                    self.on_evict(b)
                 del self._refs[b]
-                self._free.append(b)
-                self._free_set.add(b)
+                self._push_free(b)
 
 
 def max_written_pos(prompt_len: int, padded_prompt: int, max_new: int,
-                    window: int = 1) -> int:
+                    window: int = 1, spec_k: int = 0) -> int:
     """Highest cache position a request ever WRITES — the one source of
     truth for pool sizing (blocks_needed) and admission validation.
 
@@ -97,18 +166,24 @@ def max_written_pos(prompt_len: int, padded_prompt: int, max_new: int,
     token i's k/v at prompt_len + i for i in [0, max_new-1) — the final
     token is emitted without a decode step. With a decode window > 1 the
     device runs whole windows blindly, so the decode writes round UP to a
-    window multiple."""
+    window multiple. Speculative decoding (`spec_k` drafts a verify)
+    replaces the window: a verify writes its input token and all k drafts,
+    and a slot still verifies while one token short of its budget, so the
+    extent grows by the k-token overhang — only when there are decode
+    writes at all (a max_new=1 request never verifies)."""
     decode_writes = max_new - 1
-    if window > 1 and decode_writes > 0:
+    if spec_k > 0 and decode_writes > 0:
+        decode_writes += spec_k
+    elif window > 1 and decode_writes > 0:
         decode_writes = -(-decode_writes // window) * window
     return max(padded_prompt - 1, prompt_len - 1 + decode_writes)
 
 
 def blocks_needed(prompt_len: int, padded_prompt: int, max_new: int,
-                  block_size: int, window: int = 1) -> int:
+                  block_size: int, window: int = 1, spec_k: int = 0) -> int:
     """Physical blocks a request occupies for its whole lifetime."""
-    return max_written_pos(prompt_len, padded_prompt, max_new,
-                           window) // block_size + 1
+    return max_written_pos(prompt_len, padded_prompt, max_new, window,
+                           spec_k) // block_size + 1
 
 
 def gather_block_kv(pool_k_l, pool_v_l, block_tables):

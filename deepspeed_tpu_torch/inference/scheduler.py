@@ -34,8 +34,29 @@ on the host, at the reads the scheduler makes anyway: telemetry adds no
 device synchronization. With it off, no stamp is taken and no file is
 written.
 
-Prefix caching, speculative decoding, disaggregated handoff, auditing,
-degradation and request tracing are later slices of the port.
+Automatic prefix caching (`serving.enable_prefix_caching`,
+`inference/prefix_cache.py`): at admission the prompt's hash chain is
+matched against previously written full blocks, the hit blocks are mapped
+into the slot's table with a refcount bump, and the prefill cursor starts
+at the cached boundary. Only host-side state changes.
+
+Speculative decoding (`serving.spec_decode`, `inference/spec_decode.py`)
+replaces the decode step and its window: a drafter proposes `draft_k`
+tokens a slot, one verify call (`verify_paged_fn`) scores them for every
+slot, and each slot emits its longest agreeing prefix plus a bonus token.
+A rejected draft is rolled back by not advancing the cursor. A verify
+step reads the device once (the target's tokens), plus once for the model
+drafter's drafts.
+
+The pool auditor (`inference/audit.py`) checks the bookkeeping's
+invariants every `audit_interval` syncs, on demand and at `close()`, and
+repairs or raises (`audit_action`). The degradation ladder
+(`serving/degradation.py`) caps drafts, disables spec decode, forces the
+1-step window, flushes the prefix cache and sheds low-priority queued
+requests under sustained pressure.
+
+Deadlines, the prefill/decode handoff, queue draining and request tracing
+are later slices of the port.
 """
 
 import collections
@@ -46,10 +67,14 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.inference.audit import (PoolAuditor,
+                                                 PoolCorruptionError)
 from deepspeed_tpu_torch.inference.kv_cache import (BlockAllocator,
                                                     TRASH_BLOCK,
                                                     blocks_needed,
                                                     max_written_pos)
+from deepspeed_tpu_torch.inference.spec_decode import (accept_greedy,
+                                                       make_drafter)
 from deepspeed_tpu_torch.models.gpt import as_dtype
 from deepspeed_tpu_torch.telemetry import Telemetry
 from deepspeed_tpu_torch.utils.logging import log_dist
@@ -65,12 +90,15 @@ class InadmissibleRequestError(ValueError):
 @dataclasses.dataclass
 class Request:
     """One generation request. `eos_token_id=None` falls back to the engine
-    / model default; `stop_on_eos=False` disables early stop."""
+    / model default; `stop_on_eos=False` disables early stop. `priority`
+    orders the degradation ladder's shedding (queued requests below the
+    configured threshold go first); it never changes FIFO order."""
     uid: Any
     tokens: Sequence[int]
     max_new_tokens: int = 32
     eos_token_id: Optional[int] = None
     stop_on_eos: bool = True
+    priority: int = 0
 
 
 @dataclasses.dataclass
@@ -79,6 +107,8 @@ class CompletedRequest:
     prompt_len: int
     tokens: np.ndarray        # generated tokens; the EOS (if emitted) is kept
     finish_reason: str        # "eos" | "length" | "cancelled"
+    cached_prefix_tokens: int = 0  # prompt tokens whose K/V came from the
+                              # prefix cache (0 when caching is off/missed)
     timing: Optional[Dict[str, float]] = None  # telemetry only: monotonic
                               # arrival/admit/first_token/finish stamps
                               # (None when telemetry is disabled)
@@ -90,6 +120,7 @@ _FREE, _PREFILL, _DECODE = 0, 1, 2
 class _Slot:
     __slots__ = ("idx", "state", "uid", "prompt", "prompt_len", "padded_len",
                  "max_new", "eos", "blocks", "cursor", "pos", "emitted",
+                 "hashes", "reg", "cached",
                  "t_arrive", "t_admit", "t_first", "t_prev")
 
     def __init__(self, idx):
@@ -104,6 +135,9 @@ class _Slot:
         self.blocks = []
         self.cursor = self.pos = 0
         self.emitted = []
+        self.hashes = None      # prefix-cache hash chain (full prompt blocks)
+        self.reg = 0            # blocks [0, reg) registered or cached
+        self.cached = 0         # blocks mapped from the cache at admission
         self.t_arrive = self.t_admit = self.t_first = None  # telemetry stamps
         self.t_prev = None      # last emission sync (TPOT interpolation anchor)
 
@@ -118,10 +152,11 @@ class ServingEngine:
         results = serving.run([Request(uid=0, tokens=prompt)])
 
     `clock` (default `time.monotonic`) stamps request timing; tests inject
-    one to pin TTFT / TPOT.
+    one to pin TTFT / TPOT. `draft_spec` is the draft model of
+    `spec_decode={"drafter": "model"}`.
     """
 
-    def __init__(self, engine, clock=None, **overrides):
+    def __init__(self, engine, draft_spec=None, clock=None, **overrides):
         spec = engine.model_spec
         missing = [n for n in ("prefill_paged_fn", "decode_paged_fn",
                                "init_paged_pool")
@@ -191,6 +226,15 @@ class ServingEngine:
         self.chunk = int(scfg.prefill_chunk or bs)
         self.prefill_budget = max(1, int(scfg.prefill_chunks_per_step))
         self.window = max(1, int(scfg.decode_steps_per_sync))
+        # speculative decoding: the verify step replaces the decode step
+        # (and its window) when a drafter is configured
+        self.spec_on = str(scfg.spec_decode.drafter or "off") != "off"
+        self.draft_k = int(scfg.spec_decode.draft_k) if self.spec_on else 0
+        if self.spec_on and spec.verify_paged_fn is None:
+            raise ValueError(
+                f"model spec '{spec.name}' has no verify_paged_fn — "
+                f"speculative decoding needs the k-token paged verify "
+                f"contract (make_gpt_decode_model provides it)")
         num_blocks = int(scfg.num_kv_blocks or (self.max_slots * self.nb + 1))
 
         if self.kv_quant:
@@ -219,26 +263,80 @@ class ServingEngine:
             pool = spec.init_paged_pool(num_blocks, bs, engine.dtype,
                                         device=engine.device)
         self.pool = pool
-        self.allocator = BlockAllocator(num_blocks)
+        self.allocator = BlockAllocator(
+            num_blocks, policy=str(scfg.prefix_cache_policy or "lru"))
+        self.prefix_cache = None
+        if scfg.enable_prefix_caching:
+            from deepspeed_tpu_torch.inference.prefix_cache import PrefixCache
+            self.prefix_cache = PrefixCache(
+                self.allocator, bs,
+                fingerprint=spec.cache_fingerprint or spec.name)
         self.tables = np.full((self.max_slots, self.nb), TRASH_BLOCK, np.int32)
         self.slots = [_Slot(i) for i in range(self.max_slots)]
         self.queue = collections.deque()
         self._generator = None if self.config.greedy \
             else engine.make_generator(0)
 
-        self.steps = 0
-        self.decode_steps = 0
-        self.prefill_chunks = 0
-        self.tokens_generated = 0
-        self.peak_active = 0
-        self.cancelled = 0
-
         # telemetry: TTFT/TPOT/queue-wait/e2e histograms + queue/slot/pool
         # gauges + per-phase spans. Disabled by default — then every record
         # site below is a single attribute check and nothing is written
         self.telemetry = Telemetry(getattr(self.config, "telemetry", None),
                                    subsystem="serving")
+        if self.telemetry.enabled and self.spec_on:
+            # acceptance rates lie in [0, 1]: linear buckets, not the
+            # default log-scale ms ones
+            self.telemetry.registry.histogram(
+                "serving/spec_accept_rate",
+                bounds=[i / 20 for i in range(1, 21)])
+        self.flightrec = self.telemetry.flightrec
         self._clock = clock if clock is not None else time.monotonic
+
+        # the drafter after the pool and allocator: the draft-model drafter
+        # mirrors the pool's geometry and shares the block tables
+        if draft_spec is not None and scfg.spec_decode.drafter != "model":
+            raise ValueError(
+                f"draft_spec was passed but spec_decode.drafter is "
+                f"{scfg.spec_decode.drafter!r} — only the 'model' drafter "
+                f"consumes it (did you mean spec_decode="
+                f"{{'drafter': 'model', ...}}?)")
+        self.drafter = make_drafter(self, scfg.spec_decode,
+                                    draft_spec=draft_spec) \
+            if self.spec_on else None
+
+        # the pool auditor: host-side reads only, every `audit_interval`
+        # syncs, on demand and at close()
+        self.audit_interval = int(scfg.audit_interval or 0)
+        self.audit_action = str(scfg.audit_action or "repair")
+        if self.audit_action not in ("repair", "raise"):
+            raise ValueError(f"unknown audit_action {self.audit_action!r} "
+                             f"(expected 'repair' or 'raise')")
+        self._auditor = PoolAuditor(self)
+        self.audits_run = 0
+        self.audit_violations_total = 0
+        self.audit_repairs = 0
+
+        # the degradation ladder: disabled, no controller is built
+        self.pressure = None
+        if scfg.degradation.enabled:
+            from deepspeed_tpu_torch.serving.degradation import \
+                PressureController
+            self.pressure = PressureController(self, scfg.degradation)
+
+        self.steps = 0
+        self.decode_steps = 0
+        self.prefill_chunks = 0
+        self.prefill_chunks_skipped = 0     # chunks the prefix cache elided
+        self.prefix_hit_blocks = 0
+        self.prefix_hit_tokens = 0
+        self.tokens_generated = 0
+        self.peak_active = 0
+        self.cancelled = 0
+        self.degradation_sheds = 0          # queued requests the ladder shed
+        self.verify_calls = 0               # spec decode: verify steps
+        self.verify_slot_steps = 0          # slot participations in them
+        self.drafted_tokens = 0             # real proposals scored
+        self.accepted_tokens = 0            # drafts equal to the target's
+        self.spec_emitted_tokens = 0        # tokens emitted by verify steps
 
         pool_mb = sum(t.numel() * t.element_size()
                       for t in self.pool.values()) / 2**20
@@ -266,7 +364,10 @@ class ServingEngine:
 
     def _decode_step(self, tok, pos, tables, window):
         """`window` tokens for every slot: returns [S, window] successors of
-        `tok`, writing each input token's k/v along the way."""
+        `tok`, writing each input token's k/v along the way. With window 1
+        it is the 1-step decode the degraded paths run (the spec-disabled
+        fallback, whose blocks carry a k-draft overhang and no window
+        tail, and the ladder's window-1 rung)."""
         spec, params = self.engine.model_spec, self.engine.params
         tok = self._tensor(tok)
         pos = self._tensor(pos, torch.long)
@@ -279,6 +380,19 @@ class ServingEngine:
             out.append(tok)
             pos = pos + 1
         return torch.stack(out, dim=1).cpu().numpy()
+
+    def _verify_step(self, toks, pos, tables):
+        """Score [S, k+1] tokens at positions pos..pos+k in one call, all
+        their k/v written through the tables; returns the sampled token of
+        every position [S, k+1] on the host (the step's one read). Under
+        greedy sampling that is the argmax, the exact-match target."""
+        logits, self.pool = self.engine.model_spec.verify_paged_fn(
+            self.engine.params, self._tensor(toks), self._tensor(pos,
+                                                                 torch.long),
+            self.pool, self._tensor(tables))
+        S, K1, V = logits.shape
+        tgt = self.engine._sample(logits.reshape(S * K1, V), self._generator)
+        return tgt.reshape(S, K1).cpu().numpy()
 
     # ------------------------------------------------------------------
     # request lifecycle
@@ -300,14 +414,17 @@ class ServingEngine:
         if max_new < 1:
             raise InadmissibleRequestError(
                 f"request {uid}: max_new_tokens < 1")
-        if max_written_pos(prompt_len, padded, max_new,
-                           self.window) >= self.max_context:
+        # a verify writes its whole k-draft overhang, which replaces the
+        # window's rounding
+        if max_written_pos(prompt_len, padded, max_new, self.window,
+                           self.draft_k) >= self.max_context:
             raise InadmissibleRequestError(
                 f"request {uid}: prompt {prompt_len} + max_new {max_new} "
-                f"(window {self.window}) exceeds max_context "
-                f"{self.max_context} (raise serving.max_context)")
+                f"(window {self.window}, draft_k {self.draft_k}) exceeds "
+                f"max_context {self.max_context} (raise "
+                f"serving.max_context)")
         need = blocks_needed(prompt_len, padded, max_new, self.block_size,
-                             window=self.window)
+                             window=self.window, spec_k=self.draft_k)
         if need > self.allocator.capacity:
             raise InadmissibleRequestError(
                 f"request {uid}: needs {need} KV blocks, pool has "
@@ -323,9 +440,13 @@ class ServingEngine:
         need = self.check_admissible(prompt_len, request.max_new_tokens,
                                      uid=request.uid)
         padded = -(-prompt_len // self.chunk) * self.chunk
+        # hashed once here; admission re-matches the chain every step while
+        # the request waits (the cache's contents change between steps)
+        hashes = self.prefix_cache.hash_chain(prompt) \
+            if self.prefix_cache is not None else None
         t_arrive = self._clock() if self.telemetry.enabled else None
         self.queue.append((request, prompt, prompt_len, padded, need,
-                           t_arrive))
+                           hashes, t_arrive))
 
     def _resolve_eos(self, req: Request):
         if not req.stop_on_eos:
@@ -340,13 +461,35 @@ class ServingEngine:
     def _admit(self):
         free = [s for s in self.slots if s.state == _FREE]
         while self.queue and free:
-            req, prompt, prompt_len, padded, need, t_arrive = self.queue[0]
-            blocks = self.allocator.alloc(need)
+            (req, prompt, prompt_len, padded, need, hashes,
+             t_arrive) = self.queue[0]
+            hit = []
+            if hashes:
+                # longest-prefix match, capped so the final prompt token is
+                # always computed (its logits give the first token), then
+                # cut to whole chunks: prefill chunks start on the j*chunk
+                # grid, so a partial-chunk hit saves nothing and no chunk
+                # ever writes a shared block. incref BEFORE alloc: a hit
+                # block may sit on the reclaimable list, and this alloc's
+                # eviction must not recycle it
+                limit = (prompt_len - 1) // self.block_size
+                hit = self.prefix_cache.match(hashes[:limit])
+                m = len(hit)
+                while m and (m * self.block_size) % self.chunk:
+                    m -= 1
+                hit = hit[:m]
+                for b in hit:
+                    self.allocator.incref(b)
+            blocks = self.allocator.alloc(need - len(hit))
             if blocks is None:
                 # pool exhausted: FIFO backpressure — the head waits for
                 # retirements (no reordering: small requests must not
-                # starve a big one)
+                # starve a big one). The tentative hit is released tail
+                # first, as _retire does
+                if hit:
+                    self.allocator.free(hit[::-1])
                 break
+            blocks = hit + blocks
             self.queue.popleft()
             slot = free.pop()
             slot.state = _PREFILL
@@ -357,7 +500,10 @@ class ServingEngine:
             slot.max_new = int(req.max_new_tokens)
             slot.eos = self._resolve_eos(req)
             slot.blocks = blocks
-            slot.cursor = 0
+            # prefill resumes at the cached boundary, on the chunk grid
+            slot.cursor = len(hit) * self.block_size
+            slot.hashes = hashes
+            slot.reg = slot.cached = len(hit)
             slot.pos = prompt_len
             slot.emitted = []
             slot.t_arrive = t_arrive
@@ -367,9 +513,17 @@ class ServingEngine:
                                        (slot.t_admit - t_arrive) * 1e3)
             self.tables[slot.idx, :] = TRASH_BLOCK
             self.tables[slot.idx, :len(blocks)] = blocks
+            if hit:
+                self.prefix_hit_blocks += len(hit)
+                self.prefix_hit_tokens += len(hit) * self.block_size
+                self.prefill_chunks_skipped += slot.cursor // self.chunk
 
     def _retire(self, slot: _Slot, reason: str) -> CompletedRequest:
-        # blocks return to the pool the step the sequence finishes
+        # blocks return to the pool the step the sequence finishes — a
+        # decref: shared blocks stay live until their last reader retires,
+        # and registered ones park on the reclaimable list. Freed in
+        # reverse so a chain's tail parks oldest and demand eviction trims
+        # chains tail first (match stops at the first unregistered hash)
         self.allocator.free(slot.blocks[::-1])
         self.tables[slot.idx, :] = TRASH_BLOCK
         timing = None
@@ -383,7 +537,9 @@ class ServingEngine:
                       "first_token": slot.t_first, "finish": t_finish}
         done = CompletedRequest(uid=slot.uid, prompt_len=slot.prompt_len,
                                 tokens=np.asarray(slot.emitted, np.int32),
-                                finish_reason=reason, timing=timing)
+                                finish_reason=reason,
+                                cached_prefix_tokens=slot.cached
+                                * self.block_size, timing=timing)
         slot.reset()
         return done
 
@@ -433,6 +589,141 @@ class ServingEngine:
                 return self._retire(slot, "cancelled")
         return None
 
+    def shed_queued_below_priority(self, min_priority: int
+                                   ) -> List[CompletedRequest]:
+        """The ladder's top rung: complete (reason "cancelled") every QUEUED
+        request whose priority is strictly below `min_priority`. Active
+        slots are never shed."""
+        out: List[CompletedRequest] = []
+        keep = collections.deque()
+        for rec in self.queue:
+            req = rec[0]
+            if int(getattr(req, "priority", 0)) < min_priority:
+                self.cancelled += 1
+                self.degradation_sheds += 1
+                self.telemetry.inc("serving/degradation_sheds")
+                out.append(CompletedRequest(uid=req.uid, prompt_len=rec[2],
+                                            tokens=np.zeros((0,), np.int32),
+                                            finish_reason="cancelled"))
+            else:
+                keep.append(rec)
+        self.queue = keep
+        return out
+
+    # ------------------------------------------------------------------
+    # pool invariant auditing (inference/audit.py)
+    # ------------------------------------------------------------------
+
+    def audit_state(self) -> Dict[str, Any]:
+        """Portable JSON snapshot of the pool bookkeeping (what
+        `audit.audit_main` reads)."""
+        return self._auditor.snapshot()
+
+    def audit(self, repair: bool = False):
+        """Run the pool auditor now. On violations the flight recorder (a
+        null object in the port) gets the report, then — with
+        `repair=True` — the free list, refcounts and reclaimable LRU are
+        rebuilt from the slot tables and audited again; a repair that
+        cannot reach a clean state raises `PoolCorruptionError`. Returns
+        the pre-repair `AuditReport`."""
+        report = self._auditor.audit()
+        self.audits_run += 1
+        if report.ok:
+            return report
+        self.audit_violations_total += len(report.violations)
+        self.telemetry.inc("serving/audit_violations", len(report.violations))
+        if self.flightrec.enabled:
+            self.flightrec.dump(
+                f"pool audit failed: {report.summary()}",
+                state={"audit": report.to_dict(),
+                       "audit_state": self._auditor.snapshot()})
+        if repair:
+            summary = self._auditor.repair()
+            self.audit_repairs += 1
+            self.telemetry.inc("serving/audit_repairs")
+            log_dist(f"serving audit: repaired {report.summary()} -> "
+                     f"{'clean' if summary['clean'] else 'STILL DIRTY'}",
+                     ranks=[0])
+            if not summary["clean"]:
+                raise PoolCorruptionError(report)
+        return report
+
+    def _scheduled_audit(self):
+        """The every-N-syncs audit: repair in place, or raise, per
+        `serving.audit_action`."""
+        report = self.audit(repair=(self.audit_action == "repair"))
+        if not report.ok and self.audit_action == "raise":
+            raise PoolCorruptionError(report)
+
+    # ------------------------------------------------------------------
+    # router surface: affinity scoring
+    # ------------------------------------------------------------------
+
+    def hash_chain(self, prompt) -> Optional[List[bytes]]:
+        """The prompt's chained block hashes (None when caching is off)."""
+        if self.prefix_cache is None:
+            return None
+        return self.prefix_cache.hash_chain(
+            np.asarray(prompt, np.int32).reshape(-1))
+
+    def prefix_affinity(self, hashes) -> int:
+        """Longest registered prefix (in blocks) this engine holds for a
+        hash chain; read-only. 0 when caching is off."""
+        if self.prefix_cache is None or not hashes:
+            return 0
+        return self.prefix_cache.match_len(hashes)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.queue)
+
+    # ------------------------------------------------------------------
+    # speculative decoding: draft -> one verify -> accept and rewind
+    # ------------------------------------------------------------------
+
+    def _verify_decode(self, dec, tok, pos, tables, finished):
+        """Draft + verify in place of the decode step: each slot emits its
+        longest agreeing prefix plus the bonus token from the first
+        disagreeing row — 1..k+1 tokens a model step. The cursor moves
+        past the emitted tokens only; the rejected drafts' k/v lies past it
+        and is overwritten by the next verify, never read."""
+        with self.telemetry.span("serving/draft"):
+            drafts, dlens = self.drafter.propose(dec, tok, pos, tables)
+        if self.pressure is not None and self.pressure.draft_cap is not None:
+            # ladder rung 1: cap the ACCEPTED draft length only; the verify
+            # keeps its [S, k+1] shape and the capped drafts score as
+            # padding past the cursor
+            dlens = np.minimum(dlens, self.pressure.draft_cap)
+        toks = np.concatenate([tok[:, None], drafts], axis=1)
+        with self.telemetry.span("serving/verify"):
+            tgt = self._verify_step(toks, pos, tables)      # [S, k+1]
+        self.verify_calls += 1
+        self.decode_steps += 1
+        for s in dec:
+            dlen = int(dlens[s.idx])
+            n, emitted = accept_greedy(drafts[s.idx], tgt[s.idx], dlen)
+            s.pos += n + 1
+            self.verify_slot_steps += 1
+            self.drafted_tokens += dlen
+            self.accepted_tokens += n
+            if self.telemetry.enabled:
+                if dlen:
+                    self.telemetry.observe("serving/spec_accept_rate",
+                                           n / dlen)
+                self.telemetry.inc("serving/spec_accepted_tokens", n)
+                self.telemetry.inc("serving/spec_drafted_tokens", dlen)
+            anchor, j = s.t_prev, 0
+            for t in emitted:
+                # an EOS inside the accepted drafts retires the slot here;
+                # the rest of the burst is discarded like a window's tail
+                self._emit(s, t, finished)
+                j += 1
+                if s.state == _FREE:
+                    break
+            self.spec_emitted_tokens += j
+            self._observe_tpot(s, anchor, j)
+        self.telemetry.inc("serving/spec_verify_steps")
+
     # ------------------------------------------------------------------
     # the engine step: admit -> prefill chunk(s) -> decode all slots
     # ------------------------------------------------------------------
@@ -460,9 +751,25 @@ class ServingEngine:
                 with self.telemetry.span("serving/prefill_chunk"):
                     tok = self._prefill_step(chunk, start, last,
                                              self.tables[slot.idx][None])
+                if self.drafter is not None:
+                    # a stateful drafter shadows the chunk into its own pool
+                    # through the same table
+                    self.drafter.prefill_chunk(
+                        slot, chunk, np.asarray([start]),
+                        np.asarray([last]), self.tables[slot.idx][None])
                 slot.cursor = start + self.chunk
                 budget -= 1
                 self.prefill_chunks += 1
+                if self.prefix_cache is not None and slot.hashes:
+                    # register the full blocks below prompt_len the cursor
+                    # has passed — only now does their content exist, and
+                    # the padded tail and decode-written blocks stay
+                    # private, so shared blocks are never written again
+                    hi = min(slot.cursor, slot.prompt_len) // self.block_size
+                    for i in range(slot.reg, hi):
+                        self.prefix_cache.register(slot.hashes[i],
+                                                   slot.blocks[i])
+                    slot.reg = max(slot.reg, hi)
                 if final:
                     slot.state = _DECODE
                     # the first token's read: TTFT is stamped after it
@@ -482,25 +789,43 @@ class ServingEngine:
                 tok[s.idx] = s.emitted[-1]
                 pos[s.idx] = s.pos
                 tables[s.idx] = self.tables[s.idx]
-            with self.telemetry.span("serving/decode_window"):
-                # returns on the host: the window's one device read
-                nxt = self._decode_step(tok, pos, tables, self.window)
-            self.decode_steps += 1
-            for s in dec:
-                s.pos += self.window
-                anchor, j = s.t_prev, 0
-                for t in nxt[s.idx]:
-                    self._emit(s, int(t), finished)
-                    j += 1
-                    if s.state == _FREE:            # retired mid-window
-                        break
-                self._observe_tpot(s, anchor, j)
+            spec_active = self.spec_on and not (
+                self.pressure is not None and self.pressure.spec_disabled)
+            if spec_active:
+                self._verify_decode(dec, tok, pos, tables, finished)
+            else:
+                # the degraded paths run the 1-step decode: spec-disabled
+                # blocks were sized for the draft overhang, not a window
+                # tail, and the ladder's window rung wants finer turnover
+                win = 1 if self.spec_on or (
+                    self.pressure is not None
+                    and self.pressure.force_window_1) else self.window
+                with self.telemetry.span("serving/decode_window"):
+                    # returns on the host: the window's one device read
+                    nxt = self._decode_step(tok, pos, tables, win)
+                self.decode_steps += 1
+                for s in dec:
+                    s.pos += win
+                    anchor, j = s.t_prev, 0
+                    for t in nxt[s.idx]:
+                        self._emit(s, int(t), finished)
+                        j += 1
+                        if s.state == _FREE:            # retired mid-window
+                            break
+                    self._observe_tpot(s, anchor, j)
+
+        # sync-point housekeeping on host state: the ladder, then the
+        # scheduled audit
+        if self.pressure is not None:
+            self.pressure.update(finished)
+        if self.audit_interval and self.steps % self.audit_interval == 0:
+            self._scheduled_audit()
 
         if self.telemetry.enabled:
             self.telemetry.set_gauge("serving/queue_depth", len(self.queue))
             self.telemetry.set_gauge("serving/active_slots", self.num_active)
             self.telemetry.set_gauge("serving/free_blocks",
-                                     self.allocator.num_free)
+                                     self.allocator.available)
             self.telemetry.maybe_export(self.steps)
         return finished
 
@@ -530,9 +855,11 @@ class ServingEngine:
         return out
 
     def close(self):
-        """Engine shutdown: the telemetry's final export, and its files
-        closed."""
+        """Engine shutdown: one final audit, then the telemetry's final
+        export with its files closed. Returns the final `AuditReport`."""
+        report = self.audit(repair=(self.audit_action == "repair"))
         self.telemetry.close()
+        return report
 
     def stats(self) -> Dict[str, Any]:
         out = {"steps": self.steps, "decode_steps": self.decode_steps,
@@ -541,7 +868,23 @@ class ServingEngine:
                "peak_active": self.peak_active,
                "cancelled": self.cancelled,
                "queued": len(self.queue), "active": self.num_active,
-               "free_blocks": self.allocator.num_free}
+               "free_blocks": self.allocator.num_free,
+               "reclaimable_blocks": self.allocator.num_reclaimable,
+               "available_blocks": self.allocator.available}
+        if self.spec_on:
+            out["spec_decode"] = {
+                "drafter": self.drafter.name,
+                "draft_k": self.draft_k,
+                "verify_steps": self.verify_calls,
+                "drafted_tokens": self.drafted_tokens,
+                "accepted_tokens": self.accepted_tokens,
+                "emitted_tokens": self.spec_emitted_tokens,
+                # the drafter's hit rate, and tokens a sequence a model
+                # step (1.0: spec decode bought nothing; k+1 the ceiling)
+                "acceptance_rate": (self.accepted_tokens /
+                                    max(1, self.drafted_tokens)),
+                "accepted_tokens_per_step": (self.spec_emitted_tokens /
+                                             max(1, self.verify_slot_steps))}
         if self.kv_quant or self.weight_quant != "off":
             q = {"kv_cache_dtype": self.kv_cache_dtype,
                  "weights": self.weight_quant}
@@ -552,6 +895,19 @@ class ServingEngine:
                 # bytes before / after (payload + scales) over the whole tree
                 q["weight_quant"] = dict(self.weight_quant_stats)
             out["quantization"] = q
+        if self.audits_run:
+            out["audit"] = {"runs": self.audits_run,
+                            "violations": self.audit_violations_total,
+                            "repairs": self.audit_repairs}
+        if self.pressure is not None:
+            out["degradation"] = self.pressure.stats()
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = {
+                "hit_blocks": self.prefix_hit_blocks,
+                "hit_tokens": self.prefix_hit_tokens,
+                "prefill_chunks_skipped": self.prefill_chunks_skipped,
+                "cached_blocks": self.prefix_cache.num_cached,
+                "evictions": self.allocator.evictions}
         if self.telemetry.enabled:
             out["latency"] = self.latency_snapshot()
         return out
@@ -565,3 +921,16 @@ class ServingEngine:
         snap = self.telemetry.registry.snapshot()
         return {name.split("/", 1)[1]: m for name, m in snap.items()
                 if m.get("type") == "histogram" and name.startswith("serving/")}
+
+    def write_monitor_events(self, monitor):
+        """Serving cache and pool readings through the experiment monitor
+        (best effort): Serving/prefix_hit_tokens, Serving/prefix_evictions
+        and Serving/pool_free_blocks, stepped by the scheduler iteration."""
+        from deepspeed_tpu_torch.monitor.monitor import write_serving_events
+        write_serving_events(monitor, [
+            ("Serving/prefix_hit_tokens", self.prefix_hit_tokens, self.steps),
+            ("Serving/prefix_evictions", self.allocator.evictions,
+             self.steps),
+            ("Serving/pool_free_blocks", self.allocator.available,
+             self.steps),
+        ])

@@ -714,7 +714,28 @@ def _paged_attend(q, k_ctx, v_ctx, q_pos, cfg: GPTConfig):
     return out.reshape(B, C, H * hd)
 
 
-def _paged_attn_half(x, p, pool_l, positions, block_tables, cfg: GPTConfig):
+def paged_kv_write(pool_l, k, v, block_tables, positions):
+    """One layer's cache write, in place: the new tokens' k, v [B, C, Hkv,
+    hd] into `pool_l` at each token's physical block (block_tables [B, nb]
+    at positions [B, C] // block) and offset (positions % block);
+    quantized first on the int8 pool (one `quantize_kv_write` launch on
+    CUDA). Rows of inactive slots (all-trash tables, pos 0) collide in the
+    trash block, where the write order is unspecified and irrelevant; a
+    real row's (block, offset) is unique in the step, so its payload and
+    its scales come from the same token."""
+    if "k_scale" in pool_l:
+        quantize_kv_write(pool_l, k, v, block_tables, positions)
+        return
+    bs = pool_l["k"].shape[2]
+    blk = torch.gather(block_tables.long(), 1,
+                       (positions // bs).long())                      # [B, C]
+    off = positions % bs
+    pool_l["k"][blk, :, off] = k.to(pool_l["k"].dtype)
+    pool_l["v"][blk, :, off] = v.to(pool_l["v"].dtype)
+
+
+def _paged_attn_half(x, p, pool_l, positions, block_tables, cfg: GPTConfig,
+                     phase=None):
     """Attention half-block against one layer's paged pool.
 
     x: [B, C, D]; pool_l: {"k", "v"} [N, Hkv, block, hd] (plus
@@ -724,7 +745,9 @@ def _paged_attn_half(x, p, pool_l, positions, block_tables, cfg: GPTConfig):
     physical block; quantized first on the int8 pool), then attends over
     the row's table through the program the dispatch names: the paged
     kernels for single-token steps, the (dequantizing) gather for prefill
-    chunks. A program without a branch here raises."""
+    chunks and the spec-decode verify chunk. `phase` names the dispatch
+    site ("verify"); None derives it from the chunk width. A program
+    without a branch here raises."""
     from deepspeed_tpu_torch.inference.kv_cache import (
         gather_block_kv, gather_block_kv_dequant)
     B, C, D = x.shape
@@ -732,19 +755,8 @@ def _paged_attn_half(x, p, pool_l, positions, block_tables, cfg: GPTConfig):
     nb = block_tables.shape[1]
     quantized = "k_scale" in pool_l
     q, k, v = _decode_qkv(x, p, positions, cfg)
-    # rows of inactive slots (all-trash tables, pos 0) collide in the trash
-    # block; the write order there is unspecified and irrelevant. A real
-    # row's (block, offset) is unique in the step, so its payload and its
-    # scales come from the same token.
-    if quantized:
-        quantize_kv_write(pool_l, k, v, block_tables, positions)
-    else:
-        blk = torch.gather(block_tables.long(), 1,
-                           (positions // bs).long())                  # [B, C]
-        off = positions % bs
-        pool_l["k"][blk, :, off] = k.to(pool_l["k"].dtype)
-        pool_l["v"][blk, :, off] = v.to(pool_l["v"].dtype)
-    phase = "paged_decode" if C == 1 else "prefill_chunk"
+    paged_kv_write(pool_l, k, v, block_tables, positions)
+    phase = phase or ("paged_decode" if C == 1 else "prefill_chunk")
     program = attn_dispatch.select(_site(
         cfg, phase, q, C, nb * bs, kv_dtype="int8" if quantized else None))
     if program == "paged_kernel_quant":
@@ -772,9 +784,10 @@ def _paged_attn_half(x, p, pool_l, positions, block_tables, cfg: GPTConfig):
     return attn_out, pool_l
 
 
-def _block_paged(x, p, pool_l, positions, block_tables, cfg: GPTConfig):
+def _block_paged(x, p, pool_l, positions, block_tables, cfg: GPTConfig,
+                 phase=None):
     attn_out, pool_l = _paged_attn_half(x, p, pool_l, positions,
-                                        block_tables, cfg)
+                                        block_tables, cfg, phase=phase)
     return _residual_mlp(x, attn_out, p, cfg), pool_l
 
 
@@ -783,10 +796,28 @@ def _block_paged(x, p, pool_l, positions, block_tables, cfg: GPTConfig):
 # ----------------------------------------------------------------------
 
 
+def gpt_cache_identity(cfg: GPTConfig, name: str = "") -> str:
+    """Cache-identity fingerprint for the prefix cache's hash chain
+    (`DecodeModelSpec.cache_fingerprint`): every arch field that changes
+    the K/V values a prompt writes into the pool, plus the spec name — the
+    JAX package's field tuple and spelling, so both packages' chains are
+    byte-equal (`dtype_name` spells a dtype as `jnp.dtype(...).name`
+    does). Weights are engine-local and deliberately not hashed."""
+    fields = (name, cfg.vocab_size, cfg.n_layer, cfg.n_head, cfg.n_kv_head,
+              cfg.d_model, cfg.d_ff, cfg.max_seq_len, cfg.use_rotary,
+              cfg.rotary_pct, cfg.rope_theta, cfg.use_alibi, cfg.use_emb_ln,
+              cfg.use_rmsnorm, cfg.norm_eps, cfg.sliding_window,
+              cfg.attn_layer_types, cfg.scale_attn, cfg.parallel_residual,
+              cfg.use_swiglu, cfg.activation, dtype_name(cfg.dtype),
+              dtype_name(cfg.softmax_dtype))
+    return "gpt:" + "|".join(map(str, fields))
+
+
 def make_gpt_decode_model(cfg: GPTConfig = None, name="gpt2-125m",
                           params=None, seed=0):
     """DecodeModelSpec for the inference engine: prefill + per-token decode
-    over the contiguous cache, and the paged-pool serving contract."""
+    over the contiguous cache, and the paged-pool serving contract (with
+    the spec-decode verify and the prefix cache's fingerprint)."""
     from deepspeed_tpu_torch.inference.engine import DecodeModelSpec
     cfg = cfg or GPT2_CONFIGS[name]
     if params is None:
@@ -816,11 +847,11 @@ def make_gpt_decode_model(cfg: GPTConfig = None, name="gpt2-125m",
     def init_cache(batch_size, max_len, dtype=torch.bfloat16, device="cpu"):
         return init_kv_cache(cfg, batch_size, max_len, dtype, device)
 
-    def _walk_paged(params, x, pool, block_tables, positions):
+    def _walk_paged(params, x, pool, block_tables, positions, phase=None):
         for i in range(cfg.n_layer):
             pool_l = {name: leaf[i] for name, leaf in pool.items()}
             x, _ = _block_paged(x, _layer(params, i), pool_l, positions,
-                                block_tables, cfg)
+                                block_tables, cfg, phase=phase)
         return x
 
     def prefill_paged_fn(params, tokens, start_pos, last_idx, pool,
@@ -838,6 +869,18 @@ def make_gpt_decode_model(cfg: GPTConfig = None, name="gpt2-125m",
         x = _walk_paged(params, x, pool, block_tables, pos[:, None])
         return _lm_head(params, x, cfg)[:, 0], pool
 
+    def verify_paged_fn(params, tokens, pos, pool, block_tables):
+        """Spec-decode verify: C tokens a row at cursor `pos`, scored in one
+        pass as a prefill chunk is, returning the logits of EVERY position
+        [B, C, V] (row i's argmax is the greedy truth for draft i + 1)."""
+        B, C = tokens.shape
+        positions = pos[:, None].long() + torch.arange(
+            C, device=tokens.device)[None]
+        x = _embed(params, tokens, positions, cfg)
+        x = _walk_paged(params, x, pool, block_tables, positions,
+                        phase="verify")
+        return _lm_head(params, x, cfg), pool
+
     def init_paged_pool(num_blocks, block_size, dtype=torch.bfloat16,
                         kv_group_size=0, device="cpu"):
         return init_paged_kv_pool(cfg, num_blocks, block_size, dtype,
@@ -846,6 +889,7 @@ def make_gpt_decode_model(cfg: GPTConfig = None, name="gpt2-125m",
     return DecodeModelSpec(
         prefill_fn=prefill_fn, decode_fn=decode_fn, init_cache=init_cache,
         params=params, name=name, prefill_paged_fn=prefill_paged_fn,
-        decode_paged_fn=decode_paged_fn, init_paged_pool=init_paged_pool,
-        dtype=cfg.dtype,
+        decode_paged_fn=decode_paged_fn, verify_paged_fn=verify_paged_fn,
+        init_paged_pool=init_paged_pool,
+        cache_fingerprint=gpt_cache_identity(cfg, name), dtype=cfg.dtype,
         max_positions=None if cfg.use_rotary else cfg.max_seq_len)

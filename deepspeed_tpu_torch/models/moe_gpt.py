@@ -31,7 +31,8 @@ import torch
 from deepspeed_tpu_torch.models.gpt import (
     GPTConfig, _attn_half, _block, _block_decode, _decode_attn_half, _embed,
     _head_logits, _layer, _lm_head, _norm, _paged_attn_half, _residual_mlp,
-    as_dtype, init_gpt_params, init_kv_cache, init_paged_kv_pool)
+    as_dtype, gpt_cache_identity, init_gpt_params, init_kv_cache,
+    init_paged_kv_pool)
 from deepspeed_tpu_torch.parallel.moe import (_one_hot,
                                               can_use_expert_shard_map,
                                               expert_parallel_moe,
@@ -256,6 +257,14 @@ def _moe_block_decode(x, p, mp, cache_k, cache_v, pos, cfg):
     return x, cache_k, cache_v
 
 
+def moe_cache_identity(cfg: MoEGPTConfig, name: str = "") -> str:
+    """`gpt_cache_identity` plus the MoE fields that change K/V values
+    (expert count and placement); capacity knobs cannot change cached
+    bytes, since inference routing is capacity-free."""
+    return (f"moe:{cfg.num_experts}|{cfg.moe_freq}|"
+            + gpt_cache_identity(cfg, name))
+
+
 def make_moe_gpt_decode_model(cfg: MoEGPTConfig, params=None, name="moe-gpt",
                               seed=0):
     """DecodeModelSpec for the inference engine: prefill + per-token decode
@@ -303,12 +312,12 @@ def make_moe_gpt_decode_model(cfg: MoEGPTConfig, params=None, name="moe-gpt",
     def init_cache(batch_size, max_len, dtype=torch.bfloat16, device="cpu"):
         return init_kv_cache(cfg, batch_size, max_len, dtype, device)
 
-    def _walk_paged(params, x, pool, block_tables, positions):
+    def _walk_paged(params, x, pool, block_tables, positions, phase=None):
         for lid in range(cfg.n_layer):
             pool_l = {name: leaf[lid] for name, leaf in pool.items()}
             p = _layer(params, lid)
             attn_out, _ = _paged_attn_half(x, p, pool_l, positions,
-                                           block_tables, cfg)
+                                           block_tables, cfg, phase=phase)
             x = _residual_mlp(x, attn_out, p, cfg,
                               mlp_fn=mlp_fn(params, lid))
         return x
@@ -328,6 +337,15 @@ def make_moe_gpt_decode_model(cfg: MoEGPTConfig, params=None, name="moe-gpt",
         x = _walk_paged(params, x, pool, block_tables, pos[:, None])
         return _lm_head(params, x, cfg)[:, 0], pool
 
+    def verify_paged_fn(params, tokens, pos, pool, block_tables):
+        B, C = tokens.shape
+        positions = pos[:, None].long() + torch.arange(
+            C, device=tokens.device)[None]
+        x = _embed(params, tokens, positions, cfg)
+        x = _walk_paged(params, x, pool, block_tables, positions,
+                        phase="verify")
+        return _lm_head(params, x, cfg), pool
+
     def init_paged_pool(num_blocks, block_size, dtype=torch.bfloat16,
                         kv_group_size=0, device="cpu"):
         return init_paged_kv_pool(cfg, num_blocks, block_size, dtype,
@@ -336,6 +354,7 @@ def make_moe_gpt_decode_model(cfg: MoEGPTConfig, params=None, name="moe-gpt",
     return DecodeModelSpec(
         prefill_fn=prefill_fn, decode_fn=decode_fn, init_cache=init_cache,
         params=params, name=name, prefill_paged_fn=prefill_paged_fn,
-        decode_paged_fn=decode_paged_fn, init_paged_pool=init_paged_pool,
-        dtype=cfg.dtype,
+        decode_paged_fn=decode_paged_fn, verify_paged_fn=verify_paged_fn,
+        init_paged_pool=init_paged_pool,
+        cache_fingerprint=moe_cache_identity(cfg, name), dtype=cfg.dtype,
         max_positions=None if cfg.use_rotary else cfg.max_seq_len)

@@ -13,9 +13,11 @@ The phases this port carries:
     `dense` through autograd on CPU tensors;
   * `decode` (one token over the contiguous cache): `decode_kernel` |
     `decode_dense`;
-  * `paged_decode` / `prefill_chunk` (the serving pool): `paged_kernel` |
+  * `paged_decode` / `prefill_chunk` / `verify` (the serving pool; verify
+    is the spec-decode chunk of k + 1 tokens a row): `paged_kernel` |
     `paged_gather`, and over the int8 pool (`kv_dtype="int8"`)
-    `paged_kernel_quant` | `paged_gather_quant`.
+    `paged_kernel_quant` | `paged_gather_quant`. The paged kernels take
+    `paged_decode` only.
 
 The predicates are the JAX package's — no alibi, no window, and
 `use_flash_attention=False` forbids a kernel — minus its TPU crossovers
@@ -26,9 +28,10 @@ measured yet.
 One route per device. On CUDA operands the kernel program runs, and a site
 the kernel does not take (dtype, head width, a forbidding flag) raises
 `NotImplementedError`: the port runs no plain attention on the card. The
-one exception is `prefill_chunk`, whose gather + dense attend is plain
-torch in the JAX package too (over the int8 pool its dequantization is the
-`dequantize_int8` kernel). On CPU operands the plain programs run the
+exceptions are `prefill_chunk` and `verify`, whose gather + dense attend is
+plain torch in the JAX package too: its registry sends chunked prefill and
+the spec-decode verify through the gather on every device (over the int8
+pool the dequantization is the `dequantize_int8` kernel). On CPU operands the plain programs run the
 kernels' plain versions; `use_flash_attention=True` routes through the
 kernel wrappers instead, which on the CPU run those same plain versions.
 """
@@ -48,7 +51,7 @@ class AttnSite:
     """One attention call site's dispatch key: shapes, dtype, device and
     the masking flags that disqualify kernels."""
     phase: str                    # "train" | "decode" | "paged_decode" |
-                                  # "prefill_chunk"
+                                  # "prefill_chunk" | "verify"
     q_len: int                    # query length (T; chunk C; 1 for decode)
     kv_len: int                   # key/context length (T, M, or nb*block)
     head_dim: int = 64
@@ -165,7 +168,7 @@ register_program(AttentionProgram(
     name="decode_dense", phases=("decode",), priority=0, matches=_plain))
 
 def _gather_wanted(site: AttnSite) -> bool:
-    return site.phase == "prefill_chunk" or _plain(site)
+    return site.phase in ("prefill_chunk", "verify") or _plain(site)
 
 
 # int8 pool, C == 1, no alibi/window: tiles dequantize in-kernel
@@ -185,14 +188,15 @@ register_program(AttentionProgram(
 # int8 pool: the dequantizing gather + dense attend, where `paged_gather`
 # would run
 register_program(AttentionProgram(
-    name="paged_gather_quant", phases=("paged_decode", "prefill_chunk"),
-    priority=10,
+    name="paged_gather_quant",
+    phases=("paged_decode", "prefill_chunk", "verify"), priority=10,
     matches=lambda s: s.kv_dtype in QUANT_KV_DTYPES and _gather_wanted(s)))
 
-# table gather + dense attend: chunked prefill on every device (plain XLA
-# in the JAX package too), single-token decode on CPU operands
+# table gather + dense attend: chunked prefill and the spec-decode verify
+# on every device (plain XLA in the JAX package too), single-token decode
+# on CPU operands
 register_program(AttentionProgram(
-    name="paged_gather", phases=("paged_decode", "prefill_chunk"),
+    name="paged_gather", phases=("paged_decode", "prefill_chunk", "verify"),
     priority=0,
     matches=lambda s: (s.kv_dtype not in QUANT_KV_DTYPES
                        and _gather_wanted(s))))

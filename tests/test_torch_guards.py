@@ -104,10 +104,7 @@ def test_cuda_wrappers_take_the_plain_version_for_cpu_tensors():
 
 
 @pytest.mark.parametrize("override", [
-    {"serving": {"spec_decode": {"drafter": "ngram"}}},
-    {"serving": {"enable_prefix_caching": True}},
-    {"serving": {"degradation": {"enabled": True}}},
-    {"serving": {"audit_interval": 4}},
+    {"serving": {"degradation": {"enabled": True, "headroom_low": 0.1}}},
     {"telemetry": {"enabled": True, "tracing": True}},
     {"telemetry": {"flight_recorder": True}},
     {"tensor_parallel": {"tp_size": 2}},
@@ -132,14 +129,32 @@ def test_quantized_serving_configs_build(override):
         or cfg.serving.quantization.weights == "int4"
 
 
+@pytest.mark.parametrize("override", [
+    {"serving": {"spec_decode": {"drafter": "ngram"}}},
+    {"serving": {"spec_decode": {"drafter": "model", "draft_k": 2}}},
+    {"serving": {"enable_prefix_caching": True}},
+    {"serving": {"degradation": {"enabled": True}}},
+    {"serving": {"audit_interval": 4}},
+], ids=lambda o: str(o))
+def test_serving_feature_configs_build(override):
+    """Prefix caching, spec decode, the auditor and the degradation ladder
+    are ported: the dicts that refused before build a config now."""
+    serving = TpuInferenceConfig.from_dict(override).serving
+    assert serving.enable_prefix_caching or serving.audit_interval \
+        or serving.degradation.enabled \
+        or serving.spec_decode.drafter in ("ngram", "model")
+
+
 def test_serving_overrides_are_validated_too():
     engine = init_inference(make_gpt_decode_model(TINY, name="tiny"),
                             config={"dtype": "float32",
                                     "kv_cache_dtype": "float32",
                                     "kv_block_size": 16,
                                     "max_out_tokens": 64}, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        engine.serving(spec_decode={"drafter": "ngram"})
+    with pytest.raises(ValueError, match="needs a draft DecodeModelSpec"):
+        engine.serving(spec_decode={"drafter": "model"})
+    with pytest.raises(NotImplementedError, match="headroom_low"):
+        engine.serving(degradation={"enabled": True, "headroom_low": 0.5})
     with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
         init_inference(make_gpt_decode_model(TINY, name="tiny"),
                        config={"dtype": "float32"}, device="cpu")
