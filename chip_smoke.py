@@ -10,7 +10,14 @@ Phases, one JSON line each:
            shapes its paths give it (generate/serve: gpt2-125m, H=12,
            hd=64, bf16; train: gpt2-760m, B 12, T 512, H 12, hd 128,
            causal; north_star: gpt2-1.3b, B 4, T 512, H 16, hd 128,
-           causal); the flash forward also at T 16, 48, 200, 333 and 1000
+           causal; longctx / longctx16k: gpt2-760m, B 1, T 4096 / 16384,
+           H 12, hd 128, causal: the forward and both backward kernels,
+           the plain versions on 2 of the 12 heads at T 16384 and timed
+           over the 12 two at a time, SDPA's times and device time
+           beside them; routing: gpt2-760m's heads at B 12, T 256 — the
+           random-LTD layers — and at the curriculum's T 128 and 320,
+           forward and both backward kernels); the flash forward also at
+           T 16, 48, 200, 333 and 1000
            (shorter than a tile, ragged against the 64-row tiles), GQA 4,
            fp16, causal and full, q/k/v as views of one [B, T, 3, H, D]
            tensor; the backward kernels
@@ -178,6 +185,28 @@ Phases, one JSON line each:
            no master weights: 1 warm-up and 2 timed steps, exact flash
            launches, finite losses, seconds per step, tokens/s, MFU and the
            registry's readings;
+  longctx  bench.py's seq-4096 lane: gpt2-760m at full width and depth
+           with max_seq_len 4096, micro-batch 1, gas 32, loss_chunks 8,
+           ZeRO 1, the headline's policy, engine config and bf16
+           accumulator, telemetry on (registry only). First the chunked CE
+           at its head ([4096, 1536] x [50304, 1536], 8 chunks, 5 % of the
+           labels -1) in fp32 and bf16 against the plain CE in fp32 (nll,
+           dx, dw beside their limits), its peak memory against the plain
+           CE's (lower), its host and device time. Then 1 warm-up and 2
+           timed steps: exact launches, finite falling losses, seconds a
+           step, tokens/s, MFU and bench.py's mfu_attn, host against kernel
+           time of a micro-batch, peak memory of the step and of a
+           micro-batch with loss_chunks 8 and 0 (8 lower); the 2-layer
+           first-step parity against the fp32 CPU twin (loss_chunks 0);
+  longctx16k the same lane at seq 16384, gas 8: launches, finite losses,
+           the readings and the peaks (no CE check, no parity);
+  routing  PLD (theta 0.5, gamma 1), random-LTD (256 of 512 positions in
+           layers 1-22) and the seqlen curriculum (128 -> 512) on
+           gpt2-760m at full width and depth, micro-batch 12, seq 512, gas
+           2, 3 steps each: the flash launches follow the kept layers the
+           engine drew (PLD), every layer with layers 1-22 at T 256
+           (random-LTD, plus the 2-layer parity fed the same directives),
+           each step's T the difficulty (curriculum); finite losses;
   moe      moe-gpt-125m-e8 (docs/parallelism.md:76: 12 layers, d_model
            768, 8 experts in every second block, capacity factor 1.25)
            at full width and depth, bf16, random weights from a numpy seed,
@@ -225,12 +254,14 @@ Phases, one JSON line each:
            class and the card's idle share of the unprofiled wall time.
 A comma-separated phase list as the one argument runs those phases only
 (the device phase always runs), e.g. `build,kernels,train,north_star`
-(the training lanes), `build,serve` (TTFT / TPOT), `build,train,profile`,
+(the training lanes), `build,kernels,longctx,longctx16k,routing` (the
+long-context lanes and the routing directives), `build,serve` (TTFT / TPOT), `build,train,profile`,
 `build,kernels,quant`, `build,kernels,moe`, `build,kernels,sparse` or
 `build,kernels,evoformer`. Then the
 card's name and power limit, the `kernels` summary line (one row per
 kernel and path that runs it — the flash forward has generate,
-quant_generate, train, north_star and moe_train rows; quantize_int8 a
+quant_generate, train, north_star, longctx, longctx16k, routing and
+moe_train rows; quantize_int8 a
 quant_serve row, the K/V
 writes, and a quant_serve_build row, the weights — with `launches`
 counted from 0 just before that path's run and read just after, and
@@ -348,6 +379,70 @@ NORTH_CONFIG = {
     "data_types": {"grad_accum_dtype": "bf16"},
     "telemetry": REGISTRY_ONLY,
 }
+
+# bench.py's two long-context lanes (bench.py:1991-2000 and :2013-2020,
+# through run_lane :180-228): gpt2-760m with its position table grown to
+# the sequence, micro-batch 1, loss_chunks 8, ZeRO 1, the headline's remat
+# policy, engine config, bf16 accumulator and bf16 softmax (the lanes keep
+# bench.py's BENCH_ACCUM_DTYPE and BENCH_SOFTMAX defaults), explicit labels
+# so the model's T is the sequence; gas 32 at seq 4096, gas 8 at seq
+# 16384. bench.py runs 3 warm-up and 3 timed steps; here 1 and
+# LONGCTX_STEPS.
+LONGCTX_MODEL, LONGCTX_LOSS_CHUNKS, LONGCTX_STEPS = "gpt2-760m", 8, 2
+LONGCTX = {"longctx": dict(seq=4096, gas=32),
+           "longctx16k": dict(seq=16384, gas=8)}
+# the plain flash versions materialize [B, H, T, T] fp32: at T 16384 the
+# checks hold the kernels (run at all 12 heads) on 2 of them, and the plain
+# version is timed over the 12 heads 2 at a time (heads are independent)
+LONGCTX_REF_HEADS = {"longctx": 12, "longctx16k": 2}
+# the routing phase: progressive layer drop, random-LTD and the seqlen
+# curriculum on gpt2-760m at full width and depth, the headline lane's
+# config at micro-batch 12, seq 512, gas 2 (gas cut from 32 to keep the
+# phase short), 3 steps per directive. PLD at theta 0.5, gamma 1.0 drops
+# layers from the second step on; random-LTD keeps 256 of 512 positions
+# in layers 1-22; the curriculum ramps the sequence 128 -> 320 -> 512.
+ROUTING_MBS, ROUTING_SEQ, ROUTING_GAS, ROUTING_STEPS = 12, 512, 2, 3
+ROUTING_CONFIG = {**TRAIN_CONFIG,
+                  "train_micro_batch_size_per_gpu": ROUTING_MBS,
+                  "gradient_accumulation_steps": ROUTING_GAS}
+ROUTING_DIRECTIVES = {
+    "pld": {"progressive_layer_drop": {"enabled": True, "theta": 0.5,
+                                       "gamma": 1.0}},
+    "random_ltd": {"data_efficiency": {"enabled": True, "data_routing": {
+        "random_ltd": {"enabled": True, "total_layer_num": 24,
+                       "random_ltd_layer_id": list(range(1, 23)),
+                       "random_ltd_schedule": {
+                           "min_value": 0.5, "max_value": 0.5,
+                           "schedule_config": {"require_steps": 1,
+                                               "seq_per_step": 64}}}}}},
+    "curriculum": {"data_efficiency": {"enabled": True, "data_sampling": {
+        "curriculum_learning": {
+            "enabled": True, "curriculum_type": "fixed_linear",
+            "min_difficulty": 128, "max_difficulty": 512,
+            "schedule_config": {"total_curriculum_step": 2,
+                                "difficulty_step": 8}}}}},
+}
+ROUTING_LTD_K = 256
+# the flash shapes the routing phase adds to the train shape's, held to the
+# plain versions in the kernels phase: the random-LTD layers at T 256 (88
+# of every 96 forward launches of its run: the kernels line's `routing`
+# rows are timed there) and the curriculum's T 128 and 320
+ROUTING_ATTN = tuple(
+    (dict(B=ROUTING_MBS, T=T, H=12, Hkv=12, D=128, causal=True), path)
+    for T, path in ((ROUTING_LTD_K, "routing"), (128, None), (320, None)))
+# the three new phases' cost, estimated before their first run (seconds of
+# command; printed beside each phase's own reading)
+PHASE_ESTIMATE_S = {"longctx": 110, "longctx16k": 60, "routing": 60}
+# the chunked CE on the card at the longctx micro-batch's head: x [4096,
+# 1536], the gpt2 table [50304, 1536], 8 chunks, 5 % of the labels -1,
+# against the plain CE (gpt_loss's math) in fp32 on the same values. fp32:
+# both sum in fp32 in other orders. bf16: the chunked op takes its logits
+# in fp32 from the bf16 operands (exact products), so nll differs by sum
+# order only; dx and dw pass (p - onehot) · g rounded to bf16 (2^-9) and
+# are rounded to bf16 once: within 2 bf16 steps of max|ref|.
+CE_N, CE_D, CE_V, CE_CHUNKS = 4096, 1536, 50304, 8
+CE_TOL = {"float32": {"nll": 1e-4, "grad_rel": 1e-4},
+          "bfloat16": {"nll": 1e-3, "grad_rel": 2.0 ** -7}}
 
 # the MoE phase: moe-gpt-125m-e8, the MoE config of docs/parallelism.md:76
 # (GPTConfig's defaults: 12 heads of 64, d_ff 3072, vocab 50304), trained
@@ -762,14 +857,16 @@ def phase_kernels():
             raise AssertionError(f"flash lse err {lse_err} at {shape}")
 
     # --- flash forward: its paths' shapes — generate()'s prefill (4
-    # prompts padded to 600, gpt2-125m heads), the train step (gpt2-760m)
-    # and the MoE train step — then the edge cases
+    # prompts padded to 600, gpt2-125m heads), the train step (gpt2-760m),
+    # the north-star and MoE train steps and the routing phase's T 256,
+    # 128 and 320 — then the edge cases
     cases = [(dict(B=4, T=600, H=12, Hkv=12, D=64, causal=True),
               "generate"),
              (dict(B=12, T=512, H=12, Hkv=12, D=128, causal=True), "train"),
              (NORTH_ATTN, "north_star"),
              (dict(B=8, T=512, H=12, Hkv=12, D=64, causal=True),
-              "moe_train")] + [(shape, None) for shape in FLASH_EDGE_CASES]
+              "moe_train")] + [(shape, path) for shape, path in ROUTING_ATTN] \
+        + [(shape, None) for shape in FLASH_EDGE_CASES]
     for shape, path in cases:
         q, k, v, causal = _flash_case(rng, **shape)
         out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
@@ -860,6 +957,7 @@ def phase_kernels():
     results["paged_decode_attention", "moe_serve"] = \
         results["paged_decode_attention", "serve"]
     results.update(_backward_kernels(rng, checks))
+    results.update(_longctx_flash_kernels(rng, checks))
     results.update(_quant_kernels(rng, checks))
     _paged_split_kernels(rng, checks, results)
     _serving_feature_kernels(rng, checks, results)
@@ -893,8 +991,10 @@ def _backward_kernels(rng, checks):
     """The dq and dk/dv kernels through the autograd path (q/k/v strided
     views of one fused projection, as the model hands them over) against
     the plain backward on the same inputs and saved (out, lse): at the
-    two training paths' shapes (gpt2-760m: H 12, hd 128, B 12, T 512;
-    moe-gpt-125m-e8: H 12, hd 64, B 8, T 512; causal), at hd 64 / T 600,
+    training paths' shapes (gpt2-760m: H 12, hd 128, B 12, T 512;
+    moe-gpt-125m-e8: H 12, hd 64, B 8, T 512; the routing phase's
+    ROUTING_ATTN: gpt2-760m's heads at B 12, T 256, 128 and 320; causal),
+    at hd 64 / T 600,
     at GQA 4 with a ragged T and an lse cotangent, non-causal, at GQA 4
     with a ragged T in fp16, and at BWD_EDGE_CASES. Each gradient is held
     at BWD_REL_TOL x max|ref| and row by row (`_row_err`, SPARSE_ROW_TOL);
@@ -913,6 +1013,7 @@ def _backward_kernels(rng, checks):
             (NORTH_ATTN, "north_star", False),
             (dict(B=8, T=512, H=12, Hkv=12, D=64, causal=True), "moe_train",
              False),
+            *((shape, path, False) for shape, path in ROUTING_ATTN),
             (dict(B=4, T=600, H=12, Hkv=12, D=64, causal=True), None, False),
             (dict(B=2, T=333, H=16, Hkv=4, D=128, causal=True), None, True),
             (dict(B=2, T=200, H=8, Hkv=2, D=64, causal=False), None, False),
@@ -963,6 +1064,129 @@ def _backward_kernels(rng, checks):
             lambda: fa._launch_bwd(qh, kh, vh, doh, lse_d, delta, sm, True,
                                    True, True),
             sdpa, sout.grad_fn.name())
+    return results
+
+
+def _longctx_flash_kernels(rng, checks):
+    """Rows 1-3 at the long-context lanes' shapes ([1, 12, T, 128], causal,
+    bf16, T 4096 and 16384): the forward, dq and dk/dv through the autograd
+    path against the plain versions on the kernel's saved (out, lse), on
+    LONGCTX_REF_HEADS of the 12 heads, with the train shape's tolerances
+    (TOL, lse 1e-2, BWD_REL_TOL x max|ref| and row by row SPARSE_ROW_TOL);
+    then each timed at all 12 heads beside its bound, the plain version and
+    SDPA, and as device time (the forward as a CUDA graph, the backward
+    kernels and SDPA's backward in the profiler)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    results = {}
+    for path, lane in LONGCTX.items():
+        T, hr = lane["seq"], LONGCTX_REF_HEADS[path]
+        shape = dict(B=1, T=T, H=12, Hkv=12, D=128, causal=True)
+        q, k, v, _ = _flash_case(rng, **shape)
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        do = torch.randn_like(out)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        qd, kd, vd, od = (x.detach() for x in (q, k, v, out))
+        heads = lambda x: x[:, :, :hr]                  # BTHD
+        ref_out, ref_lse = fa.flash_attention_reference(
+            heads(qd), heads(kd), heads(vd), True)
+        ref = fa.flash_attention_bwd_reference(
+            heads(qd), heads(kd), heads(vd), heads(od), lse[:, :hr].detach(),
+            heads(do), None, True)
+        torch.cuda.synchronize()
+        fwd_err = (heads(od).float() - ref_out.float()).abs().max().item()
+        lse_err = (lse[:, :hr].detach() - ref_lse).abs().max().item()
+        ok = fwd_err <= TOL["flash_attention"] and lse_err <= 1e-2
+        checks.append({"kernel": "flash_attention", "shape": shape,
+                       "ref_heads": hr, "max_abs_err": fwd_err,
+                       "lse_err": lse_err, "tol": TOL["flash_attention"],
+                       "ok": bool(ok)})
+        if not ok:
+            raise AssertionError(f"flash forward {shape}: out err {fwd_err}"
+                                 f", lse err {lse_err}")
+        errs = {"flash_attention": fwd_err}
+        for name, idx in (("flash_attention_bwd_dq", (0,)),
+                          ("flash_attention_bwd_dkv", (1, 2))):
+            err = max((heads(grads[i]).float() - ref[i].float()).abs().max()
+                      .item() for i in idx)
+            scale = max(ref[i].float().abs().max().item() for i in idx)
+            row = max(_row_err(heads(grads[i]), ref[i]) for i in idx)
+            ok = bool(np.isfinite(err) and err <= BWD_REL_TOL * scale
+                      and np.isfinite(row) and row <= SPARSE_ROW_TOL)
+            checks.append({"kernel": name, "shape": shape, "ref_heads": hr,
+                           "max_abs_err": err, "ref_max_abs": scale,
+                           "tol": BWD_REL_TOL * scale, "row_err": row,
+                           "row_tol": SPARSE_ROW_TOL, "ok": ok})
+            if not ok:
+                raise AssertionError(f"{name} {shape}: max abs err {err} > "
+                                     f"{BWD_REL_TOL} x {scale} or worst row "
+                                     f"err {row} > {SPARSE_ROW_TOL}")
+            errs[name] = err
+        del ref, ref_out, ref_lse
+        torch.cuda.empty_cache()
+
+        B, H, D = 1, 12, 128
+        qh, kh, vh, doh = (x.detach().transpose(1, 2) for x in (q, k, v, do))
+        lse_d = lse.detach()
+        delta = (doh.float() * od.transpose(1, 2).float()).sum(-1) \
+            .contiguous()
+        sm = 1.0 / D ** 0.5
+        pairs = B * H * T * (T + 1) / 2
+        tile = B * T * H * D * 2
+        rows = B * H * T * 4
+        slices = [slice(h, h + hr) for h in range(0, H, hr)]
+
+        def plain_fwd():
+            for s_ in slices:
+                fa.flash_attention_reference(qd[:, :, s_], kd[:, :, s_],
+                                             vd[:, :, s_], True)
+
+        def plain_bwd():
+            for s_ in slices:
+                fa.flash_attention_bwd_reference(
+                    qd[:, :, s_], kd[:, :, s_], vd[:, :, s_], od[:, :, s_],
+                    lse_d[:, s_], do[:, :, s_], None, True)
+        fwd = lambda: fa.flash_attention(qd, kd, vd)
+        sq, sk, sv = (x.contiguous() for x in (qh, kh, vh))
+        sdpa = lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                      is_causal=True)
+        b_ms, b_by = bound(4 * tile + rows, 4 * D * pairs)
+        results["flash_attention", path] = dict(
+            max_abs_err=errs["flash_attention"], ms=median_ms(fwd),
+            plain_ms=median_ms(plain_fwd, reps=3, inner=1, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(sdpa),
+            graph_ms=graph_ms(fwd, inner=5), library_graph_ms=graph_ms(
+                sdpa, inner=5), plain_heads_a_call=hr)
+        gq, gk, gv = (x.requires_grad_(True) for x in (sq.clone(),
+                                                       sk.clone(),
+                                                       sv.clone()))
+        gout = F.scaled_dot_product_attention(gq, gk, gv, is_causal=True)
+        gdo = doh.contiguous()
+        sdpa_bwd = lambda: torch.autograd.grad(gout, (gq, gk, gv), gdo,
+                                               retain_graph=True)
+        library_ms = median_ms(sdpa_bwd)
+        library_dev, _ = _device_ms(sdpa_bwd, calls=5)
+        plain_ms = median_ms(plain_bwd, reps=3, inner=1, warmup=1)
+        for name, need, flops, nbytes in (
+                ("flash_attention_bwd_dq", (True, False), 6 * D * pairs,
+                 5 * tile + 2 * rows),
+                ("flash_attention_bwd_dkv", (False, True), 8 * D * pairs,
+                 6 * tile + 2 * rows)):
+            b_ms, b_by = bound(nbytes, flops)
+            kern = lambda: fa._launch_bwd(qh, kh, vh, doh, lse_d, delta, sm,
+                                          True, *need)
+            dev, _ = _device_ms(kern, calls=5)
+            results[name, path] = dict(
+                max_abs_err=errs[name], ms=median_ms(kern),
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, device_ms=dev,
+                library_device_ms=library_dev, plain_heads_a_call=hr,
+                library="SDPA backward (dq, dk, dv together)")
+        del q, k, v, out, lse, do, grads, gout
+        torch.cuda.empty_cache()
     return results
 
 
@@ -4649,11 +4873,14 @@ def phase_north_star(state):
 
 
 def _train_parity(cfg, name=TRAIN_MODEL, config=TRAIN_CONFIG, seq=TRAIN_SEQ,
-                  batch=2, attn_fn=None):
+                  batch=2, attn_fn=None, cpu_over=None, extra=None):
     """The first step's loss and every parameter's gradient at 2 layers of
     the training model (B `batch`, T `seq`, through `attn_fn` if given): the
     engine on the card in bf16 against the engine on the CPU in fp32, from
-    the same (bf16-rounded) weights and batch."""
+    the same (bf16-rounded) weights and batch. `cpu_over` changes fields of
+    the CPU twin's config (the long-context lane's twin takes the
+    unchunked loss); `extra` adds batch leaves (routing directives) to
+    both."""
     import dataclasses
     import torch
     from deepspeed_tpu_torch import initialize
@@ -4675,10 +4902,11 @@ def _train_parity(cfg, name=TRAIN_MODEL, config=TRAIN_CONFIG, seq=TRAIN_SEQ,
     # attention takes no other)
     cpu, *_ = initialize(
         model=make_gpt_model(dataclasses.replace(
-            small, dtype=torch.float32, softmax_dtype=torch.float32),
-            name=name, params=params, attn_fn=attn_fn),
+            small, dtype=torch.float32, softmax_dtype=torch.float32,
+            **(cpu_over or {})), name=name, params=params, attn_fn=attn_fn),
         config={**config, "bf16": {"enabled": False}}, device="cpu")
-    batch_t = {"tokens": torch.from_numpy(toks)}
+    batch_t = {"tokens": torch.from_numpy(toks),
+               **{k: torch.from_numpy(v) for k, v in (extra or {}).items()}}
     g_card, l_card, _ = card._grads(card.state.params, batch_t)
     g_cpu, l_cpu, _ = cpu._grads(cpu.state.params, batch_t)
     loss_err = abs(float(l_card) - float(l_cpu))
@@ -4695,9 +4923,375 @@ def _train_parity(cfg, name=TRAIN_MODEL, config=TRAIN_CONFIG, seq=TRAIN_SEQ,
                              f"{TRAIN_LOSS_TOL}), worst gradient {worst} "
                              f"{rel[worst]} (tol {TRAIN_GRAD_REL_TOL})")
     return {"n_layer": 2, "batch": batch, "seq": seq,
+            "cpu_over": cpu_over, "extra": sorted(extra or ()),
             "loss_card": float(l_card), "loss_cpu": float(l_cpu),
             "loss_abs_err": loss_err, "loss_tol": TRAIN_LOSS_TOL,
             "grad_rel_err": rel, "grad_rel_tol": TRAIN_GRAD_REL_TOL}
+
+
+def _plain_ce(x, w, labels):
+    """gpt_loss's plain cross entropy over x [N, D] and the table w [V, D]:
+    logits in x's dtype, the max taken there, the log-sum-exp in fp32; the
+    masked mean over the labels >= 0."""
+    import torch
+    logits = x @ w.t()
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    logz = m[:, 0].float() + torch.log(
+        torch.exp((logits - m).float()).sum(dim=-1))
+    gold = logits.gather(-1, labels.clamp_min(0).long()[:, None])[:, 0]
+    return logz - gold.float()
+
+
+def _ce_fwd_bwd(fn, x, w, labels):
+    """(nll, dx, dw) of the masked mean of `fn(x, w, labels)`'s nll."""
+    import torch
+    xg, wg = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    nll = fn(xg, wg, labels)
+    mask = (labels >= 0).float()
+    dx, dw = torch.autograd.grad((nll * mask).sum() / mask.sum(), (xg, wg))
+    return nll.detach(), dx, dw
+
+
+def _chunked_ce_card():
+    """The chunked-vocab CE at the longctx micro-batch's head, bf16 and
+    fp32, against the plain CE in fp32 on the same values: nll, dx and dw
+    each beside its limit (CE_TOL); the peak memory above the inputs of the
+    chunked op and of gpt_loss's plain CE in bf16, forward + backward (the
+    chunked must be lower); the chunked op's host time a call (enqueue) and
+    device time (profiler), beside the plain CE's."""
+    import torch
+    from deepspeed_tpu_torch.ops.chunked_ce import chunked_softmax_xent
+    gen = np.random.default_rng(17)
+    x32 = torch.from_numpy(gen.standard_normal((CE_N, CE_D)).astype(
+        np.float32)).cuda()
+    w32 = torch.from_numpy((0.02 * gen.standard_normal((CE_V, CE_D))).astype(
+        np.float32)).cuda()
+    labels = gen.integers(0, CE_V, CE_N)
+    labels[gen.random(CE_N) < 0.05] = -1
+    labels = torch.from_numpy(labels).cuda()
+    chunked = lambda x, w, lab: chunked_softmax_xent(x, w, lab, CE_CHUNKS)
+    out = {"shape": {"N": CE_N, "D": CE_D, "V": CE_V, "chunks": CE_CHUNKS},
+           "masked_labels": int((labels < 0).sum())}
+    for dtype in ("float32", "bfloat16"):
+        x, w = (t.to(getattr(torch, dtype)) for t in (x32, w32))
+        nll, dx, dw = _ce_fwd_bwd(chunked, x, w, labels)
+        rn, rdx, rdw = _ce_fwd_bwd(_plain_ce, x.float(), w.float(), labels)
+        tol = CE_TOL[dtype]
+        err = {"nll": (nll - rn).abs().max().item(), "nll_tol": tol["nll"]}
+        for name, a, b in (("dx", dx, rdx), ("dw", dw, rdw)):
+            scale = b.abs().max().item()
+            err[name] = (a.float() - b).abs().max().item()
+            err[name + "_tol"] = tol["grad_rel"] * scale
+        out[dtype] = err
+        if not (err["nll"] <= err["nll_tol"] and err["dx"] <= err["dx_tol"]
+                and err["dw"] <= err["dw_tol"]):
+            raise AssertionError(f"chunked CE {dtype}: {err}")
+        del nll, dx, dw, rn, rdx, rdw
+    x, w = x32.bfloat16(), w32.bfloat16()
+    del x32, w32
+    peak = {}
+    for name, fn in (("chunked", chunked), ("plain", _plain_ce)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _ce_fwd_bwd(fn, x, w, labels)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() - base
+    if not peak["chunked"] < peak["plain"]:
+        raise AssertionError(f"chunked CE peak {peak} not below the plain's")
+    out["peak_bytes_bf16"] = peak
+    for name, fn in (("chunked", chunked), ("plain", _plain_ce)):
+        call = lambda: _ce_fwd_bwd(fn, x, w, labels)
+        out[name + "_device_ms"], _ = _device_ms(call, calls=5)
+        out[name + "_host_ms"] = _host_ms(call, calls=10)
+        out[name + "_ms"] = median_ms(call, reps=5, inner=1)
+    return out
+
+
+def _longctx_cfg(seq):
+    import torch
+    from deepspeed_tpu_torch.models.gpt import GPT2_CONFIGS
+    return dataclasses.replace(
+        GPT2_CONFIGS[LONGCTX_MODEL], max_seq_len=seq,
+        remat_policy=TRAIN_POLICY, softmax_dtype=torch.bfloat16,
+        loss_chunks=LONGCTX_LOSS_CHUNKS)
+
+
+def _longctx_config(gas):
+    return {**BENCH_ENGINE_CONFIG, "train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": gas,
+            "zero_optimization": {"stage": 1},
+            "data_types": {"grad_accum_dtype": "bf16"},
+            "telemetry": REGISTRY_ONLY}
+
+
+def _micro_peak(engine, micro):
+    """Peak device memory of one micro-batch's forward and backward through
+    the engine's loss (the engine's state included)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine._micro_grads(engine.state.params, micro)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def _phase_longctx(state, path):
+    """bench.py's `path` lane (LONGCTX) through initialize() ->
+    train_batch(): 1 warm-up and LONGCTX_STEPS timed steps; exact flash
+    launches (2 x 24 x gas forward, 24 x gas each backward kernel a step),
+    finite losses (longctx: falling too); seconds a step, tokens/s, MFU
+    (6N) and bench.py's attention-inclusive mfu_attn (bench.py:300-306:
+    + 12 x tokens x seq x d_model x n_layer a step), the registry's
+    readings, host against kernel time of one micro-batch, the step's and
+    one micro-batch's peak memory (each above what was allocated before
+    initialize(), so what earlier phases left on the card is not in it:
+    the lane's engine, state and activations). longctx also: the chunked CE on the card
+    (`_chunked_ce_card`), one micro-batch's peak with loss_chunks 0 (it
+    must be higher), and the 2-layer first-step parity against the fp32
+    CPU twin with loss_chunks 0 at seq 4096."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt import make_gpt_model
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.utils.tree import tree_num_params
+    t_phase = time.perf_counter()
+    seq, gas = LONGCTX[path]["seq"], LONGCTX[path]["gas"]
+    out = {"phase": path, "estimate_s": PHASE_ESTIMATE_S[path]}
+    if path == "longctx":
+        out["chunked_ce"] = _chunked_ce_card()
+    cfg = _longctx_cfg(seq)
+    config = _longctx_config(gas)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=make_gpt_model(cfg, name=LONGCTX_MODEL,
+                                                 seed=0), config=config)
+    setup_s = time.perf_counter() - t0
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (gas, seq + 1))).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    losses = [float(engine.train_batch(batch))]             # warm-up
+    engine.telemetry.registry.clear()
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(LONGCTX_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        step_s.append(time.perf_counter() - t0)
+    counts = dict(LAUNCHES)
+    peak_step = torch.cuda.max_memory_allocated() - base
+    L, d = cfg.n_layer, cfg.d_model
+    _expect(path, counts, {
+        "flash_attention": 2 * L * gas * LONGCTX_STEPS,
+        "flash_attention_bwd_dq": L * gas * LONGCTX_STEPS,
+        "flash_attention_bwd_dkv": L * gas * LONGCTX_STEPS})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{path} losses not finite: {losses}")
+    if path == "longctx" and not losses[-1] < losses[0]:
+        raise AssertionError(f"{path} losses not falling: {losses}")
+    n_params = tree_num_params(engine.state.params)
+    sec = statistics.median(step_s)
+    tokens = gas * seq
+    micro = {k: v[:1] for k, v in batch.items()}
+    peak_micro = {"loss_chunks_8": _micro_peak(engine, micro) - base}
+    out.update(
+        model=LONGCTX_MODEL, n_layer=L, n_params=n_params, seq=seq,
+        config=config, loss_chunks=cfg.loss_chunks, remat=cfg.remat_policy,
+        setup_s=setup_s, losses=losses, step_s=step_s,
+        seconds_per_step=sec, tokens_per_s=tokens / sec,
+        mfu=6 * n_params * tokens / sec / BF16_FLOPS,
+        mfu_attn=(6 * n_params * tokens + 12 * tokens * seq * d * L)
+        / sec / BF16_FLOPS,
+        mfu_basis="6 x params x tokens (mfu_attn: + 12 x tokens x seq x "
+                  "d_model x n_layer, bench.py:300-306) a step over "
+                  "989e12 flop/s",
+        registry=_train_registry(engine.telemetry.registry.snapshot(),
+                                 LONGCTX_STEPS, sec),
+        micro_batch_s=_micro_times(engine, micro), launches=counts,
+        baseline_bytes=base, peak_bytes_step=peak_step)
+    if path == "longctx":
+        cfg.loss_chunks = 0     # the engine's loss holds this cfg
+        try:
+            peak_micro["loss_chunks_0"] = _micro_peak(engine, micro) - base
+        finally:
+            cfg.loss_chunks = LONGCTX_LOSS_CHUNKS
+        if not peak_micro["loss_chunks_8"] < peak_micro["loss_chunks_0"]:
+            raise AssertionError(f"{path} micro-batch peak {peak_micro}: "
+                                 f"the chunked loss is not lower")
+    out["peak_bytes_micro_batch"] = peak_micro
+    del engine, batch, micro, toks
+    torch.cuda.empty_cache()
+    if path == "longctx":
+        out["parity"] = _train_parity(
+            cfg, name=LONGCTX_MODEL, config=config, seq=seq, batch=1,
+            cpu_over={"loss_chunks": 0})
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return counts
+
+
+def phase_longctx(state):
+    return _phase_longctx(state, "longctx")
+
+
+def phase_longctx16k(state):
+    return _phase_longctx(state, "longctx16k")
+
+
+class _FlashSeqs:
+    """Records the T of every flash forward call the GPT model makes
+    while a `with` block runs, by wrapping `models.gpt.flash_attention`
+    from here (the remat replay calls it again)."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.models import gpt
+        self.seen, self._orig = [], gpt.flash_attention
+
+        def spy(q, k, v, **kw):
+            self.seen.append(int(q.shape[1]))
+            return self._orig(q, k, v, **kw)
+        gpt.flash_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.models import gpt
+        gpt.flash_attention = self._orig
+
+
+def _routing_run(name, cfg, params, toks):
+    """One directive's run: the engine with ROUTING_CONFIG plus the
+    directive's block, ROUTING_STEPS steps on one batch with the launch
+    counts from 0, the directives the engine drew each step (recorded by
+    wrapping its `_inject_routing_directives` from here) and the T of every
+    flash forward. Returns (counts, record)."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt import make_gpt_model
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    engine, *_ = initialize(
+        model=make_gpt_model(cfg, name=f"{TRAIN_MODEL}-{name}",
+                             params=params),
+        config={**ROUTING_CONFIG, **ROUTING_DIRECTIVES[name]})
+    drawn = []
+    inject = engine._inject_routing_directives
+
+    def record(batch):
+        leaves = inject(batch)
+        drawn.append({k: np.asarray(v) for k, v in leaves.items()
+                      if k.startswith(("pld_", "ltd_"))})
+        return leaves
+    engine._inject_routing_directives = record
+    if name == "curriculum":    # explicit labels: the model's T is the cut
+        batch = {"input_ids": toks[:, :-1], "labels": toks[:, 1:]}
+    else:
+        batch = {"tokens": toks}
+    losses, step_s, seqs, difficulty = [], [], [], []
+    LAUNCHES.clear()
+    for _ in range(ROUTING_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _FlashSeqs() as fs:
+            losses.append(float(engine.train_batch(batch)))
+        step_s.append(time.perf_counter() - t0)
+        seqs.append(fs.seen)
+        if engine.curriculum_scheduler is not None:
+            difficulty.append(engine.curriculum_scheduler.current_difficulty)
+    counts = dict(LAUNCHES)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"routing {name} losses not finite: {losses}")
+    del engine
+    torch.cuda.empty_cache()
+    return counts, dict(losses=losses, step_s=step_s, drawn=drawn,
+                        seqs=seqs, difficulty=difficulty)
+
+
+def phase_routing(state):
+    """The routing directives through initialize() -> train_batch() on
+    gpt2-760m at full width and depth (ROUTING_CONFIG, ROUTING_DIRECTIVES),
+    each run's launches from 0: PLD — flash forward 2 x gas x the kept
+    layers the engine drew, summed over the steps, each backward kernel
+    gas x kept; random-LTD — every layer launches (2 x 24 x gas forward a
+    step), layers 1-22 at T 256, layers 0 and 23 at 512, and the 2-layer
+    first-step parity (start 1, one routed layer, K 256) against the fp32
+    CPU twin fed the same directives; the curriculum — each step's T equal
+    to the scheduler's difficulty, 128, 320, 512. Losses finite
+    throughout. Returns the three runs' launches summed (the `routing`
+    path)."""
+    import collections
+    import torch
+    from deepspeed_tpu_torch.models.gpt import GPT2_CONFIGS, init_gpt_params
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(GPT2_CONFIGS[TRAIN_MODEL],
+                              remat_policy=TRAIN_POLICY,
+                              softmax_dtype=torch.bfloat16)
+    params = init_gpt_params(cfg, seed=0)
+    toks = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (ROUTING_MBS * ROUTING_GAS,
+                            ROUTING_SEQ + 1))).cuda()
+    L, gas = cfg.n_layer, ROUTING_GAS
+    total = collections.Counter()
+    out = {"phase": "routing", "estimate_s": PHASE_ESTIMATE_S["routing"],
+           "model": TRAIN_MODEL, "config": ROUTING_CONFIG,
+           "directives": ROUTING_DIRECTIVES}
+    for name in ROUTING_DIRECTIVES:
+        counts, rec = _routing_run(name, cfg, params, toks)
+        total.update(counts)
+        if name == "pld":
+            kept = [int(d["pld_keep_idx"].shape[1]) for d in rec["drawn"]]
+            rec["kept_layers"] = kept
+            rec["theta"] = [float(d["pld_theta"][0]) for d in rec["drawn"]]
+            if not min(kept) < L:
+                raise AssertionError(f"routing pld dropped no layer: {kept}")
+            _expect("routing pld", counts, {
+                "flash_attention": 2 * gas * sum(kept),
+                "flash_attention_bwd_dq": gas * sum(kept),
+                "flash_attention_bwd_dkv": gas * sum(kept)})
+        elif name == "random_ltd":
+            shapes = {tuple(d["ltd_keep_idx"].shape) for d in rec["drawn"]}
+            want_t = sorted([ROUTING_SEQ] * 2 * 2 * gas
+                            + [ROUTING_LTD_K] * 2 * (L - 2) * gas)
+            if shapes != {(ROUTING_MBS * gas, L - 2, ROUTING_LTD_K)} or \
+                    any(sorted(t) != want_t for t in rec["seqs"]):
+                raise AssertionError(f"routing random_ltd: keep shapes "
+                                     f"{shapes}, flash T "
+                                     f"{[collections.Counter(t) for t in rec['seqs']]}")
+            _expect("routing random_ltd", counts, {
+                "flash_attention": 2 * L * gas * ROUTING_STEPS,
+                "flash_attention_bwd_dq": L * gas * ROUTING_STEPS,
+                "flash_attention_bwd_dkv": L * gas * ROUTING_STEPS})
+            gen = np.random.default_rng(13)
+            keep = np.sort(np.argpartition(gen.random((2, 1, ROUTING_SEQ)),
+                                           ROUTING_LTD_K - 1, axis=-1)
+                           [..., :ROUTING_LTD_K], axis=-1).astype(np.int32)
+            rec["parity"] = _train_parity(
+                cfg, name=TRAIN_MODEL, config=TRAIN_CONFIG, seq=ROUTING_SEQ,
+                batch=2, extra={"ltd_keep_idx": keep,
+                                "ltd_start": np.zeros((2, 1), np.int8)})
+        else:
+            if rec["difficulty"] != [128, 320, 512] or any(
+                    set(t) != {d} for t, d in zip(rec["seqs"],
+                                                  rec["difficulty"])):
+                raise AssertionError(
+                    f"routing curriculum: difficulty {rec['difficulty']}, "
+                    f"flash T {[sorted(set(t)) for t in rec['seqs']]}")
+            _expect("routing curriculum", counts, {
+                "flash_attention": 2 * L * gas * ROUTING_STEPS,
+                "flash_attention_bwd_dq": L * gas * ROUTING_STEPS,
+                "flash_attention_bwd_dkv": L * gas * ROUTING_STEPS})
+        rec["launches"] = counts
+        rec["flash_seqs"] = [dict(collections.Counter(t))
+                             for t in rec.pop("seqs")]
+        rec.pop("drawn")
+        out[name] = rec
+    out["launches"] = dict(total)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return dict(total)
 
 
 def phase_sparse(state):
@@ -5487,8 +6081,8 @@ def main():
         return 2
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else \
         ["build", "kernels", "norms", "generate", "serve", "quant",
-         "prefix_cache", "spec_decode", "train", "north_star", "moe",
-         "sparse", "evoformer"]
+         "prefix_cache", "spec_decode", "train", "north_star", "longctx",
+         "longctx16k", "routing", "moe", "sparse", "evoformer"]
     dev = phase_device()
     state, launches, kern = {}, {}, {}
     if "build" in phases:
@@ -5502,6 +6096,9 @@ def main():
                        ("spec_decode", phase_spec_decode),
                        ("train", phase_train),
                        ("north_star", phase_north_star),
+                       ("longctx", phase_longctx),
+                       ("longctx16k", phase_longctx16k),
+                       ("routing", phase_routing),
                        ("moe", phase_moe), ("sparse", phase_sparse),
                        ("evoformer", phase_evoformer)):
         if phase in phases:

@@ -7,11 +7,12 @@ bf16, optimizer, scheduler, ZeRO stage, gradient clipping, the gradient
 accumulator dtype, activation checkpointing). A feature of that config the
 port does not carry yet raises `NotImplementedError` when the config is
 built: offload, ZeRO++ / compressed wires, a mesh of more than one rank,
-pipeline, MoE, checkpointing and fault tolerance, curriculum and data
-efficiency, compression, progressive layer drop and the profilers. The
-`telemetry` block and the monitors (`tensorboard`, `wandb`, `csv_monitor`)
-are ported; the telemetry block's request tracing, flight recorder and
-memscope are not.
+pipeline, MoE, checkpointing and fault tolerance, the metric-driven
+curriculum (`curriculum_metrics`), compression and the profilers. The
+`telemetry` block, the monitors (`tensorboard`, `wandb`, `csv_monitor`),
+progressive layer drop and the `data_efficiency` block's random-LTD and
+legacy seqlen curriculum are ported; the telemetry block's request
+tracing, flight recorder and memscope are not.
 """
 
 import copy
@@ -282,12 +283,45 @@ class CsvConfig(ConfigModel):
     job_name: str = "DeepSpeedTPUJob"
 
 
+@dataclass
+class ProgressiveLayerDropConfig(ConfigModel):
+    """`progressive_layer_drop`: the keep-probability schedule
+    (`runtime/progressive_layer_drop.py`)."""
+    enabled: bool = False
+    theta: float = 0.5
+    gamma: float = 0.001
+
+
+@dataclass
+class DataEfficiencyConfig(ConfigModel):
+    """`data_efficiency`: `data_routing.random_ltd` and the legacy seqlen
+    curriculum (`data_sampling.curriculum_learning` without
+    `curriculum_metrics`), read by the engine (`runtime/engine.py`). The
+    metric-driven curriculum (`curriculum_metrics`) needs the data sampler
+    and the data analyzer, which are not ported: it raises."""
+    enabled: bool = False
+    seed: int = 1234
+    data_sampling: Dict[str, Any] = field(default_factory=dict)
+    data_routing: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        cl = (self.data_sampling or {}).get("curriculum_learning", {})
+        if self.enabled and cl.get("enabled") and \
+                cl.get("curriculum_metrics"):
+            raise NotImplementedError(
+                "data_efficiency.data_sampling.curriculum_learning."
+                "curriculum_metrics is not ported to deepspeed_tpu_torch "
+                "yet: it needs the data sampler and the data analyzer "
+                "(ROADMAP queue 1 item 4; the JAX package deepspeed_tpu "
+                "serves it). The legacy seqlen curriculum (no "
+                "curriculum_metrics) is ported")
+
+
 # blocks of the JAX config that this port refuses when they are switched
 # on (an "enabled" flag), or given at all (the others)
-_UNPORTED_ENABLED = ("fault_tolerance", "moe", "data_efficiency",
-                     "progressive_layer_drop", "flops_profiler", "eigenvalue",
-                     "comms_logger", "gradient_compression", "autotuning",
-                     "elasticity", "curriculum_learning")
+_UNPORTED_ENABLED = ("fault_tolerance", "moe", "flops_profiler",
+                     "eigenvalue", "comms_logger", "gradient_compression",
+                     "autotuning", "elasticity")
 _UNPORTED_CONTENT = ("pipeline", "compression_training", "checkpoint")
 _UNPORTED_FLAGS = ("sparse_gradients", "prescale_gradients",
                    "memory_breakdown", "dump_state",
@@ -334,6 +368,10 @@ class TpuTrainConfig(ConfigModel):
     tensorboard: TensorBoardConfig = field(default_factory=TensorBoardConfig)
     wandb: WandbConfig = field(default_factory=WandbConfig)
     csv_monitor: CsvConfig = field(default_factory=CsvConfig)
+    data_efficiency: DataEfficiencyConfig = field(
+        default_factory=DataEfficiencyConfig)
+    progressive_layer_drop: ProgressiveLayerDropConfig = field(
+        default_factory=ProgressiveLayerDropConfig)
 
     gradient_clipping: float = 0.0
     gradient_predivide_factor: float = 1.0

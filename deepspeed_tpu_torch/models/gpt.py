@@ -3,14 +3,17 @@
 
 Pre-LN GPT-2 (learned positions, LayerNorm, GELU, MHA) with the cheap
 LLaMA-style flags (rotary embeddings, RMSNorm, SwiGLU, grouped-query
-attention). Alibi, sliding windows, per-layer attention types and the
-NeoX/GPT-J parallel residual raise `NotImplementedError` until a later
-slice ports them; so do dropout and chunked cross entropy. Training:
+attention) and the NeoX/GPT-J parallel residual. Alibi, sliding windows and
+per-layer attention types raise `NotImplementedError` until a later slice
+ports them (the flash kernels take no bias and no window). Training:
 `gpt_hidden` / `gpt_forward` / `gpt_loss`, and `make_gpt_model` for the
 engine; remat wraps each block in non-reentrant `torch.utils.checkpoint`
 under the config's `remat_policy` (`resolve_remat_policy`: the argument-free
 `jax.checkpoint_policies` names and the package's `save_matmuls` /
-`save_matmuls_probs`).
+`save_matmuls_probs`). `loss_chunks > 0` takes the chunked-vocab cross
+entropy (`ops/chunked_ce.py`), `chunked_attn_min_seq` the query-chunked
+attention (`ops/chunked_attention.py`), and `gpt_hidden` runs the engine's
+routing directives: progressive layer drop and random-LTD.
 An `attn_fn` (q, k, v [B, T, H, hd] -> [B, T, H, hd], e.g.
 `ops/sparse_attention.sparse_attn_fn`) replaces the attention of every
 training and evaluation forward, as in the JAX package.
@@ -44,6 +47,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from deepspeed_tpu_torch.inference.quantization import (
     QuantizedTensor, dense, dequantize_tensors, quantize_kv_write)
 from deepspeed_tpu_torch.ops import attention_dispatch as attn_dispatch
+from deepspeed_tpu_torch.ops.chunked_attention import chunked_attention
+from deepspeed_tpu_torch.ops.chunked_ce import chunked_softmax_xent
 from deepspeed_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference, paged_decode_attention,
     paged_decode_attention_quant)
@@ -197,15 +202,24 @@ class GPTConfig:
                                      # "quick_gelu"
     use_alibi: bool = False          # not ported
     use_emb_ln: bool = False         # BLOOM LayerNorm after the embedding
-    parallel_residual: bool = False  # not ported
+    parallel_residual: bool = False  # NeoX/GPT-J: x + attn(ln1 x) + mlp(ln2 x)
     sliding_window: Optional[int] = None      # not ported
     attn_layer_types: Optional[tuple] = None  # not ported
     scale_attn: bool = True          # False: unscaled scores (GPT-Neo)
     tie_embeddings: bool = True
     remat: bool = True               # torch.utils.checkpoint each block
     remat_policy: str = "nothing_saveable"  # REMAT_POLICIES
-    dropout: float = 0.0             # > 0 not ported
-    loss_chunks: int = 0             # > 0 (chunked-vocab CE) not ported
+    dropout: float = 0.0             # accepted and never applied, as in the
+                                     # JAX package, whose GPTConfig carries
+                                     # the field (deepspeed_tpu/models/
+                                     # gpt.py:46) and whose blocks read no
+                                     # dropout (`_block`'s unused dropout_rng)
+    loss_chunks: int = 0             # > 0: chunked-vocab CE in that many
+                                     # vocabulary chunks (ops/chunked_ce.py)
+    chunked_attn_min_seq: Optional[int] = None  # T >= this takes the
+                                     # query-chunked attention
+                                     # (ops/chunked_attention.py) in place of
+                                     # the flash kernels; None = never
     softmax_dtype: torch.dtype = torch.float32  # the plain path's softmax
                                      # dtype (fp32 only); the flash kernels
                                      # keep fp32 statistics whatever it says
@@ -231,9 +245,6 @@ class GPTConfig:
             ("use_alibi", self.use_alibi),
             ("sliding_window", bool(self.sliding_window)),
             ("attn_layer_types", self.attn_layer_types is not None),
-            ("parallel_residual", self.parallel_residual),
-            ("dropout", self.dropout > 0),
-            ("loss_chunks", self.loss_chunks > 0),
         ) if on]
         if unported:
             raise NotImplementedError(
@@ -425,17 +436,27 @@ def _mlp(h, p, cfg):
 
 def _residual_mlp(x, attn_out, p, cfg: GPTConfig, mlp_fn=None):
     """Residual second half of a block; `mlp_fn` lets MoE swap the dense
-    MLP."""
-    x = x + attn_out
+    MLP. With `parallel_residual` (NeoX/GPT-J) both halves read the block's
+    input: x + attn(ln1 x) + mlp(ln2 x)."""
+    if not cfg.parallel_residual:
+        x = x + attn_out
     h2 = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg.use_rmsnorm,
                cfg.norm_eps)
-    return x + (_mlp(h2, p, cfg) if mlp_fn is None else mlp_fn(h2))
+    mlp = _mlp(h2, p, cfg) if mlp_fn is None else mlp_fn(h2)
+    if cfg.parallel_residual:
+        return x + attn_out + mlp
+    return x + mlp
+
+
+def _head_table(params, cfg: GPTConfig):
+    """The (tied) LM-head table [V, D]."""
+    return params["wte"] if cfg.tie_embeddings else params["lm_head"]
 
 
 def _head_logits(params, x, cfg: GPTConfig):
     """LM-head matmul (+ GPT-J's tied bias). x: [B, T, D] -> [B, T, V]."""
-    table = params["wte"] if cfg.tie_embeddings else params["lm_head"]
-    return F.linear(x, dense(table).to(x.dtype), params.get("lm_head_bias"))
+    return F.linear(x, dense(_head_table(params, cfg)).to(x.dtype),
+                    params.get("lm_head_bias"))
 
 
 def _lm_head(params, x, cfg: GPTConfig):
@@ -454,24 +475,29 @@ def _site(cfg, phase, q, C, M, kv_dtype=None, attn_fn=None):
         phase=phase, q_len=C, kv_len=M, head_dim=cfg.head_dim,
         kv_dtype=kv_dtype or dtype_name(q.dtype), on_cuda=q.is_cuda,
         force_flash=cfg.use_flash_attention,
-        external_fn=attn_fn is not None)
+        external_fn=attn_fn is not None, chunk_min=cfg.chunked_attn_min_seq)
 
 
 def _attention(q, k, v, cfg, attn_fn=None):
     """q: [B, T, H, hd]; k, v: [B, S, Hkv, hd] -> [B, T, H, hd], causal.
 
     Program selection goes through the dispatch layer: the caller's
-    `attn_fn` (K/V heads repeated to match q's first), the flash kernel, or
-    on CPU operands its plain version (fp32 softmax; GQA)."""
+    `attn_fn` (K/V heads repeated to match q's first), the query-chunked
+    attention where `chunked_attn_min_seq` asks for it, the flash kernel,
+    or on CPU operands its plain version (fp32 softmax; GQA)."""
     T, S = q.shape[1], k.shape[1]
     program = attn_dispatch.select(_site(cfg, "train", q, T, S,
                                          attn_fn=attn_fn))
-    if program == "external":
-        if k.shape[2] != q.shape[2]:    # external kernels expect matched heads
+    if program in ("external", "chunked"):
+        if k.shape[2] != q.shape[2]:    # both expect matched heads
             rep = q.shape[2] // k.shape[2]
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        return attn_fn(q, k, v)
+        if program == "external":
+            return attn_fn(q, k, v)
+        return chunked_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, sm_scale=_sm_scale(cfg)).transpose(1, 2)
     if program == "flash":
         return flash_attention(q, k, v, causal=True, sm_scale=_sm_scale(cfg))
     if cfg.softmax_dtype != torch.float32:
@@ -544,12 +570,26 @@ def gpt_hidden(params, tokens, cfg: GPTConfig, positions=None, pld=None,
 
     With `cfg.remat` each block runs under its `resolve_remat_policy`
     wrapper: the policy's ops are kept and the backward recomputes the rest,
-    so the attention kernel's forward runs twice per block. Progressive
-    layer drop (`pld`) and random-LTD (`ltd`) are not ported."""
-    if pld is not None or ltd is not None:
-        raise NotImplementedError(
-            "progressive layer drop / random-LTD directives are not ported "
-            "to deepspeed_tpu_torch yet")
+    so the attention kernel's forward runs twice per block.
+
+    `pld`: (keep_idx [n_keep] int, theta) — progressive layer drop: only the
+    kept layers run, each as x + (block(x) - x) / max(theta, 1e-6) in x's
+    dtype (inverted stochastic depth). keep_idx is read as Python ints.
+
+    `ltd`: (start, keep_idx [B, n_ltd, K] int) — random-LTD: layers
+    [start, start + n_ltd) run on each row's K kept positions only (gather,
+    the block at the true positions, an out-of-place scatter back); the
+    other tokens pass those layers unchanged. The indices come sorted, so
+    causal attention over the subset is causal in the original positions.
+
+    The JAX package's asserts stay, as ValueError: PLD does not compose
+    with random-LTD, and random-LTD takes no `attn_fn`."""
+    if pld is not None and ltd is not None:
+        raise ValueError("progressive_layer_drop composes with neither "
+                         "per-layer attention flags nor random-LTD")
+    if ltd is not None and attn_fn is not None:
+        raise ValueError("random-LTD gathers token subsets; a custom attn_fn "
+                         "with a T-static layout cannot run on them")
     B, T = tokens.shape
     if positions is None:
         positions = torch.arange(T, device=tokens.device).expand(B, T)
@@ -559,10 +599,32 @@ def gpt_hidden(params, tokens, cfg: GPTConfig, positions=None, pld=None,
     layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
     remat = resolve_remat_policy(cfg.remat_policy) \
         if cfg.remat and torch.is_grad_enabled() else None
-    for i in range(cfg.n_layer):
+
+    def block(x, i, pos, fn):
         p = {k: v[i] for k, v in layers.items()}
-        x = remat(_block, x, p, cfg, positions, attn_fn) if remat \
-            else _block(x, p, cfg, positions, attn_fn)
+        return remat(_block, x, p, cfg, pos, fn) if remat \
+            else _block(x, p, cfg, pos, fn)
+
+    if pld is not None:
+        keep_idx, theta = pld
+        inv = (1.0 / torch.as_tensor(theta, device=x.device).float()
+               .clamp_min(1e-6)).to(x.dtype)
+        for i in [int(i) for i in keep_idx]:
+            x = x + (block(x, i, positions, attn_fn) - x) * inv
+    elif ltd is not None:
+        start, keep = ltd
+        stop = start + keep.shape[1]
+        for i in range(cfg.n_layer):
+            if not start <= i < stop:
+                x = block(x, i, positions, attn_fn)
+                continue
+            kx = keep[:, i - start].long()                       # [B, K]
+            gidx = kx[..., None].expand(-1, -1, x.shape[-1])
+            sub = block(torch.gather(x, 1, gidx), i, kx, None)
+            x = x.scatter(1, gidx, sub.to(x.dtype))
+    else:
+        for i in range(cfg.n_layer):
+            x = block(x, i, positions, attn_fn)
     return _norm(x, params["lnf_scale"], params.get("lnf_bias"),
                  cfg.use_rmsnorm, cfg.norm_eps)
 
@@ -577,22 +639,43 @@ def gpt_forward(params, tokens, cfg: GPTConfig, positions=None,
 def gpt_loss(params, batch, rng=None, cfg: GPTConfig = None, attn_fn=None):
     """Causal-LM cross entropy, mean over the labels >= 0. batch:
     {"tokens": [B, T+1]} (inputs and labels are its shifts) or
-    {"input_ids": [B, T], "labels": [B, T]}; a label < 0 is ignored.
+    {"input_ids": [B, T], "labels": [B, T]}; a label < 0 is ignored. The
+    engine's routing directives ride in the batch (`pld_keep_idx`,
+    `pld_theta`, `ltd_keep_idx`, `ltd_start`: runtime/engine.py), their
+    counts in their shapes.
 
-    The log-sum-exp runs in fp32 over logits kept in the compute dtype: the
-    max is taken (and not differentiated) in that dtype, the shifted logits
-    are widened, and only [B, T] tensors are fp32 besides the exp."""
+    With `cfg.loss_chunks` the chunked-vocab CE takes the hidden states and
+    the head table (no [B, T, V] logits; a tied LM-head bias raises).
+    Otherwise the log-sum-exp runs in fp32 over logits kept in the compute
+    dtype: the max is taken (and not differentiated) in that dtype, the
+    shifted logits are widened, and only [B, T] tensors are fp32 besides
+    the exp."""
     tokens = batch.get("tokens", batch.get("input_ids"))
     labels = batch.get("labels")
     if labels is None:
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
     else:
         inputs = tokens
+    pld = ltd = None
+    if "pld_keep_idx" in batch:
+        pld = (batch["pld_keep_idx"][0], batch["pld_theta"][0])
+    if "ltd_keep_idx" in batch:
+        ltd = (batch["ltd_start"].shape[1], batch["ltd_keep_idx"])
     if cfg.loss_chunks:
-        raise NotImplementedError("loss_chunks (chunked-vocab CE) is not "
-                                  "ported to deepspeed_tpu_torch yet")
+        if "lm_head_bias" in params:
+            raise ValueError("chunked CE does not support a tied LM-head "
+                             "bias")
+        B, T = inputs.shape
+        x = gpt_hidden(params, inputs, cfg, attn_fn=attn_fn, pld=pld,
+                       ltd=ltd)
+        nll = chunked_softmax_xent(
+            x.reshape(B * T, -1), dense(_head_table(params, cfg)).to(x.dtype),
+            labels.reshape(B * T), cfg.loss_chunks)
+        mask = (labels.reshape(B * T) >= 0).float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
     logits = _head_logits(params, gpt_hidden(params, inputs, cfg,
-                                             attn_fn=attn_fn), cfg)
+                                             attn_fn=attn_fn, pld=pld,
+                                             ltd=ltd), cfg)
     m = logits.detach().amax(dim=-1, keepdim=True)
     sumexp = torch.exp((logits - m).float()).sum(dim=-1)
     logz = m[..., 0].float() + torch.log(sumexp)

@@ -5,12 +5,15 @@ A call site builds an `AttnSite` (the dispatch key) and `select()` walks the
 program registry, highest priority first, to name the program that runs.
 The phases this port carries:
 
-  * `train` (also the contiguous prefill): `external` | `flash` |
-    `dense`. `external` wins whenever the caller passed its own `attn_fn`
-    (e.g. `ops/sparse_attention.sparse_attn_fn`, whose kernels take or
-    refuse the site themselves). Operands may require grad: `flash`
-    differentiates through the backward kernels (`ops/flash_attention.py`),
-    `dense` through autograd on CPU tensors;
+  * `train` (also the contiguous prefill): `external` | `chunked` |
+    `flash` | `dense`. `external` wins whenever the caller passed its own
+    `attn_fn` (e.g. `ops/sparse_attention.sparse_attn_fn`, whose kernels
+    take or refuse the site themselves). `chunked` is the query-chunked
+    escape hatch (`ops/chunked_attention.py`), taken where
+    `GPTConfig.chunked_attn_min_seq` is set and T reaches it, on every
+    device, above flash as in JAX. Operands may require grad:
+    `flash` differentiates through the backward kernels
+    (`ops/flash_attention.py`), `chunked` and `dense` through autograd;
   * `decode` (one token over the contiguous cache): `decode_kernel` |
     `decode_dense`;
   * `paged_decode` / `prefill_chunk` / `verify` (the serving pool; verify
@@ -28,12 +31,13 @@ measured yet.
 One route per device. On CUDA operands the kernel program runs, and a site
 the kernel does not take (dtype, head width, a forbidding flag) raises
 `NotImplementedError`: the port runs no plain attention on the card. The
-exceptions are `prefill_chunk` and `verify`, whose gather + dense attend is
-plain torch in the JAX package too: its registry sends chunked prefill and
-the spec-decode verify through the gather on every device (over the int8
-pool the dequantization is the `dequantize_int8` kernel). On CPU operands the plain programs run the
-kernels' plain versions; `use_flash_attention=True` routes through the
-kernel wrappers instead, which on the CPU run those same plain versions.
+exceptions are plain torch in the JAX package too: `prefill_chunk` and
+`verify`, whose gather + dense attend its registry runs on every device
+(over the int8 pool the dequantization is the `dequantize_int8` kernel),
+and the opt-in `chunked` training program, which JAX runs as plain XLA.
+On CPU operands the plain programs run the kernels' plain versions;
+`use_flash_attention=True` routes through the kernel wrappers instead,
+which on the CPU run those same plain versions.
 """
 
 import dataclasses
@@ -63,6 +67,8 @@ class AttnSite:
     force_flash: Optional[bool] = None  # GPTConfig.use_flash_attention
     external_fn: bool = False     # caller supplied its own attn_fn, which
                                   # the "external" program runs
+    chunk_min: Optional[int] = None  # GPTConfig.chunked_attn_min_seq: the
+                                  # "chunked" program takes T >= it
 
     @property
     def square(self) -> bool:
@@ -147,6 +153,15 @@ def _plain(site: AttnSite) -> bool:
 register_program(AttentionProgram(
     name="external", phases=("train",), priority=1000,
     matches=lambda s: s.external_fn))
+
+# chunked_attn_min_seq set and T >= it, square, no alibi/window, not
+# forbidden by use_flash_attention=False: the query-chunked escape hatch,
+# plain torch on every device
+register_program(AttentionProgram(
+    name="chunked", phases=("train",), priority=60,
+    matches=lambda s: (s.chunk_min is not None and s.q_len >= s.chunk_min
+                       and s.square and not s.has_bias and not s.has_window
+                       and s.force_flash is not False)))
 
 # square causal attention, no alibi/window
 register_program(AttentionProgram(

@@ -2,8 +2,10 @@
 
 The engine takes batches as trees of numpy arrays or tensors.
 `TpuDataLoader` slices an indexable dataset into global batches;
-`RepeatingLoader` restarts an exhausted loader. The curriculum loader
-(`CurriculumDataLoader`) is not ported: it raises.
+`RepeatingLoader` restarts an exhausted loader. The metric-driven
+curriculum loader (`CurriculumDataLoader`, over the data sampler) is not
+ported: it raises. The legacy seqlen curriculum is the engine's
+(`runtime/data_pipeline/curriculum.py`).
 """
 
 import numpy as np
@@ -44,7 +46,8 @@ def _default_collate(samples):
 
 class CurriculumDataLoader:
     def __init__(self, *args, **kwargs):
-        not_ported("CurriculumDataLoader (curriculum learning)")
+        not_ported("CurriculumDataLoader (the curriculum_metrics "
+                   "curriculum over the data sampler)")
 
 
 class TpuDataLoader:

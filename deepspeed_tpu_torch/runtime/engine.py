@@ -21,6 +21,16 @@ waits more only when asked to report: the `train_batch` timer's event
 with `wall_clock_breakdown` or telemetry, and, with fp16 loss scaling, the
 overflow flag that `_after_step` logs.
 
+The data-efficiency schedules run on the host before each step, as the
+JAX engine's do: the legacy seqlen curriculum
+(`data_efficiency.data_sampling.curriculum_learning`) cuts the batch to the
+step's difficulty (with random-LTD on, masks its labels past it as JAX
+does), then progressive layer drop and random-LTD draw their
+kept layers and kept tokens from numpy generators seeded as the JAX
+engine's and add them to the batch as leaves (`_inject_routing_directives`),
+which split by micro-batch like the data and which `models/gpt.gpt_loss`
+reads.
+
 Telemetry (the `telemetry` config block, off by default): the
 `train_batch` timer's interval, which ends with a wait for the card, is the
 step time of `train/step_time_ms`; `train/tokens_per_sec`,
@@ -102,10 +112,20 @@ def _wrap_loss_fn(loss_fn, has_aux):
     return wrapped
 
 
+class HostArray(np.ndarray):
+    """A batch leaf that `_to_device` leaves on the host, as a CPU tensor:
+    one whose values the model reads as Python numbers, which on the card
+    would be a wait for the device every micro-batch. Slices stay
+    HostArrays."""
+
+
 def _to_device(batch, device):
-    return tree_map(lambda x: (x if isinstance(x, torch.Tensor)
-                               else torch.as_tensor(np.asarray(x))).to(device),
-                    batch)
+    def move(x):
+        if isinstance(x, HostArray):
+            return torch.from_numpy(np.asarray(x))
+        return (x if isinstance(x, torch.Tensor)
+                else torch.as_tensor(np.asarray(x))).to(device)
+    return tree_map(move, batch)
 
 
 class Engine:
@@ -190,6 +210,88 @@ class Engine:
         self.telemetry = Telemetry(config.telemetry, subsystem="train",
                                    monitor=self.monitor)
         self._program_flops = None   # per-train_batch flops, computed once
+        self._init_data_efficiency()
+
+    def _init_data_efficiency(self):
+        """The legacy seqlen curriculum, progressive layer drop and
+        random-LTD from the config, with the JAX engine's init-time checks
+        (as ValueError) and its generators' seeds, so that one seed draws
+        the same kept layers and tokens in both packages."""
+        config = self.config
+        de = config.data_efficiency
+        cl = (de.data_sampling or {}).get("curriculum_learning", {}) \
+            if de.enabled else {}
+        self.curriculum_scheduler = None
+        if cl.get("enabled"):
+            from deepspeed_tpu_torch.runtime.data_pipeline.curriculum import \
+                CurriculumScheduler
+            self.curriculum_scheduler = CurriculumScheduler(cl)
+        pld_cfg = config.progressive_layer_drop
+        rl = (de.data_routing or {}).get("random_ltd", {}) \
+            if de.enabled else {}
+        if pld_cfg.enabled or rl.get("enabled"):
+            which = "progressive_layer_drop" if pld_cfg.enabled \
+                else "random_ltd"
+            if getattr(self.model_spec, "arch_cfg", None) is None:
+                raise ValueError(
+                    f"{which}: this model does not expose ModelSpec.arch_cfg, "
+                    f"so the routing directives would be silently ignored — "
+                    f"only the GPT loss (models/gpt.gpt_loss) consumes them")
+            if getattr(self.model_spec, "grad_fn", None) is not None:
+                raise ValueError(f"{which}: models with a custom grad_fn do "
+                                 f"not consume routing directives")
+        self.progressive_layer_drop = None
+        if pld_cfg.enabled:
+            from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
+                ProgressiveLayerDrop
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                theta=pld_cfg.theta, gamma=pld_cfg.gamma)
+            self._pld_rng = np.random.default_rng(config.seed ^ 0x9E3779B9)
+        self.random_ltd_scheduler = None
+        if rl.get("enabled"):
+            self.random_ltd_scheduler = self._random_ltd_scheduler(rl)
+            self._ltd_rng = np.random.default_rng(config.seed ^ 0x51ED270B)
+
+    def _random_ltd_scheduler(self, rl):
+        """`data_routing.random_ltd` (the reference's schema) as a
+        RandomLTDScheduler: a contiguous layer range within the model."""
+        from deepspeed_tpu_torch.runtime.data_pipeline.random_ltd import \
+            RandomLTDScheduler
+        sched = rl.get("random_ltd_schedule", {})
+        sched_cfg = sched.get("schedule_config", {})
+        total_layers = int(rl.get("total_layer_num", 0))
+        if total_layers <= 0:
+            raise ValueError("data_routing.random_ltd needs total_layer_num "
+                             "(reference schema)")
+        layer_ids = rl.get("random_ltd_layer_id")
+        if layer_ids:
+            layer_ids = sorted(int(i) for i in layer_ids)
+            if layer_ids != list(range(layer_ids[0], layer_ids[-1] + 1)):
+                raise ValueError("random_ltd_layer_id must be a contiguous "
+                                 "range (the model splits its layers into "
+                                 "three runs)")
+            start_layer, end_layer = layer_ids[0], layer_ids[-1]
+        else:
+            start_layer = int(rl.get("ltd_start_layer", 1))
+            end_layer = rl.get("ltd_end_layer")
+        model_layers = getattr(self.model_spec.arch_cfg, "n_layer", None)
+        if model_layers is not None:
+            if total_layers != model_layers:
+                raise ValueError(
+                    f"random_ltd total_layer_num={total_layers} does not "
+                    f"match the model's n_layer={model_layers}")
+            last = end_layer if end_layer is not None else model_layers - 1
+            if not 0 <= start_layer <= last < model_layers:
+                raise ValueError(
+                    f"random_ltd layer range [{start_layer}, {last}] is out "
+                    f"of bounds for an {model_layers}-layer model")
+        return RandomLTDScheduler(
+            total_layers=total_layers,
+            start_ratio=float(sched.get("min_value", 0.5)),
+            end_ratio=float(sched.get("max_value", 1.0)),
+            total_steps=int(sched_cfg.get("require_steps", 10000)),
+            ltd_start_layer=start_layer, ltd_end_layer=end_layer,
+            bucket=int(sched_cfg.get("seq_per_step", 64)))
 
     # ------------------------------------------------------------------
     # state
@@ -337,6 +439,7 @@ class Engine:
                 raise ValueError("train_batch needs a batch, a data_iter or "
                                  "training_data")
             batch = next(it)
+        batch = self._data_efficiency(batch)
         # the train_batch timer's readers: the breakdown log and telemetry
         timed = self.config.wall_clock_breakdown or self.telemetry.enabled
         self.tput_timer.start()
@@ -353,6 +456,78 @@ class Engine:
             self._record_step_telemetry(batch,
                                         self.timers(TRAIN_BATCH_TIMER).last)
         return metrics["loss"]
+
+    def _data_efficiency(self, batch):
+        """The step's seqlen curriculum, then its routing directives, as
+        the JAX engine's `train_batch` applies them. Alone, the curriculum
+        cuts the batch to the difficulty (`bucketize=(difficulty,)`) where
+        the JAX engine masks the labels past it: causal attention makes
+        the loss and gradients the same, and the kept T is what the card
+        runs. With random-LTD on it masks the labels as JAX does, so that
+        the keep count and the kept positions are drawn over the same T."""
+        if not isinstance(batch, dict):
+            return batch
+        if self.curriculum_scheduler is not None and \
+                ("tokens" in batch or "input_ids" in batch):
+            from deepspeed_tpu_torch.runtime.data_pipeline.curriculum import \
+                apply_seqlen_curriculum
+            difficulty = self.curriculum_scheduler.update_difficulty(
+                self.global_steps)
+            cut = None if self.random_ltd_scheduler is not None \
+                else (difficulty,)
+            batch = apply_seqlen_curriculum(batch, difficulty, bucketize=cut)
+        if self.progressive_layer_drop is not None or \
+                self.random_ltd_scheduler is not None:
+            batch = self._inject_routing_directives(batch)
+        return batch
+
+    def _inject_routing_directives(self, batch):
+        """Host-side draws for PLD / random-LTD, added to the batch as
+        leaves broadcast over its rows (the JAX engine's leaves, shapes,
+        dtypes and draw order; their shapes carry the counts):
+
+          pld_keep_idx [B, n_keep] int32 — kept layer ids (the same in
+              every row), drawn as rng.random(n_layer) < theta, at least
+              one; a HostArray, which stays on the host
+          pld_theta    [B] float32       — the step's keep probability
+          ltd_keep_idx [B, n_ltd, K] int32 — each row's sorted kept
+              positions for each routed layer (the top K of uniform keys)
+          ltd_start    [B, start_layer] int8 zeros — the first routed layer,
+              carried in the shape
+        """
+        tokens = batch.get("tokens", batch.get("input_ids"))
+        if tokens is None:
+            return batch
+        B0, width = tokens.shape[0], tokens.shape[1]
+        out = dict(batch)
+        pld = self.progressive_layer_drop
+        if pld is not None:
+            pld.update_state(self.global_steps)
+            theta = pld.get_theta()
+            n_layer = getattr(self.model_spec.arch_cfg, "n_layer", None)
+            if not n_layer:
+                raise ValueError("progressive_layer_drop needs the model's "
+                                 "layer count (ModelSpec.arch_cfg.n_layer)")
+            keep = self._pld_rng.random(n_layer) < theta
+            if not keep.any():
+                keep[self._pld_rng.integers(n_layer)] = True
+            idx = np.flatnonzero(keep).astype(np.int32)
+            out["pld_keep_idx"] = np.broadcast_to(
+                idx[None], (B0, idx.size)).copy().view(HostArray)
+            out["pld_theta"] = np.full((B0,), theta, np.float32)
+        sched = self.random_ltd_scheduler
+        if sched is not None:
+            T_in = width - (0 if batch.get("labels") is not None else 1)
+            K = sched.keep_count(self.global_steps, T_in)
+            lo, hi = sched.start_layer, sched.end_layer
+            n_ltd = hi - lo + 1
+            if K < T_in and n_ltd > 0:
+                r = self._ltd_rng.random((B0, n_ltd, T_in))
+                out["ltd_keep_idx"] = np.sort(
+                    np.argpartition(r, K - 1, axis=-1)[..., :K],
+                    axis=-1).astype(np.int32)
+                out["ltd_start"] = np.zeros((B0, lo), np.int8)
+        return out
 
     def eval_batch(self, batch, rng=None):
         with torch.no_grad():

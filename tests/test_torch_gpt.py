@@ -206,10 +206,17 @@ def test_paged_prefill_chunk_and_decode_match_jax(arch):
 @pytest.mark.parametrize("flag", [dict(use_alibi=True),
                                   dict(sliding_window=4),
                                   dict(attn_layer_types=("global", "local"),
-                                       sliding_window=4),
-                                  dict(parallel_residual=True)],
-                         ids=["alibi", "sliding_window", "attn_layer_types",
-                              "parallel_residual"])
+                                       sliding_window=4)],
+                         ids=["alibi", "sliding_window", "attn_layer_types"])
 def test_unported_arch_flags_refuse(flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         tgpt.GPTConfig(n_layer=2, n_head=4, d_model=64, **flag)
+
+
+@pytest.mark.parametrize("flag", [dict(parallel_residual=True)],
+                         ids=["parallel_residual"])
+def test_ported_arch_flags_build(flag):
+    """The NeoX/GPT-J parallel residual is ported
+    (tests/test_torch_routing.py holds its logits to JAX's)."""
+    cfg = tgpt.GPTConfig(n_layer=2, n_head=4, d_model=64, **flag)
+    assert all(getattr(cfg, k) == v for k, v in flag.items())

@@ -294,10 +294,10 @@ def test_initialize_refuses_to_train_on_the_cpu_quietly():
     {"telemetry": {"enabled": True, "memscope": True}},
     {"checkpoint": {"async_save": True}},
     {"fault_tolerance": {"enabled": True}},
-    {"curriculum_learning": {"enabled": True}},
-    {"data_efficiency": {"enabled": True}},
+    {"data_efficiency": {"enabled": True, "data_sampling": {
+        "curriculum_learning": {"enabled": True,
+                                "curriculum_metrics": {"seqlen": {}}}}}},
     {"compression_training": {"weight_quantization": {}}},
-    {"progressive_layer_drop": {"enabled": True}},
     {"mesh": {"data": 2}},
     {"mesh": {"tensor": 2}},
     {"activation_checkpointing": {"cpu_checkpointing": True}},
@@ -308,14 +308,42 @@ def test_unported_train_features_refuse_at_config_time(override):
         TpuTrainConfig.load({"train_micro_batch_size_per_gpu": 2, **override})
 
 
-@pytest.mark.parametrize("flags", [dict(dropout=0.1), dict(loss_chunks=4)],
+@pytest.mark.parametrize("override", [
+    {"curriculum_learning": {"enabled": True}},
+    {"data_efficiency": {"enabled": True}},
+    {"progressive_layer_drop": {"enabled": True}},
+    {"data_efficiency": {"enabled": True, "data_routing": {"random_ltd": {
+        "enabled": True, "total_layer_num": 2}}}},
+    {"data_efficiency": {"enabled": True, "data_sampling": {
+        "curriculum_learning": {"enabled": True, "min_difficulty": 8}}}},
+], ids=lambda o: str(o))
+def test_data_efficiency_train_configs_build(override):
+    """Progressive layer drop, random-LTD and the legacy seqlen curriculum
+    are ported: the dicts that refused before build a config now (a
+    top-level `curriculum_learning` block is an unknown key to the JAX
+    config too, and is ignored with a warning)."""
+    from deepspeed_tpu_torch.config.core import TpuTrainConfig
+    cfg = TpuTrainConfig.load({"train_micro_batch_size_per_gpu": 2,
+                               **override})
+    assert cfg.progressive_layer_drop.enabled == bool(
+        override.get("progressive_layer_drop"))
+    assert cfg.data_efficiency.enabled == bool(
+        override.get("data_efficiency"))
+
+
+@pytest.mark.parametrize("flags", [dict(dropout=0.1), dict(loss_chunks=4),
+                                   dict(chunked_attn_min_seq=1024)],
                          ids=lambda f: str(f))
-def test_unported_model_training_flags_refuse_when_built(flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        GPTConfig(n_layer=2, n_head=4, d_model=64, **flags)
+def test_model_training_flags_build(flags):
+    """Dropout (accepted and never applied, as in the JAX package), the
+    chunked-vocab CE and the chunked attention build a config now."""
+    cfg = GPTConfig(n_layer=2, n_head=4, d_model=64, **flags)
+    assert all(getattr(cfg, k) == v for k, v in flags.items())
 
 
 def test_plain_attention_refuses_a_narrow_softmax_and_layer_drop():
+    """A narrow softmax on the plain path raises; layer drop combined with
+    random-LTD raises JAX's assertion as a ValueError."""
     import dataclasses
     from deepspeed_tpu_torch.models import gpt
     cfg = dataclasses.replace(TINY, softmax_dtype="bfloat16")
@@ -323,8 +351,9 @@ def test_plain_attention_refuses_a_narrow_softmax_and_layer_drop():
     params = gpt.init_gpt_params(TINY, seed=0)
     with pytest.raises(NotImplementedError, match="softmax_dtype"):
         gpt.gpt_loss(params, {"tokens": tokens}, cfg=cfg)
-    with pytest.raises(NotImplementedError, match="layer drop"):
-        gpt.gpt_hidden(params, tokens, TINY, pld={"theta": 0.5})
+    with pytest.raises(ValueError, match="random-LTD"):
+        gpt.gpt_hidden(params, tokens, TINY, pld=([0], 0.5),
+                       ltd=(1, torch.zeros((1, 1, 8), dtype=torch.int64)))
 
 
 @pytest.mark.parametrize("dtype,head_dim,want", [
@@ -744,3 +773,11 @@ def test_sparse_and_evoformer_sites_the_kernels_refuse_raise_on_cuda(
         q = _CudaLike((1, 2, 40, 4, hd), dtype)
         with pytest.raises(ValueError, match="the kernel takes"):
             tevo.evoformer_attention(q, q, q)
+
+
+def test_curriculum_data_loader_refuses_with_the_sampler_named():
+    """The metric-driven curriculum loader needs the data sampler, which
+    is not ported; the legacy seqlen curriculum is the engine's."""
+    from deepspeed_tpu_torch.runtime.dataloader import CurriculumDataLoader
+    with pytest.raises(NotImplementedError, match="curriculum_metrics"):
+        CurriculumDataLoader([], 2, sampler=None)
