@@ -125,6 +125,19 @@ Phases, one JSON line each:
            S 255 / 257 / 640, pair rows TMA cannot read (S 100 fp16, S
            99 fp32), hd 32 / 64 / 128 in bf16 and fp16, fp32 biases
            under bf16 q, fused q/k/v views and B * N * H above 65 535;
+           and at the model zoo's paths' shapes (`_zoo_kernels`): the
+           flash forward and backward at the bert lane's two shapes
+           ([128, 128, 16, 64] and [16, 512, 16, 64], full attention,
+           with the two planted dropped-tile faults at 512), the
+           block-sparse kernels at the padded bert batch (an all-ones
+           layout, the lane's ragged padding row, their two planted
+           faults) and key_padded_attention with all-padded rows at T 128
+           and 208, the flash forward at llama generate()'s prefill (8
+           rows of 4065, 32 heads over 8 of 128, causal; the plain version
+           on one row and 8 heads), the contiguous and paged decodes at
+           the llama paths' shapes (4608-row cache; 512-row blocks, table
+           width 8) with their two planted faults, each timed beside its
+           bound, plain version and SDPA;
   norms    the public norm ops at [4096, 768] bf16 with bf16 scale and
            bias: one launch each, and no other kernel in the profiler;
   generate init_inference -> generate() on gpt2-125m at full width and
@@ -207,6 +220,35 @@ Phases, one JSON line each:
            engine drew (PLD), every layer with layers 1-22 at T 256
            (random-LTD, plus the 2-layer parity fed the same directives),
            each step's T the difficulty (curriculum); finite losses;
+  bert     bench.py's bert lane: bert-large at full width and depth (24
+           layers, d_model 1024, 16 heads of 64, vocab 30528), the MLM
+           spec (bf16, remat), AdamW lr 1e-4, ZeRO 0, at seq 128 / micro-
+           batch 128 and seq 512 / micro-batch 16, 2 warm-up + 6 timed
+           steps each: finite falling losses, exact flash launches (full
+           attention: forward 2 x 24, each backward 24 a step), samples/s,
+           MFU over the timed window (one sync at its end, as bench.py
+           times it; steps synced one by one as a reading), host against
+           kernel time of a step, the reference's V100
+           samples/s beside them (labelled as the reference's); the seq-128
+           engine on an HF-style attention_mask (row lengths 32-128): exact
+           block-sparse launches and no flash; the 2-layer first-step
+           parity without and with the mask; DeepSpeedTransformerLayer at
+           bert-large's width, pre- and post-LN, with an additive [B, 1, 1,
+           T] mask against its fp32 CPU twin (output and every gradient);
+  llama    Llama-3-8B's width (d_model 4096, 32 heads over 8 kv heads of
+           128, d_ff 14336, vocab 128256, rope_theta 5e5, untied head),
+           4 of its 32 layers, bf16, from a numpy HF state dict through
+           from_hf_llama: generate() on 8 prompts of 100-4065 tokens + 32
+           new (exact flash and decode launches, tokens/s), the
+           ServingEngine over the paged pool on those and 24 more prompts
+           of 100-4065 tokens (32 requests through 8 slots, so they queue;
+           a 4096-position context whose last position the longest
+           request's last decode reads; exact paged-decode launches, a
+           drained pool, requests/s, tokens/s, TTFT / TPOT, the served
+           tokens' agreement with generate()'s choices on the same
+           prefixes, and the free-running agreement as a reading), and the
+           prefill / first-decode logits of a 2-layer cut against its fp32
+           CPU twin, relative to the logits' std (`_logits_vs_cpu`);
   moe      moe-gpt-125m-e8 (docs/parallelism.md:76: 12 layers, d_model
            768, 8 experts in every second block, capacity factor 1.25)
            at full width and depth, bf16, random weights from a numpy seed,
@@ -256,12 +298,13 @@ A comma-separated phase list as the one argument runs those phases only
 (the device phase always runs), e.g. `build,kernels,train,north_star`
 (the training lanes), `build,kernels,longctx,longctx16k,routing` (the
 long-context lanes and the routing directives), `build,serve` (TTFT / TPOT), `build,train,profile`,
-`build,kernels,quant`, `build,kernels,moe`, `build,kernels,sparse` or
-`build,kernels,evoformer`. Then the
+`build,kernels,quant`, `build,kernels,moe`, `build,kernels,sparse`,
+`build,kernels,evoformer` or `build,kernels,bert,llama` (the model zoo).
+Then each phase's wall seconds, the
 card's name and power limit, the `kernels` summary line (one row per
 kernel and path that runs it — the flash forward has generate,
-quant_generate, train, north_star, longctx, longctx16k, routing and
-moe_train rows; quantize_int8 a
+quant_generate, train, north_star, longctx, longctx16k, routing,
+moe_train, bert and llama_generate rows; quantize_int8 a
 quant_serve row, the K/V
 writes, and a quant_serve_build row, the weights — with `launches`
 counted from 0 just before that path's run and read just after, and
@@ -303,8 +346,13 @@ QUANT_DECODE_REL, QUANT_DECODE_ATOL = 2.0 ** -7, 1e-5
 # the kernels narrow p and ds to bf16 (relative 2^-9 each) before the
 # products and round the gradient to bf16 once; sums are fp32
 BWD_REL_TOL = 2e-2
-# gpt2-125m logits, bf16 on the card vs fp32 on the CPU (logit std ~0.5)
-LOGIT_TOL = 6e-2
+# gpt2-125m logits, bf16 on the card vs fp32 on the CPU, set at their std
+# LOGIT_REF_STD (the fp32 prefill logits' std, PERF.md). The bf16 error
+# scales with the logits (relative 2^-9 roundings of activations and of
+# matmul inputs), so `_logits_vs_cpu` holds each error over the reference
+# logits' own std to LOGIT_TOL / LOGIT_REF_STD: the same bound at gpt2-125m,
+# and at any other head's scale (llama's untied N(0, 0.02) head, std ~1.28)
+LOGIT_TOL, LOGIT_REF_STD = 6e-2, 0.554
 # share of served tokens equal to generate()'s on the same prompts (bf16)
 SERVE_AGREE_MIN = 0.9
 # training parity, 2 layers of gpt2-760m: bf16 on the card against fp32 on
@@ -430,9 +478,11 @@ ROUTING_LTD_K = 256
 ROUTING_ATTN = tuple(
     (dict(B=ROUTING_MBS, T=T, H=12, Hkv=12, D=128, causal=True), path)
     for T, path in ((ROUTING_LTD_K, "routing"), (128, None), (320, None)))
-# the three new phases' cost, estimated before their first run (seconds of
-# command; printed beside each phase's own reading)
-PHASE_ESTIMATE_S = {"longctx": 110, "longctx16k": 60, "routing": 60}
+# the cost of the phases added since the long-context lanes, each estimated
+# before its first run (seconds of command; printed beside each phase's own
+# reading)
+PHASE_ESTIMATE_S = {"longctx": 110, "longctx16k": 60, "routing": 60,
+                    "bert": 90, "llama": 120}
 # the chunked CE on the card at the longctx micro-batch's head: x [4096,
 # 1536], the gpt2 table [50304, 1536], 8 chunks, 5 % of the labels -1,
 # against the plain CE (gpt_loss's math) in fp32 on the same values. fp32:
@@ -443,6 +493,66 @@ PHASE_ESTIMATE_S = {"longctx": 110, "longctx16k": 60, "routing": 60}
 CE_N, CE_D, CE_V, CE_CHUNKS = 4096, 1536, 50304, 8
 CE_TOL = {"float32": {"nll": 1e-4, "grad_rel": 1e-4},
           "bfloat16": {"nll": 1e-3, "grad_rel": 2.0 ** -7}}
+
+# bench.py's bert lane (`run_bert_lane`, bench.py:1849-1910): bert-large at
+# full width and depth (24 layers, d_model 1024, 16 heads of 64, vocab
+# 30528), make_bert_model's MLM spec (bf16, remat on), AdamW lr 1e-4, ZeRO
+# 0, at the reference's two headline shapes (seq, micro-batch); its batch:
+# ids default_rng(0).integers(0, 30000), 15 % of the positions labelled;
+# 2 warm-up and 6 timed steps a shape, as bench.py runs them
+BERT_MODEL = "bert-large"
+BERT_SHAPES = ((128, 128), (512, 16))
+BERT_WARMUP, BERT_STEPS = 2, 6
+BERT_CONFIG = {"optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+               "bf16": {"enabled": True}, "zero_optimization": {"stage": 0},
+               "steps_per_print": 10**9}
+# (b): the seq-128 engine on an HF-style attention_mask, each row's length
+# drawn from default_rng(1) in [BERT_PAD_MIN, 128], pad id 0 and label -100
+# past it, BERT_PAD_STEPS steps; the 2-layer parity cuts take its first
+# BERT_PARITY_BATCH rows
+BERT_PAD_MIN, BERT_PAD_STEPS, BERT_PARITY_BATCH = 32, 2, 4
+# the attention of the two lane shapes: full (bidirectional), 16 heads of 64
+BERT_ATTN = tuple(dict(B=mbs, T=seq, H=16, Hkv=16, D=64, causal=False)
+                  for seq, mbs in BERT_SHAPES)
+# (c): DeepSpeedTransformerLayer at bert-large's width, [B, T] of its input
+BERT_LAYER_BT = (8, 128)
+# the reference's V100 samples/s/GPU at the two shapes (bench.py:1846,
+# REF_BERT_SAMPLES: the fastest-BERT post); printed beside the port's
+# readings as the reference's V100 figures, never as the port's
+REF_BERT_SAMPLES_V100 = {128: 272.0, 512: 52.0}
+
+# the llama phase: Llama-3-8B's width (HF LlamaConfig of Meta-Llama-3-8B:
+# d_model 4096, 32 heads over 8 kv heads of 128, d_ff 14336, vocab 128256,
+# rope_theta 5e5, RMSNorm eps 1e-5, an untied head), bf16, its 32 layers
+# cut to LLAMA_LAYERS (~1.9 B parameters; numpy draws the weights, and the
+# whole model's 8 B would take minutes of the run), built from a numpy
+# state dict in HF key names (rotate-half rows) through from_hf_llama
+LLAMA_HF = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+                num_attention_heads=32, num_key_value_heads=8,
+                max_position_embeddings=8192, rope_theta=500000.0,
+                rms_norm_eps=1e-5, tie_word_embeddings=False)
+LLAMA_LAYERS, LLAMA_PARITY_LAYERS = 4, 2
+# generate(): 8 prompts of 100 to 4065 tokens, 32 new tokens each, padded
+# to 4065. Serving: those 8 and 24 more drawn from default_rng(15) in [100,
+# 4065], 32 new tokens each, through 8 slots of a 4096-position context, so
+# requests queue and are admitted as slots free (4 waves' worth); the
+# 4065-token prompt's last decode step reads position 4095 (PAGED_LONG's,
+# on row 5)
+LLAMA_LENS = (4065, 100, 3000, 512, 1777, 2600, 900, 3500)
+LLAMA_SERVE_LENS = LLAMA_LENS + tuple(
+    int(n) for n in np.random.default_rng(15).integers(100, 4066, 24))
+LLAMA_NEW, LLAMA_SLOTS, LLAMA_CONTEXT = 32, 8, 4096
+# the parity cut's prompts: short, as the CPU twin runs in fp32
+LLAMA_PARITY_LENS = (17, 40, 64, 9)
+# rows 1, 4 and 5 at the llama paths' shapes: generate()'s prefill (8 rows
+# padded to 4065) and decode over its 4608-row cache (4065 + 32 rounded to
+# 512-row blocks), the serving pool's decode (512-row blocks, table width
+# 8); the decodes mid-generation, 16 tokens in
+LLAMA_PREFILL = dict(B=8, T=max(LLAMA_LENS), H=32, Hkv=8, D=128, causal=True)
+LLAMA_DECODE = dict(B=8, H=32, Hkv=8, hd=128, M=4608,
+                    pos=[n + 16 for n in LLAMA_LENS])
+LLAMA_PAGED = dict(B=8, H=32, Hkv=8, hd=128, bs=512, nb=8,
+                   pos=[n + 16 for n in LLAMA_LENS])
 
 # the MoE phase: moe-gpt-125m-e8, the MoE config of docs/parallelism.md:76
 # (GPTConfig's defaults: 12 heads of 64, d_ff 3072, vocab 50304), trained
@@ -729,6 +839,36 @@ def graph_ms(fn, inner=20, reps=10, warmup=3):
     return graph_ms_turns([fn], inner, reps, warmup)[0]
 
 
+def _flash_fwd_row(q, k, v, causal, err, plain=None, plain_reps=None,
+                   inner=20):
+    """Row 1 timed at one path's shape (q [B, T, H, D], k / v [B, T, Hkv,
+    D]): the kernel beside its bound, its plain version (`plain`, else the
+    whole call; `plain_reps` (reps, inner, warmup) of `median_ms`) and SDPA
+    (over K/V repeated to H heads where Hkv < H: the same products), then
+    the factor to SDPA three ways (`_forward_yardsticks`)."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kh, vh = fa._repeat_kv(kh, vh, H)
+    pairs = B * H * (T * (T + 1) / 2 if causal else T * T)
+    # q and out, k and v, lse
+    nbytes = 2 * B * T * (H + Hkv) * D * 2 + B * H * T * 4
+    b_ms, b_by = bound(nbytes, 4 * D * pairs)
+    fwd = lambda: fa.flash_attention(q, k, v, causal=causal)
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                  is_causal=causal)
+    plain = plain or (lambda: fa.flash_attention_reference(q, k, v, causal))
+    reps, p_inner, warmup = plain_reps or (15, 5, 3)
+    row = dict(max_abs_err=err, ms=median_ms(fwd),
+               plain_ms=median_ms(plain, reps=reps, inner=p_inner,
+                                  warmup=warmup),
+               bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(sdpa))
+    _forward_yardsticks(row, fwd, sdpa, inner)
+    return row
+
+
 def _forward_yardsticks(row, fn, sdpa, inner):
     """The two attention forwards' factor to SDPA three ways: `row`'s `ms`
     over its `library_ms` (both `median_ms`, as every kernel is timed);
@@ -878,21 +1018,8 @@ def phase_kernels():
         check_lse(shape, lse, ref_lse)
         if path is None:
             continue
-        B, T, H, D = q.shape
-        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        pairs = B * H * T * (T + 1) / 2
-        nbytes = 4 * B * T * H * D * 2 + B * H * T * 4
-        b_ms, b_by = bound(nbytes, 4 * D * pairs)
-        fwd = lambda: fa.flash_attention(q, k, v)
-        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                      is_causal=True)
-        row = dict(
-            max_abs_err=err, ms=median_ms(fwd),
-            plain_ms=median_ms(lambda: fa.flash_attention_reference(
-                q, k, v)), bound_ms=b_ms, bound_by=b_by,
-            library_ms=median_ms(sdpa))
-        _forward_yardsticks(row, fwd, sdpa, 20)
-        results["flash_attention", path] = row
+        results["flash_attention", path] = _flash_fwd_row(q, k, v, causal,
+                                                          err)
 
     # --- contiguous decode: main path = generate()'s decode over the
     # 1024-row cache (600 + 32 rounded to 512-blocks), mid-generation
@@ -966,6 +1093,7 @@ def phase_kernels():
     results.update(_norm_kernels(rng, checks))
     results.update(_block_sparse_kernels(rng, checks))
     results.update(_evoformer_kernels(rng, checks))
+    results.update(_zoo_kernels(rng, checks))
     emit({"phase": "kernels", "checks": checks,
           "main_path": {f"{name}/{path}": row
                         for (name, path), row in results.items()}})
@@ -1003,9 +1131,6 @@ def _backward_kernels(rng, checks):
     dropped) must exceed the row measure. Then each kernel alone timed at
     each path's shape, and the pair against SDPA's backward three ways
     (`_backward_yardsticks`)."""
-    import torch
-    import torch.nn.functional as F
-    from deepspeed_tpu_torch.ops import flash_attention as fa
     results = {}
     for shape, path, with_dlse in (
             (dict(B=12, T=512, H=12, Hkv=12, D=128, causal=True), "train",
@@ -1024,46 +1149,59 @@ def _backward_kernels(rng, checks):
             rng, checks, shape, with_dlse)
         if path == "train":
             _flash_faults(checks, bwd_args, ref, -(-shape["T"] // 64))
-        if path is None:
-            continue
-        B, T, H, D = q.shape
-        qh, kh, vh, doh = (x.detach().transpose(1, 2) for x in (q, k, v, do))
-        oh = out.detach().transpose(1, 2)
-        lse_d = lse.detach()
-        delta = (doh.float() * oh.float()).sum(-1).contiguous()
-        sm = 1.0 / D ** 0.5
-        pairs = B * H * T * (T + 1) / 2
-        plain_ms = median_ms(lambda: fa.flash_attention_bwd_reference(
-            q.detach(), k.detach(), v.detach(), out.detach(), lse_d, do,
-            None, True), reps=5, inner=1)
-        # the yardstick: SDPA's own backward over one SDPA forward
-        sq, sk, sv = (x.contiguous().requires_grad_(True)
-                      for x in (qh, kh, vh))
-        sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
-        sdo = doh.contiguous()
-        sdpa = lambda: torch.autograd.grad(sout, (sq, sk, sv), sdo,
-                                           retain_graph=True)
-        library_ms = median_ms(sdpa)
-        tile = B * T * H * D * 2          # one bf16 [B, T, H, D] tensor
-        rows = B * H * T * 4              # one fp32 [B, H, T] row vector
-        for name, need, flops, nbytes in (
-                ("flash_attention_bwd_dq", (True, False), 6 * D * pairs,
-                 5 * tile + 2 * rows),         # q k v do -> dq; lse delta
-                ("flash_attention_bwd_dkv", (False, True), 8 * D * pairs,
-                 6 * tile + 2 * rows)):        # q k v do -> dk dv
-            b_ms, b_by = bound(nbytes, flops)
-            results[name, path] = dict(
-                max_abs_err=errs[name],
-                ms=median_ms(lambda: fa._launch_bwd(
-                    qh, kh, vh, doh, lse_d, delta, sm, True, *need)),
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
-        _backward_yardsticks(
-            results["flash_attention_bwd_dq", path],
-            results["flash_attention_bwd_dkv", path],
-            lambda: fa._launch_bwd(qh, kh, vh, doh, lse_d, delta, sm, True,
-                                   True, True),
-            sdpa, sout.grad_fn.name())
+        if path is not None:
+            results.update(_flash_bwd_rows(path, q, k, v, do, out, lse, errs,
+                                           shape["causal"]))
+    return results
+
+
+def _flash_bwd_rows(path, q, k, v, do, out, lse, errs, causal):
+    """The dq and dk/dv kernels alone timed at one path's shape (MHA; q, k,
+    v, do, out [B, T, H, D] from `_backward_case`), each beside its bound,
+    the plain backward and SDPA's backward over one SDPA forward, and the
+    pair against SDPA's backward three ways (`_backward_yardsticks`):
+    {(kernel, path): row}."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    results = {}
+    B, T, H, D = q.shape
+    qh, kh, vh, doh = (x.detach().transpose(1, 2) for x in (q, k, v, do))
+    oh = out.detach().transpose(1, 2)
+    lse_d = lse.detach()
+    delta = (doh.float() * oh.float()).sum(-1).contiguous()
+    sm = 1.0 / D ** 0.5
+    pairs = B * H * (T * (T + 1) / 2 if causal else T * T)
+    plain_ms = median_ms(lambda: fa.flash_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), out.detach(), lse_d, do,
+        None, causal), reps=5, inner=1)
+    # the yardstick: SDPA's own backward over one SDPA forward
+    sq, sk, sv = (x.contiguous().requires_grad_(True) for x in (qh, kh, vh))
+    sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
+    sdo = doh.contiguous()
+    sdpa = lambda: torch.autograd.grad(sout, (sq, sk, sv), sdo,
+                                       retain_graph=True)
+    library_ms = median_ms(sdpa)
+    tile = B * T * H * D * 2          # one bf16 [B, T, H, D] tensor
+    rows = B * H * T * 4              # one fp32 [B, H, T] row vector
+    for name, need, flops, nbytes in (
+            ("flash_attention_bwd_dq", (True, False), 6 * D * pairs,
+             5 * tile + 2 * rows),         # q k v do -> dq; lse delta
+            ("flash_attention_bwd_dkv", (False, True), 8 * D * pairs,
+             6 * tile + 2 * rows)):        # q k v do -> dk dv
+        b_ms, b_by = bound(nbytes, flops)
+        results[name, path] = dict(
+            max_abs_err=errs[name],
+            ms=median_ms(lambda: fa._launch_bwd(
+                qh, kh, vh, doh, lse_d, delta, sm, causal, *need)),
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms)
+    _backward_yardsticks(
+        results["flash_attention_bwd_dq", path],
+        results["flash_attention_bwd_dkv", path],
+        lambda: fa._launch_bwd(qh, kh, vh, doh, lse_d, delta, sm, causal,
+                               True, True),
+        sdpa, sout.grad_fn.name())
     return results
 
 
@@ -1219,7 +1357,7 @@ def _backward_case(rng, checks, shape, with_dlse):
     if not (fwd_err <= TOL["flash_attention"] and lse_err <= 1e-2):
         raise AssertionError(f"flash forward {shape}: out err {fwd_err}"
                              f", lse err {lse_err}")
-    errs = {}
+    errs = {"flash_attention": fwd_err}
     for name, idx in (("flash_attention_bwd_dq", (0,)),
                       ("flash_attention_bwd_dkv", (1, 2))):
         err = max((grads[i].float() - ref[i].float()).abs().max().item()
@@ -3150,7 +3288,6 @@ def _block_sparse_kernels(rng, checks):
     the path's bias is learned (sparse_op), the dq pass also without its
     dbias, eagerly and as device time."""
     import torch
-    import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops import sparse_attention as sa
     from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
@@ -3212,106 +3349,269 @@ def _block_sparse_kernels(rng, checks):
 
     # the two paths' shapes, checked and timed
     for path, q, k, v, layout, causal, kw in _sparse_paths(rng):
-        B, H, T, D = q.shape
-        c = _sparse_check(rng, checks, path, q, k, v, layout, 16, causal,
-                          **kw)
-        if path == "sparse_train":
-            _sparse_faults(c, checks)
-        plan, qs, bias4, kvb = c["plan"], c["qs"], c["bias4"], c["kvb"]
-        live = plan.live_cells(causal) * B
-        tile = B * T * H * D * 2               # one bf16 [B, T, H, D] tensor
-        rows = B * H * T * 4                   # one fp32 [B, H, T] vector
-        meta = sum(a.nbytes for a in (plan.counts, plan.idx, plan.countsT,
-                                      plan.idxT)) + plan.fine.size
-        # the bias is read only in the boxes of the visited tiles; dbias,
-        # an output, is written whole
-        extra = _bias_read_bytes(plan, bias4) \
-            + (kvb.numel() * 4 if kvb is not None else 0)
-        dbias_bytes = bias4.numel() * 4 if c["want_dbias"] else 0
-        args = (qs, k, v, plan, bias4, kvb, causal)
-        bwd = (qs, k, v, c["do"], c["lse"], c["delta"], plan, bias4, kvb,
-               causal, c["scale"], c["want_dbias"])
-
-        def plain_bwd_fn():
-            return bsa._reference_bwd(
-                qs, k, v, c["out"], c["lse"], c["do"], plan, bias4, kvb,
-                causal, c["scale"],
-                tuple(bias4.shape) if c["want_dbias"] else None)
-        # the plain versions' device memory above what is live here
-        peak = {}
-        for what, fn in (("forward", lambda: bsa._reference_fwd(*args)),
-                         ("backward", plain_bwd_fn)):
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            fn()
-            torch.cuda.synchronize()
-            peak[what] = torch.cuda.max_memory_allocated() - base
-        plain_bwd = median_ms(plain_bwd_fn, reps=3, inner=1, warmup=1)
-        # the yardstick: SDPA with the dense mask (layout, causal, padding)
-        # and the bias, forward and its own backward
-        live_mask, _ = plan.token_masks(causal, "cuda")
-        lib_mask = torch.where(live_mask[None], 0.0, float("-inf"))
-        if bias4 is not None:
-            lib_mask = lib_mask + bias4
-        if kvb is not None:
-            lib_mask = lib_mask + kvb[:, None, None, :]
-        lib_mask = lib_mask.to(q.dtype)
-        sq, sk, sv = (x.contiguous().requires_grad_(True) for x in (q, k, v))
-        sout = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=lib_mask,
-                                              scale=c["scale"])
-        sdo = c["do"].contiguous()
-        sdpa_bwd = lambda: torch.autograd.grad(sout, (sq, sk, sv), sdo,
-                                               retain_graph=True)
-        lib_bwd = median_ms(sdpa_bwd, reps=5)
-        sdpa = lambda: F.scaled_dot_product_attention(
-            sq, sk, sv, attn_mask=lib_mask, scale=c["scale"])
-        for name, nbytes, flops, fn, plain, lib in (
-                ("block_sparse_attention", 4 * tile + rows + meta + extra,
-                 4 * D * live, lambda: bsa._launch_fwd(*args),
-                 median_ms(lambda: bsa._reference_fwd(*args), reps=3,
-                           inner=1, warmup=1), median_ms(sdpa, reps=5)),
-                ("block_sparse_attention_bwd_dq",
-                 5 * tile + 2 * rows + meta + extra + dbias_bytes,
-                 6 * D * live, lambda: bsa._launch_bwd(*bwd, True, False),
-                 plain_bwd, lib_bwd),
-                ("block_sparse_attention_bwd_dkv",
-                 6 * tile + 2 * rows + meta + extra, 8 * D * live,
-                 lambda: bsa._launch_bwd(*bwd[:-1], False, False, True),
-                 plain_bwd, lib_bwd)):
-            b_ms, b_by = bound(nbytes, flops)
-            results[name, path] = dict(
-                shape=[B, H, T, D], causal=causal, live_cells=live,
-                plain_peak_bytes=peak["forward" if name ==
-                                      "block_sparse_attention"
-                                      else "backward"],
-                max_abs_err=c["errs"][name], ms=median_ms(fn, reps=9),
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib)
-            if name == "block_sparse_attention":
-                _forward_yardsticks(results[name, path], fn, sdpa, 5)
-            else:
-                results[name, path]["sdpa_factor"] = \
-                    results[name, path]["ms"] / lib
-        row_dq = results["block_sparse_attention_bwd_dq", path]
-        if c["want_dbias"]:
-            # the dq pass's cost of the learned head-shared bias's gradient
-            # (its zeroing and the reductions): the same launch without it
-            nodb = bwd[:-1] + (False,)
-            row_dq.update(
-                ms_no_dbias=median_ms(lambda: bsa._launch_bwd(
-                    *nodb, True, False), reps=9),
-                device_ms=_device_ms(lambda: bsa._launch_bwd(
-                    *bwd, True, False))[0],
-                device_ms_no_dbias=_device_ms(lambda: bsa._launch_bwd(
-                    *nodb, True, False))[0])
-        _backward_yardsticks(
-            row_dq, results["block_sparse_attention_bwd_dkv", path],
-            lambda: bsa._launch_bwd(*bwd), sdpa_bwd, sout.grad_fn.name())
-        del sq, sk, sv, sout, lib_mask, live_mask
+        _sparse_path_rows(rng, checks, results, path, q, k, v, layout,
+                          causal, kw, faults=path == "sparse_train")
     # evaluation runs the training path's forward shape
     results["block_sparse_attention", "sparse_eval"] = \
         results["block_sparse_attention", "sparse_train"]
+    return results
+
+
+def _sparse_path_rows(rng, checks, results, path, q, k, v, layout, causal,
+                      kw, faults=False):
+    """One path's shape of the block-sparse kernels: `_sparse_check`, the
+    two planted faults where `faults`, then each kernel alone timed beside
+    its bound, its plain version and SDPA with the dense mask (the layout,
+    causality, padding and bias), the backward pair against SDPA's backward
+    three ways (`_backward_yardsticks`), and, where the path's bias is
+    learned, the dq pass also without its dbias. Adds the path's three rows
+    to `results`."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    B, H, T, D = q.shape
+    c = _sparse_check(rng, checks, path, q, k, v, layout, 16, causal,
+                      **kw)
+    if faults:
+        _sparse_faults(c, checks)
+    plan, qs, bias4, kvb = c["plan"], c["qs"], c["bias4"], c["kvb"]
+    live = plan.live_cells(causal) * B
+    tile = B * T * H * D * 2               # one bf16 [B, T, H, D] tensor
+    rows = B * H * T * 4                   # one fp32 [B, H, T] vector
+    meta = sum(a.nbytes for a in (plan.counts, plan.idx, plan.countsT,
+                                  plan.idxT)) + plan.fine.size
+    # the bias is read only in the boxes of the visited tiles; dbias,
+    # an output, is written whole
+    extra = _bias_read_bytes(plan, bias4) \
+        + (kvb.numel() * 4 if kvb is not None else 0)
+    dbias_bytes = bias4.numel() * 4 if c["want_dbias"] else 0
+    args = (qs, k, v, plan, bias4, kvb, causal)
+    bwd = (qs, k, v, c["do"], c["lse"], c["delta"], plan, bias4, kvb,
+           causal, c["scale"], c["want_dbias"])
+
+    def plain_bwd_fn():
+        return bsa._reference_bwd(
+            qs, k, v, c["out"], c["lse"], c["do"], plan, bias4, kvb,
+            causal, c["scale"],
+            tuple(bias4.shape) if c["want_dbias"] else None)
+    # the plain versions' device memory above what is live here
+    peak = {}
+    for what, fn in (("forward", lambda: bsa._reference_fwd(*args)),
+                     ("backward", plain_bwd_fn)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak[what] = torch.cuda.max_memory_allocated() - base
+    plain_bwd = median_ms(plain_bwd_fn, reps=3, inner=1, warmup=1)
+    # the yardstick: SDPA with the dense mask (layout, causal, padding)
+    # and the bias, forward and its own backward
+    live_mask, _ = plan.token_masks(causal, "cuda")
+    lib_mask = torch.where(live_mask[None], 0.0, float("-inf"))
+    if bias4 is not None:
+        lib_mask = lib_mask + bias4
+    if kvb is not None:
+        lib_mask = lib_mask + kvb[:, None, None, :]
+    lib_mask = lib_mask.to(q.dtype)
+    sq, sk, sv = (x.contiguous().requires_grad_(True) for x in (q, k, v))
+    sout = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=lib_mask,
+                                          scale=c["scale"])
+    sdo = c["do"].contiguous()
+    sdpa_bwd = lambda: torch.autograd.grad(sout, (sq, sk, sv), sdo,
+                                           retain_graph=True)
+    lib_bwd = median_ms(sdpa_bwd, reps=5)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        sq, sk, sv, attn_mask=lib_mask, scale=c["scale"])
+    for name, nbytes, flops, fn, plain, lib in (
+            ("block_sparse_attention", 4 * tile + rows + meta + extra,
+             4 * D * live, lambda: bsa._launch_fwd(*args),
+             median_ms(lambda: bsa._reference_fwd(*args), reps=3,
+                       inner=1, warmup=1), median_ms(sdpa, reps=5)),
+            ("block_sparse_attention_bwd_dq",
+             5 * tile + 2 * rows + meta + extra + dbias_bytes,
+             6 * D * live, lambda: bsa._launch_bwd(*bwd, True, False),
+             plain_bwd, lib_bwd),
+            ("block_sparse_attention_bwd_dkv",
+             6 * tile + 2 * rows + meta + extra, 8 * D * live,
+             lambda: bsa._launch_bwd(*bwd[:-1], False, False, True),
+             plain_bwd, lib_bwd)):
+        b_ms, b_by = bound(nbytes, flops)
+        results[name, path] = dict(
+            shape=[B, H, T, D], causal=causal, live_cells=live,
+            plain_peak_bytes=peak["forward" if name ==
+                                  "block_sparse_attention"
+                                  else "backward"],
+            max_abs_err=c["errs"][name], ms=median_ms(fn, reps=9),
+            plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib)
+        if name == "block_sparse_attention":
+            _forward_yardsticks(results[name, path], fn, sdpa, 5)
+        else:
+            results[name, path]["sdpa_factor"] = \
+                results[name, path]["ms"] / lib
+    row_dq = results["block_sparse_attention_bwd_dq", path]
+    if c["want_dbias"]:
+        # the dq pass's cost of the learned head-shared bias's gradient
+        # (its zeroing and the reductions): the same launch without it
+        nodb = bwd[:-1] + (False,)
+        row_dq.update(
+            ms_no_dbias=median_ms(lambda: bsa._launch_bwd(
+                *nodb, True, False), reps=9),
+            device_ms=_device_ms(lambda: bsa._launch_bwd(
+                *bwd, True, False))[0],
+            device_ms_no_dbias=_device_ms(lambda: bsa._launch_bwd(
+                *nodb, True, False))[0])
+    _backward_yardsticks(
+        row_dq, results["block_sparse_attention_bwd_dkv", path],
+        lambda: bsa._launch_bwd(*bwd), sdpa_bwd, sout.grad_fn.name())
+    del sq, sk, sv, sout, lib_mask, live_mask
+    return c
+
+
+def _bert_lens(seq, mbs):
+    """The padded bert batch's row lengths: default_rng(1) in
+    [BERT_PAD_MIN, seq]."""
+    return np.random.default_rng(1).integers(BERT_PAD_MIN, seq + 1, mbs)
+
+
+def _zoo_kernels(rng, checks):
+    """The kernels at the model zoo's paths' shapes: rows 1-3 at the
+    two bert lane shapes (BERT_ATTN, full attention; the 512 shape's
+    readings under the `bert` rows' `seq512`), with the two planted
+    dropped-tile faults at seq 512; rows 15-17 at the padded bert batch
+    ([128, 16, 128, 64], an all-ones layout, the lane's ragged padding row)
+    with their two planted faults, and `key_padded_attention` with a row
+    whose keys are all padded at T 128 and 208 (the mean of V over all T
+    keys); rows 1, 4 and 5 at the llama paths' shapes (LLAMA_PREFILL, the
+    plain forward on one batch row and 8 of the 32 query heads;
+    LLAMA_DECODE; LLAMA_PAGED), rows 4 and 5 with their two planted
+    faults. Each timed beside its bound, plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    results = {}
+    for shape in BERT_ATTN:
+        q, k, v, do, out, lse, ref, errs, bwd_args = _backward_case(
+            rng, checks, shape, False)
+        if shape["T"] == 512:
+            _flash_faults(checks, bwd_args, ref, shape["T"] // 64)
+        rows = _flash_bwd_rows("bert", q, k, v, do, out, lse, errs, False)
+        rows["flash_attention", "bert"] = _flash_fwd_row(
+            q.detach(), k.detach(), v.detach(), False,
+            errs["flash_attention"])
+        for key, row in rows.items():
+            row["shape"] = [shape[n] for n in ("B", "T", "H", "D")]
+            if shape["T"] == 128:
+                results[key] = row
+            else:
+                results[key]["seq512"] = row
+        del q, k, v, do, out, lse, ref, bwd_args
+        torch.cuda.empty_cache()
+
+    # rows 15-17 at the padded bert batch
+    seq, mbs = BERT_SHAPES[0]
+    kpm = torch.from_numpy(np.arange(seq)[None]
+                           < _bert_lens(seq, mbs)[:, None]).cuda()
+    q, k, v = _sparse_qkv(rng, mbs, 16, seq, 64)
+    _sparse_path_rows(rng, checks, results, "bert_padded", q, k, v,
+                      np.ones((16, seq // 16, seq // 16), bool), False,
+                      dict(kpm=kpm), faults=True)
+    del q, k, v
+    for T in (128, 208):
+        q, k, v = _sparse_qkv(rng, 2, 4, T, 64)
+        pad = torch.zeros(2, T, device="cuda")
+        pad[0, T // 2:] = bsa.NEG_INF
+        pad[1] = bsa.NEG_INF
+        out = bsa.key_padded_attention(q, k, v, pad)
+        ref, _ = bsa.block_sparse_attention_reference(
+            q, k, v, np.ones((4, T // 16, T // 16), bool),
+            key_padding_mask=pad == 0)
+        mean = v[1].float().mean(1, keepdim=True).expand_as(v[1])
+        errs = {"plain": _row_err(out, ref),
+                "mean_of_v": _row_err(out[1], mean)}
+        ok = all(np.isfinite(e) and e <= SPARSE_ROW_TOL
+                 for e in errs.values())
+        checks.append({"kernel": "block_sparse_attention",
+                       "case": f"key_padded_all_padded_row_T{T}",
+                       "row_err": errs, "tol": SPARSE_ROW_TOL, "ok": ok})
+        if not ok:
+            raise AssertionError(f"key_padded_attention T {T}: {errs}")
+
+    # row 1 at llama generate()'s prefill: the plain version (fp32 scores
+    # of [B, H, T, T]) on batch row 0 and query heads 0-7 (kv heads 0-1)
+    q, k, v, _ = _flash_case(rng, **LLAMA_PREFILL)
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+    ref, ref_lse = fa.flash_attention_reference(
+        q[:1, :, :8], k[:1, :, :2], v[:1, :, :2], True)
+    torch.cuda.synchronize()
+    err = (out[:1, :, :8].float() - ref.float()).abs().max().item()
+    lse_err = (lse[:1, :8] - ref_lse).abs().max().item()
+    ok = bool(err <= TOL["flash_attention"] and lse_err <= 1e-2)
+    checks.append({"kernel": "flash_attention", "shape": LLAMA_PREFILL,
+                   "ref_batch_rows": 1, "ref_heads": 8, "max_abs_err": err,
+                   "lse_err": lse_err, "tol": TOL["flash_attention"],
+                   "ok": ok})
+    if not ok:
+        raise AssertionError(f"flash forward {LLAMA_PREFILL}: out err {err}"
+                             f", lse err {lse_err}")
+    del out, lse, ref, ref_lse
+
+    def plain_prefill():
+        for b in range(q.shape[0]):
+            for h in range(0, 32, 8):
+                fa.flash_attention_reference(
+                    q[b:b + 1, :, h:h + 8], k[b:b + 1, :, h // 4:h // 4 + 2],
+                    v[b:b + 1, :, h // 4:h // 4 + 2], True)
+    results["flash_attention", "llama_generate"] = dict(
+        _flash_fwd_row(q, k, v, True, err, plain=plain_prefill,
+                       plain_reps=(3, 1, 1), inner=5),
+        plain_slices="one batch row and 8 query heads a call")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # row 4 at llama generate()'s decode
+    kw = _decode_args(rng, LLAMA_DECODE)
+    out, ref = da.decode_attention(**kw), da.decode_attention_reference(**kw)
+    torch.cuda.synchronize()
+    err = _paged_check(checks, "decode_attention", "llama_generate", out,
+                       ref)
+    for fault in ("dropped_last_chunk", "stale_partial"):
+        _paged_check(checks, "decode_attention", "llama_generate",
+                     _paged_fault(_decode_as_paged(kw), fault), ref,
+                     fault=fault)
+    mask = (torch.arange(LLAMA_DECODE["M"], device="cuda")[None, :]
+            <= kw["pos"][:, None].long())[:, None, None, :]
+    b_ms, b_by = _decode_bound(LLAMA_DECODE)
+    results["decode_attention", "llama_generate"] = dict(
+        max_abs_err=err, ms=median_ms(lambda: da.decode_attention(**kw)),
+        plain_ms=median_ms(lambda: da.decode_attention_reference(**kw)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            kw["q"][:, :, None], kw["k"], kw["v"], attn_mask=mask,
+            enable_gqa=True)),
+        **{f"timed_{n}": x for n, x in _decode_timed(
+            rng, LLAMA_DECODE, reps=5).items()})
+
+    # row 5 at the llama serving pool's decode
+    name, fn, plain = _paged_fns(LLAMA_PAGED)
+    kw, pkw = _paged_args(rng, LLAMA_PAGED)
+    ref = plain(**pkw)
+    err = _paged_check(checks, name, "llama_serve", fn(**kw), ref)
+    for fault in ("dropped_last_chunk", "stale_partial"):
+        _paged_check(checks, name, "llama_serve", _paged_fault(kw, fault),
+                     ref, fault=fault)
+    b_ms, b_by = _paged_bound(LLAMA_PAGED)
+    results[name, "llama_serve"] = dict(
+        max_abs_err=err, ms=median_ms(lambda: fn(**kw)),
+        plain_ms=median_ms(lambda: plain(**pkw)), bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        **{f"timed_{n}": x for n, x in _paged_timed(
+            rng, LLAMA_PAGED, reps=5).items()})
+    del kw, pkw, ref
+    torch.cuda.empty_cache()
     return results
 
 
@@ -4082,6 +4382,11 @@ def phase_norms(state):
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
     _expect("norms", counts, {"fused_layer_norm": 1, "fused_rms_norm": 1})
+    # the first profiler session after the kernels phase's many loses some
+    # or all of its device events (on an H100, fused_layer_norm's kernel
+    # in 0.4 down to 0 of its 10 calls as the kernels phase grew, PERF.md;
+    # the session after it in all): one session first, its trace printed
+    _, dropped = _device_ms(lambda: norms.fused_rms_norm(x, scale, 1e-5))
     kernels = {}
     for name, call in (
             ("fused_layer_norm", lambda: norms.fused_layer_norm(
@@ -4110,6 +4415,7 @@ def phase_norms(state):
             raise AssertionError(f"{name}: err {errs[name]} > {tol}")
     emit({"phase": "norms", "shape": list(NORM_MAIN), "dtype": "bfloat16",
           "launches": counts, "kernels_a_call": kernels,
+          "first_session_kernels_a_call": dropped,
           "max_abs_err": errs})
     return counts
 
@@ -4158,43 +4464,58 @@ def phase_generate(state):
         raise AssertionError(f"generate output {out.shape} out of range")
 
     # logits: bf16 on the card vs the port's fp32 CPU run, same weights and
-    # tokens (the CPU side decodes the token the card chose)
-    import dataclasses
+    # tokens
     cpu_spec = make_gpt_decode_model(
         dataclasses.replace(cfg, dtype=torch.float32), name="gpt2-125m",
         params=spec.params)
     cpu = init_inference(cpu_spec, config={
         "dtype": "float32", "kv_cache_dtype": "float32"}, device="cpu")
+    errs, ref_std = _logits_vs_cpu(engine, cpu, prompts)
+    emit({"phase": "generate", "model": "gpt2-125m", "dtype": "bfloat16",
+          "batch": 4, "prompt_lens": lens, "max_new_tokens": new,
+          "setup_s": setup_s, "seconds": dt, "tokens_per_s": 4 * new / dt,
+          "launches": counts, "logit_max_abs_err": errs,
+          "logit_rel_err": {k: e / ref_std for k, e in errs.items()},
+          "logit_rel_tol": LOGIT_TOL / LOGIT_REF_STD,
+          "logit_ref_std": ref_std})
+    state.update(spec=spec, engine=engine, prompts=prompts, generate_s=dt,
+                 n_layer=L)
+    return counts
+
+
+def _logits_vs_cpu(engine, cpu, prompts):
+    """The card engine's prefill logits at each prompt's last token and its
+    first decode step's logits against the CPU engine's on the same padded
+    prompts (the CPU side decodes the token the card chose): ({"prefill",
+    "decode"}: max abs error, the CPU prefill logits' std). Each error over
+    that std must stay within LOGIT_TOL / LOGIT_REF_STD."""
+    import torch
     padded, plens = engine._pad_ragged(prompts)
+    B, dev = len(prompts), engine.device
     errs = {}
     with torch.inference_mode():
         logits, cache = engine.forward(padded)
-        rows = torch.arange(4, device="cuda")
-        last = logits[rows, torch.as_tensor(plens, device="cuda").long() - 1]
+        rows = torch.arange(B, device=dev)
+        last = logits[rows, torch.as_tensor(plens, device=dev).long() - 1]
         tok = last.argmax(-1).to(torch.int32)
-        pos = torch.as_tensor(plens, device="cuda").long()
-        dec, _ = spec.decode_fn(engine.params, tok, pos, cache)
+        pos = torch.as_tensor(plens, device=dev).long()
+        dec, _ = engine.model_spec.decode_fn(engine.params, tok, pos, cache)
         c_logits, c_cache = cpu.forward(padded)
-        c_last = c_logits[torch.arange(4), torch.as_tensor(plens).long() - 1]
-        c_dec, _ = cpu_spec.decode_fn(cpu.params, tok.cpu(), pos.cpu(),
-                                      c_cache)
+        c_last = c_logits[torch.arange(B), torch.as_tensor(plens).long() - 1]
+        c_dec, _ = cpu.model_spec.decode_fn(cpu.params, tok.cpu(),
+                                            pos.cpu(), c_cache)
+    ref_std = float(c_last.float().std())
     for name, a, b in (("prefill", last, c_last), ("decode", dec, c_dec)):
         a = a.float().cpu()
         if not torch.isfinite(a).all():
             raise AssertionError(f"{name} logits not finite")
         errs[name] = (a - b).abs().max().item()
-        if errs[name] > LOGIT_TOL:
-            raise AssertionError(f"{name} logits err {errs[name]} > "
-                                 f"{LOGIT_TOL}")
-    emit({"phase": "generate", "model": "gpt2-125m", "dtype": "bfloat16",
-          "batch": 4, "prompt_lens": lens, "max_new_tokens": new,
-          "setup_s": setup_s, "seconds": dt, "tokens_per_s": 4 * new / dt,
-          "launches": counts, "logit_max_abs_err": errs,
-          "logit_tol": LOGIT_TOL,
-          "logit_ref_std": float(c_last.float().std())})
-    state.update(spec=spec, engine=engine, prompts=prompts, generate_s=dt,
-                 n_layer=L)
-    return counts
+        if errs[name] / ref_std > LOGIT_TOL / LOGIT_REF_STD:
+            raise AssertionError(
+                f"{name} logits err {errs[name]} at std {ref_std}: "
+                f"{errs[name] / ref_std} of it > "
+                f"{LOGIT_TOL / LOGIT_REF_STD}")
+    return errs, ref_std
 
 
 def phase_serve(state):
@@ -4885,7 +5206,7 @@ def _train_parity(cfg, name=TRAIN_MODEL, config=TRAIN_CONFIG, seq=TRAIN_SEQ,
     import torch
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.gpt import init_gpt_params, make_gpt_model
-    from deepspeed_tpu_torch.utils.tree import tree_cast, tree_leaves
+    from deepspeed_tpu_torch.utils.tree import tree_cast
     small = dataclasses.replace(cfg, n_layer=2)
     params = tree_cast(tree_cast(init_gpt_params(small, seed=1),
                                  torch.bfloat16), torch.float32)
@@ -4907,8 +5228,20 @@ def _train_parity(cfg, name=TRAIN_MODEL, config=TRAIN_CONFIG, seq=TRAIN_SEQ,
         config={**config, "bf16": {"enabled": False}}, device="cpu")
     batch_t = {"tokens": torch.from_numpy(toks),
                **{k: torch.from_numpy(v) for k, v in (extra or {}).items()}}
-    g_card, l_card, _ = card._grads(card.state.params, batch_t)
-    g_cpu, l_cpu, _ = cpu._grads(cpu.state.params, batch_t)
+    return {"n_layer": 2, "batch": batch, "seq": seq,
+            "cpu_over": cpu_over, "extra": sorted(extra or ()),
+            **_engine_parity(name, card, cpu, batch_t)}
+
+
+def _engine_parity(name, card, cpu, batch):
+    """The first step's loss and every parameter's gradient of the card
+    engine against the CPU engine on `batch`: the loss within
+    TRAIN_LOSS_TOL, each leaf's ||card - cpu|| / ||cpu|| within
+    TRAIN_GRAD_REL_TOL."""
+    import torch
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    g_card, l_card, _ = card._grads(card.state.params, batch)
+    g_cpu, l_cpu, _ = cpu._grads(cpu.state.params, batch)
     loss_err = abs(float(l_card) - float(l_cpu))
     rel = {}
     names = _leaf_names(g_cpu)
@@ -4922,9 +5255,7 @@ def _train_parity(cfg, name=TRAIN_MODEL, config=TRAIN_CONFIG, seq=TRAIN_SEQ,
         raise AssertionError(f"{name} parity: loss err {loss_err} (tol "
                              f"{TRAIN_LOSS_TOL}), worst gradient {worst} "
                              f"{rel[worst]} (tol {TRAIN_GRAD_REL_TOL})")
-    return {"n_layer": 2, "batch": batch, "seq": seq,
-            "cpu_over": cpu_over, "extra": sorted(extra or ()),
-            "loss_card": float(l_card), "loss_cpu": float(l_cpu),
+    return {"loss_card": float(l_card), "loss_cpu": float(l_cpu),
             "loss_abs_err": loss_err, "loss_tol": TRAIN_LOSS_TOL,
             "grad_rel_err": rel, "grad_rel_tol": TRAIN_GRAD_REL_TOL}
 
@@ -5144,23 +5475,29 @@ def phase_longctx16k(state):
 
 
 class _FlashSeqs:
-    """Records the T of every flash forward call the GPT model makes
-    while a `with` block runs, by wrapping `models.gpt.flash_attention`
-    from here (the remat replay calls it again)."""
+    """Records the T and the causal flag of every flash forward call a
+    model module (`models.gpt`, `models.bert`) makes while a `with` block
+    runs, by wrapping its `flash_attention` from here (the remat replay
+    calls it again)."""
+
+    def __init__(self, module="gpt"):
+        import importlib
+        self.module = importlib.import_module(
+            f"deepspeed_tpu_torch.models.{module}")
 
     def __enter__(self):
-        from deepspeed_tpu_torch.models import gpt
-        self.seen, self._orig = [], gpt.flash_attention
+        self.seen, self.causal = [], []
+        self._orig = self.module.flash_attention
 
         def spy(q, k, v, **kw):
             self.seen.append(int(q.shape[1]))
+            self.causal.append(bool(kw.get("causal", True)))
             return self._orig(q, k, v, **kw)
-        gpt.flash_attention = spy
+        self.module.flash_attention = spy
         return self
 
     def __exit__(self, *exc):
-        from deepspeed_tpu_torch.models import gpt
-        gpt.flash_attention = self._orig
+        self.module.flash_attention = self._orig
 
 
 def _routing_run(name, cfg, params, toks):
@@ -5961,6 +6298,453 @@ def _moe_dropless(counts):
             "fwd_bwd_ms": median_ms(step, reps=5, inner=1)}
 
 
+def _bert_batch(seq, mbs, masked=False):
+    """bench.py's bert lane batch (bench.py:1885-1888) on the card: ids
+    default_rng(0).integers(0, 30000), 15 % of the positions labelled, -100
+    elsewhere; `masked` adds the HF-style attention_mask of `_bert_lens`,
+    with pad id 0 and label -100 past each row's length."""
+    import torch
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 30000, (mbs, seq)).astype(np.int32)
+    labels = np.where(rng.random((mbs, seq)) < 0.15, ids, -100) \
+        .astype(np.int32)
+    batch = {"input_ids": ids, "labels": labels}
+    if masked:
+        keep = np.arange(seq)[None] < _bert_lens(seq, mbs)[:, None]
+        batch = {"input_ids": np.where(keep, ids, 0).astype(np.int32),
+                 "labels": np.where(keep, labels, -100).astype(np.int32),
+                 "attention_mask": keep.astype(np.int32)}
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def _bert_parity(masked):
+    """The first step's loss and every gradient at 2 layers of bert-large
+    (B BERT_PARITY_BATCH, seq 128, the lane's batch rows, with the padded
+    batch's mask where `masked`): the engine on the card in bf16 against
+    the engine on the CPU in fp32 (the dense encoder arithmetic), from the
+    same bf16-rounded weights."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.bert import (BERT_CONFIGS,
+                                                 init_bert_params,
+                                                 make_bert_model)
+    from deepspeed_tpu_torch.utils.tree import tree_cast
+    small = dataclasses.replace(BERT_CONFIGS[BERT_MODEL], n_layer=2)
+    params = tree_cast(tree_cast(init_bert_params(small, seed=1),
+                                 torch.bfloat16), torch.float32)
+    seq, mbs = BERT_SHAPES[0]
+    batch = {k: v[:BERT_PARITY_BATCH].cpu()
+             for k, v in _bert_batch(seq, mbs, masked).items()}
+    config = {**BERT_CONFIG,
+              "train_micro_batch_size_per_gpu": BERT_PARITY_BATCH}
+    name = f"{BERT_MODEL}-2-layers"
+    card, *_ = initialize(model=make_bert_model(small, name=name,
+                                                params=params),
+                          config=config)
+    cpu, *_ = initialize(
+        model=make_bert_model(dataclasses.replace(small, dtype=torch.float32),
+                              name=name, params=params),
+        config={**config, "bf16": {"enabled": False}}, device="cpu")
+    return {"n_layer": 2, "batch": BERT_PARITY_BATCH, "seq": seq,
+            "masked": masked, **_engine_parity(name, card, cpu, batch)}
+
+
+def _transformer_layer_parity(pre_layer_norm):
+    """(c): DeepSpeedTransformerLayer at bert-large's width (hidden 1024,
+    16 heads, intermediate 4096) on the card in bf16 with an additive [B,
+    1, 1, T] key-padding bias (the block-sparse kernels, one launch each),
+    against its fp32 CPU twin holding the card's weights: the output and
+    the gradients of sum(out * g) for every parameter and the input, each
+    ||card - cpu|| / ||cpu|| within TRAIN_GRAD_REL_TOL."""
+    import torch
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.ops.transformer import (
+        DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
+    kw = dict(hidden_size=1024, heads=16, intermediate_size=4096,
+              num_hidden_layers=24, pre_layer_norm=pre_layer_norm, seed=5)
+    card = DeepSpeedTransformerLayer(DeepSpeedTransformerConfig(**kw),
+                                     layer_id=0).cuda()
+    cpu = DeepSpeedTransformerLayer(DeepSpeedTransformerConfig(
+        **kw, bf16=False), layer_id=0)
+    names = list(card.params)
+    cpu_params = {n: p.detach().float().cpu().requires_grad_(True)
+                  for n, p in card.params.items()}
+    B, T = BERT_LAYER_BT
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((B, T, 1024)).astype(
+        np.float32)).cuda().bfloat16().requires_grad_(True)
+    lens = rng.integers(BERT_PAD_MIN, T + 1, B)
+    bias = torch.from_numpy(np.where(np.arange(T)[None] < lens[:, None], 0.0,
+                                     -1e30).astype(np.float32)[:, None, None])
+    g = torch.from_numpy(rng.standard_normal((B, T, 1024)).astype(np.float32))
+    LAUNCHES.clear()
+    out = card(x, bias.cuda())
+    grads = torch.autograd.grad((out.float() * g.cuda()).sum(),
+                                [card.params[n] for n in names] + [x])
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    _expect("transformer_layer", counts,
+            {"block_sparse_attention": 1, "block_sparse_attention_bwd_dq": 1,
+             "block_sparse_attention_bwd_dkv": 1})
+    xc = x.detach().float().cpu().requires_grad_(True)
+    out_c = cpu(xc, bias, params=cpu_params)
+    grads_c = torch.autograd.grad((out_c * g).sum(),
+                                  [cpu_params[n] for n in names] + [xc])
+    rel = {}
+    for what, a, b in zip(["out", *names, "input"], [out, *grads],
+                          [out_c, *grads_c]):
+        a, b = a.detach().float().cpu(), b.detach()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"transformer layer {what} not finite")
+        rel[what] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    worst = max(rel, key=rel.get)
+    if rel[worst] > TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"transformer layer (pre_layer_norm "
+                             f"{pre_layer_norm}): {worst} {rel[worst]} > "
+                             f"{TRAIN_GRAD_REL_TOL}")
+    return {"pre_layer_norm": pre_layer_norm, "shape": [B, T, 1024],
+            "launches": counts, "rel_err": rel,
+            "rel_tol": TRAIN_GRAD_REL_TOL}
+
+
+def phase_bert(state):
+    """bench.py's bert lane (`run_bert_lane`): (a) initialize() ->
+    train_batch() on bert-large at full width and depth, at each of
+    BERT_SHAPES: BERT_WARMUP + BERT_STEPS steps, exact flash launches
+    (forward 2 x 24, each backward 24 a step, all causal=False: the
+    encoder site), finite falling losses, samples/s and MFU over the
+    window of timed steps as bench.py times it (one sync at its end; then
+    BERT_STEPS steps synced one by one as a reading), host against kernel
+    time of a step; the 2-layer parity; (b) the seq-128 engine on
+    the padded batch: exact block-sparse launches and no flash launch, the
+    2-layer parity with the mask; (c) the DeepSpeedTransformerLayer
+    frontend, pre- and post-LN, against its fp32 CPU twin. Returns the
+    launches of the lane's timed steps (`bert`) and of (b)
+    (`bert_padded`)."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.bert import (BERT_CONFIGS,
+                                                 init_bert_params,
+                                                 make_bert_model)
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.utils.tree import tree_num_params
+    t_phase = time.perf_counter()
+    cfg = BERT_CONFIGS[BERT_MODEL]
+    L = cfg.n_layer
+    params = init_bert_params(cfg, seed=0)
+    out = {"phase": "bert", "estimate_s": PHASE_ESTIMATE_S["bert"],
+           "model": BERT_MODEL, "n_layer": L, "config": BERT_CONFIG,
+           "remat": cfg.remat, "warmup_steps": BERT_WARMUP,
+           "timed_steps": BERT_STEPS,
+           "reference_v100_samples_per_s": {
+               "values": REF_BERT_SAMPLES_V100,
+               "source": "bench.py:1846 REF_BERT_SAMPLES, the reference's "
+                         "V100 figures (fastest-BERT post), not this card's"},
+           "mfu_basis": "6 x params x tokens/s over 989e12 flop/s"}
+    lane_counts = {}
+    for seq, mbs in BERT_SHAPES:
+        engine, *_ = initialize(
+            model=make_bert_model(cfg, name=BERT_MODEL, params=params),
+            config={**BERT_CONFIG, "train_micro_batch_size_per_gpu": mbs})
+        batch = _bert_batch(seq, mbs)
+        losses = [float(engine.train_batch(batch))
+                  for _ in range(BERT_WARMUP)]
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # timed as bench.py times the lane (bench.py:1889-1892): the window
+        # of BERT_STEPS steps, one sync and one loss read at its end
+        with _FlashSeqs("bert") as calls:
+            t0 = time.perf_counter()
+            window = [engine.train_batch(batch) for _ in range(BERT_STEPS)]
+            float(window[-1])
+            sec = (time.perf_counter() - t0) / BERT_STEPS
+        losses += [float(x) for x in window]
+        counts = dict(LAUNCHES)
+        _expect(f"bert seq {seq}", counts, {
+            "flash_attention": 2 * L * BERT_STEPS,
+            "flash_attention_bwd_dq": L * BERT_STEPS,
+            "flash_attention_bwd_dkv": L * BERT_STEPS})
+        if calls.causal != [False] * (2 * L * BERT_STEPS):
+            raise AssertionError(f"bert seq {seq}: a flash call was causal "
+                                 f"({calls.causal.count(True)} of "
+                                 f"{len(calls.causal)})")
+        for name, n in counts.items():
+            lane_counts[name] = lane_counts.get(name, 0) + n
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"bert seq {seq} losses not finite and "
+                                 f"falling: {losses}")
+        n_params = tree_num_params(engine.state.params)
+        peak = torch.cuda.max_memory_allocated()
+        # a reading beside the window: each step alone, a sync and a loss
+        # read after each (what a sync every step costs the host's overlap)
+        step_s = []
+        for _ in range(BERT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(engine.train_batch(batch))
+            step_s.append(time.perf_counter() - t0)
+        lane = dict(seq=seq, micro_batch=mbs, n_params=n_params,
+                    losses=losses, seconds_per_step=sec,
+                    samples_per_s=mbs / sec, tokens_per_s=mbs * seq / sec,
+                    mfu=6 * n_params * mbs * seq / sec / BF16_FLOPS,
+                    synced_step_s=step_s,
+                    synced_median_s=statistics.median(step_s),
+                    peak_bytes=peak, launches=counts,
+                    micro_batch_s=_micro_times(engine, batch))
+        if seq == BERT_SHAPES[0][0]:
+            pbatch = _bert_batch(seq, mbs, masked=True)
+            LAUNCHES.clear()
+            plosses, pstep_s = [], []
+            for _ in range(BERT_PAD_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plosses.append(float(engine.train_batch(pbatch)))
+                pstep_s.append(time.perf_counter() - t0)
+            pad_counts = dict(LAUNCHES)
+            _expect("bert_padded", pad_counts, {
+                "block_sparse_attention": 2 * L * BERT_PAD_STEPS,
+                "block_sparse_attention_bwd_dq": L * BERT_PAD_STEPS,
+                "block_sparse_attention_bwd_dkv": L * BERT_PAD_STEPS})
+            if not all(np.isfinite(plosses)):
+                raise AssertionError(f"bert padded losses not finite: "
+                                     f"{plosses}")
+            out["padded"] = dict(
+                seq=seq, micro_batch=mbs, steps=BERT_PAD_STEPS,
+                lens_min=int(_bert_lens(seq, mbs).min()),
+                lens_mean=float(_bert_lens(seq, mbs).mean()),
+                losses=plosses, step_s=pstep_s, launches=pad_counts)
+        out[f"seq{seq}"] = lane
+        del engine, batch
+        torch.cuda.empty_cache()
+    out["parity"] = _bert_parity(False)
+    out["padded"]["parity"] = _bert_parity(True)
+    out["transformer_layer"] = [_transformer_layer_parity(pre)
+                                for pre in (True, False)]
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"bert": lane_counts, "bert_padded": out["padded"]["launches"]}
+
+
+def _llama_namespace(n_layer):
+    """The HF config of LLAMA_HF at `n_layer` layers, as a plain object
+    (the card's machine has no transformers)."""
+    import types
+    return types.SimpleNamespace(model_type="llama",
+                                 num_hidden_layers=n_layer, **LLAMA_HF)
+
+
+def _llama_state_dict(n_layer, seed=0):
+    """An HF LlamaForCausalLM state dict of LLAMA_HF at `n_layer` layers in
+    numpy fp32: HF's N(0, 0.02) weights (the untied head too), unit norm
+    scales, HF key names (random rows: HF's rotate-half order is as
+    good as any)."""
+    rng = np.random.default_rng(seed)
+    c = LLAMA_HF
+    D, V, F_ = c["hidden_size"], c["vocab_size"], c["intermediate_size"]
+    hd = D // c["num_attention_heads"]
+    kv = c["num_key_value_heads"] * hd
+
+    def w(*shape, std=0.02):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= std
+        return a
+    sd = {"model.embed_tokens.weight": w(V, D),
+          "model.norm.weight": np.ones(D, np.float32)}
+    for i in range(n_layer):
+        b = f"model.layers.{i}."
+        sd.update({
+            b + "self_attn.q_proj.weight": w(D, D),
+            b + "self_attn.k_proj.weight": w(kv, D),
+            b + "self_attn.v_proj.weight": w(kv, D),
+            b + "self_attn.o_proj.weight": w(D, D),
+            b + "mlp.gate_proj.weight": w(F_, D),
+            b + "mlp.up_proj.weight": w(F_, D),
+            b + "mlp.down_proj.weight": w(D, F_),
+            b + "input_layernorm.weight": np.ones(D, np.float32),
+            b + "post_attention_layernorm.weight": np.ones(D, np.float32)})
+    sd["lm_head.weight"] = w(V, D)
+    return sd
+
+
+def _llama_parity(sd):
+    """Prefill and first-decode logits of the state dict's first
+    LLAMA_PARITY_LAYERS layers (from_hf_llama) on short prompts: bf16 on the
+    card against the fp32 CPU twin from the same bf16-rounded weights."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.adapters import from_hf_llama
+    from deepspeed_tpu_torch.models.llama import make_llama_decode_model
+    from deepspeed_tpu_torch.utils.tree import tree_cast
+    n = LLAMA_PARITY_LAYERS
+    cut = {k: v for k, v in sd.items() if not k.startswith("model.layers.")
+           or int(k.split(".")[2]) < n}
+    cfg, params = from_hf_llama(cut, _llama_namespace(n),
+                                dtype=torch.float32)
+    params = tree_cast(tree_cast(params, torch.bfloat16), torch.float32)
+    card = init_inference(make_llama_decode_model(
+        dataclasses.replace(cfg, dtype=torch.bfloat16), name="llama-cut",
+        params=params), config=SERVE_ENGINE_CONFIG)
+    cpu = init_inference(make_llama_decode_model(
+        cfg, name="llama-cut", params=params),
+        config={"dtype": "float32", "kv_cache_dtype": "float32"},
+        device="cpu")
+    prompts = _ragged_prompts(np.random.default_rng(14), LLAMA_PARITY_LENS,
+                              cfg.vocab_size)
+    errs, ref_std = _logits_vs_cpu(card, cpu, prompts)
+    return {"n_layer": n, "prompt_lens": list(LLAMA_PARITY_LENS),
+            "logit_max_abs_err": errs,
+            "logit_rel_err": {k: e / ref_std for k, e in errs.items()},
+            "logit_rel_tol": LOGIT_TOL / LOGIT_REF_STD,
+            "logit_ref_std": ref_std}
+
+
+def _forced_agreement(engine, prompts, served, group):
+    """The served tokens against generate()'s own choices on the same
+    prefixes: the contiguous path (generate's prefill, then its decode
+    steps) fed each request's served tokens, its argmax after the prompt
+    and after each served token held to the next served token, `group`
+    requests at a time. With an untied random head the top-2 logit gap is
+    often a few bf16 steps of the logits, so a free-running comparison
+    diverges for good at the first near tie; this one counts each position
+    once. Returns the share equal and, at the positions that differ,
+    generate()'s top-2 gap."""
+    import torch
+    dev = engine.device
+    same, differing = [], []
+    for g in range(0, len(prompts), group):
+        padded, plens = engine._pad_ragged(prompts[g:g + group])
+        toks = torch.as_tensor(np.stack(served[g:g + group]), device=dev)
+        B, new = toks.shape
+        rows = torch.arange(B, device=dev)
+        preds, gaps = [], []
+        with torch.inference_mode():
+            logits, cache = engine.forward(padded)
+            step = logits[rows, torch.as_tensor(plens, device=dev).long() - 1]
+            del logits
+            pos = torch.as_tensor(plens, device=dev).long()
+            for j in range(new):
+                top = step.float().topk(2, dim=-1).values
+                preds.append(step.argmax(-1))
+                gaps.append(top[:, 0] - top[:, 1])
+                if j < new - 1:
+                    step, cache = engine.model_spec.decode_fn(
+                        engine.params, toks[:, j].to(torch.int32), pos, cache)
+                    pos = pos + 1
+        eq = (torch.stack(preds, 1) == toks).cpu()
+        same.append(eq)
+        differing += [round(float(x), 5)
+                      for x in torch.stack(gaps, 1).cpu()[~eq]]
+        del cache
+    return {"share": float(torch.cat(same).float().mean()),
+            "positions": int(sum(e.numel() for e in same)),
+            "differing_top2_gaps": differing}
+
+
+def phase_llama(state):
+    """Llama-3-8B's width (LLAMA_HF, LLAMA_LAYERS layers, bf16) built from a
+    numpy HF state dict through from_hf_llama: generate() on LLAMA_LENS
+    (flash prefill and the contiguous decode at GQA 4:1, exact launches,
+    tokens/s), then the ServingEngine over the paged pool on
+    LLAMA_SERVE_LENS (LLAMA_LENS first) through LLAMA_SLOTS slots of
+    LLAMA_CONTEXT positions, 4 requests a slot (exact paged-decode
+    launches, the last at position 4095, completion, a drained pool, the
+    latency readings, the served tokens' agreement with generate()'s), and
+    the 2-layer logits parity (`_llama_parity`).
+    Returns the launches of both runs (`llama_generate`, `llama_serve`)."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.adapters import from_hf_llama
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    from deepspeed_tpu_torch.models.llama import make_llama_decode_model
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.utils.tree import tree_num_params
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sd = _llama_state_dict(LLAMA_LAYERS)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg, params = from_hf_llama(sd, _llama_namespace(LLAMA_LAYERS),
+                                dtype=torch.bfloat16)
+    adapt_s = time.perf_counter() - t0
+    spec = make_llama_decode_model(cfg, name="llama3-8b-wide", params=params)
+    engine = init_inference(spec, config=SERVE_ENGINE_CONFIG)
+    del params
+    L = cfg.n_layer
+    prompts = _ragged_prompts(np.random.default_rng(13), LLAMA_SERVE_LENS,
+                              cfg.vocab_size)
+    gen_prompts = prompts[:len(LLAMA_LENS)]
+    new = LLAMA_NEW
+    if max(LLAMA_SERVE_LENS) + new - 2 != LLAMA_CONTEXT - 1:
+        raise AssertionError("the longest request's last decode step must "
+                             "read the context's last position")
+    engine.generate(prompts[:1], max_new_tokens=2, stop_on_eos=False)
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = engine.generate(gen_prompts, max_new_tokens=new,
+                          stop_on_eos=False)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = dict(LAUNCHES)
+    _expect("llama_generate", gen_counts, {
+        "flash_attention": L, "decode_attention": L * (new - 1)})
+
+    serving = engine.serving(max_slots=LLAMA_SLOTS,
+                             max_context=LLAMA_CONTEXT)
+    serving.run([Request(uid="warm", tokens=prompts[1], max_new_tokens=2,
+                         stop_on_eos=False)])
+    serving.telemetry.registry.clear()
+    reqs = [Request(uid=i, tokens=p, max_new_tokens=new, stop_on_eos=False)
+            for i, p in enumerate(prompts)]
+    steps0 = serving.stats()["decode_steps"]
+    res, serve_s, serve_counts = _timed_run(serving, reqs)
+    _completed("llama_serve", res, reqs)
+    steps = (serving.stats()["decode_steps"] - steps0) * serving.window
+    _expect("llama_serve", serve_counts,
+            {"paged_decode_attention": L * steps})
+    if serving.allocator.num_free != serving.allocator.capacity:
+        raise AssertionError("llama_serve: blocks leaked after draining")
+    latency = _latency("llama_serve", serving, reqs)
+    served = [np.asarray(res[i].tokens) for i in range(len(prompts))]
+    free = float(np.mean([np.mean(served[i] == gen[i])
+                          for i in range(len(gen_prompts))]))
+    agree = _forced_agreement(engine, prompts, served, LLAMA_SLOTS)
+    if not agree["share"] >= SERVE_AGREE_MIN:
+        raise AssertionError(f"llama served tokens agree with generate()'s "
+                             f"choices on {agree} < {SERVE_AGREE_MIN}")
+    out = {"phase": "llama", "estimate_s": PHASE_ESTIMATE_S["llama"],
+           "model": "llama3-8b-wide", "n_layer": L,
+           "n_layer_published": 32, "n_params": tree_num_params(
+               engine.params),
+           "hf_config": LLAMA_HF, "dtype": "bfloat16",
+           "init_s": init_s, "adapt_s": adapt_s,
+           "prompt_lens": list(LLAMA_LENS), "max_new_tokens": new,
+           "last_decode_position": max(LLAMA_SERVE_LENS) + new - 2,
+           "generate": dict(seconds=gen_s, tokens_per_s=len(gen_prompts)
+                            * new / gen_s, launches=gen_counts),
+           "serve": dict(slots=LLAMA_SLOTS, max_context=LLAMA_CONTEXT,
+                         requests=len(reqs),
+                         prompt_lens=list(LLAMA_SERVE_LENS),
+                         prompt_tokens=sum(LLAMA_SERVE_LENS),
+                         seconds=serve_s,
+                         requests_per_s=len(reqs) / serve_s,
+                         tokens_per_s=len(reqs) * new / serve_s,
+                         launches=serve_counts, decode_steps=steps,
+                         latency=latency,
+                         token_agreement_with_generate_forced=agree,
+                         agree_min=SERVE_AGREE_MIN,
+                         token_agreement_with_generate_free_running=free,
+                         stats={k: v for k, v in serving.stats().items()
+                                if k != "latency"})}
+    del engine, serving, spec
+    torch.cuda.empty_cache()
+    out["parity"] = _llama_parity(sd)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"llama_generate": gen_counts, "llama_serve": serve_counts}
+
+
 def _device_breakdown(prof, wall_s):
     """Kernel time on the card by class, from a torch.profiler run, against
     the unprofiled wall time of the same work; our attention kernels also
@@ -6082,13 +6866,18 @@ def main():
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else \
         ["build", "kernels", "norms", "generate", "serve", "quant",
          "prefix_cache", "spec_decode", "train", "north_star", "longctx",
-         "longctx16k", "routing", "moe", "sparse", "evoformer"]
+         "longctx16k", "routing", "bert", "llama", "moe", "sparse",
+         "evoformer"]
     dev = phase_device()
-    state, launches, kern = {}, {}, {}
+    state, launches, kern, wall = {}, {}, {}, {}
+    t0 = time.perf_counter()
     if "build" in phases:
         phase_build()
+        wall["build"] = time.perf_counter() - t0
     if "kernels" in phases:
+        t0 = time.perf_counter()
         kern = phase_kernels()
+        wall["kernels"] = time.perf_counter() - t0
     for phase, run in (("norms", phase_norms),
                        ("generate", phase_generate), ("serve", phase_serve),
                        ("quant", phase_quant),
@@ -6099,17 +6888,21 @@ def main():
                        ("longctx", phase_longctx),
                        ("longctx16k", phase_longctx16k),
                        ("routing", phase_routing),
+                       ("bert", phase_bert), ("llama", phase_llama),
                        ("moe", phase_moe), ("sparse", phase_sparse),
                        ("evoformer", phase_evoformer)):
         if phase in phases:
+            t0 = time.perf_counter()
             counts = run(state)        # counts of each path's run; the
-            # quant, moe, sparse and evoformer phases run several paths
-            # each and return {path: counts}
-            launches.update(counts if phase in ("quant", "spec_decode",
-                                                "moe", "sparse", "evoformer")
-                            else {phase: counts})
+            # quant, moe, sparse, evoformer, bert and llama phases run
+            # several paths each and return {path: counts}
+            launches.update(counts if phase in (
+                "quant", "spec_decode", "moe", "sparse", "evoformer", "bert",
+                "llama") else {phase: counts})
+            wall[phase] = time.perf_counter() - t0
     if "profile" in phases:
         phase_profile(state)
+    emit({"phase": "wall_seconds", "seconds": wall})
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": [
         {"name": name, "path": path, "route": "cuda",

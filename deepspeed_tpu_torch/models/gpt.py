@@ -261,6 +261,17 @@ class GPTConfig:
     def qkv_dim(self):
         return (self.n_head + 2 * self.n_kv_head) * self.head_dim
 
+    def num_params(self):
+        """The JAX package's estimate (norms and biases approximated as 4 x
+        d_model a block)."""
+        wpe = 0 if self.use_rotary else self.max_seq_len * self.d_model
+        per_block = (self.d_model * (self.qkv_dim + self.d_model)
+                     + (3 if self.use_swiglu else 2) * self.d_model * self.d_ff
+                     + 4 * self.d_model)
+        emb = self.vocab_size * self.d_model
+        head = 0 if self.tie_embeddings else self.vocab_size * self.d_model
+        return emb + head + wpe + self.n_layer * per_block
+
 
 GPT2_CONFIGS = {
     "gpt2-tiny": GPTConfig(n_layer=2, n_head=4, d_model=128, max_seq_len=256,

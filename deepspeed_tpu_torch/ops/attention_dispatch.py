@@ -20,7 +20,16 @@ The phases this port carries:
     is the spec-decode chunk of k + 1 tokens a row): `paged_kernel` |
     `paged_gather`, and over the int8 pool (`kv_dtype="int8"`)
     `paged_kernel_quant` | `paged_gather_quant`. The paged kernels take
-    `paged_decode` only.
+    `paged_decode` only;
+  * `encoder` (bidirectional self-attention: `models/bert.py`, whose JAX
+    counterpart computes it as dense einsums outside the dispatch):
+    `flash` with `causal=False` when no mask was passed, `block_sparse` (an
+    all-ones layout with the additive key-padding row, `ops/
+    block_sparse_attention.key_padded_attention`) when one was, `dense` on
+    CPU operands. The choice reads only whether a mask was passed, never
+    its values (that would wait for the card every call). The masked
+    program's plan (`dense_plan`) refuses a T that is not a multiple of 16,
+    on every device.
 
 The predicates are the JAX package's — no alibi, no window, and
 `use_flash_attention=False` forbids a kernel — minus its TPU crossovers
@@ -55,7 +64,7 @@ class AttnSite:
     """One attention call site's dispatch key: shapes, dtype, device and
     the masking flags that disqualify kernels."""
     phase: str                    # "train" | "decode" | "paged_decode" |
-                                  # "prefill_chunk" | "verify"
+                                  # "prefill_chunk" | "verify" | "encoder"
     q_len: int                    # query length (T; chunk C; 1 for decode)
     kv_len: int                   # key/context length (T, M, or nb*block)
     head_dim: int = 64
@@ -69,6 +78,7 @@ class AttnSite:
                                   # the "external" program runs
     chunk_min: Optional[int] = None  # GPTConfig.chunked_attn_min_seq: the
                                   # "chunked" program takes T >= it
+    key_padding: bool = False     # encoder: a key-padding mask was passed
 
     @property
     def square(self) -> bool:
@@ -163,15 +173,25 @@ register_program(AttentionProgram(
                        and s.square and not s.has_bias and not s.has_window
                        and s.force_flash is not False)))
 
-# square causal attention, no alibi/window
+# square attention, no alibi/window, no key-padding mask: causal in
+# `train`, full in `encoder`
 register_program(AttentionProgram(
-    name="flash", phases=("train",), priority=50,
-    matches=lambda s: s.square and kernel_wanted(s),
+    name="flash", phases=("train", "encoder"), priority=50,
+    matches=lambda s: s.square and not s.key_padding and kernel_wanted(s),
     kernel_dtypes=FLASH_DTYPES))
 
-# CPU operands: the flash kernel's plain version
+
+# encoder with a key-padding mask: the block-sparse kernels on an all-ones
+# layout, the mask as their additive padding row
 register_program(AttentionProgram(
-    name="dense", phases=("train",), priority=0, matches=_plain))
+    name="block_sparse", phases=("encoder",), priority=50,
+    matches=lambda s: s.square and s.key_padding and kernel_wanted(s),
+    kernel_dtypes=FLASH_DTYPES))
+
+# CPU operands: the kernels' plain versions (train), the JAX package's
+# dense encoder arithmetic (encoder)
+register_program(AttentionProgram(
+    name="dense", phases=("train", "encoder"), priority=0, matches=_plain))
 
 # no alibi/window
 register_program(AttentionProgram(

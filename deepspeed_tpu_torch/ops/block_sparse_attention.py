@@ -41,6 +41,7 @@ tile, no VMEM budget, no automatic block_q.
 """
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -499,9 +500,12 @@ def _layout_plan(layout, H, T, block, causal):
     return _plan(np.ascontiguousarray(layout), T, block, bool(causal))
 
 
-def _operands(q, plan, sm_scale, bias, key_padding_mask):
+def _operands(q, plan, sm_scale, bias, key_padding_mask,
+              key_padding_bias=None):
     """(bias [Bb, Hb, T, T] fp32 contiguous or None, additive padding row
-    [B, T] fp32 or None, sm_scale), with the argument checks."""
+    [B, T] fp32 or None, sm_scale), with the argument checks. The row comes
+    from `key_padding_mask` (bool, True = attend) or is `key_padding_bias`
+    itself (additive, any float dtype)."""
     B, H, T, D = q.shape
     if plan.T != T or plan.fine.shape[0] != H:
         raise ValueError(f"block_sparse_attention: a plan for T={plan.T}, "
@@ -526,16 +530,26 @@ def _operands(q, plan, sm_scale, bias, key_padding_mask):
             raise ValueError(f"block_sparse_attention: key_padding_mask "
                              f"shape {tuple(kpm.shape)}, expected {(B, T)}")
         kvb = torch.where(kpm.bool(), 0.0, NEG_INF).float().contiguous()
+    if key_padding_bias is not None:
+        if kvb is not None:
+            raise ValueError("block_sparse_attention: a key_padding_mask or "
+                             "a key_padding_bias, not both")
+        if tuple(key_padding_bias.shape) != (B, T):
+            raise ValueError(f"block_sparse_attention: key_padding_bias "
+                             f"shape {tuple(key_padding_bias.shape)}, "
+                             f"expected {(B, T)}")
+        kvb = key_padding_bias.to(q.device, torch.float32).contiguous()
     return bias, kvb, float(sm_scale)
 
 
 def _attend(q, k, v, plan, sm_scale=None, causal=False, bias=None,
-            key_padding_mask=None, bias_needs_grad=None):
+            key_padding_mask=None, bias_needs_grad=None,
+            key_padding_bias=None):
     """`block_sparse_attention` on a built plan: the entry of callers that
-    keep their plan per length (`sparse_attn_fn`, `SparseSelfAttention`),
-    so that no call hashes the layout again."""
+    keep their plan per length (`sparse_attn_fn`, `SparseSelfAttention`,
+    `key_padded_attention`), so that no call hashes the layout again."""
     bias, kvb, sm_scale = _operands(q, plan, sm_scale, bias,
-                                    key_padding_mask)
+                                    key_padding_mask, key_padding_bias)
     if bias_needs_grad is None:
         bias_needs_grad = bias is not None
     return _BlockSparse.apply(q, k, v, bias, plan, kvb, sm_scale,
@@ -560,3 +574,30 @@ def block_sparse_attention(q, k, v, layout, block=16, sm_scale=None,
     plan = _layout_plan(layout, q.shape[1], q.shape[2], block, causal)
     return _attend(q, k, v, plan, sm_scale, causal, bias, key_padding_mask,
                    bias_needs_grad)
+
+
+@functools.lru_cache(maxsize=16)
+def dense_plan(H, T):
+    """The plan of an all-ones layout over H heads at T (a multiple of 16):
+    every (q tile, k tile) visited. Built once per (H, T), so no call of
+    `key_padded_attention` rebuilds the visit lists or hashes a layout. A T
+    the kernels cannot tile raises NotImplementedError on every device: the
+    port runs no plain attention in their place."""
+    if T % FINE:
+        raise NotImplementedError(
+            f"key_padded_attention: T={T} is not a multiple of {FINE} (the "
+            f"block-sparse kernels' tile), and the port runs no plain "
+            f"attention on the card")
+    return _Plan(np.ones((H, T // FINE, T // FINE), bool), T, FINE, False)
+
+
+def key_padded_attention(q, k, v, key_padding_bias, sm_scale=None):
+    """Full (bidirectional) attention with an additive per-key row: q, k, v
+    [B, H, T, D], `key_padding_bias` [B, T] added to every query's score of
+    each key (0 where a key is attended, -1e30 where it is padded, or any
+    additive row such as an HF extended mask). The block-sparse kernels on
+    an all-ones layout (`dense_plan`), the row as their padding row; T a
+    multiple of 16. Differentiable in q, k and v."""
+    B, H, T, _ = q.shape
+    return _attend(q, k, v, dense_plan(H, T), sm_scale,
+                   key_padding_bias=key_padding_bias)

@@ -41,6 +41,16 @@ def test_port_never_imports_jax_or_the_jax_package(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_never_imports_transformers(path):
+    """The HF adapters take a model or a state dict and its config object;
+    the card's machine has no transformers, so nothing of the port may
+    need it."""
+    bad = [m for m in _imports(path) if m.split(".")[0] == "transformers"]
+    assert not bad, f"{path.name} imports {bad}"
+
+
 def test_port_never_names_library_attention_or_compile():
     """No SDPA, cuDNN attention or torch.compile anywhere in the package:
     the three attention kernels are the hand-written ones (chip_smoke.py
@@ -707,6 +717,13 @@ def test_weight_quant_of_an_moe_tree_refuses_when_the_engine_is_built():
     engine = init_inference(spec, config=conf, device="cpu")
     with pytest.raises(NotImplementedError, match="MoE tree"):
         engine.serving(quantization={"weights": "int8"})
+
+
+def test_the_import_scan_covers_the_zoo_modules():
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("models/bert.py", "models/llama.py", "models/__init__.py",
+                   "ops/transformer.py", "inference/adapters.py"):
+        assert f"deepspeed_tpu_torch/{module}" in names
 
 
 def test_the_import_scan_covers_the_sparse_and_evoformer_modules():
