@@ -139,7 +139,8 @@ Phases, one JSON line each:
            width 8) with their two planted faults, each timed beside its
            bound, plain version and SDPA;
   norms    the public norm ops at [4096, 768] bf16 with bf16 scale and
-           bias: one launch each, and no other kernel in the profiler;
+           bias: one launch each, and no other kernel in the profiler
+           (run right after build, before the kernels phase);
   generate init_inference -> generate() on gpt2-125m at full width and
            depth (random weights from a numpy seed), bf16: launch counts,
            prefill and first-decode logits held against the port's fp32
@@ -290,6 +291,52 @@ Phases, one JSON line each:
            the forward's and forward + backward's times, the latter also
            with the backward one MSA row at a time (as before it was
            chunked);
+  offload  bench.py's offload lane (bench.py:715-803): InfinityEngine on
+           the nvme tier, 8 layers, d_model 256, 4 heads of 64, d_ff 1024,
+           vocab 8192, B 4, T 256, in bf16 with the fp32 master on the host
+           (the lane runs fp32, which the flash kernels refuse: a cut),
+           three arms (lookahead 0 / landing 1, 1 / 1, 2 / 2), 1 warm-up
+           each, then 4 timed steps each taken in turns (the lane runs at
+           the host's pace, which drifts): bit-identical losses across the
+           arms, exact flash launches (2 x 8 forward, 8 each backward a
+           step), median step_ms, tokens/s, stall and landing-wait
+           fractions, the host's C++ step and upload time, staging hit
+           rate, write flushes, vs_baseline (blocking over async), the
+           card's busy share (one profiled step) and the swap folder's
+           filesystem (/proc/mounts);
+  infinity initialize() of a LayeredModelSpec at gpt2-1.3b's width (d_model
+           2048, 16 heads of 128, d_ff 8192, vocab 50304; 8 of its 24
+           layers, for time) -> InfinityEngine: micro-batch 4, seq 1024,
+           gas 2, AdamW on the host, bf16; the cpu tier, then the nvme tier
+           with the moments on disk too, 1 warm-up + 2 timed steps each:
+           exact launches, finite falling losses, live layers within
+           lookahead + 1 and the allocator's bytes between steps equal to
+           the resident leaves + lookahead + 1 layers, s/step, tokens/s, MFU,
+           the host step's time, the landing wait and the busy share; then
+           a 2-layer cut at that width, one step, against the port's fp32
+           CPU InfinityEngine (the loss and each layer's gradient flat);
+  zero_inference  init_inference() of the same weights as a
+           ZeroInferenceEngine (lookahead 1) on the cpu and nvme tiers:
+           generate() on 4 prompts of 100-600 tokens + 32 new (one call
+           each) and the streamed ServingEngine over 16 requests through 8
+           slots, tokens identical to the resident InferenceEngine and
+           ServingEngine on the same card and weights, exact launches
+           (flash L a prefill, decode L a step, paged decode L a step),
+           tokens/s, requests/s, TTFT / TPOT, staging hits and stalls, the
+           weight bytes on the card against the model's; then generate()
+           at 8 and 16 layers of that width: the allocator's bytes less the
+           KV cache equal resident + 2 layers at both depths, the peak
+           above them and the reserved bytes flat in depth;
+  zero_offload  initialize() of the same weights as the ordinary engine
+           with offload_optimizer (ZeRO 3, micro-batch 4, seq 512, gas 2,
+           bf16, AdamW): resident (no offload), cpu (the streamed tier),
+           cpu with zero_force_ds_cpu_optimizer (the C++ host step) and
+           nvme, 1 warm-up + 2 timed steps each: finite losses, exact
+           launches, the streamed arm bit-identical to the resident one
+           (losses, params, master, moments) and holding at least 0.9 x 12
+           bytes a parameter less between steps, s/step, the host step's
+           time, and each host-step arm's device peak that much below the
+           streamed arm's;
   profile  (opt-in, after the phases it reads) torch.profiler over the same
            generate() call, serving runs (bf16, quantized, MoE) and one
            train_batch (gpt2-760m, MoE, sparse): kernel time on the card by
@@ -299,12 +346,16 @@ A comma-separated phase list as the one argument runs those phases only
 (the training lanes), `build,kernels,longctx,longctx16k,routing` (the
 long-context lanes and the routing directives), `build,serve` (TTFT / TPOT), `build,train,profile`,
 `build,kernels,quant`, `build,kernels,moe`, `build,kernels,sparse`,
-`build,kernels,evoformer` or `build,kernels,bert,llama` (the model zoo).
+`build,kernels,evoformer`, `build,kernels,bert,llama` (the model zoo) or
+`build,offload,infinity,zero_inference,zero_offload` (the offload tier;
+its swap folder is `build/chip_smoke_swap/` in the checkout, removed after
+each arm).
 Then each phase's wall seconds, the
 card's name and power limit, the `kernels` summary line (one row per
 kernel and path that runs it — the flash forward has generate,
 quant_generate, train, north_star, longctx, longctx16k, routing,
-moe_train, bert and llama_generate rows; quantize_int8 a
+moe_train, bert, llama_generate, offload, infinity,
+zero_inference_generate and zero_offload rows; quantize_int8 a
 quant_serve row, the K/V
 writes, and a quant_serve_build row, the weights — with `launches`
 counted from 0 just before that path's run and read just after, and
@@ -313,7 +364,9 @@ line `{"ok": true, "device": {...}}`. Any failure exits non-zero
 and prints no result line. It imports no JAX and nothing of deepspeed_tpu.
 """
 
+import collections
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -912,6 +965,9 @@ def phase_build():
     from deepspeed_tpu_torch.ops import op_builder
     t0 = time.perf_counter()
     libs = op_builder.build_all()
+    # the offload tier's host libraries (csrc/aio, csrc/cpu_optim), g++
+    libs.update({n: op_builder.build_host(n)
+                 for n in ("dstpu_aio", "dstpu_cpu_optim")})
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v.name) for k, v in libs.items()}})
 
@@ -1094,6 +1150,7 @@ def phase_kernels():
     results.update(_block_sparse_kernels(rng, checks))
     results.update(_evoformer_kernels(rng, checks))
     results.update(_zoo_kernels(rng, checks))
+    _offload_kernels(rng, checks, results)
     emit({"phase": "kernels", "checks": checks,
           "main_path": {f"{name}/{path}": row
                         for (name, path), row in results.items()}})
@@ -4382,10 +4439,11 @@ def phase_norms(state):
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
     _expect("norms", counts, {"fused_layer_norm": 1, "fused_rms_norm": 1})
-    # the first profiler session after the kernels phase's many loses some
-    # or all of its device events (on an H100, fused_layer_norm's kernel
-    # in 0.4 down to 0 of its 10 calls as the kernels phase grew, PERF.md;
-    # the session after it in all): one session first, its trace printed
+    # a profiler session after the kernels phase's many can lose some or
+    # all of its device events (fused_layer_norm's kernel in 0.4 down to 0
+    # of its 10 calls as that phase grew, PERF.md; fused_rms_norm's in all
+    # of a later session once): main runs this phase before the kernels
+    # phase, and one session first, its trace printed
     _, dropped = _device_ms(lambda: norms.fused_rms_norm(x, scale, 1e-5))
     kernels = {}
     for name, call in (
@@ -6789,6 +6847,815 @@ def _device_breakdown(prof, wall_s):
                             for t, c, n in top[:8]]}
 
 
+# ----------------------------------------------------------------------
+# the offload tier (ROADMAP queue 1 item 9): bench.py's offload lane and
+# the three spill engines at gpt2-1.3b's width
+# ----------------------------------------------------------------------
+
+# bench.py's offload lane (bench.py:715-803): 8 layers, d_model 256, 4
+# heads of 64, d_ff 1024, vocab 8192, B 4, T 256, the nvme tier. The lane
+# runs fp32; the port's flash kernels take bf16 / fp16 only, so the cell
+# runs the lane's shapes in bf16 with the fp32 master on the host (cut)
+OFFLOAD_CFG = dict(n_layer=8, n_head=4, d_model=256, d_ff=1024,
+                   vocab_size=8192, max_seq_len=256)
+OFFLOAD_B, OFFLOAD_T, OFFLOAD_STEPS = 4, 256, 4
+OFFLOAD_ATTN = dict(B=4, T=256, H=4, Hkv=4, D=64, causal=True)
+# (name, lookahead, landing_depth): bench.py's blocking and async arms and
+# the lookahead-1 arm between them; the losses must be bit-identical
+OFFLOAD_ARMS = (("blocking", 0, 1), ("lookahead1", 1, 1), ("async", 2, 2))
+# the three spill engines share one numpy draw of gpt2-1.3b's width
+# (models/gpt.py GPT2_CONFIGS: d_model 2048, 16 heads of 128, d_ff 8192,
+# vocab 50304) cut to 8 of its 24 layers for time
+SPILL_MODEL, SPILL_LAYERS = "gpt2-1.3b", 8
+INFINITY_MBS, INFINITY_SEQ, INFINITY_GAS, INFINITY_STEPS = 4, 1024, 2, 2
+INFINITY_ATTN = dict(B=4, T=1024, H=16, Hkv=16, D=128, causal=True)
+INFINITY_PARITY_B = 2
+ZI_LENS, ZI_NEW, ZI_SERVE_N = (100, 250, 431, 600), 32, 16
+ZI_CONFIG = {"dtype": "bfloat16", "kv_cache_dtype": "bfloat16",
+             "greedy": True, "max_out_tokens": 1024,
+             "telemetry": REGISTRY_ONLY}
+# row 1 at the longest prompt's prefill (each prompt is its own generate()
+# call), row 4 mid-generation over its 1024-row cache, row 5 over 8 slots
+ZI_PREFILL = dict(B=1, T=600, H=16, Hkv=16, D=128, causal=True)
+ZI_DECODE = dict(B=1, H=16, Hkv=16, hd=128, M=1024, pos=[616])
+ZI_PAGED = dict(B=8, H=16, Hkv=16, hd=128, bs=512, nb=2,
+                pos=[150, 0, 400, 640, 1000, 0, 260, 520])
+ZO_MBS, ZO_SEQ, ZO_GAS, ZO_STEPS = 4, 512, 2, 2
+# the weight bound on the card, measured at two depths of the same width:
+# the zero_inference model at 8 layers and the same blocks twice over (16)
+ZI_DEPTHS, ZI_DEPTH_NEW = (8, 16), 8
+# the allocator's rounding of the ring's and the resident leaves' blocks
+# (each to 512 B, or to 2 MiB segments for reserved memory) and the
+# sampler's scratch: what a measured byte count may exceed its bound by
+MEM_SLACK = 64 << 20
+# the swap folder: inside the checkout (listed in .gitignore under build/)
+SWAP_ROOT = "build/chip_smoke_swap"
+
+
+def _swap_dir(name):
+    import os
+    import shutil
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        SWAP_ROOT, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def _filesystem(path):
+    """The swap folder's mount and filesystem type from /proc/mounts (the
+    longest mount prefix), and its free bytes: an NVMe-tier number read
+    from tmpfs or overlay is a page-cache number, not a disk's."""
+    import os
+    import shutil
+    path = os.path.realpath(path)
+    best = ("", "unknown")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mnt, fstype = line.split()[:3]
+            mnt = mnt.replace("\\040", " ")
+            inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best[0]):
+                best = (mnt, fstype)
+    return {"path": path, "mount": best[0], "fstype": best[1],
+            "free_bytes": shutil.disk_usage(path).free}
+
+
+def _spill_cfg(n_layer=SPILL_LAYERS):
+    from deepspeed_tpu_torch.models.gpt import GPT2_CONFIGS
+    return dataclasses.replace(GPT2_CONFIGS[SPILL_MODEL], n_layer=n_layer)
+
+
+def _spill_params(state):
+    """The one numpy draw the infinity, zero_inference and zero_offload
+    phases share (fp32 on the host)."""
+    if "spill_params" not in state:
+        from deepspeed_tpu_torch.models.gpt import init_gpt_params
+        t0 = time.perf_counter()
+        state["spill_params"] = init_gpt_params(_spill_cfg(), seed=0)
+        state["spill_init_s"] = time.perf_counter() - t0
+    return state["spill_params"]
+
+
+def _host_timer(obj, name, acc):
+    """Wrap obj.name so that its host seconds add into acc[0]."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc[0] += time.perf_counter() - t0
+    setattr(obj, name, timed)
+
+
+def _busy_share(fn, wall_s):
+    """One run of fn under torch.profiler: the card's busy time against
+    the unprofiled wall time of the same work (`_device_breakdown`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    br = _device_breakdown(prof, wall_s)
+    return {"busy_share": 1.0 - br["idle_share"],
+            "device_busy_ms": br["device_busy_ms"], "wall_ms": br["wall_ms"],
+            "by_class_ms": br["by_class_ms"]}
+
+
+def _train_launches(path, counts, L, per_step_micro):
+    """Flash launches of a training path: the forward twice a layer and
+    micro-batch (the backward's recompute), each backward kernel once."""
+    _expect(path, counts, {
+        "flash_attention": 2 * L * per_step_micro,
+        "flash_attention_bwd_dq": L * per_step_micro,
+        "flash_attention_bwd_dkv": L * per_step_micro})
+
+
+def phase_offload(state):
+    """bench.py's offload lane through InfinityEngine on the nvme tier,
+    three arms (blocking: lookahead 0, landing 1; lookahead 1, landing 1;
+    async: lookahead 2, landing 2), built side by side, each 1 warm-up
+    step, then OFFLOAD_STEPS timed steps on the same batches taken in
+    turns (one step of each arm a round, the order reversed every other
+    round), so that the host's other load falls on every arm alike: the
+    lane runs at the host's pace, whose time for the same work varies
+    several-fold over seconds. Bit-identical losses across the arms, exact
+    flash launches, bench.py's columns from each arm's median step, and
+    the host's time a step in the C++ step and in making layers live
+    (`tools/offload_ab.py` breaks a step down further)."""
+    import shutil
+    import torch
+    from deepspeed_tpu_torch.models.gpt import (GPTConfig, init_gpt_params,
+                                                make_gpt_layered_model)
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES, omp_threads
+    from deepspeed_tpu_torch.runtime.infinity import InfinityEngine
+    cfg = GPTConfig(**OFFLOAD_CFG, remat=False, dtype="bfloat16")
+    params = init_gpt_params(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size,
+                                       (OFFLOAD_B, OFFLOAD_T + 1))}
+               for _ in range(OFFLOAD_STEPS + 1)]
+    engines, losses, launches, timers, fs = {}, {}, {}, {}, None
+    for name, lookahead, landing in OFFLOAD_ARMS:
+        folder = _swap_dir(f"offload_{name}")
+        fs = _filesystem(folder)
+        eng = InfinityEngine(make_gpt_layered_model(cfg, params=params),
+                             lr=1e-3, dtype=torch.bfloat16,
+                             offload_device="nvme", nvme_path=folder,
+                             lookahead=lookahead, landing_depth=landing)
+        losses[name] = [eng.train_batch(batches[0])]          # warm-up
+        engines[name] = (eng, eng.offload_stats(), folder)
+        timers[name] = {"host_step": [0.0], "upload": [0.0], "step": []}
+        for opt in eng.layer_opts:
+            _host_timer(opt, "step", timers[name]["host_step"])
+        _host_timer(eng.streamer, "_upload", timers[name]["upload"])
+        launches[name] = collections.Counter()
+    order = [name for name, _, _ in OFFLOAD_ARMS]
+    for r, batch in enumerate(batches[1:]):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            eng = engines[name][0]
+            LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses[name].append(eng.train_batch(batch))
+            torch.cuda.synchronize()
+            timers[name]["step"].append(time.perf_counter() - t0)
+            launches[name].update(LAUNCHES)
+    arms = {}
+    for name, lookahead, landing in OFFLOAD_ARMS:
+        eng, base, folder = engines[name]
+        launches[name] = dict(launches[name])
+        _train_launches(f"offload/{name}", launches[name], cfg.n_layer,
+                        OFFLOAD_STEPS)
+        t = timers[name]
+        dt = sum(t["step"])
+        off = eng.offload_stats()
+        st, st0 = off["staging"], base["staging"]
+        stall = st["stall_ms_total"] - st0["stall_ms_total"]
+        landing_ms = off["hostward_wait_ms_total"] \
+            - base["hostward_wait_ms_total"]
+        step_s = statistics.median(t["step"])
+        busy = _busy_share(lambda: eng.train_batch(batches[1]), step_s)
+        arms[name] = {
+            "lookahead": lookahead, "landing_depth": landing,
+            "step_ms": step_s * 1e3,
+            "step_ms_each": [v * 1e3 for v in t["step"]],
+            "tokens_per_s": OFFLOAD_B * OFFLOAD_T / step_s,
+            "stall_fraction": stall / (dt * 1e3),
+            "landing_wait_fraction": landing_ms / (dt * 1e3),
+            "host_optimizer_ms_per_step": t["host_step"][0] * 1e3
+            / OFFLOAD_STEPS,
+            "upload_ms_per_step": t["upload"][0] * 1e3 / OFFLOAD_STEPS,
+            "staging_hit_rate": (st["hits"] - st0["hits"])
+            / max(1, st["acquires"] - st0["acquires"]),
+            "write_flushes": eng.store.write_flushes,
+            "peak_live_layers": st["peak_live_layers"],
+            "final_loss": losses[name][-1], **busy}
+        eng.release()
+        shutil.rmtree(folder, ignore_errors=True)
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"offload losses not finite: {losses}")
+    if len({tuple(v) for v in losses.values()}) != 1:
+        raise AssertionError(f"offload arms' losses differ: {losses}")
+    emit({"phase": "offload", "source": "bench.py:715-803",
+          "cut": "bf16 compute (the lane runs fp32; the flash kernels take "
+                 "bf16 / fp16), the fp32 master on the host",
+          "config": OFFLOAD_CFG, "batch": OFFLOAD_B, "seq": OFFLOAD_T,
+          "steps": OFFLOAD_STEPS, "timing": "in turns, median step",
+          "swap_filesystem": fs, "omp_threads": omp_threads(),
+          "arms": arms, "losses": losses,
+          "vs_baseline": arms["blocking"]["step_ms"]
+          / arms["async"]["step_ms"], "launches": launches})
+    return {"offload": launches["async"]}
+
+
+def _infinity_config(tier, folder, lookahead=1):
+    off = {"device": tier, "lookahead": lookahead}
+    zero = {"stage": 3, "offload_param": off}
+    if tier == "nvme":
+        off["nvme_path"] = f"{folder}/weights"
+        zero["offload_optimizer"] = {"device": "nvme",
+                                     "nvme_path": f"{folder}/moments"}
+    return {"train_micro_batch_size_per_gpu": INFINITY_MBS,
+            "gradient_accumulation_steps": INFINITY_GAS,
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+            "bf16": {"enabled": True}, "zero_optimization": zero}
+
+
+def _infinity_parity():
+    """A 2-layer cut at the spill width, one step: the card's bf16
+    InfinityEngine against the port's fp32 CPU InfinityEngine from the
+    same bf16-rounded weights and batch: the loss within TRAIN_LOSS_TOL
+    and each layer's landed gradient flat within TRAIN_GRAD_REL_TOL."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import (init_gpt_params,
+                                                make_gpt_layered_model)
+    from deepspeed_tpu_torch.runtime.infinity import InfinityEngine
+    from deepspeed_tpu_torch.utils.tree import tree_cast
+    small = _spill_cfg(2)
+    params = tree_cast(tree_cast(init_gpt_params(small, seed=1),
+                                 torch.bfloat16), torch.float32)
+    toks = np.random.default_rng(7).integers(
+        0, small.vocab_size, (INFINITY_PARITY_B, INFINITY_SEQ + 1))
+    out = {}
+    for side, dtype, device in (("card", torch.bfloat16, None),
+                                ("cpu", torch.float32, "cpu")):
+        cfg = small if side == "card" else dataclasses.replace(
+            small, dtype=torch.float32)
+        eng = InfinityEngine(make_gpt_layered_model(cfg, params=params),
+                             lr=1e-3, dtype=dtype, device=device)
+        flats = {}
+        step = eng._layer_step_host
+
+        def record(i, flat, step=step, flats=flats):
+            flats[i] = flat.clone()
+            return step(i, flat)
+        eng._layer_step_host = record
+        out[side] = (eng.train_batch({"tokens": toks}), flats)
+        eng.release()
+    (l_card, f_card), (l_cpu, f_cpu) = out["card"], out["cpu"]
+    rel = {i: float((f_card[i] - f_cpu[i]).norm()
+                    / f_cpu[i].norm().clamp_min(1e-30)) for i in f_cpu}
+    err = abs(l_card - l_cpu)
+    if not err <= TRAIN_LOSS_TOL or max(rel.values()) > TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"infinity 2-layer parity: loss err {err}, "
+                             f"layer flats {rel}")
+    return {"n_layer": 2, "batch": INFINITY_PARITY_B, "seq": INFINITY_SEQ,
+            "loss_card": l_card, "loss_cpu": l_cpu, "loss_abs_err": err,
+            "loss_tol": TRAIN_LOSS_TOL, "layer_flat_rel_err": rel,
+            "grad_rel_tol": TRAIN_GRAD_REL_TOL}
+
+
+def phase_infinity(state):
+    """initialize() of a LayeredModelSpec at gpt2-1.3b's width (8 of 24
+    layers) -> InfinityEngine, micro-batch 4, seq 1024, gas 2, AdamW on the
+    host, bf16: the cpu tier, then the nvme tier with the moments on disk
+    too, each 1 warm-up and INFINITY_STEPS timed steps on one batch: exact
+    launches, finite falling losses, the live-layer bound and the bytes
+    the card holds between steps (the resident leaves and the streamer's
+    ring, from the allocator), s/step, tokens/s, MFU, host step, landing wait and busy share; then the
+    2-layer parity."""
+    import shutil
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt import make_gpt_layered_model
+    from deepspeed_tpu_torch.inference.zero_inference import tree_bytes
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES, omp_threads
+    from deepspeed_tpu_torch.utils.tree import tree_num_params
+    cfg = _spill_cfg()
+    params = _spill_params(state)
+    n_params = tree_num_params(params)
+    L = cfg.n_layer
+    toks = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (INFINITY_MBS * INFINITY_GAS, INFINITY_SEQ + 1))
+    tokens = INFINITY_MBS * INFINITY_GAS * INFINITY_SEQ
+    arms, launches = {}, {}
+    for tier in ("cpu", "nvme"):
+        folder = _swap_dir(f"infinity_{tier}")
+        gc.collect()                   # the previous tier's engine
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_bytes = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng, *_ = initialize(model=make_gpt_layered_model(
+            cfg, name=SPILL_MODEL, params=params),
+            config=_infinity_config(tier, folder))
+        setup_s = time.perf_counter() - t0
+        host_s = [0.0]
+        _host_timer(eng, "_layer_step_host", host_s)
+        _host_timer(eng.resident_opt, "step", host_s)
+        losses = [eng.train_batch({"tokens": toks})]          # warm-up
+        base = eng.offload_stats()
+        host_s[0] = 0.0
+        LAUNCHES.clear()
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        for _ in range(INFINITY_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(eng.train_batch({"tokens": toks}))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches[tier] = dict(LAUNCHES)
+        _train_launches(f"infinity/{tier}", launches[tier], L,
+                        INFINITY_GAS * INFINITY_STEPS)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"infinity/{tier} losses not finite and "
+                                 f"falling: {losses}")
+        la = eng.streamer.lookahead
+        if eng.streamer.peak_live_layers > la + 1:
+            raise AssertionError(
+                f"infinity/{tier}: {eng.streamer.peak_live_layers} live "
+                f"layers > {la + 1}")
+        # between steps the card holds the resident leaves and the
+        # streamer's ring, read from the allocator
+        resident = tree_bytes(eng.resident)
+        bound = resident + (la + 1) * eng.store.layer_bytes
+        held = torch.cuda.memory_allocated() - base_bytes
+        if not bound <= held <= bound + MEM_SLACK:
+            raise AssertionError(f"infinity/{tier}: {held} B held on the "
+                                 f"card between steps, bound {bound}")
+        off = eng.offload_stats()
+        sec = statistics.median(step_s)
+        busy = _busy_share(lambda: eng.train_batch({"tokens": toks}), sec)
+        arms[tier] = {
+            "setup_s": setup_s, "losses": losses, "step_s": step_s,
+            "seconds_per_step": sec, "tokens_per_s": tokens / sec,
+            "mfu": 6 * n_params * tokens / sec / BF16_FLOPS,
+            "host_step_s_per_step": host_s[0] / INFINITY_STEPS,
+            "landing_wait_ms_per_step": (off["hostward_wait_ms_total"]
+                                         - base["hostward_wait_ms_total"])
+            / INFINITY_STEPS,
+            "stall_ms_per_step": (off["staging"]["stall_ms_total"]
+                                  - base["staging"]["stall_ms_total"])
+            / INFINITY_STEPS,
+            "staging": off["staging"], "write_flushes": off["write_flushes"],
+            "lookahead": la, "peak_live_layers": eng.streamer.peak_live_layers,
+            "held_between_steps": held, "resident_bytes": resident,
+            "weight_bound_bytes": bound, "slack_bytes": MEM_SLACK,
+            "layer_bytes": eng.store.layer_bytes,
+            "all_layers_bit16_bytes": eng.store.host_bytes,
+            "max_allocated_above_baseline": torch.cuda.max_memory_allocated()
+            - base_bytes, **busy}
+        if tier == "nvme":
+            arms[tier]["swap_filesystem"] = _filesystem(folder)
+        eng.release()
+        del eng
+        shutil.rmtree(folder, ignore_errors=True)
+    parity = _infinity_parity()
+    emit({"phase": "infinity", "model": SPILL_MODEL,
+          "cut": f"{SPILL_LAYERS} of 24 layers, for time",
+          "n_layer": L, "n_params": n_params,
+          "numpy_init_s": state.get("spill_init_s"),
+          "micro_batch": INFINITY_MBS, "seq": INFINITY_SEQ,
+          "gas": INFINITY_GAS, "omp_threads": omp_threads(),
+          "mfu_basis": "6 x params x tokens/s over 989e12 flop/s",
+          "arms": arms, "launches": launches, "parity": parity})
+    return {"infinity": launches["cpu"]}
+
+
+def _first_mismatch(engine, prompt, got, ref):
+    """First position where the served tokens differ from the resident
+    engine's, and the resident engine's top-2 gap there."""
+    pos = int(np.flatnonzero(np.asarray(got) != np.asarray(ref))[0])
+    prefix = np.concatenate([prompt, np.asarray(ref[:pos], np.int32)])
+    logits, _ = engine.forward(prefix[None])
+    top = logits[0, -1].float().topk(2).values
+    return {"position": pos, "top2_gap": float(top[0] - top[1])}
+
+
+def _depth_memory(cfg, params, prompt):
+    """The streamed weights on the card, read from the allocator: the cpu
+    tier at lookahead 1, generate() on one prompt at each depth of
+    ZI_DEPTHS (the 16-layer model repeats the 8 layers' blocks). Between
+    calls the card holds the resident leaves, the streamer's ring and the
+    KV cache, nothing else: `held` (allocated, less the cache) must equal
+    resident + (lookahead + 1) layers to MEM_SLACK, and be the same at
+    both depths; the peak above it (activations) and the reserved peak
+    less the cache must not grow with the depth beyond MEM_SLACK."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.zero_inference import tree_bytes
+    from deepspeed_tpu_torch.models.gpt import make_gpt_layered_model
+    rows = {}
+    for L in ZI_DEPTHS:
+        reps = L // cfg.n_layer
+        p = {**params, "blocks": {k: torch.cat([v] * reps)
+                                  for k, v in params["blocks"].items()}}
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        base_res = torch.cuda.memory_reserved()
+        eng = init_inference(make_gpt_layered_model(
+            dataclasses.replace(cfg, n_layer=L), name=SPILL_MODEL, params=p),
+            config={**ZI_CONFIG, "zero": {"offload_param": {
+                "device": "cpu", "lookahead": 1}}})
+        del p
+        eng.generate(prompt[None], max_new_tokens=2)            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng.generate(prompt[None], max_new_tokens=ZI_DEPTH_NEW)
+        torch.cuda.synchronize()
+        kv = tree_bytes(eng._cache_entry[1])
+        held = torch.cuda.memory_allocated() - base - kv
+        la = eng.streamer.lookahead
+        rows[L] = {
+            "resident_bytes": tree_bytes(eng.params),
+            "ring_bytes": eng.streamer.device_bytes,
+            "bound_bytes": tree_bytes(eng.params)
+            + (la + 1) * eng.store.layer_bytes,
+            "kv_cache_bytes": kv, "held_bytes": held,
+            "peak_above_held": torch.cuda.max_memory_allocated() - base
+            - kv - held,
+            "reserved_peak_less_kv": torch.cuda.max_memory_reserved()
+            - base_res - kv,
+            "model_bit16_bytes": eng.store.host_bytes + tree_bytes(eng.params)}
+        eng.release()
+        del eng
+    a, b = (rows[L] for L in ZI_DEPTHS)
+    for L, r in rows.items():
+        if not r["bound_bytes"] <= r["held_bytes"] \
+                <= r["bound_bytes"] + MEM_SLACK:
+            raise AssertionError(f"zero_inference at {L} layers holds "
+                                 f"{r['held_bytes']} B on the card, bound "
+                                 f"{r['bound_bytes']}: {rows}")
+    for key in ("held_bytes", "peak_above_held", "reserved_peak_less_kv"):
+        if b[key] > a[key] + MEM_SLACK:
+            raise AssertionError(f"zero_inference: {key} grows with depth: "
+                                 f"{rows}")
+    torch.cuda.empty_cache()
+    return {"depths": rows, "slack_bytes": MEM_SLACK,
+            "prompt_len": int(len(prompt)), "new_tokens": ZI_DEPTH_NEW}
+
+
+def phase_zero_inference(state):
+    """init_inference() of a LayeredModelSpec at the spill width (the
+    infinity phase's weights) -> ZeroInferenceEngine, lookahead 1, on the
+    cpu and nvme tiers: generate() on 4 prompts (one call each) and the
+    streamed ServingEngine over 16 requests through 8 slots, tokens
+    identical to the resident InferenceEngine / ServingEngine on the same
+    card and weights, exact launches, the weight bytes on the device."""
+    import shutil
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    from deepspeed_tpu_torch.inference.zero_inference import tree_bytes
+    from deepspeed_tpu_torch.models.gpt import (make_gpt_decode_model,
+                                                make_gpt_layered_model)
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    cfg = _spill_cfg()
+    params = _spill_params(state)
+    L = cfg.n_layer
+    rng = np.random.default_rng(9)
+    prompts = _ragged_prompts(rng, ZI_LENS, cfg.vocab_size)
+    serve_lens = rng.integers(100, 601, ZI_SERVE_N).tolist()
+    serve_prompts = _ragged_prompts(rng, serve_lens, cfg.vocab_size)
+    resident = init_inference(make_gpt_decode_model(cfg, name=SPILL_MODEL,
+                                                    params=params),
+                              config=ZI_CONFIG)
+    ref_gen = [resident.generate([p], max_new_tokens=ZI_NEW,
+                                 stop_on_eos=False)[0] for p in prompts]
+    reqs = [Request(uid=i, tokens=p, max_new_tokens=ZI_NEW,
+                    stop_on_eos=False) for i, p in enumerate(serve_prompts)]
+    ref_serve = resident.serving(max_slots=8, max_context=1024).run(reqs)
+    arms, launches = {}, {}
+    for tier in ("cpu", "nvme"):
+        folder = _swap_dir(f"zero_inference_{tier}")
+        off = {"device": tier, "lookahead": 1}
+        if tier == "nvme":
+            off["nvme_path"] = folder
+        t0 = time.perf_counter()
+        eng = init_inference(make_gpt_layered_model(cfg, name=SPILL_MODEL,
+                                                    params=params),
+                             config={**ZI_CONFIG,
+                                     "zero": {"offload_param": off}})
+        setup_s = time.perf_counter() - t0
+        eng.generate(prompts[0][None], max_new_tokens=2)     # warm-up
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [eng.generate(p[None], max_new_tokens=ZI_NEW)[0]
+                for p in prompts]
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gen_counts = dict(LAUNCHES)
+        _expect(f"zero_inference_generate/{tier}", gen_counts, {
+            "flash_attention": L * len(prompts),
+            "decode_attention": L * (ZI_NEW - 1) * len(prompts)})
+        for i, (a, b) in enumerate(zip(outs, ref_gen)):
+            if not np.array_equal(a, b):
+                raise AssertionError(
+                    f"zero_inference/{tier} generate prompt {i} differs "
+                    f"from the resident engine: "
+                    f"{_first_mismatch(resident, prompts[i], a, b)}")
+        serving = eng.serving(max_slots=8, max_context=1024)
+        serving.run([Request(uid="warm", tokens=serve_prompts[0],
+                             max_new_tokens=2, stop_on_eos=False)])
+        serving.telemetry.registry.clear()
+        steps0 = serving.stats()["decode_steps"]
+        stage0 = eng.streamer.stats()
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = serving.run(reqs)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        serve_counts = dict(LAUNCHES)
+        steps = serving.stats()["decode_steps"] - steps0
+        _expect(f"zero_inference_serve/{tier}", serve_counts,
+                {"paged_decode_attention": L * steps})
+        for u in range(ZI_SERVE_N):
+            if not np.array_equal(res[u].tokens, ref_serve[u].tokens):
+                where = _first_mismatch(resident, serve_prompts[u],
+                                        res[u].tokens, ref_serve[u].tokens)
+                raise AssertionError(
+                    f"zero_inference/{tier} served request {u} differs "
+                    f"from the resident ServingEngine: {where}")
+        if serving.allocator.num_free != serving.allocator.capacity:
+            raise AssertionError("zero_inference: blocks leaked")
+        latency = _latency(f"zero_inference/{tier}", serving, reqs)
+        stage = eng.streamer.stats()
+        arms[tier] = {
+            "setup_s": setup_s, "generate_s": gen_s,
+            "generate_tokens_per_s": len(prompts) * ZI_NEW / gen_s,
+            "serve_s": serve_s, "requests_per_s": ZI_SERVE_N / serve_s,
+            "serve_tokens_per_s": ZI_SERVE_N * ZI_NEW / serve_s,
+            "ttft_p50_ms": latency["ttft_ms"]["p50"],
+            "tpot_p50_ms": latency["tpot_ms"]["p50"], "latency": latency,
+            "decode_steps": steps,
+            "serve_staging_hits": stage["hits"] - stage0["hits"],
+            "serve_staging_acquires": stage["acquires"] - stage0["acquires"],
+            "serve_stall_ms": stage["stall_ms_total"]
+            - stage0["stall_ms_total"],
+            "staging": stage,
+            "device_weight_bytes": eng.streamer.device_bytes
+            + tree_bytes(eng.params),
+            "model_weight_bytes": eng.store.host_bytes
+            + tree_bytes(eng.params),
+            "launches": {"generate": gen_counts, "serve": serve_counts}}
+        if tier == "nvme":
+            arms[tier]["swap_filesystem"] = _filesystem(folder)
+        launches[tier] = (gen_counts, serve_counts)
+        eng.release()
+        del eng, serving
+        shutil.rmtree(folder, ignore_errors=True)
+    del resident
+    depth = _depth_memory(cfg, params, prompts[-1])
+    emit({"phase": "zero_inference", "model": SPILL_MODEL,
+          "cut": f"{SPILL_LAYERS} of 24 layers", "prompt_lens": ZI_LENS,
+          "max_new_tokens": ZI_NEW, "serve_prompt_lens": serve_lens,
+          "slots": 8, "arms": arms, "depth_memory": depth})
+    return {"zero_inference_generate": launches["cpu"][0],
+            "zero_inference_serve": launches["cpu"][1]}
+
+
+def _state_equal(a, b):
+    """Leaves of two state trees bit-equal, each compared on the card
+    (one tree may live in pinned host memory)."""
+    import torch
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x.to("cuda"), y.to("cuda")) for x, y in zip(la, lb))
+
+
+def phase_zero_offload(state):
+    """The ordinary engine with offload_optimizer on the spill phases'
+    weights: ZeRO 3 at one rank, micro-batch 4, seq 512, gas 2, bf16,
+    AdamW; arms `resident` (no offload: the state on the card), `cpu`
+    streamed (the state in pinned host memory, moved through the card on
+    a side stream each update), `cpu` with zero_force_ds_cpu_optimizer
+    (the C++ host step) and `nvme`, each 1 warm-up and ZO_STEPS timed
+    steps on the same batches: finite losses, exact launches; the streamed
+    arm's losses, params, master and moments bit-identical to the resident
+    arm's (the same update on the same card, only the state's home
+    differs: a missed wait on the side stream reads stale state); between
+    steps (the allocator's pending frees polled) the streamed arm holds at
+    least 0.9 x 12 bytes a parameter (the fp32 master and moments) less
+    than the resident arm, and each host-step arm's device peak is that
+    much below the streamed arm's."""
+    import shutil
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt import make_gpt_model
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES, omp_threads
+    from deepspeed_tpu_torch.utils.tree import tree_num_params
+    cfg = _spill_cfg()
+    params = _spill_params(state)
+    n_params = tree_num_params(params)
+    toks = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (ZO_MBS * ZO_GAS, ZO_SEQ + 1))).cuda()
+    arms, launches, resident = {}, {}, None
+    for arm in ("resident", "streamed", "forced", "nvme"):
+        folder = _swap_dir(f"zero_offload_{arm}")
+        zero = {"stage": 3}
+        if arm != "resident":
+            zero["offload_optimizer"] = {
+                "device": "nvme" if arm == "nvme" else "cpu"}
+            if arm == "nvme":
+                zero["offload_optimizer"]["nvme_path"] = folder
+        config = {"train_micro_batch_size_per_gpu": ZO_MBS,
+                  "gradient_accumulation_steps": ZO_GAS,
+                  "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+                  "bf16": {"enabled": True}, "zero_optimization": zero,
+                  "zero_force_ds_cpu_optimizer": arm == "forced"}
+        gc.collect()                   # the previous arm's engine
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_bytes = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng, *_ = initialize(model=make_gpt_model(cfg, name=SPILL_MODEL,
+                                                  params=params),
+                             config=config)
+        setup_s = time.perf_counter() - t0
+        if eng.host_step != (arm in ("forced", "nvme")) or \
+                (eng._state_copy_stream is not None) != (arm == "streamed"):
+            raise AssertionError(f"zero_offload/{arm}: host_step "
+                                 f"{eng.host_step}, streamed "
+                                 f"{eng._state_copy_stream is not None}")
+        host_s = [0.0]
+        if eng.host_step:
+            _host_timer(eng.host_optimizer, "step", host_s)
+        losses = [float(eng.train_batch({"tokens": toks}))]   # warm-up
+        host_s[0] = 0.0
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        for _ in range(ZO_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(eng.train_batch({"tokens": toks})))
+            step_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() - base_bytes
+        launches[arm] = dict(LAUNCHES)
+        per = ZO_GAS * ZO_STEPS
+        _expect(f"zero_offload/{arm}", launches[arm], {
+            "flash_attention": (2 if cfg.remat else 1) * cfg.n_layer * per,
+            "flash_attention_bwd_dq": cfg.n_layer * per,
+            "flash_attention_bwd_dkv": cfg.n_layer * per})
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"zero_offload/{arm} losses: {losses}")
+        arms[arm] = {"setup_s": setup_s, "losses": losses, "step_s": step_s,
+                     "seconds_per_step": statistics.median(step_s),
+                     "host_step_s_per_step": host_s[0] / ZO_STEPS,
+                     "peak_above_baseline": peak,
+                     "held_between_steps": held}
+        if arm == "nvme":
+            arms[arm]["swap_filesystem"] = _filesystem(folder)
+        if arm == "resident":
+            resident = eng
+            shutil.rmtree(folder, ignore_errors=True)
+            continue
+        if arm == "streamed":
+            st, ref = eng.state, resident.state
+            same = {"losses": losses == arms["resident"]["losses"],
+                    "params": _state_equal(st.params, ref.params),
+                    "master": _state_equal(st.master, ref.master),
+                    "opt_state": _state_equal(st.opt_state, ref.opt_state)}
+            arms[arm]["bit_identical_to_resident"] = same
+            if not all(same.values()):
+                raise AssertionError(
+                    f"zero_offload/streamed differs from the resident arm: "
+                    f"{same}; losses {losses} vs "
+                    f"{arms['resident']['losses']}")
+            del resident, st, ref
+        del eng
+        shutil.rmtree(folder, ignore_errors=True)
+    need = 0.9 * 12 * n_params
+    saved = arms["resident"]["held_between_steps"] \
+        - arms["streamed"]["held_between_steps"]
+    arms["streamed"]["held_below_resident"] = saved
+    if saved < need:
+        raise AssertionError(f"zero_offload/streamed: holds only {saved} B "
+                             f"less than the resident arm between steps "
+                             f"(need {need})")
+    for arm in ("forced", "nvme"):
+        saved = arms["streamed"]["peak_above_baseline"] \
+            - arms[arm]["peak_above_baseline"]
+        arms[arm]["peak_below_streamed"] = saved
+        if saved < need:
+            raise AssertionError(f"zero_offload/{arm}: device peak only "
+                                 f"{saved} below the streamed arm's "
+                                 f"(need {need})")
+    torch.cuda.empty_cache()
+    emit({"phase": "zero_offload", "model": SPILL_MODEL,
+          "cut": f"{SPILL_LAYERS} of 24 layers", "n_params": n_params,
+          "micro_batch": ZO_MBS, "seq": ZO_SEQ, "gas": ZO_GAS,
+          "omp_threads": omp_threads(), "peak_gap_needed": need,
+          "arms": arms, "launches": launches})
+    return {"zero_offload": launches["streamed"]}
+
+
+def _offload_kernels(rng, checks, results):
+    """Rows 1-5 at the offload paths' shapes: the flash forward and both
+    backward kernels at the offload lane's [4, 256, 4, 64] and the
+    infinity phase's [4, 1024, 16, 128]; the flash forward at
+    zero_inference's longest prefill, the contiguous decode over its
+    1024-row cache and the paged decode over 8 slots at 16 heads of 128;
+    zero_offload runs the north-star shape (its rows reused)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    for shape, path, bwd in ((OFFLOAD_ATTN, "offload", True),
+                             (INFINITY_ATTN, "infinity", True),
+                             (ZI_PREFILL, "zero_inference_generate", False)):
+        q, k, v, causal = _flash_case(rng, **shape)
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
+                                               layout="BTHD")
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, causal,
+                                                    layout="BTHD")
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        ok = err <= TOL["flash_attention"] and lse_err <= 1e-2
+        checks.append({"kernel": "flash_attention", "shape": shape,
+                       "max_abs_err": err, "tol": TOL["flash_attention"],
+                       "ok": ok})
+        if not ok:
+            raise AssertionError(f"flash_attention {shape}: err {err}, lse "
+                                 f"err {lse_err}")
+        results["flash_attention", path] = _flash_fwd_row(
+            q, k, v, causal, err, plain_reps=(3, 1, 1))
+        if bwd:
+            q, k, v, do, out, lse, _, errs, _ = _backward_case(
+                rng, checks, shape, False)
+            results.update(_flash_bwd_rows(path, q, k, v, do, out, lse,
+                                           errs, shape["causal"]))
+    kw = _decode_args(rng, ZI_DECODE)
+    q, kc, vc, pos = (kw[n] for n in ("q", "k", "v", "pos"))
+    err = (da.decode_attention(q, kc, vc, pos).float()
+           - da.decode_attention_reference(q, kc, vc, pos).float()
+           ).abs().max().item()
+    checks.append({"kernel": "decode_attention", "shape": ZI_DECODE,
+                   "max_abs_err": err, "tol": TOL["decode_attention"],
+                   "ok": err <= TOL["decode_attention"]})
+    if not err <= TOL["decode_attention"]:
+        raise AssertionError(f"decode_attention {ZI_DECODE}: err {err}")
+    b_ms, b_by = _decode_bound(ZI_DECODE)
+    mask = (torch.arange(kc.shape[2], device="cuda")[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    results["decode_attention", "zero_inference_generate"] = dict(
+        max_abs_err=err, ms=median_ms(lambda: da.decode_attention(
+            q, kc, vc, pos)),
+        plain_ms=median_ms(lambda: da.decode_attention_reference(
+            q, kc, vc, pos)), bound_ms=b_ms, bound_by=b_by,
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask)))
+    q, kp, vp, tables, pos = _paged_case(rng, **ZI_PAGED)
+    out = da.paged_decode_attention(q, kp, vp, tables, pos)
+    ref = da.paged_decode_attention_reference(q, kp, vp, tables, pos)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    checks.append({"kernel": "paged_decode_attention", "shape": ZI_PAGED,
+                   "max_abs_err": err, "tol": TOL["decode_attention"],
+                   "ok": err <= TOL["decode_attention"]})
+    if not err <= TOL["decode_attention"]:
+        raise AssertionError(f"paged_decode_attention {ZI_PAGED}: {err}")
+    B, H, hd = q.shape
+    Hkv = kp.shape[1]
+    live = sum(p + 1 for p in ZI_PAGED["pos"])
+    b_ms, b_by = bound(2 * live * Hkv * hd * 2 + 2 * B * H * hd * 2
+                       + tables.numel() * 4, 4 * live * H * hd, FP32_FLOPS)
+    results["paged_decode_attention", "zero_inference_serve"] = dict(
+        max_abs_err=err, ms=median_ms(lambda: da.paged_decode_attention(
+            q, kp, vp, tables, pos)),
+        plain_ms=median_ms(lambda: da.paged_decode_attention_reference(
+            q, kp, vp, tables, pos)), bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        results[name, "zero_offload"] = results[name, "north_star"]
+
+
 def phase_profile(state):
     """torch.profiler over one generate() call and one serving run at the
     generate/serve phases' shapes, one quantized serving run at the quant
@@ -6867,19 +7734,25 @@ def main():
         ["build", "kernels", "norms", "generate", "serve", "quant",
          "prefix_cache", "spec_decode", "train", "north_star", "longctx",
          "longctx16k", "routing", "bert", "llama", "moe", "sparse",
-         "evoformer"]
+         "evoformer", "offload", "infinity", "zero_inference",
+         "zero_offload"]
     dev = phase_device()
     state, launches, kern, wall = {}, {}, {}, {}
     t0 = time.perf_counter()
     if "build" in phases:
         phase_build()
         wall["build"] = time.perf_counter() - t0
+    # the norms phase's trace check goes first: after the kernels phase's
+    # many profiler sessions a session can record none of a call's kernels
+    if "norms" in phases:
+        t0 = time.perf_counter()
+        launches["norms"] = phase_norms(state)
+        wall["norms"] = time.perf_counter() - t0
     if "kernels" in phases:
         t0 = time.perf_counter()
         kern = phase_kernels()
         wall["kernels"] = time.perf_counter() - t0
-    for phase, run in (("norms", phase_norms),
-                       ("generate", phase_generate), ("serve", phase_serve),
+    for phase, run in (("generate", phase_generate), ("serve", phase_serve),
                        ("quant", phase_quant),
                        ("prefix_cache", phase_prefix_cache),
                        ("spec_decode", phase_spec_decode),
@@ -6890,7 +7763,11 @@ def main():
                        ("routing", phase_routing),
                        ("bert", phase_bert), ("llama", phase_llama),
                        ("moe", phase_moe), ("sparse", phase_sparse),
-                       ("evoformer", phase_evoformer)):
+                       ("evoformer", phase_evoformer),
+                       ("offload", phase_offload),
+                       ("infinity", phase_infinity),
+                       ("zero_inference", phase_zero_inference),
+                       ("zero_offload", phase_zero_offload)):
         if phase in phases:
             t0 = time.perf_counter()
             counts = run(state)        # counts of each path's run; the
@@ -6898,7 +7775,8 @@ def main():
             # several paths each and return {path: counts}
             launches.update(counts if phase in (
                 "quant", "spec_decode", "moe", "sparse", "evoformer", "bert",
-                "llama") else {phase: counts})
+                "llama", "offload", "infinity", "zero_inference",
+                "zero_offload") else {phase: counts})
             wall[phase] = time.perf_counter() - t0
     if "profile" in phases:
         phase_profile(state)

@@ -6,12 +6,14 @@ JSON as the JAX package's (the batch triad with "auto" resolution, fp16 /
 bf16, optimizer, scheduler, ZeRO stage, gradient clipping, the gradient
 accumulator dtype, activation checkpointing). A feature of that config the
 port does not carry yet raises `NotImplementedError` when the config is
-built: offload, ZeRO++ / compressed wires, a mesh of more than one rank,
+built: ZeRO++ / compressed wires, a mesh of more than one rank,
 pipeline, MoE, checkpointing and fault tolerance, the metric-driven
 curriculum (`curriculum_metrics`), compression and the profilers. The
 `telemetry` block, the monitors (`tensorboard`, `wandb`, `csv_monitor`),
 progressive layer drop and the `data_efficiency` block's random-LTD and
-legacy seqlen curriculum are ported; the telemetry block's request
+legacy seqlen curriculum are ported, and so is the offload tier
+(`zero_optimization.offload_param` / `offload_optimizer` on the cpu and
+nvme devices, `zero_force_ds_cpu_optimizer`); the telemetry block's request
 tracing, flight recorder and memscope are not.
 """
 
@@ -69,6 +71,38 @@ def _as_block(value, cls):
     return cls.from_dict(value) if isinstance(value, dict) else value
 
 
+OFFLOAD_DEVICES = ("none", "cpu", "nvme")
+
+
+@dataclass
+class OffloadParamConfig(ConfigModel):
+    """`zero_optimization.offload_param`: where the layer-streamed weights
+    live (runtime/param_swap.py). `lookahead` is the staging depth: layers
+    of weights in flight ahead of compute; 0 = the blocking baseline."""
+    device: str = "none"          # none | cpu | nvme
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 10**8
+    max_in_cpu: int = 10**9
+    pin_memory: bool = False
+    lookahead: int = 1
+
+
+@dataclass
+class OffloadOptimizerConfig(ConfigModel):
+    """`zero_optimization.offload_optimizer`: where the optimizer state
+    lives (cpu: pinned host memory or the host step; nvme: the host step
+    with the moments on disk). `buffer_count` is the AIO thread count."""
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+    ratio: float = 1.0
+
+
 @dataclass
 class ZeroConfig(ConfigModel):
     """`zero_optimization`. At one rank stages 0-3 are one computation (as
@@ -81,8 +115,8 @@ class ZeroConfig(ConfigModel):
     allgather_partitions: bool = True
     allgather_bucket_size: int = 5 * 10**8
     overlap_comm: bool = True
-    offload_param: Optional[Dict[str, Any]] = None
-    offload_optimizer: Optional[Dict[str, Any]] = None
+    offload_param: Optional[OffloadParamConfig] = None
+    offload_optimizer: Optional[OffloadOptimizerConfig] = None
     sub_group_size: int = 10**9
     stage3_max_live_parameters: int = 10**9
     stage3_max_reuse_distance: int = 10**9
@@ -105,10 +139,16 @@ class ZeroConfig(ConfigModel):
         if not 0 <= int(self.stage) <= 3:
             raise ValueError(f"zero_optimization.stage must be 0-3, got "
                              f"{self.stage}")
+        self.offload_param = _as_block(self.offload_param,
+                                       OffloadParamConfig)
+        self.offload_optimizer = _as_block(self.offload_optimizer,
+                                           OffloadOptimizerConfig)
         for name in ("offload_param", "offload_optimizer"):
-            block = getattr(self, name) or {}
-            if str(block.get("device", "none")) != "none":
-                not_ported(f"zero_optimization.{name}")
+            block = getattr(self, name)
+            if block is not None and block.device not in OFFLOAD_DEVICES:
+                raise ValueError(f"zero_optimization.{name}.device must be "
+                                 f"one of {OFFLOAD_DEVICES}, got "
+                                 f"{block.device!r}")
         for name in ("zero_quantized_weights", "zero_quantized_gradients",
                      "explicit_grad_reduce", "onebit_gradients"):
             if getattr(self, name):
@@ -324,8 +364,7 @@ _UNPORTED_ENABLED = ("fault_tolerance", "moe", "flops_profiler",
                      "autotuning", "elasticity")
 _UNPORTED_CONTENT = ("pipeline", "compression_training", "checkpoint")
 _UNPORTED_FLAGS = ("sparse_gradients", "prescale_gradients",
-                   "memory_breakdown", "dump_state",
-                   "zero_force_ds_cpu_optimizer")
+                   "memory_breakdown", "dump_state")
 
 
 def _refuse_unported(d):
@@ -379,6 +418,9 @@ class TpuTrainConfig(ConfigModel):
     wall_clock_breakdown: bool = False
     seed: int = 1234
     param_dtype: str = AUTO          # resolved from the fp16/bf16 blocks
+    # offload_optimizer: take the host (C++) optimizer step even where the
+    # streamed tier would fit
+    zero_force_ds_cpu_optimizer: bool = False
 
     def __post_init__(self):
         self.optimizer = _as_block(self.optimizer, OptimizerConfig)

@@ -163,8 +163,6 @@ class TpuInferenceConfig(ConfigModel):
 
     def __post_init__(self):
         self.telemetry = _as_block(self.telemetry, TelemetryConfig)
-        if (self.zero or {}).get("offload_param"):
-            _not_ported("zero.offload_param (ZeRO-Inference weight spill)")
 
     @classmethod
     def from_dict(cls, d, path=""):

@@ -321,7 +321,9 @@ class InferenceEngine:
 def init_inference(model=None, config=None, device=None, **kwargs):
     """Reference signature (`deepspeed/__init__.py:269`): a config dict, a
     JSON path or a TpuInferenceConfig, plus kwargs overrides. `device`
-    defaults to `cuda`; the CPU is used only when asked for."""
+    defaults to `cuda`; the CPU is used only when asked for. A
+    `LayeredModelSpec` builds a `ZeroInferenceEngine` over
+    `zero.offload_param` (cpu by default)."""
     if config is None:
         config = {}
     if isinstance(config, str):
@@ -331,6 +333,21 @@ def init_inference(model=None, config=None, device=None, **kwargs):
         cfg = TpuInferenceConfig.from_dict({**config, **kwargs})
     else:
         cfg = config
+    # a LayeredModelSpec takes the parameter spill tier (ZeRO-Inference)
+    from deepspeed_tpu_torch.inference.zero_inference import (
+        LayeredModelSpec, ZeroInferenceEngine)
+    off = (cfg.zero or {}).get("offload_param")
+    if isinstance(model, LayeredModelSpec):
+        off = off or {}
+        return ZeroInferenceEngine(
+            model, cfg, offload_device=off.get("device", "cpu"),
+            nvme_path=off.get("nvme_path"),
+            lookahead=int(off.get("lookahead", 1)),
+            staging=int(off.get("staging", 3)), device=device)
+    if off:
+        raise ValueError(
+            "zero.offload_param (ZeRO-Inference) needs a LayeredModelSpec — "
+            "build one with models.gpt.make_gpt_layered_model")
     if not isinstance(model, DecodeModelSpec):
         raise TypeError("init_inference expects a DecodeModelSpec (see "
                         "deepspeed_tpu_torch.models.gpt.make_gpt_decode_model)")

@@ -55,6 +55,12 @@ repairs or raises (`audit_action`). The degradation ladder
 1-step window, flushes the prefix cache and sheds low-priority queued
 requests under sustained pressure.
 
+Streamed mode (a `ZeroInferenceEngine`, `inference/zero_inference.py`):
+the two step shapes walk the layered model's per-layer paged function over
+the pool, each layer's weights from the engine's streamer; `stats()`
+gains the `offload` block. It refuses speculative decoding and a decode
+window above 1, as the JAX package does.
+
 Deadlines, the prefill/decode handoff, queue draining and request tracing
 are later slices of the port.
 """
@@ -158,14 +164,33 @@ class ServingEngine:
 
     def __init__(self, engine, draft_spec=None, clock=None, **overrides):
         spec = engine.model_spec
-        missing = [n for n in ("prefill_paged_fn", "decode_paged_fn",
-                               "init_paged_pool")
-                   if getattr(spec, n, None) is None]
-        if missing:
-            raise ValueError(
-                f"model spec '{spec.name}' has no paged serving contract "
-                f"(missing {missing}); build it with make_gpt_decode_model or "
-                f"serve through generate()")
+        # streamed (offloaded-weights) mode: a LayeredModelSpec served
+        # through a ZeroInferenceEngine walks one per-layer function over
+        # the paged pool, its weights fed by the engine's streamer
+        self.streamed = getattr(spec, "layer_paged_fn", None) is not None \
+            and getattr(spec, "prefill_paged_fn", None) is None
+        if self.streamed:
+            missing = [n for n in ("layer_paged_fn", "init_paged_pool",
+                                   "embed_fn", "final_fn")
+                       if getattr(spec, n, None) is None]
+            if missing:
+                raise ValueError(
+                    f"layered model spec '{spec.name}' has no streamed "
+                    f"paged contract (missing {missing}); build it with "
+                    f"make_gpt_layered_model")
+            self._prefill_paged, self._decode_paged = \
+                self._streamed_paged_fns(engine)
+        else:
+            missing = [n for n in ("prefill_paged_fn", "decode_paged_fn",
+                                   "init_paged_pool")
+                       if getattr(spec, n, None) is None]
+            if missing:
+                raise ValueError(
+                    f"model spec '{spec.name}' has no paged serving contract "
+                    f"(missing {missing}); build it with make_gpt_decode_model "
+                    f"or serve through generate()")
+            self._prefill_paged = spec.prefill_paged_fn
+            self._decode_paged = spec.decode_paged_fn
         self.engine = engine
         self.config = engine.config
         # the ServingConfig's __post_init__ validates (and converts dict
@@ -229,6 +254,22 @@ class ServingEngine:
         # speculative decoding: the verify step replaces the decode step
         # (and its window) when a drafter is configured
         self.spec_on = str(scfg.spec_decode.drafter or "off") != "off"
+        if self.streamed:
+            # every decode token already walks the host link once; a verify
+            # chunk or a window of several tokens per sync is refused, not
+            # silently degraded
+            if self.spec_on:
+                raise ValueError(
+                    "speculative decoding is a resident-engine feature: the "
+                    "streamed (offloaded-weights) serving mode walks one "
+                    "jitted per-layer program per token and has no verify "
+                    "contract — drop spec_decode, or serve resident")
+            if self.window != 1:
+                raise ValueError(
+                    f"decode_steps_per_sync={self.window} needs the whole "
+                    f"stack resident inside one jitted scan; the streamed "
+                    f"(offloaded-weights) mode streams layers through HBM "
+                    f"per token — set decode_steps_per_sync=1")
         self.draft_k = int(scfg.spec_decode.draft_k) if self.spec_on else 0
         if self.spec_on and spec.verify_paged_fn is None:
             raise ValueError(
@@ -289,6 +330,10 @@ class ServingEngine:
                 "serving/spec_accept_rate",
                 bounds=[i / 20 for i in range(1, 21)])
         self.flightrec = self.telemetry.flightrec
+        if self.streamed and self.telemetry.enabled:
+            # the staging pool's offload/* metrics land in this registry
+            engine.streamer.telemetry = self.telemetry
+            engine.store.telemetry = self.telemetry
         self._clock = clock if clock is not None else time.monotonic
 
         # the drafter after the pool and allocator: the draft-model drafter
@@ -350,13 +395,45 @@ class ServingEngine:
     # the two step shapes
     # ------------------------------------------------------------------
 
+    @staticmethod
+    def _streamed_paged_fns(engine):
+        """The paged prefill and decode of the streamed mode, with the
+        resident contract's signatures: embed, then each layer's paged
+        function on the streamer's layer (layer i computes while the next
+        ones upload), then the head."""
+        spec, streamer = engine.model_spec, engine.streamer
+        L = engine.store.num_layers
+
+        def walk(x, pool, tables, positions):
+            for i in range(L):
+                x, pool = spec.layer_paged_fn(streamer.layer(i), x, i, pool,
+                                              tables, positions)
+            return x, pool
+
+        def prefill(params, tokens, start_pos, last_idx, pool, tables):
+            B, C = tokens.shape
+            positions = start_pos[:, None] + torch.arange(
+                C, device=tokens.device)[None]
+            x, pool = walk(spec.embed_fn(params, tokens, positions), pool,
+                           tables, positions)
+            last = x[torch.arange(B, device=x.device), last_idx][:, None]
+            return spec.final_fn(params, last)[:, 0], pool
+
+        def decode(params, token, pos, pool, tables):
+            positions = pos[:, None]
+            x, pool = walk(spec.embed_fn(params, token[:, None], positions),
+                           pool, tables, positions)
+            return spec.final_fn(params, x)[:, 0], pool
+
+        return prefill, decode
+
     def _tensor(self, a, dtype=torch.int32):
         return torch.as_tensor(a, dtype=dtype, device=self.engine.device)
 
     def _prefill_step(self, chunk, start, last, table):
         """One [1, chunk] prompt slice; returns the token sampled from the
         logits at `last` (meaningful on the prompt's final chunk only)."""
-        logits, self.pool = self.engine.model_spec.prefill_paged_fn(
+        logits, self.pool = self._prefill_paged(
             self.engine.params, self._tensor(chunk, torch.long),
             self._tensor([start], torch.long), self._tensor([last], torch.long),
             self.pool, self._tensor(table))
@@ -368,14 +445,14 @@ class ServingEngine:
         it is the 1-step decode the degraded paths run (the spec-disabled
         fallback, whose blocks carry a k-draft overhang and no window
         tail, and the ladder's window-1 rung)."""
-        spec, params = self.engine.model_spec, self.engine.params
+        params = self.engine.params
         tok = self._tensor(tok)
         pos = self._tensor(pos, torch.long)
         tables = self._tensor(tables)
         out = []
         for _ in range(window):
-            logits, self.pool = spec.decode_paged_fn(params, tok, pos,
-                                                     self.pool, tables)
+            logits, self.pool = self._decode_paged(params, tok, pos,
+                                                   self.pool, tables)
             tok = self.engine._sample(logits, self._generator)
             out.append(tok)
             pos = pos + 1
@@ -908,6 +985,17 @@ class ServingEngine:
                 "prefill_chunks_skipped": self.prefill_chunks_skipped,
                 "cached_blocks": self.prefix_cache.num_cached,
                 "evictions": self.allocator.evictions}
+        if self.streamed:
+            # the staging pool's overlap counters, with telemetry off too
+            from deepspeed_tpu_torch.inference.zero_inference import \
+                tree_bytes
+            eng = self.engine
+            out["offload"] = {
+                "staging": eng.streamer.stats(),
+                "layer_bytes": eng.store.layer_bytes,
+                "host_param_bytes": eng.store.host_bytes,
+                "staged_peak_bytes": eng.peak_param_hbm_bytes,
+                "resident_param_bytes": tree_bytes(eng.params)}
         if self.telemetry.enabled:
             out["latency"] = self.latency_snapshot()
         return out

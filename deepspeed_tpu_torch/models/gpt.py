@@ -470,10 +470,13 @@ def _head_logits(params, x, cfg: GPTConfig):
                     params.get("lm_head_bias"))
 
 
+def _final_norm(params, x, cfg: GPTConfig):
+    return _norm(x, params["lnf_scale"], params.get("lnf_bias"),
+                 cfg.use_rmsnorm, cfg.norm_eps)
+
+
 def _lm_head(params, x, cfg: GPTConfig):
-    x = _norm(x, params["lnf_scale"], params.get("lnf_bias"), cfg.use_rmsnorm,
-              cfg.norm_eps)
-    return _head_logits(params, x, cfg)
+    return _head_logits(params, _final_norm(params, x, cfg), cfg)
 
 
 def _sm_scale(cfg):
@@ -655,12 +658,7 @@ def gpt_loss(params, batch, rng=None, cfg: GPTConfig = None, attn_fn=None):
     `pld_theta`, `ltd_keep_idx`, `ltd_start`: runtime/engine.py), their
     counts in their shapes.
 
-    With `cfg.loss_chunks` the chunked-vocab CE takes the hidden states and
-    the head table (no [B, T, V] logits; a tied LM-head bias raises).
-    Otherwise the log-sum-exp runs in fp32 over logits kept in the compute
-    dtype: the max is taken (and not differentiated) in that dtype, the
-    shifted logits are widened, and only [B, T] tensors are fp32 besides
-    the exp."""
+    The loss is `_causal_lm_nll` of the final hidden states."""
     tokens = batch.get("tokens", batch.get("input_ids"))
     labels = batch.get("labels")
     if labels is None:
@@ -672,21 +670,32 @@ def gpt_loss(params, batch, rng=None, cfg: GPTConfig = None, attn_fn=None):
         pld = (batch["pld_keep_idx"][0], batch["pld_theta"][0])
     if "ltd_keep_idx" in batch:
         ltd = (batch["ltd_start"].shape[1], batch["ltd_keep_idx"])
+    return _causal_lm_nll(params, gpt_hidden(params, inputs, cfg,
+                                             attn_fn=attn_fn, pld=pld,
+                                             ltd=ltd), labels, cfg)
+
+
+def _causal_lm_nll(params, x, labels, cfg: GPTConfig):
+    """Mean cross entropy over the labels >= 0 from the final-norm'd hidden
+    states x [B, T, D] (`gpt_loss` and the layered spec's loss).
+
+    With `cfg.loss_chunks` the chunked-vocab CE takes the hidden states and
+    the head table (no [B, T, V] logits; a tied LM-head bias raises).
+    Otherwise the log-sum-exp runs in fp32 over logits kept in the compute
+    dtype: the max is taken (and not differentiated) in that dtype, the
+    shifted logits are widened, and only [B, T] tensors are fp32 besides
+    the exp."""
     if cfg.loss_chunks:
         if "lm_head_bias" in params:
             raise ValueError("chunked CE does not support a tied LM-head "
                              "bias")
-        B, T = inputs.shape
-        x = gpt_hidden(params, inputs, cfg, attn_fn=attn_fn, pld=pld,
-                       ltd=ltd)
+        B, T = labels.shape
         nll = chunked_softmax_xent(
             x.reshape(B * T, -1), dense(_head_table(params, cfg)).to(x.dtype),
             labels.reshape(B * T), cfg.loss_chunks)
         mask = (labels.reshape(B * T) >= 0).float()
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
-    logits = _head_logits(params, gpt_hidden(params, inputs, cfg,
-                                             attn_fn=attn_fn, pld=pld,
-                                             ltd=ltd), cfg)
+    logits = _head_logits(params, x, cfg)
     m = logits.detach().amax(dim=-1, keepdim=True)
     sumexp = torch.exp((logits - m).float()).sum(dim=-1)
     logz = m[..., 0].float() + torch.log(sumexp)
@@ -985,5 +994,75 @@ def make_gpt_decode_model(cfg: GPTConfig = None, name="gpt2-125m",
         params=params, name=name, prefill_paged_fn=prefill_paged_fn,
         decode_paged_fn=decode_paged_fn, verify_paged_fn=verify_paged_fn,
         init_paged_pool=init_paged_pool,
+        cache_fingerprint=gpt_cache_identity(cfg, name), dtype=cfg.dtype,
+        max_positions=None if cfg.use_rotary else cfg.max_seq_len)
+
+
+# ----------------------------------------------------------------------
+# the layered model — the parameter spill tier
+# ----------------------------------------------------------------------
+
+
+def make_gpt_layered_model(cfg: GPTConfig = None, name="gpt2-125m",
+                           params=None, seed=0):
+    """LayeredModelSpec: the model factored into per-layer functions, so
+    that the spill engines (`inference/zero_inference.py`,
+    `runtime/infinity.py`) stream one layer's weights to the device at a
+    time. The math of `make_gpt_decode_model` and `gpt_loss`; `resident`
+    and `blocks` are cut from the same parameter tree (the JAX leaf
+    names). The paged function takes the layer index as a Python int and
+    writes the layer's view of the [L, ...] pool in place."""
+    from deepspeed_tpu_torch.inference.zero_inference import LayeredModelSpec
+    cfg = cfg or GPT2_CONFIGS[name]
+    if params is None:
+        params = init_gpt_params(cfg, seed=seed)
+    resident = {k: v for k, v in params.items() if k != "blocks"}
+
+    def embed_fn(res, tokens, positions):
+        return _embed(res, tokens, positions, cfg)
+
+    def layer_prefill_fn(p, x, ck, cv, positions):
+        """x: [B, T, D]; ck / cv: [B, Hkv, M, hd], this layer's cache."""
+        T = x.shape[1]
+        attn_out, k, v = _attn_half(x, p, cfg, positions)
+        ck[:, :, :T] = k.transpose(1, 2)
+        cv[:, :, :T] = v.transpose(1, 2)
+        return _residual_mlp(x, attn_out, p, cfg), ck, cv
+
+    def layer_decode_fn(p, x, ck, cv, pos):
+        return _block_decode(x, p, ck, cv, pos, cfg)
+
+    def final_fn(res, x):
+        return _lm_head(res, x, cfg)
+
+    def init_layer_cache(batch_size, max_len, dtype=torch.bfloat16,
+                         device="cpu"):
+        shape = (batch_size, cfg.n_kv_head, max_len, cfg.head_dim)
+        return (torch.zeros(shape, dtype=as_dtype(dtype), device=device),
+                torch.zeros(shape, dtype=as_dtype(dtype), device=device))
+
+    def layer_train_fn(p, x, positions):
+        return _block(x, p, cfg, positions)
+
+    def train_loss_fn(res, x, labels):
+        return _causal_lm_nll(res, _final_norm(res, x, cfg), labels, cfg)
+
+    def layer_paged_fn(p, x, layer, pool, block_tables, positions):
+        pool_l = {k: v[layer] for k, v in pool.items()}
+        x, _ = _block_paged(x, p, pool_l, positions, block_tables, cfg)
+        return x, pool
+
+    def init_paged_pool(num_blocks, block_size, dtype=torch.bfloat16,
+                        kv_group_size=0, device="cpu"):
+        return init_paged_kv_pool(cfg, num_blocks, block_size, dtype,
+                                  kv_group_size, device)
+
+    return LayeredModelSpec(
+        embed_fn=embed_fn, layer_prefill_fn=layer_prefill_fn,
+        layer_decode_fn=layer_decode_fn, final_fn=final_fn,
+        layer_train_fn=layer_train_fn, train_loss_fn=train_loss_fn,
+        resident=resident, blocks=params["blocks"], num_layers=cfg.n_layer,
+        init_layer_cache=init_layer_cache, name=name,
+        layer_paged_fn=layer_paged_fn, init_paged_pool=init_paged_pool,
         cache_fingerprint=gpt_cache_identity(cfg, name), dtype=cfg.dtype,
         max_positions=None if cfg.use_rotary else cfg.max_seq_len)

@@ -358,3 +358,14 @@ def make_moe_gpt_decode_model(cfg: MoEGPTConfig, params=None, name="moe-gpt",
         init_paged_pool=init_paged_pool,
         cache_fingerprint=moe_cache_identity(cfg, name), dtype=cfg.dtype,
         max_positions=None if cfg.use_rotary else cfg.max_seq_len)
+
+
+def moe_expert_store(params, layer_id):
+    """One MoE layer's stacked expert tree as a `LayerParamStore`: experts
+    play the role of layers, so a cyclic `LayerStreamer` stages expert
+    weights through a small device window as it stages layers. Returns
+    (store, expert_tree), the [E, ...] source for parity checks."""
+    from deepspeed_tpu_torch.runtime.param_swap import LayerParamStore
+    mp = params["moe"][str(layer_id)]
+    expert_tree = {k: v for k, v in mp.items() if k != "gate_w"}
+    return LayerParamStore(expert_tree), expert_tree

@@ -13,6 +13,15 @@ Every C entry point returns `cudaGetLastError()` after its launch;
 `LAUNCHES` counts kernel launches by kernel name: each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path really went through the kernels.
+
+The host half builds the repo's C++ host libraries (`csrc/aio`, the
+thread-pooled pread/pwrite swap library, and `csrc/cpu_optim`, the OpenMP
+Adam / Lion / Adagrad step) with g++ and `csrc/Makefile`'s flags, reading
+the sources in place, into `build/deepspeed_tpu_torch/host/` under the same
+hash naming and temp-then-rename publication as the CUDA libraries (several
+test workers may build at once). A missing g++ or a failed build raises:
+these libraries have no Python stand-in. `AIO_ARGTYPES` / `CPU_OPTIM_ARGTYPES`
+are the C signatures, this package's own copy.
 """
 
 import collections
@@ -21,10 +30,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "deepspeed_tpu_torch"
+HOST_CSRC = Path(__file__).resolve().parents[2] / "csrc"
+HOST_BUILD_DIR = BUILD_DIR / "host"
+# csrc/Makefile's CXXFLAGS (less -Wall) and LDFLAGS
+GXX_FLAGS = ["-O3", "-march=native", "-fopenmp", "-fPIC", "-std=c++17"]
+GXX_LDFLAGS = ["-shared", "-fopenmp", "-lpthread"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -119,3 +134,87 @@ def dtype_code(dtype):
 def stream_ptr(device):
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# ----------------------------------------------------------------------
+# host libraries: csrc/aio and csrc/cpu_optim, built with g++
+# ----------------------------------------------------------------------
+
+_c = ctypes
+AIO_ARGTYPES = {
+    "dstpu_aio_create": (_c.c_void_p, [_c.c_int, _c.c_int]),
+    "dstpu_aio_create_ex": (_c.c_void_p, [_c.c_int, _c.c_int, _c.c_int,
+                                          _c.c_int]),
+    "dstpu_aio_destroy": (None, [_c.c_void_p]),
+    "dstpu_aio_pread": (_c.c_int64, [_c.c_void_p, _c.c_char_p, _c.c_void_p,
+                                     _c.c_int64, _c.c_int64]),
+    "dstpu_aio_pwrite": (_c.c_int64, [_c.c_void_p, _c.c_char_p, _c.c_void_p,
+                                      _c.c_int64, _c.c_int64]),
+    "dstpu_aio_wait": (_c.c_int64, [_c.c_void_p]),
+    "dstpu_aio_pending": (_c.c_int64, [_c.c_void_p]),
+}
+CPU_OPTIM_ARGTYPES = {
+    "dstpu_cpu_adam_step": (None, [
+        _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
+        _c.c_float, _c.c_float, _c.c_float, _c.c_float, _c.c_float,
+        _c.c_int, _c.c_int64, _c.c_int]),
+    "dstpu_cpu_lion_step": (None, [
+        _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_float,
+        _c.c_float, _c.c_float, _c.c_float]),
+    "dstpu_cpu_adagrad_step": (None, [
+        _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_float,
+        _c.c_float, _c.c_float]),
+    "dstpu_fp32_to_bf16": (None, [_c.c_void_p, _c.c_void_p, _c.c_int64]),
+}
+HOST_LIBS = {"dstpu_aio": ("aio/dstpu_aio.cpp", AIO_ARGTYPES),
+             "dstpu_cpu_optim": ("cpu_optim/dstpu_cpu_adam.cpp",
+                                 CPU_OPTIM_ARGTYPES)}
+
+
+def _host_lib_path(name):
+    src = HOST_CSRC / HOST_LIBS[name][0]
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(GXX_FLAGS + GXX_LDFLAGS).encode())
+    return src, HOST_BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_host(name):
+    """Build `csrc/`'s host library `name` with g++ unless its library is
+    current; returns its path. Raises on a missing g++ or a failed build."""
+    src, out = _host_lib_path(name)
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"cannot build host library {name!r}: no g++ "
+                           f"found")
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([gxx, *GXX_FLAGS, str(src), *GXX_LDFLAGS, "-o",
+                           str(tmp)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed building host library {name!r} "
+                           f"(exit {proc.returncode}):\n{proc.stdout}"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_host(name):
+    """The ctypes library for `csrc/`'s `name` ("dstpu_aio" or
+    "dstpu_cpu_optim"), built if needed, its functions typed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_host(name)))
+        for fn, (restype, argtypes) in HOST_LIBS[name][1].items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _LIBS[name] = lib
+    return lib
+
+
+def omp_threads():
+    """OpenMP's thread count for the host optimizer step (libgomp, which
+    the host library links)."""
+    return int(load_host("dstpu_cpu_optim").omp_get_max_threads())

@@ -44,6 +44,23 @@ unset on a device `telemetry.PEAK_FLOPS` does not know and no
 and `Train/grad_norm` every `steps_per_print` steps. With both off, a step
 reads nothing more from the card.
 
+ZeRO-Offload (`zero_optimization.offload_optimizer`), by the JAX engine's
+rule: `cpu` keeps the fp32 master and the optimizer state in pinned host
+memory and moves them through HBM for each step's update (the copy in
+starts on a side stream before the micro-batches, so it runs beside them;
+the copy out is enqueued after the update and the next step's copy in
+waits for it), unless that state, about 14 bytes a parameter, exceeds 0.6
+of the card's memory (`device_memory_bytes`). Then, and for `nvme`, a
+`DeepSpeedCPU*` optimizer or `zero_force_ds_cpu_optimizer`, the step runs
+on the host: `runtime/cpu_optimizer.HostOffloadOptimizer` owns the fp32
+master and moments (the moments on NVMe for `nvme`), the card computes
+the gradients, and the compute-dtype params are pushed back into the
+device tensors. As in the JAX engine, the host step clips nothing and
+checks no overflow.
+
+`initialize` routes a `LayeredModelSpec` to the layer-streaming
+`runtime/infinity.InfinityEngine`, built from the config.
+
 One rank: ZeRO stages 0-3 are accepted and are one computation, as on the
 JAX package's one-device mesh; more than one rank raises. The engine runs
 on `cuda` unless the caller passes `device="cpu"`, and raises without a GPU.
@@ -60,6 +77,8 @@ from deepspeed_tpu_torch.config.core import TpuTrainConfig, not_ported
 from deepspeed_tpu_torch.inference.engine import resolve_device
 from deepspeed_tpu_torch.ops.optim import build_optimizer
 from deepspeed_tpu_torch.runtime import lr_schedules
+from deepspeed_tpu_torch.runtime.cpu_optimizer import (HOST_OPTIMIZER_NAMES,
+                                                       host_optimizer_kind)
 from deepspeed_tpu_torch.runtime.dataloader import (RepeatingLoader,
                                                     TpuDataLoader)
 from deepspeed_tpu_torch.runtime.precision import LossScaler, LossScaleState
@@ -119,6 +138,15 @@ class HostArray(np.ndarray):
     HostArrays."""
 
 
+def device_memory_bytes(device):
+    """The card's memory in bytes (what ZeRO-Offload's `cpu` rule compares
+    the optimizer state with); 0 where it is not known (the CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    return int(torch.cuda.get_device_properties(device).total_memory)
+
+
 def _to_device(batch, device):
     def move(x):
         if isinstance(x, HostArray):
@@ -176,6 +204,7 @@ class Engine:
                                  "set the 'optimizer' config block")
             optimizer = build_optimizer(config.optimizer, self.schedule_fn)
         self.optimizer = optimizer
+        self._init_offload(model)
 
         self._loss_fn = _wrap_loss_fn(model.loss_fn, model.has_aux)
         self.generator = torch.Generator(self.device).manual_seed(config.seed)
@@ -293,9 +322,64 @@ class Engine:
             ltd_start_layer=start_layer, ltd_end_layer=end_layer,
             bucket=int(sched_cfg.get("seq_per_step", 64)))
 
+    def _init_offload(self, model):
+        """ZeRO-Offload's tier from `offload_optimizer` (the JAX engine's
+        rule; see the module docstring): sets `host_step` (the C++ host
+        optimizer) and `offload_optimizer_states` (the streamed tier)."""
+        config = self.config
+        off = config.zero_optimization.offload_optimizer
+        nvme = off is not None and off.device == "nvme"
+        cpu_off = off is not None and off.device == "cpu"
+        opt_name = config.optimizer.type.lower() if config.optimizer \
+            else "adam"
+        force_host_step = bool(config.zero_force_ds_cpu_optimizer
+                               or opt_name.startswith("deepspeedcpu"))
+        if cpu_off and not force_host_step and model.params is not None:
+            hbm = device_memory_bytes(self.device)
+            est = 14 * tree_num_params(model.params)
+            if hbm and est > 0.6 * hbm:
+                if opt_name in HOST_OPTIMIZER_NAMES:
+                    log_dist(f"offload_optimizer(cpu): the fp32 state "
+                             f"(~{est / 2**30:.1f}G) cannot stream through "
+                             f"{hbm / 2**30:.1f}G of device memory — using "
+                             f"the host (C++) optimizer step", ranks=[0])
+                    force_host_step = True
+                else:
+                    logger.warning(
+                        f"offload_optimizer(cpu): the fp32 state "
+                        f"(~{est / 2**30:.1f}G) likely exceeds device memory "
+                        f"during the streamed update, but optimizer "
+                        f"'{opt_name}' has no host (C++) implementation — "
+                        f"keeping the streamed step (may OOM); use "
+                        f"adam/lion/adagrad for host offload")
+        self.host_step = nvme or (cpu_off and force_host_step)
+        self.offload_optimizer_states = cpu_off and not force_host_step
+        self.host_optimizer = None
+        self._state_copy_stream = None
+        self._state_out_event = None
+
     # ------------------------------------------------------------------
     # state
     # ------------------------------------------------------------------
+
+    def _init_host_optimizer(self, params):
+        """The host step's optimizer: fp32 master from the model's params,
+        moments in host RAM or (nvme) on disk."""
+        from deepspeed_tpu_torch.runtime.cpu_optimizer import \
+            HostOffloadOptimizer
+        off = self.config.zero_optimization.offload_optimizer
+        opt_cfg = self.config.optimizer
+        opt_params = dict(opt_cfg.params if opt_cfg else {})
+        kind, adamw_mode = host_optimizer_kind(
+            opt_cfg.type if opt_cfg else "adam")
+        self.host_optimizer = HostOffloadOptimizer(
+            params, lr=opt_params.get("lr", 1e-3),
+            betas=tuple(opt_params.get("betas", (0.9, 0.999))),
+            eps=opt_params.get("eps", 1e-8),
+            weight_decay=opt_params.get("weight_decay", 0.0),
+            adamw_mode=adamw_mode, optimizer=kind,
+            nvme_folder=off.nvme_path if off.device == "nvme" else None,
+            lr_schedule=self.schedule_fn, aio_threads=off.buffer_count)
 
     def _init_state(self, params):
         if params is None:
@@ -304,13 +388,28 @@ class Engine:
         # the engine's own copy: the optimizer steps it in place
         params_c = tree_map(torch.clone, tree_cast(
             _to_device(params, self.device), self.compute_dtype))
+        if self.host_step:
+            self._init_host_optimizer(params)
+            return TrainState(params=params_c, master=None, opt_state=None,
+                              scaler=self.scaler.init(self.device),
+                              step=torch.zeros((), dtype=torch.int32,
+                                               device=self.device))
         # the master starts from the compute-dtype params, as in the JAX
         # engine
         master = tree_cast(params_c, torch.float32) if self.keep_master \
             else None
         target = master if master is not None else params_c
+        opt_state = self.optimizer.init(target)
+        if self.offload_optimizer_states and self.device.type == "cuda":
+            # the streamed tier's home: pinned host memory
+            def pinned(t):
+                return torch.empty(t.shape, dtype=t.dtype,
+                                   pin_memory=True).copy_(t)
+            master = None if master is None else tree_map(pinned, master)
+            opt_state = tree_map(pinned, opt_state)
+            self._state_copy_stream = torch.cuda.Stream(self.device)
         return TrainState(params=params_c, master=master,
-                          opt_state=self.optimizer.init(target),
+                          opt_state=opt_state,
                           scaler=self.scaler.init(self.device),
                           step=torch.zeros((), dtype=torch.int32,
                                            device=self.device))
@@ -322,6 +421,15 @@ class Engine:
             t = t.detach().cpu()
             return (t.float() if t.is_floating_point() else t).numpy().copy()
         st = self.state
+        if self.host_step:
+            opt = self.host_optimizer
+            master = tree_unflatten(opt.tree, [m.numpy().copy()
+                                               for m in opt.master])
+            return {"params": tree_map(npy, st.params), "master": master,
+                    "opt_state": None,
+                    "scaler": {k: npy(v)
+                               for k, v in st.scaler._asdict().items()},
+                    "step": npy(st.step)}
         return {"params": tree_map(npy, st.params),
                 "master": None if st.master is None
                 else tree_map(npy, st.master),
@@ -388,6 +496,78 @@ class Engine:
         grads = tree_unflatten(params, [a * (predivide / gas) for a in acc])
         return grads, loss_sum / gas, {k: v / gas for k, v in extras.items()}
 
+    def _state_in(self):
+        """The streamed tier: start the copy of the fp32 master and the
+        optimizer state from pinned host memory to the card on a side
+        stream (after the previous step's copy out). Returns (device
+        leaves, event); None when the tier is off or on the CPU.
+
+        The device leaves are allocated on the compute stream, which
+        reads them after the copy's event and frees them after the copy
+        back, so their blocks go back to the allocator in stream order,
+        reusable at once (a side-stream block `record_stream`'d to the
+        compute stream is reusable only once the allocator has seen its
+        event complete)."""
+        if self._state_copy_stream is None:
+            return None
+        cs = self._state_copy_stream
+        host = tree_leaves((self.state.master, self.state.opt_state))
+        dev = [torch.empty(h.shape, dtype=h.dtype, device=self.device)
+               for h in host]
+        cs.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(cs):
+            if self._state_out_event is not None:
+                cs.wait_event(self._state_out_event)
+            for d, h in zip(dev, host):
+                d.copy_(h, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(cs)
+        return dev, event
+
+    def _streamed_apply(self, state, grads, loss, fetched):
+        """`_apply_grads` on device copies of the host-resident master and
+        optimizer state, then their copy back out, enqueued after the
+        update; nothing here waits for the card."""
+        dev, event = fetched if fetched is not None else self._state_in()
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(event)
+        host = (state.master, state.opt_state)
+        dev_master, dev_opt = tree_unflatten(host, dev)
+        new, metrics = self._apply_grads(
+            state._replace(master=dev_master, opt_state=dev_opt), grads, loss)
+        host_leaves = tree_leaves(host)
+        for h, d in zip(host_leaves, tree_leaves((new.master,
+                                                   new.opt_state))):
+            h.copy_(d, non_blocking=True)
+        self._state_out_event = torch.cuda.Event()
+        self._state_out_event.record(compute)
+        return new._replace(master=state.master,
+                            opt_state=state.opt_state), metrics
+
+    def _host_apply(self, state, grads, loss):
+        """The host step: the card's grads land in one pinned flat, the
+        C++ optimizer steps the fp32 master, the params are pushed back."""
+        opt = self.host_optimizer
+        opt.step(grads)
+        opt.push(tree_leaves(state.params))
+        metrics = {"loss": loss.float(),
+                   "grad_norm": torch.zeros((), device=self.device),
+                   "overflow": torch.zeros((), dtype=torch.bool,
+                                           device=self.device),
+                   "loss_scale": state.scaler.scale,
+                   "lr": torch.as_tensor(opt._current_lr(),
+                                         dtype=torch.float32,
+                                         device=self.device)}
+        return state._replace(step=state.step + 1), metrics
+
+    def _step(self, state, grads, loss, fetched=None):
+        """The optimizer step of the engine's tier."""
+        if self.host_step:
+            return self._host_apply(state, grads, loss)
+        if self._state_copy_stream is not None:
+            return self._streamed_apply(state, grads, loss, fetched)
+        return self._apply_grads(state, grads, loss)
+
     def _apply_grads(self, state, grads, loss):
         """(state, grads, mean loss) -> (state, metrics). The grads are
         this step's own and are clipped in place; the params, master and
@@ -445,8 +625,9 @@ class Engine:
         self.tput_timer.start()
         if timed:
             self.timers(TRAIN_BATCH_TIMER).start()
+        fetched = self._state_in()     # runs beside the micro-batches
         grads, loss, extras = self._grads(self.state.params, batch)
-        self.state, metrics = self._apply_grads(self.state, grads, loss)
+        self.state, metrics = self._step(self.state, grads, loss, fetched)
         metrics.update(extras)
         if timed:
             self.timers(TRAIN_BATCH_TIMER).stop()   # waits for the card
@@ -567,8 +748,8 @@ class Engine:
             raise RuntimeError("step() must follow backward()")
         n = float(self._pending)
         grads = tree_map(lambda g: g / n, self._grad_acc)
-        self.state, metrics = self._apply_grads(self.state, grads,
-                                                self._loss_acc / n)
+        self.state, metrics = self._step(self.state, grads,
+                                         self._loss_acc / n)
         self._pending, self._grad_acc = 0, None
         self._after_step(metrics)
         return metrics
@@ -727,6 +908,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     if config is None and args is not None:
         config = getattr(args, "deepspeed_config", None) \
             or getattr(args, "deepscale_config", None)
+    from deepspeed_tpu_torch.inference.zero_inference import LayeredModelSpec
+    if isinstance(model, LayeredModelSpec):
+        return _initialize_infinity(model, TpuTrainConfig.load(config),
+                                    optimizer, lr_scheduler,
+                                    model_parameters, training_data,
+                                    collate_fn, device)
     if not isinstance(model, ModelSpec):
         if not callable(model):
             raise TypeError("model must be a ModelSpec or a loss callable")
@@ -740,3 +927,54 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                     collate_fn=collate_fn, device=device)
     return engine, engine.optimizer, engine.training_dataloader, \
         engine.lr_scheduler
+
+
+def _initialize_infinity(model, cfg, optimizer, lr_scheduler,
+                         model_parameters, training_data, collate_fn, device):
+    """ZeRO-Infinity parameter spill in training: a LayeredModelSpec trains
+    on the layer-streaming InfinityEngine, built from the config. The JAX
+    engine's asserts are ValueErrors here."""
+    off = cfg.zero_optimization.offload_param
+    if off is None or off.device not in ("cpu", "nvme"):
+        raise ValueError("a LayeredModelSpec trains via the Infinity tier: "
+                         "set zero_optimization.offload_param.device to "
+                         "'cpu' or 'nvme'")
+    if optimizer is not None or lr_scheduler is not None:
+        raise ValueError("the Infinity tier builds its host optimizers from "
+                         "the config (optimizer/scheduler blocks); passing "
+                         "objects is not supported")
+    if model_parameters is not None:
+        raise ValueError("Infinity tier: the LayeredModelSpec carries its own "
+                         "params (resident + blocks); model_parameters is not "
+                         "honored")
+    _, mbs, gas = cfg.resolve_batch_sizes(1)
+    from deepspeed_tpu_torch.runtime.infinity import InfinityEngine
+    opt_off = cfg.zero_optimization.offload_optimizer
+    host_opt, adamw_mode = host_optimizer_kind(
+        cfg.optimizer.type if cfg.optimizer else "adamw")
+    opt_cfg = cfg.optimizer.params if cfg.optimizer else {}
+    fp16 = cfg.fp16
+    engine = InfinityEngine(
+        model, lr=opt_cfg.get("lr", 1e-3),
+        betas=tuple(opt_cfg.get("betas", (0.9, 0.999))),
+        eps=opt_cfg.get("eps", 1e-8),
+        weight_decay=opt_cfg.get("weight_decay", 0.0),
+        dtype=cfg.compute_dtype(), offload_device=off.device,
+        nvme_path=off.nvme_path,
+        optimizer_nvme_path=(opt_off.nvme_path if opt_off is not None
+                             and opt_off.device == "nvme" else None),
+        optimizer=host_opt, adamw_mode=adamw_mode,
+        lr_schedule=lr_schedules.build_schedule(cfg.scheduler),
+        micro_batch_size=mbs, gradient_accumulation_steps=gas,
+        gradient_clipping=cfg.gradient_clipping,
+        training_data=training_data, collate_fn=collate_fn, seed=cfg.seed,
+        fp16=cfg.fp16_enabled,
+        static_loss_scale=(None if fp16.dynamic else fp16.loss_scale)
+        if cfg.fp16_enabled else None,
+        initial_scale_power=fp16.initial_scale_power,
+        loss_scale_window=fp16.loss_scale_window,
+        min_loss_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis,
+        consecutive_hysteresis=fp16.consecutive_hysteresis,
+        lookahead=int(1 if off.lookahead is None else off.lookahead),
+        telemetry=cfg.telemetry, device=device)
+    return engine, None, engine.training_dataloader, None

@@ -36,18 +36,20 @@ def tree_leaves(tree):
     return [] if tree is None else [tree]
 
 
+def _build(node, it):
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return None if node is None else next(it)
+
+
 def tree_unflatten(tree, leaves):
-    """A tree shaped like `tree` holding `leaves` (in `tree_leaves` order)."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return None if node is None else next(it)
-
-    return build(tree)
+    """A tree shaped like `tree` holding `leaves` (in `tree_leaves` order).
+    A module-level builder: a recursive closure would be a reference cycle
+    holding the leaves' iterator, and so every leaf tensor, until Python's
+    cyclic collector ran."""
+    return _build(tree, iter(leaves))
 
 
 def tree_num_params(tree):

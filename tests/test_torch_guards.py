@@ -119,11 +119,22 @@ def test_cuda_wrappers_take_the_plain_version_for_cpu_tensors():
     {"telemetry": {"flight_recorder": True}},
     {"tensor_parallel": {"tp_size": 2}},
     {"mp_size": 2},
-    {"zero": {"offload_param": {"device": "cpu"}}},
 ], ids=lambda o: str(o))
 def test_unported_features_refuse_at_config_time(override):
     with pytest.raises(NotImplementedError, match="not ported"):
         TpuInferenceConfig.from_dict(override)
+
+
+@pytest.mark.parametrize("override", [
+    {"zero": {"offload_param": {"device": "cpu"}}},
+    {"zero": {"offload_param": {"device": "nvme", "nvme_path": "swap",
+                                "lookahead": 2}}},
+], ids=lambda o: str(o))
+def test_zero_inference_configs_build(override):
+    """ZeRO-Inference's weight spill is ported: the block builds and
+    init_inference routes a LayeredModelSpec to ZeroInferenceEngine."""
+    cfg = TpuInferenceConfig.from_dict(override)
+    assert cfg.zero["offload_param"]["device"] in ("cpu", "nvme")
 
 
 @pytest.mark.parametrize("override", [
@@ -293,8 +304,6 @@ def test_initialize_refuses_to_train_on_the_cpu_quietly():
 
 
 @pytest.mark.parametrize("override", [
-    {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
-    {"zero_optimization": {"offload_optimizer": {"device": "nvme"}}},
     {"zero_optimization": {"stage": 2, "zero_quantized_gradients": True}},
     {"pipeline": {"stages": 2}},
     {"moe": {"enabled": True}},
@@ -316,6 +325,47 @@ def test_unported_train_features_refuse_at_config_time(override):
     from deepspeed_tpu_torch.config.core import TpuTrainConfig
     with pytest.raises(NotImplementedError, match="not ported"):
         TpuTrainConfig.load({"train_micro_batch_size_per_gpu": 2, **override})
+
+
+@pytest.mark.parametrize("override", [
+    {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
+    {"zero_optimization": {"stage": 3, "offload_param": {
+        "device": "nvme", "nvme_path": "swap", "lookahead": 0}}},
+    {"zero_optimization": {"offload_optimizer": {"device": "nvme",
+                                                 "nvme_path": "swap"}}},
+    {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
+    {"zero_force_ds_cpu_optimizer": True},
+], ids=lambda o: str(o))
+def test_offload_train_configs_build(override):
+    """The offload tier is ported: its blocks build as typed configs."""
+    from deepspeed_tpu_torch.config.core import (OffloadOptimizerConfig,
+                                                 OffloadParamConfig,
+                                                 TpuTrainConfig)
+    cfg = TpuTrainConfig.load({"train_micro_batch_size_per_gpu": 2,
+                               **override})
+    zero = cfg.zero_optimization
+    for block, cls in ((zero.offload_param, OffloadParamConfig),
+                       (zero.offload_optimizer, OffloadOptimizerConfig)):
+        assert block is None or isinstance(block, cls)
+    assert cfg.zero_force_ds_cpu_optimizer == \
+        override.get("zero_force_ds_cpu_optimizer", False)
+
+
+def test_offload_device_names_are_checked():
+    from deepspeed_tpu_torch.config.core import TpuTrainConfig
+    with pytest.raises(ValueError, match="offload_param.device"):
+        TpuTrainConfig.load({"zero_optimization": {
+            "offload_param": {"device": "disk"}}})
+
+
+def test_a_layered_spec_without_offload_param_raises_jaxs_message():
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt import make_gpt_layered_model
+    with pytest.raises(ValueError, match="trains via the Infinity tier: set "
+                       "zero_optimization.offload_param.device"):
+        initialize(model=make_gpt_layered_model(TINY, name="tiny"),
+                   config={"train_micro_batch_size_per_gpu": 2,
+                           "optimizer": {"type": "AdamW"}}, device="cpu")
 
 
 @pytest.mark.parametrize("override", [
@@ -723,6 +773,15 @@ def test_the_import_scan_covers_the_zoo_modules():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     for module in ("models/bert.py", "models/llama.py", "models/__init__.py",
                    "ops/transformer.py", "inference/adapters.py"):
+        assert f"deepspeed_tpu_torch/{module}" in names
+
+
+def test_the_import_scan_covers_the_offload_modules():
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("runtime/swap_tensor.py", "runtime/param_swap.py",
+                   "runtime/cpu_optimizer.py", "runtime/offload_staging.py",
+                   "runtime/infinity.py", "inference/zero_inference.py",
+                   "ops/op_builder.py"):
         assert f"deepspeed_tpu_torch/{module}" in names
 
 
