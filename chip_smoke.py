@@ -193,14 +193,14 @@ Phases, one JSON line each:
            the card against the port's fp32 CPU run of the same weights
            and batch;
   north_star bench.py's north-star lane on one card: gpt2-1.3b at full
-           width and depth (24 layers, d_model 2048, 16 heads of 128,
-           random weights from a numpy seed), ZeRO 3, micro-batch 4, seq
+           width (d_model 2048, 16 heads of 128; 12 of its 24 layers, for
+           time), random weights from a numpy seed, ZeRO 3, micro-batch 4, seq
            512, gas 64, the bf16 accumulator, the headline's remat policy,
            no master weights: 1 warm-up and 2 timed steps, exact flash
            launches, finite losses, seconds per step, tokens/s, MFU and the
            registry's readings;
-  longctx  bench.py's seq-4096 lane: gpt2-760m at full width and depth
-           with max_seq_len 4096, micro-batch 1, gas 32, loss_chunks 8,
+  longctx  bench.py's seq-4096 lane: gpt2-760m at full width (12 of its 24
+           layers, for time) with max_seq_len 4096, micro-batch 1, gas 32, loss_chunks 8,
            ZeRO 1, the headline's policy, engine config and bf16
            accumulator, telemetry on (registry only). First the chunked CE
            at its head ([4096, 1536] x [50304, 1536], 8 chunks, 5 % of the
@@ -305,7 +305,7 @@ Phases, one JSON line each:
            card's busy share (one profiled step) and the swap folder's
            filesystem (/proc/mounts);
   infinity initialize() of a LayeredModelSpec at gpt2-1.3b's width (d_model
-           2048, 16 heads of 128, d_ff 8192, vocab 50304; 8 of its 24
+           2048, 16 heads of 128, d_ff 8192, vocab 50304; 4 of its 24
            layers, for time) -> InfinityEngine: micro-batch 4, seq 1024,
            gas 2, AdamW on the host, bf16; the cpu tier, then the nvme tier
            with the moments on disk too, 1 warm-up + 2 timed steps each:
@@ -324,7 +324,7 @@ Phases, one JSON line each:
            (flash L a prefill, decode L a step, paged decode L a step),
            tokens/s, requests/s, TTFT / TPOT, staging hits and stalls, the
            weight bytes on the card against the model's; then generate()
-           at 8 and 16 layers of that width: the allocator's bytes less the
+           at 4 and 8 layers of that width: the allocator's bytes less the
            KV cache equal resident + 2 layers at both depths, the peak
            above them and the reserved bytes flat in depth;
   zero_offload  initialize() of the same weights as the ordinary engine
@@ -337,6 +337,32 @@ Phases, one JSON line each:
            bytes a parameter less between steps, s/step, the host step's
            time, and each host-step arm's device peak that much below the
            streamed arm's;
+  router   bench.py's router lane (bench.py:1015-1109): the prefix_cache
+           phase's model (8 layers, d_model 1024, 8 heads over 4 kv heads
+           of 128, bf16), 16 requests (60 % share a 512-token prefix)
+           through one engine, then two InProcessReplicas behind a
+           ServingRouter (4 slots each): the same token count, exact
+           paged-decode launches, affinity hits, the pool's tokens equal
+           to generate()'s choice on the same prefixes on >= 0.9, each
+           replica's TTFT, clean audits; then a prefill and a decode
+           replica (disaggregated) over the bf16 and the int8 pool: every
+           request handed off, each handoff's blocks (and int8 scales)
+           equal to the source's after the copy, exact launches (rows 5,
+           or 6, 7 and 10), both audits clean;
+  robustness bench.py's robustness lane (bench.py:1112-1285): SPEC_CFG's
+           model, 16 requests over a hung and a dirty replica on a
+           ChaosClock, with the watchdog (completion 1.0, each request
+           resolved once, the dirty replica's repairs and clean audits)
+           and without it (read), then the degradation ladder under a
+           flood (peak >= 2, back to 0);
+  fabric   bench.py's fabric lane (bench.py:1288-1560): replica-server
+           processes of the tiny engine on the card (bf16, 2 heads of
+           64): 3 SIGKILL rounds over a 2-process pool (completion 1.0,
+           kill-to-detection times), a SIGSTOP round (the heartbeat's
+           detection time), a 1-process pool with restart budget 0 (it
+           loses work), the observability plane off then on (overhead,
+           pull bytes a step); every child on the card, its own
+           paged-decode launches exact;
   profile  (opt-in, after the phases it reads) torch.profiler over the same
            generate() call, serving runs (bf16, quantized, MoE) and one
            train_batch (gpt2-760m, MoE, sparse): kernel time on the card by
@@ -346,16 +372,18 @@ A comma-separated phase list as the one argument runs those phases only
 (the training lanes), `build,kernels,longctx,longctx16k,routing` (the
 long-context lanes and the routing directives), `build,serve` (TTFT / TPOT), `build,train,profile`,
 `build,kernels,quant`, `build,kernels,moe`, `build,kernels,sparse`,
-`build,kernels,evoformer`, `build,kernels,bert,llama` (the model zoo) or
+`build,kernels,evoformer`, `build,kernels,bert,llama` (the model zoo),
 `build,offload,infinity,zero_inference,zero_offload` (the offload tier;
 its swap folder is `build/chip_smoke_swap/` in the checkout, removed after
-each arm).
+each arm) or `build,router,robustness,fabric` (the serving fabric; the
+fabric's children load the kernel libraries the build phase made).
 Then each phase's wall seconds, the
 card's name and power limit, the `kernels` summary line (one row per
 kernel and path that runs it — the flash forward has generate,
 quant_generate, train, north_star, longctx, longctx16k, routing,
 moe_train, bert, llama_generate, offload, infinity,
-zero_inference_generate and zero_offload rows; quantize_int8 a
+zero_inference_generate and zero_offload rows; paged_decode_attention
+router, robustness and fabric rows; quantize_int8 a
 quant_serve row, the K/V
 writes, and a quant_serve_build row, the weights — with `launches`
 counted from 0 just before that path's run and read just after, and
@@ -464,12 +492,16 @@ TRAIN_CONFIG = {
 # read: the same interval but for the host's launch of the first kernel
 # and its read of the loss
 STEP_TIME_REL_TOL = 0.1
-# the north-star lane (bench.py:1970-1977): gpt2-1.3b (24 layers, d_model
-# 2048, 16 heads of 128) at full width and depth on one card, ZeRO 3 (one
-# computation at one rank), micro-batch 4, seq 512, gas 64, the bf16
-# accumulator, the headline's remat policy, no master weights
+# median_ms's slow calls: above this many ms a call, SLOW_REPS single calls
+SLOW_CALL_MS, SLOW_REPS = 20.0, 5
+# the north-star lane (bench.py:1970-1977): gpt2-1.3b (d_model 2048, 16
+# heads of 128) at full width on one card, ZeRO 3 (one computation at one
+# rank), micro-batch 4, seq 512, gas 64, the bf16 accumulator, the
+# headline's remat policy, no master weights; 12 of its 24 layers, a cut
+# for the script's time limit (the serving fabric's phases took its room)
 NORTH_MODEL, NORTH_MBS, NORTH_SEQ, NORTH_GAS, NORTH_STEPS = \
     "gpt2-1.3b", 4, 512, 64, 2
+NORTH_LAYERS = 12
 # the attention of one north-star micro-batch: B 4, T 512, 16 heads of 128
 NORTH_ATTN = dict(B=NORTH_MBS, T=NORTH_SEQ, H=16, Hkv=16, D=128, causal=True)
 NORTH_CONFIG = {
@@ -488,8 +520,10 @@ NORTH_CONFIG = {
 # bench.py's BENCH_ACCUM_DTYPE and BENCH_SOFTMAX defaults), explicit labels
 # so the model's T is the sequence; gas 32 at seq 4096, gas 8 at seq
 # 16384. bench.py runs 3 warm-up and 3 timed steps; here 1 and
-# LONGCTX_STEPS.
+# LONGCTX_STEPS. Both lanes run 12 of gpt2-760m's 24 layers, a cut for the
+# script's time limit.
 LONGCTX_MODEL, LONGCTX_LOSS_CHUNKS, LONGCTX_STEPS = "gpt2-760m", 8, 2
+LONGCTX_LAYERS = 12
 LONGCTX = {"longctx": dict(seq=4096, gas=32),
            "longctx16k": dict(seq=16384, gas=8)}
 # the plain flash versions materialize [B, H, T, T] fp32: at T 16384 the
@@ -534,7 +568,7 @@ ROUTING_ATTN = tuple(
 # the cost of the phases added since the long-context lanes, each estimated
 # before its first run (seconds of command; printed beside each phase's own
 # reading)
-PHASE_ESTIMATE_S = {"longctx": 110, "longctx16k": 60, "routing": 60,
+PHASE_ESTIMATE_S = {"longctx": 70, "longctx16k": 35, "routing": 60,
                     "bert": 90, "llama": 120}
 # the chunked CE on the card at the longctx micro-batch's head: x [4096,
 # 1536], the gpt2 table [50304, 1536], 8 chunks, 5 % of the labels -1,
@@ -803,11 +837,18 @@ def emit(obj):
 
 
 def median_ms(fn, reps=15, inner=5, warmup=3):
-    """Median over `reps` CUDA-event-timed runs of `inner` calls each."""
+    """Median over `reps` CUDA-event-timed runs of `inner` calls each. A
+    call slower than SLOW_CALL_MS over the warm-up (the plain versions at
+    the long shapes, 40-160 ms a call) is timed alone, at most SLOW_REPS
+    times: the script's time limit, not its precision, sets that."""
     import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if (time.perf_counter() - t0) * 1e3 > SLOW_CALL_MS * max(1, warmup):
+        reps, inner = min(reps, SLOW_REPS), 1
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -1144,6 +1185,7 @@ def phase_kernels():
     results.update(_quant_kernels(rng, checks))
     _paged_split_kernels(rng, checks, results)
     _serving_feature_kernels(rng, checks, results)
+    _fabric_rows(rng, checks, results)
     _decode_split_kernels(rng, checks, results)
     results.update(_token_sort_kernel(rng, checks))
     results.update(_norm_kernels(rng, checks))
@@ -4009,53 +4051,53 @@ def _verify_write_kernels(rng, checks):
                                  f"{exact}, untouched {untouched}")
 
 
-def _feature_rows(rng, checks, results):
-    """The kernels line's rows of the prefix-cache and spec-decode paths,
-    each at its path's shape: rows 5 and 6 (checked, eager and plain times,
-    device time with inputs rotated past L2), row 7 (the verify's int8
-    write) and row 10 (the verify's dequantizing gather)."""
+def _paged_row(rng, checks, case, label):
+    """Row 5 or 6 at one path's shape: checked, eager and plain times,
+    device time with inputs rotated past L2."""
+    import torch
+    name, fn, plain = _paged_fns(case)
+    kw, pkw = _paged_args(rng, case)
+    out, ref = fn(**kw), plain(**pkw)
+    torch.cuda.synchronize()
+    err = _paged_check(checks, name, label, out, ref)
+    b_ms, b_by = _paged_bound(case)
+    row = dict(shape={k: v for k, v in case.items() if k != "pos"},
+               max_abs_err=err, ms=median_ms(lambda: fn(**kw)),
+               plain_ms=median_ms(lambda: plain(**pkw)),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    row.update(_paged_timed(rng, case, reps=5))
+    return name, row
+
+
+def _write_row(rng, checks, case):
+    """Row 7's int8 pool write at one path's shape, bit-exact against the
+    plain sequence, eager and plain times."""
     import torch
     from deepspeed_tpu_torch.ops import quant
-    rows = {}
-    for case, paths in (
-            (PAGED_PREFIX, ("prefix_cache",)),
-            (PAGED_SPEC, ("spec_off", "spec_ladder")),
-            (dict(PAGED_SPEC, dtype="float32"),
-             ("spec_off_fp32", "spec_model_fp32")),
-            (dict(PAGED_SPEC, g=64), ("spec_off_int8", "spec_model_int8"))):
-        name, fn, plain = _paged_fns(case)
-        kw, pkw = _paged_args(rng, case)
-        out, ref = fn(**kw), plain(**pkw)
-        torch.cuda.synchronize()
-        err = _paged_check(checks, name, paths[0], out, ref)
-        b_ms, b_by = _paged_bound(case)
-        row = dict(shape={k: v for k, v in case.items() if k != "pos"},
-                   max_abs_err=err, ms=median_ms(lambda: fn(**kw)),
-                   plain_ms=median_ms(lambda: plain(**pkw)),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        row.update(_paged_timed(rng, case, reps=5))
-        for path in paths:
-            rows[name, path] = row
-    # row 7 at the verify's write (5 tokens a row)
-    k, v, tables, pos, pool = _kv_write_args(rng, VERIFY_WRITE)
+    k, v, tables, pos, pool = _kv_write_args(rng, case)
     got = {n: t.clone() for n, t in pool.items()}
     ref = {n: t.clone() for n, t in pool.items()}
     quant.quantize_kv_write(k, v, tables, pos, *(got[n] for n in _POOL_NAMES))
     quant.quantize_kv_write_reference(k, v, tables, pos,
                                       *(ref[n] for n in _POOL_NAMES))
     torch.cuda.synchronize()
-    _kv_write_check(checks, dict(VERIFY_WRITE), got, ref)
-    b_ms, b_by = _kv_write_bound(VERIFY_WRITE)
-    write = dict(
-        shape=dict(VERIFY_WRITE), max_abs_err=0.0,
+    _kv_write_check(checks, dict(case), got, ref)
+    b_ms, b_by = _kv_write_bound(case)
+    return dict(
+        shape=dict(case), max_abs_err=0.0,
         ms=median_ms(lambda: quant.quantize_kv_write(
             k, v, tables, pos, *(got[n] for n in _POOL_NAMES))),
         plain_ms=median_ms(lambda: quant.quantize_kv_write_reference(
             k, v, tables, pos, *(ref[n] for n in _POOL_NAMES))),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    # row 10 at the verify's dequantizing gather: a [4, 4, 512, 64] int8
-    # K (or V) with one scale a 64-group, into bf16
-    B, Hkv, S, hd, g = 4, 4, 4 * 128, 64, 64
+
+
+def _gather_row(rng, checks, label, B, Hkv, S, hd, g):
+    """Row 10 at a dequantizing gather's shape: a [B, Hkv, S, hd] int8 K
+    (or V) with one scale a g-group, into bf16, bit-exact, eager and plain
+    times."""
+    import torch
+    from deepspeed_tpu_torch.ops import quant
     q8 = torch.from_numpy(rng.integers(-127, 128, (B, Hkv, S, hd)).astype(
         np.int8)).cuda()
     sc = torch.from_numpy(rng.random((B, Hkv, S, hd // g)).astype(
@@ -4064,21 +4106,42 @@ def _feature_rows(rng, checks, results):
     dr = quant.dequantize_reference(q8, sc, torch.bfloat16, g, 8)
     torch.cuda.synchronize()
     exact = bool(torch.equal(dk, dr))
-    checks.append({"kernel": "dequantize_int8", "case": "verify_gather",
+    checks.append({"kernel": "dequantize_int8", "case": label,
                    "shape": [B, Hkv, S, hd], "group": g, "bit_exact": exact,
                    "ok": exact})
     if not exact:
-        raise AssertionError("dequantize_int8 at the verify's gather: "
-                             "kernel != plain version")
+        raise AssertionError(f"dequantize_int8 at {label}: kernel != plain "
+                             f"version")
     n = B * Hkv * S * hd
     b_ms, b_by = bound(n + n // g * 4 + 2 * n, n, FP32_FLOPS)
-    gather = dict(
+    return dict(
         shape=[B, Hkv, S, hd], group=g, max_abs_err=0.0,
         ms=median_ms(lambda: quant.dequantize_int8(q8, sc, torch.bfloat16,
                                                    g)),
         plain_ms=median_ms(lambda: quant.dequantize_reference(
             q8, sc, torch.bfloat16, g, 8)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def _feature_rows(rng, checks, results):
+    """The kernels line's rows of the prefix-cache and spec-decode paths,
+    each at its path's shape: rows 5 and 6 (checked, eager and plain times,
+    device time with inputs rotated past L2), row 7 (the verify's int8
+    write) and row 10 (the verify's dequantizing gather)."""
+    rows = {}
+    for case, paths in (
+            (PAGED_PREFIX, ("prefix_cache",)),
+            (PAGED_SPEC, ("spec_off", "spec_ladder")),
+            (dict(PAGED_SPEC, dtype="float32"),
+             ("spec_off_fp32", "spec_model_fp32")),
+            (dict(PAGED_SPEC, g=64), ("spec_off_int8", "spec_model_int8"))):
+        name, row = _paged_row(rng, checks, case, paths[0])
+        for path in paths:
+            rows[name, path] = row
+    # row 7 at the verify's write (5 tokens a row); row 10 at the verify's
+    # dequantizing gather: a [4, 4, 512, 64] int8 K (or V), 64-groups
+    write = _write_row(rng, checks, VERIFY_WRITE)
+    gather = _gather_row(rng, checks, "verify_gather", 4, 4, 4 * 128, 64, 64)
     for path in ("spec_off_int8", "spec_model_int8"):
         rows["quantize_int8", path] = write
         rows["dequantize_int8", path] = gather
@@ -4414,6 +4477,682 @@ def phase_spec_decode(state):
                      "ladder_vs_off": parity_d},
           "fp32_self_draft_mismatches": mismatches})
     return counts
+
+
+# ----------------------------------------------------------------------
+# the serving fabric: router, robustness and fabric (bench.py's lanes)
+# ----------------------------------------------------------------------
+
+# bench.py's router lane (bench.py:1015-1109): PREFIX_CFG's model (8
+# layers, d_model 1024, 8 heads over 4 kv heads of 128, rotary, vocab
+# 50304, bf16), 16 requests of which 60 % share a 512-token prefix with an
+# 8-63-token tail and the rest are unique prompts of 64-383 tokens, 8-47
+# new tokens, seed 0; 4 slots a replica, kv_block_size 128, prefill_chunk
+# 128, prefix caching on
+ROUTER_REQUESTS, ROUTER_SLOTS, ROUTER_PREFIX = 16, 4, 512
+# share of the pool's served tokens equal to generate()'s choice on the
+# same prefix (`_forced_agreement`): a 2-replica pool decodes another mix
+# of rows each step than one engine, so cuBLAS may pick another algorithm
+# and a near-tied bf16 argmax flip, as in the serve phase (floor 0.9)
+ROUTER_AGREE_MIN = 0.9
+# bench.py's robustness lane (bench.py:1112-1285): SPEC_CFG's model (4
+# layers, d_model 512, 8 heads over 4 kv heads of 64), 16 requests of
+# 32-255 tokens and 8-31 new ones, 4 slots a replica, audit_interval 1
+ROBUST_REQUESTS, ROBUST_SLOTS = 16, 4
+# bench.py's fabric lane (bench.py:1288-1560) over the port's tiny engine
+# (`testing/fabric.py`) at the widths the card's kernels take: bf16, 2
+# heads of 64 (the reference's tiny model is fp32 at head width 16, which
+# the attention dispatch refuses on CUDA)
+FABRIC_FACTORY = "deepspeed_tpu_torch.testing.fabric:tiny_serving_engine"
+FABRIC_MODEL = {"dtype": "bfloat16", "n_head": 2, "d_model": 128}
+FABRIC_DEVICE_TYPE = "cuda"      # where every child must run
+FABRIC_REQUESTS, FABRIC_KILLS, FABRIC_HEARTBEAT_S = 8, 3, 0.2
+FABRIC_OBS_ROUNDS = 2
+# the kernels at these paths' shapes: the router lane's decode over 4 slots
+# of 8 blocks (positions past the 512-token prefix and short unique
+# prompts), over the int8 pool (one scale a head vector), its int8 write at
+# a decode step (one slot idle) and the prefill chunk's dequantizing gather
+# ([1, 4, 1024, 128]); the robustness lane's decode over 4 slots of 8
+# blocks at hd 64; the fabric's tiny engine, 2 slots of 6 16-row blocks
+PAGED_ROUTER = dict(B=4, H=8, Hkv=4, hd=128, bs=128, nb=8,
+                    pos=[530, 120, 560, 300])
+PAGED_ROBUST = dict(B=4, H=8, Hkv=4, hd=64, bs=128, nb=8,
+                    pos=[40, 200, 127, 260])
+PAGED_FABRIC = dict(B=2, H=2, Hkv=2, hd=64, bs=16, nb=6, pos=[20, 29])
+ROUTER_WRITE = dict(B=4, C=1, H=8, Hkv=4, hd=128, g=128, bs=128, nb=8,
+                    inactive=1)
+
+
+def _fabric_rows(rng, checks, results):
+    """The kernels line's rows of the router, robustness and fabric paths,
+    each at its path's shape (the kernels' edge cases and faults stay in
+    the rows above)."""
+    rows = {}
+    for case, paths in ((PAGED_ROUTER, ("router", "router_disagg")),
+                        (dict(PAGED_ROUTER, g=128), ("router_disagg_int8",)),
+                        (PAGED_ROBUST, ("robustness",)),
+                        (PAGED_FABRIC, ("fabric",))):
+        name, row = _paged_row(rng, checks, case, paths[0])
+        for path in paths:
+            rows[name, path] = row
+    rows["quantize_int8", "router_disagg_int8"] = _write_row(
+        rng, checks, ROUTER_WRITE)
+    rows["dequantize_int8", "router_disagg_int8"] = _gather_row(
+        rng, checks, "router_prefill_gather", 1, 4, 8 * 128, 128, 128)
+    results.update(rows)
+
+
+def _router_trace(vocab):
+    """bench.py:1063-1074's trace: (prompts, new tokens)."""
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, vocab, (ROUTER_PREFIX,)).astype(np.int32)
+    prompts, news = [], []
+    for _ in range(ROUTER_REQUESTS):
+        tail = rng.integers(0, vocab, (int(rng.integers(8, 64)),)).astype(
+            np.int32)
+        if rng.random() < 0.6:
+            prompts.append(np.concatenate([prefix, tail]))
+        else:
+            prompts.append(rng.integers(0, vocab, (int(rng.integers(
+                64, 384)),)).astype(np.int32))
+        news.append(int(rng.integers(8, 48)))
+    return prompts, news
+
+
+def _router_forced(engine, prompts, res):
+    """`_forced_agreement` request by request (the trace's new-token counts
+    differ)."""
+    share, n, gaps = 0.0, 0, []
+    for i, p in enumerate(prompts):
+        f = _forced_agreement(engine, [p], [res[i].tokens], 1)
+        share += f["share"] * f["positions"]
+        n += f["positions"]
+        gaps += f["differing_top2_gaps"]
+    return {"share": share / max(1, n), "positions": n,
+            "differing_top2_gaps": gaps}
+
+
+def _disagg_arm(engine, path, reqs, L, **quant):
+    """One prefill replica and one decode replica on the router trace: every
+    handoff's transplanted blocks (payload and, on the int8 pool, scales)
+    equal to the source's right after the copy, exact launches, both
+    pools' audits clean at close."""
+    import torch
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.serving import InProcessReplica, ServingRouter
+    kw = dict(max_slots=ROUTER_SLOTS, max_context=1024, prefill_chunk=128)
+    pre = engine.serving(enable_prefix_caching=True, **kw, **quant)
+    dec = engine.serving(enable_prefix_caching=False, **kw, **quant)
+    moved = {"handoffs": 0, "blocks": 0, "leaves_equal": True}
+    adopt = dec.adopt_handoff
+
+    def checked_adopt(state, src_pool):
+        ok = adopt(state, src_pool)
+        if ok:
+            slot = next(s for s in dec.slots if s.uid == state["uid"])
+            n = len(state["blocks"])
+            src = torch.as_tensor(state["blocks"], device=engine.device)
+            dst = torch.as_tensor(slot.blocks[:n], device=engine.device)
+            for name in sorted(src_pool):
+                moved["leaves_equal"] &= bool(torch.equal(
+                    src_pool[name].index_select(1, src),
+                    dec.pool[name].index_select(1, dst)))
+            moved["handoffs"] += 1
+            moved["blocks"] += n
+        return ok
+
+    dec.adopt_handoff = checked_adopt
+    router = ServingRouter()
+    router.add_replica(InProcessReplica(pre, replica_id="prefill"),
+                       role="prefill")
+    router.add_replica(InProcessReplica(dec, replica_id="decode"),
+                       role="decode")
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = router.run(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    _completed(path, res, reqs)
+    if not moved["leaves_equal"] or moved["handoffs"] != len(reqs) or \
+            router.counters["handoffs"] != len(reqs):
+        raise AssertionError(f"{path}: handoffs {moved} / "
+                             f"{router.counters['handoffs']} of {len(reqs)}")
+    sp, sd = pre.stats(), dec.stats()
+    if sp["decode_steps"] or sd["prefill_chunks"]:
+        raise AssertionError(f"{path}: the prefill replica decoded or the "
+                             f"decode replica prefilled ({sp['decode_steps']}"
+                             f", {sd['prefill_chunks']})")
+    steps, chunks = sd["decode_steps"], sp["prefill_chunks"]
+    want = ({"paged_decode_attention_quant": L * steps,
+             "quantize_int8": L * (steps + chunks),
+             "dequantize_int8": 2 * L * chunks} if quant else
+            {"paged_decode_attention": L * steps})
+    _expect(path, launches, want)
+    audits = {"prefill": _clean_close(f"{path} prefill", pre),
+              "decode": _clean_close(f"{path} decode", dec)}
+    return res, launches, dict(
+        seconds=dt, tokens_per_s=sum(len(r.tokens) for r in res.values())
+        / dt, handoffs=moved["handoffs"], transplanted_blocks=moved["blocks"],
+        transplanted_leaves_equal=moved["leaves_equal"],
+        prefill_chunks=chunks, decode_steps=steps, audit=audits,
+        launches=launches)
+
+
+def phase_router(state):
+    """bench.py's router lane through the port: one engine, then two
+    InProcessReplicas behind a ServingRouter on the same trace; then the
+    disaggregated arms (a prefill and a decode replica) over the bf16 and
+    the int8 pool."""
+    import torch
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.serving import ServingRouter
+    t_phase = time.perf_counter()
+    cfg, spec, engine = _lane_engine(PREFIX_CFG, "router-lane")
+    setup_s = time.perf_counter() - t_phase
+    L = cfg.n_layer
+    prompts, news = _router_trace(cfg.vocab_size)
+
+    def reqs():
+        return [Request(uid=i, tokens=p, max_new_tokens=n, stop_on_eos=False)
+                for i, (p, n) in enumerate(zip(prompts, news))]
+
+    def replica():
+        return engine.serving(max_slots=ROUTER_SLOTS, max_context=1024,
+                              prefill_chunk=128, enable_prefix_caching=True)
+
+    replica().run([Request(uid="warm-up", tokens=prompts[0],
+                           max_new_tokens=4, stop_on_eos=False)])
+    single = replica()
+    res1, dt1, l1 = _timed_run(single, reqs())
+    _completed("router single", res1, reqs())
+    _expect("router single", l1, {"paged_decode_attention":
+                                  L * single.stats()["decode_steps"]})
+    toks = sum(len(r.tokens) for r in res1.values())
+
+    router = ServingRouter(replicas=[replica(), replica()])
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res2 = router.run(reqs())
+    torch.cuda.synchronize()
+    dt2 = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    _completed("router", res2, reqs())
+    toks2 = sum(len(r.tokens) for r in res2.values())
+    if toks2 != toks:
+        raise AssertionError(f"router: the pool served {toks2} tokens, the "
+                             f"single engine {toks}")
+    _expect("router", counts, {"paged_decode_attention": L * sum(
+        r.stats()["decode_steps"] for r in router.replicas.values())})
+    c = router.counters
+    if not c["affinity_hits"] > 0:
+        raise AssertionError(f"router: no affinity hit ({c})")
+    forced = _router_forced(engine, prompts, res2)
+    if not forced["share"] >= ROUTER_AGREE_MIN:
+        raise AssertionError(f"router: pool tokens equal generate()'s "
+                             f"choice on {forced['share']:.3f} < "
+                             f"{ROUTER_AGREE_MIN}")
+    ttft = {rid: router.replica_ttft(rid) for rid in router.replicas}
+    audits = {rid: _clean_close(f"router {rid}", rep.engine)
+              for rid, rep in router.replicas.items()}
+    _clean_close("router single", single)
+
+    out = {}
+    res_d, l_d, out["disaggregated"] = _disagg_arm(
+        engine, "router_disagg", reqs(), L)
+    res_q, l_q, out["disaggregated_int8"] = _disagg_arm(
+        engine, "router_disagg_int8", reqs(), L,
+        quantization={"kv_cache_dtype": "int8"})
+    for key, res, floor in (("disaggregated", res_d, ROUTER_AGREE_MIN),
+                            ("disaggregated_int8", res_q,
+                             QUANT_SERVE_AGREE_MIN)):
+        f = _router_forced(engine, prompts, res)
+        out[key]["forced_agreement"] = f["share"]
+        if not f["share"] >= floor:
+            raise AssertionError(f"router {key}: tokens equal generate()'s "
+                                 f"choice on {f['share']:.3f} < {floor}")
+    emit({"phase": "router", "model": PREFIX_CFG, "dtype": "bfloat16",
+          "source": "bench.py:1015-1109", "requests": ROUTER_REQUESTS,
+          "slots_per_replica": ROUTER_SLOTS,
+          "shared_prefix_tokens": ROUTER_PREFIX,
+          "prompt_lens": [len(p) for p in prompts], "max_new_tokens": news,
+          "setup_s": setup_s,
+          "tokens_per_s": toks2 / dt2,
+          "single_engine_tokens_per_s": toks / dt1,
+          "vs_baseline": (toks2 / dt2) / (toks / dt1),
+          "router_wall_s": dt2, "single_wall_s": dt1,
+          "affinity_hit_rate": c["affinity_hits"] / max(1, c["submitted"]),
+          "load_spills": c["load_spills"],
+          "router_prefill_chunks": router.total_prefill_chunks(),
+          "single_prefill_chunks": single.prefill_chunks,
+          "replica_ttft_ms": ttft,
+          "forced_agreement": forced["share"],
+          "differing_top2_gaps": forced["differing_top2_gaps"],
+          "tokens_equal_single_free_running": _agreement(
+              res1, res2, range(ROUTER_REQUESTS)),
+          "counters": {k: v for k, v in c.items() if v},
+          "compiles": {rid: rep.compile_stats()
+                       for rid, rep in router.replicas.items()},
+          "audit": audits, "launches": counts, **out,
+          "phase_s": time.perf_counter() - t_phase,
+          "nvidia_smi": state["nvidia_smi"]})
+    return {"router": counts, "router_disagg": l_d,
+            "router_disagg_int8": l_q}
+
+
+def phase_robustness(state):
+    """bench.py's robustness lane through the port: a 2-replica pool on a
+    ChaosClock (0.5 ms a read) where "hung" hangs for good at its step 3
+    and "dirty" takes seeded safe pool corruptions, with the hung-replica
+    watchdog and without it; then the degradation ladder under a flood on
+    one engine."""
+    import torch
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.serving import InProcessReplica, ServingRouter
+    from deepspeed_tpu_torch.testing.chaos import (SAFE_CORRUPTIONS,
+                                                   ChaosClock, ChaosEvent,
+                                                   ChaosReplica,
+                                                   ChaosSchedule)
+    t_phase = time.perf_counter()
+    cfg, spec, engine = _lane_engine(SPEC_CFG, "robustness-lane")
+    L = cfg.n_layer
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(rng.integers(
+        32, 256)),)).astype(np.int32) for _ in range(ROBUST_REQUESTS)]
+    news = [int(rng.integers(8, 32)) for _ in range(ROBUST_REQUESTS)]
+
+    def reqs():
+        return [Request(uid=i, tokens=p, max_new_tokens=n, stop_on_eos=False,
+                        deadline_ms=1200.0 if i % 4 == 0 else None)
+                for i, (p, n) in enumerate(zip(prompts, news))]
+
+    def run_pool(watchdog):
+        built = []
+
+        def serving():
+            s = engine.serving(max_slots=ROBUST_SLOTS, max_context=1024,
+                               prefill_chunk=128, enable_prefix_caching=True,
+                               audit_interval=1)
+            built.append(s)
+            return s
+
+        clock = ChaosClock(tick=0.0005)
+        hung = ChaosReplica(
+            InProcessReplica(factory=serving, replica_id="hung"),
+            ChaosSchedule([ChaosEvent(3, "hang", 0.4)]), clock=clock)
+        dirty = ChaosReplica(
+            InProcessReplica(factory=serving, replica_id="dirty"),
+            ChaosSchedule.seeded(7, 64, corrupt_rate=0.3,
+                                 corruptions=SAFE_CORRUPTIONS),
+            clock=clock, seed=70)
+        router = ServingRouter(
+            replicas=[hung, dirty], clock=clock,
+            step_deadline_ms=150.0 if watchdog else None,
+            step_strike_budget=2, hedge_after_ms=2000.0,
+            restart_backoff_s=0.0, max_replica_restarts=1)
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, counts, stalls = {}, {}, 0
+        for r in reqs():
+            router.submit(r)
+        while router.in_flight and stalls < 3:
+            before = router._progress_mark()
+            for d in router.step():
+                res[d.uid] = d
+                counts[d.uid] = counts.get(d.uid, 0) + 1
+            stalls = stalls + 1 if router._progress_mark() == before else 0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        path = "robustness" if watchdog else "robustness_no_watchdog"
+        _expect(path, launches, {"paged_decode_attention": L * sum(
+            s.decode_steps for s in built)})
+        ttft = sorted((r.timing or {}).get("first_token", 0.0) * 1e3
+                      for r in res.values()
+                      if (r.timing or {}).get("first_token"))
+        audits = {"runs": 0, "violations": 0, "repairs": 0}
+        for s in built:
+            for k, v in s.stats().get("audit", {}).items():
+                if k in audits:
+                    audits[k] += v
+        dirty_audit = dirty.engine.stats().get("audit", {})
+        final = router.audit_pool(repair=True)
+        clean = {rid: r.ok for rid, r in router.audit_pool().items()}
+        out = {
+            "completion_rate": len(res) / ROBUST_REQUESTS,
+            "stuck": sorted(set(range(ROBUST_REQUESTS)) - set(res)),
+            "resolved_once": sorted(set(counts.values())) == [1],
+            "completed_ok": sum(r.finish_reason == "length"
+                                for r in res.values()),
+            "deadline_cancelled": sum(r.finish_reason == "deadline"
+                                      for r in res.values()),
+            "ttft_p99_sim_ms": ttft[min(len(ttft) - 1, int(0.99 * len(
+                ttft)))] if ttft else None,
+            "counters": {k: v for k, v in router.counters.items() if v},
+            "audit": audits, "dirty_audit": dirty_audit,
+            "final_audit_clean": clean,
+            "injected": {r.replica_id: [list(map(str, ev))
+                                        for ev in r.injected]
+                         for r in (hung, dirty)},
+            "wall_s": wall, "launches": launches}
+        return out, dirty_audit, final, clean, launches
+
+    with_wd, dirty_audit, final, clean, counts = run_pool(True)
+    if with_wd["completion_rate"] != 1.0 or not with_wd["resolved_once"]:
+        raise AssertionError(f"robustness: the watchdog pool lost or "
+                             f"duplicated work ({with_wd})")
+    if not dirty_audit.get("repairs", 0) >= 1 or not clean.get("dirty") \
+            or not all(clean.values()):
+        raise AssertionError(f"robustness: the dirty replica's audits "
+                             f"{dirty_audit}, final {clean}")
+    without_wd, _, _, _, counts_off = run_pool(False)
+
+    degr = engine.serving(
+        max_slots=2, max_context=1024, prefill_chunk=128,
+        enable_prefix_caching=True,
+        degradation={"enabled": True, "eval_interval": 1, "queue_high": 4,
+                     "queue_low": 1, "free_block_low": 0.0,
+                     "free_block_high": 0.0, "hold_steps": 2,
+                     "shed_below_priority": 1})
+    flood = [Request(uid=i, tokens=prompts[i % ROBUST_REQUESTS],
+                     max_new_tokens=8, stop_on_eos=False, priority=1)
+             for i in range(12)]
+    flood += [Request(uid=f"low{i}", tokens=prompts[i], max_new_tokens=8,
+                      stop_on_eos=False, priority=0) for i in range(2)]
+    dres = degr.run(flood)
+    dstats = degr.stats()["degradation"]
+    occ = dstats["level_occupancy"]
+    levels = list(occ)
+    peak = max((i for i, n in enumerate(occ.values()) if n), default=0)
+    if not (peak >= 2 and dstats["level"] == 0 and len(dres) == len(flood)):
+        raise AssertionError(f"robustness: the ladder peaked at {peak} "
+                             f"({levels[peak]}) and ended at "
+                             f"{dstats['level']} ({dstats})")
+    _clean_close("robustness ladder", degr)
+    t_without = without_wd["ttft_p99_sim_ms"]
+    t_with = with_wd["ttft_p99_sim_ms"]
+    emit({"phase": "robustness", "model": SPEC_CFG, "dtype": "bfloat16",
+          "source": "bench.py:1112-1285", "requests": ROBUST_REQUESTS,
+          "slots_per_replica": ROBUST_SLOTS,
+          "completion_rate": with_wd["completion_rate"],
+          "vs_baseline": t_without / max(1e-9, t_with)
+          if t_with and t_without else None,
+          "with_watchdog": with_wd, "without_watchdog": without_wd,
+          "degradation": {"completed": len(dres), "sheds": dstats["sheds"],
+                          "escalations": dstats["escalations"],
+                          "deescalations": dstats["deescalations"],
+                          "peak_level": peak, "final_level": dstats["level"],
+                          "level_occupancy": occ},
+          "phase_s": time.perf_counter() - t_phase,
+          "nvidia_smi": state["nvidia_smi"]})
+    return {"robustness": counts, "robustness_no_watchdog": counts_off}
+
+
+def phase_fabric(state):
+    """bench.py's fabric lane through the port: replica-server processes of
+    the tiny engine on the card behind the router — SIGKILL rounds, a
+    SIGSTOP round, a 1-process pool with no restart budget, and the
+    observability plane off then on. Every child reports a CUDA device and
+    its own kernel launches."""
+    import shutil
+    import signal as _signal
+    import tempfile
+    from deepspeed_tpu_torch.config.core import TelemetryConfig
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    from deepspeed_tpu_torch.serving import (RemoteConfig, RemoteReplica,
+                                             ReplicaProcess, ServingRouter)
+    from deepspeed_tpu_torch.testing.chaos import kill_replica_process
+    t_phase = time.perf_counter()
+    n_req, rounds, hb = FABRIC_REQUESTS, FABRIC_KILLS, FABRIC_HEARTBEAT_S
+    cfg = RemoteConfig(heartbeat_interval_s=hb, heartbeat_miss_budget=4,
+                       step_timeout_s=300.0)
+    rng = np.random.default_rng(0)
+    spawn_s, respawn_s = {}, []    # spawn to ready a pool; the respawns
+    procs = []                     # every process this phase starts
+    devices = []
+    out_dir = tempfile.mkdtemp(prefix="fabric_obs_")
+    obs_on = {"enabled": True, "tracing": True, "flight_recorder": True,
+              "prometheus": False, "jsonl": False,
+              "output_path": f"{out_dir}/rep"}
+
+    def batch(tag):
+        return [Request(uid=f"{tag}-{i}",
+                        tokens=rng.integers(0, 200, (int(rng.integers(
+                            4, 24)),)).astype(np.int32),
+                        max_new_tokens=6, stop_on_eos=False)
+                for i in range(n_req)]
+
+    def spawn(n, telemetry=None):
+        kw = dict(FABRIC_MODEL)
+        if telemetry is not None:
+            kw["telemetry"] = telemetry
+        ps = [ReplicaProcess(factory=FABRIC_FACTORY, factory_kwargs=kw,
+                             heartbeat_interval_s=hb,
+                             replica_id=f"r{i}").spawn() for i in range(n)]
+        procs.extend(ps)
+        return ps
+
+    def pool(name, ps):
+        handles = []
+        for i, p in enumerate(ps):
+            p.wait_ready(180.0)
+            h = RemoteReplica(process=p, replica_id=f"r{i}", config=cfg)
+            devices.append(h.stats()["device"])
+            h.restart = _timed_restart(h)
+            handles.append(h)
+        spawn_s[name] = time.perf_counter() - t_spawn
+        return handles
+
+    def _timed_restart(h):
+        restart = h.restart
+
+        def timed():
+            t0 = time.perf_counter()
+            restart()
+            respawn_s.append(time.perf_counter() - t0)
+            devices.append(h.stats()["device"])
+        return timed
+
+    def drive(router, done, on_step=None, max_stalls=None):
+        stalls = 0
+        while router.in_flight or router._finished_buf:
+            before = router._progress_mark()
+            try:
+                for d in router.step():
+                    done[d.uid] = d
+            except RuntimeError:
+                break
+            if on_step is not None:
+                on_step()
+            if max_stalls is not None:
+                stalls = stalls + 1 \
+                    if router._progress_mark() == before else 0
+                if stalls >= max_stalls:
+                    break
+
+    try:
+        # every pool's processes start together (their boots overlap); an
+        # arm waits for its own
+        t_spawn = time.perf_counter()
+        pending = {"failover": spawn(2), "degraded": spawn(1),
+                   "obs_off": spawn(2), "obs_on": spawn(2, obs_on)}
+        # ---- failover arm: SIGKILL r0 while it owns work, each round ----
+        handles = pool("failover", pending["failover"])
+        router = ServingRouter(replicas=handles,
+                               max_replica_restarts=rounds + 1,
+                               restart_backoff_s=0.0)
+        submitted = completed = 0
+        detect, st = [], {}
+
+        def kill_and_time():
+            if not st["killed"] and any(
+                    rec.replica == "r0" for rec in router._pending.values()):
+                kill_replica_process(handles[0], _signal.SIGKILL)
+                st.update(killed=True, t_kill=time.perf_counter())
+            if st["killed"] and st["t_kill"] is not None and \
+                    router.counters["replica_failures"] > st["fail0"]:
+                detect.append(time.perf_counter() - st["t_kill"])
+                st["t_kill"] = None
+
+        t_arm = time.perf_counter()
+        for rnd in range(rounds):
+            done = {}
+            st.update(killed=False, t_kill=None,
+                      fail0=router.counters["replica_failures"])
+            for r in batch(f"k{rnd}"):
+                router.submit(r)
+            submitted += n_req
+            drive(router, done, on_step=kill_and_time)
+            completed += len(done)
+            if not st["killed"]:
+                raise AssertionError(f"fabric: round {rnd} never killed r0")
+        failover_wall = time.perf_counter() - t_arm
+        failover_rate = completed / submitted
+        arm_s = {"failover": failover_wall}
+        t_arm = time.perf_counter()
+
+        # ---- the hung round: SIGSTOP, found by the heartbeat budget ----
+        done = {}
+        for r in batch("stop"):
+            router.submit(r)
+        submitted += n_req
+        while not any(rec.replica == "r0"
+                      for rec in router._pending.values()):
+            for d in router.step():
+                done[d.uid] = d
+        kill_replica_process(handles[0], _signal.SIGSTOP)
+        t_stop = time.perf_counter()
+        while handles[0].heartbeat_alive() and \
+                time.perf_counter() - t_stop < 30.0:
+            time.sleep(0.02)
+        hang_detect_s = time.perf_counter() - t_stop
+        drive(router, done)
+        completed += len(done)
+        rate = completed / submitted
+        pool_after = len(router._healthy())
+        ctr = dict(router.counters)
+        for h in handles:
+            h.close()
+        arm_s["hung"] = time.perf_counter() - t_arm
+        t_arm = time.perf_counter()
+
+        # ---- degraded arm: one process, no restart budget ---------------
+        handles1 = pool("degraded", pending["degraded"])
+        router1 = ServingRouter(replicas=handles1, max_replica_restarts=0)
+        deg_done = {}
+        for r in batch("deg"):
+            router1.submit(r)
+        for d in router1.step():
+            deg_done[d.uid] = d
+        kill_replica_process(handles1[0], _signal.SIGKILL)
+        drive(router1, deg_done, max_stalls=3)
+        deg_rate = len(deg_done) / n_req
+        for h in handles1:
+            h.close()
+        arm_s["degraded"] = time.perf_counter() - t_arm
+
+        # ---- observability arm: the plane off, then on -----------------
+        def obs_arm(tag, router_tel):
+            t0_arm = time.perf_counter()
+            hs = pool(f"obs_{tag}", pending[f"obs_{tag}"])
+            r = ServingRouter(replicas=hs, telemetry_config=router_tel)
+            rng2 = np.random.default_rng(7)
+            rq = [Request(uid=f"{tag}-{i}", tokens=rng2.integers(
+                0, 200, (int(rng2.integers(4, 24)),)).astype(np.int32),
+                max_new_tokens=6, stop_on_eos=False)
+                for i in range(n_req * FABRIC_OBS_ROUNDS)]
+            r.run(rq[:1])
+            t0 = time.perf_counter()
+            res = r.run(rq[1:])
+            wall = time.perf_counter() - t0
+            toks = sum(len(d.tokens) for d in res.values())
+            if r.telemetry.enabled:
+                r.observability_snapshot(refresh=True)
+            snap = r.telemetry.registry.snapshot() \
+                if r.telemetry.enabled else {}
+            steps = max(1, r.steps)
+            child = [h.stats() for h in hs]
+            r.telemetry.close()
+            for h in hs:
+                h.close()
+            arm_s[f"obs_{tag}"] = time.perf_counter() - t0_arm
+            return toks / max(wall, 1e-9), snap, steps, child, len(res)
+
+        tps_off, _, _, child_off, n_off = obs_arm("off", None)
+        tps_on, snap, steps, child_on, n_on = obs_arm(
+            "on", TelemetryConfig(enabled=True, prometheus=False,
+                                  jsonl=False, tracing=True,
+                                  flight_recorder=True,
+                                  output_path=f"{out_dir}/router"))
+    finally:
+        for p in procs:             # SIGSTOPped ones too: SIGKILL ends them
+            p.kill()
+            p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if n_off != n_req * FABRIC_OBS_ROUNDS - 1 or n_on != n_off:
+        raise AssertionError(f"fabric observability arm completed "
+                             f"{n_off} / {n_on}")
+    # the children's own launches: row 5 on every decode step of each
+    # engine (the obs-off arm's two children, alive from spawn to the end)
+    from deepspeed_tpu_torch.testing.fabric import TINY_DEFAULTS
+    launches = {}
+    for s in child_off:
+        _expect("fabric child", s["launches"], {
+            "paged_decode_attention": TINY_DEFAULTS["n_layer"]
+            * s["decode_steps"]})
+        for k, v in s["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    if not all(d["type"] == FABRIC_DEVICE_TYPE for d in devices):
+        raise AssertionError(f"fabric: a child is not on the card: "
+                             f"{devices}")
+    if failover_rate != 1.0 or rate != 1.0:
+        raise AssertionError(f"fabric: completion {failover_rate} over the "
+                             f"kill rounds, {rate} with the hung round")
+    if not hang_detect_s < 30.0:
+        raise AssertionError(f"fabric: the SIGSTOPped replica was not "
+                             f"declared dead in {hang_detect_s:.1f} s")
+    if not deg_rate < 1.0:
+        raise AssertionError(f"fabric: the degraded arm lost no work "
+                             f"({deg_rate})")
+
+    def _ctr(name):
+        return float(snap.get(name, {}).get("value", 0.0))
+
+    ds = sorted(detect)
+    emit({"phase": "fabric", "model": FABRIC_MODEL,
+          "source": "bench.py:1288-1560", "requests_per_round": n_req,
+          "kill_rounds": rounds, "heartbeat_interval_s": hb,
+          "heartbeat_miss_budget": cfg.heartbeat_miss_budget,
+          "step_timeout_s": cfg.step_timeout_s,
+          "completion_rate": rate, "failover_completion_rate": failover_rate,
+          "vs_baseline": rate / max(deg_rate, 1.0 / n_req),
+          "kill_detect_s": ds,
+          "kill_detect_p50_s": ds[len(ds) // 2] if ds else None,
+          "kill_detect_p99_s": ds[min(len(ds) - 1, int(0.99 * len(ds)))]
+          if ds else None,
+          "hang_detect_s": hang_detect_s,
+          "replica_failures": ctr["replica_failures"],
+          "replica_restarts": ctr["replica_restarts"],
+          "reroutes": ctr["reroutes"], "pool_size_after": pool_after,
+          "failover_wall_s": failover_wall, "arm_s": arm_s,
+          "degraded": {"completion_rate": deg_rate},
+          "observability": {
+              "tokens_s_plane_off": tps_off, "tokens_s_plane_on": tps_on,
+              "overhead_frac": 1.0 - tps_on / max(tps_off, 1e-9),
+              "pulls": int(_ctr("obs/pulls")),
+              "pulled_spans": int(_ctr("obs/pull_spans")),
+              "pull_bytes_per_step": _ctr("obs/pull_bytes") / steps},
+          "spawn_to_ready_s": spawn_s, "respawn_s": respawn_s,
+          "processes": len(procs),
+          "children_devices": devices, "child_launches": launches,
+          "phase_s": time.perf_counter() - t_phase,
+          "nvidia_smi": state["nvidia_smi"]})
+    return {"fabric": launches}
 
 
 def phase_norms(state):
@@ -5192,7 +5931,8 @@ def _csv_rows(out_dir, job, tag):
 
 def phase_north_star(state):
     """bench.py's north-star lane (NORTH_CONFIG) on one card: gpt2-1.3b at
-    full width and depth, random weights from a numpy seed, ZeRO 3, gas 64,
+    full width, NORTH_LAYERS deep, random weights from a numpy seed, ZeRO
+    3, gas 64,
     through initialize() -> train_batch(): 1 warm-up step, NORTH_STEPS
     timed steps, exact flash launches, a finite loss, seconds a step,
     tokens/s and MFU, the registry's readings beside them."""
@@ -5201,7 +5941,7 @@ def phase_north_star(state):
     from deepspeed_tpu_torch.models.gpt import GPT2_CONFIGS, make_gpt_model
     from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
     from deepspeed_tpu_torch.utils.tree import tree_num_params
-    cfg = dataclasses.replace(GPT2_CONFIGS[NORTH_MODEL],
+    cfg = dataclasses.replace(GPT2_CONFIGS[NORTH_MODEL], n_layer=NORTH_LAYERS,
                               remat_policy=TRAIN_POLICY)
     t0 = time.perf_counter()
     engine, *_ = initialize(model=make_gpt_model(cfg, name=NORTH_MODEL,
@@ -5402,7 +6142,7 @@ def _longctx_cfg(seq):
     import torch
     from deepspeed_tpu_torch.models.gpt import GPT2_CONFIGS
     return dataclasses.replace(
-        GPT2_CONFIGS[LONGCTX_MODEL], max_seq_len=seq,
+        GPT2_CONFIGS[LONGCTX_MODEL], n_layer=LONGCTX_LAYERS, max_seq_len=seq,
         remat_policy=TRAIN_POLICY, softmax_dtype=torch.bfloat16,
         loss_chunks=LONGCTX_LOSS_CHUNKS)
 
@@ -6865,8 +7605,8 @@ OFFLOAD_ATTN = dict(B=4, T=256, H=4, Hkv=4, D=64, causal=True)
 OFFLOAD_ARMS = (("blocking", 0, 1), ("lookahead1", 1, 1), ("async", 2, 2))
 # the three spill engines share one numpy draw of gpt2-1.3b's width
 # (models/gpt.py GPT2_CONFIGS: d_model 2048, 16 heads of 128, d_ff 8192,
-# vocab 50304) cut to 8 of its 24 layers for time
-SPILL_MODEL, SPILL_LAYERS = "gpt2-1.3b", 8
+# vocab 50304) cut to 4 of its 24 layers for time
+SPILL_MODEL, SPILL_LAYERS = "gpt2-1.3b", 4
 INFINITY_MBS, INFINITY_SEQ, INFINITY_GAS, INFINITY_STEPS = 4, 1024, 2, 2
 INFINITY_ATTN = dict(B=4, T=1024, H=16, Hkv=16, D=128, causal=True)
 INFINITY_PARITY_B = 2
@@ -6883,7 +7623,7 @@ ZI_PAGED = dict(B=8, H=16, Hkv=16, hd=128, bs=512, nb=2,
 ZO_MBS, ZO_SEQ, ZO_GAS, ZO_STEPS = 4, 512, 2, 2
 # the weight bound on the card, measured at two depths of the same width:
 # the zero_inference model at 8 layers and the same blocks twice over (16)
-ZI_DEPTHS, ZI_DEPTH_NEW = (8, 16), 8
+ZI_DEPTHS, ZI_DEPTH_NEW = (SPILL_LAYERS, 2 * SPILL_LAYERS), 8
 # the allocator's rounding of the ring's and the resident leaves' blocks
 # (each to 512 B, or to 2 MiB segments for reserved memory) and the
 # sampler's scratch: what a measured byte count may exceed its bound by
@@ -7130,8 +7870,8 @@ def _infinity_parity():
 
 
 def phase_infinity(state):
-    """initialize() of a LayeredModelSpec at gpt2-1.3b's width (8 of 24
-    layers) -> InfinityEngine, micro-batch 4, seq 1024, gas 2, AdamW on the
+    """initialize() of a LayeredModelSpec at gpt2-1.3b's width
+    (SPILL_LAYERS of 24 layers) -> InfinityEngine, micro-batch 4, seq 1024, gas 2, AdamW on the
     host, bf16: the cpu tier, then the nvme tier with the moments on disk
     too, each 1 warm-up and INFINITY_STEPS timed steps on one batch: exact
     launches, finite falling losses, the live-layer bound and the bytes
@@ -7250,7 +7990,7 @@ def _first_mismatch(engine, prompt, got, ref):
 def _depth_memory(cfg, params, prompt):
     """The streamed weights on the card, read from the allocator: the cpu
     tier at lookahead 1, generate() on one prompt at each depth of
-    ZI_DEPTHS (the 16-layer model repeats the 8 layers' blocks). Between
+    ZI_DEPTHS (the deeper model repeats the cut's blocks). Between
     calls the card holds the resident leaves, the streamer's ring and the
     KV cache, nothing else: `held` (allocated, less the cache) must equal
     resident + (lookahead + 1) layers to MEM_SLACK, and be the same at
@@ -7735,9 +8475,10 @@ def main():
          "prefix_cache", "spec_decode", "train", "north_star", "longctx",
          "longctx16k", "routing", "bert", "llama", "moe", "sparse",
          "evoformer", "offload", "infinity", "zero_inference",
-         "zero_offload"]
+         "zero_offload", "router", "robustness", "fabric"]
     dev = phase_device()
-    state, launches, kern, wall = {}, {}, {}, {}
+    state, launches, kern, wall = {"nvidia_smi": dev["nvidia_smi"]}, {}, \
+        {}, {}
     t0 = time.perf_counter()
     if "build" in phases:
         phase_build()
@@ -7767,7 +8508,10 @@ def main():
                        ("offload", phase_offload),
                        ("infinity", phase_infinity),
                        ("zero_inference", phase_zero_inference),
-                       ("zero_offload", phase_zero_offload)):
+                       ("zero_offload", phase_zero_offload),
+                       ("router", phase_router),
+                       ("robustness", phase_robustness),
+                       ("fabric", phase_fabric)):
         if phase in phases:
             t0 = time.perf_counter()
             counts = run(state)        # counts of each path's run; the
@@ -7776,7 +8520,8 @@ def main():
             launches.update(counts if phase in (
                 "quant", "spec_decode", "moe", "sparse", "evoformer", "bert",
                 "llama", "offload", "infinity", "zero_inference",
-                "zero_offload") else {phase: counts})
+                "zero_offload", "router", "robustness", "fabric")
+                else {phase: counts})
             wall[phase] = time.perf_counter() - t0
     if "profile" in phases:
         phase_profile(state)

@@ -13,8 +13,8 @@ curriculum (`curriculum_metrics`), compression and the profilers. The
 progressive layer drop and the `data_efficiency` block's random-LTD and
 legacy seqlen curriculum are ported, and so is the offload tier
 (`zero_optimization.offload_param` / `offload_optimizer` on the cpu and
-nvme devices, `zero_force_ds_cpu_optimizer`); the telemetry block's request
-tracing, flight recorder and memscope are not.
+nvme devices, `zero_force_ds_cpu_optimizer`), and so are the telemetry
+block's request tracing and flight recorder; its memscope is not.
 """
 
 import copy
@@ -257,7 +257,7 @@ class DataTypesConfig(ConfigModel):
 
 
 # telemetry features of the JAX package that this port does not carry yet
-_UNPORTED_TELEMETRY = ("tracing", "flight_recorder", "memscope")
+_UNPORTED_TELEMETRY = ("memscope",)
 
 
 @dataclass
@@ -268,8 +268,9 @@ class TelemetryConfig(ConfigModel):
     written. Shared by the train config and `TpuInferenceConfig`. There is
     no compiled program to cost-analyze: the MFU numerator is always the
     analytic 6N model flops, whatever `measure_program_flops` says.
-    `tracing`, `flight_recorder` and `memscope` raise (ROADMAP queue 1
-    item 10); their sizing fields are accepted and unused."""
+    `tracing` and `flight_recorder` build the request tracer and the
+    flight recorder; `memscope` raises (the next slice of ROADMAP queue 1
+    item 10); its sizing fields are accepted and unused."""
     enabled: bool = False
     output_path: str = "telemetry"   # dir for <subsystem>.prom/.jsonl/.trace.json
     export_interval: int = 20        # steps between exports (scheduler
@@ -297,8 +298,8 @@ class TelemetryConfig(ConfigModel):
             if getattr(self, name):
                 raise NotImplementedError(
                     f"telemetry.{name} is not ported to deepspeed_tpu_torch "
-                    f"yet (ROADMAP queue 1 item 10; the JAX package "
-                    f"deepspeed_tpu serves it)")
+                    f"yet (the next slice of ROADMAP queue 1 item 10; the "
+                    f"JAX package deepspeed_tpu serves it)")
 
 
 @dataclass

@@ -186,6 +186,50 @@ def blocks_needed(prompt_len: int, padded_prompt: int, max_new: int,
                            spec_k) // block_size + 1
 
 
+def transplant_blocks(src_pool, src_blocks, dst_pool, dst_blocks,
+                      pad_to: Optional[int] = None):
+    """Copy physical KV blocks across two pools — the prefill->decode
+    handoff primitive (`serving/router.py`): a slot prefilled on one
+    replica moves into another replica's pool by copying its blocks and
+    rebuilding the block table there.
+
+    Every pool leaf is ``[L, num_blocks, ...]`` (axis 1 is the
+    physical-block axis, the `init_paged_kv_pool` contract), so the copy is
+    one `index_copy_` a leaf along axis 1, IN PLACE on the destination:
+    the int8 pool's `k_scale` / `v_scale` move block for block with their
+    payload. `pad_to` is accepted for the reference's signature: pad
+    entries copy trash to trash, whose content is garbage by contract.
+
+    Returns `dst_pool` (updated in place). Both pools must share leaf
+    names and dtypes; the trash block is never a source or destination of
+    a real entry."""
+    src_blocks, dst_blocks = list(src_blocks), list(dst_blocks)
+    if len(src_blocks) != len(dst_blocks):
+        raise ValueError(f"transplant width mismatch: {len(src_blocks)} vs "
+                         f"{len(dst_blocks)}")
+    if TRASH_BLOCK in src_blocks or TRASH_BLOCK in dst_blocks:
+        raise ValueError("transplant of the trash block")
+    if sorted(src_pool) != sorted(dst_pool):
+        raise ValueError(f"pool leaf mismatch: {sorted(src_pool)} vs "
+                         f"{sorted(dst_pool)}")
+    for name in sorted(dst_pool):
+        d, s = dst_pool[name], src_pool[name]
+        if d.dtype != s.dtype:
+            raise ValueError(f"pool dtype mismatch: {d.dtype} vs {s.dtype}")
+    if not src_blocks:
+        return dst_pool
+    if pad_to is not None and pad_to > len(src_blocks):
+        pad = pad_to - len(src_blocks)
+        src_blocks += [TRASH_BLOCK] * pad
+        dst_blocks += [TRASH_BLOCK] * pad
+    for name in sorted(dst_pool):
+        d, s = dst_pool[name], src_pool[name]
+        si = torch.as_tensor(src_blocks, dtype=torch.long, device=s.device)
+        di = torch.as_tensor(dst_blocks, dtype=torch.long, device=d.device)
+        d.index_copy_(1, di, s.index_select(1, si).to(d.device))
+    return dst_pool
+
+
 def gather_block_kv(pool_k_l, pool_v_l, block_tables):
     """Materialize each row's logical KV as contiguous [B, Hkv, nb*block, hd]
     — the plain paged-attention path (chunked prefill, the CPU) and the

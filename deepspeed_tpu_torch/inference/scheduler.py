@@ -61,8 +61,16 @@ the pool, each layer's weights from the engine's streamer; `stats()`
 gains the `offload` block. It refuses speculative decoding and a decode
 window above 1, as the JAX package does.
 
-Deadlines, the prefill/decode handoff, queue draining and request tracing
-are later slices of the port.
+The router's hooks (`serving/router.py`): a request's hard deadline
+(`Request.deadline_ms`, or an absolute `deadline_at` from the router)
+retires it at the next sync with `finish_reason="deadline"`; a
+`prefill_only` request parks in the handoff state after its first token,
+and `export_handoff` / `adopt_handoff` / `release_handoff` move its blocks
+into a decode replica's pool (`kv_cache.transplant_blocks`); `cancel`,
+`drain_queued`, `active_uids` and `has_output` serve TTL, failover and
+hedging. `attach_observability` shares the pool's request tracer and
+flight recorder. Every stamp (TTFT, TPOT, deadlines) reads the injected
+clock (`set_clock`), in the reference's order of reads.
 """
 
 import collections
@@ -78,7 +86,8 @@ from deepspeed_tpu_torch.inference.audit import (PoolAuditor,
 from deepspeed_tpu_torch.inference.kv_cache import (BlockAllocator,
                                                     TRASH_BLOCK,
                                                     blocks_needed,
-                                                    max_written_pos)
+                                                    max_written_pos,
+                                                    transplant_blocks)
 from deepspeed_tpu_torch.inference.spec_decode import (accept_greedy,
                                                        make_drafter)
 from deepspeed_tpu_torch.models.gpt import as_dtype
@@ -90,20 +99,26 @@ class InadmissibleRequestError(ValueError):
     """The request can NEVER be admitted by this engine — prompt plus budget
     exceed `max_context`, or it needs more KV blocks than the whole pool
     holds. Raised at submit() so an impossible request fails fast instead of
-    wedging the FIFO head forever."""
+    wedging the FIFO head forever; the serving router catches it per
+    replica to find one whose limits fit."""
 
 
 @dataclasses.dataclass
 class Request:
     """One generation request. `eos_token_id=None` falls back to the engine
-    / model default; `stop_on_eos=False` disables early stop. `priority`
-    orders the degradation ladder's shedding (queued requests below the
-    configured threshold go first); it never changes FIFO order."""
+    / model default; `stop_on_eos=False` disables early stop.
+    `deadline_ms` is a hard end-to-end budget from submission, enforced
+    past admission: a request still generating when it runs out retires at
+    the next scheduler sync with ``finish_reason="deadline"`` (its tokens
+    so far are kept). `priority` orders the degradation ladder's shedding
+    (queued requests below the configured threshold go first); it never
+    changes FIFO order."""
     uid: Any
     tokens: Sequence[int]
     max_new_tokens: int = 32
     eos_token_id: Optional[int] = None
     stop_on_eos: bool = True
+    deadline_ms: Optional[float] = None
     priority: int = 0
 
 
@@ -112,7 +127,8 @@ class CompletedRequest:
     uid: Any
     prompt_len: int
     tokens: np.ndarray        # generated tokens; the EOS (if emitted) is kept
-    finish_reason: str        # "eos" | "length" | "cancelled"
+    finish_reason: str        # "eos" | "length" | "cancelled" (cancel(),
+                              # router TTL or shedding) | "deadline"
     cached_prefix_tokens: int = 0  # prompt tokens whose K/V came from the
                               # prefix cache (0 when caching is off/missed)
     timing: Optional[Dict[str, float]] = None  # telemetry only: monotonic
@@ -120,14 +136,14 @@ class CompletedRequest:
                               # (None when telemetry is disabled)
 
 
-_FREE, _PREFILL, _DECODE = 0, 1, 2
+_FREE, _PREFILL, _DECODE, _HANDOFF = 0, 1, 2, 3
 
 
 class _Slot:
     __slots__ = ("idx", "state", "uid", "prompt", "prompt_len", "padded_len",
                  "max_new", "eos", "blocks", "cursor", "pos", "emitted",
-                 "hashes", "reg", "cached",
-                 "t_arrive", "t_admit", "t_first", "t_prev")
+                 "hashes", "reg", "cached", "prefill_only", "deadline",
+                 "t_arrive", "t_admit", "t_first", "t_prev", "trace")
 
     def __init__(self, idx):
         self.idx = idx
@@ -144,8 +160,11 @@ class _Slot:
         self.hashes = None      # prefix-cache hash chain (full prompt blocks)
         self.reg = 0            # blocks [0, reg) registered or cached
         self.cached = 0         # blocks mapped from the cache at admission
+        self.prefill_only = False  # park in _HANDOFF after the last chunk
+        self.deadline = None    # absolute hard deadline (engine clock)
         self.t_arrive = self.t_admit = self.t_first = None  # telemetry stamps
         self.t_prev = None      # last emission sync (TPOT interpolation anchor)
+        self.trace = None       # TraceContext (None unless tracing is on)
 
 
 class ServingEngine:
@@ -329,7 +348,12 @@ class ServingEngine:
             self.telemetry.registry.histogram(
                 "serving/spec_accept_rate",
                 bounds=[i / 20 for i in range(1, 21)])
+        # the request tracer and flight recorder: the engine's own (from
+        # its telemetry config) until a router injects the pool's shared
+        # ones through attach_observability
+        self.tracer = self.telemetry.tracer
         self.flightrec = self.telemetry.flightrec
+        self.trace_tid = 0
         if self.streamed and self.telemetry.enabled:
             # the staging pool's offload/* metrics land in this registry
             engine.streamer.telemetry = self.telemetry
@@ -376,7 +400,11 @@ class ServingEngine:
         self.tokens_generated = 0
         self.peak_active = 0
         self.cancelled = 0
+        self.deadline_cancelled = 0         # requests retired "deadline"
         self.degradation_sheds = 0          # queued requests the ladder shed
+        self.handoffs_out = 0               # slots exported to a decode engine
+        self.handoffs_in = 0                # slots adopted from a prefill one
+        self._deadlines = False             # a live request has a deadline
         self.verify_calls = 0               # spec decode: verify steps
         self.verify_slot_steps = 0          # slot participations in them
         self.drafted_tokens = 0             # real proposals scored
@@ -476,54 +504,102 @@ class ServingEngine:
     # ------------------------------------------------------------------
 
     def set_clock(self, clock):
-        """Replace the clock that stamps request timing."""
+        """Replace the clock that stamps request timing and sweeps
+        deadlines. The router injects its own into every replica (again
+        after a restart), so TTL, TTFT stamps, deadlines and its watchdog
+        and hedging timers read one time source."""
         self._clock = clock
 
+    def attach_observability(self, tracer=None, flightrec=None, tid=None):
+        """Router injection point: share the pool's tracer / flight
+        recorder (every replica's spans in one trace file and one black
+        box) and take this engine's Perfetto track id."""
+        if tracer is not None:
+            self.tracer = tracer
+        if flightrec is not None:
+            self.flightrec = flightrec
+        if tid is not None:
+            self.trace_tid = int(tid)
+
     def check_admissible(self, prompt_len: int, max_new: int,
-                         uid: Any = "?") -> int:
+                         prefill_only: bool = False, uid: Any = "?",
+                         padded_prompt: int = None) -> int:
         """Raise `InadmissibleRequestError` when the request can NEVER fit
         this engine (max_context, whole-pool block budget), else return the
-        blocks it will occupy."""
+        blocks it will occupy. A `prefill_only` request never decodes here,
+        so only its padded prompt counts. `padded_prompt` overrides this
+        engine's chunk-grid padding: a handoff target adopts a slot padded
+        on the prefill replica's grid."""
         prompt_len, max_new = int(prompt_len), int(max_new)
-        padded = -(-prompt_len // self.chunk) * self.chunk
+        padded = (int(padded_prompt) if padded_prompt else
+                  -(-prompt_len // self.chunk) * self.chunk)
         if prompt_len < 1:
             raise InadmissibleRequestError(f"request {uid}: empty prompt")
         if max_new < 1:
             raise InadmissibleRequestError(
                 f"request {uid}: max_new_tokens < 1")
+        eff_new = 1 if prefill_only else max_new
+        eff_window = 1 if prefill_only else self.window
         # a verify writes its whole k-draft overhang, which replaces the
-        # window's rounding
-        if max_written_pos(prompt_len, padded, max_new, self.window,
-                           self.draft_k) >= self.max_context:
+        # window's rounding; a prefill-only slot never verifies here
+        eff_spec = 0 if prefill_only else self.draft_k
+        need = blocks_needed(prompt_len, padded, eff_new, self.block_size,
+                             window=eff_window, spec_k=eff_spec)
+        if max_written_pos(prompt_len, padded, eff_new, eff_window,
+                           eff_spec) >= self.max_context:
             raise InadmissibleRequestError(
                 f"request {uid}: prompt {prompt_len} + max_new {max_new} "
-                f"(window {self.window}, draft_k {self.draft_k}) exceeds "
+                f"(window {eff_window}, draft_k {eff_spec}) exceeds "
                 f"max_context {self.max_context} (raise "
                 f"serving.max_context)")
-        need = blocks_needed(prompt_len, padded, max_new, self.block_size,
-                             window=self.window, spec_k=self.draft_k)
         if need > self.allocator.capacity:
             raise InadmissibleRequestError(
                 f"request {uid}: needs {need} KV blocks, pool has "
                 f"{self.allocator.capacity} (raise serving.num_kv_blocks)")
         return need
 
-    def submit(self, request: Request):
+    def submit(self, request: Request, prefill_only: bool = False,
+               hashes: Optional[List[bytes]] = None, trace=None,
+               deadline_at: Optional[float] = None):
         """Queue a request. Raises `InadmissibleRequestError` if it can
         never be admitted; one that merely doesn't fit *right now* waits
-        in the queue (admission backpressure)."""
+        in the queue (admission backpressure).
+
+        `prefill_only=True` is the disaggregated entry: the slot prefills,
+        samples its first token and parks for `export_handoff` instead of
+        decoding. `hashes` hands in the router's precomputed chain. `trace`
+        carries the router's `TraceContext` (a standalone engine with
+        tracing on mints its own). `deadline_at` pins the hard deadline
+        absolutely on this engine's clock — the router passes the original
+        one through every re-dispatch; without it `request.deadline_ms`
+        anchors at arrival here."""
         prompt = np.asarray(request.tokens, np.int32).reshape(-1)
         prompt_len = int(prompt.shape[0])
-        need = self.check_admissible(prompt_len, request.max_new_tokens,
-                                     uid=request.uid)
         padded = -(-prompt_len // self.chunk) * self.chunk
-        # hashed once here; admission re-matches the chain every step while
-        # the request waits (the cache's contents change between steps)
-        hashes = self.prefix_cache.hash_chain(prompt) \
-            if self.prefix_cache is not None else None
-        t_arrive = self._clock() if self.telemetry.enabled else None
-        self.queue.append((request, prompt, prompt_len, padded, need,
-                           hashes, t_arrive))
+        need = self.check_admissible(prompt_len, request.max_new_tokens,
+                                     prefill_only=prefill_only,
+                                     uid=request.uid)
+        # hashed once; admission re-matches the chain every step while the
+        # request waits (the cache's contents change between steps)
+        if self.prefix_cache is None:
+            hashes = None
+        elif hashes is None:
+            hashes = self.prefix_cache.hash_chain(prompt)
+        t_arrive = self._clock()
+        if deadline_at is None and request.deadline_ms is not None:
+            deadline_at = t_arrive + float(request.deadline_ms) / 1e3
+        if deadline_at is not None:
+            self._deadlines = True
+        if self.tracer.enabled:
+            if trace is None:
+                # no router above: this engine owns the trace end to end
+                trace = self.tracer.start(request.uid, t0=t_arrive,
+                                          owner="engine")
+            self.tracer.event(trace, "submit", t_arrive, tid=self.trace_tid,
+                              attrs={"prompt_len": prompt_len,
+                                     "max_new": int(request.max_new_tokens)})
+        self.queue.append((request, prompt, prompt_len, padded, need, hashes,
+                           t_arrive, prefill_only, trace, deadline_at))
 
     def _resolve_eos(self, req: Request):
         if not req.stop_on_eos:
@@ -535,11 +611,16 @@ class ServingEngine:
             eos = self.engine.model_spec.eos_token_id
         return eos
 
-    def _admit(self):
+    def _admit(self, finished: List[CompletedRequest]):
         free = [s for s in self.slots if s.state == _FREE]
         while self.queue and free:
             (req, prompt, prompt_len, padded, need, hashes,
-             t_arrive) = self.queue[0]
+             t_arrive, prefill_only, trace, deadline_at) = self.queue[0]
+            if deadline_at is not None and self._clock() >= deadline_at:
+                # expired in the queue: no prefill for a dead request
+                self.queue.popleft()
+                finished.append(self._expire_queued(req.uid, prompt_len))
+                continue
             hit = []
             if hashes:
                 # longest-prefix match, capped so the final prompt token is
@@ -557,8 +638,14 @@ class ServingEngine:
                 hit = hit[:m]
                 for b in hit:
                     self.allocator.incref(b)
+            ev0 = self.allocator.evictions
             blocks = self.allocator.alloc(need - len(hit))
             if blocks is None:
+                if self.flightrec.enabled:
+                    self.flightrec.record(
+                        "backpressure", uid=req.uid, need=need - len(hit),
+                        available=self.allocator.available,
+                        queued=len(self.queue))
                 # pool exhausted: FIFO backpressure — the head waits for
                 # retirements (no reordering: small requests must not
                 # starve a big one). The tentative hit is released tail
@@ -583,11 +670,36 @@ class ServingEngine:
             slot.reg = slot.cached = len(hit)
             slot.pos = prompt_len
             slot.emitted = []
+            slot.prefill_only = prefill_only
+            slot.deadline = deadline_at
             slot.t_arrive = t_arrive
             if self.telemetry.enabled:
                 slot.t_admit = self._clock()
                 self.telemetry.observe("serving/queue_wait_ms",
                                        (slot.t_admit - t_arrive) * 1e3)
+            slot.trace = trace
+            if self.tracer.enabled and trace is not None:
+                # the queue-wait span and an admit mark; flow_end lands the
+                # router's dispatch arrow on this replica's track
+                t_adm = slot.t_admit if slot.t_admit is not None \
+                    else self._clock()
+                self.tracer.flow_end(trace, t_adm, tid=self.trace_tid)
+                self.tracer.record(trace, "queued", t_arrive,
+                                   max(0.0, t_adm - t_arrive),
+                                   tid=self.trace_tid)
+                self.tracer.event(trace, "admit", t_adm, tid=self.trace_tid,
+                                  attrs={"slot": slot.idx,
+                                         "blocks": len(blocks),
+                                         "cached_blocks": len(hit)})
+            if self.flightrec.enabled:
+                self.flightrec.record("admit", uid=req.uid, slot=slot.idx,
+                                      blocks=len(blocks),
+                                      cached_blocks=len(hit),
+                                      queued=len(self.queue))
+                if self.allocator.evictions > ev0:
+                    self.flightrec.record(
+                        "eviction", uid=req.uid,
+                        evicted=self.allocator.evictions - ev0)
             self.tables[slot.idx, :] = TRASH_BLOCK
             self.tables[slot.idx, :len(blocks)] = blocks
             if hit:
@@ -612,6 +724,20 @@ class ServingEngine:
             # per-request mean here
             timing = {"arrival": slot.t_arrive, "admit": slot.t_admit,
                       "first_token": slot.t_first, "finish": t_finish}
+        if self.tracer.enabled and slot.trace is not None:
+            t_end = self._clock()
+            self.tracer.event(slot.trace, "retire", t_end,
+                              tid=self.trace_tid,
+                              attrs={"reason": reason,
+                                     "tokens": len(slot.emitted)})
+            if slot.trace.owner == "engine":
+                # no router above: this engine closes the root span
+                self.tracer.finish(slot.trace, t_end, tid=self.trace_tid,
+                                   attrs={"reason": reason})
+        if self.flightrec.enabled:
+            self.flightrec.record("retire", uid=slot.uid, reason=reason,
+                                  tokens=len(slot.emitted),
+                                  freed_blocks=len(slot.blocks))
         done = CompletedRequest(uid=slot.uid, prompt_len=slot.prompt_len,
                                 tokens=np.asarray(slot.emitted, np.int32),
                                 finish_reason=reason,
@@ -648,23 +774,90 @@ class ServingEngine:
         if slot.state != _FREE:            # retired slots were reset already
             slot.t_prev = t_now
 
-    def cancel(self, uid) -> Optional[CompletedRequest]:
+    def _expire_queued(self, uid, prompt_len) -> CompletedRequest:
+        """Complete a queued request whose hard deadline passed before it
+        ever touched a slot."""
+        self.deadline_cancelled += 1
+        self.telemetry.inc("serving/deadline_cancelled")
+        if self.flightrec.enabled:
+            self.flightrec.record("deadline", uid=uid, queued=True)
+        return CompletedRequest(uid=uid, prompt_len=prompt_len,
+                                tokens=np.zeros((0,), np.int32),
+                                finish_reason="deadline")
+
+    def _sweep_deadlines(self, finished: List[CompletedRequest]):
+        """Hard deadlines at the sync point: an active slot (generating or
+        parked for handoff) past its budget retires "deadline", blocks
+        freed the same call; queued requests past theirs complete without a
+        slot. Traffic without deadlines never pays the scan."""
+        if not self._deadlines:
+            return
+        now = self._clock()
+        for slot in self.slots:
+            if slot.state != _FREE and slot.deadline is not None \
+                    and now >= slot.deadline:
+                self.deadline_cancelled += 1
+                self.telemetry.inc("serving/deadline_cancelled")
+                if self.flightrec.enabled:
+                    self.flightrec.record("deadline", uid=slot.uid,
+                                          tokens=len(slot.emitted))
+                finished.append(self._retire(slot, "deadline"))
+        if any(rec[9] is not None for rec in self.queue):
+            keep = collections.deque()
+            for rec in self.queue:
+                if rec[9] is not None and now >= rec[9]:
+                    finished.append(self._expire_queued(rec[0].uid, rec[2]))
+                else:
+                    keep.append(rec)
+            self.queue = keep
+
+    def cancel(self, uid, queued_only: bool = False,
+               reason: str = "cancelled") -> Optional[CompletedRequest]:
         """Withdraw a request wherever it lives: a queued one never touches
         a slot, an active one retires now (blocks freed the same call).
-        Returns its CompletedRequest (reason "cancelled", tokens so far),
-        or None for an unknown uid."""
+        Returns its CompletedRequest (``finish_reason=reason``, tokens so
+        far), or None for an unknown uid — or one still generating under
+        `queued_only=True` (the router's TTL mode). A slot parked for
+        handoff is cancelled under `queued_only`: it holds blocks on this
+        pool while it waits for a decode replica."""
         for i, rec in enumerate(self.queue):
             if rec[0].uid == uid:
                 del self.queue[i]
                 self.cancelled += 1
+                if self.flightrec.enabled:
+                    self.flightrec.record("cancel", uid=uid, queued=True,
+                                          reason=reason)
                 return CompletedRequest(uid=uid, prompt_len=rec[2],
                                         tokens=np.zeros((0,), np.int32),
-                                        finish_reason="cancelled")
+                                        finish_reason=reason)
         for slot in self.slots:
-            if slot.state != _FREE and slot.uid == uid:
-                self.cancelled += 1
-                return self._retire(slot, "cancelled")
+            if slot.state == _FREE or slot.uid != uid:
+                continue
+            if queued_only and slot.state != _HANDOFF:
+                return None
+            self.cancelled += 1
+            return self._retire(slot, reason)
         return None
+
+    def drain_queued(self) -> List[Request]:
+        """Extract every queued request, emptying the queue — the router's
+        failover path re-submits them elsewhere verbatim (they never
+        touched this pool)."""
+        out = [rec[0] for rec in self.queue]
+        self.queue.clear()
+        return out
+
+    def active_uids(self) -> List[Any]:
+        """Uids occupying slots (prefilling, decoding or parked)."""
+        return [s.uid for s in self.slots if s.state != _FREE]
+
+    def has_output(self, uid) -> bool:
+        """True once the request has emitted its first token here — the
+        router's hedging probe."""
+        for s in self.slots:
+            if s.state != _FREE and s.uid == uid:
+                return len(s.emitted) > 0
+        return False
 
     def shed_queued_below_priority(self, min_priority: int
                                    ) -> List[CompletedRequest]:
@@ -679,6 +872,9 @@ class ServingEngine:
                 self.cancelled += 1
                 self.degradation_sheds += 1
                 self.telemetry.inc("serving/degradation_sheds")
+                if self.flightrec.enabled:
+                    self.flightrec.record("degrade_shed", uid=req.uid,
+                                          priority=int(req.priority))
                 out.append(CompletedRequest(uid=req.uid, prompt_len=rec[2],
                                             tokens=np.zeros((0,), np.int32),
                                             finish_reason="cancelled"))
@@ -697,8 +893,8 @@ class ServingEngine:
         return self._auditor.snapshot()
 
     def audit(self, repair: bool = False):
-        """Run the pool auditor now. On violations the flight recorder (a
-        null object in the port) gets the report, then — with
+        """Run the pool auditor now. On violations the flight recorder gets
+        the report and dumps, then — with
         `repair=True` — the free list, refcounts and reclaimable LRU are
         rebuilt from the slot tables and audited again; a repair that
         cannot reach a clean state raises `PoolCorruptionError`. Returns
@@ -710,14 +906,26 @@ class ServingEngine:
         self.audit_violations_total += len(report.violations)
         self.telemetry.inc("serving/audit_violations", len(report.violations))
         if self.flightrec.enabled:
+            self.flightrec.record("audit_violation",
+                                  violations=len(report.violations),
+                                  by_kind=report.by_kind())
+            try:
+                stats = self.stats()
+            except Exception as e:                    # a corrupt pool may
+                stats = {"error": str(e)}             # break stats() itself
             self.flightrec.dump(
                 f"pool audit failed: {report.summary()}",
                 state={"audit": report.to_dict(),
-                       "audit_state": self._auditor.snapshot()})
+                       "audit_state": self._auditor.snapshot(),
+                       "stats": stats})
         if repair:
             summary = self._auditor.repair()
             self.audit_repairs += 1
             self.telemetry.inc("serving/audit_repairs")
+            if self.flightrec.enabled:
+                self.flightrec.record("audit_repair", **{
+                    k: summary[k] for k in ("violations_before",
+                                            "violations_after", "clean")})
             log_dist(f"serving audit: repaired {report.summary()} -> "
                      f"{'clean' if summary['clean'] else 'STILL DIRTY'}",
                      ranks=[0])
@@ -754,6 +962,114 @@ class ServingEngine:
     def queue_depth(self) -> int:
         return len(self.queue)
 
+    @property
+    def has_free_slot(self) -> bool:
+        return any(s.state == _FREE for s in self.slots)
+
+    # ------------------------------------------------------------------
+    # disaggregated prefill/decode: block handoff between engines
+    # ------------------------------------------------------------------
+
+    def handoff_ready(self) -> List[Any]:
+        """Uids of prefill-only slots whose prefill finished (full prompt
+        K/V written, first token emitted): ready for `export_handoff`."""
+        return [s.uid for s in self.slots if s.state == _HANDOFF]
+
+    def export_handoff(self, uid) -> Dict[str, Any]:
+        """Snapshot a parked slot for transplant. Its blocks stay owned by
+        this engine (refcounts untouched) until `release_handoff`: the
+        copy completes before the source can be reclaimed."""
+        slot = self._handoff_slot(uid)
+        # the blocks the prefill cursor wrote: the padded prompt only
+        n_used = (slot.padded_len - 1) // self.block_size + 1
+        return {"uid": slot.uid, "prompt": slot.prompt,
+                "prompt_len": slot.prompt_len, "padded_len": slot.padded_len,
+                "max_new": slot.max_new, "eos": slot.eos,
+                "emitted": list(slot.emitted), "pos": slot.pos,
+                "blocks": list(slot.blocks[:n_used]),
+                "cached": slot.cached, "t_arrive": slot.t_arrive,
+                "t_admit": slot.t_admit, "t_first": slot.t_first,
+                "trace": slot.trace}
+
+    def adopt_handoff(self, state: Dict[str, Any], src_pool) -> bool:
+        """Adopt a prefilled slot exported by another engine: allocate its
+        whole-lifetime blocks here, copy the prompt's K/V blocks out of
+        `src_pool` into them (`transplant_blocks`, in place on this pool)
+        and seed a decoding slot that continues from the first token.
+        Returns False when no slot or blocks are free right now (the router
+        retries; the source still holds its blocks); raises
+        `InadmissibleRequestError` when the request can never fit here."""
+        need = blocks_needed(state["prompt_len"], state["padded_len"],
+                             state["max_new"], self.block_size,
+                             window=self.window, spec_k=self.draft_k)
+        if max_written_pos(state["prompt_len"], state["padded_len"],
+                           state["max_new"], self.window,
+                           self.draft_k) >= self.max_context:
+            raise InadmissibleRequestError(
+                f"request {state['uid']}: handoff target max_context "
+                f"{self.max_context} too small (prompt {state['prompt_len']}"
+                f" + max_new {state['max_new']}, window {self.window})")
+        if need > self.allocator.capacity:
+            raise InadmissibleRequestError(
+                f"request {state['uid']}: handoff needs {need} KV blocks, "
+                f"decode pool has {self.allocator.capacity}")
+        free = [s for s in self.slots if s.state == _FREE]
+        if not free:
+            return False
+        blocks = self.allocator.alloc(need)
+        if blocks is None:
+            return False
+        n_src = len(state["blocks"])
+        try:
+            self.pool = transplant_blocks(src_pool, state["blocks"],
+                                          self.pool, blocks[:n_src],
+                                          pad_to=self.nb)
+        except Exception:
+            self.allocator.free(blocks)    # don't leak the reservation
+            raise
+        slot = free[-1]
+        slot.state = _DECODE
+        slot.uid = state["uid"]
+        slot.prompt = state["prompt"]
+        slot.prompt_len = state["prompt_len"]
+        slot.padded_len = state["padded_len"]
+        slot.max_new = state["max_new"]
+        slot.eos = state["eos"]
+        slot.blocks = blocks
+        slot.cursor = state["padded_len"]
+        slot.pos = state["pos"]
+        slot.emitted = list(state["emitted"])
+        slot.hashes = None          # adopted blocks stay private: this pool
+        slot.reg = 0                # never registers them (the prefill
+        slot.cached = state["cached"]  # replica's cache owns the prefix)
+        # the prefill replica's stamps: TTFT / TPOT measure from the real
+        # first token, not from adoption
+        slot.t_arrive = state["t_arrive"]
+        slot.t_admit = state.get("t_admit")
+        slot.t_first = state.get("t_first")
+        slot.t_prev = slot.t_first
+        slot.trace = state.get("trace")    # decode spans continue the trace
+        self.tables[slot.idx, :] = TRASH_BLOCK
+        self.tables[slot.idx, :len(blocks)] = blocks
+        self.handoffs_in += 1
+        return True
+
+    def release_handoff(self, uid):
+        """Free the source side of a completed transplant: decref the
+        slot's blocks (registered prefix blocks park reclaimable and stay
+        matchable for affinity) and recycle the slot."""
+        slot = self._handoff_slot(uid)
+        self.allocator.free(slot.blocks[::-1])
+        self.tables[slot.idx, :] = TRASH_BLOCK
+        slot.reset()
+        self.handoffs_out += 1
+
+    def _handoff_slot(self, uid) -> _Slot:
+        for s in self.slots:
+            if s.state == _HANDOFF and s.uid == uid:
+                return s
+        raise KeyError(f"no handoff-ready slot for request {uid!r}")
+
     # ------------------------------------------------------------------
     # speculative decoding: draft -> one verify -> accept and rewind
     # ------------------------------------------------------------------
@@ -764,7 +1080,8 @@ class ServingEngine:
         disagreeing row — 1..k+1 tokens a model step. The cursor moves
         past the emitted tokens only; the rejected drafts' k/v lies past it
         and is overwritten by the next verify, never read."""
-        with self.telemetry.span("serving/draft"):
+        tr_on = self.tracer.enabled
+        with self.telemetry.span("serving/draft", tid=self.trace_tid):
             drafts, dlens = self.drafter.propose(dec, tok, pos, tables)
         if self.pressure is not None and self.pressure.draft_cap is not None:
             # ladder rung 1: cap the ACCEPTED draft length only; the verify
@@ -772,12 +1089,15 @@ class ServingEngine:
             # padding past the cursor
             dlens = np.minimum(dlens, self.pressure.draft_cap)
         toks = np.concatenate([tok[:, None], drafts], axis=1)
-        with self.telemetry.span("serving/verify"):
+        t0 = self._clock() if tr_on else 0.0
+        with self.telemetry.span("serving/verify", tid=self.trace_tid):
             tgt = self._verify_step(toks, pos, tables)      # [S, k+1]
+        t1 = self._clock() if tr_on else 0.0
         self.verify_calls += 1
         self.decode_steps += 1
         for s in dec:
             dlen = int(dlens[s.idx])
+            ctx, uid = s.trace, s.uid         # _retire resets the slot
             n, emitted = accept_greedy(drafts[s.idx], tgt[s.idx], dlen)
             s.pos += n + 1
             self.verify_slot_steps += 1
@@ -799,6 +1119,15 @@ class ServingEngine:
                     break
             self.spec_emitted_tokens += j
             self._observe_tpot(s, anchor, j)
+            if tr_on and ctx is not None:
+                self.tracer.record(ctx, "verify", t0, t1 - t0,
+                                   tid=self.trace_tid,
+                                   attrs={"drafted": dlen, "accepted": n,
+                                          "emitted": j})
+            if self.flightrec.enabled and n < dlen:
+                # the cursor rewound past dlen - n rejected drafts
+                self.flightrec.record("rollback", uid=uid,
+                                      rejected=dlen - n, accepted=n)
         self.telemetry.inc("serving/spec_verify_steps")
 
     # ------------------------------------------------------------------
@@ -810,13 +1139,15 @@ class ServingEngine:
         """One scheduler iteration. Returns the requests that finished."""
         finished: List[CompletedRequest] = []
         self.steps += 1
-        with self.telemetry.span("serving/admit"):
-            self._admit()
+        with self.telemetry.span("serving/admit", tid=self.trace_tid):
+            self._admit(finished)
 
         # chunked prefill, bounded per step so arriving prompts cannot stall
         # the running batch for more than prefill_budget chunk-times
         budget = self.prefill_budget
         for slot in self.slots:
+            if budget <= 0:
+                break
             while slot.state == _PREFILL and budget > 0:
                 start = slot.cursor
                 chunk = np.zeros((1, self.chunk), np.int32)
@@ -825,9 +1156,18 @@ class ServingEngine:
                 final = start + self.chunk >= slot.padded_len
                 last = (slot.prompt_len - 1 - start) if final \
                     else self.chunk - 1
-                with self.telemetry.span("serving/prefill_chunk"):
+                tr_on = self.tracer.enabled and slot.trace is not None
+                t0 = self._clock() if tr_on else 0.0
+                with self.telemetry.span("serving/prefill_chunk",
+                                         tid=self.trace_tid):
                     tok = self._prefill_step(chunk, start, last,
                                              self.tables[slot.idx][None])
+                if tr_on:
+                    t1 = self._clock()
+                    self.tracer.record(slot.trace, "prefill_chunk", t0,
+                                       t1 - t0, tid=self.trace_tid,
+                                       attrs={"start": start,
+                                              "chunk": self.chunk})
                 if self.drafter is not None:
                     # a stateful drafter shadows the chunk into its own pool
                     # through the same table
@@ -848,7 +1188,10 @@ class ServingEngine:
                                                    slot.blocks[i])
                     slot.reg = max(slot.reg, hi)
                 if final:
-                    slot.state = _DECODE
+                    # a prefill-only slot parks for handoff instead of
+                    # decoding (_emit may still retire it on an EOS or
+                    # max_new 1: a normal completion from this engine)
+                    slot.state = _HANDOFF if slot.prefill_only else _DECODE
                     # the first token's read: TTFT is stamped after it
                     self._emit(slot, int(tok[0]), finished)
 
@@ -877,12 +1220,17 @@ class ServingEngine:
                 win = 1 if self.spec_on or (
                     self.pressure is not None
                     and self.pressure.force_window_1) else self.window
-                with self.telemetry.span("serving/decode_window"):
+                tr_on = self.tracer.enabled
+                t0 = self._clock() if tr_on else 0.0
+                with self.telemetry.span("serving/decode_window",
+                                         tid=self.trace_tid):
                     # returns on the host: the window's one device read
                     nxt = self._decode_step(tok, pos, tables, win)
+                t1 = self._clock() if tr_on else 0.0
                 self.decode_steps += 1
                 for s in dec:
                     s.pos += win
+                    ctx = s.trace             # _retire resets the slot
                     anchor, j = s.t_prev, 0
                     for t in nxt[s.idx]:
                         self._emit(s, int(t), finished)
@@ -890,9 +1238,14 @@ class ServingEngine:
                         if s.state == _FREE:            # retired mid-window
                             break
                     self._observe_tpot(s, anchor, j)
+                    if tr_on and ctx is not None:
+                        self.tracer.record(ctx, "decode_window", t0, t1 - t0,
+                                           tid=self.trace_tid,
+                                           attrs={"emitted": j})
 
-        # sync-point housekeeping on host state: the ladder, then the
-        # scheduled audit
+        # sync-point housekeeping on host state: hard deadlines, the
+        # ladder, then the scheduled audit
+        self._sweep_deadlines(finished)
         if self.pressure is not None:
             self.pressure.update(finished)
         if self.audit_interval and self.steps % self.audit_interval == 0:
@@ -938,16 +1291,26 @@ class ServingEngine:
         self.telemetry.close()
         return report
 
+    def compile_stats(self) -> Dict[str, int]:
+        """The reference counts compiled step programs here; the port
+        compiles none (its steps are eager torch over ctypes kernels), so
+        the map is empty."""
+        return {}
+
     def stats(self) -> Dict[str, Any]:
         out = {"steps": self.steps, "decode_steps": self.decode_steps,
                "prefill_chunks": self.prefill_chunks,
                "tokens_generated": self.tokens_generated,
                "peak_active": self.peak_active,
                "cancelled": self.cancelled,
+               "deadline_cancelled": self.deadline_cancelled,
+               "handoffs_in": self.handoffs_in,
+               "handoffs_out": self.handoffs_out,
                "queued": len(self.queue), "active": self.num_active,
                "free_blocks": self.allocator.num_free,
                "reclaimable_blocks": self.allocator.num_reclaimable,
-               "available_blocks": self.allocator.available}
+               "available_blocks": self.allocator.available,
+               "compiles": self.compile_stats()}
         if self.spec_on:
             out["spec_decode"] = {
                 "drafter": self.drafter.name,

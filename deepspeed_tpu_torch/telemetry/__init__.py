@@ -21,10 +21,16 @@ Wiring (all opt-in via the `telemetry` config block):
     tokens/s, TFLOP/s and MFU gauges, device-memory watermarks, and the
     model's slash-keyed step metrics (`moe/*`) as gauges.
 
-The JAX package's request tracer, flight recorder and compile watchdog are
-not ported (ROADMAP queue 1 item 10): `tracer`, `flightrec` and `watchdog`
-are null objects with their surfaces, and the config refuses `tracing`,
-`flight_recorder` and `memscope`.
+Two per-request diagnostics ride on the same config block and the same
+disabled-by-default contract:
+
+  * `tracer` (`tracing.py`, `telemetry.tracing`) — request-scoped span
+    trees (`<subsystem>.trace.jsonl` + a flow-linked chrome trace);
+  * `flightrec` (`flight_recorder.py`, `telemetry.flight_recorder`) — a
+    bounded ring of scheduling events, dumped on failure.
+
+The compile watchdog is a null object with its surface (the port compiles
+no programs), and the config refuses `memscope`.
 
 `peak_flops()` knows NVIDIA cards only (`PEAK_FLOPS`); on any other device,
 with no `peak_tflops` override, it returns None and the train engine leaves
@@ -43,11 +49,16 @@ from deepspeed_tpu_torch.telemetry.exporters import (JsonlExporter,
                                                      prometheus_text)
 from deepspeed_tpu_torch.telemetry import spans
 from deepspeed_tpu_torch.telemetry.spans import ChromeTraceSink, Span
+from deepspeed_tpu_torch.telemetry.tracing import (NULL_TRACER, TraceContext,
+                                                   Tracer)
+from deepspeed_tpu_torch.telemetry.flight_recorder import (NULL_RECORDER,
+                                                           FlightRecorder)
 
 __all__ = ["Telemetry", "MetricsRegistry", "Counter", "Gauge", "Histogram",
            "merge_snapshots", "PrometheusFileExporter", "JsonlExporter",
            "MonitorBridge", "prometheus_text", "ChromeTraceSink", "Span",
-           "PEAK_FLOPS", "device_peak_flops"]
+           "Tracer", "TraceContext", "FlightRecorder", "PEAK_FLOPS",
+           "device_peak_flops"]
 
 _NULL_SPAN = contextlib.nullcontext()
 
@@ -69,40 +80,6 @@ def device_peak_flops(device=None):
     return PEAK_FLOPS.get(torch.cuda.get_device_name(device))
 
 
-class _NullTracer:
-    """The request tracer's surface, recording nothing."""
-    enabled = False
-
-    def start(self, *args, **kwargs):
-        return None
-
-    def record(self, *args, **kwargs):
-        return 0
-
-    def event(self, *args, **kwargs):
-        return 0
-
-    def finish(self, *args, **kwargs):
-        pass
-
-    def close(self):
-        pass
-
-
-class _NullRecorder:
-    """The flight recorder's surface, recording nothing."""
-    enabled = False
-
-    def record(self, kind, **fields):
-        pass
-
-    def events(self):
-        return []
-
-    def dump(self, reason, state=None):
-        return None
-
-
 class _NullWatchdog:
     """The compile watchdog's surface: this package compiles no programs,
     so there is nothing to watch."""
@@ -116,8 +93,6 @@ class _NullWatchdog:
         return {"recompiles": 0, "programs": {}}
 
 
-NULL_TRACER = _NullTracer()
-NULL_RECORDER = _NullRecorder()
 NULL_WATCHDOG = _NullWatchdog()
 
 
@@ -140,7 +115,10 @@ class Telemetry:
         if not self.enabled:
             return
         out = pathlib.Path(config.output_path or "telemetry")
-        if config.prometheus or config.jsonl or config.chrome_trace:
+        tracing = bool(getattr(config, "tracing", False))
+        flight = bool(getattr(config, "flight_recorder", False))
+        if config.prometheus or config.jsonl or config.chrome_trace \
+                or tracing or flight:
             # registry-only configurations (all file sinks off) must not
             # litter an empty directory
             out.mkdir(parents=True, exist_ok=True)
@@ -152,8 +130,17 @@ class Telemetry:
         if config.monitor_bridge and monitor is not None and \
                 getattr(monitor, "enabled", False):
             self._exporters.append(MonitorBridge(monitor))
-        if config.chrome_trace:
+        if config.chrome_trace or tracing:
+            # one shared chrome sink: phase spans (span()) and request
+            # traces (tracer) land on one Perfetto timeline
             self._trace = ChromeTraceSink(out / f"{subsystem}.trace.json")
+        if tracing:
+            self.tracer = Tracer(out / f"{subsystem}.trace.jsonl",
+                                 chrome=self._trace)
+        if flight:
+            self.flightrec = FlightRecorder(
+                out, subsystem=subsystem,
+                capacity=int(getattr(config, "flight_recorder_events", 256)))
 
     # ---- recording ---------------------------------------------------
 
@@ -235,6 +222,10 @@ class Telemetry:
                 self._trace.close()
             except Exception:
                 pass
+        try:
+            self.tracer.close()
+        except Exception:
+            pass
 
     def __del__(self):
         try:

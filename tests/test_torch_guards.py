@@ -77,6 +77,30 @@ def test_entry_points_refuse_to_run_on_the_cpu_quietly():
     assert engine.device.type == "cpu"
 
 
+def test_fabric_engines_refuse_to_run_on_the_cpu_quietly():
+    """The fabric's tiny engine, and a replica-server child built from it,
+    run on the card unless the kwargs ask for the CPU: with no GPU they
+    raise through `resolve_device`, before any port is bound."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a GPU: the default device is valid")
+    from deepspeed_tpu_torch.serving import replica_server
+    from deepspeed_tpu_torch.testing.fabric import tiny_serving_engine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tiny_serving_engine()
+    factory = "deepspeed_tpu_torch.testing.fabric:tiny_serving_engine"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        replica_server.main(["--factory", factory, "--kwargs", "{}"])
+    serving = tiny_serving_engine(device="cpu")
+    assert serving.engine.device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["Autoscaler", "AutoscalerConfig"])
+def test_unported_autoscaler_names_refuse(name):
+    import deepspeed_tpu_torch.serving as serving
+    with pytest.raises(NotImplementedError, match="next slice"):
+        getattr(serving, name)
+
+
 def test_cuda_wrappers_take_the_plain_version_for_cpu_tensors():
     """Handed CPU tensors, each kernel wrapper runs its plain version and
     leaves the launch counter at 0 — nothing is built or launched."""
@@ -121,6 +145,16 @@ def test_cuda_wrappers_take_the_plain_version_for_cpu_tensors():
     {"mp_size": 2},
 ], ids=lambda o: str(o))
 def test_unported_features_refuse_at_config_time(override):
+    """Features the port lacks refuse when the config is built. The
+    telemetry block's request tracer and flight recorder are ported now:
+    their cases build, and turn the matching object on."""
+    tel = override.get("telemetry", {})
+    if tel.get("tracing") or tel.get("flight_recorder"):
+        cfg = TpuInferenceConfig.from_dict(override)
+        assert cfg.telemetry.tracing == bool(tel.get("tracing"))
+        assert cfg.telemetry.flight_recorder == \
+            bool(tel.get("flight_recorder"))
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         TpuInferenceConfig.from_dict(override)
 
