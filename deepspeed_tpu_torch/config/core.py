@@ -7,14 +7,16 @@ bf16, optimizer, scheduler, ZeRO stage, gradient clipping, the gradient
 accumulator dtype, activation checkpointing). A feature of that config the
 port does not carry yet raises `NotImplementedError` when the config is
 built: ZeRO++ / compressed wires, a mesh of more than one rank,
-pipeline, MoE, checkpointing and fault tolerance, the metric-driven
-curriculum (`curriculum_metrics`), compression and the profilers. The
-`telemetry` block, the monitors (`tensorboard`, `wandb`, `csv_monitor`),
-progressive layer drop and the `data_efficiency` block's random-LTD and
-legacy seqlen curriculum are ported, and so is the offload tier
-(`zero_optimization.offload_param` / `offload_optimizer` on the cpu and
-nvme devices, `zero_force_ds_cpu_optimizer`), and so are the telemetry
-block's request tracing and flight recorder; its memscope is not.
+pipeline, MoE, the metric-driven curriculum (`curriculum_metrics`),
+compression and the profilers. The `telemetry` block (its request
+tracing, flight recorder and memscope ledger included), the monitors
+(`tensorboard`, `wandb`, `csv_monitor`), progressive layer drop and the
+`data_efficiency` block's random-LTD and legacy seqlen curriculum are
+ported, and so are the offload tier (`zero_optimization.offload_param` /
+`offload_optimizer` on the cpu and nvme devices,
+`zero_force_ds_cpu_optimizer`), the `checkpoint` block (whose engine
+defaults to "torch": the port writes no Orbax format), `fault_tolerance`
+and `memory_breakdown`.
 """
 
 import copy
@@ -256,10 +258,6 @@ class DataTypesConfig(ConfigModel):
         return GRAD_ACCUM_DTYPES[(self.grad_accum_dtype or "fp32").lower()]
 
 
-# telemetry features of the JAX package that this port does not carry yet
-_UNPORTED_TELEMETRY = ("memscope",)
-
-
 @dataclass
 class TelemetryConfig(ConfigModel):
     """Unified telemetry (`telemetry/`): metrics registry + exporters +
@@ -269,8 +267,10 @@ class TelemetryConfig(ConfigModel):
     no compiled program to cost-analyze: the MFU numerator is always the
     analytic 6N model flops, whatever `measure_program_flops` says.
     `tracing` and `flight_recorder` build the request tracer and the
-    flight recorder; `memscope` raises (the next slice of ROADMAP queue 1
-    item 10); its sizing fields are accepted and unused."""
+    flight recorder; `memscope` the memory ledger (`telemetry/
+    memscope.py`). No program is compiled to cost: `memscope_programs` is
+    accepted, and the ledger's temp term is the allocator's measured peak
+    of a step above its resident bytes."""
     enabled: bool = False
     output_path: str = "telemetry"   # dir for <subsystem>.prom/.jsonl/.trace.json
     export_interval: int = 20        # steps between exports (scheduler
@@ -291,15 +291,7 @@ class TelemetryConfig(ConfigModel):
     memscope: bool = False
     memscope_programs: bool = True
     memscope_capacity_bytes: int = 0
-    memscope_preflight: str = "warn"
-
-    def __post_init__(self):
-        for name in _UNPORTED_TELEMETRY:
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"telemetry.{name} is not ported to deepspeed_tpu_torch "
-                    f"yet (the next slice of ROADMAP queue 1 item 10; the "
-                    f"JAX package deepspeed_tpu serves it)")
+    memscope_preflight: str = "warn"   # off | warn | refuse
 
 
 @dataclass
@@ -358,14 +350,51 @@ class DataEfficiencyConfig(ConfigModel):
                 "curriculum_metrics) is ported")
 
 
+@dataclass
+class CheckpointConfig(ConfigModel):
+    """The `checkpoint` block (`checkpoint/saver.py`), the JAX package's
+    fields and defaults but for `engine`: "torch" (the port's native
+    engine, the default) or "numpy" (the JAX package's npz layout); the
+    JAX default "orbax" raises when a save or load builds the engine."""
+    tag_validation: str = "Warn"     # Ignore | Warn | Fail
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: Dict[str, Any] = field(default_factory=dict)
+    engine: str = "torch"
+    async_save: bool = False
+    # retention: committed tags beyond the newest N are GC'd after each
+    # successful commit (0 = keep everything); uncommitted dirs never are
+    keep_last_n: int = 0
+    # load-time crc32 of every file the manifest records; False checks
+    # existence + size only
+    verify_checksums: bool = True
+
+
+@dataclass
+class FaultToleranceConfig(ConfigModel):
+    """Training-loop bad-state sentinels + in-process rollback
+    (`runtime/sentinel.py`), the JAX package's fields and defaults. Opt-in:
+    the sentinel reads the loss on the host every step, a wait for the
+    card."""
+    enabled: bool = False
+    nonfinite_budget: int = 3        # consecutive non-finite losses tolerated
+    overflow_budget: int = 50        # consecutive fp16 overflow skip-steps
+    loss_spike_window: int = 0       # rolling-median window (0 = disabled)
+    loss_spike_factor: float = 10.0
+    loss_spike_patience: int = 3
+    # roll back to the last good checkpoint in-process instead of raising
+    # BadStateError (needs a prior save_checkpoint / load_checkpoint, so
+    # the engine knows the checkpoint root)
+    auto_rollback: bool = True
+    max_rollbacks: int = 3           # per-process budget before raising
+
+
 # blocks of the JAX config that this port refuses when they are switched
 # on (an "enabled" flag), or given at all (the others)
-_UNPORTED_ENABLED = ("fault_tolerance", "moe", "flops_profiler",
-                     "eigenvalue", "comms_logger", "gradient_compression",
-                     "autotuning", "elasticity")
-_UNPORTED_CONTENT = ("pipeline", "compression_training", "checkpoint")
-_UNPORTED_FLAGS = ("sparse_gradients", "prescale_gradients",
-                   "memory_breakdown", "dump_state")
+_UNPORTED_ENABLED = ("moe", "flops_profiler", "eigenvalue", "comms_logger",
+                     "gradient_compression", "autotuning", "elasticity")
+_UNPORTED_CONTENT = ("pipeline", "compression_training")
+_UNPORTED_FLAGS = ("sparse_gradients", "prescale_gradients", "dump_state")
 
 
 def _refuse_unported(d):
@@ -412,11 +441,16 @@ class TpuTrainConfig(ConfigModel):
         default_factory=DataEfficiencyConfig)
     progressive_layer_drop: ProgressiveLayerDropConfig = field(
         default_factory=ProgressiveLayerDropConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    fault_tolerance: FaultToleranceConfig = field(
+        default_factory=FaultToleranceConfig)
 
     gradient_clipping: float = 0.0
     gradient_predivide_factor: float = 1.0
     steps_per_print: int = 10
     wall_clock_breakdown: bool = False
+    memory_breakdown: bool = False   # log the allocator's reading every
+                                     # steps_per_print steps
     seed: int = 1234
     param_dtype: str = AUTO          # resolved from the fp16/bf16 blocks
     # offload_optimizer: take the host (C++) optimizer step even where the

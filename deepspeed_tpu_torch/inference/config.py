@@ -65,8 +65,9 @@ class ServingQuantizationConfig(ConfigModel):
 class DegradationConfig(ConfigModel):
     """The graceful-degradation ladder (`serving/degradation.py`): every
     `eval_interval` syncs a `PressureController` reads the free-block
-    fraction, the queue depth and (with telemetry) TTFT p99, and walks one
-    rung a pressured evaluation — 1 cap the accepted draft to 1, 2 disable
+    fraction, the queue depth, (with telemetry) TTFT p99 and (with
+    `headroom_low` and the memscope ledger) the device-memory headroom, and
+    walks one rung a pressured evaluation — 1 cap the accepted draft to 1, 2 disable
     spec decode, 3 force the 1-step decode window, 4 flush the reclaimable
     prefix-cache blocks, 5 shed queued requests below
     `shed_below_priority` — and one rung down after `hold_steps`
@@ -82,16 +83,12 @@ class DegradationConfig(ConfigModel):
     hold_steps: int = 3           # consecutive calm evals a rung down
     shed_below_priority: int = 0  # level 5 sheds queued requests with
                                   # Request.priority strictly below this
-    headroom_low: float = 0.0     # the HBM-headroom signal: > 0 refused
-    headroom_high: float = 0.0
-
-    def __post_init__(self):
-        if float(self.headroom_low or 0) > 0:
-            # the signal reads the memscope ledger (queue 1 item 10), which
-            # the port does not have yet
-            _not_ported("serving.degradation.headroom_low > 0 (the HBM "
-                        "headroom signal reads telemetry/memscope.py's "
-                        "ledger, queue 1 item 10)")
+    headroom_low: float = 0.0     # mem/headroom_frac (telemetry/memscope.py
+                                  # ledger) below this counts as pressure;
+                                  # needs telemetry.memscope + a known
+                                  # capacity (0 = off)
+    headroom_high: float = 0.0    # ...and at/above this counts as calm
+                                  # (clamped up to headroom_low)
 
 
 @dataclass

@@ -71,6 +71,13 @@ into a decode replica's pool (`kv_cache.transplant_blocks`); `cancel`,
 hedging. `attach_observability` shares the pool's request tracer and
 flight recorder. Every stamp (TTFT, TPOT, deadlines) reads the injected
 clock (`set_clock`), in the reference's order of reads.
+
+The memory ledger (`telemetry.memscope`, `telemetry/memscope.py`): a
+pre-flight plan runs BEFORE the pool is allocated (the pool's bytes from a
+`meta`-device pool), so a predicted OOM warns or refuses ahead of the
+allocation; `self.memscope` (a `ServingMemScope`) publishes the `mem/*`
+gauges each telemetry step, `stats()["memory"]` is its snapshot, and an
+allocator failure inside `step()` dumps the ledger before it re-raises.
 """
 
 import collections
@@ -297,6 +304,34 @@ class ServingEngine:
                 f"contract (make_gpt_decode_model provides it)")
         num_blocks = int(scfg.num_kv_blocks or (self.max_slots * self.nb + 1))
 
+        # memscope pre-flight BEFORE the pool allocation below: the plan is
+        # shape arithmetic over a meta-device pool (no device memory), so a
+        # predicted-OOM configuration warns or refuses ahead of the
+        # allocation that would fail on the card
+        tcfg = getattr(self.config, "telemetry", None)
+        self._memscope_on = bool(getattr(tcfg, "enabled", False) and
+                                 getattr(tcfg, "memscope", False))
+        self._preflight_plan = None
+        if self._memscope_on:
+            from deepspeed_tpu_torch.telemetry import memscope as _ms
+            mode = str(getattr(tcfg, "memscope_preflight", "warn"))
+            if mode != "off":
+                cap = int(getattr(tcfg, "memscope_capacity_bytes", 0) or 0)
+                if not cap and engine.device.type == "cuda":
+                    cap = int(_ms.device_memory_stats(engine.device).get(
+                        "bytes_limit", 0))
+                plan = _ms.plan_serving_prealloc(
+                    spec, num_kv_blocks=num_blocks, kv_block_size=bs,
+                    kv_cache_dtype=torch.int8 if self.kv_quant
+                    else engine.dtype,
+                    kv_group_size=self.kv_group_size,
+                    params=engine.params,
+                    draft_spec=draft_spec
+                    if scfg.spec_decode.drafter == "model" else None,
+                    param_dtype=engine.dtype, capacity_bytes=cap)
+                self._preflight_plan = _ms.preflight_check(
+                    plan, refuse=(mode == "refuse"))
+
         if self.kv_quant:
             # the quantized-pool contract: the 4-argument form, and a pool
             # that carries k_scale / v_scale
@@ -371,6 +406,16 @@ class ServingEngine:
         self.drafter = make_drafter(self, scfg.spec_decode,
                                     draft_spec=draft_spec) \
             if self.spec_on else None
+
+        # the memory ledger, after the drafter so the draft mirror is on
+        # it; the pre-flight plan above becomes its last_plan (the OOM
+        # dump's "was this foreseeable" base). Off: no object, no gauges
+        self.memscope = None
+        if self._memscope_on:
+            from deepspeed_tpu_torch.telemetry.memscope import \
+                ServingMemScope
+            self.memscope = ServingMemScope(self)
+            self.memscope.last_plan = self._preflight_plan
 
         # the pool auditor: host-side reads only, every `audit_interval`
         # syncs, on demand and at close()
@@ -1134,9 +1179,26 @@ class ServingEngine:
     # the engine step: admit -> prefill chunk(s) -> decode all slots
     # ------------------------------------------------------------------
 
-    @torch.inference_mode()
     def step(self) -> List[CompletedRequest]:
-        """One scheduler iteration. Returns the requests that finished."""
+        """One scheduler iteration. Returns the requests that finished.
+
+        The try/except is the OOM-forensics boundary: an allocator failure
+        escaping the step dumps the memory ledger, the planner delta and
+        the flight-recorder ring (memscope on) before it re-raises."""
+        ms = self.memscope
+        if ms is None:
+            return self._step_impl()
+        try:
+            ms.begin_step()
+            out = self._step_impl()
+            ms.end_step()
+            return out
+        except Exception as e:
+            ms.on_step_error(e)
+            raise
+
+    @torch.inference_mode()
+    def _step_impl(self) -> List[CompletedRequest]:
         finished: List[CompletedRequest] = []
         self.steps += 1
         with self.telemetry.span("serving/admit", tid=self.trace_tid):
@@ -1256,6 +1318,8 @@ class ServingEngine:
             self.telemetry.set_gauge("serving/active_slots", self.num_active)
             self.telemetry.set_gauge("serving/free_blocks",
                                      self.allocator.available)
+            if self.memscope is not None:
+                self.memscope.publish()     # the mem/* ledger gauges
             self.telemetry.maybe_export(self.steps)
         return finished
 
@@ -1359,6 +1423,8 @@ class ServingEngine:
                 "host_param_bytes": eng.store.host_bytes,
                 "staged_peak_bytes": eng.peak_param_hbm_bytes,
                 "resident_param_bytes": tree_bytes(eng.params)}
+        if self.memscope is not None:
+            out["memory"] = self.memscope.snapshot()
         if self.telemetry.enabled:
             out["latency"] = self.latency_snapshot()
         return out

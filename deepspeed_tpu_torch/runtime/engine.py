@@ -38,7 +38,10 @@ step time of `train/step_time_ms`; `train/tokens_per_sec`,
 compiled program to cost-analyze), `train/mfu` (over the card's peak, left
 unset on a device `telemetry.PEAK_FLOPS` does not know and no
 `peak_tflops` override), the allocator's `train/hbm_bytes_in_use` /
-`train/hbm_peak_bytes` on CUDA, and every slash-keyed step metric
+`train/hbm_peak_bytes` on CUDA (the run's peak; with `telemetry.memscope`
+on, the ledger resets the allocator's peak at every step to measure the
+step's temp, for every reader in the process, and keeps the run's peak
+for this gauge), and every slash-keyed step metric
 (`moe/aux_loss`, ...) as a gauge. The monitors (`tensorboard`,
 `csv_monitor`, `wandb`) get `Train/loss`, `Train/lr`, `Train/loss_scale`
 and `Train/grad_norm` every `steps_per_print` steps. With both off, a step
@@ -58,6 +61,21 @@ the gradients, and the compute-dtype params are pushed back into the
 device tensors. As in the JAX engine, the host step clips nothing and
 checks no overflow.
 
+Checkpoints (`save_checkpoint` / `load_checkpoint`, `checkpoint/saver.py`)
+take the JAX package's commit protocol and on-disk names: the params, the
+fp32 master and the optimizer state under optax's names (the host step's
+C++ masters and moments too), the loss scaler and the step; `client_state`
+carries `global_steps`, `skipped_steps` and the lr scheduler. A load
+copies each leaf into the engine's own tensor, so the state stays where it
+lives (the card, or the streamed tier's pinned host home). With
+`fault_tolerance` on, the bad-state sentinel (`runtime/sentinel.py`) reads
+each step's loss and, past its budget, rolls the engine back to the last
+checkpoint (a flight-recorder dump first, `Recovery/*` events after) or
+raises `BadStateError`. `telemetry.memscope` builds the memory ledger
+(`telemetry/memscope.TrainMemScope`): a pre-flight plan at build, `mem/*`
+gauges every telemetry step, the step's measured temp, and an OOM dump at
+the step's boundary.
+
 `initialize` routes a `LayeredModelSpec` to the layer-streaming
 `runtime/infinity.InfinityEngine`, built from the config.
 
@@ -73,15 +91,18 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.checkpoint.saver import (named_leaves, optax_count,
+                                                  optax_opt_leaves)
 from deepspeed_tpu_torch.config.core import TpuTrainConfig, not_ported
 from deepspeed_tpu_torch.inference.engine import resolve_device
-from deepspeed_tpu_torch.ops.optim import build_optimizer
+from deepspeed_tpu_torch.ops.optim import OPTIMIZER_ALIASES, build_optimizer
 from deepspeed_tpu_torch.runtime import lr_schedules
 from deepspeed_tpu_torch.runtime.cpu_optimizer import (HOST_OPTIMIZER_NAMES,
                                                        host_optimizer_kind)
 from deepspeed_tpu_torch.runtime.dataloader import (RepeatingLoader,
                                                     TpuDataLoader)
 from deepspeed_tpu_torch.runtime.precision import LossScaler, LossScaleState
+from deepspeed_tpu_torch.runtime.sentinel import BadStateError, BadStateSentinel
 from deepspeed_tpu_torch.telemetry import Telemetry
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (TRAIN_BATCH_TIMER,
@@ -145,6 +166,17 @@ def device_memory_bytes(device):
     if device.type != "cuda":
         return 0
     return int(torch.cuda.get_device_properties(device).total_memory)
+
+
+def _as_tensor(src, dst, name):
+    """A loaded checkpoint leaf as a tensor in `dst`'s dtype (the numpy
+    engine widened bf16 to fp32: narrowing back is exact)."""
+    t = src if isinstance(src, torch.Tensor) \
+        else torch.from_numpy(np.array(src))
+    if tuple(t.shape) != tuple(dst.shape):
+        raise ValueError(f"checkpoint leaf '{name}' has shape "
+                         f"{tuple(t.shape)}, the engine's {tuple(dst.shape)}")
+    return t.to(dtype=dst.dtype)
 
 
 def _to_device(batch, device):
@@ -240,6 +272,25 @@ class Engine:
                                    monitor=self.monitor)
         self._program_flops = None   # per-train_batch flops, computed once
         self._init_data_efficiency()
+
+        # the memory ledger (telemetry/memscope.py): byte attribution as
+        # mem/* gauges, a pre-flight model-states verdict against the
+        # card's memory, the step's measured temp and an OOM dump at the
+        # step's boundary. Off by default: no object, no gauges, no files
+        self.memscope = None
+        if self.telemetry.enabled and config.telemetry.memscope:
+            from deepspeed_tpu_torch.telemetry.memscope import TrainMemScope
+            self.memscope = TrainMemScope(self)
+            self.memscope.preflight(str(config.telemetry.memscope_preflight))
+
+        # fault tolerance: the bad-state sentinel (opt-in; observing the
+        # loss waits for the card once a step) and the rollback bookkeeping
+        self._sentinel = BadStateSentinel(
+            config.fault_tolerance,
+            recorder=self.telemetry.flightrec
+            if self.telemetry.flightrec.enabled else None)
+        self._last_ckpt_dir = None    # newest save/load root: the rollback
+        self.rollbacks = 0
 
     def _init_data_efficiency(self):
         """The legacy seqlen curriculum, progressive layer drop and
@@ -625,9 +676,22 @@ class Engine:
         self.tput_timer.start()
         if timed:
             self.timers(TRAIN_BATCH_TIMER).start()
-        fetched = self._state_in()     # runs beside the micro-batches
-        grads, loss, extras = self._grads(self.state.params, batch)
-        self.state, metrics = self._step(self.state, grads, loss, fetched)
+        ms = self.memscope
+        try:
+            if ms is not None:
+                ms.begin_step()
+            fetched = self._state_in()     # runs beside the micro-batches
+            grads, loss, extras = self._grads(self.state.params, batch)
+            self.state, metrics = self._step(self.state, grads, loss, fetched)
+            if ms is not None:
+                ms.end_step()
+        except Exception as e:
+            # the OOM-forensics boundary: an allocator failure dumps the
+            # ledger, the planner delta and the flight ring; the error
+            # itself is re-raised
+            if ms is not None:
+                ms.on_step_error(e)
+            raise
         metrics.update(extras)
         if timed:
             self.timers(TRAIN_BATCH_TIMER).stop()   # waits for the card
@@ -788,6 +852,233 @@ class Engine:
         if self.config.wall_clock_breakdown and \
                 self.global_steps % self.config.steps_per_print == 0:
             self.timers.log([TRAIN_BATCH_TIMER])
+        if self.config.memory_breakdown and \
+                self.global_steps % self.config.steps_per_print == 0:
+            # the reference's memory_breakdown knob: the allocator's
+            # reading, routed through the registry too
+            from deepspeed_tpu_torch.utils.memory import see_memory_usage
+            see_memory_usage(f"step {self.global_steps}", force=True,
+                             device=self.device, telemetry=self.telemetry)
+        if self._sentinel.enabled:
+            overflow = self.fp16_enabled and bool(metrics["overflow"])
+            cause = self._sentinel.observe(float(metrics["loss"]), overflow)
+            if cause is not None:
+                self._recover_bad_state(cause)
+
+    def _recover_bad_state(self, cause):
+        """Persistent bad state past the masked skip-step: roll back to the
+        last good checkpoint in-process when configured (and possible),
+        else raise BadStateError for a supervisor to classify and restart
+        on."""
+        ft = self.config.fault_tolerance
+        detail = self._sentinel.describe(cause)
+        target = self._last_ckpt_dir
+        # the black box first, while the bad state is still in place
+        self.telemetry.flightrec.dump(
+            f"bad-state sentinel: {cause}",
+            state={"step": self.global_steps, "cause": cause,
+                   "detail": detail, "rollbacks": self.rollbacks,
+                   "rollback_target": str(target),
+                   "watchdog": self.telemetry.watchdog.summary()})
+        if ft.auto_rollback and target is not None \
+                and self.rollbacks < ft.max_rollbacks:
+            logger.warning(f"bad state at step {self.global_steps} "
+                           f"({detail}); rolling back to the last good "
+                           f"checkpoint in {target}")
+            path, _client = self.load_checkpoint(target)
+            if path is not None:
+                self.rollbacks += 1
+                self._sentinel.reset()
+                self._fast_forward_data()
+                events = [
+                    ("Recovery/rollbacks_total", float(self.rollbacks),
+                     self.global_steps),
+                    ("Recovery/last_good_step", float(self.global_steps),
+                     self.global_steps),
+                ]
+                self.telemetry.record_events(events)
+                if self.monitor is not None and self.monitor.enabled:
+                    from deepspeed_tpu_torch.monitor.monitor import \
+                        write_recovery_events
+                    write_recovery_events(self.monitor, events)
+                log_dist(f"rollback #{self.rollbacks} complete: resumed at "
+                         f"step {self.global_steps} (cause: {cause})",
+                         ranks=[0])
+                return
+            logger.error(f"rollback target {target} had no loadable "
+                         f"checkpoint")
+        raise BadStateError(cause, f"unrecoverable training state: {detail} "
+                                   f"(rollbacks used: {self.rollbacks})")
+
+    def _fast_forward_data(self):
+        """Re-align the training dataloader with the restored step after
+        an in-process rollback: it shuffles per epoch from (seed + epoch),
+        so rewinding its epoch to the restored step's and skipping
+        `restored_step % len` batches replays the exact position."""
+        if self.training_dataloader is None:
+            return
+        if hasattr(self.training_dataloader, "load_state_dict"):
+            return  # position restored from client_state by load_checkpoint
+        n = len(self.training_dataloader)
+        if n > 0 and hasattr(self.training_dataloader, "epoch"):
+            # set BEFORE iter(): __iter__ consumes-then-increments it
+            self.training_dataloader.epoch = self.global_steps // n
+        self._data_iterator = iter(RepeatingLoader(self.training_dataloader))
+        if n > 0:
+            for _ in range(self.global_steps % n):
+                next(self._data_iterator)
+
+    # ------------------------------------------------------------------
+    # checkpointing (checkpoint/saver.py)
+    # ------------------------------------------------------------------
+
+    @property
+    def checkpoint_device(self):
+        return self.device
+
+    def _optax_layout(self):
+        """(optimizer, has_schedule) naming the optimizer state as the JAX
+        package's optax tree, or None for an optimizer the config does not
+        name (its own state names are kept)."""
+        opt = self.config.optimizer
+        if opt is None:
+            return None
+        name = opt.type.lower()
+        return OPTIMIZER_ALIASES.get(name, name), self.schedule_fn is not None
+
+    _HOST_MOMENTS = {"adam": (("exp_avg", "mu"), ("exp_avg_sq", "nu")),
+                     "lion": (("exp_avg", "mu"),),
+                     "adagrad": (("exp_avg", "sum_of_squares"),)}
+
+    def _host_trees(self):
+        """The host step's fp32 master and optimizer state as trees in
+        the device tier's names (`count`, `mu`, `nu`, ...)."""
+        opt = self.host_optimizer
+        sd = opt.state_dict()
+        state = {"count": torch.tensor(int(sd["step"]), dtype=torch.int32)}
+        for src, dst in self._HOST_MOMENTS[opt.optimizer]:
+            state[dst] = tree_unflatten(opt.tree, sd[src])
+        return tree_unflatten(opt.tree, sd["master"]), state
+
+    def checkpoint_leaves(self):
+        """[(name, tensor)] of the whole training state under the JAX
+        package's checkpoint names (the saver writes these)."""
+        if self.device.type == "cuda":
+            # the streamed tier's copies out and the host step's pushes
+            # land asynchronously
+            torch.cuda.synchronize(self.device)
+        st = self.state
+        master, opt_state = self._host_trees() if self.host_step \
+            else (st.master, st.opt_state)
+        out = named_leaves(st.params, ("params",)) + \
+            named_leaves(master, ("master",))
+        layout = self._optax_layout()
+        opt = named_leaves(opt_state)
+        out += [("opt_state/" + n, v) for n, v in opt] if layout is None \
+            else optax_opt_leaves(opt, *layout)
+        return out + named_leaves(st.scaler, ("scaler",)) + \
+            [("step", st.step)]
+
+    def restore_checkpoint_leaves(self, named, prefixes=None):
+        """Copy a loaded checkpoint ({name: tensor or array}) into the
+        engine's own tensors, leaf by leaf; `prefixes` limits a partial
+        load. An optimizer count the checkpoint lacks (optax keeps none
+        for constant-rate SGD / Adagrad) is the step."""
+        def wanted(name):
+            return prefixes is None or any(
+                name == p or name.startswith(p + "/") for p in prefixes)
+
+        count = optax_count(named)
+        if count is None:
+            count = named.get("step")
+
+        def source(name):
+            if name in named:
+                return named[name]
+            if name.startswith("opt_state/") and name.endswith("count") \
+                    and count is not None:
+                return count
+            raise KeyError(f"checkpoint has no leaf '{name}'")
+
+        leaves = self.checkpoint_leaves()
+        if self.host_step:
+            self._restore_host_step(leaves, source, wanted)
+            leaves = [(n, v) for n, v in leaves
+                      if not n.startswith(("master/", "opt_state/"))]
+        for name, dst in leaves:
+            if wanted(name):
+                dst.copy_(_as_tensor(source(name), dst, name))
+
+    def _restore_host_step(self, leaves, source, wanted):
+        opt = self.host_optimizer
+        if not wanted("master"):
+            return
+        masters = [_as_tensor(source(n), v, n) for n, v in leaves
+                   if n.startswith("master/")]
+        sd = {"step": opt.step_count, "master": masters}
+        if wanted("opt_state"):
+            sd["step"] = int(_as_tensor(
+                source("opt_state/0/count"), torch.zeros((), dtype=torch.int32),
+                "opt_state/0/count"))
+            for src, dst in self._HOST_MOMENTS[opt.optimizer]:
+                pre = f"opt_state/0/{dst}/"
+                sd[src] = [_as_tensor(source(n), v, n) for n, v in leaves
+                           if n.startswith(pre)]
+        opt.load_state_dict(sd)
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True, exclude_frozen_parameters=False):
+        from deepspeed_tpu_torch.checkpoint.saver import save_checkpoint
+        client_state = dict(client_state or {})
+        client_state.update({
+            "global_steps": self.global_steps,
+            "skipped_steps": self.skipped_steps,
+            "lr_scheduler": self.lr_scheduler.state_dict()
+            if self.lr_scheduler else None,
+        })
+        if hasattr(self.training_dataloader, "state_dict"):
+            client_state["data_sampler"] = \
+                self.training_dataloader.state_dict()
+        return save_checkpoint(self, save_dir, tag=tag,
+                               client_state=client_state,
+                               save_latest=save_latest)
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_module_only=False):
+        from deepspeed_tpu_torch.checkpoint.saver import load_checkpoint
+        path, client_state = load_checkpoint(
+            self, load_dir, tag=tag,
+            load_optimizer_states=load_optimizer_states,
+            load_module_only=load_module_only)
+        if client_state:
+            self.global_steps = client_state.get("global_steps",
+                                                 self.global_steps)
+            self.skipped_steps = client_state.get("skipped_steps",
+                                                  self.skipped_steps)
+            sd = client_state.get("lr_scheduler")
+            if sd and self.lr_scheduler is not None and \
+                    load_lr_scheduler_states:
+                self.lr_scheduler.load_state_dict(sd)
+            dsd = client_state.get("data_sampler")
+            if dsd and hasattr(self.training_dataloader, "load_state_dict"):
+                self.training_dataloader.load_state_dict(dsd)
+        if path is not None:
+            self._sentinel.reset()   # restored state gets fresh budgets
+        return path, client_state
+
+    def get_fp32_state_dict(self):
+        """The fp32 weights as a tree of host tensors (the master where
+        one is kept — the host step's too — else the params), copies."""
+        if self.host_step:
+            opt = self.host_optimizer
+            source = tree_unflatten(opt.tree, opt.master)
+        else:
+            source = self.state.master if self.keep_master \
+                else self.state.params
+        return tree_map(lambda t: t.detach().to("cpu", torch.float32,
+                                                copy=True), source)
 
     # ------------------------------------------------------------------
     # telemetry (`telemetry` config block) and the monitors
@@ -828,6 +1119,13 @@ class Engine:
                               "train/hbm_peak_bytes")):
                 if src in stats:
                     reg.gauge(dst).set(float(stats[src]))
+            if self.memscope is not None:
+                # memscope resets the allocator's peak every step: the
+                # run's peak is the ledger's
+                reg.gauge("train/hbm_peak_bytes").set(
+                    float(self.memscope.peak_bytes()))
+        if self.memscope is not None:
+            self.memscope.publish()     # the mem/* ledger gauges
         self.telemetry.maybe_export(self.global_steps)
 
     def _build_monitor(self):
@@ -976,5 +1274,5 @@ def _initialize_infinity(model, cfg, optimizer, lr_scheduler,
         min_loss_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis,
         consecutive_hysteresis=fp16.consecutive_hysteresis,
         lookahead=int(1 if off.lookahead is None else off.lookahead),
-        telemetry=cfg.telemetry, device=device)
+        telemetry=cfg.telemetry, checkpoint=cfg.checkpoint, device=device)
     return engine, None, engine.training_dataloader, None

@@ -25,10 +25,18 @@ schedule (accumulate every layer on the host, then step), as in the JAX
 package. The loss scaler is `runtime/precision.py`'s, driven on host
 scalars.
 
+Checkpoints (`save_checkpoint` / `load_checkpoint`) go through
+`checkpoint/saver.py`'s commit protocol under the config's `checkpoint`
+block (`initialize` passes it; an engine built without one takes the
+numpy engine, as the JAX package's tier falls back to): the state is the
+host masters, moments and loss-scale bookkeeping; the 16-bit store is
+rebuilt from the masters on load. `memory_plan()` prices the live tier
+(`telemetry/memscope.py`).
+
 The engine runs on `cuda` unless the caller passes `device="cpu"`.
-Checkpoints of this tier are ROADMAP queue 1 item 6 and its memory plan
-item 10: both raise.
 """
+
+import types
 
 import numpy as np
 import torch
@@ -82,7 +90,8 @@ class InfinityEngine:
                  initial_scale_power=16, loss_scale_window=1000,
                  min_loss_scale=1.0, hysteresis=2,
                  consecutive_hysteresis=False, landing_depth=None,
-                 max_write_bytes=None, telemetry=None, device=None):
+                 max_write_bytes=None, telemetry=None, checkpoint=None,
+                 device=None):
         if spec.layer_train_fn is None or spec.train_loss_fn is None:
             raise ValueError(
                 "InfinityEngine needs a LayeredModelSpec with train fns "
@@ -93,6 +102,14 @@ class InfinityEngine:
         self.gas = max(1, int(gradient_accumulation_steps))
         self.dtype = dtype
         self.telemetry = Telemetry(telemetry, subsystem="infinity")
+        # the config surface checkpoint/saver.py reads: the checkpoint
+        # engine (numpy by default: this tier's state lives on the host)
+        self.config = types.SimpleNamespace(
+            checkpoint=(checkpoint if checkpoint is not None else
+                        types.SimpleNamespace(engine="numpy",
+                                              async_save=False)),
+            telemetry=telemetry)
+        self.monitor = None
         self.resident = params_to(spec.resident, self.device, dtype)
         if self.device.type == "cpu":     # .to() may return the spec's own
             self.resident = tree_map(torch.clone, self.resident)
@@ -382,10 +399,13 @@ class InfinityEngine:
                 "lookahead": self.streamer.lookahead}
 
     def memory_plan(self, capacity_bytes=0):
-        raise NotImplementedError(
-            "InfinityEngine.memory_plan is not ported to deepspeed_tpu_torch "
-            "yet: it prices the tier through memscope (ROADMAP queue 1 item "
-            "10; the JAX package deepspeed_tpu serves it)")
+        """The memscope training plan priced from the live tier: the host
+        params column is byte-identical to the `LayerParamStore`, the
+        device staging column to the streamer's lookahead+1 ring."""
+        from deepspeed_tpu_torch.telemetry.memscope import \
+            plan_training_from_infinity
+        return plan_training_from_infinity(self,
+                                           capacity_bytes=capacity_bytes)
 
     @property
     def state(self):
@@ -420,18 +440,53 @@ class InfinityEngine:
             hysteresis_left=torch.tensor(int(s["hysteresis_left"]),
                                          dtype=torch.int32))
 
+    # ---- checkpointing (checkpoint/saver.py: the commit protocol, the
+    # validated rollback-walking loads, retention and the fault hooks; this
+    # tier only says what its state is) --
+
+    @property
+    def global_steps(self):
+        return self.step_count
+
+    @property
+    def checkpoint_device(self):
+        return torch.device("cpu")
+
+    def checkpoint_leaves(self):
+        from deepspeed_tpu_torch.checkpoint.saver import named_leaves
+        return named_leaves(self.state)
+
+    def restore_checkpoint_leaves(self, named, prefixes=None):
+        """Full-state loads only: this tier's masters and moments are the
+        model, a partial load has nothing to stand on."""
+        from deepspeed_tpu_torch.checkpoint.saver import unflatten_named
+
+        def host(v):
+            if isinstance(v, torch.Tensor) or not isinstance(v, np.ndarray):
+                return v
+            return torch.from_numpy(np.array(v)) if v.ndim else v.item()
+
+        self.state = unflatten_named(self.state, {k: host(v)
+                                                  for k, v in named.items()})
+
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True):
-        raise NotImplementedError(
-            "InfinityEngine.save_checkpoint is not ported to "
-            "deepspeed_tpu_torch yet: checkpointing is ROADMAP queue 1 item "
-            "6 (the JAX package deepspeed_tpu serves it)")
+        """Atomic-commit checkpoint of the tier's host state. The
+        write-back queue is flushed first: the manifest only ever
+        describes a quiesced store."""
+        self.store.flush_writes()
+        from deepspeed_tpu_torch.checkpoint import saver
+        client = dict(client_state or {})
+        client.setdefault("global_steps", int(self.step_count))
+        return saver.save_checkpoint(self, save_dir, tag=tag,
+                                     client_state=client,
+                                     save_latest=save_latest)
 
     def load_checkpoint(self, load_dir, tag=None):
-        raise NotImplementedError(
-            "InfinityEngine.load_checkpoint is not ported to "
-            "deepspeed_tpu_torch yet: checkpointing is ROADMAP queue 1 item "
-            "6 (the JAX package deepspeed_tpu serves it)")
+        """Validated restore with the corruption walk-back
+        (checkpoint/saver.py): the newest good tag wins."""
+        from deepspeed_tpu_torch.checkpoint import saver
+        return saver.load_checkpoint(self, load_dir, tag=tag)
 
     def release(self):
         self.telemetry.close()

@@ -3,7 +3,8 @@
 
 Under sustained overload the ladder sheds service on purpose, cheapest
 reversible lever first, reading the free-block fraction, the engine's
-queue depth and (with telemetry on) TTFT p99 from `latency_snapshot()`:
+queue depth, (with telemetry on) TTFT p99 from `latency_snapshot()` and
+(optionally) the memory headroom:
 
   level 0  normal service
   level 1  cap the accepted draft length to 1 (the verify keeps its
@@ -20,8 +21,10 @@ queue depth and (with telemetry on) TTFT p99 from `latency_snapshot()`:
 One rung up per pressured evaluation; one rung down after `hold_steps`
 consecutive calm evaluations (every signal under its low watermark). The
 gap between the watermarks and the hold count keep the level from
-flapping. The JAX package's HBM-headroom signal reads its memscope ledger,
-which the port does not have (`DegradationConfig` refuses it).
+flapping. With `headroom_low` > 0 and the memscope ledger on
+(`telemetry.memscope`, a known capacity), the device-memory headroom
+(`memscope.headroom_frac()`) is one more signal; without the ledger it is
+left out, as in the JAX package.
 
 Host-side control flow at scheduler-sync granularity only; with
 `serving.degradation.enabled` false no controller is built.
@@ -95,8 +98,14 @@ class PressureController:
             p99 = eng.latency_snapshot().get("ttft_ms", {}).get("p99")
             if p99 is not None:
                 out["ttft_p99_ms"] = float(p99)
-        # the HBM-headroom signal reads the memscope ledger, which the port
-        # does not have: DegradationConfig refuses headroom_low > 0
+        # optional device-memory headroom signal from the memscope ledger
+        # (needs telemetry.memscope AND a known capacity; omitted otherwise
+        # so the ladder falls back to its pool/queue/TTFT signals)
+        ms = getattr(eng, "memscope", None)
+        if self.config.headroom_low > 0 and ms is not None:
+            hf = ms.headroom_frac()
+            if hf is not None:
+                out["headroom_frac"] = float(hf)
         return out
 
     def _classify(self, sig) -> str:
@@ -105,13 +114,18 @@ class PressureController:
         the hysteresis band — neither escalate nor count toward
         de-escalation)."""
         cfg = self.config
+        # the headroom band mirrors the others (an absent signal reads as
+        # fully calm: sig only carries it when the ledger can compute it)
+        hr_high = max(cfg.headroom_high, cfg.headroom_low)
         if (sig["free_frac"] < cfg.free_block_low
                 or sig["queue"] > cfg.queue_high
-                or sig.get("ttft_p99_ms", 0.0) > cfg.ttft_p99_ms > 0):
+                or sig.get("ttft_p99_ms", 0.0) > cfg.ttft_p99_ms > 0
+                or sig.get("headroom_frac", 1.0) < cfg.headroom_low):
             return "pressured"
         if (sig["free_frac"] >= cfg.free_block_high
                 and sig["queue"] <= cfg.queue_low
-                and not sig.get("ttft_p99_ms", 0.0) > cfg.ttft_p99_ms > 0):
+                and not sig.get("ttft_p99_ms", 0.0) > cfg.ttft_p99_ms > 0
+                and sig.get("headroom_frac", 1.0) >= hr_high):
             return "calm"
         return "hold"
 

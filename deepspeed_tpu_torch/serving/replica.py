@@ -9,9 +9,9 @@ cancel, queue extraction for failover, the read-only affinity probe, load
 signals (queue depth / active slots / available blocks — the quantities
 the serving gauges export), and the prefill->decode handoff verbs.
 
-Divergences from the reference: `memory_snapshot()` is None (the memory
-ledger, memscope, is not ported yet) and `compile_stats()` is `{}` (the
-port compiles no programs).
+`memory_snapshot()` is the engine's memscope ledger (`telemetry.memscope`),
+or None without one. Divergence from the reference: `compile_stats()` is
+`{}` (the port compiles no programs).
 """
 
 from typing import Any, Dict, List, Optional
@@ -166,9 +166,10 @@ class ReplicaHandle:
         return None
 
     def memory_snapshot(self) -> Optional[Dict[str, Any]]:
-        """The replica's device-memory ledger, or None without one — the
-        router aggregates these into pool-level `mem/*` gauges. The port
-        has no memory ledger yet: every replica answers None."""
+        """The replica's device-memory ledger (telemetry/memscope.py
+        snapshot), or None when the engine runs without
+        `telemetry.memscope` — the router aggregates these into pool-level
+        `mem/*` gauges."""
         return None
 
     def compat_descriptor(self) -> Optional[Dict[str, Any]]:
@@ -234,7 +235,8 @@ class InProcessReplica(ReplicaHandle):
         self.engine.set_clock(clock)
 
     def memory_snapshot(self):
-        return None
+        ms = getattr(self.engine, "memscope", None)
+        return ms.snapshot() if ms is not None else None
 
     def observability_pull(self, cursor=0):
         # no spool: an in-process engine's spans/flight events already land

@@ -66,8 +66,9 @@ Self-healing extends health beyond "step() threw":
     deadlines, the watchdog, and hedging share one deterministic time
     source under test.
 
-The pool's `mem/*` gauges read `memory_snapshot()`; with no memory ledger
-ported, every replica answers None and they stay unset.
+The pool's `mem/*` gauges aggregate the replicas' `memory_snapshot()`s
+(their memscope ledgers, `telemetry.memscope`); a replica without one
+answers None, and with none at all the gauges stay unset.
 """
 
 import collections
@@ -1527,8 +1528,8 @@ class ServingRouter:
         (bytes_in_use/peak/capacity/unattributed) as the MAX — in-process
         replicas all read the same device allocator, so summing those
         would multiply one device by the replica count. Per-replica
-        detail under "replicas". {} when no replica has a ledger (every
-        replica of the port, until memscope is ported)."""
+        detail under "replicas". {} when no replica runs with
+        `telemetry.memscope`."""
         per: Dict[str, Dict[str, Any]] = {}
         for rid, rep in self.replicas.items():
             if rid in self._dead or rid in self._quarantined:

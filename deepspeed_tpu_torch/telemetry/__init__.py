@@ -29,8 +29,9 @@ disabled-by-default contract:
   * `flightrec` (`flight_recorder.py`, `telemetry.flight_recorder`) — a
     bounded ring of scheduling events, dumped on failure.
 
+`telemetry.memscope` builds the engines' memory ledgers (`memscope.py`).
 The compile watchdog is a null object with its surface (the port compiles
-no programs), and the config refuses `memscope`.
+no programs).
 
 `peak_flops()` knows NVIDIA cards only (`PEAK_FLOPS`); on any other device,
 with no `peak_tflops` override, it returns None and the train engine leaves

@@ -1,2 +1,3 @@
 """Test-support utilities shipped with the port: the chaos harness
-(`chaos.py`) and the fabric's tiny seeded engine (`fabric.py`)."""
+(`chaos.py`), the fabric's tiny seeded engine (`fabric.py`) and the
+checkpoint / recovery fault injection (`faults.py`)."""

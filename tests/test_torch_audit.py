@@ -7,6 +7,7 @@ fp32 on the CPU with the same numpy-seeded weights.
 
 import dataclasses
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -452,13 +453,25 @@ def test_ladder_disabled_builds_nothing(twins):
 
 
 def test_headroom_signal_refuses():
-    """The HBM-headroom signal reads a memscope ledger the port does not
-    have: > 0 refuses at config time, the rest of the block builds."""
-    with pytest.raises(NotImplementedError, match="headroom_low"):
-        DegradationConfig(enabled=True, headroom_low=0.1)
-    with pytest.raises(NotImplementedError, match="memscope"):
-        TpuInferenceConfig.from_dict(
-            {"serving": {"degradation": {"headroom_low": 0.2}}})
+    """The memory-headroom signal no longer refuses: it reads the memscope
+    ledger, which the port has now. The block takes JAX's fields and
+    defaults, and the ladder classifies a headroom reading as JAX's does
+    (pressured below headroom_low, calm at or above headroom_high)."""
+    mine = DegradationConfig(enabled=True, headroom_low=0.1,
+                             headroom_high=0.3)
+    theirs = JaxDegr(enabled=True, headroom_low=0.1, headroom_high=0.3)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+    cfg = TpuInferenceConfig.from_dict(
+        {"serving": {"degradation": {"headroom_low": 0.2}}})
+    assert cfg.serving.degradation.headroom_low == 0.2
     cfg = TpuInferenceConfig.from_dict(
         {"serving": {"degradation": {"enabled": True, "queue_high": 3}}})
     assert cfg.serving.degradation.queue_high == 3
+    calm = {"free_frac": 1.0, "queue": 0.0}
+    for hf in (0.05, 0.2, 0.5, None):
+        sig = dict(calm) if hf is None else dict(calm, headroom_frac=hf)
+        got = PressureController._classify(
+            types.SimpleNamespace(config=mine), sig)
+        want = JaxController._classify(types.SimpleNamespace(config=theirs),
+                                     sig)
+        assert got == want, (hf, got, want)

@@ -147,7 +147,12 @@ def test_cuda_wrappers_take_the_plain_version_for_cpu_tensors():
 def test_unported_features_refuse_at_config_time(override):
     """Features the port lacks refuse when the config is built. The
     telemetry block's request tracer and flight recorder are ported now:
-    their cases build, and turn the matching object on."""
+    their cases build, and turn the matching object on; so does the
+    ladder's memory-headroom signal (it reads the memscope ledger)."""
+    if "serving" in override:
+        cfg = TpuInferenceConfig.from_dict(override)
+        assert cfg.serving.degradation.headroom_low == 0.1
+        return
     tel = override.get("telemetry", {})
     if tel.get("tracing") or tel.get("flight_recorder"):
         cfg = TpuInferenceConfig.from_dict(override)
@@ -208,8 +213,23 @@ def test_serving_overrides_are_validated_too():
                                     "max_out_tokens": 64}, device="cpu")
     with pytest.raises(ValueError, match="needs a draft DecodeModelSpec"):
         engine.serving(spec_decode={"drafter": "model"})
-    with pytest.raises(NotImplementedError, match="headroom_low"):
-        engine.serving(degradation={"enabled": True, "headroom_low": 0.5})
+    # the headroom signal builds; as in the JAX package it is left out
+    # while memscope is off, and read from the ledger when it is on
+    off = engine.serving(degradation={"enabled": True, "headroom_low": 0.5})
+    assert off.memscope is None
+    assert "headroom_frac" not in off.pressure._signals()
+    on = init_inference(make_gpt_decode_model(TINY, name="tiny"),
+                        config={"dtype": "float32",
+                                "kv_cache_dtype": "float32",
+                                "kv_block_size": 16, "max_out_tokens": 64,
+                                "telemetry": {
+                                    "enabled": True, "prometheus": False,
+                                    "jsonl": False, "memscope": True,
+                                    "memscope_capacity_bytes": 1 << 30}},
+                        device="cpu").serving(
+        degradation={"enabled": True, "headroom_low": 0.5})
+    want = on.memscope.headroom_frac()
+    assert 0 < want < 1 and on.pressure._signals()["headroom_frac"] == want
     with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
         init_inference(make_gpt_decode_model(TINY, name="tiny"),
                        config={"dtype": "float32"}, device="cpu")
@@ -356,9 +376,22 @@ def test_initialize_refuses_to_train_on_the_cpu_quietly():
     {"activation_checkpointing": {"cpu_checkpointing": True}},
 ], ids=lambda o: str(o))
 def test_unported_train_features_refuse_at_config_time(override):
+    """Train features the port lacks refuse when the config is built.
+    The memscope ledger, the `checkpoint` block and `fault_tolerance` are
+    ported: their cases build, with the JAX package's fields."""
     from deepspeed_tpu_torch.config.core import TpuTrainConfig
+    base = {"train_micro_batch_size_per_gpu": 2}
+    if "checkpoint" in override or "fault_tolerance" in override or \
+            override.get("telemetry", {}).get("memscope"):
+        cfg = TpuTrainConfig.load({**base, **override})
+        assert cfg.checkpoint.engine == "torch"
+        assert cfg.checkpoint.async_save == ("checkpoint" in override)
+        assert cfg.fault_tolerance.enabled == ("fault_tolerance" in override)
+        assert cfg.fault_tolerance.nonfinite_budget == 3
+        assert cfg.telemetry.memscope == ("telemetry" in override)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
-        TpuTrainConfig.load({"train_micro_batch_size_per_gpu": 2, **override})
+        TpuTrainConfig.load({**base, **override})
 
 
 @pytest.mark.parametrize("override", [

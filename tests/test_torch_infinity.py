@@ -180,6 +180,29 @@ def test_initialize_routes_a_layered_spec_and_feeds_the_dataloader(tmp_path):
     assert len(loader) == 4 and eng.step_count == 4
 
 
+@pytest.mark.parametrize("engine", ["torch", "numpy"])
+def test_initialize_hands_the_checkpoint_block_to_the_tier(engine, tmp_path):
+    """The `checkpoint` block reaches a layered spec's engine, as the JAX
+    package's `initialize` passes it: its engine writes the state, and
+    `keep_last_n: 1` retention leaves only the newest tag."""
+    spec = tgpt.make_gpt_layered_model(
+        TCFG, params=tgpt.params_from_jax(_params(9)))
+    config = _config(tmp_path, offload_param={"device": "cpu"})
+    config["checkpoint"] = {"engine": engine, "keep_last_n": 1}
+    eng, *_ = initialize(model=spec, config=config, device="cpu")
+    save_dir = tmp_path / "ckpt"
+    for b in _batches(2, seed=9):
+        eng.train_batch(b)
+        eng.save_checkpoint(str(save_dir))
+    tags = sorted(p.name for p in save_dir.iterdir() if p.is_dir())
+    assert tags == ["global_step2"]
+    state_file = {"torch": "state.pt", "numpy": "state.npz"}[engine]
+    assert (save_dir / "global_step2" / "state" / state_file).exists()
+    path, client = eng.load_checkpoint(str(save_dir))
+    assert path.endswith("global_step2") and client["global_steps"] == 2
+    eng.release()
+
+
 @pytest.mark.parametrize("case", ["no_offload", "optimizer", "params",
                                   "scheduler", "lamb"])
 def test_initialize_refuses_what_jax_asserts(case, tmp_path):
@@ -221,15 +244,27 @@ def test_streamed_weights_stay_within_lookahead_plus_one_layers():
         assert eng.peak_param_hbm_bytes * 2 <= eng.store.host_bytes
 
 
-def test_checkpoints_and_memory_plan_name_their_items():
-    eng = InfinityEngine(tgpt.make_gpt_layered_model(TCFG),
-                         dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.save_checkpoint("unused")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.load_checkpoint("unused")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eng.memory_plan()
+def test_checkpoints_and_memory_plan_name_their_items(tmp_path):
+    """Checkpoints (ROADMAP item 6) and the memory plan (item 10) of this
+    tier are ported: save -> train on -> load -> the same step again is
+    bit-identical, and `memory_plan()` is JAX's `plan_training_from_infinity`
+    field for field on the same tier."""
+    jeng, eng = _pair(_params(8), tmp_path, "cpu", lr=1e-3)
+    batches = _batches(3, seed=8)
+    eng.train_batch(batches[0])
+    eng.save_checkpoint(str(tmp_path / "ckpt"))
+    ref = [eng.train_batch(b) for b in batches[1:]]
+    ref_masters = _masters(eng)
+    path, client = eng.load_checkpoint(str(tmp_path / "ckpt"))
+    assert path.endswith("global_step1") and client["global_steps"] == 1
+    assert eng.step_count == 1
+    assert [eng.train_batch(b) for b in batches[1:]] == ref
+    assert all(np.array_equal(a, b)
+               for a, b in zip(_masters(eng), ref_masters))
+    want = jeng.memory_plan(capacity_bytes=1 << 30).to_dict()
+    assert eng.memory_plan(capacity_bytes=1 << 30).to_dict() == want
+    jeng.release()
+    eng.release()
 
 
 @pytest.mark.parametrize("tier", ["cpu", "nvme"])

@@ -11,6 +11,7 @@ MoE-GPT atol 1e-5, the CSV monitor's Train/loss rows rtol 1e-4 (the two
 engines' losses, as tests/test_torch_moe.py holds them).
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -374,11 +375,15 @@ def test_peak_flops_override_and_nvidia_table():
 
 @pytest.mark.parametrize("flag", ["tracing", "flight_recorder", "memscope"])
 def test_unported_telemetry_features_refuse(flag, tmp_path):
-    """memscope still refuses; the request tracer and the flight recorder
-    are ported, so their flags build the real objects (and only theirs)."""
+    """No telemetry feature refuses any more: the request tracer and the
+    flight recorder build the real objects (and only theirs); memscope
+    builds the config with the JAX package's fields and defaults (the
+    engines build the ledger from it)."""
     if flag == "memscope":
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            TelemetryConfig(enabled=True, **{flag: True})
+        from deepspeed_tpu.config.core import TelemetryConfig as JTel
+        cfg = TelemetryConfig(enabled=True, memscope=True)
+        assert cfg.memscope and dataclasses.asdict(cfg) == \
+            dataclasses.asdict(JTel(enabled=True, memscope=True))
     else:
         t = Telemetry(TelemetryConfig(**REGISTRY_ONLY, output_path=str(
             tmp_path), **{flag: True}))
