@@ -388,6 +388,26 @@ Phases, one JSON line each:
            loses work), the observability plane off then on (overhead,
            pull bytes a step); every child on the card, its own
            paged-decode launches exact;
+  autoscale the router lane's model and trace (the router phase's
+           weights) as a burst on one in-process replica behind a
+           ServingRouter, the Autoscaler ticking once a router step: the
+           pool scales to 2 (the joiner warmed with the hot prefix), then
+           idle ticks drain and reap it to 1; exactly one scale-up and one
+           scale-down, every request completed once, the joiner's affinity
+           hits > 0, served tokens equal generate()'s choice on the same
+           prefix on >= 0.9, every audit clean, paged-decode launches
+           exact; the pool's snapshot through `serving.top_cli` and its
+           JSONL through `telemetry.cli` (both exit 0);
+  zero     data-parallel ZeRO at the north-star width (gpt2-1.3b, 2 of
+           24 layers, micro-batch 4, seq 512, gas 2, bf16, the bf16
+           accumulator), stages 0-3, 1 + 2 steps each, over a one-rank
+           NCCL process group (a TCPStore on 127.0.0.1) and again with no
+           group: losses and final params bit-equal (else within the
+           repeated run's spread), flash launches exact, every shard and
+           state tensor on the card, the facade's calls a step as planned
+           with 0 wire bytes, each stage's seconds a step beside stage
+           0's; with more than one card, one rank a card (up to 4) trains
+           stage 3 and the ranks' params agree bit for bit;
   profile  (opt-in, after the phases it reads) torch.profiler over the same
            generate() call, serving runs (bf16, quantized, MoE) and one
            train_batch (gpt2-760m, MoE, sparse): kernel time on the card by
@@ -401,15 +421,18 @@ long-context lanes and the routing directives), `build,serve` (TTFT / TPOT), `bu
 `build,offload,infinity,zero_inference,zero_offload` (the offload tier;
 its swap folder is `build/chip_smoke_swap/` in the checkout, removed after
 each arm), `build,checkpoint,memscope` (checkpoints, rollback and the
-memory ledger) or `build,router,robustness,fabric` (the serving fabric; the
-fabric's children load the kernel libraries the build phase made).
+memory ledger), `build,router,robustness,fabric` (the serving fabric; the
+fabric's children load the kernel libraries the build phase made) or
+`build,autoscale,zero` (the autoscaler and the CLIs; ZeRO over a process
+group).
 Then each phase's wall seconds, the
 card's name and power limit, the `kernels` summary line (one row per
 kernel and path that runs it — the flash forward has generate,
 quant_generate, train, north_star, longctx, longctx16k, routing,
 moe_train, bert, llama_generate, offload, infinity,
 zero_inference_generate, zero_offload and checkpoint rows;
-paged_decode_attention memscope, router, robustness and fabric rows;
+paged_decode_attention memscope, router, robustness, fabric and
+autoscale rows; the flash kernels a zero row;
 quantize_int8 a
 quant_serve row, the K/V
 writes, and a quant_serve_build row, the weights — with `launches`
@@ -1571,21 +1594,28 @@ def _device_ms(fn, calls=10, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us, kernels = 0.0, {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = ev.self_cuda_time_total
-        if t <= 0 or ev.device_type.name != "CUDA":
-            continue
-        us += t
-        kernels[ev.key[:80]] = ev.count / calls
-    return us / 1e3 / calls, kernels
+    # after many sessions the profiler can record none of a session's
+    # device events: such a session is taken again, up to
+    # NORM_TRACE_SESSIONS times, as the norms phase's trace check does
+    for _ in range(NORM_TRACE_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us, kernels = 0.0, {}
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total", None)
+            if t is None:
+                t = ev.self_cuda_time_total
+            if t <= 0 or ev.device_type.name != "CUDA":
+                continue
+            us += t
+            kernels[ev.key[:80]] = ev.count / calls
+        if us > 0:
+            return us / 1e3 / calls, kernels
+    raise RuntimeError(f"_device_ms: {NORM_TRACE_SESSIONS} profiler sessions "
+                       f"recorded no device event")
 
 
 def _host_ms(fn, calls=50):
@@ -4566,7 +4596,8 @@ def _fabric_rows(rng, checks, results):
     each at its path's shape (the kernels' edge cases and faults stay in
     the rows above)."""
     rows = {}
-    for case, paths in ((PAGED_ROUTER, ("router", "router_disagg")),
+    for case, paths in ((PAGED_ROUTER, ("router", "router_disagg",
+                                        "autoscale")),
                         (dict(PAGED_ROUTER, g=128), ("router_disagg_int8",)),
                         (PAGED_ROBUST, ("robustness",)),
                         (PAGED_FABRIC, ("fabric",))):
@@ -4689,6 +4720,7 @@ def phase_router(state):
     from deepspeed_tpu_torch.serving import ServingRouter
     t_phase = time.perf_counter()
     cfg, spec, engine = _lane_engine(PREFIX_CFG, "router-lane")
+    state["router_engine"] = (cfg, engine)    # the autoscale phase's
     setup_s = time.perf_counter() - t_phase
     L = cfg.n_layer
     prompts, news = _router_trace(cfg.vocab_size)
@@ -8973,6 +9005,448 @@ def _offload_kernels(rng, checks, results):
     for name in ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         results[name, "zero_offload"] = results[name, "north_star"]
+        results[name, "zero"] = results[name, "north_star"]
+
+
+# ----------------------------------------------------------------------
+# the autoscaler and data-parallel ZeRO over a process group
+# ----------------------------------------------------------------------
+
+# the autoscale cell: the router lane's model and trace (bench.py:1015-1109,
+# the router phase's weights when it ran), one replica to start, at most 2;
+# a burst of the 16 requests is the pressure (4 a live replica), the hot
+# 512-token prefix the join warmup; idle ticks drain and reap the pool
+AUTOSCALE = dict(min_replicas=1, max_replicas=2,
+                 scale_up_queue_per_replica=4.0, sustain_up=2,
+                 sustain_down=4, cooldown_ticks=2, warmup_prompts=1)
+AUTOSCALE_IDLE_TICKS = 40
+# the zero cell: the north-star lane's width (gpt2-1.3b, bench.py:1970) at
+# ZERO_LAYERS of 24 layers, micro-batch 4, seq 512, gas 2, bf16 with the
+# bf16 accumulator and the lane's remat policy, 1 warm-up + 2 steps at each
+# of ZeRO stages 0-3, over a one-rank NCCL process group and again without
+# a group
+ZERO_LAYERS, ZERO_GAS, ZERO_STEPS = 2, 2, 3
+ZERO_CONFIG = {**NORTH_CONFIG, "gradient_accumulation_steps": ZERO_GAS,
+               "telemetry": {"enabled": False}}
+ZERO_MAX_RANKS = 4
+ZERO_BACKEND, ZERO_DEVICE = "nccl", "cuda:0"
+
+
+def phase_autoscale(state):
+    """The router lane's trace as a burst on one in-process replica behind
+    a ServingRouter with the Autoscaler ticking once a router step: the
+    pool scales to 2 (the joiner warmed with the hot prefix), serves every
+    request once, then idle ticks drain and reap it back to 1. Exactly one
+    scale-up and one scale-down, the joiner's affinity hits > 0, served
+    tokens equal to generate()'s choice on the same prefix on >= 0.9,
+    every audit clean, paged-decode launches exact; then the pool's
+    snapshot through `serving.top_cli` and its JSONL through
+    `telemetry.cli`, both exit 0."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.config.core import TelemetryConfig
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.serving import (Autoscaler, InProcessReplica,
+                                             ServingRouter, top_cli)
+    from deepspeed_tpu_torch.telemetry import cli as metrics_cli
+    t_phase = time.perf_counter()
+    if "router_engine" in state:
+        cfg, engine = state["router_engine"]
+    else:
+        cfg, _, engine = _lane_engine(PREFIX_CFG, "router-lane")
+    L = cfg.n_layer
+    prompts, news = _router_trace(cfg.vocab_size)
+    hot = prompts[0][:ROUTER_PREFIX]     # the shared prefix (bench.py:1063)
+    handles = []
+
+    def replica(rid):
+        handles.append(InProcessReplica(engine=engine.serving(
+            max_slots=ROUTER_SLOTS, max_context=1024, prefill_chunk=128,
+            enable_prefix_caching=True), replica_id=rid))
+        return handles[-1]
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_autoscale_")
+    router = ServingRouter(replicas=[replica("r0")],
+                           telemetry_config=TelemetryConfig(
+                               enabled=True, prometheus=False, jsonl=True,
+                               monitor_bridge=False, flight_recorder=True,
+                               output_path=out_dir))
+    scaler = Autoscaler(router, spawn=lambda i: replica(f"auto{i}"),
+                        **AUTOSCALE)
+    scaler.note_prompt(hot)
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (p, n) in enumerate(zip(prompts, news)):
+        router.submit(Request(uid=i, tokens=p, max_new_tokens=n,
+                              stop_on_eos=False))
+    done, actions, joined = {}, [], {}
+    hits_at_join = 0
+    while router.in_flight or router._finished_buf:
+        for d in router.step():
+            if d.uid in done:
+                raise AssertionError(f"autoscale: uid {d.uid} completed "
+                                     f"twice")
+            done[d.uid] = d
+        act = scaler.tick()
+        actions.append(act)
+        if act == "scale_up":
+            rep = handles[-1]
+            joined = {"replica": rep.replica_id,
+                      "warm_affinity_blocks": rep.affinity(
+                          rep.hash_chain(hot))}
+            hits_at_join = router.counters["affinity_hits"]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    for _ in range(AUTOSCALE_IDLE_TICKS):
+        router.step()
+        act = scaler.tick()
+        actions.append(act)
+        if act == "reap":
+            break
+    counts = dict(LAUNCHES)
+    reqs = [Request(uid=i, tokens=p, max_new_tokens=n, stop_on_eos=False)
+            for i, (p, n) in enumerate(zip(prompts, news))]
+    _completed("autoscale", done, reqs)
+    ups, downs = actions.count("scale_up"), actions.count("scale_down")
+    if (ups, downs, actions.count("reap")) != (1, 1, 1) or \
+            len(router.replicas) != 1:
+        raise AssertionError(f"autoscale: {ups} scale-ups, {downs} "
+                             f"scale-downs, pool {sorted(router.replicas)} "
+                             f"({scaler.stats()})")
+    joiner_hits = router.counters["affinity_hits"] - hits_at_join
+    if not (joined.get("warm_affinity_blocks", 0) > 0 and joiner_hits > 0):
+        raise AssertionError(f"autoscale: the joiner's affinity {joined}, "
+                             f"hits after the join {joiner_hits}")
+    _expect("autoscale", counts, {"paged_decode_attention": L * sum(
+        h.stats()["decode_steps"] for h in handles)})
+    forced = _router_forced(engine, prompts, done)
+    if not forced["share"] >= ROUTER_AGREE_MIN:
+        raise AssertionError(f"autoscale: tokens equal generate()'s choice "
+                             f"on {forced['share']:.3f} < "
+                             f"{ROUTER_AGREE_MIN}")
+    audits = {}
+    for h in handles:
+        if h.replica_id in router.replicas:
+            audits[h.replica_id] = _clean_close(f"autoscale {h.replica_id}",
+                                                h.engine)
+        else:                    # reaped: closed by the router already
+            audit = h.engine.stats().get("audit", {})
+            if audit.get("violations"):
+                raise AssertionError(f"autoscale {h.replica_id}: audit "
+                                     f"{audit}")
+            audits[h.replica_id] = "reaped"
+    kinds = [e["kind"] for e in router.flightrec.events()]
+    for kind in ("scale_up", "scale_down", "reap"):
+        if kind not in kinds:
+            raise AssertionError(f"autoscale: no {kind!r} flight event "
+                                 f"({kinds})")
+    snap = router.observability_snapshot(refresh=True)
+    snap_path = f"{out_dir}/pool_snapshot.json"
+    with open(snap_path, "w") as f:
+        json.dump(snap, f, default=str)
+    router.telemetry.export(router.steps)
+    with contextlib.redirect_stdout(io.StringIO()) as cli_out:
+        rc_top = top_cli.main([snap_path])
+        rc_metrics = metrics_cli.main([out_dir])
+    if (rc_top, rc_metrics) != (0, 0):
+        raise AssertionError(f"autoscale: dstpu_top rc {rc_top}, "
+                             f"dstpu_metrics rc {rc_metrics}")
+    fabric = {k: v for k, v in snap.get("counters", {}).items() if v}
+    router.telemetry.close()
+    emit({"phase": "autoscale", "model": PREFIX_CFG, "dtype": "bfloat16",
+          "source": "bench.py:1015-1109 (the router lane's model and trace)",
+          "requests": ROUTER_REQUESTS, "slots_per_replica": ROUTER_SLOTS,
+          "autoscaler": AUTOSCALE, "actions": [a for a in actions if a],
+          "ticks": scaler.ticks, "stats": scaler.stats(),
+          "joined": joined, "joiner_affinity_hits": joiner_hits,
+          "served_tokens": sum(len(d.tokens) for d in done.values()),
+          "serve_wall_s": serve_s,
+          "tokens_per_s": sum(len(d.tokens) for d in done.values())
+          / serve_s,
+          "forced_agreement": forced["share"],
+          "differing_top2_gaps": forced["differing_top2_gaps"],
+          "router_counters": fabric, "audit": audits,
+          "flight_events": dict(collections.Counter(kinds)),
+          "cli_chars": len(cli_out.getvalue()),
+          "launches": counts, "phase_s": time.perf_counter() - t_phase,
+          "nvidia_smi": state["nvidia_smi"]})
+    return counts
+
+
+def _zero_free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _zero_cfg():
+    from deepspeed_tpu_torch.models.gpt import GPT2_CONFIGS
+    return dataclasses.replace(GPT2_CONFIGS[NORTH_MODEL], n_layer=ZERO_LAYERS,
+                               remat_policy=TRAIN_POLICY)
+
+
+def _zero_batch(cfg):
+    import torch
+    rng = np.random.default_rng(8)
+    return {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (NORTH_MBS * ZERO_GAS, NORTH_SEQ + 1))).to(
+            ZERO_DEVICE)}
+
+
+def _zero_run(stage, params, batch, save_dir=None):
+    """One engine at `stage` (over the process group when one is up):
+    losses, seconds a step, the final params (host copies), the flash
+    launches, the facade's calls a step and its stats, and where every
+    state tensor lives. With `save_dir`, then a checkpoint save: its
+    seconds and the allocator's peak above the bytes held when it
+    began."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.comm import collectives as coll
+    from deepspeed_tpu_torch.models.gpt import make_gpt_model
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    cfg = _zero_cfg()
+    config = dict(ZERO_CONFIG, zero_optimization={"stage": stage})
+    engine, *_ = initialize(model=make_gpt_model(cfg, name=NORTH_MODEL,
+                                                 params=params),
+                            config=config)
+    LAUNCHES.clear()
+    coll.LAUNCHES.clear()
+    coll.stats.reset()
+    losses, step_s = [], []
+    for _ in range(ZERO_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        step_s.append(time.perf_counter() - t0)
+    devices = {str(t.device) for t in tree_leaves(
+        (engine.state.params, engine.state.master, engine.state.opt_state,
+         engine.state.scaler, engine.state.step))}
+    out = {"losses": losses, "step_s": step_s,
+           "seconds_per_step": statistics.median(step_s[1:]),
+           "params": [t.detach().cpu() for t in tree_leaves(
+               engine.state.params)],
+           "launches": dict(LAUNCHES),
+           "comm_launches": {k: v / ZERO_STEPS for k, v in
+                             coll.LAUNCHES.items()},
+           "comm_stats": coll.stats.snapshot(), "devices": devices,
+           "sharded": engine.sharded,
+           "dims": [engine._pdims, engine._sdims, engine._gdims]}
+    if save_dir is not None:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        engine.save_checkpoint(save_dir, tag="zero")
+        out["save"] = {"seconds": time.perf_counter() - t0, "held": held,
+                       "peak_above_held":
+                       torch.cuda.max_memory_allocated() - held}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zero_facade(x):
+    """The facade's primitives on the card over the one-rank NCCL group: each
+    returns its input (the untiled gather stacked), issues one operation to
+    NCCL and records no wire bytes."""
+    import torch
+    from deepspeed_tpu_torch.comm import collectives as coll
+    from deepspeed_tpu_torch.comm import comm
+    coll.LAUNCHES.clear()
+    coll.stats.reset()
+    outs = {"all_reduce": coll.psum(x, "data"),
+            "all_gather": coll.all_gather(x, "data")[0],
+            "reduce_scatter": coll.reduce_scatter(x, "data"),
+            "broadcast": comm.broadcast(x, src=0)}
+    torch.cuda.synchronize()
+    bad = [k for k, v in outs.items() if not torch.equal(v, x)]
+    if bad:
+        raise AssertionError(f"zero facade: {bad} changed the tensor at one "
+                             f"rank")
+    if dict(coll.LAUNCHES) != {k: 1 for k in outs}:
+        raise AssertionError(f"zero facade: launches {dict(coll.LAUNCHES)}")
+    if coll.stats.snapshot():
+        raise AssertionError(f"zero facade: wire bytes at one rank "
+                             f"{coll.stats.snapshot()}")
+    return dict(coll.LAUNCHES)
+
+
+def phase_zero(state):
+    """Data-parallel ZeRO on the card: the north-star width at ZERO_LAYERS
+    layers, stages 0-3, first over a real NCCL process group of one rank
+    (a TCPStore on 127.0.0.1, destroyed at the phase's end), then with no
+    group; the losses and final params bit-equal between the two (else
+    within the repeated run's spread), the flash launches exact, every
+    state tensor on the card, no facade call in the step (at one rank
+    nothing is sharded, JAX's rule) and 0 wire bytes, each stage's seconds
+    a step beside stage 0's. On the group, the facade's primitives once
+    each on the wte's bytes (each its input back, one NCCL operation), and
+    a stage-3 save whose allocator peak stays within CKPT_MEM_SLACK of the
+    bytes held. With more than one card visible, one rank a card (up to
+    ZERO_MAX_RANKS) trains stage 3 and the ranks' params must agree bit
+    for bit."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models.gpt import init_gpt_params
+    t_phase = time.perf_counter()
+    cfg = _zero_cfg()
+    params = init_gpt_params(cfg, seed=0)
+    batch = _zero_batch(cfg)
+    store = dist.TCPStore("127.0.0.1", _zero_free_port(), 1, True)
+    dist.init_process_group(ZERO_BACKEND, store=store, rank=0, world_size=1)
+    root = tempfile.TemporaryDirectory()
+    try:
+        comm.init_distributed(device=ZERO_DEVICE)
+        facade = _zero_facade(params["wte"].to(ZERO_DEVICE).reshape(-1))
+        grouped = {s: _zero_run(s, params, batch,
+                                f"{root.name}/s3" if s == 3 else None)
+                   for s in (0, 1, 2, 3)}
+    finally:
+        comm.destroy_process_group()
+        del store
+        root.cleanup()
+    save = grouped[3]["save"]
+    if save["peak_above_held"] > CKPT_MEM_SLACK:
+        raise AssertionError(f"zero stage 3: the save's allocator peak "
+                             f"{save['peak_above_held']} B above the "
+                             f"{save['held']} B held")
+    alone = {s: _zero_run(s, params, batch) for s in (0, 1, 2, 3)}
+    L = cfg.n_layer
+    want = {"flash_attention": 2 * L * ZERO_GAS * ZERO_STEPS,
+            "flash_attention_bwd_dq": L * ZERO_GAS * ZERO_STEPS,
+            "flash_attention_bwd_dkv": L * ZERO_GAS * ZERO_STEPS}
+    stages = {}
+    for s in (0, 1, 2, 3):
+        g, a = grouped[s], alone[s]
+        for path, run in (("grouped", g), ("alone", a)):
+            _expect(f"zero stage {s} {path}", run["launches"], want)
+            if run["devices"] != {ZERO_DEVICE}:
+                raise AssertionError(f"zero stage {s} {path}: state on "
+                                     f"{run['devices']}")
+            if not all(np.isfinite(run["losses"])):
+                raise AssertionError(f"zero stage {s} {path}: losses "
+                                     f"{run['losses']}")
+        if not g["sharded"] or a["sharded"]:
+            raise AssertionError(f"zero stage {s}: the grouped engine must "
+                                 f"be sharded, the other not")
+        if any(d is not None for dims in g["dims"] for d in dims) or \
+                g["comm_launches"]:
+            raise AssertionError(f"zero stage {s}: at one rank nothing is "
+                                 f"sharded and the step issues no "
+                                 f"collective; dims {g['dims']}, facade "
+                                 f"calls a step {g['comm_launches']}")
+        if g["comm_stats"]:
+            raise AssertionError(f"zero stage {s}: wire bytes at one rank "
+                                 f"{g['comm_stats']}")
+        bit_equal = g["losses"] == a["losses"] and all(
+            torch.equal(x, y) for x, y in zip(g["params"], a["params"]))
+        spread = None
+        if not bit_equal:
+            again = _zero_run(s, params, batch)
+            spread = max(float((x.float() - y.float()).abs().max())
+                         for x, y in zip(again["params"], a["params"]))
+            diff = max(float((x.float() - y.float()).abs().max())
+                       for x, y in zip(g["params"], a["params"]))
+            lspread = max(abs(x - y) for x, y in zip(again["losses"],
+                                                     a["losses"]))
+            ldiff = max(abs(x - y) for x, y in zip(g["losses"],
+                                                   a["losses"]))
+            if not (diff <= spread and ldiff <= lspread):
+                raise AssertionError(
+                    f"zero stage {s}: grouped vs alone params {diff}, "
+                    f"losses {ldiff}; the repeated run's spread {spread}, "
+                    f"{lspread}")
+        stages[s] = {"losses": g["losses"], "bit_equal": bit_equal,
+                     "spread": spread,
+                     "seconds_per_step": g["seconds_per_step"],
+                     "seconds_per_step_alone": a["seconds_per_step"],
+                     "vs_stage0": g["seconds_per_step"]
+                     / grouped[0]["seconds_per_step"],
+                     "facade_calls_per_step": g["comm_launches"],
+                     "step_s": g["step_s"]}
+    ranks = None
+    n_cards = min(torch.cuda.device_count(), ZERO_MAX_RANKS)
+    if n_cards > 1:
+        ranks = _zero_ranks(n_cards)
+    n_params = sum(t.numel() for t in params["blocks"].values()) + sum(
+        t.numel() for k, t in params.items() if k != "blocks")
+    emit({"phase": "zero", "model": NORTH_MODEL, "n_layer": L,
+          "n_params": n_params, "source": "bench.py:1970-1977 (north-star "
+          "width, ZERO_LAYERS of 24 layers, gas 2)",
+          "config": ZERO_CONFIG, "seq": NORTH_SEQ, "remat": cfg.remat_policy,
+          "world_size": 1, "backend": ZERO_BACKEND, "stages": stages,
+          "facade_launches": facade, "save_stage3": save, "ranks": ranks, "launches": grouped[3]["launches"],
+          "phase_s": time.perf_counter() - t_phase,
+          "nvidia_smi": state["nvidia_smi"]})
+    return grouped[3]["launches"]
+
+
+def _zero_rank(rank, world, store_dir, results):
+    """One rank of the multi-card check: stage 3 over NCCL, the same global
+    batch on every rank; its params' bytes digest."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt import make_gpt_model
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        f"{store_dir}/store", world), rank=rank, world_size=world)
+    try:
+        cfg = _zero_cfg()
+        config = dict(ZERO_CONFIG, zero_optimization={"stage": 3},
+                      mesh={"data": world})
+        engine, *_ = initialize(model=make_gpt_model(
+            cfg, name=NORTH_MODEL, seed=0), config=config)
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(8).integers(
+            0, cfg.vocab_size, (NORTH_MBS * ZERO_GAS * world,
+                                NORTH_SEQ + 1))).cuda()}
+        losses = [float(engine.train_batch(batch)) for _ in range(2)]
+        full = engine._full_state().params
+        digest = hashlib.sha256()
+        for t in tree_leaves(full):
+            digest.update(t.detach().cpu().view(torch.uint8).numpy()
+                          .tobytes())
+        results.put((rank, losses, digest.hexdigest()))
+    finally:
+        dist.destroy_process_group()
+
+
+def _zero_ranks(world):
+    """Stage 3 on `world` cards, one spawned rank a card: every rank's
+    losses and params must agree bit for bit."""
+    import tempfile
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    procs = [ctx.Process(target=_zero_rank,
+                         args=(r, world, store_dir, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        got = sorted(results.get(timeout=600) for _ in range(world))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    if len({(tuple(losses), digest) for _, losses, digest in got}) != 1:
+        raise AssertionError(f"zero across {world} cards: ranks disagree "
+                             f"{got}")
+    return {"world_size": world, "losses": got[0][1], "digest": got[0][2]}
 
 
 def phase_profile(state):
@@ -9055,7 +9529,7 @@ def main():
          "longctx16k", "routing", "bert", "llama", "moe", "sparse",
          "evoformer", "offload", "infinity", "zero_inference",
          "zero_offload", "checkpoint", "memscope", "router", "robustness",
-         "fabric"]
+         "fabric", "autoscale", "zero"]
     dev = phase_device()
     state, launches, kern, wall = {"nvidia_smi": dev["nvidia_smi"]}, {}, \
         {}, {}
@@ -9093,7 +9567,9 @@ def main():
                        ("memscope", phase_memscope),
                        ("router", phase_router),
                        ("robustness", phase_robustness),
-                       ("fabric", phase_fabric)):
+                       ("fabric", phase_fabric),
+                       ("autoscale", phase_autoscale),
+                       ("zero", phase_zero)):
         if phase in phases:
             t0 = time.perf_counter()
             counts = run(state)        # counts of each path's run; the

@@ -18,9 +18,32 @@ Entry points run on `cuda` unless the caller passes `device="cpu"`:
     engine = init_inference(make_gpt_decode_model(name="gpt2-125m"))
     engine.generate(prompts, max_new_tokens=32)
     engine.serving(max_slots=8).run(requests)
+
+The top-level names are the JAX package's `__all__` where the port has
+them (`DeepSpeedEngine`, `DeepSpeedConfig` and `DeepSpeedInferenceConfig`
+are its aliases), with `ServingRouter` beside them; `comm` is the comm
+facade over `torch.distributed` and `init_distributed` its bring-up.
 """
 
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.comm.comm import init_distributed
+from deepspeed_tpu_torch.config.core import TpuTrainConfig
+from deepspeed_tpu_torch.inference.config import TpuInferenceConfig
 from deepspeed_tpu_torch.inference.engine import InferenceEngine, init_inference
+from deepspeed_tpu_torch.inference.scheduler import Request, ServingEngine
+from deepspeed_tpu_torch.ops.transformer import (DeepSpeedTransformerConfig,
+                                                 DeepSpeedTransformerLayer)
 from deepspeed_tpu_torch.runtime.engine import Engine, initialize
+from deepspeed_tpu_torch.serving import ServingRouter
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
-__all__ = ["Engine", "InferenceEngine", "init_inference", "initialize"]
+DeepSpeedEngine = Engine
+DeepSpeedConfig = TpuTrainConfig
+DeepSpeedInferenceConfig = TpuInferenceConfig
+
+__all__ = ["initialize", "init_inference", "init_distributed", "Engine",
+           "DeepSpeedEngine", "InferenceEngine", "ServingEngine", "Request",
+           "TpuTrainConfig", "DeepSpeedConfig", "TpuInferenceConfig",
+           "DeepSpeedInferenceConfig", "DeepSpeedTransformerLayer",
+           "DeepSpeedTransformerConfig", "comm", "logger", "log_dist",
+           "ServingRouter"]

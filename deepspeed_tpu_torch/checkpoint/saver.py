@@ -37,6 +37,15 @@ Leaf names on disk follow the JAX package's layout: `params/...`,
 has no counterpart in the port (dropout is never applied; the port draws
 from `torch.Generator`s) and is dropped on load.
 
+Across ranks (a training engine over a process group of more than one
+rank) the ranks gather the sharded leaves one at a time into rank 0's
+host memory, rank 0 writes the tree in the one-rank layout above, and
+every rank waits for rank 0's outcome (a failed save raises on every
+rank); a load reads the whole leaves on every rank and each rank keeps
+its shards. So
+`zero_to_fp32`, `universal` and the doctor read it unchanged, and a
+checkpoint written at one world size loads at another.
+
 The training engines provide `checkpoint_leaves()` (the [(name, leaf)]
 to save), `restore_checkpoint_leaves(named, prefixes)` and
 `checkpoint_device`; the saver owns everything else.
@@ -387,8 +396,18 @@ def wait_pending_save(engine):
         ck.wait()
 
 
+def _world(engine):
+    """(ranks, this rank) of a sharded engine's data-parallel world; (1, 0)
+    for a one-rank engine."""
+    if not getattr(engine, "sharded", False):
+        return 1, 0
+    import torch.distributed as dist
+    return dist.get_world_size(), dist.get_rank()
+
+
 def _world_info(engine):
-    return {"process_count": 1, "device_count": 1,
+    n, _ = _world(engine)
+    return {"process_count": n, "device_count": n,
             "device": str(getattr(engine, "checkpoint_device", "cpu"))}
 
 
@@ -418,6 +437,46 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None,
     tag = tag if tag is not None else f"global_step{engine.global_steps}"
     tag = str(tag)
     save_dir = pathlib.Path(save_dir)
+    n_ranks, rank = _world(engine)
+    if n_ranks > 1:
+        # every rank takes part in gathering the sharded leaves into rank
+        # 0's host memory; rank 0 writes them in the one-rank layout
+        ckpt_cfg = getattr(engine.config, "checkpoint", None)
+        if getattr(ckpt_cfg, "async_save", False):
+            from deepspeed_tpu_torch.config.core import not_ported
+            not_ported("checkpoint.async_save across ranks")
+        leaves = engine.checkpoint_leaves(root=0)
+        path, error = str(save_dir / tag), None
+        if rank == 0:
+            try:
+                path = _save_whole(engine, save_dir, tag, client_state,
+                                   save_latest, leaves)
+            except Exception as e:
+                error = e
+        del leaves
+        _agree_on_commit(engine, tag, error)
+        engine._last_ckpt_dir = str(save_dir)
+        return path
+    return _save_whole(engine, save_dir, tag, client_state, save_latest)
+
+
+def _agree_on_commit(engine, tag, error):
+    """Every rank learns rank 0's outcome (it waits for the write, as a
+    barrier would): a failed write raises on every rank, so that no rank
+    takes the directory for a committed save (the sentinel's rollback
+    target)."""
+    import torch.distributed as dist
+    outcome = [None if error is None else f"{type(error).__name__}: {error}"]
+    dist.broadcast_object_list(outcome, src=0)
+    if error is not None:
+        raise error
+    if outcome[0] is not None:
+        raise RuntimeError(f"checkpoint {tag}: rank 0's save failed "
+                           f"({outcome[0]})")
+
+
+def _save_whole(engine, save_dir, tag, client_state, save_latest,
+                leaves=None):
     save_dir.mkdir(parents=True, exist_ok=True)
     wait_pending_save(engine)
 
@@ -431,7 +490,8 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None,
 
     ck_engine = _engine_for(engine)
     state_path = stage_dir / "state"
-    leaves = engine.checkpoint_leaves()
+    if leaves is None:
+        leaves = engine.checkpoint_leaves()
     entries = tree_entries(leaves)
     world = _world_info(engine)
     step = int(engine.global_steps)

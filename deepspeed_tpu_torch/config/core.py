@@ -6,9 +6,13 @@ JSON as the JAX package's (the batch triad with "auto" resolution, fp16 /
 bf16, optimizer, scheduler, ZeRO stage, gradient clipping, the gradient
 accumulator dtype, activation checkpointing). A feature of that config the
 port does not carry yet raises `NotImplementedError` when the config is
-built: ZeRO++ / compressed wires, a mesh of more than one rank,
-pipeline, MoE, the metric-driven curriculum (`curriculum_metrics`),
-compression and the profilers. The `telemetry` block (its request
+built, naming the ROADMAP item it waits on: ZeRO++ / compressed wires,
+MiCS / hpZ and mesh axes other than `data` above 1, pipeline, MoE, the
+metric-driven curriculum (`curriculum_metrics`), compression and the
+profilers. `mesh.data` spans the ranks of the process group (data-parallel
+ZeRO 0-3 over `comm/`), and `comms_logger`, `prescale_gradients` and
+`gradient_predivide_factor` are accepted as the JAX package accepts them.
+The `telemetry` block (its request
 tracing, flight recorder and memscope ledger included), the monitors
 (`tensorboard`, `wandb`, `csv_monitor`), progressive layer drop and the
 `data_efficiency` block's random-LTD and legacy seqlen curriculum are
@@ -63,10 +67,26 @@ class ConfigModel:
         return cls(**kwargs)
 
 
-def not_ported(what):
+def not_ported(what, item=None):
+    where = f"ROADMAP queue 1 item {item}; " if item is not None else ""
     raise NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet (the JAX package "
-        f"deepspeed_tpu serves it)")
+        f"{what} is not ported to deepspeed_tpu_torch yet ({where}the JAX "
+        f"package deepspeed_tpu serves it)")
+
+
+# mesh axes other than `data` and the ROADMAP item each waits on: `zero`
+# is MiCS / hpZ (item 7's second half), the model-parallel axes item 8
+UNPORTED_AXES = {"zero": "7", "tensor": "8", "pipe": "8", "sequence": "8",
+                 "expert": "8"}
+
+
+def refuse_unported_axes(sizes):
+    """Raise for a mesh axis other than `data` above 1."""
+    for name, item in UNPORTED_AXES.items():
+        size = sizes.get(name)
+        if size is not None and int(size) > 1:
+            not_ported(f"mesh.{name} = {size} (a mesh axis other than "
+                       f"'data' above 1)", item=item)
 
 
 def _as_block(value, cls):
@@ -154,9 +174,10 @@ class ZeroConfig(ConfigModel):
         for name in ("zero_quantized_weights", "zero_quantized_gradients",
                      "explicit_grad_reduce", "onebit_gradients"):
             if getattr(self, name):
-                not_ported(f"zero_optimization.{name}")
+                not_ported(f"zero_optimization.{name}", item="7")
         if int(self.mics_shard_size) > 0 or int(self.zero_hpz_partition_size) > 1:
-            not_ported("zero_optimization MiCS / hpZ sub-group sharding")
+            not_ported("zero_optimization MiCS / hpZ sub-group sharding",
+                       item="7")
 
 
 @dataclass
@@ -190,7 +211,8 @@ class OptimizerConfig(ConfigModel):
 
     def __post_init__(self):
         if self.type.lower() in ("onebitadam", "zerooneadam", "onebitlamb"):
-            not_ported(f"the {self.type} optimizer (compressed communication)")
+            not_ported(f"the {self.type} optimizer (compressed communication)",
+                       item="7")
 
 
 @dataclass
@@ -201,8 +223,8 @@ class SchedulerConfig(ConfigModel):
 
 @dataclass
 class MeshConfig(ConfigModel):
-    """Logical mesh axis sizes. This port trains on one rank: every axis
-    must be 1 (-1, "the remaining devices", is 1 here)."""
+    """Logical mesh axis sizes (`comm/mesh.py`). `data` spans the ranks of
+    the process group (-1: all of them); every other axis must be 1."""
     data: int = -1
     zero: int = 1
     tensor: int = 1
@@ -212,10 +234,8 @@ class MeshConfig(ConfigModel):
     devices: Optional[int] = None
 
     def __post_init__(self):
-        sizes = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
-        big = {k: v for k, v in sizes.items() if v is not None and int(v) > 1}
-        if big:
-            not_ported(f"a mesh of more than one rank ({big})")
+        refuse_unported_axes({f.name: getattr(self, f.name)
+                              for f in dataclasses.fields(self)})
 
 
 @dataclass
@@ -371,6 +391,19 @@ class CheckpointConfig(ConfigModel):
 
 
 @dataclass
+class CommsLoggerConfig(ConfigModel):
+    """The comm facade's logger block (`comm/comm.py` `comms_logger`), the
+    JAX package's fields. As in the JAX package, the engine reads neither
+    it nor `prescale_gradients`: the logger is configured through
+    `comm.comms_logger.configure`."""
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: list = field(default_factory=list)
+
+
+@dataclass
 class FaultToleranceConfig(ConfigModel):
     """Training-loop bad-state sentinels + in-process rollback
     (`runtime/sentinel.py`), the JAX package's fields and defaults. Opt-in:
@@ -391,10 +424,13 @@ class FaultToleranceConfig(ConfigModel):
 
 # blocks of the JAX config that this port refuses when they are switched
 # on (an "enabled" flag), or given at all (the others)
-_UNPORTED_ENABLED = ("moe", "flops_profiler", "eigenvalue", "comms_logger",
+_UNPORTED_ENABLED = ("moe", "flops_profiler", "eigenvalue",
                      "gradient_compression", "autotuning", "elasticity")
 _UNPORTED_CONTENT = ("pipeline", "compression_training")
-_UNPORTED_FLAGS = ("sparse_gradients", "prescale_gradients", "dump_state")
+_UNPORTED_FLAGS = ("sparse_gradients", "dump_state")
+# the ROADMAP item each refused key waits on
+_UNPORTED_ITEMS = {"gradient_compression": "7", "pipeline": "8", "moe": "4",
+                   "dump_state": "4"}
 
 
 def _refuse_unported(d):
@@ -404,13 +440,13 @@ def _refuse_unported(d):
     for key in _UNPORTED_ENABLED:
         block = d.pop(key, None)
         if isinstance(block, dict) and block.get("enabled"):
-            not_ported(f"the {key!r} block")
+            not_ported(f"the {key!r} block", _UNPORTED_ITEMS.get(key, "11"))
     for key in _UNPORTED_CONTENT:
         if d.pop(key, None):
-            not_ported(f"the {key!r} block")
+            not_ported(f"the {key!r} block", _UNPORTED_ITEMS.get(key, "11"))
     for key in _UNPORTED_FLAGS:
         if d.pop(key, False):
-            not_ported(key)
+            not_ported(key, _UNPORTED_ITEMS.get(key, "11"))
     return d
 
 
@@ -445,7 +481,10 @@ class TpuTrainConfig(ConfigModel):
     fault_tolerance: FaultToleranceConfig = field(
         default_factory=FaultToleranceConfig)
 
+    comms_logger: CommsLoggerConfig = field(default_factory=CommsLoggerConfig)
+
     gradient_clipping: float = 0.0
+    prescale_gradients: bool = False
     gradient_predivide_factor: float = 1.0
     steps_per_print: int = 10
     wall_clock_breakdown: bool = False

@@ -608,16 +608,26 @@ def gpt_hidden(params, tokens, cfg: GPTConfig, positions=None, pld=None,
     if positions is None:
         positions = torch.arange(T, device=tokens.device).expand(B, T)
     x = _embed(params, tokens, positions, cfg)
-    # unbind, not v[i]: its backward stacks the L per-layer gradients once,
-    # where L selects would each write a zero-filled [L, ...] gradient
-    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    blocks = params["blocks"]
     remat = resolve_remat_policy(cfg.remat_policy) \
         if cfg.remat and torch.is_grad_enabled() else None
+    if hasattr(blocks, "layer"):
+        # ZeRO-3's `runtime/zero.ZeroParamView`: layer i is gathered inside
+        # its block, so the rematerialized forward gathers it again
+        def run(x, i, pos, fn):
+            return _block(x, blocks.layer(i), cfg, pos, fn)
+    else:
+        # unbind, not v[i]: its backward stacks the L per-layer gradients
+        # once, where L selects would each write a zero-filled [L, ...]
+        # gradient
+        layers = {k: v.unbind(0) for k, v in blocks.items()}
+
+        def run(x, i, pos, fn):
+            return _block(x, {k: v[i] for k, v in layers.items()}, cfg, pos,
+                          fn)
 
     def block(x, i, pos, fn):
-        p = {k: v[i] for k, v in layers.items()}
-        return remat(_block, x, p, cfg, pos, fn) if remat \
-            else _block(x, p, cfg, pos, fn)
+        return remat(run, x, i, pos, fn) if remat else run(x, i, pos, fn)
 
     if pld is not None:
         keep_idx, theta = pld

@@ -11,7 +11,9 @@ the update count before it is incremented), computed in fp32: a leaf
 stored in another dtype is widened for the step and rounded back once, as
 optax's `apply_updates` rounds `p + u`. `apply` is the loss scaler's
 skip-step, a 0-d bool tensor: where it is false every stored leaf keeps
-its value (`runtime/precision.py::masked_update`). The update has no
+its value (`runtime/precision.py::masked_update`). `leaf_norms`, where
+the optimizer reads per-leaf norms (LAMB), computes them over whole leaves
+when the leaves stepped are shards. The update has no
 Pallas kernel in the JAX package, so it is plain torch here too.
 """
 
@@ -38,6 +40,9 @@ ADAGRAD_OPTIMIZER = "adagrad"
 class GradientTransformation:
     init: Callable
     update: Callable
+    # the update reads per-leaf norms (LAMB's trust ratio): a caller whose
+    # leaves are shards passes `leaf_norms`, the whole leaves' norms
+    leaf_norms: bool = False
 
 
 def _lr_at(lr, count):
@@ -57,7 +62,7 @@ def _fp32(leaves, copy):
             for x in leaves]
 
 
-def _transform(lr, moments, step):
+def _transform(lr, moments, step, leaf_norms=False):
     """An optimizer from `moments` {state name: initial fill} and
     `step(g, p, moments, count) -> direction` over fp32 leaf lists, which
     steps the moments in place and returns new direction tensors; the
@@ -73,15 +78,16 @@ def _transform(lr, moments, step):
                       for name, fill in moments.items()})
         return state
 
-    def update(grads, state, params, apply=None):
+    def update(grads, state, params, apply=None, leaf_norms=None):
         count = state["count"]
         copy = apply is not None
         stored = {name: tree_leaves(state[name]) for name in moments}
         work = {name: _fp32(leaves, copy) for name, leaves in stored.items()}
         p_stored = tree_leaves(params)
         p = _fp32(p_stored, copy)
+        kw = {"norms": leaf_norms} if leaf_norms is not None else {}
         direction = step([g.float() for g in tree_leaves(grads)], p, work,
-                         count)
+                         count, **kw)
         torch._foreach_mul_(direction, -_lr_at(lr, count))
         torch._foreach_add_(p, direction)
         masked_update(p_stored, p, apply)
@@ -90,7 +96,7 @@ def _transform(lr, moments, step):
         state["count"] = count + (1 if apply is None
                                   else apply.to(torch.int32))
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, leaf_norms)
 
 
 def _adam_direction(g, m, count, b1, b2, eps):
@@ -130,16 +136,15 @@ def _lamb(lr, params: Dict[str, Any]):
     b1, b2 = params.get("betas", (0.9, 0.999))
     eps, wd = params.get("eps", 1e-6), params.get("weight_decay", 0.0)
 
-    def step(g, p, m, c):
+    def step(g, p, m, c, norms=torch._foreach_norm):
         u = _adam_direction(g, m, c, b1, b2, eps)
         torch._foreach_add_(u, p, alpha=wd)
-        for x, p_norm, u_norm in zip(u, torch._foreach_norm(p),
-                                     torch._foreach_norm(u)):
+        for x, p_norm, u_norm in zip(u, norms(p), norms(u)):
             x.mul_(torch.where((p_norm == 0) | (u_norm == 0),
                                torch.ones_like(p_norm), p_norm / u_norm))
         return u
 
-    return _transform(lr, {"mu": 0.0, "nu": 0.0}, step)
+    return _transform(lr, {"mu": 0.0, "nu": 0.0}, step, leaf_norms=True)
 
 
 def _lion(lr, params: Dict[str, Any]):

@@ -79,9 +79,27 @@ the step's boundary.
 `initialize` routes a `LayeredModelSpec` to the layer-streaming
 `runtime/infinity.InfinityEngine`, built from the config.
 
-One rank: ZeRO stages 0-3 are accepted and are one computation, as on the
-JAX package's one-device mesh; more than one rank raises. The engine runs
-on `cuda` unless the caller passes `device="cpu"`, and raises without a GPU.
+Across ranks (an initialized `torch.distributed` process group: NCCL on
+the card, gloo on the CPU; a backend that does not drive the engine's
+device raises), the engine trains data-parallel over the mesh's `data`
+axis at ZeRO stages 0-3 through the comm facade, with the shard of each
+leaf `runtime/zero.ZeroShardingPolicy` gives (JAX's dimensions). Every rank
+is handed the same global batch (gas x micro x dp rows) and takes the rows
+the JAX engine puts on its data shard: after the [gas, micro x dp] split,
+rank r's rows r x micro ... (r + 1) x micro. Each rank's grads are of its
+own rows' mean loss; they are summed across ranks and divided by dp (stage
+0 / 1 once a step; stage 2 reduce-scatters each micro-batch's into the
+rank's shard; stage 3's gathers and reduce-scatters run inside the model's
+forward and backward, `runtime/zero.ZeroParamView`). The global grad norm,
+the fp16 overflow check and the reported loss (which the sentinel reads)
+are reduced across the ranks before anything decides on them, so every
+rank takes the same branch. A checkpoint holds the whole tree, gathered
+leaf by leaf into rank 0's host memory and written by rank 0 in the
+one-rank layout; each rank loads its shards, at any world size. One step
+serves every world size: at one rank (no process group, where the mesh
+must be one rank and a larger `mesh` raises, or a group of one) nothing is
+sharded, as in JAX, and the step issues no collective. The engine runs on `cuda` unless the caller passes
+`device="cpu"`, and raises without a GPU.
 """
 
 import dataclasses
@@ -93,6 +111,8 @@ import torch
 
 from deepspeed_tpu_torch.checkpoint.saver import (named_leaves, optax_count,
                                                   optax_opt_leaves)
+from deepspeed_tpu_torch.comm import collectives as coll
+from deepspeed_tpu_torch.comm import mesh as mesh_mod
 from deepspeed_tpu_torch.config.core import TpuTrainConfig, not_ported
 from deepspeed_tpu_torch.inference.engine import resolve_device
 from deepspeed_tpu_torch.ops.optim import OPTIMIZER_ALIASES, build_optimizer
@@ -103,13 +123,19 @@ from deepspeed_tpu_torch.runtime.dataloader import (RepeatingLoader,
                                                     TpuDataLoader)
 from deepspeed_tpu_torch.runtime.precision import LossScaler, LossScaleState
 from deepspeed_tpu_torch.runtime.sentinel import BadStateError, BadStateSentinel
+from deepspeed_tpu_torch.runtime.zero import (ZeroParamView,
+                                              ZeroShardingPolicy, chunk_of,
+                                              flat_all_gather,
+                                              flat_all_reduce,
+                                              flat_reduce_scatter,
+                                              gather_to_host)
 from deepspeed_tpu_torch.telemetry import Telemetry
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (TRAIN_BATCH_TIMER,
                                              SynchronizedWallClockTimer,
                                              ThroughputTimer)
-from deepspeed_tpu_torch.utils.tree import (tree_cast, tree_global_norm,
-                                            tree_leaves, tree_map,
+from deepspeed_tpu_torch.utils.tree import (tree_cast, tree_leaves,
+                                            tree_map,
                                             tree_num_params, tree_unflatten)
 
 
@@ -168,14 +194,21 @@ def device_memory_bytes(device):
     return int(torch.cuda.get_device_properties(device).total_memory)
 
 
-def _as_tensor(src, dst, name):
+def _as_tensor(src, dst, name, n=1, rank=0):
     """A loaded checkpoint leaf as a tensor in `dst`'s dtype (the numpy
-    engine widened bf16 to fp32: narrowing back is exact)."""
+    engine widened bf16 to fp32: narrowing back is exact); where `dst` is
+    a rank's shard of it (1/n of one dimension), this rank's chunk."""
     t = src if isinstance(src, torch.Tensor) \
         else torch.from_numpy(np.array(src))
     if tuple(t.shape) != tuple(dst.shape):
-        raise ValueError(f"checkpoint leaf '{name}' has shape "
-                         f"{tuple(t.shape)}, the engine's {tuple(dst.shape)}")
+        diff = [d for d, (a, b) in enumerate(zip(t.shape, dst.shape))
+                if a != b]
+        if n == 1 or t.dim() != dst.dim() or len(diff) != 1 or \
+                t.shape[diff[0]] != n * dst.shape[diff[0]]:
+            raise ValueError(f"checkpoint leaf '{name}' has shape "
+                             f"{tuple(t.shape)}, the engine's "
+                             f"{tuple(dst.shape)}")
+        t = chunk_of(t, diff[0], n, rank)
     return t.to(dtype=dst.dtype)
 
 
@@ -198,14 +231,10 @@ class Engine:
         self.config = config
         self.model_spec = model
         self.device = resolve_device(device)
-        if torch.distributed.is_available() and \
-                torch.distributed.is_initialized() and \
-                torch.distributed.get_world_size() > 1:
-            not_ported("training across more than one rank")
-
+        self._init_data_parallel(config)
         (self.train_batch_size_value, self.micro_batch_size,
          self.gradient_accumulation_steps_value) = \
-            config.resolve_batch_sizes(1)
+            config.resolve_batch_sizes(self.dp_world_size)
 
         self.compute_dtype = config.compute_dtype()
         self.fp16_enabled = config.fp16_enabled
@@ -240,9 +269,13 @@ class Engine:
 
         self._loss_fn = _wrap_loss_fn(model.loss_fn, model.has_aux)
         self.generator = torch.Generator(self.device).manual_seed(config.seed)
+        # the whole model's count (a rank may hold shards); the model's
+        # params may be numpy arrays
+        self.num_params = sum(int(np.prod(np.shape(x)))
+                              for x in tree_leaves(model.params))
         self.state = self._init_state(model.params)
         log_dist(f"engine: {model.name} | params="
-                 f"{tree_num_params(self.state.params) / 1e6:.2f}M | "
+                 f"{self.num_params / 1e6:.2f}M | dp={self.dp_world_size} | "
                  f"dtype={self.compute_dtype} | zero_stage={self.zero_stage} "
                  f"| device={self.device} | micro_bs={self.micro_batch_size} "
                  f"| gas={self.gradient_accumulation_steps_value} | "
@@ -291,6 +324,25 @@ class Engine:
             if self.telemetry.flightrec.enabled else None)
         self._last_ckpt_dir = None    # newest save/load root: the rollback
         self.rollbacks = 0
+
+    def _init_data_parallel(self, config):
+        """The data-parallel world: with a process group, the mesh over it
+        (its size must be the config's `mesh`; the backend must drive the
+        device) and this rank's place in the ZeRO domain; without one, a
+        one-rank mesh (a larger `mesh` raises)."""
+        dist = torch.distributed
+        self.sharded = dist.is_available() and dist.is_initialized()
+        if self.sharded:
+            from deepspeed_tpu_torch.comm.comm import check_backend
+            check_backend(self.device)
+            spec = mesh_mod.ensure_mesh(config.mesh)
+            self.dp_rank = mesh_mod.axis_rank(mesh_mod.ZERO_AXES)
+        else:
+            spec = mesh_mod.MeshSpec.resolve(config.mesh, n_devices=1)
+            self.dp_rank = 0
+        self.dp_world_size = spec.data * spec.zero * spec.sequence
+        self.zero_policy = ZeroShardingPolicy(config.zero_optimization, spec,
+                                              self.dp_rank)
 
     def _init_data_efficiency(self):
         """The legacy seqlen curriculum, progressive layer drop and
@@ -405,6 +457,9 @@ class Engine:
                         f"adam/lion/adagrad for host offload")
         self.host_step = nvme or (cpu_off and force_host_step)
         self.offload_optimizer_states = cpu_off and not force_host_step
+        if self.sharded and (self.host_step or self.offload_optimizer_states):
+            not_ported("zero_optimization.offload_optimizer under a process "
+                       "group (ZeRO-Offload across ranks)", item="9")
         self.host_optimizer = None
         self._state_copy_stream = None
         self._state_out_event = None
@@ -439,18 +494,31 @@ class Engine:
         # the engine's own copy: the optimizer steps it in place
         params_c = tree_map(torch.clone, tree_cast(
             _to_device(params, self.device), self.compute_dtype))
+        # each leaf's shard dimension (None: held whole) in leaf order, for
+        # its params (stage 3), its fp32 master and optimizer state (stages
+        # 1-3) and its step's grads (stages 2-3); all None at one rank
+        pol = self.zero_policy
+        leaves = tree_leaves(params_c)
+        self._pdims = [pol.param_dim(t) for t in leaves]
+        self._sdims = [pol.state_dim(t) for t in leaves]
+        self._gdims = [pol.grad_dim(t) for t in leaves]
+        scaler = self.scaler.init(self.device)
+        step = torch.zeros((), dtype=torch.int32, device=self.device)
         if self.host_step:
             self._init_host_optimizer(params)
             return TrainState(params=params_c, master=None, opt_state=None,
-                              scaler=self.scaler.init(self.device),
-                              step=torch.zeros((), dtype=torch.int32,
-                                               device=self.device))
+                              scaler=scaler, step=step)
+        params_c = tree_unflatten(params_c, [
+            pol.shard(t, d) for t, d in zip(leaves, self._pdims)])
         # the master starts from the compute-dtype params, as in the JAX
         # engine
-        master = tree_cast(params_c, torch.float32) if self.keep_master \
-            else None
-        target = master if master is not None else params_c
-        opt_state = self.optimizer.init(target)
+        master = None
+        if self.keep_master:
+            master = tree_unflatten(params_c, [
+                pol.shard(t.float(), d) for t, d in zip(leaves, self._sdims)])
+        state = TrainState(params=params_c, master=master, opt_state=None,
+                           scaler=scaler, step=step)
+        opt_state = self.optimizer.init(self._update_target(state))
         if self.offload_optimizer_states and self.device.type == "cuda":
             # the streamed tier's home: pinned host memory
             def pinned(t):
@@ -459,19 +527,86 @@ class Engine:
             master = None if master is None else tree_map(pinned, master)
             opt_state = tree_map(pinned, opt_state)
             self._state_copy_stream = torch.cuda.Stream(self.device)
-        return TrainState(params=params_c, master=master,
-                          opt_state=opt_state,
-                          scaler=self.scaler.init(self.device),
-                          step=torch.zeros((), dtype=torch.int32,
-                                           device=self.device))
+        return state._replace(master=master, opt_state=opt_state)
+
+    # ------------------------------------------------------------------
+    # the state across ranks (ZeRO shards)
+    # ------------------------------------------------------------------
+
+    def _update_target(self, state):
+        """The tree the optimizer steps in place: the master's shards, or
+        without a master the params' — a stage-3 shard itself, or a view of
+        the rank's chunk of a whole param."""
+        if self.keep_master:
+            return state.master
+        n, r = self.dp_world_size, self.dp_rank
+        out = []
+        for p, pd, sd in zip(tree_leaves(state.params), self._pdims,
+                             self._sdims):
+            if pd is None and sd is not None:
+                s = p.shape[sd] // n
+                p = p.narrow(sd, r * s, s)
+            out.append(p)
+        return tree_unflatten(state.params, out)
+
+    @property
+    def _gathers_params(self):
+        """The rank holds params as shards (stage 3 across ranks): the
+        model reads them through `_param_view`."""
+        return any(d is not None for d in self._pdims)
+
+    def _model_params(self):
+        """The params as the model reads them: a gathering view of the
+        shards at stage 3 across ranks, else the tensors."""
+        if self._gathers_params:
+            return self._param_view(self.state.params)
+        return self.state.params
+
+    def _param_view(self, params):
+        return ZeroParamView(params, tree_unflatten(params, self._pdims),
+                             self.dp_world_size)
+
+    def _gather_tree(self, tree, dims, keep):
+        """A tree of a rank's shards (`dims` in leaf order) -> the whole
+        leaves, each gathered on its own into host memory (see
+        `gather_to_host`); leaves held whole are the rank's own tensors.
+        With `keep` false the rank takes part in each gather and keeps
+        nothing."""
+        out = [t if d is None else
+               gather_to_host(t, d, self.dp_world_size, keep)
+               for t, d in zip(tree_leaves(tree), dims)]
+        return tree_unflatten(tree, out) if keep else None
+
+    def _full_state(self, root=None):
+        """The whole TrainState: each sharded leaf gathered from the ranks'
+        shards leaf by leaf, straight into host memory, so the card holds
+        one leaf's gather at a time; leaves held whole stay where they
+        live. Every rank takes part; with `root` only that data rank keeps
+        the gathered state (the others get None)."""
+        st = self.state
+        keep = root is None or self.dp_rank == root
+        nleaves = len(self._sdims)
+        opt = None
+        if st.opt_state is not None:
+            opt = {k: self._gather_tree(v, self._sdims, keep)
+                   if len(tree_leaves(v)) == nleaves and not
+                   isinstance(v, torch.Tensor) else v
+                   for k, v in st.opt_state.items()}
+        params = self._gather_tree(st.params, self._pdims, keep)
+        master = None if st.master is None \
+            else self._gather_tree(st.master, self._sdims, keep)
+        if not keep:
+            return None
+        return st._replace(params=params, master=master, opt_state=opt)
 
     def state_to_numpy(self):
         """The whole TrainState as numpy trees (fp32 for floating leaves),
-        for comparing with the JAX engine leaf by leaf."""
+        for comparing with the JAX engine leaf by leaf. Across ranks every
+        rank takes part and gets the whole (gathered) state."""
         def npy(t):     # a copy: the state is stepped in place
             t = t.detach().cpu()
             return (t.float() if t.is_floating_point() else t).numpy().copy()
-        st = self.state
+        st = self._full_state()
         if self.host_step:
             opt = self.host_optimizer
             master = tree_unflatten(opt.tree, [m.numpy().copy()
@@ -500,8 +635,10 @@ class Engine:
         channel."""
         leaves = [p.detach().requires_grad_(p.is_floating_point())
                   for p in tree_leaves(params)]
-        loss, aux = self._loss_fn(tree_unflatten(params, leaves), micro_batch,
-                                  self.generator)
+        tree = tree_unflatten(params, leaves)
+        if self._gathers_params:
+            tree = self._param_view(tree)
+        loss, aux = self._loss_fn(tree, micro_batch, self.generator)
         wrt = [leaf for leaf in leaves if leaf.requires_grad]
         grads = iter(torch.autograd.grad(
             self.scaler.scale_loss(loss, self.state.scaler), wrt,
@@ -516,36 +653,174 @@ class Engine:
                                        for leaf in leaves]), loss.detach(), \
             extras
 
+    def _micro_batches(self, batch, gas):
+        """This rank's rows of each of a global batch's `gas` micro-batches,
+        as the JAX engine places them on its data shard: after the
+        [gas, B / gas] split, chunk `rank` of dp of each micro-batch."""
+        n, r = self.dp_world_size, self.dp_rank
+        if gas == 1 and n == 1:
+            return [batch]
+
+        def take(x):
+            if x.shape[0] % (gas * n):
+                raise ValueError(
+                    f"batch dim {x.shape[0]} not divisible by "
+                    f"gradient_accumulation_steps={gas} x data-parallel "
+                    f"ranks ({n}): every rank is handed the same global "
+                    f"batch")
+            m = x.shape[0] // (gas * n)
+            return x.reshape(gas, m * n, *x.shape[1:])[:, r * m:(r + 1) * m]
+        split = tree_map(take, batch)
+        return [tree_map(lambda x: x[i], split) for i in range(gas)]
+
+    def _micro_step_grads(self, params, micro_batch, acc_dtype=None,
+                          predivide=1.0):
+        """One micro-batch's grad leaves as the step accumulates them (cast
+        to `acc_dtype` and divided by the predivide factor when given), the
+        stage-2 ones reduce-scattered into the rank's shard; with its loss
+        and extras."""
+        g, loss, ex = self._micro_grads(params, micro_batch)
+        g = tree_leaves(g)
+        if acc_dtype is not None:
+            g = [x.to(acc_dtype) / predivide for x in g]
+        if self.zero_stage == 2:
+            idx = [i for i, d in enumerate(self._gdims) if d is not None]
+            shards = flat_reduce_scatter([g[i] for i in idx],
+                                         [self._gdims[i] for i in idx],
+                                         self.dp_world_size)
+            for i, sh in zip(idx, shards):
+                g[i] = sh
+        return g, loss, ex
+
+    def _reduce_across(self, params, acc, loss, extras):
+        """Sum the whole grads across ranks (one all-reduce), divide every
+        grad by dp, and average the loss and extras (one all-reduce); at
+        one rank, the grads' tree as it is."""
+        n = self.dp_world_size
+        if n == 1:
+            return tree_unflatten(params, acc), loss, extras
+        idx = [i for i, (d, g) in enumerate(zip(self._gdims, acc))
+               if d is None and g.is_floating_point()]
+        for i, g in zip(idx, flat_all_reduce([acc[i] for i in idx])):
+            acc[i] = g
+        grads = tree_unflatten(params, [g / n for g in acc])
+        names = sorted(extras)
+        avg = coll.psum(torch.stack([loss.float()] + [extras[k].float()
+                                                      for k in names]),
+                        mesh_mod.ZERO_AXES) / n
+        return grads, avg[0], {k: avg[1 + j] for j, k in enumerate(names)}
+
     def _grads(self, params, batch):
-        """The gas loop: (grads, mean loss, extras). At gas > 1 grads
-        accumulate in `grad_accum_dtype` (fp32 by default), each divided by
-        the predivide factor, and the sum is scaled by predivide / gas; at
-        gas == 1 they stay in the compute dtype (the optimizer widens them
-        exactly). The extras are the micro-batches' mean."""
+        """The gas loop over this rank's rows: (grads, mean loss, extras).
+        At gas > 1 grads accumulate in `grad_accum_dtype` (fp32 by
+        default), each divided by the predivide factor, and the sum is
+        scaled by predivide / gas; at gas == 1 they stay in the compute
+        dtype (the optimizer widens them exactly). The extras are the
+        micro-batches' mean. Then `_reduce_across`."""
         gas = self.gradient_accumulation_steps_value
-        batch = _to_device(batch, self.device)
+        micros = self._micro_batches(_to_device(batch, self.device), gas)
         if gas == 1:
-            return self._micro_grads(params, batch)
-        for leaf in tree_leaves(batch):
-            if leaf.shape[0] % gas:
-                raise ValueError(f"batch dim {leaf.shape[0]} not divisible "
-                                 f"by gradient_accumulation_steps={gas}")
-        split = tree_map(lambda x: x.reshape(gas, x.shape[0] // gas,
-                                             *x.shape[1:]), batch)
+            return self._reduce_across(
+                params, *self._micro_step_grads(params, micros[0]))
         acc_dtype = self.config.data_types.accum_dtype()
         predivide = self.config.gradient_predivide_factor or 1.0
         acc = loss_sum = extras = None
-        for i in range(gas):
-            g, loss, ex = self._micro_grads(params, tree_map(lambda x: x[i],
-                                                             split))
-            g = [x.to(acc_dtype) / predivide for x in tree_leaves(g)]
+        for micro in micros:
+            g, loss, ex = self._micro_step_grads(params, micro, acc_dtype,
+                                                 predivide)
             acc = g if acc is None else [a + x for a, x in zip(acc, g)]
             loss = loss.float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             extras = ex if extras is None else {k: extras[k] + v
                                                 for k, v in ex.items()}
-        grads = tree_unflatten(params, [a * (predivide / gas) for a in acc])
-        return grads, loss_sum / gas, {k: v / gas for k, v in extras.items()}
+        acc = [a * (predivide / gas) for a in acc]
+        return self._reduce_across(params, acc, loss_sum / gas,
+                                   {k: v / gas for k, v in extras.items()})
+
+    def _apply_grads(self, state, grads, loss):
+        """(state, grads, mean loss) -> (state, metrics): unscale, the
+        global norm and finite check, clip, the optimizer's update of the
+        rank's state, the params after it. The grads are this step's own
+        and are clipped in place; the params, master and optimizer state
+        are stepped in place. Across ranks, the per-leaf squared norms of
+        the sharded grads (and, under fp16, their non-finite count) are
+        summed in one all-reduce before the clip and the skip decide, and
+        the updated params the rank does not hold whole-sharded are
+        all-gathered."""
+        scaler = self.scaler
+        pol, n = self.zero_policy, self.dp_world_size
+        grads = scaler.unscale_grads(grads, state.scaler)
+        g = tree_leaves(grads)
+        sq = [x.float().square().sum() for x in g]
+        bad = [(~torch.isfinite(x)).sum().float() for x in g] \
+            if scaler.enabled else None
+        idx = [i for i, d in enumerate(self._gdims) if d is not None]
+        if idx:
+            part = [sq[i] for i in idx]
+            if bad is not None:
+                part.append(sum(bad[i] for i in idx))
+            red = coll.psum(torch.stack(part), mesh_mod.ZERO_AXES)
+            for j, i in enumerate(idx):
+                sq[i] = red[j]
+            if bad is not None:
+                whole = set(range(len(g))) - set(idx)
+                bad = [red[-1]] + [bad[i] for i in sorted(whole)]
+        grad_norm = torch.sqrt(sum(sq))
+        finite = (sum(bad) == 0) if bad is not None else \
+            torch.ones((), dtype=torch.bool, device=self.device)
+        clip = self.config.gradient_clipping
+        if clip and clip > 0:
+            factor = (clip / (grad_norm + 1e-6)).clamp_max(1.0)
+            for x in g:
+                x.mul_(factor.to(x.dtype))
+        upd = [x if gd == sd else pol.shard(x, sd)
+               for x, gd, sd in zip(g, self._gdims, self._sdims)]
+        target = self._update_target(state)
+        kw = {}
+        if getattr(self.optimizer, "leaf_norms", False):
+            kw["leaf_norms"] = self._leaf_norms
+        # the skip-step: under fp16 loss scaling an overflow leaves every
+        # stored leaf as it was (a masked update, no host branch); without
+        # the scaler the mask is the JAX engine's constant true
+        self.optimizer.update(tree_unflatten(grads, upd), state.opt_state,
+                              target, finite if scaler.enabled else None,
+                              **kw)
+        srcs, dims, dsts = [], [], []
+        for p, t, pd, sd in zip(tree_leaves(state.params),
+                                tree_leaves(target), self._pdims,
+                                self._sdims):
+            if pd is None and sd is not None:
+                srcs.append(t.to(p.dtype).contiguous())
+                dims.append(sd)
+                dsts.append(p)
+            elif self.keep_master:
+                p.copy_(t)
+        for p, f in zip(dsts, flat_all_gather(srcs, dims, n)):
+            p.copy_(f)
+        lr = self.schedule_fn(state.step) if self.schedule_fn is not None \
+            else 0.0
+        metrics = {"loss": loss.float(), "grad_norm": grad_norm.float(),
+                   "overflow": ~finite, "loss_scale": state.scaler.scale,
+                   "lr": torch.as_tensor(lr, dtype=torch.float32,
+                                         device=self.device)}
+        return state._replace(scaler=scaler.update(state.scaler, finite),
+                              step=state.step + finite.to(torch.int32)), \
+            metrics
+
+    def _leaf_norms(self, leaves):
+        """Per-leaf L2 norms of the optimizer's leaves (the rank's state
+        shards) over the whole leaves: the sharded ones' squares summed
+        across ranks (LAMB's trust ratio)."""
+        if self.dp_world_size == 1:
+            return torch._foreach_norm(leaves)
+        sq = [x.float().square().sum() for x in leaves]
+        idx = [i for i, d in enumerate(self._sdims) if d is not None]
+        if idx:
+            red = coll.psum(torch.stack([sq[i] for i in idx]),
+                            mesh_mod.ZERO_AXES)
+            for j, i in enumerate(idx):
+                sq[i] = red[j]
+        return [torch.sqrt(x) for x in sq]
 
     def _state_in(self):
         """The streamed tier: start the copy of the fp32 master and the
@@ -618,38 +893,6 @@ class Engine:
         if self._state_copy_stream is not None:
             return self._streamed_apply(state, grads, loss, fetched)
         return self._apply_grads(state, grads, loss)
-
-    def _apply_grads(self, state, grads, loss):
-        """(state, grads, mean loss) -> (state, metrics). The grads are
-        this step's own and are clipped in place; the params, master and
-        optimizer state are stepped in place."""
-        scaler = self.scaler
-        grads = scaler.unscale_grads(grads, state.scaler)
-        finite = scaler.check_overflow(grads)
-        grad_norm = tree_global_norm(grads)
-        clip = self.config.gradient_clipping
-        if clip and clip > 0:
-            factor = (clip / (grad_norm + 1e-6)).clamp_max(1.0)
-            for g in tree_leaves(grads):
-                g.mul_(factor.to(g.dtype))
-        target = state.master if self.keep_master else state.params
-        # the skip-step: under fp16 loss scaling an overflow leaves every
-        # stored leaf as it was (a masked update, no host branch); without
-        # the scaler the mask is the JAX engine's constant true
-        self.optimizer.update(grads, state.opt_state, target,
-                              finite if scaler.enabled else None)
-        if self.keep_master:
-            for p, m in zip(tree_leaves(state.params), tree_leaves(target)):
-                p.copy_(m)
-        lr = self.schedule_fn(state.step) if self.schedule_fn is not None \
-            else 0.0
-        metrics = {"loss": loss.float(), "grad_norm": grad_norm.float(),
-                   "overflow": ~finite, "loss_scale": state.scaler.scale,
-                   "lr": torch.as_tensor(lr, dtype=torch.float32,
-                                         device=self.device)}
-        return state._replace(scaler=scaler.update(state.scaler, finite),
-                              step=state.step + finite.to(torch.int32)), \
-            metrics
 
     # ------------------------------------------------------------------
     # public API
@@ -776,7 +1019,7 @@ class Engine:
 
     def eval_batch(self, batch, rng=None):
         with torch.no_grad():
-            loss, _ = self._loss_fn(self.state.params,
+            loss, _ = self._loss_fn(self._model_params(),
                                     _to_device(batch, self.device),
                                     rng if rng is not None else self.generator)
         return loss
@@ -786,9 +1029,11 @@ class Engine:
     # accumulates them, step applies their mean at the gas boundary.
 
     def forward(self, batch):
-        grads, loss, _ = self._micro_grads(self.state.params,
-                                           _to_device(batch, self.device))
-        self._forward_cache = (tree_cast(grads, torch.float32), loss)
+        # the rank's rows of the micro-batch (micro x dp rows)
+        batch = self._micro_batches(_to_device(batch, self.device), 1)[0]
+        g, loss, _ = self._micro_step_grads(self.state.params, batch,
+                                            torch.float32)
+        self._forward_cache = (tree_unflatten(self.state.params, g), loss)
         return loss
 
     def backward(self, loss=None, allreduce_gradients=True):
@@ -812,8 +1057,10 @@ class Engine:
             raise RuntimeError("step() must follow backward()")
         n = float(self._pending)
         grads = tree_map(lambda g: g / n, self._grad_acc)
-        self.state, metrics = self._step(self.state, grads,
-                                         self._loss_acc / n)
+        loss = self._loss_acc / n
+        grads, loss, _ = self._reduce_across(
+            self.state.params, tree_leaves(grads), loss, {})
+        self.state, metrics = self._step(self.state, grads, loss)
         self._pending, self._grad_acc = 0, None
         self._after_step(metrics)
         return metrics
@@ -960,14 +1207,20 @@ class Engine:
             state[dst] = tree_unflatten(opt.tree, sd[src])
         return tree_unflatten(opt.tree, sd["master"]), state
 
-    def checkpoint_leaves(self):
+    def checkpoint_leaves(self, root=None):
         """[(name, tensor)] of the whole training state under the JAX
-        package's checkpoint names (the saver writes these)."""
+        package's checkpoint names (the saver writes these). Across ranks
+        every rank takes part in gathering the sharded leaves into host
+        memory (`_full_state`); with `root` only that rank gets the leaves
+        (the others None)."""
         if self.device.type == "cuda":
             # the streamed tier's copies out and the host step's pushes
             # land asynchronously
             torch.cuda.synchronize(self.device)
-        st = self.state
+        st = self._full_state(root)
+        return None if st is None else self._named_state(st)
+
+    def _named_state(self, st):
         master, opt_state = self._host_trees() if self.host_step \
             else (st.master, st.opt_state)
         out = named_leaves(st.params, ("params",)) + \
@@ -1000,14 +1253,15 @@ class Engine:
                 return count
             raise KeyError(f"checkpoint has no leaf '{name}'")
 
-        leaves = self.checkpoint_leaves()
+        leaves = self._named_state(self.state)
         if self.host_step:
             self._restore_host_step(leaves, source, wanted)
             leaves = [(n, v) for n, v in leaves
                       if not n.startswith(("master/", "opt_state/"))]
         for name, dst in leaves:
             if wanted(name):
-                dst.copy_(_as_tensor(source(name), dst, name))
+                dst.copy_(_as_tensor(source(name), dst, name,
+                                     self.dp_world_size, self.dp_rank))
 
     def _restore_host_step(self, leaves, source, wanted):
         opt = self.host_optimizer
@@ -1075,8 +1329,8 @@ class Engine:
             opt = self.host_optimizer
             source = tree_unflatten(opt.tree, opt.master)
         else:
-            source = self.state.master if self.keep_master \
-                else self.state.params
+            st = self._full_state()
+            source = st.master if self.keep_master else st.params
         return tree_map(lambda t: t.detach().to("cpu", torch.float32,
                                                 copy=True), source)
 
@@ -1103,8 +1357,9 @@ class Engine:
             # the analytic 6N model flops a step (the PaLM MFU convention):
             # the kernels launched through ctypes are invisible to a flop
             # counter of the dispatcher
-            self._program_flops = 6.0 * tree_num_params(self.state.params) \
-                * tokens if tokens else 0.0
+            # the whole world's tokens over its ranks: per chip, as JAX's
+            self._program_flops = 6.0 * self.num_params * tokens \
+                / self.dp_world_size if tokens else 0.0
         if self._program_flops > 0:
             achieved = self._program_flops / step_seconds
             reg.gauge("train/tflops_per_chip").set(achieved / 1e12)
@@ -1245,6 +1500,8 @@ def _initialize_infinity(model, cfg, optimizer, lr_scheduler,
         raise ValueError("Infinity tier: the LayeredModelSpec carries its own "
                          "params (resident + blocks); model_parameters is not "
                          "honored")
+    if mesh_mod.process_world_size() > 1:
+        not_ported("the Infinity tier across ranks", item="9")
     _, mbs, gas = cfg.resolve_batch_sizes(1)
     from deepspeed_tpu_torch.runtime.infinity import InfinityEngine
     opt_off = cfg.zero_optimization.offload_optimizer

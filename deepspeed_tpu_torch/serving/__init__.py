@@ -14,11 +14,17 @@ over a pool of ServingEngine replicas.
     `ReplicaProcess`, heartbeat-budget liveness, respawn) and
     `replica_server.py` (the child's entry point), with the observability
     spool (`observability.py`) that ships each process's spans home;
-  * `PressureController` (`degradation.py`) — the degradation ladder.
-
-The reference's `Autoscaler` / `AutoscalerConfig` are the next slice of
-the port: their names raise `NotImplementedError` here.
+  * `PressureController` (`degradation.py`) — the degradation ladder;
+  * `Autoscaler` (`autoscaler.py`) — elastic scale-up under queue /
+    headroom / degradation pressure, graceful drain and reap on
+    scale-down;
+  * the operator CLIs: `python -m deepspeed_tpu_torch.serving.pool_cli`
+    (`dstpu_pool`) and `python -m deepspeed_tpu_torch.serving.top_cli`
+    (`dstpu_top`).
 """
+
+from deepspeed_tpu_torch.serving.autoscaler import (Autoscaler,
+                                                    AutoscalerConfig)
 
 from deepspeed_tpu_torch.serving.degradation import PressureController
 from deepspeed_tpu_torch.serving.remote_replica import (RemoteConfig,
@@ -32,15 +38,4 @@ from deepspeed_tpu_torch.serving.router import RouterConfig, ServingRouter
 __all__ = ["ServingRouter", "RouterConfig", "ReplicaHandle",
            "InProcessReplica", "PressureController",
            "ReplicaUnavailableError", "RemoteReplica", "RemoteConfig",
-           "ReplicaProcess"]
-
-_NEXT_SLICE = ("Autoscaler", "AutoscalerConfig")
-
-
-def __getattr__(name):
-    if name in _NEXT_SLICE:
-        raise NotImplementedError(
-            f"serving.{name} is not ported to deepspeed_tpu_torch yet (the "
-            f"next slice of ROADMAP queue 1 item 10: the autoscaler; the "
-            f"JAX package deepspeed_tpu serves it)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+           "ReplicaProcess", "Autoscaler", "AutoscalerConfig"]

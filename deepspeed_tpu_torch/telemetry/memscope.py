@@ -386,12 +386,17 @@ def estimate_zero3_model_states_mem_needs(total_params, num_devices=1,
 def plan_training_from_engine(engine, capacity_bytes=0,
                               temp_bytes=0) -> MemoryPlan:
     """The training plan from a live engine's config — the preflight path
-    and the OOM dump's planner-delta source. The port trains at one rank:
-    data, tensor and expert degrees are 1. Pass the measured step temp
-    (`program_temp_bytes`) when there is one: in training the activations
-    are the temp, the dominant OOM term."""
+    and the OOM dump's planner-delta source. The model states are priced
+    at the engine's data-parallel degree (the process group's `data`
+    axis), as the JAX planner prices them from the mesh: per-rank shards
+    of the master and moments, from stage 2 of the grads, at stage 3 of
+    the params; tensor and expert degrees are 1. Pass the measured step
+    temp (`program_temp_bytes`) when there is one: in training the
+    activations are the temp, the dominant OOM term."""
     from deepspeed_tpu_torch.utils.tree import tree_num_params
-    n = tree_num_params(engine.state.params)
+    n = getattr(engine, "num_params", None) or \
+        tree_num_params(engine.state.params)
+    dp = int(getattr(engine, "dp_world_size", 1))
     cfg = engine.config
     z = cfg.zero_optimization
     off_o = z.offload_optimizer is not None and \
@@ -399,7 +404,7 @@ def plan_training_from_engine(engine, capacity_bytes=0,
     off_p = z.offload_param is not None and \
         z.offload_param.device in ("cpu", "nvme")
     return plan_training(
-        n, zero_stage=int(z.stage), dp=1, tp=1,
+        n, zero_stage=int(z.stage), dp=dp, tp=1,
         dtype=getattr(engine, "compute_dtype", "float32"),
         master_weights=engine.state.master is not None,
         grad_accum_dtype=cfg.data_types.grad_accum_dtype,

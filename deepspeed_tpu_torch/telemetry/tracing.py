@@ -21,8 +21,11 @@ file. Clockless: every span's `t0`/`dur` comes from the caller's clock
 runs are deterministic. One tracer a pool: the router injects its tracer
 into every in-process replica.
 
-The timeline renderers of the reference's trace CLI wait for the port's
-CLI slice; `load_spans` reads a log back.
+`load_spans` reads a log back, and `trace_main` is the reference's
+`dstpu_trace` CLI over it (`python -m deepspeed_tpu_torch.telemetry.tracing
+[path] [--uid UID | --slowest N]`): the trace list, one request's
+timeline (`render_timeline`) or the slowest requests with their per-phase
+breakdown (`render_slowest`).
 """
 
 import dataclasses
@@ -32,7 +35,8 @@ import os
 import threading
 from typing import Any, Dict, List, Optional
 
-__all__ = ["TraceContext", "Tracer", "NULL_TRACER", "load_spans"]
+__all__ = ["TraceContext", "Tracer", "NULL_TRACER", "load_spans",
+           "render_timeline", "render_slowest", "trace_main"]
 
 
 @dataclasses.dataclass
@@ -241,3 +245,139 @@ def load_spans(path) -> List[Dict[str, Any]]:
             except json.JSONDecodeError:
                 continue
     return spans
+
+
+def _group_traces(spans):
+    traces: Dict[str, List[Dict[str, Any]]] = {}
+    for s in spans:
+        traces.setdefault(s["trace"], []).append(s)
+    for tr in traces.values():
+        tr.sort(key=lambda s: (s["ts"], s["span"]))
+    return traces
+
+
+def _root(tr):
+    for s in tr:
+        if s.get("parent") == 0:
+            return s
+    return None
+
+
+def _fmt_table(rows):
+    widths = [max(len(str(r[i])) for r in rows) for i in range(len(rows[0]))]
+    return "\n".join("  ".join(str(c).ljust(w)
+                               for c, w in zip(r, widths)).rstrip()
+                     for r in rows)
+
+
+def render_timeline(tr) -> str:
+    """One request's spans as a table: offset/duration relative to the
+    trace start, depth-indented by parent links."""
+    t0 = min(s["ts"] for s in tr)
+    by_id = {s["span"]: s for s in tr}
+
+    def depth(s):
+        d, seen = 0, set()
+        while s["parent"] in by_id and s["span"] not in seen:
+            seen.add(s["span"])
+            s = by_id[s["parent"]]
+            d += 1
+        return d
+
+    rows = [("at_ms", "dur_ms", "tid", "span", "attrs")]
+    for s in tr:
+        attrs = s.get("attrs") or {}
+        a = " ".join(f"{k}={v}" for k, v in attrs.items())
+        rows.append((f"{(s['ts'] - t0) * 1e3:10.3f}",
+                     f"{s['dur'] * 1e3:9.3f}", s["tid"],
+                     "  " * depth(s) + s["name"], a))
+    return _fmt_table(rows)
+
+
+def _phase_breakdown(tr) -> Dict[str, float]:
+    """dur-ms summed per span name, root excluded — the per-phase view
+    `--slowest` ranks with."""
+    out: Dict[str, float] = {}
+    for s in tr:
+        if s.get("parent") == 0:
+            continue
+        out[s["name"]] = out.get(s["name"], 0.0) + s["dur"] * 1e3
+    return out
+
+
+def render_slowest(traces, n) -> str:
+    """Top-n traces by root (e2e) duration with per-phase dur-ms columns."""
+    roots = [(tr, _root(tr)) for tr in traces.values()]
+    roots = [(tr, r) for tr, r in roots if r is not None]
+    roots.sort(key=lambda x: -x[1]["dur"])
+    roots = roots[:n]
+    phases = sorted({name for tr, _ in roots
+                     for name in _phase_breakdown(tr)})
+    rows = [("uid", "trace", "e2e_ms", *phases)]
+    for tr, r in roots:
+        br = _phase_breakdown(tr)
+        rows.append((str(r.get("uid")), r["trace"], f"{r['dur'] * 1e3:.3f}",
+                     *(f"{br.get(p, 0.0):.3f}" for p in phases)))
+    return _fmt_table(rows)
+
+
+def trace_main(argv=None):
+    """`dstpu_trace` — reconstruct request timelines from a trace JSONL."""
+    import argparse
+    import pathlib
+    import sys
+
+    ap = argparse.ArgumentParser(
+        prog="dstpu_trace",
+        description="Reconstruct per-request timelines from a deepspeed-tpu "
+                    "trace log (<subsystem>.trace.jsonl).")
+    ap.add_argument("path", nargs="?", default="telemetry",
+                    help="trace .jsonl file or telemetry output dir "
+                         "(default: ./telemetry)")
+    ap.add_argument("--uid", default=None,
+                    help="print one request's span timeline (by request uid)")
+    ap.add_argument("--slowest", type=int, default=None, metavar="N",
+                    help="rank the N slowest requests by e2e with a "
+                         "per-phase duration breakdown")
+    args = ap.parse_args(argv)
+
+    p = pathlib.Path(args.path)
+    if p.is_dir():
+        logs = sorted(p.glob("*.trace.jsonl"), key=lambda f: f.stat().st_mtime)
+        p = logs[-1] if logs else p
+    if not p.is_file():
+        print(f"dstpu_trace: no trace log at {args.path!r}", file=sys.stderr)
+        return 1
+    traces = _group_traces(load_spans(p))
+    if not traces:
+        print(f"dstpu_trace: {p} holds no spans", file=sys.stderr)
+        return 1
+
+    if args.uid is not None:
+        matches = [tr for tr in traces.values()
+                   if any(str(s.get("uid")) == args.uid for s in tr)]
+        if not matches:
+            print(f"dstpu_trace: no trace for uid {args.uid!r}",
+                  file=sys.stderr)
+            return 1
+        for tr in matches:
+            print(f"trace {tr[0]['trace']} uid={args.uid} "
+                  f"({len(tr)} spans)")
+            print(render_timeline(tr))
+        return 0
+
+    if args.slowest is not None:
+        print(render_slowest(traces, args.slowest))
+        return 0
+
+    rows = [("trace", "uid", "spans", "e2e_ms")]
+    for tid_, tr in sorted(traces.items()):
+        r = _root(tr)
+        rows.append((tid_, str(r.get("uid")) if r else "?", len(tr),
+                     f"{r['dur'] * 1e3:.3f}" if r else "?"))
+    print(_fmt_table(rows))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(trace_main())

@@ -96,9 +96,12 @@ def test_fabric_engines_refuse_to_run_on_the_cpu_quietly():
 
 @pytest.mark.parametrize("name", ["Autoscaler", "AutoscalerConfig"])
 def test_unported_autoscaler_names_refuse(name):
+    """The autoscaler is ported: its names resolve to the ported classes
+    (they refused before the port had them)."""
     import deepspeed_tpu_torch.serving as serving
-    with pytest.raises(NotImplementedError, match="next slice"):
-        getattr(serving, name)
+    from deepspeed_tpu_torch.serving import autoscaler
+    assert getattr(serving, name) is getattr(autoscaler, name)
+    assert name in serving.__all__
 
 
 def test_cuda_wrappers_take_the_plain_version_for_cpu_tensors():
@@ -381,6 +384,13 @@ def test_unported_train_features_refuse_at_config_time(override):
     ported: their cases build, with the JAX package's fields."""
     from deepspeed_tpu_torch.config.core import TpuTrainConfig
     base = {"train_micro_batch_size_per_gpu": 2}
+    if override.get("mesh", {}).get("data") == 2:
+        # data-parallel ZeRO across ranks is ported: the config builds
+        # (the engine then needs a process group of 2 ranks)
+        cfg = TpuTrainConfig.load({**base, **override})
+        assert cfg.mesh.data == 2
+        assert cfg.resolve_batch_sizes(2)[0] == 4
+        return
     if "checkpoint" in override or "fault_tolerance" in override or \
             override.get("telemetry", {}).get("memscope"):
         cfg = TpuTrainConfig.load({**base, **override})
@@ -392,6 +402,57 @@ def test_unported_train_features_refuse_at_config_time(override):
         return
     with pytest.raises(NotImplementedError, match="not ported"):
         TpuTrainConfig.load({**base, **override})
+
+
+@pytest.mark.parametrize("override,item", [
+    ({"mesh": {"zero": 2}}, 7),
+    ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}}, 7),
+    ({"zero_optimization": {"stage": 2, "explicit_grad_reduce": True}}, 7),
+    ({"zero_optimization": {"stage": 2, "onebit_gradients": True}}, 7),
+    ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}}, 7),
+    ({"optimizer": {"type": "OneBitAdam"}}, 7),
+    ({"gradient_compression": {"enabled": True}}, 7),
+    ({"mesh": {"tensor": 2}}, 8),
+    ({"mesh": {"sequence": 2}}, 8),
+    ({"mesh": {"pipe": 2}}, 8),
+    ({"mesh": {"expert": 2}}, 8),
+    ({"pipeline": {"stages": 2}}, 8),
+], ids=lambda o: str(o))
+def test_still_refused_keys_name_their_item(override, item):
+    """What stays refused after data-parallel ZeRO raises when the config
+    is built, naming the ROADMAP item it waits on."""
+    from deepspeed_tpu_torch.config.core import TpuTrainConfig
+    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+        TpuTrainConfig.load({"train_micro_batch_size_per_gpu": 2,
+                             **override})
+
+
+def test_comm_keys_are_accepted_as_in_jax():
+    """`comms_logger`, `prescale_gradients` and `gradient_predivide_factor`
+    build, with the JAX package's fields and defaults."""
+    from deepspeed_tpu.config.core import TpuTrainConfig as JCfg
+    from deepspeed_tpu_torch.config.core import TpuTrainConfig
+    d = {"train_micro_batch_size_per_gpu": 2, "prescale_gradients": True,
+         "gradient_predivide_factor": 2.0,
+         "comms_logger": {"enabled": True, "verbose": False}}
+    cfg, ref = TpuTrainConfig.load(d), JCfg.load(d)
+    assert cfg.prescale_gradients is ref.prescale_gradients is True
+    assert cfg.gradient_predivide_factor == ref.gradient_predivide_factor
+    import dataclasses
+    assert dataclasses.asdict(cfg.comms_logger) == \
+        dataclasses.asdict(ref.comms_logger)
+
+
+def test_mesh_larger_than_the_world_raises_at_engine_build():
+    """Without a process group a rank never trains alone for a larger
+    mesh: the engine refuses `mesh.data = 2`."""
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec, initialize
+    model = ModelSpec(loss_fn=lambda p, b: (p["w"] * b["x"]).sum(),
+                      params={"w": torch.ones(4)})
+    with pytest.raises(ValueError, match="process group"):
+        initialize(model=model, device="cpu", config={
+            "train_micro_batch_size_per_gpu": 1, "mesh": {"data": 2},
+            "optimizer": {"type": "adam"}})
 
 
 @pytest.mark.parametrize("override", [
@@ -924,3 +985,28 @@ def test_curriculum_data_loader_refuses_with_the_sampler_named():
     from deepspeed_tpu_torch.runtime.dataloader import CurriculumDataLoader
     with pytest.raises(NotImplementedError, match="curriculum_metrics"):
         CurriculumDataLoader([], 2, sampler=None)
+
+
+def test_top_level_names_the_port_has_resolve_as_in_jax():
+    """Every name of the JAX package's `__all__` that the port has ported
+    resolves at the port's top level (the aliases to the same objects),
+    with `ServingRouter` beside them; the rest are listed and absent."""
+    import deepspeed_tpu
+    import deepspeed_tpu_torch as port
+    unported = {"default_inference_config", "add_config_arguments",
+                "add_tuning_arguments", "HybridEngine",
+                "DeepSpeedHybridEngine", "checkpointing", "OnDevice", "zero",
+                "get_accelerator", "__version__"}
+    for name in deepspeed_tpu.__all__:
+        if name in unported:
+            assert name not in port.__all__
+            continue
+        assert name in port.__all__, name
+        assert getattr(port, name) is not None, name
+    assert port.DeepSpeedEngine is port.Engine
+    assert port.DeepSpeedConfig is port.TpuTrainConfig
+    assert port.DeepSpeedInferenceConfig is port.TpuInferenceConfig
+    from deepspeed_tpu_torch.serving.router import ServingRouter
+    assert port.ServingRouter is ServingRouter
+    assert port.comm.init_distributed is port.init_distributed
+    assert len(port.__all__) == 18
