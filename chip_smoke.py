@@ -443,6 +443,7 @@ and prints no result line. It imports no JAX and nothing of deepspeed_tpu.
 """
 
 import collections
+import concurrent.futures
 import dataclasses
 import gc
 import json
@@ -6120,8 +6121,8 @@ def _engine_parity(name, card, cpu, batch):
     TRAIN_GRAD_REL_TOL."""
     import torch
     from deepspeed_tpu_torch.utils.tree import tree_leaves
-    g_card, l_card, _ = card._grads(card.state.params, batch)
-    g_cpu, l_cpu, _ = cpu._grads(cpu.state.params, batch)
+    g_card, l_card, _, _ = card._grads(card.state.params, batch)
+    g_cpu, l_cpu, _, _ = cpu._grads(cpu.state.params, batch)
     loss_err = abs(float(l_card) - float(l_cpu))
     rel = {}
     names = _leaf_names(g_cpu)
@@ -6917,7 +6918,7 @@ def _moe_train_parity(cfg):
                                                         routes[key])):
             raise AssertionError(f"moe train parity: {key} routes changed "
                                  f"between two passes")
-    (g_card, l_card, _), (g_cpu, l_cpu, _) = res["card"], res["cpu"]
+    (g_card, l_card, _, _), (g_cpu, l_cpu, _, _) = res["card"], res["cpu"]
     loss_err = abs(float(l_card) - float(l_cpu))
     rel = {}
     for leaf, a, b in zip(_leaf_names(g_cpu), tree_leaves(g_card),
@@ -9006,6 +9007,7 @@ def _offload_kernels(rng, checks, results):
                  "flash_attention_bwd_dkv"):
         results[name, "zero_offload"] = results[name, "north_star"]
         results[name, "zero"] = results[name, "north_star"]
+        results[name, "zeropp"] = results[name, "north_star"]
 
 
 # ----------------------------------------------------------------------
@@ -9198,7 +9200,8 @@ def _zero_batch(cfg):
             ZERO_DEVICE)}
 
 
-def _zero_run(stage, params, batch, save_dir=None):
+def _zero_run(stage, params, batch, save_dir=None, zero=None,
+              optimizer=None, steps=ZERO_STEPS, hook=None):
     """One engine at `stage` (over the process group when one is up):
     losses, seconds a step, the final params (host copies), the flash
     launches, the facade's calls a step and its stats, and where every
@@ -9212,15 +9215,19 @@ def _zero_run(stage, params, batch, save_dir=None):
     from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
     from deepspeed_tpu_torch.utils.tree import tree_leaves
     cfg = _zero_cfg()
-    config = dict(ZERO_CONFIG, zero_optimization={"stage": stage})
+    config = dict(ZERO_CONFIG, zero_optimization=zero or {"stage": stage})
+    if optimizer is not None:
+        config["optimizer"] = optimizer
     engine, *_ = initialize(model=make_gpt_model(cfg, name=NORTH_MODEL,
                                                  params=params),
                             config=config)
+    if hook is not None:
+        hook(engine)
     LAUNCHES.clear()
     coll.LAUNCHES.clear()
     coll.stats.reset()
     losses, step_s = [], []
-    for _ in range(ZERO_STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses.append(float(engine.train_batch(batch)))
@@ -9233,7 +9240,7 @@ def _zero_run(stage, params, batch, save_dir=None):
            "params": [t.detach().cpu() for t in tree_leaves(
                engine.state.params)],
            "launches": dict(LAUNCHES),
-           "comm_launches": {k: v / ZERO_STEPS for k, v in
+           "comm_launches": {k: v / steps for k, v in
                              coll.LAUNCHES.items()},
            "comm_stats": coll.stats.snapshot(), "devices": devices,
            "sharded": engine.sharded,
@@ -9374,6 +9381,10 @@ def phase_zero(state):
                      / grouped[0]["seconds_per_step"],
                      "facade_calls_per_step": g["comm_launches"],
                      "step_s": g["step_s"]}
+    # the zeropp phase holds its knobs to these plain runs
+    state["zero_grouped"] = {s: {"losses": grouped[s]["losses"],
+                                 "params": grouped[s]["params"]}
+                             for s in (2, 3)}
     ranks = None
     n_cards = min(torch.cuda.device_count(), ZERO_MAX_RANKS)
     if n_cards > 1:
@@ -9391,9 +9402,10 @@ def phase_zero(state):
     return grouped[3]["launches"]
 
 
-def _zero_rank(rank, world, store_dir, results):
-    """One rank of the multi-card check: stage 3 over NCCL, the same global
-    batch on every rank; its params' bytes digest."""
+def _zero_rank(rank, world, store_dir, results, zero=None):
+    """One rank of the multi-card check: stage 3 (or the `zero`
+    `zero_optimization` block) over NCCL, the same global batch on every
+    rank; its params' bytes digest."""
     import hashlib
     import torch
     import torch.distributed as dist
@@ -9405,7 +9417,7 @@ def _zero_rank(rank, world, store_dir, results):
         f"{store_dir}/store", world), rank=rank, world_size=world)
     try:
         cfg = _zero_cfg()
-        config = dict(ZERO_CONFIG, zero_optimization={"stage": 3},
+        config = dict(ZERO_CONFIG, zero_optimization=zero or {"stage": 3},
                       mesh={"data": world})
         engine, *_ = initialize(model=make_gpt_model(
             cfg, name=NORTH_MODEL, seed=0), config=config)
@@ -9423,16 +9435,16 @@ def _zero_rank(rank, world, store_dir, results):
         dist.destroy_process_group()
 
 
-def _zero_ranks(world):
-    """Stage 3 on `world` cards, one spawned rank a card: every rank's
-    losses and params must agree bit for bit."""
+def _zero_ranks(world, zero=None):
+    """Stage 3 (or the `zero` block) on `world` cards, one spawned rank a
+    card: every rank's losses and params must agree bit for bit."""
     import tempfile
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     store_dir = tempfile.mkdtemp(prefix="chip_smoke_zero_")
     procs = [ctx.Process(target=_zero_rank,
-                         args=(r, world, store_dir, results))
+                         args=(r, world, store_dir, results, zero))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -9444,9 +9456,298 @@ def _zero_ranks(world):
             if p.is_alive():
                 p.kill()
     if len({(tuple(losses), digest) for _, losses, digest in got}) != 1:
-        raise AssertionError(f"zero across {world} cards: ranks disagree "
-                             f"{got}")
+        raise AssertionError(f"zero across {world} cards ({zero}): ranks "
+                             f"disagree {got}")
     return {"world_size": world, "losses": got[0][1], "digest": got[0][2]}
+
+
+# the zeropp cell: the zero cell's model, shapes and batch. (a) the 1-bit
+# optimizers with freeze_step / var_freeze_step ZEROPP_FREEZE, 1 warm-up +
+# ZEROPP_OPT_STEPS - 1 steps with no process group, held to the plain CPU
+# path at the first compressed step: the momentum's sign bits wherever
+# |m + e| > 1e-6 * scale, the scale within ZEROPP_SCALE_RTOL, nu and LAMB's
+# trust ratios within ZEROPP_STATE_RTOL; beside AdamW at the same shape.
+# (b) every ZeRO++ knob over the one-rank NCCL group for ZERO_STEPS steps,
+# bit-equal to the plain stage (at one rank every wire is disabled, as in
+# JAX), then the wire transforms once each on the wte's bytes, bit-equal
+# to the plain CPU computation. (c) with more than one card, stage 3 qwZ +
+# qgZ and stage 2 onebit_gradients across the cards, the ranks' params bit
+# for bit alike
+ZEROPP_FREEZE, ZEROPP_OPT_STEPS = 2, 6
+ZEROPP_EPS, ZEROPP_LAMB_LR = 1e-6, 1e-2
+ZEROPP_OPTIMIZERS = ("OneBitAdam", "OneBitLamb", "ZeroOneAdam")
+ZEROPP_SCALE_RTOL, ZEROPP_STATE_RTOL = 1e-5, 1e-6
+ZEROPP_KNOBS = {
+    "stage3_qwz_qgz": {"stage": 3, "zero_quantized_weights": True,
+                       "zero_quantized_gradients": True},
+    "stage2_explicit_int8": {"stage": 2, "explicit_grad_reduce": True,
+                             "zero_quantized_gradients": True},
+    "stage2_onebit": {"stage": 2, "onebit_gradients": True},
+    "stage3_hpz_mics": {"stage": 3, "zero_hpz_partition_size": 1,
+                        "mics_shard_size": 1},
+}
+
+
+def _zeropp_opt(name):
+    """The run's 1-bit optimizer: the lane's lr and weight decay (LAMB's
+    lr ZEROPP_LAMB_LR: its trust ratio scales the step by |w| / |step|,
+    ~0.02 at init, below a bf16 param's rounding at the lane's lr), eps
+    ZEROPP_EPS. With a variance frozen after ZEROPP_FREEZE steps, an
+    element whose gradient is 0 (a wte row no token of the batch reads)
+    takes a compressed momentum of +-scale over sqrt(nu) = 0, a step of
+    scale / eps: JAX's rule, which eps 1e-8 turns into a jump."""
+    hp = dict(BENCH_ENGINE_CONFIG["optimizer"]["params"], eps=ZEROPP_EPS,
+              freeze_step=ZEROPP_FREEZE, var_freeze_step=ZEROPP_FREEZE)
+    if name == "OneBitLamb":
+        hp["lr"] = ZEROPP_LAMB_LR
+    return {"type": name, "params": hp}
+
+
+def _zeropp_tree_cpu(tree):
+    from deepspeed_tpu_torch.utils.tree import tree_map
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+
+def _zeropp_watch(name, out):
+    """An engine hook for one 1-bit optimizer's run: at the first
+    compressed step its update's inputs are copied to the CPU before the
+    card's update and its state after; at the last step the update runs
+    under torch.profiler, which counts its kernel launches."""
+    import dataclasses as dc
+    from torch.profiler import ProfilerActivity, profile
+    first = 0 if name == "ZeroOneAdam" else ZEROPP_FREEZE
+    calls = [0]
+
+    def hook(engine):
+        update = engine.optimizer.update
+
+        def watched(grads, opt_state, target, apply=None, **kw):
+            step = calls[0]
+            calls[0] += 1
+            if step == first:
+                out["inputs"] = (_zeropp_tree_cpu(grads),
+                                 _zeropp_tree_cpu(opt_state),
+                                 _zeropp_tree_cpu(target), apply, kw)
+            if step == ZEROPP_OPT_STEPS - 1:
+                import torch
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    update(grads, opt_state, target, apply, **kw)
+                    torch.cuda.synchronize()
+                out["update_launches"] = sum(
+                    ev.count for ev in prof.key_averages()
+                    if ev.device_type.name == "CUDA")
+            else:
+                update(grads, opt_state, target, apply, **kw)
+            if step == first:
+                out["after"] = _zeropp_tree_cpu(opt_state)
+
+        engine.optimizer = dc.replace(engine.optimizer, update=watched)
+    return hook
+
+
+def _zeropp_parity(name, seen):
+    """The first compressed step's update through the plain CPU path on
+    the card's inputs, against the card's state after it: sign bits equal
+    where |m + e| > 1e-6 * scale (the others counted), each leaf's scale,
+    nu and (LAMB) the trust ratios within their tolerances."""
+    import torch
+    from deepspeed_tpu_torch.config.core import OptimizerConfig
+    from deepspeed_tpu_torch.ops.optim import build_optimizer
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    grads, opt_state, target, apply, kw = seen["inputs"]
+    base = opt_state["base"] if "base" in opt_state else opt_state
+    b1 = 0.9
+    corrected = [b1 * m + (1 - b1) * g.float() + e for m, g, e in zip(
+        tree_leaves(base["mu"]), tree_leaves(grads),
+        tree_leaves(base["error"]))]
+    t0 = time.perf_counter()
+    tx = build_optimizer(OptimizerConfig.from_dict(_zeropp_opt(name)))
+    tx.update(grads, opt_state, target, apply, **kw)
+    cpu_s = time.perf_counter() - t0
+    card = seen["after"]
+    card_base = card["base"] if "base" in card else card
+    cpu_base = opt_state["base"] if "base" in opt_state else opt_state
+    others, scale_err, nu_err, flips = 0, 0.0, 0.0, 0
+    for c, m_card, m_cpu, v_card, v_cpu in zip(
+            corrected, tree_leaves(card_base["mu"]),
+            tree_leaves(cpu_base["mu"]), tree_leaves(card_base["nu"]),
+            tree_leaves(cpu_base["nu"])):
+        s_card, s_cpu = m_card.abs().max(), m_cpu.abs().max()
+        scale_err = max(scale_err, float((s_card - s_cpu).abs() / s_cpu))
+        clear = c.abs() > 1e-6 * s_cpu
+        others += int((~clear).sum())
+        flips += int((torch.signbit(m_card) != torch.signbit(m_cpu))[clear]
+                     .sum())
+        nu_err = max(nu_err, float(((v_card - v_cpu).abs()
+                                    / v_cpu.abs().clamp_min(1e-30)).max()))
+    scaling_err = 0.0
+    if "scaling" in card:
+        for a, b in zip(tree_leaves(card["scaling"]),
+                        tree_leaves(opt_state["scaling"])):
+            scaling_err = max(scaling_err, float((a - b).abs() / b.abs()))
+    out = {"sign_mismatches": flips, "near_zero_elements": others,
+           "scale_rel_err": scale_err, "nu_rel_err": nu_err,
+           "scaling_rel_err": scaling_err, "cpu_update_s": cpu_s}
+    if flips or not (scale_err <= ZEROPP_SCALE_RTOL
+                     and nu_err <= ZEROPP_STATE_RTOL
+                     and scaling_err <= ZEROPP_STATE_RTOL):
+        raise AssertionError(f"zeropp {name}: the card's first compressed "
+                             f"update against the CPU's {out}")
+    return out
+
+
+def _zeropp_transforms(x):
+    """The wire transforms once each on the one-rank NCCL group, on `x`
+    (the wte's bytes, fp32), against the plain CPU computation of the same
+    call: the int8 all-gather (at n = 1 it still encodes and decodes), the
+    1-bit error-feedback reduce with a residual (its decoded value and new
+    residual; at n = 1 no collective runs) and qwZ's gather of a leaf
+    sharded on dimension 1. Each bit-equal; the facade's stats and calls
+    after them."""
+    import torch
+    from deepspeed_tpu_torch.comm import collectives as coll
+    from deepspeed_tpu_torch.runtime import quantized_collectives as qc
+    coll.LAUNCHES.clear()
+    coll.stats.reset()
+    gen = torch.Generator(x.device).manual_seed(23)
+    err = torch.randn(x.shape, generator=gen, device=x.device) * 1e-3
+    card = {"int8_all_gather": coll.transform_all_gather(
+                x.reshape(-1), "data", "int8"),
+            "onebit_all_reduce": coll.compressed_all_reduce(
+                x, "data", "onebit", err=err),
+            "quantized_all_gather_dim": qc.quantized_all_gather_dim(
+                x, "data", 1)}
+    torch.cuda.synchronize()
+    launches, stats = dict(coll.LAUNCHES), coll.stats.snapshot()
+    xc, ec = x.cpu(), err.cpu()
+    q, sc = coll.group_quant_int8(xc.reshape(-1))
+    deq = coll.group_dequant_int8(q[None], sc[None], torch.float32)
+    cpu = {"int8_all_gather": deq,
+           # n = 1: the same call on CPU tensors issues no collective
+           "onebit_all_reduce": coll.compressed_all_reduce(
+               xc, "data", "onebit", err=ec),
+           "quantized_all_gather_dim": deq.reshape(xc.shape)}
+    bad = []
+    for k, v in card.items():
+        got = v if isinstance(v, tuple) else (v,)
+        want = cpu[k] if isinstance(cpu[k], tuple) else (cpu[k],)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"zeropp transforms: {bad} differ from the "
+                             f"plain CPU computation")
+    return {"bit_equal": sorted(card), "launches": launches,
+            "wire_bytes": stats}
+
+
+def phase_zeropp(state):
+    """ZeRO++ and the 1-bit optimizers on the card, at the zero cell's
+    shapes (see ZEROPP_*): (a) each 1-bit optimizer's run with no group
+    (finite losses falling, flash launches exact, every state tensor on
+    the card, the first compressed update held to the CPU path, s/step
+    beside AdamW's, the update's kernel launches a step); (b) every ZeRO++
+    knob over the one-rank NCCL group bit-equal to the plain stage with no
+    facade call in a step, and the wire transforms bit-equal to the CPU;
+    (c) with more than one card, two knobs across the cards."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models.gpt import init_gpt_params
+    t_phase = time.perf_counter()
+    cfg = _zero_cfg()
+    L = cfg.n_layer
+    params = init_gpt_params(cfg, seed=0)
+    batch = _zero_batch(cfg)
+
+    def flash(steps):
+        return {"flash_attention": 2 * L * ZERO_GAS * steps,
+                "flash_attention_bwd_dq": L * ZERO_GAS * steps,
+                "flash_attention_bwd_dkv": L * ZERO_GAS * steps}
+
+    total = collections.Counter()
+    optimizers = {}
+    adamw = _zero_run(3, params, batch, steps=ZEROPP_OPT_STEPS)
+    _expect("zeropp AdamW", adamw["launches"], flash(ZEROPP_OPT_STEPS))
+    total.update(adamw["launches"])
+    watched = {}
+    for name in ZEROPP_OPTIMIZERS:
+        seen = watched[name] = {}
+        run = _zero_run(3, params, batch, optimizer=_zeropp_opt(name),
+                        steps=ZEROPP_OPT_STEPS,
+                        hook=_zeropp_watch(name, seen))
+        _expect(f"zeropp {name}", run["launches"], flash(ZEROPP_OPT_STEPS))
+        total.update(run["launches"])
+        losses = run["losses"]
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"zeropp {name}: losses {losses}")
+        if run["devices"] != {ZERO_DEVICE}:
+            raise AssertionError(f"zeropp {name}: state on "
+                                 f"{run['devices']}")
+        optimizers[name] = {
+            "losses": losses, "seconds_per_step": run["seconds_per_step"],
+            "vs_adamw": run["seconds_per_step"] / adamw["seconds_per_step"],
+            "update_launches_a_step": seen["update_launches"]}
+        del run
+    # the CPU updates run on side threads, one an optimizer, beside (b),
+    # whose steps are not timed against anything (torch's CPU kernels
+    # leave the interpreter lock); the 1-bit steps above ran alone
+    cpu = concurrent.futures.ThreadPoolExecutor(len(watched))
+    parity = {name: cpu.submit(_zeropp_parity, name, seen)
+              for name, seen in watched.items()}
+    del watched
+
+    plain = state.get("zero_grouped")
+    store = dist.TCPStore("127.0.0.1", _zero_free_port(), 1, True)
+    dist.init_process_group(ZERO_BACKEND, store=store, rank=0, world_size=1)
+    try:
+        comm.init_distributed(device=ZERO_DEVICE)
+        if plain is None:
+            plain = {s: _zero_run(s, params, batch) for s in (2, 3)}
+        knobs = {}
+        for name, zero in ZEROPP_KNOBS.items():
+            run = _zero_run(zero["stage"], params, batch, zero=zero)
+            _expect(f"zeropp {name}", run["launches"], flash(ZERO_STEPS))
+            total.update(run["launches"])
+            ref = plain[zero["stage"]]
+            bit_equal = run["losses"] == ref["losses"] and all(
+                torch.equal(a, b) for a, b in zip(run["params"],
+                                                  ref["params"]))
+            if not bit_equal or run["comm_launches"] or run["comm_stats"]:
+                raise AssertionError(
+                    f"zeropp {name}: bit-equal to the plain stage "
+                    f"{bit_equal}, facade calls a step "
+                    f"{run['comm_launches']}, bytes {run['comm_stats']}")
+            knobs[name] = {"losses": run["losses"], "bit_equal": bit_equal,
+                           "seconds_per_step": run["seconds_per_step"],
+                           "facade_calls_per_step": run["comm_launches"]}
+        transforms = _zeropp_transforms(
+            params["wte"].to(ZERO_DEVICE, torch.float32))
+    finally:
+        comm.destroy_process_group()
+        del store
+        cpu.shutdown(wait=True)
+    for name, result in parity.items():
+        optimizers[name]["first_compressed_update"] = result.result()
+    del parity
+    gc.collect()
+    ranks = None
+    n_cards = min(torch.cuda.device_count(), ZERO_MAX_RANKS)
+    if n_cards > 1:
+        ranks = {name: _zero_ranks(n_cards, ZEROPP_KNOBS[name])
+                 for name in ("stage3_qwz_qgz", "stage2_onebit")}
+    emit({"phase": "zeropp", "model": NORTH_MODEL, "n_layer": L,
+          "source": "bench.py:1970-1977 (north-star width, ZERO_LAYERS of "
+          "24 layers, gas 2; the zero cell's shapes)",
+          "config": ZERO_CONFIG, "seq": NORTH_SEQ,
+          "adamw_seconds_per_step": adamw["seconds_per_step"],
+          "optimizers": optimizers, "knobs": knobs,
+          "transforms": transforms, "ranks": ranks,
+          "launches": dict(total), "phase_s": time.perf_counter() - t_phase,
+          "nvidia_smi": state["nvidia_smi"]})
+    return dict(total)
 
 
 def phase_profile(state):
@@ -9529,7 +9830,7 @@ def main():
          "longctx16k", "routing", "bert", "llama", "moe", "sparse",
          "evoformer", "offload", "infinity", "zero_inference",
          "zero_offload", "checkpoint", "memscope", "router", "robustness",
-         "fabric", "autoscale", "zero"]
+         "fabric", "autoscale", "zero", "zeropp"]
     dev = phase_device()
     state, launches, kern, wall = {"nvidia_smi": dev["nvidia_smi"]}, {}, \
         {}, {}
@@ -9569,7 +9870,8 @@ def main():
                        ("robustness", phase_robustness),
                        ("fabric", phase_fabric),
                        ("autoscale", phase_autoscale),
-                       ("zero", phase_zero)):
+                       ("zero", phase_zero),
+                       ("zeropp", phase_zeropp)):
         if phase in phases:
             t0 = time.perf_counter()
             counts = run(state)        # counts of each path's run; the

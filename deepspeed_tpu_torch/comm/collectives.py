@@ -330,7 +330,9 @@ def group_quant_int8(x, group_size=DEFAULT_GROUP_SIZE):
     gs = D // g
     xg = x.float().reshape(tuple(x.shape[:-1]) + (g, gs))
     amax = xg.abs().amax(dim=-1)
-    scale = amax.clamp_min(1e-8) / 127.0
+    # a tensor divisor: on CUDA a Python-scalar one becomes a multiply by
+    # its reciprocal, a bit off the CPU's (and jnp's) quotient
+    scale = amax.clamp_min(1e-8) / amax.new_tensor(127.0)
     q = torch.clamp(torch.round(xg / scale[..., None]), -127, 127) \
         .to(torch.int8)
     return q.reshape(x.shape), scale
@@ -363,13 +365,18 @@ def _unpack_signs(packed, numel):
     return (flat * 2 - 1).float()
 
 
-def onebit_encode(x):
+def onebit_encode(x, scale=None):
     """Flat f32 [N] -> (packed signs uint8 [ceil(N / 8)], scale f32 [1]):
     sign(x) * mean|x|, with sign(0) -> +1 so each value packs to one bit.
-    The scale's sum runs in torch's order, so it may differ from jnp's by
-    a few ulp."""
+    The mean is summed in fp64 and rounded once to fp32, so the card and
+    the CPU give the same scale; it may differ from jnp's fp32 mean by a
+    few ulp. `scale` (0-d) replaces mean|x| where `x` is a rank's chunk of
+    a tensor whose whole mean|.| the caller has reduced across ranks."""
     numel = x.shape[0]
-    scale = x.float().abs().mean()[None]
+    if scale is None:
+        total = x.float().abs().sum(dtype=torch.float64)
+        scale = total / total.new_tensor(float(numel))
+    scale = scale.float().reshape(1)
     bits = x >= 0
     pad = (-numel) % 8
     if pad:

@@ -13,8 +13,13 @@ One process is one rank and one device: the world size is the process
 group's (1 when none is initialized, and then the mesh holds no
 `DeviceMesh`: every axis has size 1 and a collective is the identity). A
 mesh whose size differs from the group's raises: a rank never trains alone
-in a larger world. Only `data` may exceed 1 in this port; the config's
-`MeshConfig` refuses the other axes, naming the ROADMAP item each waits on.
+in a larger world. Only `data` and its inner factor `zero` (MiCS / hpZ
+sub-groups) may exceed 1 in this port; the config's `MeshConfig` refuses
+the model-parallel axes, naming the ROADMAP item they wait on. Ranks lie
+on the mesh in JAX's device order (rank r is JAX's device r), so a `zero`
+group holds the ranks that share a data index, a `data` group the ranks
+that share a zero index, and the joint (data, zero) domain is the whole
+world in rank order.
 """
 
 import dataclasses
@@ -211,18 +216,26 @@ def axis_size(axis) -> int:
 
 def axis_group(axis=None):
     """The process group of a mesh axis or tuple of axes (None without a
-    process group). Only one axis of a tuple may exceed 1 in this port,
-    so a tuple's group is that axis's (the data axis's when none does)."""
+    process group): a tuple's group is that of its one axis above 1 (the
+    data axis's when none is), or, where several are, the world's when
+    they span it in mesh order (the joint data x zero domain: the world's
+    rank order is the flattened mesh's)."""
     mesh = get_mesh()
     if mesh is None:
         return None
-    sizes = get_spec().axis_sizes()
+    spec = get_spec()
+    sizes = spec.axis_sizes()
     axes = _axes(axis)
     big = [a for a in axes if sizes[a] > 1]
     if len(big) > 1:
-        raise NotImplementedError(
-            f"a collective over several mesh axes of size > 1 ({big}) is not "
-            f"ported to deepspeed_tpu_torch yet (ROADMAP queue 1 item 8)")
+        in_order = big == [a for a in ALL_AXES if a in big]
+        if not in_order or \
+                int(np.prod([sizes[a] for a in big])) != spec.world_size:
+            raise NotImplementedError(
+                f"a collective over the mesh axes {big} (not the whole "
+                f"world in mesh order) is not ported to deepspeed_tpu_torch "
+                f"yet (ROADMAP queue 1 item 8)")
+        return _CURRENT_GROUP
     name = big[0] if big else (DATA_AXIS if DATA_AXIS in axes else axes[0])
     return mesh.get_group(name)
 

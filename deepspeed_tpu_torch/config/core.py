@@ -6,12 +6,17 @@ JSON as the JAX package's (the batch triad with "auto" resolution, fp16 /
 bf16, optimizer, scheduler, ZeRO stage, gradient clipping, the gradient
 accumulator dtype, activation checkpointing). A feature of that config the
 port does not carry yet raises `NotImplementedError` when the config is
-built, naming the ROADMAP item it waits on: ZeRO++ / compressed wires,
-MiCS / hpZ and mesh axes other than `data` above 1, pipeline, MoE, the
+built, naming the ROADMAP item it waits on: the model-parallel mesh axes
+(`tensor`, `pipe`, `sequence`, `expert` above 1), pipeline, MoE, the
 metric-driven curriculum (`curriculum_metrics`), compression and the
-profilers. `mesh.data` spans the ranks of the process group (data-parallel
-ZeRO 0-3 over `comm/`), and `comms_logger`, `prescale_gradients` and
-`gradient_predivide_factor` are accepted as the JAX package accepts them.
+profilers. `mesh.data` and `mesh.zero` span the ranks of the process
+group (data-parallel ZeRO 0-3 over `comm/`, with MiCS / hpZ on the inner
+`zero` axis); the ZeRO++ knobs (`zero_quantized_weights`,
+`zero_quantized_gradients`, `explicit_grad_reduce`, `onebit_gradients`,
+`compressed_comm_axis`, `mics_shard_size`, `zero_hpz_partition_size`) and
+the 1-bit optimizers are ported; `comms_logger`, `prescale_gradients`,
+`gradient_predivide_factor` and the `gradient_compression` block are
+accepted as the JAX package accepts them (no JAX module reads the last).
 The `telemetry` block (its request
 tracing, flight recorder and memscope ledger included), the monitors
 (`tensorboard`, `wandb`, `csv_monitor`), progressive layer drop and the
@@ -74,19 +79,19 @@ def not_ported(what, item=None):
         f"package deepspeed_tpu serves it)")
 
 
-# mesh axes other than `data` and the ROADMAP item each waits on: `zero`
-# is MiCS / hpZ (item 7's second half), the model-parallel axes item 8
-UNPORTED_AXES = {"zero": "7", "tensor": "8", "pipe": "8", "sequence": "8",
+# the model-parallel mesh axes and the ROADMAP item they wait on (`data`
+# and its inner factor `zero`, MiCS / hpZ, are ported)
+UNPORTED_AXES = {"tensor": "8", "pipe": "8", "sequence": "8",
                  "expert": "8"}
 
 
 def refuse_unported_axes(sizes):
-    """Raise for a mesh axis other than `data` above 1."""
+    """Raise for a model-parallel mesh axis above 1."""
     for name, item in UNPORTED_AXES.items():
         size = sizes.get(name)
         if size is not None and int(size) > 1:
             not_ported(f"mesh.{name} = {size} (a mesh axis other than "
-                       f"'data' above 1)", item=item)
+                       f"'data' and 'zero' above 1)", item=item)
 
 
 def _as_block(value, cls):
@@ -129,7 +134,10 @@ class OffloadOptimizerConfig(ConfigModel):
 class ZeroConfig(ConfigModel):
     """`zero_optimization`. At one rank stages 0-3 are one computation (as
     on the JAX package's one-device mesh); the knobs that only shape
-    collectives are accepted and have nothing to act on."""
+    collectives are accepted and have nothing to act on. Across ranks the
+    ZeRO++ knobs pick the engine's wires (`runtime/engine.py`), and
+    `mics_shard_size` / `zero_hpz_partition_size` factor the data domain
+    into data x zero (`runtime/zero.py`)."""
     stage: int = 0
     contiguous_gradients: bool = True
     reduce_scatter: bool = True
@@ -171,13 +179,6 @@ class ZeroConfig(ConfigModel):
                 raise ValueError(f"zero_optimization.{name}.device must be "
                                  f"one of {OFFLOAD_DEVICES}, got "
                                  f"{block.device!r}")
-        for name in ("zero_quantized_weights", "zero_quantized_gradients",
-                     "explicit_grad_reduce", "onebit_gradients"):
-            if getattr(self, name):
-                not_ported(f"zero_optimization.{name}", item="7")
-        if int(self.mics_shard_size) > 0 or int(self.zero_hpz_partition_size) > 1:
-            not_ported("zero_optimization MiCS / hpZ sub-group sharding",
-                       item="7")
 
 
 @dataclass
@@ -209,11 +210,6 @@ class OptimizerConfig(ConfigModel):
     params: Dict[str, Any] = field(default_factory=dict)
     legacy_fusion: bool = False
 
-    def __post_init__(self):
-        if self.type.lower() in ("onebitadam", "zerooneadam", "onebitlamb"):
-            not_ported(f"the {self.type} optimizer (compressed communication)",
-                       item="7")
-
 
 @dataclass
 class SchedulerConfig(ConfigModel):
@@ -223,8 +219,9 @@ class SchedulerConfig(ConfigModel):
 
 @dataclass
 class MeshConfig(ConfigModel):
-    """Logical mesh axis sizes (`comm/mesh.py`). `data` spans the ranks of
-    the process group (-1: all of them); every other axis must be 1."""
+    """Logical mesh axis sizes (`comm/mesh.py`). `data` x `zero` spans the
+    ranks of the process group (`data` -1: all of them); the
+    model-parallel axes must be 1."""
     data: int = -1
     zero: int = 1
     tensor: int = 1
@@ -404,6 +401,17 @@ class CommsLoggerConfig(ConfigModel):
 
 
 @dataclass
+class GradientCompressionConfig(ConfigModel):
+    """The `gradient_compression` block, the JAX package's fields and
+    defaults. As in the JAX package nothing reads it: the compressed wires
+    are the `zero_optimization` knobs and the 1-bit optimizers."""
+    enabled: bool = False
+    bits: int = 8
+    error_feedback: bool = True
+    warmup_steps: int = 100
+
+
+@dataclass
 class FaultToleranceConfig(ConfigModel):
     """Training-loop bad-state sentinels + in-process rollback
     (`runtime/sentinel.py`), the JAX package's fields and defaults. Opt-in:
@@ -424,13 +432,12 @@ class FaultToleranceConfig(ConfigModel):
 
 # blocks of the JAX config that this port refuses when they are switched
 # on (an "enabled" flag), or given at all (the others)
-_UNPORTED_ENABLED = ("moe", "flops_profiler", "eigenvalue",
-                     "gradient_compression", "autotuning", "elasticity")
+_UNPORTED_ENABLED = ("moe", "flops_profiler", "eigenvalue", "autotuning",
+                     "elasticity")
 _UNPORTED_CONTENT = ("pipeline", "compression_training")
 _UNPORTED_FLAGS = ("sparse_gradients", "dump_state")
 # the ROADMAP item each refused key waits on
-_UNPORTED_ITEMS = {"gradient_compression": "7", "pipeline": "8", "moe": "4",
-                   "dump_state": "4"}
+_UNPORTED_ITEMS = {"pipeline": "8", "moe": "4", "dump_state": "4"}
 
 
 def _refuse_unported(d):
@@ -482,6 +489,8 @@ class TpuTrainConfig(ConfigModel):
         default_factory=FaultToleranceConfig)
 
     comms_logger: CommsLoggerConfig = field(default_factory=CommsLoggerConfig)
+    gradient_compression: GradientCompressionConfig = field(
+        default_factory=GradientCompressionConfig)
 
     gradient_clipping: float = 0.0
     prescale_gradients: bool = False

@@ -716,6 +716,41 @@ def _causal_lm_nll(params, x, labels, cfg: GPTConfig):
     return nll.sum() / mask.sum().clamp_min(1.0)
 
 
+def gpt_param_specs(cfg: GPTConfig):
+    """The JAX package's Megatron-style tensor-parallel specs of each leaf
+    (tuples of entries, one a dimension: None or "tensor"; column-parallel
+    qkv / up, row-parallel out / down, a vocab-parallel embedding). The
+    port runs no tensor parallelism yet (ROADMAP item 8); ZeRO reads them
+    to shard a free dimension, the one JAX's policy shards."""
+    t = "tensor"
+    block = {"ln1_scale": (None, None), "ln2_scale": (None, None),
+             "attn_qkv_w": (None, None, t), "attn_qkv_b": (None, t),
+             "attn_out_w": (None, t, None), "attn_out_b": (None, None),
+             "mlp_out_b": (None, None)}
+    if not cfg.use_rmsnorm:
+        block["ln1_bias"] = (None, None)
+        block["ln2_bias"] = (None, None)
+    if cfg.use_swiglu:
+        block["mlp_gate_w"] = (None, None, t)
+        block["mlp_up_w"] = (None, None, t)
+        block["mlp_down_w"] = (None, t, None)
+    else:
+        block["mlp_up_w"] = (None, None, t)
+        block["mlp_up_b"] = (None, t)
+        block["mlp_down_w"] = (None, t, None)
+    specs = {"wte": (t, None), "blocks": block, "lnf_scale": (None,)}
+    if not cfg.use_rmsnorm:
+        specs["lnf_bias"] = (None,)
+    if not cfg.use_rotary and not cfg.use_alibi:
+        specs["wpe"] = (None, None)
+    if cfg.use_emb_ln:
+        specs["emb_ln_scale"] = (None,)
+        specs["emb_ln_bias"] = (None,)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (t, None)
+    return specs
+
+
 def make_gpt_model(cfg: GPTConfig = None, name="gpt2-125m", seed=0,
                    params=None, attn_fn=None):
     """ModelSpec for the training engine: the loss, the params (drawn from
@@ -728,7 +763,7 @@ def make_gpt_model(cfg: GPTConfig = None, name="gpt2-125m", seed=0,
         loss_fn=partial(gpt_loss, cfg=cfg, attn_fn=attn_fn),
         params=init_gpt_params(cfg, seed=seed) if params is None else params,
         apply_fn=partial(gpt_forward, cfg=cfg, attn_fn=attn_fn),
-        arch_cfg=cfg, name=name)
+        arch_cfg=cfg, name=name, param_specs=gpt_param_specs(cfg))
 
 
 # ----------------------------------------------------------------------

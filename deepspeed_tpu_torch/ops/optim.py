@@ -13,7 +13,9 @@ optax's `apply_updates` rounds `p + u`. `apply` is the loss scaler's
 skip-step, a 0-d bool tensor: where it is false every stored leaf keeps
 its value (`runtime/precision.py::masked_update`). `leaf_norms`, where
 the optimizer reads per-leaf norms (LAMB), computes them over whole leaves
-when the leaves stepped are shards. The update has no
+when the leaves stepped are shards; `leaf_sums` does the same for any
+per-leaf partial sums (the 1-bit optimizers' sign scale and trust ratio,
+`runtime/compressed_grads.py`). The update has no
 Pallas kernel in the JAX package, so it is plain torch here too.
 """
 
@@ -32,8 +34,9 @@ LAMB_OPTIMIZER = "lamb"
 LION_OPTIMIZER = "lion"
 SGD_OPTIMIZER = "sgd"
 ADAGRAD_OPTIMIZER = "adagrad"
-# the 1-bit optimizers (onebitadam, zerooneadam, onebitlamb) refuse when
-# their OptimizerConfig is built (config/core.py)
+ONEBIT_ADAM_OPTIMIZER = "onebitadam"
+ZERO_ONE_ADAM_OPTIMIZER = "zerooneadam"
+ONEBIT_LAMB_OPTIMIZER = "onebitlamb"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +46,13 @@ class GradientTransformation:
     # the update reads per-leaf norms (LAMB's trust ratio): a caller whose
     # leaves are shards passes `leaf_norms`, the whole leaves' norms
     leaf_norms: bool = False
+    # the update reads per-leaf sums (the 1-bit sign scale): a caller whose
+    # leaves are shards passes `leaf_sums`, which sums a list of per-leaf
+    # 1-d partials over the ranks holding each leaf's shards
+    leaf_sums: bool = False
+    # the engine keeps the state in pinned host memory (ZeRO-Offload's
+    # streamed tier; the DeepSpeedCPU* frontends of ops/{adam,lion,adagrad})
+    offload_to_host: bool = False
 
 
 def _lr_at(lr, count):
@@ -190,6 +200,24 @@ def _adagrad(lr, params: Dict[str, Any]):
     return _transform(lr, {"sum_of_squares": 0.1}, step)
 
 
+def _onebit_adam(lr, params: Dict[str, Any]):
+    # the compressed-communication family: the exact base optimizer in
+    # warmup, then frozen variance and a sign-compressed momentum with
+    # error feedback (runtime/compressed_grads.py)
+    from deepspeed_tpu_torch.runtime.compressed_grads import onebit_adam
+    return onebit_adam(lr, params)
+
+
+def _onebit_lamb(lr, params: Dict[str, Any]):
+    from deepspeed_tpu_torch.runtime.compressed_grads import onebit_lamb
+    return onebit_lamb(lr, params)
+
+
+def _zero_one_adam(lr, params: Dict[str, Any]):
+    from deepspeed_tpu_torch.runtime.compressed_grads import zero_one_adam
+    return zero_one_adam(lr, params)
+
+
 OPTIMIZER_REGISTRY = {
     ADAM_OPTIMIZER: _adam,
     ADAMW_OPTIMIZER: _adamw,
@@ -197,6 +225,9 @@ OPTIMIZER_REGISTRY = {
     LION_OPTIMIZER: _lion,
     SGD_OPTIMIZER: _sgd,
     ADAGRAD_OPTIMIZER: _adagrad,
+    ONEBIT_ADAM_OPTIMIZER: _onebit_adam,
+    ZERO_ONE_ADAM_OPTIMIZER: _zero_one_adam,
+    ONEBIT_LAMB_OPTIMIZER: _onebit_lamb,
 }
 
 # reference config type strings naming implementation variants of the same
@@ -209,6 +240,9 @@ OPTIMIZER_ALIASES = {
     "deepspeedcpuadam": ADAM_OPTIMIZER,
     "deepspeedcpulion": LION_OPTIMIZER,
     "deepspeedcpuadagrad": ADAGRAD_OPTIMIZER,
+    "onebitadam": ONEBIT_ADAM_OPTIMIZER,
+    "zerooneadam": ZERO_ONE_ADAM_OPTIMIZER,
+    "onebitlamb": ONEBIT_LAMB_OPTIMIZER,
 }
 
 

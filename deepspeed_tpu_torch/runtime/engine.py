@@ -98,8 +98,22 @@ leaf by leaf into rank 0's host memory and written by rank 0 in the
 one-rank layout; each rank loads its shards, at any world size. One step
 serves every world size: at one rank (no process group, where the mesh
 must be one rank and a larger `mesh` raises, or a group of one) nothing is
-sharded, as in JAX, and the step issues no collective. The engine runs on `cuda` unless the caller passes
-`device="cpu"`, and raises without a GPU.
+sharded, as in JAX, and the step issues no collective.
+
+MiCS (`mics_shard_size`) and hpZ (`zero_hpz_partition_size`) factor the
+data axis into data x zero as JAX does (`_factor_zero_subgroup`): MiCS
+shards everything within a `zero` sub-group and sums the shards' grads
+across the `data` replicas; hpZ shards stage-3 params within the sub-group
+(the per-layer gathers ride it) and the state over the whole domain. The
+ZeRO++ wires (`_init_zeropp`, JAX's selection) replace the step's reduce:
+the per-micro-batch quantized path (qgZ's 2-hop int8 all-reduce of each
+micro-batch's grads, qwZ's int8 gather of stage-3 params at its entry) or
+the explicit compressed grad-reduce (one hierarchical reduce a step over
+the fp32, int8 or 1-bit wire; the 1-bit wire's error-feedback residuals,
+one fp32 tree a rank, thread through the steps and are not checkpointed,
+as in JAX). At one rank every wire is disabled with JAX's warning, so each
+knob trains bit-equal to the plain stage. The engine runs on `cuda` unless
+the caller passes `device="cpu"`, and raises without a GPU.
 """
 
 import dataclasses
@@ -109,7 +123,8 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.checkpoint.saver import (named_leaves, optax_count,
+from deepspeed_tpu_torch.checkpoint.saver import (_OPTAX_CHAIN, named_leaves,
+                                                  optax_count,
                                                   optax_opt_leaves)
 from deepspeed_tpu_torch.comm import collectives as coll
 from deepspeed_tpu_torch.comm import mesh as mesh_mod
@@ -129,6 +144,7 @@ from deepspeed_tpu_torch.runtime.zero import (ZeroParamView,
                                               flat_all_reduce,
                                               flat_reduce_scatter,
                                               gather_to_host)
+from deepspeed_tpu_torch.runtime import quantized_collectives as qc
 from deepspeed_tpu_torch.telemetry import Telemetry
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (TRAIN_BATCH_TIMER,
@@ -149,6 +165,9 @@ class ModelSpec:
     has_aux: bool = False
     arch_cfg: Any = None                  # e.g. the GPTConfig
     name: str = "model"
+    # the leaves' tensor-parallel specs (JAX's PartitionSpecs as tuples of
+    # entries, one a dimension): ZeRO shards a free dimension, as in JAX
+    param_specs: Any = None
 
 
 class TrainState(NamedTuple):
@@ -212,6 +231,18 @@ def _as_tensor(src, dst, name, n=1, rank=0):
     return t.to(dtype=dst.dtype)
 
 
+def _spec_leaves(params, specs):
+    """The spec of each param leaf in leaf order (None where `specs` has
+    none): `specs` mirrors the params' dicts with a tuple a leaf."""
+    if isinstance(params, dict):
+        return [s for k in sorted(params) for s in _spec_leaves(
+            params[k], specs.get(k) if isinstance(specs, dict) else None)]
+    if isinstance(params, (list, tuple)):
+        return [s for v in params for s in _spec_leaves(v, None)]
+    return [] if params is None else \
+        [specs if isinstance(specs, tuple) else None]
+
+
 def _to_device(batch, device):
     def move(x):
         if isinstance(x, HostArray):
@@ -266,6 +297,7 @@ class Engine:
             optimizer = build_optimizer(config.optimizer, self.schedule_fn)
         self.optimizer = optimizer
         self._init_offload(model)
+        self._init_zeropp(model)
 
         self._loss_fn = _wrap_loss_fn(model.loss_fn, model.has_aux)
         self.generator = torch.Generator(self.device).manual_seed(config.seed)
@@ -274,6 +306,16 @@ class Engine:
         self.num_params = sum(int(np.prod(np.shape(x)))
                               for x in tree_leaves(model.params))
         self.state = self._init_state(model.params)
+        # the 1-bit wire's error-feedback residuals: one fp32 tree of whole
+        # leaves a rank (JAX keeps one a slow-axis rank); not checkpointed,
+        # as in JAX: a cold restart re-pays one step of compression error
+        self._comm_err = None
+        if self._zeropp == "explicit" and self._explicit_wire == "onebit":
+            self._comm_err = [torch.zeros(self._whole_shape(p, d),
+                                          dtype=torch.float32,
+                                          device=self.device)
+                              for p, d in zip(tree_leaves(self.state.params),
+                                              self._pdims)]
         log_dist(f"engine: {model.name} | params="
                  f"{self.num_params / 1e6:.2f}M | dp={self.dp_world_size} | "
                  f"dtype={self.compute_dtype} | zero_stage={self.zero_stage} "
@@ -331,6 +373,7 @@ class Engine:
         device) and this rank's place in the ZeRO domain; without one, a
         one-rank mesh (a larger `mesh` raises)."""
         dist = torch.distributed
+        self._factor_zero_subgroup(config)
         self.sharded = dist.is_available() and dist.is_initialized()
         if self.sharded:
             from deepspeed_tpu_torch.comm.comm import check_backend
@@ -343,6 +386,83 @@ class Engine:
         self.dp_world_size = spec.data * spec.zero * spec.sequence
         self.zero_policy = ZeroShardingPolicy(config.zero_optimization, spec,
                                               self.dp_rank)
+
+    @staticmethod
+    def _factor_zero_subgroup(config):
+        """MiCS / hpZ: factor the data axis into data x zero so the shards
+        live on an inner sub-group (JAX's `_factor_zero_subgroup`)."""
+        zcfg = config.zero_optimization
+        sub = 0
+        if zcfg.mics_shard_size and zcfg.mics_shard_size > 0:
+            sub = zcfg.mics_shard_size
+        elif zcfg.zero_hpz_partition_size and \
+                zcfg.zero_hpz_partition_size > 1:
+            sub = zcfg.zero_hpz_partition_size
+        if sub > 1 and config.mesh.zero == 1:
+            config.mesh.zero = sub
+            if config.mesh.data != -1:
+                if config.mesh.data % sub:
+                    raise ValueError(f"data axis {config.mesh.data} not "
+                                     f"divisible by MiCS/hpZ sub-group size "
+                                     f"{sub}")
+                config.mesh.data //= sub
+
+    def _init_zeropp(self, model):
+        """ZeRO++'s wires, JAX's selection: the explicit compressed
+        grad-reduce ("onebit" > "int8" > "none": `onebit_gradients`, else
+        `explicit_grad_reduce` with the int8 wire under
+        `zero_quantized_gradients`), else the per-micro-batch quantized
+        path (qgZ, or qwZ at stage 3). A model with its own `grad_fn` is
+        warned and takes the plain path, as in JAX; so does a one-rank data
+        domain, where every wire is disabled (no collective runs, so each
+        knob trains bit-equal to the plain stage)."""
+        zcfg = self.config.zero_optimization
+        self._explicit_wire = None
+        if zcfg.onebit_gradients:
+            self._explicit_wire = "onebit"
+        elif zcfg.explicit_grad_reduce:
+            self._explicit_wire = "int8" if zcfg.zero_quantized_gradients \
+                else "none"
+        self._qw = bool(zcfg.zero_quantized_weights) and self.zero_stage == 3
+        self._qg = bool(zcfg.zero_quantized_gradients)
+        self._zeropp = None
+        own_grads = getattr(model, "grad_fn", None) is not None
+        if self._explicit_wire is not None:
+            if own_grads:
+                logger.warning(
+                    "explicit_grad_reduce/onebit_gradients ignored: model "
+                    "supplies a custom grad_fn (pipeline 1F1B) — use the "
+                    "pipeline's grad_reduce_transform knob instead")
+            elif self.dp_world_size == 1:
+                logger.warning(
+                    "explicit_grad_reduce/onebit_gradients: single-device "
+                    "data domain — compressed wire disabled")
+            else:
+                self._zeropp = "explicit"
+                self._reduce_axes = self.zero_policy.reduce_domain(
+                    zcfg.compressed_comm_axis)
+        if self._zeropp is None and (self._qg or self._qw):
+            if own_grads:
+                logger.warning(
+                    "zero_quantized_gradients/weights ignored: model supplies "
+                    "a custom grad_fn (pipeline 1F1B) which computes its own "
+                    "backward pass")
+            elif self.dp_world_size == 1:
+                logger.warning(
+                    "zero_quantized_gradients/weights: single-device data "
+                    "domain — quantized wire disabled")
+            else:
+                self._zeropp = "quantized"
+        if self._zeropp == "explicit" and self._explicit_wire == "onebit":
+            opt = (self.config.optimizer.type if self.config.optimizer
+                   else "").lower()
+            if opt.startswith(("onebit", "zeroone")):
+                log_dist(f"onebit_gradients: error-feedback 1-bit wire "
+                         f"active over axis {self._reduce_axes[1]!r}, paired "
+                         f"with the {self.config.optimizer.type} optimizer "
+                         f"(its in-optimizer compression shapes momentum; "
+                         f"this knob shrinks the actual grad wire)",
+                         ranks=[0])
 
     def _init_data_efficiency(self):
         """The legacy seqlen curriculum, progressive layer drop and
@@ -433,6 +553,14 @@ class Engine:
         off = config.zero_optimization.offload_optimizer
         nvme = off is not None and off.device == "nvme"
         cpu_off = off is not None and off.device == "cpu"
+        if config.zero_optimization.onebit_gradients and \
+                getattr(model, "grad_fn", None) is None and (
+                    nvme or cpu_off or
+                    getattr(self.optimizer, "offload_to_host", False)):
+            raise ValueError(
+                "onebit_gradients is incompatible with offload_optimizer: "
+                "the split/host step cannot thread the error-feedback "
+                "residuals through the fused program")
         opt_name = config.optimizer.type.lower() if config.optimizer \
             else "adam"
         force_host_step = bool(config.zero_force_ds_cpu_optimizer
@@ -456,7 +584,8 @@ class Engine:
                         f"keeping the streamed step (may OOM); use "
                         f"adam/lion/adagrad for host offload")
         self.host_step = nvme or (cpu_off and force_host_step)
-        self.offload_optimizer_states = cpu_off and not force_host_step
+        self.offload_optimizer_states = not self.host_step and (
+            cpu_off or getattr(self.optimizer, "offload_to_host", False))
         if self.sharded and (self.host_step or self.offload_optimizer_states):
             not_ported("zero_optimization.offload_optimizer under a process "
                        "group (ZeRO-Offload across ranks)", item="9")
@@ -499,9 +628,11 @@ class Engine:
         # 1-3) and its step's grads (stages 2-3); all None at one rank
         pol = self.zero_policy
         leaves = tree_leaves(params_c)
-        self._pdims = [pol.param_dim(t) for t in leaves]
-        self._sdims = [pol.state_dim(t) for t in leaves]
-        self._gdims = [pol.grad_dim(t) for t in leaves]
+        base = self._base_specs = _spec_leaves(params_c,
+                                               self.model_spec.param_specs)
+        self._pdims = [pol.param_dim(t, b) for t, b in zip(leaves, base)]
+        self._sdims = [pol.state_dim(t, b) for t, b in zip(leaves, base)]
+        self._gdims = [pol.grad_dim(t, b) for t, b in zip(leaves, base)]
         scaler = self.scaler.init(self.device)
         step = torch.zeros((), dtype=torch.int32, device=self.device)
         if self.host_step:
@@ -509,7 +640,7 @@ class Engine:
             return TrainState(params=params_c, master=None, opt_state=None,
                               scaler=scaler, step=step)
         params_c = tree_unflatten(params_c, [
-            pol.shard(t, d) for t, d in zip(leaves, self._pdims)])
+            pol.shard_param(t, d) for t, d in zip(leaves, self._pdims)])
         # the master starts from the compute-dtype params, as in the JAX
         # engine
         master = None
@@ -518,7 +649,10 @@ class Engine:
                 pol.shard(t.float(), d) for t, d in zip(leaves, self._sdims)])
         state = TrainState(params=params_c, master=master, opt_state=None,
                            scaler=scaler, step=step)
-        opt_state = self.optimizer.init(self._update_target(state))
+        target = self._update_target(state)
+        # the state shards' shapes (what the optimizer's moments take)
+        self._update_shapes = [tuple(t.shape) for t in tree_leaves(target)]
+        opt_state = self.optimizer.init(target)
         if self.offload_optimizer_states and self.device.type == "cuda":
             # the streamed tier's home: pinned host memory
             def pinned(t):
@@ -533,20 +667,38 @@ class Engine:
     # the state across ranks (ZeRO shards)
     # ------------------------------------------------------------------
 
+    def _whole_shape(self, leaf, pdim):
+        """The whole leaf's shape of a param the rank holds (a shard along
+        `pdim` of the param domain)."""
+        shape = list(leaf.shape)
+        if pdim is not None:
+            shape[pdim] *= self.zero_policy.param_domain_size
+        return tuple(shape)
+
     def _update_target(self, state):
         """The tree the optimizer steps in place: the master's shards, or
-        without a master the params' — a stage-3 shard itself, or a view of
-        the rank's chunk of a whole param."""
+        without a master the params' — a stage-3 shard itself, a view of
+        the rank's chunk of a whole param, or (hpZ, where a param shard is
+        cut on the inner axis alone) a copy of the rank's state chunk,
+        gathered from the param shards."""
         if self.keep_master:
             return state.master
-        n, r = self.dp_world_size, self.dp_rank
-        out = []
-        for p, pd, sd in zip(tree_leaves(state.params), self._pdims,
-                             self._sdims):
+        pol = self.zero_policy
+        out, relay = [], []
+        for i, (p, pd, sd) in enumerate(zip(tree_leaves(state.params),
+                                            self._pdims, self._sdims)):
             if pd is None and sd is not None:
-                s = p.shape[sd] // n
-                p = p.narrow(sd, r * s, s)
+                s = p.shape[sd] // pol.domain_size
+                p = p.narrow(sd, pol.rank * s, s)
+            elif pol.relayout(pd, sd):
+                relay.append(i)
             out.append(p)
+        if relay:
+            wholes = flat_all_gather([out[i] for i in relay],
+                                     [self._pdims[i] for i in relay],
+                                     pol.param_domain_size, pol.param_domain)
+            for i, w in zip(relay, wholes):
+                out[i] = pol.shard(w, self._sdims[i]).clone()
         return tree_unflatten(state.params, out)
 
     @property
@@ -563,19 +715,40 @@ class Engine:
         return self.state.params
 
     def _param_view(self, params):
+        pol = self.zero_policy
         return ZeroParamView(params, tree_unflatten(params, self._pdims),
-                             self.dp_world_size)
+                             pol.param_domain_size, pol.param_domain)
 
-    def _gather_tree(self, tree, dims, keep):
-        """A tree of a rank's shards (`dims` in leaf order) -> the whole
-        leaves, each gathered on its own into host memory (see
-        `gather_to_host`); leaves held whole are the rank's own tensors.
-        With `keep` false the rank takes part in each gather and keeps
-        nothing."""
-        out = [t if d is None else
-               gather_to_host(t, d, self.dp_world_size, keep)
+    def _gather_tree(self, tree, dims, keep, param=False):
+        """A tree of a rank's shards (`dims` in leaf order; in the param
+        domain when `param`, else the state's) -> the whole leaves, each
+        gathered on its own into host memory (see `gather_to_host`);
+        leaves held whole are the rank's own tensors. With `keep` false
+        the rank takes part in each gather and keeps nothing."""
+        pol = self.zero_policy
+        n, axis = (pol.param_domain_size, pol.param_domain) if param \
+            else (pol.domain_size, pol.domain)
+        out = [t if d is None else gather_to_host(t, d, n, keep, axis)
                for t, d in zip(tree_leaves(tree), dims)]
         return tree_unflatten(tree, out) if keep else None
+
+    def _state_shaped(self, tree):
+        """Whether an optimizer-state subtree holds one leaf a param in
+        the state's shard shapes (mu, nu, error, ...), not scalars."""
+        leaves = tree_leaves(tree)
+        return not isinstance(tree, torch.Tensor) and \
+            len(leaves) == len(self._update_shapes) and all(
+                tuple(x.shape) == shape for x, shape in
+                zip(leaves, self._update_shapes))
+
+    def _gather_opt(self, tree, keep):
+        """The optimizer state with its param-shaped subtrees gathered."""
+        if isinstance(tree, dict):
+            if self._state_shaped(tree):
+                return self._gather_tree(tree, self._sdims, keep)
+            out = {k: self._gather_opt(v, keep) for k, v in tree.items()}
+            return out if keep else None
+        return tree
 
     def _full_state(self, root=None):
         """The whole TrainState: each sharded leaf gathered from the ranks'
@@ -585,14 +758,10 @@ class Engine:
         the gathered state (the others get None)."""
         st = self.state
         keep = root is None or self.dp_rank == root
-        nleaves = len(self._sdims)
         opt = None
         if st.opt_state is not None:
-            opt = {k: self._gather_tree(v, self._sdims, keep)
-                   if len(tree_leaves(v)) == nleaves and not
-                   isinstance(v, torch.Tensor) else v
-                   for k, v in st.opt_state.items()}
-        params = self._gather_tree(st.params, self._pdims, keep)
+            opt = self._gather_opt(st.opt_state, keep)
+        params = self._gather_tree(st.params, self._pdims, keep, param=True)
         master = None if st.master is None \
             else self._gather_tree(st.master, self._sdims, keep)
         if not keep:
@@ -627,16 +796,17 @@ class Engine:
     # the step
     # ------------------------------------------------------------------
 
-    def _micro_grads(self, params, micro_batch):
+    def _micro_grads(self, params, micro_batch, view=None):
         """(grads in the params' dtype, loss, extras) of one micro-batch;
         the loss is scaled for the backward (fp16) and returned unscaled.
         `extras` are the slash-keyed scalar entries of the loss's aux dict
         (`moe/aux_loss`, ...) as fp32, the JAX engine's aux-metrics
-        channel."""
+        channel. `view` (default: the params are stage-3 shards) reads
+        `params` through the gathering view; false, they are whole."""
         leaves = [p.detach().requires_grad_(p.is_floating_point())
                   for p in tree_leaves(params)]
         tree = tree_unflatten(params, leaves)
-        if self._gathers_params:
+        if self._gathers_params if view is None else view:
             tree = self._param_view(tree)
         loss, aux = self._loss_fn(tree, micro_batch, self.generator)
         wrt = [leaf for leaf in leaves if leaf.requires_grad]
@@ -684,82 +854,223 @@ class Engine:
         if acc_dtype is not None:
             g = [x.to(acc_dtype) / predivide for x in g]
         if self.zero_stage == 2:
+            pol = self.zero_policy
             idx = [i for i, d in enumerate(self._gdims) if d is not None]
             shards = flat_reduce_scatter([g[i] for i in idx],
                                          [self._gdims[i] for i in idx],
-                                         self.dp_world_size)
+                                         pol.domain_size, pol.domain)
             for i, sh in zip(idx, shards):
                 g[i] = sh
         return g, loss, ex
 
     def _reduce_across(self, params, acc, loss, extras):
-        """Sum the whole grads across ranks (one all-reduce), divide every
-        grad by dp, and average the loss and extras (one all-reduce); at
-        one rank, the grads' tree as it is."""
+        """(grads, loss, extras, dims): sum the whole grads across ranks
+        (one all-reduce) and the shards over the ranks that hold replicas
+        of them (MiCS and hpZ: the `data` axis; one all-reduce), cut an hpZ
+        param shard's grad to its state shard, divide every grad by dp, and
+        average the loss and extras (one all-reduce); at one rank, the
+        grads' tree as it is. `dims` gives each grad's shard dimension in
+        the state's layout (None: whole, the same on every rank)."""
         n = self.dp_world_size
         if n == 1:
-            return tree_unflatten(params, acc), loss, extras
+            return tree_unflatten(params, acc), loss, extras, \
+                list(self._gdims)
+        pol = self.zero_policy
         idx = [i for i, (d, g) in enumerate(zip(self._gdims, acc))
                if d is None and g.is_floating_point()]
         for i, g in zip(idx, flat_all_reduce([acc[i] for i in idx])):
             acc[i] = g
+        rep = pol.replica_axes(pol.grad_domain())
+        idx = [i for i, d in enumerate(self._gdims) if d is not None]
+        if idx and mesh_mod.axis_size(rep) > 1:
+            for i, g in zip(idx, flat_all_reduce([acc[i] for i in idx],
+                                                 rep)):
+                acc[i] = g
+        dims = list(self._gdims)
+        relay = [i for i in idx if self.zero_stage == 3 and
+                 pol.relayout(self._pdims[i], self._sdims[i])]
+        if relay:
+            wholes = flat_all_gather([acc[i] for i in relay],
+                                     [self._gdims[i] for i in relay],
+                                     pol.param_domain_size, pol.param_domain)
+            for i, w in zip(relay, wholes):
+                acc[i] = pol.shard(w, self._sdims[i])
+                dims[i] = self._sdims[i]
         grads = tree_unflatten(params, [g / n for g in acc])
         names = sorted(extras)
         avg = coll.psum(torch.stack([loss.float()] + [extras[k].float()
                                                       for k in names]),
                         mesh_mod.ZERO_AXES) / n
-        return grads, avg[0], {k: avg[1 + j] for j, k in enumerate(names)}
+        return grads, avg[0], {k: avg[1 + j] for j, k in enumerate(names)}, \
+            dims
 
-    def _grads(self, params, batch):
-        """The gas loop over this rank's rows: (grads, mean loss, extras).
-        At gas > 1 grads accumulate in `grad_accum_dtype` (fp32 by
-        default), each divided by the predivide factor, and the sum is
-        scaled by predivide / gas; at gas == 1 they stay in the compute
-        dtype (the optimizer widens them exactly). The extras are the
-        micro-batches' mean. Then `_reduce_across`."""
-        gas = self.gradient_accumulation_steps_value
-        micros = self._micro_batches(_to_device(batch, self.device), gas)
-        if gas == 1:
-            return self._reduce_across(
-                params, *self._micro_step_grads(params, micros[0]))
-        acc_dtype = self.config.data_types.accum_dtype()
+    def _whole_params(self, params):
+        """Stage 3 on a ZeRO++ path: every param shard gathered whole once,
+        at the step's (or micro-batch's) entry, over the int8 wire under
+        qwZ (`quantized_all_gather_dim`), else the plain all-gather, as
+        JAX's shard_map body gathers them; other stages' params as they
+        are."""
+        if not self._gathers_params:
+            return params
+        pol = self.zero_policy
+        out = []
+        for p, d in zip(tree_leaves(params), self._pdims):
+            if d is not None:
+                p = qc.quantized_all_gather_dim(p, pol.param_domain, d) \
+                    if self._qw else coll.all_gather(p, pol.param_domain,
+                                                     axis=d, tiled=True)
+            out.append(p)
+        return tree_unflatten(params, out)
+
+    def _batch_axes(self):
+        """The data-domain axes above 1 the wires reduce over (JAX's
+        `(data, zero)` filter; `data` when none is)."""
+        sizes = self.zero_policy.spec.axis_sizes()
+        return tuple(a for a in mesh_mod.BATCH_AXES if sizes[a] > 1) \
+            or (mesh_mod.DATA_AXIS,)
+
+    def _quantized_micro(self, params, micro_batch):
+        """ZeRO++'s per-micro-batch step (JAX `_quantized_micro_grad_fn`):
+        stage-3 shards gathered whole at entry (int8 under qwZ), the
+        grads of the whole params, then each leaf's sum over the data
+        domain through the 2-hop int8 wire divided by its size (qgZ, fp32)
+        or the plain mean (in the compute dtype); the loss's mean. The
+        grads come back whole and the same on every rank; no extras (JAX's
+        quantized path has no aux channel)."""
+        axes = self._batch_axes()
+        n = mesh_mod.axis_size(axes)
+        g, loss, _ = self._micro_grads(self._whole_params(params),
+                                       micro_batch, view=False)
+        g = tree_leaves(g)
+        if self._qg:
+            g = [qc.qgz_allreduce(x.float(), axes) / n for x in g]
+        else:
+            g = [coll.pmean(x, axes) for x in g]
+        return g, coll.pmean(loss.float(), axes), {}
+
+    def _accumulate(self, micros, micro_fn):
+        """The gas loop: `micro_fn(micro)` gives a micro-batch's (grad
+        leaves in the accumulator's dtype, each divided by the predivide
+        factor; loss; extras). Returns their sums scaled by predivide /
+        gas, the mean loss (fp32) and the extras' means."""
+        gas = len(micros)
         predivide = self.config.gradient_predivide_factor or 1.0
         acc = loss_sum = extras = None
         for micro in micros:
-            g, loss, ex = self._micro_step_grads(params, micro, acc_dtype,
-                                                 predivide)
+            g, loss, ex = micro_fn(micro)
             acc = g if acc is None else [a + x for a, x in zip(acc, g)]
             loss = loss.float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             extras = ex if extras is None else {k: extras[k] + v
                                                 for k, v in ex.items()}
-        acc = [a * (predivide / gas) for a in acc]
-        return self._reduce_across(params, acc, loss_sum / gas,
-                                   {k: v / gas for k, v in extras.items()})
+        return [a * (predivide / gas) for a in acc], loss_sum / gas, \
+            {k: v / gas for k, v in extras.items()}
 
-    def _apply_grads(self, state, grads, loss):
+    def _quantized_grads(self, params, micros):
+        """The gas loop of the per-micro-batch quantized path: the plain
+        path's accumulation rule over `_quantized_micro`'s reduced grads.
+        Returns (grads, loss, extras, dims) as `_reduce_across` does."""
+        if len(micros) == 1:
+            g, loss, ex = self._quantized_micro(params, micros[0])
+        else:
+            acc_dtype = self.config.data_types.accum_dtype()
+            predivide = self.config.gradient_predivide_factor or 1.0
+
+            def micro_fn(micro):
+                g, loss, ex = self._quantized_micro(params, micro)
+                return [x.to(acc_dtype) / predivide for x in g], loss, ex
+            g, loss, ex = self._accumulate(micros, micro_fn)
+        return tree_unflatten(params, g), loss, ex, [None] * len(g)
+
+    def _explicit_grads(self, params, micros):
+        """The explicit compressed grad-reduce (JAX `_explicit_grads_fn`):
+        stage-3 shards gathered whole once a step (int8 under qwZ), the
+        gas loop accumulating fp32 grads with the predivide factor, then
+        ONE hierarchical reduce a step: a plain fp32 sum over the fast
+        axes, then `compressed_all_reduce` over the slow axis with the
+        configured wire ("none", "int8", or "onebit" with this rank's
+        error-feedback residuals, which it replaces), divided by the
+        domain's size. The grads come back whole, fp32 and the same on
+        every rank; the loss is averaged; no extras."""
+        fast, slow = self._reduce_axes
+        axes = fast + (slow,)
+        whole = self._whole_params(params)
+        predivide = self.config.gradient_predivide_factor or 1.0
+
+        def micro_fn(micro):
+            g, loss, _ = self._micro_grads(whole, micro, view=False)
+            return [x.float() / predivide for x in tree_leaves(g)], loss, {}
+        if len(micros) > 1:
+            grads, loss, _ = self._accumulate(micros, micro_fn)
+        else:
+            g, loss, _ = self._micro_grads(whole, micros[0], view=False)
+            grads = [x.float() for x in tree_leaves(g)]
+        if fast:
+            grads = [coll.psum(x, fast) for x in grads]
+        if self._explicit_wire == "onebit":
+            outs = [coll.compressed_all_reduce(x, slow, "onebit", err=e)
+                    for x, e in zip(grads, self._comm_err)]
+            grads = [o[0] for o in outs]
+            self._comm_err = [o[1] for o in outs]
+        else:
+            grads = [coll.compressed_all_reduce(x, slow, self._explicit_wire)
+                     for x in grads]
+        n_total = mesh_mod.axis_size(axes)
+        grads = [x / n_total for x in grads]
+        loss = coll.pmean(loss.float(), axes)
+        return tree_unflatten(params, grads), loss, {}, [None] * len(grads)
+
+    def _grads(self, params, batch):
+        """The gas loop over this rank's rows: (grads, mean loss, extras,
+        dims; see `_reduce_across`). At gas > 1 grads accumulate in
+        `grad_accum_dtype` (fp32 by default), each divided by the
+        predivide factor, and the sum is scaled by predivide / gas; at
+        gas == 1 they stay in the compute dtype (the optimizer widens them
+        exactly). The extras are the micro-batches' mean. Then
+        `_reduce_across`. The ZeRO++ paths (`_init_zeropp`) take the step's
+        grads their own way."""
+        gas = self.gradient_accumulation_steps_value
+        micros = self._micro_batches(_to_device(batch, self.device), gas)
+        if self._zeropp == "explicit":
+            return self._explicit_grads(params, micros)
+        if self._zeropp == "quantized":
+            return self._quantized_grads(params, micros)
+        if gas == 1:
+            return self._reduce_across(
+                params, *self._micro_step_grads(params, micros[0]))
+        acc_dtype = self.config.data_types.accum_dtype()
+        predivide = self.config.gradient_predivide_factor or 1.0
+        return self._reduce_across(params, *self._accumulate(
+            micros, lambda micro: self._micro_step_grads(
+                params, micro, acc_dtype, predivide)))
+
+    def _apply_grads(self, state, grads, loss, dims=None):
         """(state, grads, mean loss) -> (state, metrics): unscale, the
         global norm and finite check, clip, the optimizer's update of the
         rank's state, the params after it. The grads are this step's own
         and are clipped in place; the params, master and optimizer state
-        are stepped in place. Across ranks, the per-leaf squared norms of
-        the sharded grads (and, under fp16, their non-finite count) are
-        summed in one all-reduce before the clip and the skip decide, and
-        the updated params the rank does not hold whole-sharded are
-        all-gathered."""
+        are stepped in place. `dims` (`_reduce_across`'s) gives each grad's
+        shard dimension in the state's layout (default: the step's grad
+        dimensions). Across ranks, the per-leaf squared norms of the
+        sharded grads (and, under fp16, their non-finite count) are summed
+        over the state domain in one all-reduce before the clip and the
+        skip decide, and the updated params the rank does not hold in the
+        state's layout are all-gathered (hpZ: then cut to the param
+        shard)."""
         scaler = self.scaler
-        pol, n = self.zero_policy, self.dp_world_size
+        pol = self.zero_policy
+        dims = list(self._gdims) if dims is None else dims
         grads = scaler.unscale_grads(grads, state.scaler)
         g = tree_leaves(grads)
         sq = [x.float().square().sum() for x in g]
         bad = [(~torch.isfinite(x)).sum().float() for x in g] \
             if scaler.enabled else None
-        idx = [i for i, d in enumerate(self._gdims) if d is not None]
+        idx = [i for i, d in enumerate(dims) if d is not None]
         if idx:
             part = [sq[i] for i in idx]
             if bad is not None:
                 part.append(sum(bad[i] for i in idx))
-            red = coll.psum(torch.stack(part), mesh_mod.ZERO_AXES)
+            red = coll.psum(torch.stack(part), pol.domain)
             for j, i in enumerate(idx):
                 sq[i] = red[j]
             if bad is not None:
@@ -773,30 +1084,37 @@ class Engine:
             factor = (clip / (grad_norm + 1e-6)).clamp_max(1.0)
             for x in g:
                 x.mul_(factor.to(x.dtype))
-        upd = [x if gd == sd else pol.shard(x, sd)
-               for x, gd, sd in zip(g, self._gdims, self._sdims)]
+        upd = [x if d == sd else pol.shard(x, sd)
+               for x, d, sd in zip(g, dims, self._sdims)]
         target = self._update_target(state)
         kw = {}
         if getattr(self.optimizer, "leaf_norms", False):
             kw["leaf_norms"] = self._leaf_norms
+        if getattr(self.optimizer, "leaf_sums", False) and \
+                any(d is not None for d in self._sdims):
+            kw["leaf_sums"] = self._leaf_sums
         # the skip-step: under fp16 loss scaling an overflow leaves every
         # stored leaf as it was (a masked update, no host branch); without
         # the scaler the mask is the JAX engine's constant true
         self.optimizer.update(tree_unflatten(grads, upd), state.opt_state,
                               target, finite if scaler.enabled else None,
                               **kw)
-        srcs, dims, dsts = [], [], []
+        srcs, sdims, dsts = [], [], []
         for p, t, pd, sd in zip(tree_leaves(state.params),
                                 tree_leaves(target), self._pdims,
                                 self._sdims):
-            if pd is None and sd is not None:
+            relay = pol.relayout(pd, sd)
+            if (pd is None or relay) and sd is not None:
                 srcs.append(t.to(p.dtype).contiguous())
-                dims.append(sd)
-                dsts.append(p)
+                sdims.append(sd)
+                dsts.append((p, pd))
+            elif relay:
+                p.copy_(pol.shard_param(t, pd))
             elif self.keep_master:
                 p.copy_(t)
-        for p, f in zip(dsts, flat_all_gather(srcs, dims, n)):
-            p.copy_(f)
+        for (p, pd), f in zip(dsts, flat_all_gather(
+                srcs, sdims, pol.domain_size, pol.domain)):
+            p.copy_(pol.shard_param(f, pd))
         lr = self.schedule_fn(state.step) if self.schedule_fn is not None \
             else 0.0
         metrics = {"loss": loss.float(), "grad_norm": grad_norm.float(),
@@ -807,20 +1125,30 @@ class Engine:
                               step=state.step + finite.to(torch.int32)), \
             metrics
 
+    def _leaf_sums(self, parts):
+        """Per-leaf partial sums over the optimizer's leaves (1-d tensors of
+        one dtype, one a leaf in leaf order) -> the whole leaves' sums: the
+        sharded leaves' summed over the state domain in one all-reduce, the
+        whole ones' as they are."""
+        idx = [i for i, d in enumerate(self._sdims) if d is not None]
+        if not idx:
+            return parts
+        red = coll.psum(torch.cat([parts[i] for i in idx]),
+                        self.zero_policy.domain)
+        out = list(parts)
+        for i, x in zip(idx, red.split([parts[i].numel() for i in idx])):
+            out[i] = x
+        return out
+
     def _leaf_norms(self, leaves):
         """Per-leaf L2 norms of the optimizer's leaves (the rank's state
         shards) over the whole leaves: the sharded ones' squares summed
         across ranks (LAMB's trust ratio)."""
         if self.dp_world_size == 1:
             return torch._foreach_norm(leaves)
-        sq = [x.float().square().sum() for x in leaves]
-        idx = [i for i, d in enumerate(self._sdims) if d is not None]
-        if idx:
-            red = coll.psum(torch.stack([sq[i] for i in idx]),
-                            mesh_mod.ZERO_AXES)
-            for j, i in enumerate(idx):
-                sq[i] = red[j]
-        return [torch.sqrt(x) for x in sq]
+        sums = self._leaf_sums([x.float().square().sum().reshape(1)
+                                for x in leaves])
+        return [torch.sqrt(x[0]) for x in sums]
 
     def _state_in(self):
         """The streamed tier: start the copy of the fp32 master and the
@@ -850,7 +1178,7 @@ class Engine:
             event.record(cs)
         return dev, event
 
-    def _streamed_apply(self, state, grads, loss, fetched):
+    def _streamed_apply(self, state, grads, loss, fetched, dims=None):
         """`_apply_grads` on device copies of the host-resident master and
         optimizer state, then their copy back out, enqueued after the
         update; nothing here waits for the card."""
@@ -860,7 +1188,8 @@ class Engine:
         host = (state.master, state.opt_state)
         dev_master, dev_opt = tree_unflatten(host, dev)
         new, metrics = self._apply_grads(
-            state._replace(master=dev_master, opt_state=dev_opt), grads, loss)
+            state._replace(master=dev_master, opt_state=dev_opt), grads, loss,
+            dims)
         host_leaves = tree_leaves(host)
         for h, d in zip(host_leaves, tree_leaves((new.master,
                                                    new.opt_state))):
@@ -886,13 +1215,14 @@ class Engine:
                                          device=self.device)}
         return state._replace(step=state.step + 1), metrics
 
-    def _step(self, state, grads, loss, fetched=None):
-        """The optimizer step of the engine's tier."""
+    def _step(self, state, grads, loss, fetched=None, dims=None):
+        """The optimizer step of the engine's tier (`dims`: the grads'
+        layout, `_reduce_across`'s)."""
         if self.host_step:
             return self._host_apply(state, grads, loss)
         if self._state_copy_stream is not None:
-            return self._streamed_apply(state, grads, loss, fetched)
-        return self._apply_grads(state, grads, loss)
+            return self._streamed_apply(state, grads, loss, fetched, dims)
+        return self._apply_grads(state, grads, loss, dims)
 
     # ------------------------------------------------------------------
     # public API
@@ -924,8 +1254,9 @@ class Engine:
             if ms is not None:
                 ms.begin_step()
             fetched = self._state_in()     # runs beside the micro-batches
-            grads, loss, extras = self._grads(self.state.params, batch)
-            self.state, metrics = self._step(self.state, grads, loss, fetched)
+            grads, loss, extras, dims = self._grads(self.state.params, batch)
+            self.state, metrics = self._step(self.state, grads, loss, fetched,
+                                             dims)
             if ms is not None:
                 ms.end_step()
         except Exception as e:
@@ -1058,9 +1389,9 @@ class Engine:
         n = float(self._pending)
         grads = tree_map(lambda g: g / n, self._grad_acc)
         loss = self._loss_acc / n
-        grads, loss, _ = self._reduce_across(
+        grads, loss, _, dims = self._reduce_across(
             self.state.params, tree_leaves(grads), loss, {})
-        self.state, metrics = self._step(self.state, grads, loss)
+        self.state, metrics = self._step(self.state, grads, loss, dims=dims)
         self._pending, self._grad_acc = 0, None
         self._after_step(metrics)
         return metrics
@@ -1186,12 +1517,16 @@ class Engine:
     def _optax_layout(self):
         """(optimizer, has_schedule) naming the optimizer state as the JAX
         package's optax tree, or None for an optimizer the config does not
-        name (its own state names are kept)."""
+        name, or whose state already carries the JAX names (the 1-bit
+        family's `count` / `mu` / ... fields): its own names are kept."""
         opt = self.config.optimizer
         if opt is None:
             return None
         name = opt.type.lower()
-        return OPTIMIZER_ALIASES.get(name, name), self.schedule_fn is not None
+        name = OPTIMIZER_ALIASES.get(name, name)
+        if name not in _OPTAX_CHAIN:
+            return None
+        return name, self.schedule_fn is not None
 
     _HOST_MOMENTS = {"adam": (("exp_avg", "mu"), ("exp_avg_sq", "nu")),
                      "lion": (("exp_avg", "mu"),),
@@ -1258,10 +1593,13 @@ class Engine:
             self._restore_host_step(leaves, source, wanted)
             leaves = [(n, v) for n, v in leaves
                       if not n.startswith(("master/", "opt_state/"))]
+        pol = self.zero_policy
         for name, dst in leaves:
             if wanted(name):
-                dst.copy_(_as_tensor(source(name), dst, name,
-                                     self.dp_world_size, self.dp_rank))
+                n, rank = (pol.param_domain_size, pol.param_rank) \
+                    if name.startswith("params/") else \
+                    (pol.domain_size, pol.rank)
+                dst.copy_(_as_tensor(source(name), dst, name, n, rank))
 
     def _restore_host_step(self, leaves, source, wanted):
         opt = self.host_optimizer

@@ -20,10 +20,19 @@ the same decisions and carries them out over the comm facade:
 `shard_leaf_spec` chooses JAX's dimension for each leaf (the largest one
 divisible by the shard count, dim 0 on ties; leaves under
 `stage3_param_persistence_threshold` elements keep their params whole at
-stage 3). A rank holds chunk `rank` of that dimension; on a one-rank
-domain nothing is sharded, as in JAX, and the step issues no collective.
-The flat helpers move many leaves in one collective: a rank's shards
-concatenated, or a send buffer whose row r is every leaf's chunk r.
+stage 3). A rank holds chunk `rank` of that dimension, its index within
+the leaf's partition domain; on a one-rank domain nothing is sharded, as
+in JAX, and the step issues no collective.
+
+The domains are JAX's: the state (master, moments, stage-2 grads)
+partitions over data x zero x sequence, and stage-3 params over the same.
+MiCS (`mics_shard_size`) confines every shard to the inner `zero` axis, so
+each `data` replica holds a whole copy, sharded within its sub-group;
+hpZ (`zero_hpz_partition_size`) at stage 3 shards the params over `zero`
+only (the gathers ride the sub-group) while the state keeps the whole
+domain. The flat helpers move many leaves in one collective over a
+domain's axes: a rank's shards concatenated, or a send buffer whose row r
+is every leaf's chunk r.
 """
 
 from typing import Optional
@@ -79,12 +88,14 @@ def shard_leaf_spec(shape, base_spec, shard_axes, shard_size: int,
 
 
 def shard_dim(shape, shard_size: int, min_size: int = 0,
-              shard_axes=mesh_mod.ZERO_AXES) -> Optional[int]:
+              shard_axes=mesh_mod.ZERO_AXES, base_spec=None) -> Optional[int]:
     """The dimension `shard_leaf_spec` shards (None: the leaf stays
-    whole)."""
-    spec = shard_leaf_spec(shape, None, shard_axes, shard_size, min_size)
-    for d, entry in enumerate(spec):
-        if entry is not None:
+    whole); a dimension the base spec already names is never it."""
+    base = tuple(base_spec) if base_spec is not None else ()
+    base = base + (None,) * (len(shape) - len(base))
+    spec = shard_leaf_spec(shape, base, shard_axes, shard_size, min_size)
+    for d, (entry, was) in enumerate(zip(spec, base)):
+        if entry is not None and was is None:
             return d
     return None
 
@@ -97,32 +108,63 @@ def chunk_of(t, dim, n, rank):
 
 class ZeroShardingPolicy:
     """The partition and reduce domains of a ZeRO stage over the mesh, and
-    each leaf's shard dimension for its params, state and grads."""
+    each leaf's shard dimension for its params, state and grads. `rank` is
+    this rank's index in the data domain (data x zero x sequence,
+    flattened in mesh order); `rank` / `param_rank` are then its indices
+    within the state and the param domains."""
 
     def __init__(self, zero_config, spec: mesh_mod.MeshSpec = None,
                  rank: int = 0):
         self.config = zero_config
         self.spec = spec or mesh_mod.MeshSpec()
         self.stage = int(zero_config.stage)
-        self.rank = int(rank)
-        self.domain = self.partition_domain()
+        self.mics = int(getattr(zero_config, "mics_shard_size", -1) or -1) > 0
+        self.hpz = int(getattr(zero_config, "zero_hpz_partition_size", 1)
+                       or 1)
         sizes = self.spec.axis_sizes()
+        coord, rest = {}, int(rank)
+        for a in reversed(mesh_mod.ZERO_AXES):
+            coord[a], rest = rest % sizes[a], rest // sizes[a]
+        self.domain = self.partition_domain()
         self.domain_size = int(np.prod([sizes[a] for a in self.domain]))
+        self.rank = _flat_index(coord, sizes, self.domain)
         self.param_domain = self.param_partition_domain()
-        self.param_domain_size = self.domain_size
+        self.param_domain_size = int(np.prod([sizes[a]
+                                              for a in self.param_domain]))
+        self.param_rank = _flat_index(coord, sizes, self.param_domain)
         self.persistence_threshold = (
             int(zero_config.stage3_param_persistence_threshold)
             if self.stage == 3 else 0)
 
     def partition_domain(self):
-        """The mesh axes of the state partition domain (MiCS, the inner
-        `zero` axis, is refused by the config)."""
+        """The mesh axes of the state partition domain: MiCS confines every
+        shard to the inner `zero` axis (replicas across `data`)."""
+        if self.mics:
+            return (mesh_mod.ZERO_INNER_AXIS,)
         return mesh_mod.ZERO_AXES
 
     def param_partition_domain(self):
-        """The axes stage-3 params shard over (hpZ is refused by the
-        config)."""
+        """The axes stage-3 params shard over: hpZ's secondary partition
+        rides the `zero` sub-group while the state keeps the whole
+        domain."""
+        if self.stage == 3 and self.hpz > 1 and not self.mics:
+            return (mesh_mod.ZERO_INNER_AXIS,)
         return self.domain
+
+    def grad_domain(self):
+        """The axes a micro-batch's grads are reduce-scattered over: the
+        param domain at stage 3 (the gathers' backward), the state domain
+        at stage 2; () below (whole grads)."""
+        if self.stage == 3:
+            return self.param_domain
+        if self.stage == 2:
+            return self.domain
+        return ()
+
+    def replica_axes(self, axes):
+        """The data-domain axes outside `axes` (over which shards along
+        `axes` are replicas whose sums still add up)."""
+        return tuple(a for a in mesh_mod.ZERO_AXES if a not in axes)
 
     def reduce_domain(self, compressed_comm_axis=None):
         """(fast axes, slow axis) of the explicit hierarchical grad reduce
@@ -155,41 +197,49 @@ class ZeroShardingPolicy:
 
     # ---- shard dimensions ----
 
-    def _pick(self, shape, min_size):
-        """The dimension a rank's chunk is cut along: JAX's (None on a
-        one-rank domain, where every leaf stays whole)."""
-        return shard_dim(shape, self.domain_size, min_size)
-
-    def param_dim(self, leaf) -> Optional[int]:
+    def param_dim(self, leaf, base_spec=None) -> Optional[int]:
+        """The dimension of a stage-3 param's chunk (None on a one-rank
+        domain, where every leaf stays whole); `base_spec`, the model's
+        tensor-parallel spec of the leaf, keeps its dimensions free."""
         if not leaf.is_floating_point() or self.stage < 3:
             return None
-        return self._pick(tuple(leaf.shape), self.persistence_threshold)
+        return shard_dim(tuple(leaf.shape), self.param_domain_size,
+                         self.persistence_threshold, self.param_domain,
+                         base_spec)
 
-    def state_dim(self, leaf) -> Optional[int]:
+    def state_dim(self, leaf, base_spec=None) -> Optional[int]:
         if not leaf.is_floating_point() or self.stage == 0:
             return None
-        return self._pick(tuple(leaf.shape), 0)
+        return shard_dim(tuple(leaf.shape), self.domain_size, 0,
+                         self.domain, base_spec)
 
-    def grad_dim(self, leaf) -> Optional[int]:
+    def grad_dim(self, leaf, base_spec=None) -> Optional[int]:
         """Where a micro-batch's grads land: the param shard at stage 3,
         the state shard at stage 2, whole (averaged once a step) below."""
         if self.stage == 3:
-            return self.param_dim(leaf)
+            return self.param_dim(leaf, base_spec)
         if self.stage == 2:
-            return self.state_dim(leaf)
+            return self.state_dim(leaf, base_spec)
         return None
 
     def shard(self, t, dim):
-        """This rank's chunk of a leaf along `dim` (the leaf when None)."""
+        """This rank's chunk of a leaf along `dim` in the state domain (the
+        leaf when None)."""
         if dim is None:
             return t
         return chunk_of(t, dim, self.domain_size, self.rank)
 
-    def shard_shape(self, shape, dim):
-        shape = list(shape)
-        if dim is not None:
-            shape[dim] //= self.domain_size
-        return tuple(shape)
+    def shard_param(self, t, dim):
+        """This rank's chunk of a leaf along `dim` in the param domain."""
+        if dim is None:
+            return t
+        return chunk_of(t, dim, self.param_domain_size, self.param_rank)
+
+    def relayout(self, param_dim, state_dim):
+        """A stage-3 param shard and its state shard are cut differently
+        (hpZ: the param domain is the inner axis alone)."""
+        return param_dim is not None and (
+            param_dim != state_dim or self.param_domain != self.domain)
 
 
 # ----------------------------------------------------------------------
@@ -212,6 +262,15 @@ def flat_all_reduce(tensors, axis=mesh_mod.ZERO_AXES):
     out = coll.psum(flat, axis)
     return [c.view(t.shape) for c, t in
             zip(out.split([t.numel() for t in tensors]), tensors)]
+
+
+def _flat_index(coord, sizes, axes):
+    """A rank's index within `axes` (its coordinates flattened in mesh
+    order)."""
+    index = 0
+    for a in axes:
+        index = index * sizes[a] + coord[a]
+    return int(index)
 
 
 def flat_all_gather(shards, dims, n, axis=mesh_mod.ZERO_AXES):
@@ -266,25 +325,26 @@ def gather_to_host(shard, dim, n, keep=True, axis=mesh_mod.ZERO_AXES):
 
 
 class _GatherLeaves(torch.autograd.Function):
-    """shards -> whole leaves (one all-gather); the backward reduce-scatters
-    the whole leaves' grads into the shards' (one reduce-scatter)."""
+    """shards -> whole leaves (one all-gather over `axis`); the backward
+    reduce-scatters the whole leaves' grads into the shards' (one
+    reduce-scatter over the same axes)."""
 
     @staticmethod
-    def forward(ctx, dims, n, *shards):
-        ctx.dims, ctx.n = dims, n
-        return tuple(flat_all_gather(list(shards), dims, n))
+    def forward(ctx, dims, n, axis, *shards):
+        ctx.dims, ctx.n, ctx.axis = dims, n, axis
+        return tuple(flat_all_gather(list(shards), dims, n, axis))
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, None) + tuple(flat_reduce_scatter(
-            [g.contiguous() for g in grads], ctx.dims, ctx.n))
+        return (None, None, None) + tuple(flat_reduce_scatter(
+            [g.contiguous() for g in grads], ctx.dims, ctx.n, ctx.axis))
 
 
-def gather_leaves(shards, dims, n):
+def gather_leaves(shards, dims, n, axis=mesh_mod.ZERO_AXES):
     """Differentiable all-gather of sharded leaves (see `_GatherLeaves`)."""
     if not shards:
         return []
-    return list(_GatherLeaves.apply(tuple(dims), n, *shards))
+    return list(_GatherLeaves.apply(tuple(dims), n, axis, *shards))
 
 
 class ZeroParamView(dict):
@@ -296,20 +356,20 @@ class ZeroParamView(dict):
     the rematerialized forward gathers again.
 
     `dims` mirrors the tree: each leaf's shard dimension (None: held
-    whole)."""
+    whole); `n` is the param domain's size and `axis` its axes."""
 
-    def __init__(self, shards, dims, n):
+    def __init__(self, shards, dims, n, axis=mesh_mod.ZERO_AXES):
         super().__init__(shards)
-        self._dims, self._n = dims, n
+        self._dims, self._n, self._axis = dims, n, axis
         self._slices = None
 
     def _read(self, k):
         v, d = dict.__getitem__(self, k), self._dims[k]
         if isinstance(v, dict):
-            return ZeroParamView(v, d, self._n)
+            return ZeroParamView(v, d, self._n, self._axis)
         if d is None:
             return v
-        return gather_leaves([v], [d], self._n)[0]
+        return gather_leaves([v], [d], self._n, self._axis)[0]
 
     def __getitem__(self, k):
         return self._read(k)
@@ -345,8 +405,8 @@ class ZeroParamView(dict):
                 names.append((k, False))
                 shards.append(self._slices[k][i])
                 dims.append(d - 1)
-        for (k, whole), full in zip(names, gather_leaves(shards, dims,
-                                                         self._n)):
+        for (k, whole), full in zip(names, gather_leaves(
+                shards, dims, self._n, self._axis)):
             out[k] = full[i] if whole else full
         return out
 

@@ -235,6 +235,34 @@ def comm_facade_ops(per_rank):
             "refusals": refusals, "info": info}
 
 
+def zeropp_collectives(per_rank):
+    """Each of `runtime/quantized_collectives.py`'s functions on this
+    rank's numpy inputs (`per_rank[rank]`: "ag" a shard [k, d] for the
+    gathers, "rs" a full contribution [n k, d] for the reduce-scatters,
+    "ar" any shape for qgZ's all-reduce): {name: result} and the CommStats
+    each recorded."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm import collectives as coll
+    from deepspeed_tpu_torch.runtime import quantized_collectives as qc
+    comm.init_distributed(device="cpu")
+    x = {k: torch.from_numpy(np.array(v)) for k, v in per_rank[_rank()].items()}
+    calls = {"quantized_all_gather": lambda: qc.quantized_all_gather(
+                 x["ag"], "data"),
+             "quantized_reduce_scatter": lambda: qc.quantized_reduce_scatter(
+                 x["rs"], "data"),
+             "quantized_psum_scatter_mean":
+                 lambda: qc.quantized_psum_scatter_mean(x["rs"], "data"),
+             "qgz_allreduce": lambda: qc.qgz_allreduce(x["ar"], "data"),
+             "quantized_all_gather_dim": lambda: qc.quantized_all_gather_dim(
+                 x["ag"], "data", 1)}
+    out, stats = {}, {}
+    for name, fn in calls.items():
+        coll.stats.reset()
+        out[name] = _np(fn())
+        stats[name] = coll.stats.snapshot()
+    return {"out": out, "stats": stats}
+
+
 # ----------------------------------------------------------------------
 # ZeRO tasks
 # ----------------------------------------------------------------------
@@ -252,43 +280,74 @@ def _gpt_engine(config, params_np, cfg_kwargs):
 
 
 def _leaf_plan(engine):
-    """Each param leaf's shape, itemsize and shard dims (param, state,
-    grad), in leaf order."""
+    """Each param leaf's shape, itemsize, shard dims (param, state,
+    grad) and the specs of its params and state (JAX's vocabulary: one
+    entry a dimension), in leaf order."""
     from deepspeed_tpu_torch.utils.tree import tree_leaves
     full = engine._full_state().params
+    pol = engine.zero_policy
     return [{"shape": tuple(t.shape), "itemsize": t.element_size(),
-             "pdim": pd, "sdim": sd, "gdim": gd}
-            for t, pd, sd, gd in zip(tree_leaves(full), engine._pdims,
-                                     engine._sdims, engine._gdims)]
+             "pdim": pd, "sdim": sd, "gdim": gd,
+             "pspec": pol.param_spec(tuple(t.shape), base),
+             "sspec": pol.state_spec(tuple(t.shape), base)}
+            for t, pd, sd, gd, base in zip(
+                tree_leaves(full), engine._pdims, engine._sdims,
+                engine._gdims, engine._base_specs)]
 
 
 def zero_train(config, params_np, cfg_kwargs, batches, save_dir=None,
                save_after=None, load_dir=None):
     """Train the port's GPT on this rank's rows of each global batch:
     losses, each step's CommStats, the whole (gathered) state at the end,
-    the step metrics, the leaf plan and the memscope plan. `save_dir` /
-    `save_after`: save a checkpoint after that many steps; `load_dir`:
-    resume from it first."""
+    the step metrics, the leaf plan and the memscope plan; the ZeRO++ path
+    taken, what each step's compressed reduces quantized (`wires`), the
+    axes and sizes of each step's all-gathers, the 1-bit wire's residuals
+    and the mesh. `save_dir` / `save_after`: save a checkpoint after that
+    many steps; `load_dir`: resume from it first."""
     from deepspeed_tpu_torch.comm import collectives as coll
+    from deepspeed_tpu_torch.comm.mesh import _axes as mesh_axes
     from deepspeed_tpu_torch.telemetry.memscope import \
         plan_training_from_engine
     from deepspeed_tpu_torch.utils.tree import tree_leaves
     engine = _gpt_engine(config, params_np, cfg_kwargs)
     if load_dir is not None:
         engine.load_checkpoint(load_dir)
-    losses, stats, metrics = [], [], []
+    losses, stats, metrics, wires, gathers = [], [], [], [], []
     coll.LAUNCHES.clear()
-    for i, b in enumerate(batches):
-        coll.stats.reset()
-        losses.append(float(engine.train_batch(b)))
-        stats.append(coll.stats.snapshot())
-        m = engine._last_metrics
-        metrics.append({k: float(m[k]) for k in ("grad_norm", "loss_scale")}
-                       | {"overflow": bool(m["overflow"])})
-        if save_dir is not None and i + 1 == save_after:
-            engine.save_checkpoint(save_dir, tag="mid")
+    reduce_, gather_ = coll.compressed_all_reduce, coll.all_gather
+
+    def wire(x, axis_name, transform="none", group_size=256, err=None):
+        # what each compressed reduce quantizes: the input's max |x| (int8)
+        # or the compensated mean |x + e| (onebit), with its size
+        c = x.float() if err is None else x.float() + err.float()
+        wires[-1].append({"transform": transform, "numel": x.numel(),
+                          "amax": float(c.abs().max()),
+                          "mean": float(c.abs().mean())})
+        return reduce_(x, axis_name, transform, group_size, err)
+
+    def gather(x, axis_name, **kw):
+        gathers[-1].append((tuple(mesh_axes(axis_name)), x.numel()))
+        return gather_(x, axis_name, **kw)
+
+    coll.compressed_all_reduce, coll.all_gather = wire, gather
+    try:
+        for i, b in enumerate(batches):
+            coll.stats.reset()
+            wires.append([])
+            gathers.append([])
+            losses.append(float(engine.train_batch(b)))
+            stats.append(coll.stats.snapshot())
+            m = engine._last_metrics
+            metrics.append({k: float(m[k])
+                            for k in ("grad_norm", "loss_scale")}
+                           | {"overflow": bool(m["overflow"])})
+            if save_dir is not None and i + 1 == save_after:
+                engine.save_checkpoint(save_dir, tag="mid")
+    finally:
+        coll.compressed_all_reduce, coll.all_gather = reduce_, gather_
     launches = dict(coll.LAUNCHES)
     plan = plan_training_from_engine(engine)
+    pol = engine.zero_policy
     return {"losses": losses, "stats": stats, "metrics": metrics,
             "launches": launches, "state": engine.state_to_numpy(),
             "plan": {"device": dict(plan.device_bytes),
@@ -299,7 +358,12 @@ def zero_train(config, params_np, cfg_kwargs, batches, save_dir=None,
             "master_shapes": [tuple(t.shape) for t in
                               tree_leaves(engine.state.master)]
             if engine.state.master is not None else None,
-            "dp": (engine.dp_world_size, engine.dp_rank)}
+            "dp": (engine.dp_world_size, engine.dp_rank),
+            "path": engine._zeropp, "wires": wires, "gathers": gathers,
+            "residuals": None if engine._comm_err is None else
+            [e.numpy().copy() for e in engine._comm_err],
+            "spec": engine.zero_policy.spec.axis_sizes(),
+            "domains": (pol.param_domain, pol.domain)}
 
 
 def zero_save_fault(config, params_np, cfg_kwargs, batch, save_dir):

@@ -2,6 +2,7 @@
 what it refuses, and how it builds its kernels."""
 
 import ast
+import dataclasses
 import stat
 from pathlib import Path
 
@@ -381,9 +382,27 @@ def test_initialize_refuses_to_train_on_the_cpu_quietly():
 def test_unported_train_features_refuse_at_config_time(override):
     """Train features the port lacks refuse when the config is built.
     The memscope ledger, the `checkpoint` block and `fault_tolerance` are
-    ported: their cases build, with the JAX package's fields."""
+    ported, and since item 7 closed so are qgZ and the 1-bit optimizers:
+    their cases build, with the JAX package's fields."""
+    from deepspeed_tpu.config.core import TpuTrainConfig as JCfg
     from deepspeed_tpu_torch.config.core import TpuTrainConfig
     base = {"train_micro_batch_size_per_gpu": 2}
+    if "optimizer" in override or \
+            "zero_quantized_gradients" in override.get("zero_optimization",
+                                                       {}):
+        cfg, ref = TpuTrainConfig.load({**base, **override}), \
+            JCfg.load({**base, **override})
+        assert dataclasses.asdict(cfg.zero_optimization).keys() >= {
+            "zero_quantized_gradients", "explicit_grad_reduce"}
+        for k in ("stage", "zero_quantized_gradients",
+                  "zero_quantized_weights", "explicit_grad_reduce",
+                  "onebit_gradients", "compressed_comm_axis"):
+            assert getattr(cfg.zero_optimization, k) == \
+                getattr(ref.zero_optimization, k), k
+        if "optimizer" in override:
+            assert cfg.optimizer.type == ref.optimizer.type
+            assert cfg.optimizer.params == ref.optimizer.params
+        return
     if override.get("mesh", {}).get("data") == 2:
         # data-parallel ZeRO across ranks is ported: the config builds
         # (the engine then needs a process group of 2 ranks)
@@ -419,12 +438,62 @@ def test_unported_train_features_refuse_at_config_time(override):
     ({"pipeline": {"stages": 2}}, 8),
 ], ids=lambda o: str(o))
 def test_still_refused_keys_name_their_item(override, item):
-    """What stays refused after data-parallel ZeRO raises when the config
-    is built, naming the ROADMAP item it waits on."""
+    """What stays refused raises when the config is built, naming the
+    ROADMAP item it waits on. Item 7's keys (`mesh.zero`, ZeRO++, MiCS,
+    the 1-bit optimizers, `gradient_compression`) are ported: their cases
+    build with the JAX package's fields and defaults, and none names item
+    7."""
+    from deepspeed_tpu.config.core import TpuTrainConfig as JCfg
     from deepspeed_tpu_torch.config.core import TpuTrainConfig
+    d = {"train_micro_batch_size_per_gpu": 2, **override}
+    if item == 7:
+        cfg, ref = TpuTrainConfig.load(d), JCfg.load(d)
+        for block in ("zero_optimization", "gradient_compression"):
+            got = dataclasses.asdict(getattr(cfg, block))
+            want = dataclasses.asdict(getattr(ref, block))
+            assert {k: got[k] for k in want if k in got} == \
+                {k: want[k] for k in want if k in got}, block
+        assert dataclasses.asdict(cfg.gradient_compression) == \
+            dataclasses.asdict(ref.gradient_compression)
+        assert (cfg.mesh.data, cfg.mesh.zero) == (ref.mesh.data,
+                                                 ref.mesh.zero)
+        if cfg.optimizer is not None:
+            assert cfg.optimizer.type == ref.optimizer.type
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-        TpuTrainConfig.load({"train_micro_batch_size_per_gpu": 2,
-                             **override})
+        TpuTrainConfig.load(d)
+
+
+@pytest.mark.parametrize("device", ["cpu", "nvme"])
+def test_onebit_gradients_with_offload_optimizer_raises_jax_message(device,
+                                                                   tmp_path):
+    """`onebit_gradients` refuses `offload_optimizer` when the engine is
+    built, with the JAX engine's message (the residuals cannot be threaded
+    through the host step)."""
+    import deepspeed_tpu
+    import jax.numpy as jnp
+    from deepspeed_tpu.comm import mesh as jmesh
+    from deepspeed_tpu_torch.runtime.engine import ModelSpec, initialize
+    config = {"train_micro_batch_size_per_gpu": 1,
+              "optimizer": {"type": "Adam"},
+              "zero_optimization": {"stage": 1, "onebit_gradients": True,
+                                    "offload_optimizer": {
+                                        "device": device,
+                                        "nvme_path": str(tmp_path)}}}
+    jmesh.clear_mesh()
+    with pytest.raises(ValueError) as want:
+        deepspeed_tpu.initialize(
+            model=lambda p, b: jnp.sum(p["w"] * b["x"]),
+            model_parameters={"w": jnp.ones(4)},
+            config={**config, "mesh": {"data": 1}})
+    jmesh.clear_mesh()
+    with pytest.raises(ValueError) as got:
+        initialize(model=ModelSpec(loss_fn=lambda p, b: (p["w"] * b["x"])
+                                   .sum(), params={"w": torch.ones(4)}),
+                   config=config, device="cpu")
+    assert str(got.value) == str(want.value)
+    assert "onebit_gradients is incompatible with offload_optimizer" in \
+        str(got.value)
 
 
 def test_comm_keys_are_accepted_as_in_jax():

@@ -189,10 +189,86 @@ def test_optimizer_updates_match_optax(name, params):
 
 @pytest.mark.parametrize("name", ["OneBitAdam", "ZeroOneAdam", "OneBitLamb"])
 def test_compressed_optimizers_refuse(name):
-    """The 1-bit optimizers refuse when their config block is built, so
-    the registry never sees them."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        toptim.build_optimizer(OptimizerConfig(type=name))
+    """The 1-bit optimizers, which refused until item 7 closed, now build
+    through the registry as JAX's do: their state carries optax's field
+    names (`runtime/compressed_grads.py`; the parity tests are in
+    `tests/test_torch_compressed_grads.py`)."""
+    tx = toptim.build_optimizer(OptimizerConfig(type=name))
+    assert tx.leaf_sums
+    state = tx.init({"w": torch.zeros(3, 2)})
+    ref = joptim.build_optimizer(JOpt(type=name)).init(
+        {"w": jnp.zeros((3, 2))})
+    assert tuple(state) == type(ref)._fields
+
+
+_FRONTENDS = [
+    ("adam", "FusedAdam", {"lr": 1e-2, "weight_decay": 0.1}),
+    ("adam", "FusedAdam", {"lr": 1e-2, "adam_w_mode": False,
+                           "weight_decay": 0.1}),
+    ("adam", "DeepSpeedCPUAdam", {"lr": 1e-2, "weight_decay": 0.01}),
+    ("lamb", "FusedLamb", {"lr": 1e-2, "max_grad_norm": 1.0}),
+    ("lion", "FusedLion", {"lr": 1e-3, "weight_decay": 0.1}),
+    ("lion", "DeepSpeedCPULion", {"lr": 1e-3}),
+    ("adagrad", "DeepSpeedCPUAdagrad", {"lr": 1e-1, "weight_decay": 0.1}),
+]
+
+
+@pytest.mark.parametrize("module,name,kw", _FRONTENDS,
+                         ids=[f"{n}-{i}" for i, (_, n, _) in
+                              enumerate(_FRONTENDS)])
+def test_optimizer_frontends_match_jax(module, name, kw):
+    """`deepspeed_tpu_torch.ops`' reference-named frontends step as JAX's
+    `deepspeed_tpu.ops` ones (two updates, the params at rtol 1e-5); the
+    DeepSpeedCPU* ones are tagged for the host-resident state, as JAX tags
+    them."""
+    import importlib
+    import deepspeed_tpu_torch.ops as tops
+    jfn = getattr(importlib.import_module(f"deepspeed_tpu.ops.{module}"),
+                  name)
+    ttx, jtx = getattr(tops, name)(**kw), jfn(**kw)
+    assert ttx.offload_to_host == name.startswith("DeepSpeedCPU") == \
+        bool(getattr(jtx, "offload_to_host", False))
+    rng = np.random.default_rng(9)
+    tree = {"w": rng.standard_normal((4, 3)).astype(np.float32),
+            "b": rng.standard_normal(3).astype(np.float32)}
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    tp = jax.tree_util.tree_map(lambda x: torch.from_numpy(x.copy()), tree)
+    jstate, tstate = jtx.init(jp), ttx.init(tp)
+    for _ in range(2):
+        g = jax.tree_util.tree_map(
+            lambda x: (3 * rng.standard_normal(x.shape)).astype(np.float32),
+            tree)
+        ju, jstate = jtx.update(jax.tree_util.tree_map(jnp.asarray, g),
+                                jstate, jp)
+        ttx.update(jax.tree_util.tree_map(torch.from_numpy, g), tstate, tp)
+        jp = optax.apply_updates(jp, ju)
+        for a, b in zip(tree_leaves(tp), jax.tree_util.tree_leaves(jp)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                       atol=1e-7)
+
+
+def test_runtime_utils_match_jax():
+    """`get_global_norm` and the functional `clip_grad_norm_` of
+    `runtime/utils.py`, as JAX's."""
+    from deepspeed_tpu.runtime import utils as jutils
+    from deepspeed_tpu_torch.runtime import utils as tutils
+    rng = np.random.default_rng(2)
+    tree = {"a": (4 * rng.standard_normal((5, 3))).astype(np.float32),
+            "b": rng.standard_normal(7).astype(np.float32)}
+    ttree = jax.tree_util.tree_map(torch.from_numpy, tree)
+    jtree = jax.tree_util.tree_map(jnp.asarray, tree)
+    assert tutils.get_global_norm([3.0, 4.0]) == \
+        jutils.get_global_norm([3.0, 4.0])
+    np.testing.assert_allclose(tutils.get_global_norm(parameters=ttree),
+                               jutils.get_global_norm(parameters=jtree),
+                               rtol=1e-6)
+    for max_norm in (1.0, 1e3):
+        got, gn = tutils.clip_grad_norm_(grads=ttree, max_norm=max_norm)
+        want, wn = jutils.clip_grad_norm_(grads=jtree, max_norm=max_norm)
+        np.testing.assert_allclose(gn, wn, rtol=1e-6)
+        for a, b in zip(tree_leaves(got), jax.tree_util.tree_leaves(want)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    assert tutils.__all__ == jutils.__all__
 
 
 # ----------------------------------------------------------------------

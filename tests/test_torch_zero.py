@@ -255,8 +255,9 @@ def _analytic(stage, plan, gas=2, n=W, acc=4, tied=True, lamb=True):
     norms (the params' and the update's). Stage 3 (remat): a micro-batch
     gathers each top-level leaf
     where it is read (the tied wte twice: embedding and head) and each
-    layer twice (forward and rematerialized forward), and reduce-scatters
-    the whole gradient of every forward gather once."""
+    layer twice (forward and rematerialized forward; a leaf sharded on its
+    layer dimension whole each time), and reduce-scatters the whole
+    gradient of every forward gather once."""
     numel = [int(np.prod(p["shape"])) for p in plan]
     item = plan[0]["itemsize"]
     out = {}
@@ -289,7 +290,11 @@ def _analytic(stage, plan, gas=2, n=W, acc=4, tied=True, lamb=True):
         order = [("blocks", k) for k in blocks] + \
             [(None, k) for k in names if k != "blocks"]
         calls = bytes_ = rs_calls = rs_bytes = 0
-        layer_bytes = sum(numel[i] // JCFG.n_layer // n * item
+        # a stacked leaf sharded on its layer dimension (JAX's choice where
+        # the model's tensor-parallel spec names the others) is gathered
+        # whole for each layer
+        layer_bytes = sum((numel[i] if plan[i]["pdim"] == 0
+                           else numel[i] // JCFG.n_layer) // n * item
                           for i, (grp, _) in enumerate(order)
                           if grp == "blocks" and plan[i]["pdim"] is not None)
         calls += 2 * JCFG.n_layer
