@@ -583,6 +583,33 @@ LONGCTX = {"longctx": dict(seq=4096, gas=32),
 # checks hold the kernels (run at all 12 heads) on 2 of them, and the plain
 # version is timed over the 12 heads 2 at a time (heads are independent)
 LONGCTX_REF_HEADS = {"longctx": 12, "longctx16k": 2}
+# context parallelism on one card (NCCL refuses two ranks on one device):
+# the ring phase drives ring attention's and ring∘Ulysses' per-rank code
+# for RING_SP virtual ranks in one process (`parallel/ring.py`'s
+# in-process exchange) on the CUDA kernels, at the longctx_ring lane's
+# attention (gpt2-350m: 8 heads of 128, B 1, bf16). At RING_CHECK_T (Tl
+# 2048) output and q/k/v grads against the plain version over the whole T,
+# causal and not, and causal at ulysses_degree 1, 2 and 4; at RING_LANE_T
+# (Tl 16384, the lane's) the causal ring (the driven path) against one
+# flash-kernel call over the whole T
+RING_SP, RING_CHECK_T, RING_LANE_T = 4, 8192, 65536
+RING_HEADS, RING_HD = 8, 128
+RING_DEGREES = (1, 2, 4)
+# the plain flash versions over the whole T at the ring's kernel shapes
+# (Tl 16384 and T 65536) run in blocks of this many query rows (a block's
+# scores are [1, 8, rows, T] fp32): the same function, evaluated in pieces
+RING_PLAIN_ROWS = 2048
+# the longctx_ring phase: bench.py:2051-2058's flash arm of the
+# longctx_ring lane (gpt2-350m, seq 65536, B 1, gas 4, loss_chunks 8,
+# ZeRO 1, 2 steps; the lane's engine config, bf16 accumulator and softmax
+# as the longctx lanes), first with no attention backend, then with
+# attention_backend "ring" at mesh.sequence 1 over a one-rank NCCL group
+# (the dispatch falls through to the same kernels: the losses bit-equal).
+# LCR_LAYERS of its 24 layers, a cut for the script's time limit (PERF.md
+# section 4: at 12 the whole list read 1054 s); 131072 waits for a
+# run of its own
+LCR_MODEL, LCR_SEQ, LCR_GAS, LCR_STEPS = "gpt2-350m", 65536, 4, 2
+LCR_LAYERS = 6
 # the routing phase: progressive layer drop, random-LTD and the seqlen
 # curriculum on gpt2-760m at full width and depth, the headline lane's
 # config at micro-batch 12, seq 512, gas 2 (gas cut from 32 to keep the
@@ -622,7 +649,8 @@ ROUTING_ATTN = tuple(
 # before its first run (seconds of command; printed beside each phase's own
 # reading)
 PHASE_ESTIMATE_S = {"longctx": 70, "longctx16k": 35, "routing": 60,
-                    "bert": 90, "llama": 120}
+                    "bert": 90, "llama": 120, "ring": 40,
+                    "longctx_ring": 60}
 # the chunked CE on the card at the longctx micro-batch's head: x [4096,
 # 1536], the gpt2 table [50304, 1536], 8 chunks, 5 % of the labels -1,
 # against the plain CE (gpt_loss's math) in fp32 on the same values. fp32:
@@ -1237,6 +1265,7 @@ def phase_kernels():
         results["paged_decode_attention", "serve"]
     results.update(_backward_kernels(rng, checks))
     results.update(_longctx_flash_kernels(rng, checks))
+    results.update(_ring_kernels(rng, checks))
     results.update(_quant_kernels(rng, checks))
     _paged_split_kernels(rng, checks, results)
     _serving_feature_kernels(rng, checks, results)
@@ -1485,6 +1514,193 @@ def _longctx_flash_kernels(rng, checks):
                 library_device_ms=library_dev, plain_heads_a_call=hr,
                 library="SDPA backward (dq, dk, dv together)")
         del q, k, v, out, lse, do, grads, gout
+        torch.cuda.empty_cache()
+    return results
+
+
+def _plain_blocks_fwd(q, k, v, causal, rows=RING_PLAIN_ROWS):
+    """The plain flash forward (`flash_attention_reference`: fp32
+    materialized attention) over the whole T, evaluated in blocks of
+    `rows` query rows (each block's scores [B, H, rows, keys] against the
+    keys it sees): (out in q's dtype [B, T, H, D], lse fp32 [B, H, T])."""
+    import torch
+    B, T, H, D = q.shape
+    scale = 1.0 / D ** 0.5
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    kh, vh = (x.transpose(1, 2).float() for x in (k, v))
+    for a in range(0, T, rows):
+        b = min(a + rows, T)
+        n = b if causal else T
+        qb = q[:, a:b].transpose(1, 2).float()
+        sc = torch.einsum("bhtd,bhsd->bhts", qb, kh[:, :, :n]) * scale
+        if causal:
+            mask = torch.arange(a, b, device=q.device)[:, None] >= \
+                torch.arange(n, device=q.device)[None, :]
+            sc = sc.masked_fill(~mask, -1e30)
+        lse[:, :, a:b] = torch.logsumexp(sc, dim=-1)
+        p_ = torch.softmax(sc, dim=-1)
+        del sc
+        out[:, a:b] = torch.einsum("bhts,bhsd->bhtd", p_, vh[:, :, :n]) \
+            .transpose(1, 2).to(q.dtype)
+    return out, lse
+
+
+def _plain_blocks_bwd(q, k, v, out, lse, do, causal,
+                      rows=RING_PLAIN_ROWS):
+    """The plain flash backward (`flash_attention_bwd_reference`: the fp32
+    softmax backward from the saved out and lse) over the whole T, in
+    blocks of `rows` query rows: (dq, dk, dv) in the inputs' dtypes."""
+    import torch
+    B, T, H, D = q.shape
+    scale = 1.0 / D ** 0.5
+    kh, vh = (x.transpose(1, 2).float() for x in (k, v))
+    dq = torch.empty_like(q)
+    dk = torch.zeros(kh.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(vh.shape, dtype=torch.float32, device=q.device)
+    for a in range(0, T, rows):
+        b = min(a + rows, T)
+        n = b if causal else T
+        qb, ob, dob = (x[:, a:b].transpose(1, 2).float()
+                       for x in (q, out, do))
+        sc = torch.einsum("bhtd,bhsd->bhts", qb, kh[:, :, :n]) * scale
+        if causal:
+            mask = torch.arange(a, b, device=q.device)[:, None] >= \
+                torch.arange(n, device=q.device)[None, :]
+            sc = sc.masked_fill(~mask, -1e30)
+        p_ = torch.exp(sc - lse[:, :, a:b, None])
+        del sc
+        delta = (dob * ob).sum(-1)
+        dv[:, :, :n] += torch.einsum("bhts,bhtd->bhsd", p_, dob)
+        dp = torch.einsum("bhtd,bhsd->bhts", dob, vh[:, :, :n])
+        ds = p_ * (dp - delta[..., None])
+        del p_, dp
+        dq[:, a:b] = (torch.einsum("bhts,bhsd->bhtd", ds, kh[:, :, :n])
+                      * scale).transpose(1, 2).to(q.dtype)
+        dk[:, :, :n] += torch.einsum("bhts,bhtd->bhsd", ds, qb) * scale
+        del ds
+    return dq, dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+
+
+def _check_attention(checks, name, shape, got, ref, fwd=False,
+                     kernel=None):
+    """One kernel's result against its reference: the forward within
+    TOL (absolute), a gradient within BWD_REL_TOL x max|ref| and row by
+    row within SPARSE_ROW_TOL; with `kernel` (one kernel call's result on
+    the same inputs), each row's error within SPARSE_ROW_TOL of that
+    call's error on the row (the ring adds at most that to the kernel's
+    own). Appends the record; raises when it fails. Returns the max abs
+    error."""
+    err = (got.float() - ref.float()).abs().max().item()
+    rec = {"kernel": name, "shape": shape, "max_abs_err": err}
+    if fwd:
+        ok = bool(np.isfinite(err) and err <= TOL["flash_attention"])
+        rec["tol"] = TOL["flash_attention"]
+    else:
+        scale = ref.float().abs().max().item()
+        rows = _row_errs(got, ref)
+        row = rows.max().item()
+        rec.update(ref_max_abs=scale, tol=BWD_REL_TOL * scale, row_err=row,
+                   row_tol=SPARSE_ROW_TOL)
+        if kernel is not None:
+            base = _row_errs(kernel, ref)
+            rec.update(kernel_row_err=base.max().item(),
+                       row_err_over_kernel=(rows - base).max().item())
+            row = rec["row_err_over_kernel"]
+        ok = bool(np.isfinite(err) and err <= BWD_REL_TOL * scale
+                  and np.isfinite(row) and row <= SPARSE_ROW_TOL)
+    rec["ok"] = ok
+    checks.append(rec)
+    if not ok:
+        raise AssertionError(f"{name} {shape}: {rec}")
+    return err
+
+
+def _ring_kernels(rng, checks):
+    """Rows 1-3 on the ring's paths, bf16, B 1, 8 heads of 128: (ring) a
+    ring step's non-causal call at Tl 16384 (the past steps of the T 65536
+    ring at sp 4, the new pattern), and (longctx_ring) the lane's causal
+    call at T 65536. The forward, dq and dk/dv through the autograd path
+    against the plain versions over the whole T in blocks of
+    RING_PLAIN_ROWS query rows (`_plain_blocks_fwd` / `_bwd`, on the
+    kernel's saved out and lse), each timed beside its bound, the plain
+    version (two calls: 0.6–0.9 s a call at T 65536) and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    results = {}
+    for path, T, causal in (("ring", RING_LANE_T // RING_SP, False),
+                            ("longctx_ring", RING_LANE_T, True)):
+        B, H, D = 1, RING_HEADS, RING_HD
+        shape = dict(B=B, T=T, H=H, Hkv=H, D=D, causal=causal)
+        q, k, v, _ = _flash_case(rng, **shape)
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        do = torch.randn_like(out)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        qd, kd, vd, od = (x.detach() for x in (q, k, v, out))
+        lse_d = lse.detach()
+        ref_out, ref_lse = _plain_blocks_fwd(qd, kd, vd, causal)
+        ref = _plain_blocks_bwd(qd, kd, vd, od, lse_d, do, causal)
+        torch.cuda.synchronize()
+        errs = {"flash_attention": _check_attention(
+            checks, "flash_attention", shape, od, ref_out, fwd=True)}
+        lse_err = (lse_d - ref_lse).abs().max().item()
+        if not lse_err <= 1e-2:
+            raise AssertionError(f"flash lse err {lse_err} at {shape}")
+        errs["flash_attention_bwd_dq"] = _check_attention(
+            checks, "flash_attention_bwd_dq", shape, grads[0], ref[0])
+        errs["flash_attention_bwd_dkv"] = max(_check_attention(
+            checks, "flash_attention_bwd_dkv", shape, g, r)
+            for g, r in zip(grads[1:], ref[1:]))
+        del ref, ref_out, ref_lse, grads
+        torch.cuda.empty_cache()
+
+        qh, kh, vh, doh = (x.detach().transpose(1, 2) for x in (q, k, v, do))
+        delta = (doh.float() * od.transpose(1, 2).float()).sum(-1) \
+            .contiguous()
+        sm = 1.0 / D ** 0.5
+        pairs = B * H * (T * (T + 1) / 2 if causal else T * T)
+        tile = B * T * H * D * 2
+        rows = B * H * T * 4
+        fwd = lambda: fa.flash_attention(qd, kd, vd, causal=causal)
+        sq, sk, sv = (x.contiguous() for x in (qh, kh, vh))
+        sdpa = lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                      is_causal=causal)
+        b_ms, b_by = bound(4 * tile + rows, 4 * D * pairs)
+        results["flash_attention", path] = dict(
+            max_abs_err=errs["flash_attention"], ms=median_ms(fwd),
+            plain_ms=median_ms(lambda: _plain_blocks_fwd(qd, kd, vd, causal),
+                               reps=2, inner=1, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(sdpa),
+            plain="query blocks of RING_PLAIN_ROWS rows")
+        gq, gk, gv = (x.requires_grad_(True) for x in (sq.clone(),
+                                                       sk.clone(),
+                                                       sv.clone()))
+        gout = F.scaled_dot_product_attention(gq, gk, gv, is_causal=causal)
+        gdo = doh.contiguous()
+        sdpa_bwd = lambda: torch.autograd.grad(gout, (gq, gk, gv), gdo,
+                                               retain_graph=True)
+        library_ms = median_ms(sdpa_bwd)
+        plain_ms = median_ms(lambda: _plain_blocks_bwd(
+            qd, kd, vd, od, lse_d, do, causal), reps=2, inner=1, warmup=1)
+        for name, need, flops, nbytes in (
+                ("flash_attention_bwd_dq", (True, False), 6 * D * pairs,
+                 5 * tile + 2 * rows),
+                ("flash_attention_bwd_dkv", (False, True), 8 * D * pairs,
+                 6 * tile + 2 * rows)):
+            b_ms, b_by = bound(nbytes, flops)
+            kern = lambda: fa._launch_bwd(qh, kh, vh, doh, lse_d, delta, sm,
+                                          causal, *need)
+            results[name, path] = dict(
+                max_abs_err=errs[name], ms=median_ms(kern),
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms,
+                plain="query blocks of RING_PLAIN_ROWS rows (dq, dk, dv "
+                      "together)",
+                library="SDPA backward (dq, dk, dv together)")
+        del q, k, v, out, lse, do, gout, gq, gk, gv
         torch.cuda.empty_cache()
     return results
 
@@ -3134,15 +3350,20 @@ def _sparse_qkv(rng, B, H, T, D, dtype=None):
                  for x in qkv.split(H * D, dim=-1))
 
 
-def _row_err(got, ref):
-    """Worst row of ||got - ref||_2 / ||ref||_2 over the last dim; a row
+def _row_errs(got, ref):
+    """Each row's ||got - ref||_2 / ||ref||_2 over the last dim; a row
     whose ||ref|| is below SPARSE_ROW_FLOOR x the RMS row norm is held
     against that floor."""
     g = got.float().reshape(-1, got.shape[-1])
     r = ref.float().reshape(-1, ref.shape[-1])
     den = r.norm(dim=-1)
     floor = SPARSE_ROW_FLOOR * den.square().mean().sqrt()
-    return ((g - r).norm(dim=-1) / den.clamp_min(floor)).max().item()
+    return (g - r).norm(dim=-1) / den.clamp_min(floor)
+
+
+def _row_err(got, ref):
+    """The worst row of `_row_errs`."""
+    return _row_errs(got, ref).max().item()
 
 
 def _l2_err(got, ref):
@@ -6353,6 +6574,281 @@ def phase_longctx(state):
 
 def phase_longctx16k(state):
     return _phase_longctx(state, "longctx16k")
+
+
+def _ring_inputs(rng, T, causal):
+    """q, k, v, do [1, T, RING_HEADS, RING_HD] bf16 on the card (q/k/v
+    views of one fused projection, as the model hands them over), drawn
+    from `rng`."""
+    import torch
+    q, k, v, _ = _flash_case(rng, B=1, T=T, H=RING_HEADS, Hkv=RING_HEADS,
+                             D=RING_HD, causal=causal)
+    do = torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(
+        np.float32)).to(q.device, q.dtype)
+    return q, k, v, do
+
+
+def _virtual_ring(q, k, v, do, causal, degree):
+    """The ring∘Ulysses per-rank code (`parallel.ring.
+    virtual_ring_attention`) for RING_SP virtual ranks on q/k/v/do's
+    shards: (the whole output, dq, dk, dv) with each pass's launches."""
+    import torch
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    from deepspeed_tpu_torch.parallel import ring
+    sp = RING_SP
+    shards = [[x.chunk(sp, dim=1)[i].detach().requires_grad_(True)
+               for i in range(sp)] for x in (q, k, v)]
+    LAUNCHES.clear()
+    outs = ring.virtual_ring_attention(*shards, causal=causal,
+                                       ulysses_degree=degree)
+    torch.cuda.synchronize()
+    fwd = dict(LAUNCHES)
+    LAUNCHES.clear()
+    grads = torch.autograd.grad(outs, [t for s_ in shards for t in s_],
+                                list(do.chunk(sp, dim=1)))
+    torch.cuda.synchronize()
+    bwd = dict(LAUNCHES)
+    whole = [torch.cat(outs, 1).detach()] + [
+        torch.cat(grads[i * sp:(i + 1) * sp], 1) for i in range(3)]
+    return whole, fwd, bwd
+
+
+def _ring_launches(causal, degree):
+    """The flash launches of one ring∘Ulysses pass at RING_SP: the causal
+    ring computes ring(ring + 1)/2 of its ring² steps, each of the
+    `degree` rings; ring degree 1 is one flash call a virtual rank."""
+    ring = RING_SP // degree
+    steps = degree * (ring * (ring + 1) // 2 if causal else ring * ring)
+    return steps
+
+
+def phase_ring(state):
+    """Context parallelism's per-rank code on the card (RING_SP virtual
+    ranks in one process through the in-process exchange; the kernels
+    each ring step): at RING_CHECK_T output and q/k/v grads against the
+    plain version over the whole T (the grads also row by row against one
+    kernel call's own error on each row: `_check_attention`), causal and
+    not at ulysses_degree 1, causal at 2 and 4, each form's launches
+    exact; then the driven path,
+    the lane's causal ring at RING_LANE_T, with the launch counts set to 0
+    just before and read just after, held against one flash-kernel call
+    over the whole T (forward and backward), and the device time of a
+    ring pass beside that call's."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(24)
+    checks, forms = [], {}
+    T = RING_CHECK_T
+    for causal in (True, False):
+        q, k, v, do = _ring_inputs(rng, T, causal)
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal)
+        ref = [ref_out] + list(fa.flash_attention_bwd_reference(
+            q, k, v, ref_out, ref_lse, do, None, causal))
+        del ref_lse
+        one = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        one_grads = torch.autograd.grad(
+            fa.flash_attention(*one, causal=causal), one, do)
+        for name, g, r in (("flash_attention_bwd_dq", one_grads[0], ref[1]),
+                           ("flash_attention_bwd_dkv", one_grads[1], ref[2]),
+                           ("flash_attention_bwd_dkv", one_grads[2],
+                            ref[3])):
+            checks.append({"kernel": name, "shape": dict(
+                B=1, T=T, H=RING_HEADS, D=RING_HD, causal=causal,
+                one_call=True), "row_err": _row_err(g, r),
+                "max_abs_err": (g.float() - r.float()).abs().max().item(),
+                "ref_max_abs": r.float().abs().max().item(),
+                "reading": "one kernel call's yardstick, not a check"})
+        for degree in (RING_DEGREES if causal else (1,)):
+            got, fwd, bwd = _virtual_ring(q, k, v, do, causal, degree)
+            label = f"T{T} {'causal' if causal else 'full'} u{degree}"
+            shape = dict(B=1, T=T, H=RING_HEADS, D=RING_HD, sp=RING_SP,
+                         ulysses_degree=degree, causal=causal)
+            _check_attention(checks, "flash_attention", shape, got[0],
+                             ref[0], fwd=True)
+            _check_attention(checks, "flash_attention_bwd_dq", shape,
+                             got[1], ref[1], kernel=one_grads[0])
+            for g, r, o in zip(got[2:], ref[2:], one_grads[1:]):
+                _check_attention(checks, "flash_attention_bwd_dkv", shape,
+                                 g, r, kernel=o)
+            n = _ring_launches(causal, degree)
+            _expect(f"ring {label} forward", fwd, {"flash_attention": n})
+            _expect(f"ring {label} backward", bwd, {
+                "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n})
+            forms[label] = {"forward": fwd, "backward": bwd}
+        del q, k, v, do, ref, one, one_grads
+        torch.cuda.empty_cache()
+
+    # the driven path: the lane's causal ring at RING_LANE_T
+    q, k, v, do = _ring_inputs(rng, RING_LANE_T, True)
+    LAUNCHES.clear()
+    got, fwd, bwd = _virtual_ring(q, k, v, do, True, 1)
+    counts = {**fwd, **bwd}
+    n = _ring_launches(True, 1)
+    _expect("ring (driven)", counts, {"flash_attention": n,
+                                      "flash_attention_bwd_dq": n,
+                                      "flash_attention_bwd_dkv": n})
+    qs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    whole = fa.flash_attention(*qs, causal=True)
+    ref = [whole.detach()] + list(torch.autograd.grad(whole, qs, do))
+    shape = dict(B=1, T=RING_LANE_T, H=RING_HEADS, D=RING_HD, sp=RING_SP,
+                 causal=True, against="one flash-kernel call")
+    lane = {"flash_attention": _check_attention(
+        checks, "flash_attention", shape, got[0], ref[0], fwd=True),
+        "flash_attention_bwd_dq": _check_attention(
+            checks, "flash_attention_bwd_dq", shape, got[1], ref[1]),
+        "flash_attention_bwd_dkv": max(_check_attention(
+            checks, "flash_attention_bwd_dkv", shape, g, r)
+            for g, r in zip(got[2:], ref[2:]))}
+    del got, ref, whole
+    forms[f"T{RING_LANE_T} causal u1"] = {"forward": fwd, "backward": bwd}
+    torch.cuda.empty_cache()
+
+    # the device time of a ring pass against the one call
+    from deepspeed_tpu_torch.parallel import ring
+    sp = RING_SP
+    shards = [[x.chunk(sp, dim=1)[i].detach().requires_grad_(True)
+               for i in range(sp)] for x in (q, k, v)]
+    dos = list(do.chunk(sp, dim=1))
+    leaves = [t for s_ in shards for t in s_]
+
+    def ring_fwd():
+        with torch.no_grad():
+            ring.virtual_ring_attention(*shards, causal=True)
+
+    def ring_pass():
+        outs = ring.virtual_ring_attention(*shards, causal=True)
+        torch.autograd.grad(outs, leaves, dos)
+
+    whole_fwd = lambda: fa.flash_attention(q, k, v, causal=True)
+
+    def whole_pass():
+        out = fa.flash_attention(*qs, causal=True)
+        torch.autograd.grad(out, qs, do)
+    # CUDA events around the pass on the stream: the profiler, late in the
+    # default list, can record no session's device events
+    times = {"ring_forward_ms": median_ms(ring_fwd),
+             "ring_forward_backward_ms": median_ms(ring_pass),
+             "one_call_forward_ms": median_ms(whole_fwd),
+             "one_call_forward_backward_ms": median_ms(whole_pass)}
+    del q, k, v, do, qs, shards, dos, leaves
+    torch.cuda.empty_cache()
+    emit({"phase": "ring", "sp": RING_SP, "heads": RING_HEADS,
+          "head_dim": RING_HD, "dtype": "bfloat16",
+          "source": "bench.py:2040-2062 (longctx_ring: gpt2-350m, "
+                    "BENCH_MESH_SEQ ranks; here virtual ranks on one card)",
+          "checks": checks, "forms": forms, "lane_errors": lane,
+          "times": times, "launches": counts,
+          "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": state["nvidia_smi"]})
+    return counts
+
+
+def _lcr_run(cfg, params, batch, config, grouped):
+    """One longctx_ring arm: LCR_STEPS steps through initialize() ->
+    train_batch(), the launch counts set to 0 before the first; losses,
+    seconds a step and the launches. `grouped`: over a one-rank NCCL
+    process group (set up by the caller)."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt import make_gpt_model
+    from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+    engine, *_ = initialize(model=make_gpt_model(cfg, name=LCR_MODEL,
+                                                 params=params),
+                            config=config)
+    if engine.sharded != grouped:
+        raise AssertionError(f"longctx_ring: engine.sharded "
+                             f"{engine.sharded}, expected {grouped}")
+    LAUNCHES.clear()
+    losses, step_s = [], []
+    for _ in range(LCR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        step_s.append(time.perf_counter() - t0)
+    out = {"losses": losses, "step_s": step_s, "launches": dict(LAUNCHES)}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_longctx_ring(state):
+    """bench.py's longctx_ring lane's flash arm (LCR_*): the engine with
+    no attention backend, then with attention_backend "ring" at
+    mesh.sequence 1 over a one-rank NCCL group (a TCPStore on 127.0.0.1,
+    destroyed at the phase's end), on the same weights and batch. The
+    dispatch falls through to the flash kernels, so the losses must be
+    bit-equal; the launches exact (2 x L x gas forward, L x gas each
+    backward kernel a step); s/step, tokens/s and MFU as the longctx cells
+    report them (the second step's: the first pays the kernels' and the
+    allocator's first use)."""
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models.gpt import (GPT2_CONFIGS,
+                                                init_gpt_params)
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(
+        GPT2_CONFIGS[LCR_MODEL], n_layer=LCR_LAYERS, max_seq_len=LCR_SEQ,
+        remat_policy=TRAIN_POLICY, softmax_dtype=torch.bfloat16,
+        loss_chunks=LONGCTX_LOSS_CHUNKS)
+    params = init_gpt_params(cfg, seed=0)
+    toks = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (LCR_GAS, LCR_SEQ + 1))).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    config = _longctx_config(LCR_GAS)
+    flash = _lcr_run(cfg, params, batch, config, grouped=False)
+    ring_cfg = dataclasses.replace(cfg, attention_backend="ring")
+    store = dist.TCPStore("127.0.0.1", _zero_free_port(), 1, True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        comm.init_distributed(device="cuda")
+        ring = _lcr_run(ring_cfg, params, batch,
+                        {**config, "mesh": {"data": 1, "sequence": 1}},
+                        grouped=True)
+    finally:
+        comm.destroy_process_group()
+        del store
+    L = cfg.n_layer
+    want = {"flash_attention": 2 * L * LCR_GAS * LCR_STEPS,
+            "flash_attention_bwd_dq": L * LCR_GAS * LCR_STEPS,
+            "flash_attention_bwd_dkv": L * LCR_GAS * LCR_STEPS}
+    for arm, run in (("flash", flash), ("ring", ring)):
+        _expect(f"longctx_ring {arm}", run["launches"], want)
+        if not all(np.isfinite(run["losses"])):
+            raise AssertionError(f"longctx_ring {arm} losses "
+                                 f"{run['losses']}")
+    if ring["losses"] != flash["losses"]:
+        raise AssertionError(f"longctx_ring: the ring backend's losses "
+                             f"{ring['losses']} != the flash arm's "
+                             f"{flash['losses']}")
+    n_params = sum(t.numel() for t in params["blocks"].values()) + sum(
+        t.numel() for k_, t in params.items() if k_ != "blocks")
+    tokens = LCR_GAS * LCR_SEQ
+    arms = {}
+    for arm, run in (("flash", flash), ("ring", ring)):
+        sec = run["step_s"][-1]
+        arms[arm] = dict(
+            losses=run["losses"], step_s=run["step_s"],
+            seconds_per_step=sec, tokens_per_s=tokens / sec,
+            mfu=6 * n_params * tokens / sec / BF16_FLOPS,
+            mfu_attn=(6 * n_params * tokens + 12 * tokens * LCR_SEQ
+                      * cfg.d_model * L) / sec / BF16_FLOPS)
+    emit({"phase": "longctx_ring", "model": LCR_MODEL, "n_layer": L,
+          "n_params": n_params, "seq": LCR_SEQ, "gas": LCR_GAS,
+          "config": config, "loss_chunks": cfg.loss_chunks,
+          "remat": cfg.remat_policy,
+          "source": "bench.py:2051-2058 (the flash arm; LCR_LAYERS of 24 "
+                    "layers)", "arms": arms, "bit_equal": True,
+          "mfu_basis": "6 x params x tokens (mfu_attn: + 12 x tokens x seq "
+                       "x d_model x n_layer, bench.py:300-306) a step over "
+                       "989e12 flop/s", "launches": ring["launches"],
+          "estimate_s": PHASE_ESTIMATE_S["longctx_ring"],
+          "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": state["nvidia_smi"]})
+    return ring["launches"]
 
 
 class _FlashSeqs:
@@ -9830,7 +10326,7 @@ def main():
          "longctx16k", "routing", "bert", "llama", "moe", "sparse",
          "evoformer", "offload", "infinity", "zero_inference",
          "zero_offload", "checkpoint", "memscope", "router", "robustness",
-         "fabric", "autoscale", "zero", "zeropp"]
+         "fabric", "autoscale", "zero", "zeropp", "ring", "longctx_ring"]
     dev = phase_device()
     state, launches, kern, wall = {"nvidia_smi": dev["nvidia_smi"]}, {}, \
         {}, {}
@@ -9871,7 +10367,9 @@ def main():
                        ("fabric", phase_fabric),
                        ("autoscale", phase_autoscale),
                        ("zero", phase_zero),
-                       ("zeropp", phase_zeropp)):
+                       ("zeropp", phase_zeropp),
+                       ("ring", phase_ring),
+                       ("longctx_ring", phase_longctx_ring)):
         if phase in phases:
             t0 = time.perf_counter()
             counts = run(state)        # counts of each path's run; the

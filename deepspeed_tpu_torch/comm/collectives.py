@@ -120,8 +120,9 @@ def axis_size(axis_name) -> int:
 
 
 def _group(axis_name):
-    """(process group or None, size) of a mesh axis; None without a process
-    group, where every op is the identity."""
+    """(process group or None, size) of a mesh axis, a tuple of them or a
+    `mesh.SubAxis`; None without a process group, where every op is the
+    identity."""
     n = axis_size(axis_name)
     return mesh_mod.axis_group(axis_name), n
 
@@ -283,30 +284,63 @@ def all_to_all(x, axis_name, *, split_axis, concat_axis, tiled=False,
     return recv.movedim(0, concat_axis)
 
 
+class PendingPermute:
+    """A posted `ppermute_start`: `wait()` waits for its transfers and
+    returns the received tensors (a tuple, as given)."""
+
+    def __init__(self, reqs, outs):
+        self._reqs, self._outs = reqs, outs
+
+    def wait(self):
+        for req in self._reqs:
+            req.wait()
+        self._reqs = []
+        return self._outs
+
+
 def ppermute(x, axis_name, perm, *, repeats=1):
     """Participant i's tensor goes to j for each (i, j) in `perm`; a
     participant no one sends to gets zeros (`jax.lax.ppermute`)."""
+    return ppermute_start((x,), axis_name, perm, repeats=repeats).wait()[0]
+
+
+def ppermute_start(xs, axis_name, perm, *, tag=0, repeats=1):
+    """`ppermute`'s non-blocking form over a tuple of tensors: posts every
+    send and receive (one `batch_isend_irecv`) and returns a
+    `PendingPermute` at once, so the caller computes while they fly (on
+    NCCL the transfers run beside the compute stream's kernels). Counted
+    as one ppermute of the tuple's bytes. `tag` keeps two exchanges in
+    flight between the same pair apart (gloo matches by tag; NCCL keeps
+    the order of issue)."""
+    xs = tuple(xs)
     group, n = _group(axis_name)
-    _note("ppermute", x, n, repeats)
+    _note("ppermute", xs, n, repeats)
     if group is None:
-        return x if any(s == d == 0 for s, d in perm) else torch.zeros_like(x)
+        keep = any(s == d == 0 for s, d in perm)
+        return PendingPermute([], tuple(
+            x if keep else torch.zeros_like(x) for x in xs))
     me = dist.get_rank(group)
-    out = torch.zeros_like(x)
+    fed = any(d == me for _, d in perm)
+    outs = tuple(torch.empty_like(x) if fed else torch.zeros_like(x)
+                 for x in xs)
     ops = []
     for s, d in perm:
         if s == me and d == me:
-            out.copy_(x)
+            for o, x in zip(outs, xs):
+                o.copy_(x)
         elif s == me:
-            ops.append(dist.P2POp(dist.isend, x.contiguous(),
-                                  dist.get_global_rank(group, d), group))
+            peer = dist.get_global_rank(group, d)
+            ops += [dist.P2POp(dist.isend, x.contiguous(), peer, group, tag)
+                    for x in xs]
         elif d == me:
-            ops.append(dist.P2POp(dist.irecv, out,
-                                  dist.get_global_rank(group, s), group))
+            peer = dist.get_global_rank(group, s)
+            ops += [dist.P2POp(dist.irecv, o, peer, group, tag)
+                    for o in outs]
+    reqs = []
     if ops:
         LAUNCHES["ppermute"] += 1
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    return out
+        reqs = dist.batch_isend_irecv(ops)
+    return PendingPermute(reqs, outs)
 
 
 register_op("all_reduce", lax=psum)

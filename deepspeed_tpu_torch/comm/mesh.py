@@ -44,6 +44,10 @@ ALL_AXES: Tuple[str, ...] = (PIPE_AXIS, DATA_AXIS, ZERO_INNER_AXIS,
 ZERO_AXES: Tuple[str, ...] = (DATA_AXIS, ZERO_INNER_AXIS, SEQ_AXIS)
 BATCH_AXES: Tuple[str, ...] = (DATA_AXIS, ZERO_INNER_AXIS)
 
+# the factors of the `sequence` axis for the ring∘Ulysses hybrid
+RING_SUBAXIS = "seq_ring"
+ULYSSES_SUBAXIS = "seq_ulysses"
+
 
 def process_world_size() -> int:
     """Ranks in the default process group (1 without one)."""
@@ -149,6 +153,7 @@ def set_mesh(mesh, spec: MeshSpec):
     global _CURRENT_MESH, _CURRENT_SPEC, _CURRENT_GROUP
     _CURRENT_MESH, _CURRENT_SPEC = mesh, spec
     _CURRENT_GROUP = _world_group() if spec is not None else None
+    _FACTORED.clear()
 
 
 def get_mesh():
@@ -201,6 +206,56 @@ def ensure_mesh(mesh_config=None) -> MeshSpec:
 # -------------------- group queries (utils/groups.py vocabulary) ----------
 
 
+@dataclasses.dataclass(frozen=True)
+class SubAxis:
+    """One factor of the `sequence` axis (`factor_sequence_axis`): its
+    name, size, this rank's index along it and its process group (None
+    without a process group)."""
+    name: str
+    size: int
+    rank: int
+    group: object = None
+
+
+_FACTORED = {}      # ulysses degree -> (seq_ring, seq_ulysses) SubAxes
+
+
+def factor_sequence_axis(ulysses_degree: int):
+    """(seq_ring, seq_ulysses) sub-axes of the installed mesh's `sequence`
+    axis, of sizes (sp // ulysses_degree, ulysses_degree): `seq_ulysses`
+    is the inner factor, so its all-to-all rides adjacent ranks and the
+    ring spans the outer stride (JAX's `factored_sequence_mesh`). The
+    groups are made once a mesh and degree; every rank of the world takes
+    part in making them (`torch.distributed.new_group`), so every rank
+    calls this with the same degree at the same point."""
+    sp = get_spec().sequence
+    if ulysses_degree < 1 or sp % ulysses_degree != 0:
+        raise ValueError(
+            f"ring∘Ulysses: ulysses_degree {ulysses_degree} does not divide "
+            f"the `sequence` axis size {sp}")
+    if ulysses_degree in _FACTORED:
+        return _FACTORED[ulysses_degree]
+    ring = sp // ulysses_degree
+    ring_rank, uly_rank = divmod(axis_rank(SEQ_AXIS), ulysses_degree)
+    groups = [None, None]
+    if get_mesh() is not None:
+        spec = get_spec()
+        me = dist.get_rank()
+        ranks = torch.arange(spec.world_size).reshape(
+            spec.pipe, spec.data, spec.zero, spec.expert, ring,
+            ulysses_degree, spec.tensor)
+        for i, dim in enumerate((4, 5)):
+            for row in ranks.movedim(dim, -1).reshape(
+                    -1, ranks.shape[dim]).tolist():
+                g = dist.new_group(row)
+                if me in row:
+                    groups[i] = g
+    out = (SubAxis(RING_SUBAXIS, ring, ring_rank, groups[0]),
+           SubAxis(ULYSSES_SUBAXIS, ulysses_degree, uly_rank, groups[1]))
+    _FACTORED[ulysses_degree] = out
+    return out
+
+
 def _axes(axis):
     if axis is None:
         return ZERO_AXES
@@ -210,6 +265,8 @@ def _axes(axis):
 
 
 def axis_size(axis) -> int:
+    if isinstance(axis, SubAxis):
+        return axis.size
     sizes = get_spec().axis_sizes()
     return int(np.prod([sizes[a] for a in _axes(axis)]))
 
@@ -220,6 +277,8 @@ def axis_group(axis=None):
     data axis's when none is), or, where several are, the world's when
     they span it in mesh order (the joint data x zero domain: the world's
     rank order is the flattened mesh's)."""
+    if isinstance(axis, SubAxis):
+        return axis.group
     mesh = get_mesh()
     if mesh is None:
         return None
@@ -243,6 +302,8 @@ def axis_group(axis=None):
 def axis_rank(axis=None) -> int:
     """This rank's coordinate along a mesh axis (flattened in axis order
     for a tuple)."""
+    if isinstance(axis, SubAxis):
+        return axis.rank
     mesh = get_mesh()
     if mesh is None:
         return 0

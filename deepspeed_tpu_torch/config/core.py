@@ -7,14 +7,16 @@ bf16, optimizer, scheduler, ZeRO stage, gradient clipping, the gradient
 accumulator dtype, activation checkpointing). A feature of that config the
 port does not carry yet raises `NotImplementedError` when the config is
 built, naming the ROADMAP item it waits on: the model-parallel mesh axes
-(`tensor`, `pipe`, `sequence`, `expert` above 1), pipeline, MoE, the
+(`tensor`, `pipe`, `expert` above 1), pipeline, MoE, the
 metric-driven curriculum (`curriculum_metrics`), compression and the
 profilers. `mesh.data` and `mesh.zero` span the ranks of the process
 group (data-parallel ZeRO 0-3 over `comm/`, with MiCS / hpZ on the inner
-`zero` axis); the ZeRO++ knobs (`zero_quantized_weights`,
-`zero_quantized_gradients`, `explicit_grad_reduce`, `onebit_gradients`,
-`compressed_comm_axis`, `mics_shard_size`, `zero_hpz_partition_size`) and
-the 1-bit optimizers are ported; `comms_logger`, `prescale_gradients`,
+`zero` axis), and so may `mesh.sequence` (context parallelism: ring
+attention, Ulysses and their composition, `parallel/`); the ZeRO++ knobs
+(`zero_quantized_weights`, `zero_quantized_gradients`,
+`explicit_grad_reduce`, `onebit_gradients`, `compressed_comm_axis`,
+`mics_shard_size`, `zero_hpz_partition_size`) and the 1-bit optimizers
+are ported; `comms_logger`, `prescale_gradients`,
 `gradient_predivide_factor` and the `gradient_compression` block are
 accepted as the JAX package accepts them (no JAX module reads the last).
 The `telemetry` block (its request
@@ -79,10 +81,9 @@ def not_ported(what, item=None):
         f"package deepspeed_tpu serves it)")
 
 
-# the model-parallel mesh axes and the ROADMAP item they wait on (`data`
-# and its inner factor `zero`, MiCS / hpZ, are ported)
-UNPORTED_AXES = {"tensor": "8", "pipe": "8", "sequence": "8",
-                 "expert": "8"}
+# the model-parallel mesh axes and the ROADMAP item they wait on (`data`,
+# its inner factor `zero` (MiCS / hpZ) and `sequence` are ported)
+UNPORTED_AXES = {"tensor": "8", "pipe": "8", "expert": "8"}
 
 
 def refuse_unported_axes(sizes):
@@ -91,7 +92,7 @@ def refuse_unported_axes(sizes):
         size = sizes.get(name)
         if size is not None and int(size) > 1:
             not_ported(f"mesh.{name} = {size} (a mesh axis other than "
-                       f"'data' and 'zero' above 1)", item=item)
+                       f"'data', 'zero' and 'sequence' above 1)", item=item)
 
 
 def _as_block(value, cls):
@@ -219,9 +220,9 @@ class SchedulerConfig(ConfigModel):
 
 @dataclass
 class MeshConfig(ConfigModel):
-    """Logical mesh axis sizes (`comm/mesh.py`). `data` x `zero` spans the
-    ranks of the process group (`data` -1: all of them); the
-    model-parallel axes must be 1."""
+    """Logical mesh axis sizes (`comm/mesh.py`). `data` x `zero` x
+    `sequence` spans the ranks of the process group (`data` -1: all of
+    them); `tensor`, `pipe` and `expert` must be 1."""
     data: int = -1
     zero: int = 1
     tensor: int = 1

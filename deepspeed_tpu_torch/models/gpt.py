@@ -18,6 +18,16 @@ An `attn_fn` (q, k, v [B, T, H, hd] -> [B, T, H, hd], e.g.
 `ops/sparse_attention.sparse_attn_fn`) replaces the attention of every
 training and evaluation forward, as in the JAX package.
 
+On a mesh whose `sequence` axis is above 1 the training forward and loss
+take this rank's token shard [B, T/sp] (the engine cuts it): positions
+are offset by rank x T/sp for the learned table and for rope, the
+attention runs the ring programs (`attention_backend` "ring" /
+"ring_ulysses") or a sequence-parallel `attn_fn`
+(`parallel.DistributedAttention`), and the loss is JAX's global mean —
+the nll sum and the label count summed over the `sequence` group, the
+sum's backward the identity, so each rank's grads are its tokens' share
+of the global loss's (the engine sums them over the group).
+
 Parameters keep the JAX package's tree: stacked `[L, ...]` block leaves
 under the same names and shapes, so `params_from_jax` moves one
 initialisation across leaf by leaf. A Python loop over layers takes the
@@ -223,6 +233,12 @@ class GPTConfig:
     softmax_dtype: torch.dtype = torch.float32  # the plain path's softmax
                                      # dtype (fp32 only); the flash kernels
                                      # keep fp32 statistics whatever it says
+    attention_backend: Optional[str] = None  # explicit attention-program
+                                     # request: "ring" / "ring_ulysses"
+                                     # engage context parallelism over a
+                                     # live `sequence` mesh axis
+                                     # (ops/attention_dispatch); ignored
+                                     # (the auto choice) without one
     use_flash_attention: Optional[bool] = None  # None: the attention
                                      # kernels run on CUDA, plain versions on
                                      # the CPU; True routes the CPU through
@@ -485,23 +501,33 @@ def _sm_scale(cfg):
 
 
 def _site(cfg, phase, q, C, M, kv_dtype=None, attn_fn=None):
+    train = phase == "train"
     return attn_dispatch.AttnSite(
         phase=phase, q_len=C, kv_len=M, head_dim=cfg.head_dim,
         kv_dtype=kv_dtype or dtype_name(q.dtype), on_cuda=q.is_cuda,
         force_flash=cfg.use_flash_attention,
-        external_fn=attn_fn is not None, chunk_min=cfg.chunked_attn_min_seq)
+        external_fn=attn_fn is not None, chunk_min=cfg.chunked_attn_min_seq,
+        backend=cfg.attention_backend if train else None,
+        mesh_axes=attn_dispatch.active_mesh_axes() if train else ())
 
 
 def _attention(q, k, v, cfg, attn_fn=None):
     """q: [B, T, H, hd]; k, v: [B, S, Hkv, hd] -> [B, T, H, hd], causal.
 
     Program selection goes through the dispatch layer: the caller's
-    `attn_fn` (K/V heads repeated to match q's first), the query-chunked
+    `attn_fn` (K/V heads repeated to match q's first), the ring programs
+    over the `sequence` axis (heads repeated too), the query-chunked
     attention where `chunked_attn_min_seq` asks for it, the flash kernel,
     or on CPU operands its plain version (fp32 softmax; GQA)."""
     T, S = q.shape[1], k.shape[1]
     program = attn_dispatch.select(_site(cfg, "train", q, T, S,
                                          attn_fn=attn_fn))
+    if program in attn_dispatch.RING_PROGRAMS:
+        from deepspeed_tpu_torch.parallel import ring
+        fn = ring.ring_attention if program == "ring" \
+            else ring.ring_ulysses_attention
+        attn_fn = partial(fn, causal=True, sm_scale=_sm_scale(cfg))
+        program = "external"
     if program in ("external", "chunked"):
         if k.shape[2] != q.shape[2]:    # both expect matched heads
             rep = q.shape[2] // k.shape[2]
@@ -606,7 +632,8 @@ def gpt_hidden(params, tokens, cfg: GPTConfig, positions=None, pld=None,
                          "with a T-static layout cannot run on them")
     B, T = tokens.shape
     if positions is None:
-        positions = torch.arange(T, device=tokens.device).expand(B, T)
+        positions = (_sequence_offset(T) + torch.arange(
+            T, device=tokens.device)).expand(B, T)
     x = _embed(params, tokens, positions, cfg)
     blocks = params["blocks"]
     remat = resolve_remat_policy(cfg.remat_policy) \
@@ -651,6 +678,47 @@ def gpt_hidden(params, tokens, cfg: GPTConfig, positions=None, pld=None,
             x = block(x, i, positions, attn_fn)
     return _norm(x, params["lnf_scale"], params.get("lnf_bias"),
                  cfg.use_rmsnorm, cfg.norm_eps)
+
+
+def _sequence_parallel():
+    """(sp, this rank's index) on the installed mesh's `sequence` axis."""
+    from deepspeed_tpu_torch.comm import mesh as mesh_mod
+    if not mesh_mod.has_mesh() or mesh_mod.get_spec().sequence == 1:
+        return 1, 0
+    return mesh_mod.get_spec().sequence, mesh_mod.axis_rank(
+        mesh_mod.SEQ_AXIS)
+
+
+def _sequence_offset(T):
+    """The absolute position of this rank's first token: rank x T when
+    the tokens are one shard of T of a `sequence` axis, else 0."""
+    return _sequence_parallel()[1] * T
+
+
+class _SequenceSum(torch.autograd.Function):
+    """The sum over the `sequence` group, whose backward is the identity:
+    each rank seeds its copy of the (replicated) global loss and gets its
+    own tokens' share of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from deepspeed_tpu_torch.comm import collectives as coll
+        return coll.psum(x, "sequence")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _mean_over_labels(nll_sum, count):
+    """The loss: the nll sum over the labels >= 0 divided by their
+    count, both over the whole sequence when the tokens are sharded over
+    the `sequence` axis (JAX's global mean, not a mean of shard means)."""
+    if _sequence_parallel()[0] > 1:
+        from deepspeed_tpu_torch.comm import collectives as coll
+        nll_sum = _SequenceSum.apply(nll_sum)
+        count = coll.psum(count.detach(), "sequence")
+    return nll_sum / count.clamp_min(1.0)
 
 
 def gpt_forward(params, tokens, cfg: GPTConfig, positions=None,
@@ -704,7 +772,7 @@ def _causal_lm_nll(params, x, labels, cfg: GPTConfig):
             x.reshape(B * T, -1), dense(_head_table(params, cfg)).to(x.dtype),
             labels.reshape(B * T), cfg.loss_chunks)
         mask = (labels.reshape(B * T) >= 0).float()
-        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        return _mean_over_labels((nll * mask).sum(), mask.sum())
     logits = _head_logits(params, x, cfg)
     m = logits.detach().amax(dim=-1, keepdim=True)
     sumexp = torch.exp((logits - m).float()).sum(dim=-1)
@@ -713,7 +781,7 @@ def _causal_lm_nll(params, x, labels, cfg: GPTConfig):
     gold = logits.gather(-1, safe_labels[..., None])[..., 0].float()
     mask = (labels >= 0).float()
     nll = (logz - gold) * mask
-    return nll.sum() / mask.sum().clamp_min(1.0)
+    return _mean_over_labels(nll.sum(), mask.sum())
 
 
 def gpt_param_specs(cfg: GPTConfig):
@@ -763,7 +831,8 @@ def make_gpt_model(cfg: GPTConfig = None, name="gpt2-125m", seed=0,
         loss_fn=partial(gpt_loss, cfg=cfg, attn_fn=attn_fn),
         params=init_gpt_params(cfg, seed=seed) if params is None else params,
         apply_fn=partial(gpt_forward, cfg=cfg, attn_fn=attn_fn),
-        arch_cfg=cfg, name=name, param_specs=gpt_param_specs(cfg))
+        arch_cfg=cfg, name=name, param_specs=gpt_param_specs(cfg),
+        sequence_parallel=True)
 
 
 # ----------------------------------------------------------------------

@@ -5,8 +5,19 @@ A call site builds an `AttnSite` (the dispatch key) and `select()` walks the
 program registry, highest priority first, to name the program that runs.
 The phases this port carries:
 
-  * `train` (also the contiguous prefill): `external` | `chunked` |
-    `flash` | `dense`. `external` wins whenever the caller passed its own
+  * `train` (also the contiguous prefill): `external` | `ring_ulysses` |
+    `ring` | `chunked` | `flash` | `dense`. `ring` (priority 100) and
+    `ring_ulysses` (110) are context parallelism over the `sequence` mesh
+    axis (`parallel/ring.py`), taken on request
+    (`GPTConfig.attention_backend`) when that axis is live (`mesh_axes`,
+    `active_mesh_axes()`); each ring step is the flash kernel on CUDA. A
+    request with no `sequence` axis falls through to the auto choice, as
+    in JAX; an unknown backend raises ValueError, and so does a ring
+    request on a live `sequence` axis at a site outside the ring's
+    contract. A live `sequence` axis with no ring request and no `attn_fn`
+    raises NotImplementedError: the JAX package lets GSPMD shard any
+    attention over it, the port has no GSPMD. `external` wins whenever the
+    caller passed its own
     `attn_fn` (e.g. `ops/sparse_attention.sparse_attn_fn`, whose kernels
     take or refuse the site themselves). `chunked` is the query-chunked
     escape hatch (`ops/chunked_attention.py`), taken where
@@ -50,13 +61,24 @@ which on the CPU run those same plain versions.
 """
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 # dtypes and head widths the CUDA kernels take (ops/csrc/*.cu)
 FLASH_DTYPES = ("bfloat16", "float16")
 DECODE_DTYPES = ("float32", "bfloat16", "float16")
 KERNEL_HEAD_DIMS = (64, 128)
 QUANT_KV_DTYPES = ("int8",)       # the int8 pool's payload (csrc/decode_attention.cu)
+RING_PROGRAMS = ("ring", "ring_ulysses")
+
+
+def active_mesh_axes() -> Tuple[str, ...]:
+    """Mesh axes with size > 1 on the installed mesh (() when none) — the
+    `mesh_axes` component of the dispatch key."""
+    from deepspeed_tpu_torch.comm import mesh as mesh_mod
+    if not mesh_mod.has_mesh():
+        return ()
+    sizes = mesh_mod.get_spec().axis_sizes()
+    return tuple(name for name, n in sizes.items() if n > 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +101,8 @@ class AttnSite:
     chunk_min: Optional[int] = None  # GPTConfig.chunked_attn_min_seq: the
                                   # "chunked" program takes T >= it
     key_padding: bool = False     # encoder: a key-padding mask was passed
+    backend: Optional[str] = None  # GPTConfig.attention_backend request
+    mesh_axes: Tuple[str, ...] = ()  # active (size > 1) mesh axes
 
     @property
     def square(self) -> bool:
@@ -97,6 +121,8 @@ def kernel_wanted(site: AttnSite) -> bool:
 
 def kernel_refusal(site: AttnSite, dtypes) -> Optional[str]:
     """Why the CUDA kernel cannot take this site, or None when it can."""
+    if site.force_flash is False:
+        return "a site with use_flash_attention=False"
     if site.kv_dtype not in dtypes:
         return f"dtype {site.kv_dtype} (the kernel takes {dtypes})"
     if site.head_dim not in KERNEL_HEAD_DIMS:
@@ -134,10 +160,37 @@ def registered_programs(phase: str):
 def select(site: AttnSite) -> str:
     """Name the program this site runs. On CUDA operands a kernel program
     whose contract fails, or no program at all, raises NotImplementedError
-    rather than run plain attention on the card."""
+    rather than run plain attention on the card. An unknown `backend`, or
+    a ring request on a live `sequence` axis at a site the ring programs
+    do not take, raises ValueError (JAX's checks); a live `sequence` axis
+    that resolves to a program of one rank's tokens raises
+    NotImplementedError."""
+    if site.phase == "train" and site.backend is not None \
+            and site.backend not in _REGISTRY:
+        raise ValueError(
+            f"unknown attention_backend {site.backend!r}: no program of "
+            f"that name is registered (registered: {sorted(_REGISTRY)})")
     for prog in registered_programs(site.phase):
         if not prog.matches(site):
             continue
+        if site.phase == "train" and "sequence" in site.mesh_axes and \
+                prog.name not in RING_PROGRAMS + ("external",):
+            if site.backend in RING_PROGRAMS:
+                raise ValueError(
+                    f"attention_backend={site.backend!r} was requested on "
+                    f"a `sequence` mesh but this site is ineligible for "
+                    f"the ring programs (alibi/sliding-window bias or "
+                    f"non-square attention — the plain-causal kernel "
+                    f"contract) — resolved program would be "
+                    f"{prog.name!r}. Drop the backend request or the "
+                    f"arch flag")
+            raise NotImplementedError(
+                f"attention on a `sequence` mesh resolves to {prog.name!r}, "
+                f"which sees one rank's tokens: set attention_backend "
+                f"'ring' or 'ring_ulysses', or pass a sequence-parallel "
+                f"attn_fn (parallel.DistributedAttention). Sharding any "
+                f"attention over the axis as GSPMD does is not ported to "
+                f"deepspeed_tpu_torch yet (ROADMAP queue 1 item 8)")
         why = kernel_refusal(site, prog.kernel_dtypes) \
             if site.on_cuda and prog.kernel_dtypes else None
         if why:
@@ -163,6 +216,24 @@ def _plain(site: AttnSite) -> bool:
 register_program(AttentionProgram(
     name="external", phases=("train",), priority=1000,
     matches=lambda s: s.external_fn))
+
+def _train_ring(site: AttnSite) -> bool:
+    return (site.backend in RING_PROGRAMS and "sequence" in site.mesh_axes
+            and not site.has_bias and not site.has_window and site.square)
+
+
+# attention_backend="ring_ulysses" / "ring" on a live `sequence` axis:
+# context parallelism (parallel/ring.py), the flash kernels every ring
+# step on CUDA (their plain versions on the CPU)
+register_program(AttentionProgram(
+    name="ring_ulysses", phases=("train",), priority=110,
+    matches=lambda s: _train_ring(s) and s.backend == "ring_ulysses",
+    kernel_dtypes=FLASH_DTYPES))
+
+register_program(AttentionProgram(
+    name="ring", phases=("train",), priority=100,
+    matches=lambda s: _train_ring(s) and s.backend == "ring",
+    kernel_dtypes=FLASH_DTYPES))
 
 # chunked_attn_min_seq set and T >= it, square, no alibi/window, not
 # forbidden by use_flash_attention=False: the query-chunked escape hatch,

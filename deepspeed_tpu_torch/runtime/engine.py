@@ -100,6 +100,20 @@ serves every world size: at one rank (no process group, where the mesh
 must be one rank and a larger `mesh` raises, or a group of one) nothing is
 sharded, as in JAX, and the step issues no collective.
 
+Context parallelism (`mesh.sequence` above 1, JAX's rule): the batch
+triad resolves over the batch ranks (data x zero) only, while ZeRO keeps
+the sequence axis in its domain. Each rank takes its batch rank's rows
+(`mesh.axis_rank(BATCH_AXES)`) and, of the token dimension, the range of
+its `sequence` rank: a `{"tokens": [B, T+1]}` batch is shifted into
+inputs and labels first, then both are cut (T must divide by sp). The
+model's loss (a `ModelSpec` with `sequence_parallel`, GPT's) is the
+global mean over the whole sequence on every rank; the grads are summed
+over the `sequence` group and averaged over the batch ranks, and the
+reported loss averaged over the batch ranks. The ZeRO++ wires refuse a
+`sequence` axis as JAX does, random-LTD raises (its token subsets span the
+whole sequence), and the seqlen curriculum masks the labels past the
+difficulty, as JAX does, instead of cutting the batch.
+
 MiCS (`mics_shard_size`) and hpZ (`zero_hpz_partition_size`) factor the
 data axis into data x zero as JAX does (`_factor_zero_subgroup`): MiCS
 shards everything within a `zero` sub-group and sums the shards' grads
@@ -168,6 +182,9 @@ class ModelSpec:
     # the leaves' tensor-parallel specs (JAX's PartitionSpecs as tuples of
     # entries, one a dimension): ZeRO shards a free dimension, as in JAX
     param_specs: Any = None
+    # the loss takes this rank's token shard on a `sequence` mesh (offset
+    # positions, sequence-parallel attention, the global mean): GPT's does
+    sequence_parallel: bool = False
 
 
 class TrainState(NamedTuple):
@@ -380,10 +397,23 @@ class Engine:
             check_backend(self.device)
             spec = mesh_mod.ensure_mesh(config.mesh)
             self.dp_rank = mesh_mod.axis_rank(mesh_mod.ZERO_AXES)
+            self.batch_rank = mesh_mod.axis_rank(mesh_mod.BATCH_AXES)
         else:
             spec = mesh_mod.MeshSpec.resolve(config.mesh, n_devices=1)
-            self.dp_rank = 0
-        self.dp_world_size = spec.data * spec.zero * spec.sequence
+            self.dp_rank = self.batch_rank = 0
+        # the batch triad over the batch ranks (JAX's `engine.py:173`); the
+        # ZeRO domain (data x zero x sequence) is `zero_world`
+        self.dp_world_size = spec.data * spec.zero
+        self.sp = spec.sequence
+        self.zero_world = spec.data * spec.zero * spec.sequence
+        self.world_size = spec.world_size
+        if self.sp > 1 and not self.model_spec.sequence_parallel:
+            raise NotImplementedError(
+                f"mesh.sequence = {self.sp}: this model's loss does not take "
+                f"sequence shards (ModelSpec.sequence_parallel; the GPT "
+                f"family's does). Sharding any model over the axis as "
+                f"GSPMD does is not ported to deepspeed_tpu_torch yet "
+                f"(ROADMAP queue 1 item 8)")
         self.zero_policy = ZeroShardingPolicy(config.zero_optimization, spec,
                                               self.dp_rank)
 
@@ -427,6 +457,20 @@ class Engine:
         self._qg = bool(zcfg.zero_quantized_gradients)
         self._zeropp = None
         own_grads = getattr(model, "grad_fn", None) is not None
+        if self.sp > 1 and not own_grads:
+            # JAX's refusals (`engine.py:843`, `:921`): the wires need a
+            # data-domain-only mesh
+            if self._explicit_wire is not None:
+                raise ValueError(
+                    "explicit_grad_reduce/onebit_gradients need a data-"
+                    f"domain-only mesh (axis {mesh_mod.SEQ_AXIS} has size "
+                    f"{self.sp}); pipeline models take the "
+                    "grad_reduce_transform knob instead")
+            if self._qg or self._qw:
+                raise ValueError(
+                    "zero_quantized_weights/gradients need a pure data-"
+                    f"parallel mesh (axis {mesh_mod.SEQ_AXIS} has size "
+                    f"{self.sp})")
         if self._explicit_wire is not None:
             if own_grads:
                 logger.warning(
@@ -501,6 +545,10 @@ class Engine:
             self._pld_rng = np.random.default_rng(config.seed ^ 0x9E3779B9)
         self.random_ltd_scheduler = None
         if rl.get("enabled"):
+            if self.sp > 1:
+                not_ported(f"random-LTD with mesh.sequence = {self.sp} (its "
+                           f"kept tokens span the whole sequence, which no "
+                           f"rank holds)", item=8)
             self.random_ltd_scheduler = self._random_ltd_scheduler(rl)
             self._ltd_rng = np.random.default_rng(config.seed ^ 0x51ED270B)
 
@@ -823,11 +871,36 @@ class Engine:
                                        for leaf in leaves]), loss.detach(), \
             extras
 
+    def _sequence_shard(self, batch):
+        """This rank's token range of a batch on a `sequence` mesh: the
+        `tokens` [B, T+1] form shifted into inputs and labels first (as
+        `gpt_loss` shifts before GSPMD shards T), then the inputs and the
+        labels cut to this rank's chunk of sp along T (ValueError naming
+        the axis where T does not divide). Other leaves stay whole."""
+        from deepspeed_tpu_torch.parallel.ring import sequence_shard
+        if self.sp == 1 or not isinstance(batch, dict):
+            return batch
+        out = dict(batch)
+        key = "tokens" if "tokens" in out else "input_ids"
+        if key not in out:
+            raise ValueError(f"mesh.sequence = {self.sp}: the batch has no "
+                             f"'tokens' or 'input_ids' leaf to cut")
+        if out.get("labels") is None:
+            toks = out.pop(key)
+            out["input_ids"], out["labels"] = toks[:, :-1], toks[:, 1:]
+            key = "input_ids"
+        for name in (key, "labels"):
+            out[name] = sequence_shard(out[name], dim=1)
+        return out
+
     def _micro_batches(self, batch, gas):
         """This rank's rows of each of a global batch's `gas` micro-batches,
         as the JAX engine places them on its data shard: after the
-        [gas, B / gas] split, chunk `rank` of dp of each micro-batch."""
-        n, r = self.dp_world_size, self.dp_rank
+        [gas, B / gas] split, chunk `rank` of dp of each micro-batch (the
+        rank on the batch axes); on a `sequence` mesh, of each row this
+        rank's token range (`_sequence_shard`)."""
+        n, r = self.dp_world_size, self.batch_rank
+        batch = self._sequence_shard(batch)
         if gas == 1 and n == 1:
             return [batch]
 
@@ -868,11 +941,15 @@ class Engine:
         (one all-reduce) and the shards over the ranks that hold replicas
         of them (MiCS and hpZ: the `data` axis; one all-reduce), cut an hpZ
         param shard's grad to its state shard, divide every grad by dp, and
-        average the loss and extras (one all-reduce); at one rank, the
-        grads' tree as it is. `dims` gives each grad's shard dimension in
-        the state's layout (None: whole, the same on every rank)."""
+        average the loss and extras over the batch ranks (one all-reduce;
+        on a `sequence` mesh every rank of a sequence group holds the same
+        loss); at one rank, the grads' tree as it is. The grads are summed
+        over the whole ZeRO domain, the `sequence` axis included (each
+        rank's grads are its tokens' share), and divided by the batch
+        ranks. `dims` gives each grad's shard dimension in the state's
+        layout (None: whole, the same on every rank)."""
         n = self.dp_world_size
-        if n == 1:
+        if self.zero_world == 1:
             return tree_unflatten(params, acc), loss, extras, \
                 list(self._gdims)
         pol = self.zero_policy
@@ -898,9 +975,10 @@ class Engine:
                 dims[i] = self._sdims[i]
         grads = tree_unflatten(params, [g / n for g in acc])
         names = sorted(extras)
-        avg = coll.psum(torch.stack([loss.float()] + [extras[k].float()
-                                                      for k in names]),
-                        mesh_mod.ZERO_AXES) / n
+        avg = torch.stack([loss.float()] + [extras[k].float()
+                                            for k in names])
+        if n > 1:
+            avg = coll.psum(avg, mesh_mod.BATCH_AXES) / n
         return grads, avg[0], {k: avg[1 + j] for j, k in enumerate(names)}, \
             dims
 
@@ -1144,7 +1222,7 @@ class Engine:
         """Per-leaf L2 norms of the optimizer's leaves (the rank's state
         shards) over the whole leaves: the sharded ones' squares summed
         across ranks (LAMB's trust ratio)."""
-        if self.dp_world_size == 1:
+        if self.zero_world == 1:
             return torch._foreach_norm(leaves)
         sums = self._leaf_sums([x.float().square().sum().reshape(1)
                                 for x in leaves])
@@ -1293,7 +1371,7 @@ class Engine:
             difficulty = self.curriculum_scheduler.update_difficulty(
                 self.global_steps)
             cut = None if self.random_ltd_scheduler is not None \
-                else (difficulty,)
+                or self.sp > 1 else (difficulty,)
             batch = apply_seqlen_curriculum(batch, difficulty, bucketize=cut)
         if self.progressive_layer_drop is not None or \
                 self.random_ltd_scheduler is not None:
@@ -1351,7 +1429,8 @@ class Engine:
     def eval_batch(self, batch, rng=None):
         with torch.no_grad():
             loss, _ = self._loss_fn(self._model_params(),
-                                    _to_device(batch, self.device),
+                                    self._sequence_shard(
+                                        _to_device(batch, self.device)),
                                     rng if rng is not None else self.generator)
         return loss
 
@@ -1600,6 +1679,15 @@ class Engine:
                     if name.startswith("params/") else \
                     (pol.domain_size, pol.rank)
                 dst.copy_(_as_tensor(source(name), dst, name, n, rank))
+        # optax's constant-rate SGD / Adagrad name no count; the port's
+        # optimizer keeps one all the same: it is the step
+        opt = self.state.opt_state
+        if not self.host_step and wanted("opt_state") and \
+                isinstance(opt, dict) and "count" in opt and \
+                count is not None and not any(
+                    n.startswith("opt_state/") and n.endswith("/count")
+                    for n, _ in leaves):
+            opt["count"].copy_(_as_tensor(count, opt["count"], "count"))
 
     def _restore_host_step(self, leaves, source, wanted):
         opt = self.host_optimizer
@@ -1697,7 +1785,7 @@ class Engine:
             # counter of the dispatcher
             # the whole world's tokens over its ranks: per chip, as JAX's
             self._program_flops = 6.0 * self.num_params * tokens \
-                / self.dp_world_size if tokens else 0.0
+                / self.world_size if tokens else 0.0
         if self._program_flops > 0:
             achieved = self._program_flops / step_seconds
             reg.gauge("train/tflops_per_chip").set(achieved / 1e12)

@@ -387,8 +387,9 @@ def plan_training_from_engine(engine, capacity_bytes=0,
                               temp_bytes=0) -> MemoryPlan:
     """The training plan from a live engine's config — the preflight path
     and the OOM dump's planner-delta source. The model states are priced
-    at the engine's data-parallel degree (the process group's `data`
-    axis), as the JAX planner prices them from the mesh: per-rank shards
+    at the engine's data-parallel degree (data x zero: a `sequence` axis
+    does not count), as the JAX planner prices them from the mesh
+    (`telemetry/memscope.py:464`): per-rank shards
     of the master and moments, from stage 2 of the grads, at stage 3 of
     the params; tensor and expert degrees are 1. Pass the measured step
     temp (`program_temp_bytes`) when there is one: in training the

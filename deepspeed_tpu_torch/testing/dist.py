@@ -12,9 +12,9 @@ them, so the caller can work meanwhile. A task that raises on any rank raises he
 traceback; a rank that hangs in a collective is bounded by the group's
 timeout. The worker side imports torch and this package only.
 
-The task bodies of the port's comm and ZeRO tests live here too: each takes
-numpy inputs and returns numpy results, so the test process holds both
-packages' outcomes side by side.
+The task bodies of the port's comm, ZeRO and context-parallel tests live
+here too: each takes numpy inputs and returns numpy results, so the test
+process holds both packages' outcomes side by side.
 """
 
 import datetime
@@ -268,13 +268,28 @@ def zeropp_collectives(per_rank):
 # ----------------------------------------------------------------------
 
 
-def _gpt_engine(config, params_np, cfg_kwargs):
+def _attn_fn(attn):
+    """The GPT's external attention by name: None, or "ulysses" (the
+    Ulysses sandwich, `parallel.DistributedAttention`, around the causal
+    flash op)."""
+    if attn is None:
+        return None
+    if attn != "ulysses":
+        raise ValueError(f"unknown attn {attn!r}")
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+    from deepspeed_tpu_torch.parallel import DistributedAttention
+    return DistributedAttention(
+        lambda q, k, v: flash_attention(q, k, v, causal=True))
+
+
+def _gpt_engine(config, params_np, cfg_kwargs, attn=None):
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models import gpt as tgpt
     cfg = tgpt.GPTConfig(**cfg_kwargs)
     engine, *_ = initialize(
         model=tgpt.make_gpt_model(cfg, name="tiny",
-                                  params=tgpt.params_from_jax(params_np)),
+                                  params=tgpt.params_from_jax(params_np),
+                                  attn_fn=_attn_fn(attn)),
         config=config, device="cpu")
     return engine
 
@@ -296,20 +311,31 @@ def _leaf_plan(engine):
 
 
 def zero_train(config, params_np, cfg_kwargs, batches, save_dir=None,
-               save_after=None, load_dir=None):
+               save_after=None, load_dir=None, attn=None, shares=False):
     """Train the port's GPT on this rank's rows of each global batch:
     losses, each step's CommStats, the whole (gathered) state at the end,
     the step metrics, the leaf plan and the memscope plan; the ZeRO++ path
     taken, what each step's compressed reduces quantized (`wires`), the
     axes and sizes of each step's all-gathers, the 1-bit wire's residuals
     and the mesh. `save_dir` / `save_after`: save a checkpoint after that
-    many steps; `load_dir`: resume from it first."""
+    many steps; `load_dir`: resume from it first. `attn`: the GPT's
+    external attention (`_attn_fn`); `shares`: also the batch triad and
+    this rank's micro-batches of the first batch (`shares`)."""
     from deepspeed_tpu_torch.comm import collectives as coll
     from deepspeed_tpu_torch.comm.mesh import _axes as mesh_axes
     from deepspeed_tpu_torch.telemetry.memscope import \
         plan_training_from_engine
     from deepspeed_tpu_torch.utils.tree import tree_leaves
-    engine = _gpt_engine(config, params_np, cfg_kwargs)
+    from deepspeed_tpu_torch.runtime.engine import _to_device
+    engine = _gpt_engine(config, params_np, cfg_kwargs, attn)
+    share = None
+    if shares and batches:
+        share = {"triad": (engine.train_batch_size(),
+                           engine.train_micro_batch_size_per_gpu(),
+                           engine.gradient_accumulation_steps()),
+                 "micros": _np(engine._micro_batches(
+                     _to_device(batches[0], "cpu"),
+                     engine.gradient_accumulation_steps()))}
     if load_dir is not None:
         engine.load_checkpoint(load_dir)
     losses, stats, metrics, wires, gathers = [], [], [], [], []
@@ -363,7 +389,18 @@ def zero_train(config, params_np, cfg_kwargs, batches, save_dir=None,
             "residuals": None if engine._comm_err is None else
             [e.numpy().copy() for e in engine._comm_err],
             "spec": engine.zero_policy.spec.axis_sizes(),
-            "domains": (pol.param_domain, pol.domain)}
+            "domains": (pol.param_domain, pol.domain), "shares": share}
+
+
+def sequence_train(config, params_np, cfg_kwargs, batches, attn=None,
+                   save_dir=None, save_after=None, load_dir=None):
+    """`zero_train` on a mesh with a `sequence` axis (the config's
+    `mesh`): the GPT through its ring backend (`cfg_kwargs`'
+    `attention_backend`) or an external Ulysses attention (`attn`), with
+    the batch triad and this rank's rows and token range of the first
+    batch."""
+    return zero_train(config, params_np, cfg_kwargs, batches, save_dir,
+                      save_after, load_dir, attn=attn, shares=True)
 
 
 def zero_save_fault(config, params_np, cfg_kwargs, batch, save_dir):
@@ -450,4 +487,63 @@ def zero_branches(config, per_rank_scale, steps, nan_rank=None):
                                tree_leaves(st["params"])],
                     "global_steps": engine.global_steps,
                     "skipped": engine.skipped_steps})
+    return out
+
+
+# ----------------------------------------------------------------------
+# context-parallel attention tasks
+# ----------------------------------------------------------------------
+
+
+def _attention_call(name, kwargs):
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+    from deepspeed_tpu_torch.parallel import ring, ulysses
+    local = lambda q, k, v: flash_attention(
+        q, k, v, causal=kwargs.get("causal", True))
+    fns = {"ring": ring.ring_attention,
+           "ring_flash": ring.ring_flash_attention,
+           "blockwise": ring.ring_attention_blockwise,
+           "ring_ulysses": ring.ring_ulysses_attention,
+           "ulysses_shard_map": lambda q, k, v, **kw:
+               ulysses.ulysses_shard_map_attention(local)(q, k, v),
+           "distributed_attention": lambda q, k, v, **kw:
+               ulysses.DistributedAttention(local)(q, k, v)}
+    return functools.partial(fns[name], **kwargs)
+
+
+def sequence_attention(mesh, inputs, cases, split_T=None):
+    """The context-parallel attention functions alone on this rank's
+    shards of global numpy arrays (q, k, v, do: [B, T, H, hd]) over a mesh
+    of `mesh` axis sizes. `cases`: (label, function name, kwargs, inputs
+    of their own or None for `inputs`) — the function's output shard and
+    the q / k / v gradient shards of sum(out * do), the ring steps it ran
+    (`ring.STEPS`) and the facade's stats; or the ValueError it raised.
+    `split_T`: also the error of cutting a length-`split_T` sequence."""
+    from deepspeed_tpu_torch.comm import collectives as coll
+    from deepspeed_tpu_torch.comm import mesh as mesh_mod
+    from deepspeed_tpu_torch.config.core import MeshConfig
+    from deepspeed_tpu_torch.parallel import ring
+    mesh_mod.ensure_mesh(MeshConfig(**mesh))
+    out = {}
+    for label, name, kwargs, own in cases:
+        shard = {k: ring.sequence_shard(torch.from_numpy(np.array(v)), dim=1)
+                 for k, v in (own or inputs).items()}
+        q, k, v = (shard[n].clone().requires_grad_(True)
+                   for n in ("q", "k", "v"))
+        ring.STEPS.clear()
+        coll.stats.reset()
+        try:
+            o = _attention_call(name, kwargs)(q, k, v)
+            grads = torch.autograd.grad(o, (q, k, v), shard["do"])
+        except ValueError as e:
+            out[label] = {"error": str(e)}
+            continue
+        out[label] = {"out": _np(o), "grads": _np(grads),
+                      "steps": dict(ring.STEPS),
+                      "stats": coll.stats.snapshot()}
+    if split_T is not None:
+        try:
+            ring.sequence_shard(torch.zeros(1, split_T))
+        except ValueError as e:
+            out["split"] = {"error": str(e)}
     return out

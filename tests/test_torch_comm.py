@@ -332,13 +332,16 @@ def test_mesh_groups_and_refusals(port):
     ({"expert": 2}, "item 8")])
 def test_mesh_axes_other_than_data_refuse_naming_their_item(axes, item):
     """The model-parallel axes refuse, naming item 8; `zero` (MiCS / hpZ's
-    inner factor of the data domain) is ported since item 7 closed: it
+    inner factor of the data domain) is ported since item 7 closed, and
+    `sequence` (context parallelism) since item 8's first part: each
     builds and splits the world with `data`."""
     from deepspeed_tpu_torch.comm.mesh import MeshSpec
     from deepspeed_tpu_torch.config.core import MeshConfig
-    if "zero" in axes:
+    if "zero" in axes or "sequence" in axes:
+        name = next(iter(axes))
         spec = MeshSpec.resolve(MeshConfig(**axes), n_devices=4)
-        assert (spec.data, spec.zero, spec.world_size) == (2, 2, 4)
+        assert (spec.data, getattr(spec, name), spec.world_size) == \
+            (2, 2, 4)
     else:
         with pytest.raises(NotImplementedError, match=item):
             MeshConfig(**axes)

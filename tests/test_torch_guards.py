@@ -442,10 +442,16 @@ def test_still_refused_keys_name_their_item(override, item):
     ROADMAP item it waits on. Item 7's keys (`mesh.zero`, ZeRO++, MiCS,
     the 1-bit optimizers, `gradient_compression`) are ported: their cases
     build with the JAX package's fields and defaults, and none names item
-    7."""
+    7. `mesh.sequence` (context parallelism) is ported from item 8: it
+    builds as JAX's does, while the rest of item 8 stays refused."""
     from deepspeed_tpu.config.core import TpuTrainConfig as JCfg
     from deepspeed_tpu_torch.config.core import TpuTrainConfig
     d = {"train_micro_batch_size_per_gpu": 2, **override}
+    if override == {"mesh": {"sequence": 2}}:
+        cfg, ref = TpuTrainConfig.load(d), JCfg.load(d)
+        assert (cfg.mesh.data, cfg.mesh.sequence) == \
+            (ref.mesh.data, ref.mesh.sequence) == (-1, 2)
+        return
     if item == 7:
         cfg, ref = TpuTrainConfig.load(d), JCfg.load(d)
         for block in ("zero_optimization", "gradient_compression"):
